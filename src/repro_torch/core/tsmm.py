@@ -1,0 +1,198 @@
+"""Public TSMM API: planned matmul and the serving pre-pack.
+
+``tsmm_dot`` is the entry point applications use; it consults the plan
+registry (the paper's runtime stage) and dispatches pre-packed and
+TSMM-shaped weights to the planned skinny-A kernel, plain GEMM
+otherwise.  The planned kernel is called directly: a kernel that fails
+raises, there is no fallback ladder (that is a later slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+
+from repro_torch.core import registry
+from repro_torch.core.autotuner import make_plan_set, plan_for_matmul
+from repro_torch.core.hw import HwSpec, dtype_name, for_device
+from repro_torch.core.packing import PackedTensor, is_packed, pack
+from repro_torch.core.plan import (Plan, Problem, ScheduleSpec, is_tsmm,
+                                   parse_schedule)
+from repro_torch.core.smem_model import feasible, predict
+from repro_torch.kernels import variants
+from repro_torch.kernels.ref import act_ref
+from repro_torch.kernels.variants import KernelSpec
+
+
+def _gemm_epilogue(a2, w, bias, act, out_dtype):
+    """Plain GEMM for shapes no plan covers, with a post-hoc epilogue."""
+    out = torch.matmul(a2, w).to(out_dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    if act is not None:
+        out = act_ref(out.float(), act).to(out.dtype)
+    return out
+
+
+def variant_choice() -> Optional[KernelSpec]:
+    """``REPRO_TSMM_VARIANT`` override — force a named kernel variant on
+    every planned TSMM (syntax ``name`` or ``name:key=val,...``; an
+    unknown name raises, listing the grammar)."""
+    raw = os.environ.get("REPRO_TSMM_VARIANT", "")
+    if not raw:
+        return None
+    return variants.parse_spec(raw)
+
+
+def schedule_choice() -> Optional[ScheduleSpec]:
+    """``REPRO_TSMM_SCHEDULE`` override — force a grid schedule on every
+    planned TSMM (unknown fields raise)."""
+    raw = os.environ.get("REPRO_TSMM_SCHEDULE", "")
+    if not raw:
+        return None
+    return parse_schedule(raw)
+
+
+def _override_spec(spec: KernelSpec, override: Optional[KernelSpec],
+                   orientation: str) -> KernelSpec:
+    if override is not None and variants.applies_to(override, orientation):
+        return override
+    return spec
+
+
+def _stamped_spec(b: PackedTensor, m: int) -> tuple:
+    """The (kernel spec, schedule) ``prepack_for`` stamped on the packed
+    weight for the smallest batch bucket covering ``m``; (None, None)
+    when unstamped or past the largest bucket."""
+    for entry in b.kernel_specs:
+        if entry[0] >= m:
+            return entry[1], entry[2]
+    return None, None
+
+
+def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
+             plan: Optional[Plan] = None):
+    """C = act(A @ B + bias) with TSMM planning.
+
+    ``a``: (..., k) activations; ``b``: (k, n) tensor or PackedTensor."""
+    override = variant_choice()
+    sched_override = schedule_choice()
+    lead, k = a.shape[:-1], a.shape[-1]
+    m = 1
+    for d in lead:
+        m *= d
+    a2 = a.reshape(m, k)
+
+    if is_packed(b):
+        nk, _, bk, bn = b.blocks.shape[-4:]
+        spec = plan.kernel if plan is not None else None
+        sched = plan.schedule if plan is not None else None
+        if spec is None:
+            # serving replay of the variant stamped when the weight was
+            # packed...
+            spec, sched = _stamped_spec(b, m)
+        if spec is None:
+            # ...else a registry peek (prefill token counts past the
+            # buckets, manually packed tensors); uncovered: the baseline
+            cached = registry.peek(
+                Problem(m, k, b.orig_cols, dtype_name(a.dtype)).key(), a.device)
+            spec = cached.kernel if cached is not None else variants.BASELINE
+            sched = cached.schedule if cached is not None else None
+        spec = _override_spec(spec, override, "skinny_a")
+        sched = sched_override or sched
+        out = variants.run_skinny_a(spec, a2, b.blocks, bias, act, bk=bk,
+                                    bn=bn, packed=True, schedule=sched)
+        return out[:, : b.orig_cols].reshape(*lead, b.orig_cols)
+
+    n = b.shape[-1]
+    if plan is None and is_tsmm(m, k, n):
+        plan = plan_for_matmul(m, k, n, dtype_name(a.dtype), device=a.device)
+    if plan is not None and plan.orientation == "skinny_a":
+        spec = _override_spec(plan.kernel, override, "skinny_a")
+        sched = sched_override or plan.schedule
+        out = variants.run_skinny_a(spec, a2, b, bias, act, bk=plan.bk,
+                                    bn=plan.bn, packed=False, schedule=sched)
+        return out[:, :n].reshape(*lead, n)
+    if plan is not None:
+        raise NotImplementedError(
+            f"tall-A TSMM ({m}x{k}x{n}) is not ported to the GPU yet: its "
+            f"kernels are ROADMAP.md Queue 2 items")
+    return _gemm_epilogue(a2, b, bias, act, a.dtype).reshape(*lead, n)
+
+
+def prepack_for(m_skinny, w, *,
+                hw: Optional[HwSpec] = None) -> Optional[PackedTensor]:
+    """Plan and pack a weight for decode-time reuse.
+
+    ``m_skinny`` is one serving batch size or a tuple of batch buckets:
+    ONE packed layout serves every bucket, its (bk, bn) chosen among the
+    blocks that divide the weight's dims and pass the cost model's
+    on-chip gate for every bucket, ranked by predicted time summed over
+    buckets.  The per-bucket (variant, schedule) is stamped on the packed
+    weight.  Returns None when no conforming block exists."""
+    device = w.device
+    hw = hw or for_device(device)
+    buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
+    ks, ns = int(w.shape[-2]), int(w.shape[-1])
+    dt = dtype_name(w.dtype)
+    pset = make_plan_set(ks, ns, buckets, dt, hw=hw, device=device)
+    problems = [pset.plans[m].problem if m in pset.plans
+                else Problem(m, ks, ns, dt) for m in buckets]
+    caps = (max((pl.bk for pl in pset.plans.values()), default=None),
+            max((pl.bn for pl in pset.plans.values()), default=None))
+    chosen = _conforming_blocks(problems, ks, ns, hw, caps=caps)
+    if chosen is None:
+        return None
+    pk = pack(w, *chosen)
+    pk.kernel_specs = tuple(sorted(
+        ((m, *_stamp_spec_for_blocks(pset.plans[m], *chosen, hw=hw))
+         for m in pset.plans), key=lambda e: e[0]))
+    return pk
+
+
+def _stamp_spec_for_blocks(plan: Plan, bk: int, bn: int, *,
+                           hw: HwSpec) -> tuple:
+    """``plan``'s tuned (kernel variant, schedule), re-validated for a
+    PACKED weight with blocks (bk, bn): a point with no packed-path form
+    (pack fusion) or infeasible at these blocks degrades to the baseline;
+    an infeasible schedule to the default."""
+    spec, sched = plan.kernel, plan.schedule
+    if not spec.is_baseline:
+        try:
+            g = variants.from_kernel_spec(spec)
+        except ValueError:
+            g = None
+        if g is None or not variants.grammar.valid(g, "skinny_a", True):
+            spec = KernelSpec()
+    trial = dataclasses.replace(plan, bk=bk, bn=bn, prepack=True, kernel=spec)
+    if not feasible(trial, hw):
+        sched = ScheduleSpec()
+        trial = dataclasses.replace(trial, schedule=sched)
+        if not feasible(trial, hw):
+            spec = KernelSpec()
+    return spec, sched
+
+
+def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
+                       caps: tuple = (None, None)) -> Optional[tuple]:
+    """Best (bk, bn) conforming for EVERY problem: multiples of 128 that
+    divide the weight's dims (within the tuned ``caps``), feasible for
+    all buckets, minimal predicted time summed across buckets."""
+    cap_bk = min(ks, caps[0]) if caps[0] else ks
+    cap_bn = min(ns, caps[1]) if caps[1] else ns
+    bks = [d for d in range(128, max(cap_bk, 128) + 1, 128) if ks % d == 0]
+    bns = [d for d in range(128, max(cap_bn, 128) + 1, 128) if ns % d == 0]
+    best, best_score = None, None
+    for bk in bks:
+        for bn in bns:
+            trial = [Plan(p, "skinny_a", bm=p.m, bk=bk, bn=bn)
+                     for p in problems]
+            if not all(feasible(t, hw) for t in trial):
+                continue
+            score = sum(predict(t, hw).score for t in trial)
+            if best_score is None or score < best_score:
+                best, best_score = (bk, bn), score
+    return best

@@ -1,0 +1,119 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file exports a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with
+``ctypes``.  The build happens at first use, from the sources in the
+checkout only, into ``build/`` at the repository root, under a directory
+keyed on a hash of the sources (and the flags), so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.  All sources compile in
+parallel, one ``nvcc`` each.
+
+``launches`` counts kernel launches by kernel name; each wrapper adds
+one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from collections import Counter
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("tsmm_skinny", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launches: Counter = Counter()
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_report: dict = {}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
+
+
+def _declare(libs: dict) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f = libs["tsmm_skinny"].tsmm_skinny_launch
+    # x, w, bias, out, m, K, N, ldx, bk, bn, natural, splits, mode, act,
+    # dtype, stream
+    f.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    f.restype = i
+    f = libs["flash_attention"].flash_attention_launch
+    # q, k, v, out, B, Sq, Sk, H, KH, D, q strides (b, s, h), k strides,
+    # v strides, out strides, causal, dtype, stream
+    f.argtypes = [p, p, p, p, i, i, i, i, i, i] + [ctypes.c_longlong] * 12 \
+        + [i, i, p]
+    f.restype = i
+
+
+def load() -> dict:
+    """Build (if needed) and load every kernel library; returns
+    ``{source name: ctypes.CDLL}``.  ``build_report`` records the build's
+    seconds and each source's ``-Xptxas -v`` register/shared-memory
+    report."""
+    with _lock:
+        if _libs:
+            return _libs
+        out = _build_dir()
+        out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for name in SOURCES:
+            lib = out / f"lib{name}.so"
+            if lib.exists():
+                continue
+            tmp = out / f".lib{name}.{os.getpid()}.so"
+            procs[name] = (tmp, lib, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        ptxas = {}
+        failed = []
+        for name, (tmp, lib, proc) in procs.items():
+            log, _ = proc.communicate()
+            ptxas[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        build_report.update(seconds=time.perf_counter() - t0,
+                            built=sorted(procs), dir=str(out), ptxas=ptxas)
+        libs = {name: ctypes.CDLL(str(out / f"lib{name}.so"))
+                for name in SOURCES}
+        _declare(libs)
+        _libs.update(libs)
+        return _libs
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {rc})")

@@ -1,0 +1,167 @@
+"""Dense decoder-only LM: init, forward, KV cache, prefill and decode.
+
+The port of the reference's ``models/lm.py`` for the dense family:
+pre-norm residual blocks (RMSNorm, GQA, SwiGLU), layer-stacked params,
+tied or separate unembedding.  The reference's ``layer_stack`` scan is a
+Python loop over layers here.  The decode cache is a dict of tensors that
+:func:`lm_prefill`, :func:`lm_decode_step` and :func:`lm_prefill_row`
+update IN PLACE (and also return); its ``pos`` entry is a Python int.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
+                                       rmsnorm, swiglu, unembed)
+from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
+
+
+def _check_dense(cfg):
+    if cfg.family != "dense" or cfg.use_mla or cfg.first_k_dense \
+            or cfg.sliding_window or cfg.embeds_input:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family without a sliding window "
+            f"is ported (ROADMAP.md Queue 1)")
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of a layer-stacked param tree (tensors and
+    PackedTensors alike)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _init_layer(gen, cfg):
+    pt = ParamTree(gen, cfg.dtype)
+    pt.ones("ln1", (cfg.d_model,), ("embed",))
+    pt.sub("attn", A.init_gqa(gen, cfg))
+    pt.ones("ln2", (cfg.d_model,), ("embed",))
+    pt.sub("mlp", init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
+    return pt.build()
+
+
+def init_lm(cfg, gen: torch.Generator):
+    """Seeded random params on ``gen``'s device: (params, axes)."""
+    _check_dense(cfg)
+    pt = ParamTree(gen, cfg.dtype)
+    pt.sub("embed", init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype,
+                               cfg.tie_embeddings))
+    pt.sub("layers", stack_inits(lambda: _init_layer(gen, cfg),
+                                 cfg.num_layers))
+    pt.ones("final_norm", (cfg.d_model,), ("embed",))
+    return pt.build()
+
+
+def _num_layers(params) -> int:
+    leaf = params["layers"]["ln1"]
+    return leaf.shape[0]
+
+
+def _layer_fwd(p, cfg, x, *, pos_offset=0, chunk=512, valid_from=None):
+    h, kv = A.gqa_forward(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                          pos_offset=pos_offset, chunk=chunk,
+                          valid_from=valid_from)
+    x = x + h
+    x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
+               pos_offset: int = 0, chunk: int = 512):
+    """Returns (logits, aux_loss, kvs | None), ``kvs`` a per-layer list of
+    (k, v).  ``batch["pad"]`` (optional, (B,)): per-row left-pad count,
+    masked out of attention."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    valid_from = None
+    if batch.get("pad") is not None:
+        valid_from = pos_offset + batch["pad"].to(torch.int32)
+    kvs = []
+    for i in range(_num_layers(params)):
+        x, kv = _layer_fwd(layer_params(params["layers"], i), cfg, x,
+                           pos_offset=pos_offset, chunk=chunk,
+                           valid_from=valid_from)
+        if collect_cache:
+            kvs.append(kv)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, kvs if collect_cache else None
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device):
+    """Zeroed decode cache: k/v (layers, B, max_len, KH, D)."""
+    _check_dense(cfg)
+    dt = torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "pos": 0,
+        "slot_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        # per-row admission boundary: cache positions below it are
+        # left-padding or a recycled slot's dead stream
+        "valid_from": torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
+    """Run the full prompt and fill the cache (in place).  Returns
+    (last_logits, cache)."""
+    s = batch["tokens"].shape[1]
+    logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
+                                chunk=chunk)
+    pad = batch.get("pad")
+    if pad is not None:
+        cache["valid_from"].copy_(pad.to(torch.int32))
+    else:
+        cache["valid_from"].zero_()
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
+                      device=cache["slot_pos"].device)
+    cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
+    cache["pos"] = s
+    return logits[:, -1:], cache
+
+
+def lm_decode_step(params, cfg, cache, tokens):
+    """tokens (B,1) -> (logits (B,1,V), cache updated in place)."""
+    pos = cache["pos"]
+    x = embed_tokens(params["embed"], tokens)
+    cache["slot_pos"][pos] = pos
+    for i in range(_num_layers(params)):
+        p = layer_params(params["layers"], i)
+        h = A.gqa_decode(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                         cache["k"][i], cache["v"][i], cache["slot_pos"], pos,
+                         valid_from=cache["valid_from"])
+        x = x + h
+        x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+def lm_prefill_row(params, cfg, batch, cache, row: int, t_end: int):
+    """Ragged admission: prefill ONE request (leading dim 1, prompt
+    left-padded to a length bucket ``lb``, ``batch["pad"]`` its pad count)
+    into row ``row`` of a live decode cache at absolute positions
+    ``[t_end - lb, t_end)``, without touching the other rows.  Returns
+    (last_logits (1,1,V), cache); ``cache["pos"]`` is the caller's."""
+    lb = batch["tokens"].shape[1]
+    t0 = t_end - lb
+    logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
+                                pos_offset=t0)
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, row, t0:t_end] = k[0]
+        cache["v"][i, row, t0:t_end] = v[0]
+    pad = batch.get("pad")
+    cache["valid_from"][row] = t0 + (int(pad[0]) if pad is not None else 0)
+    cache["slot_pos"][t0:t_end] = torch.arange(
+        t0, t_end, dtype=torch.int32, device=cache["slot_pos"].device)
+    return logits[:, -1:], cache
+

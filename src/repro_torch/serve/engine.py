@@ -1,0 +1,254 @@
+"""Serving engine: batch-adaptive pre-packed decode.
+
+The port of the reference's ``serve/engine.py`` (single device, eager).
+At load, every weight the decode step hits is planned by the autotuner
+and packed ONCE into block-major ``PackedTensor``s whose blocks conform
+to every power-of-two batch bucket; every decoded token then replays the
+bucket's stamped plan through the skinny-A kernel — the paper's
+data-reuse scenario, where the pack cost amortizes to zero.
+
+A request group of any size b <= max_batch is padded to the nearest
+bucket; larger groups are split.  Calls run eagerly (there is no program
+store yet); times are taken with ``time.perf_counter`` after
+``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.linear import serving_ctx
+from repro_torch.core.packing import PackedTensor
+from repro_torch.core.plan import BucketGrid, bucket_for, buckets_for, \
+    length_buckets_for
+from repro_torch.core.tsmm import prepack_for
+from repro_torch.models.param import tree_map
+
+log = logging.getLogger(__name__)
+
+# Leaves consumed through core.linear (packable), as in the reference.
+PACKABLE = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
+            "w_out", "head", "wq_a", "wq_b", "wkv_a", "wkv_b"}
+MIN_ROWS, MIN_COLS = 512, 512
+
+
+def resolve_device(device) -> torch.device:
+    """The serving device: CUDA unless the caller asks for the CPU.  A CUDA
+    request without a GPU raises; nothing carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to serve on the CPU")
+    return device
+
+
+def packable_divisors(path, axes_leaf, leaf):
+    """(rows, cols, row_shards, col_shards) when the leaf is packed, else
+    None (single device: the shard counts are 1)."""
+    name = path[-1]
+    if name not in PACKABLE or leaf.ndim < 2 or leaf.ndim > 3:
+        return None
+    if leaf.ndim == 3 and axes_leaf[0] not in ("layers", "groups"):
+        return None
+    rows, cols = leaf.shape[-2:]
+    if rows < MIN_ROWS or cols < MIN_COLS:
+        return None
+    return rows, cols, 1, 1
+
+
+def iter_packable(params, axes):
+    """Yield (path, leaf, (rows, cols, rs, cs)) for every packable leaf."""
+    def walk(p, a, path):
+        if isinstance(p, dict):
+            for k in p:
+                yield from walk(p[k], a[k], path + (k,))
+            return
+        d = packable_divisors(path, a, p)
+        if d is not None:
+            yield path, p, d
+
+    yield from walk(params, axes, ())
+
+
+def pack_tree_for_serving(params, axes, batch_m):
+    """Replace packable weight leaves with planned PackedTensors.
+
+    ``batch_m``: the serving batch size, or a tuple of batch buckets (the
+    chosen blocks conform to every bucket).  Returns (packed_params,
+    report: {path: blocks_shape})."""
+    report = {}
+
+    def walk(p, a, path):
+        if isinstance(p, dict):
+            return {k: walk(p[k], a[k], path + (k,)) for k in p}
+        if packable_divisors(path, a, p) is None:
+            return p
+        pk = prepack_for(batch_m, p)
+        if pk is None:
+            return p
+        report["/".join(path)] = tuple(pk.blocks.shape)
+        return pk
+
+    return walk(params, axes, ()), report
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: torch.Tensor          # (B, steps)
+    logits_last: torch.Tensor
+    prefill_s: float = 0.0
+    per_token_s: float = 0.0
+    buckets: tuple = ()           # bucket(s) the group was served from
+
+
+class Engine:
+    """Batch-adaptive greedy-decoding engine with aligned positions.
+
+    The engine owns power-of-two batch buckets 1..max_batch (or the given
+    ``buckets``); weights are packed once with blocks conforming to all of
+    them.  ``device`` is ``"cuda"`` unless the caller asks for the CPU."""
+
+    def __init__(self, model, params, axes, *, max_len: int,
+                 max_batch: Optional[int] = None,
+                 buckets: Optional[tuple] = None,
+                 max_prompt: Optional[int] = None, min_prompt: int = 8,
+                 prepack: bool = True, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        if buckets:
+            self.buckets = tuple(sorted(buckets))
+            self.max_batch = (min(max_batch, self.buckets[-1])
+                              if max_batch is not None else self.buckets[-1])
+        else:
+            if max_batch is None:
+                raise TypeError("Engine needs max_batch or buckets")
+            self.max_batch = max_batch
+            self.buckets = buckets_for(max_batch)
+        self.max_len = max_len
+        self.grid = BucketGrid(
+            self.buckets,
+            length_buckets_for(min(max_prompt or max_len, max_len), min_prompt))
+        if self.device.type == "cuda":
+            from repro_torch.kernels import cuda
+            cuda.load()              # build the kernels outside any timing
+        params = tree_map(lambda t: t.to(self.device), params)
+        self.pack_report = {}
+        if prepack:
+            params, self.pack_report = pack_tree_for_serving(
+                params, axes, self.buckets)
+            log.info("pre-packed %d weight leaves for buckets %s",
+                     len(self.pack_report), self.buckets)
+        self.params = params
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def variant_report(self) -> dict:
+        """``m{bucket}_k{k}_n{n}`` -> the kernel variant each packed weight
+        replays per batch bucket (its ``kernel_specs`` stamp)."""
+        out = {}
+
+        def walk(p):
+            if isinstance(p, dict):
+                for v in p.values():
+                    walk(v)
+            elif isinstance(p, PackedTensor):
+                k, n = p.shape[-2:]
+                for m, spec, _ in p.kernel_specs:
+                    out[f"m{m}_k{k}_n{n}"] = spec.key()
+
+        walk(self.params)
+        return out
+
+    def bucket_of(self, b: int) -> int:
+        return bucket_for(b, self.buckets)
+
+    @staticmethod
+    def _pad_group(batch: dict, b: int, bucket: int) -> dict:
+        if b == bucket:
+            return batch
+        return {k: (F.pad(v, (0, 0) * (v.ndim - 1) + (0, bucket - b))
+                    if v.ndim and v.shape[0] == b else v)
+                for k, v in batch.items()}
+
+    def generate(self, batch: dict, steps: int) -> GenerateResult:
+        """Serve one request group of ANY size: groups <= max_batch are
+        padded to the nearest bucket; larger groups are split."""
+        b = batch["tokens"].shape[0]
+        if b <= self.max_batch:
+            return self._generate_bucket(batch, steps)
+        parts = []
+        for lo in range(0, b, self.max_batch):
+            hi = min(lo + self.max_batch, b)
+            parts.append(self._generate_bucket(
+                {k: (v[lo:hi] if v.ndim and v.shape[0] == b else v)
+                 for k, v in batch.items()}, steps))
+        return GenerateResult(
+            tokens=torch.cat([r.tokens for r in parts]),
+            logits_last=torch.cat([r.logits_last for r in parts]),
+            prefill_s=sum(r.prefill_s for r in parts),
+            per_token_s=sum(r.per_token_s for r in parts),
+            buckets=tuple(bk for r in parts for bk in r.buckets))
+
+    @torch.inference_mode()
+    def _generate_bucket(self, batch: dict, steps: int) -> GenerateResult:
+        b = batch["tokens"].shape[0]
+        bucket = self.bucket_of(b)
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        batch = self._pad_group(batch, b, bucket)
+        model = self.model
+        with serving_ctx():
+            cache = model.init_cache(bucket, self.max_len, self.device)
+            self._sync()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(self.params, batch, cache)
+            self._sync()
+            t1 = time.perf_counter()
+            toks = []
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            for _ in range(steps):
+                toks.append(tok)
+                logits, cache = model.decode_step(self.params, cache, tok)
+                tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            self._sync()
+            t2 = time.perf_counter()
+        tokens = (torch.cat(toks, dim=1) if toks
+                  else torch.zeros((bucket, 0), dtype=torch.int32,
+                                   device=self.device))
+        return GenerateResult(tokens=tokens[:b], logits_last=logits[:b],
+                              prefill_s=t1 - t0,
+                              per_token_s=(t2 - t1) / max(steps, 1),
+                              buckets=(bucket,))
+
+    def serve(self, requests: list, steps: int) -> list:
+        """A list of single requests (dicts with 1D ``tokens``) becomes one
+        aligned group.  Ragged prompt lengths are left-padded to the
+        group's length bucket and masked per row (``batch["pad"]``), so
+        decode stays lockstep.  Returns one GenerateResult per request."""
+        if not requests:
+            return []
+        lens = sorted({int(r["tokens"].shape[-1]) for r in requests})
+        lb = (lens[-1] if lens[-1] > self.grid.max_prompt
+              else self.grid.length_bucket(lens[-1]))
+        toks = [torch.as_tensor(r["tokens"]) for r in requests]
+        if len(lens) == 1 and lens[0] == lb:
+            group = {"tokens": torch.stack(toks)}
+        else:
+            pads = [lb - t.shape[-1] for t in toks]
+            group = {"tokens": torch.stack([F.pad(t, (p, 0))
+                                            for t, p in zip(toks, pads)]),
+                     "pad": torch.tensor(pads, dtype=torch.int32)}
+        res = self.generate(group, steps)
+        return [GenerateResult(tokens=res.tokens[i:i + 1],
+                               logits_last=res.logits_last[i:i + 1],
+                               prefill_s=res.prefill_s,
+                               per_token_s=res.per_token_s,
+                               buckets=res.buckets)
+                for i in range(len(requests))]

@@ -9,3 +9,9 @@ os.environ.setdefault("REPRO_PROGRAM_CACHE", "/tmp/repro_test_programs")
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skipped "
+        "without one")
