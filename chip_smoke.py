@@ -4,26 +4,43 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100) and the CUDA toolkit.  Phases, each
-printing one JSON line:
+printing JSON lines:
 
-1. env      — torch / CUDA versions and the card (``nvidia-smi`` name and
-              power limit, also printed raw on a line of its own);
-2. build    — nvcc builds every kernel from ``src/repro_torch/csrc``;
-3. kernels  — each kernel of the main path at the main path's shapes
-              against its plain PyTorch version on the same inputs (max
-              error within the stated tolerance), with kernel, plain and
-              library times (CUDA events, L2 flushed before each launch)
-              and the least time the card could take (``bound_ms``);
-4. parity   — qwen1.5-4b at full width, 2 layers, float32: one 256-token
-              request, prefill + 4 decode steps on the card (kernels)
-              against the port on the CPU (plain versions) with the same
-              packed weights;
-5. serve    — qwen1.5-4b at full width and full depth (40 layers), bf16,
-              seeded random weights, through ``Engine(max_batch=4)``:
-              request groups of 1, 3 and 4 with 256-token prompts and 16
-              greedy steps.  Launch counts are zeroed just before and read
-              just after; every kernel of the path must have launched.
+1. env        — torch / CUDA versions and the card (``nvidia-smi`` name
+                and power limit, also printed raw on a line of its own);
+2. build      — nvcc builds every kernel from ``src/repro_torch/csrc``;
+3. kernels    — each kernel at the main paths' shapes (the skinny
+                projections of qwen1.5-4b and GLM-4-9B at decode and
+                prefill, GLM-4-9B's tall K/V projections and the pack of
+                its prefill activations, flash attention at both models'
+                prefill) against its plain PyTorch version
+                on the same inputs (max error within the stated
+                tolerance; the pack bit-equal), with kernel, plain and
+                library times (CUDA events, L2 flushed before each
+                launch) and the least time the card could take
+                (``bound_ms``);
+4. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 8192,
+                once per tall family through an explicit plan (natural
+                and packed baseline, B-resident, revisit, k-split,
+                k-outer), each against the plain product; each family's
+                counter must rise;
+5. parity     — qwen1.5-4b at full width (1 x 256 tokens) and a
+                GLM-shaped config (d_model 1024, 8 heads on 2 KV heads of
+                128, 2 x 1024 tokens, so wk/wv take the tall path), 2
+                layers, float32: prefill + 4 decode steps on the card
+                (kernels) against the port on the CPU (plain versions)
+                with the same packed weights;
+6. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
+                seeded random weights, through ``Engine(max_batch=4)``:
+                request groups of 1, 3 and 4 with 256-token prompts and 16
+                greedy steps;
+7. serve.glm4 — GLM-4-9B at full width and full depth (40 layers), bf16,
+                seeded random weights, ``Engine(max_batch=2)``: groups of 1
+                and 2 with 2048-token prompts and 8 greedy steps; its
+                unpacked wk/wv run the tall-A kernel at prefill.
 
+Each serve path zeroes the launch counts just before it and reads them
+just after; every kernel of the path must have launched.
 Then the ``kernels`` summary line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero before the last line.
 """
@@ -49,7 +66,8 @@ HBM_BYTES_PER_S = 3.35e12
 # different orders, then round once to bf16 (8 significant bits): allow
 # two bf16 ulps of the value's magnitude
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
-# fp32 partial sums (k-split mode): reassociation over K <= 6912 terms
+# fp32 outputs (k-split partials, raw and accumulated sums): reassociation
+# over K <= 6912 terms
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 # parity: fp32 logits through 2 layers and a 2560-deep head, card vs CPU
 PARITY_RTOL = 1e-3
@@ -136,8 +154,22 @@ def bound(moved_bytes, flops) -> tuple:
                                        else "operations")
 
 
+# skinny-A (K, N) projections and the m each is checked at: qwen1.5-4b's
+# (decode batches 1 and 4, a 4 x 256-token prefill) and GLM-4-9B's (decode
+# batches 1 and 2, a 2048-token prefill; its wk/wv are skinny only at
+# decode, where they run the k-split kernel at 8 splits)
+SKINNY_SHAPES = (
+    [(k, n, (1, 4, 1024))
+     for k, n in ((2560, 2560), (2560, 6912), (6912, 2560), (2560, 151936))]
+    + [(k, n, (1, 2, 2048))
+       for k, n in ((4096, 4096), (4096, 13696), (13696, 4096),
+                    (4096, 151552))]
+    + [(4096, 256, (1, 2))])
+
+
 def phase_kernels(timer):
-    """Every skinny mode at the main path's shapes, and flash attention."""
+    """Every skinny mode at the main paths' shapes, every tall mode and the
+    pack at GLM-4-9B's K/V projection, and flash attention."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gen, ops, tsmm
@@ -148,14 +180,13 @@ def phase_kernels(timer):
     bf = torch.bfloat16
     cases = []
     worst = {}
-    shapes = [(2560, 2560), (2560, 6912), (6912, 2560), (2560, 151936)]
-    for k, n in shapes:
+    for k, n, ms in SKINNY_SHAPES:
         w = (torch.randn((k, n), generator=g, device="cuda")
              / k ** 0.5).to(bf)
         bias = (0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
         bk, bn = 128, 128
         wp = ops.pack_blocks(w, bk, bn)
-        for m in (1, 4, 1024):
+        for m in ms:
             x = torch.randn((m, k), generator=g, device="cuda").to(bf)
             modes = {
                 # name: (kernel counter, kernel call, plain call, tol)
@@ -195,7 +226,7 @@ def phase_kernels(timer):
                                   mode=tsmm.EPILOGUE), BF16_TOL),
             }
             # the splits that cut the K-block count evenly (the planner's
-            # gate): 8 divides no path shape's count at bk=128
+            # gate): none for GLM-4-9B's w_down, whose 107 blocks are prime
             for s in (2, 4, 8):
                 if (k // bk) % s:
                     continue
@@ -235,67 +266,247 @@ def phase_kernels(timer):
         del w, wp, bias
         torch.cuda.empty_cache()
 
-    b, h, s, d = 4, 20, 256, 128
-    q, kk, v = (torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
-                for _ in range(3))
-    got = flash_attention(q, kk, v, causal=True)
-    want = _torch_attention(q, kk, v, causal=True)
-    torch.cuda.synchronize()
-    ok, err = within(got, want, **BF16_TOL)
-    if not ok:
-        raise AssertionError(f"flash_attention: max |err| {err} outside "
-                             f"{BF16_TOL}")
-    worst["flash_attention"] = err
-    # QK^T and PV over the causal triangle (diagonal included); q, k, v
-    # read once, the output written once
-    bound_ms, bound_by = bound(4 * b * s * h * d * 2,
-                               4 * b * h * d * (s * (s + 1) // 2))
-    cases.append({
-        "kernel": "flash_attention", "mode": "causal", "B": b, "H": h,
-        "S": s, "D": d, "max_abs_err": err, "tol": BF16_TOL,
-        "ms": timer(lambda: flash_attention(q, kk, v, causal=True)),
-        "plain_ms": timer(lambda: _torch_attention(q, kk, v, causal=True)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True)),
-        "bound_ms": bound_ms, "bound_by": bound_by})
+    cases += tall_cases(timer, g, worst)
+
+    # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads) and GLM-4-9B's
+    # (1 x 2048 tokens, 32 query heads on 2 KV heads)
+    for b, s, h, kh in ((4, 256, 20, 20), (1, 2048, 32, 2)):
+        d = 128
+        q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
+        kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
+                 for _ in range(2))
+        got = flash_attention(q, kk, v, causal=True)
+        want = _torch_attention(q, kk, v, causal=True)
+        torch.cuda.synchronize()
+        ok, err = within(got, want, **BF16_TOL)
+        if not ok:
+            raise AssertionError(f"flash_attention S={s} H={h} KH={kh}: max "
+                                 f"|err| {err} outside {BF16_TOL}")
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        # the library call takes the KV heads repeated to H (outside the
+        # timed call)
+        kr, vr = (t.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+                  for t in (kk, v))
+        # QK^T and PV over the causal triangle (diagonal included); q, k,
+        # v read once, the output written once
+        bound_ms, bound_by = bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d),
+                                   4 * b * h * d * (s * (s + 1) // 2))
+        cases.append({
+            "kernel": "flash_attention", "mode": "causal", "B": b, "H": h,
+            "KH": kh, "S": s, "D": d, "max_abs_err": err, "tol": BF16_TOL,
+            "ms": timer(lambda: flash_attention(q, kk, v, causal=True)),
+            "plain_ms": timer(lambda: _torch_attention(q, kk, v,
+                                                       causal=True)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr, vr, is_causal=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del q, kk, v, kr, vr, got, want
+        torch.cuda.empty_cache()
     for c in cases:
         emit({"phase": "kernels", **c})
     return cases, worst
 
 
-def phase_parity():
-    """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions)
-    on the same packed weights and the same token stream."""
+GLM_KV = (2048, 4096, 256)     # GLM-4-9B's wk/wv at a 2048-token prefill
+
+
+def tall_cases(timer, g, worst):
+    """Every tall mode and the pack kernel at GLM-4-9B's K/V projection at
+    prefill, (m, K, N) = (2048, 4096, 256), bf16, with its bias: each
+    against its plain version on the same inputs."""
     import torch
-    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import gen, ref, tsmm
+
+    bf = torch.bfloat16
+    m, k, n = GLM_KV
+    bk, pbm = 128, 256
+    a = torch.randn((m, k), generator=g, device="cuda").to(bf)
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(bf)
+    bias = (0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
+    ap = tsmm.pack_blocks_kernel(a, pbm, bk)
+
+    def plain(x, mode, bias=None, splits=1):
+        return tsmm._torch_tall(x, w, bias, None, mode=mode, splits=splits,
+                                k0=0, k1=k, out=None)
+
+    def plain_kouter():
+        acc = torch.zeros((m, n), dtype=torch.float32, device="cuda")
+        for k0 in range(0, k, bk):
+            tsmm._torch_tall(a, w, None, None, mode=tsmm.ACCUM_F32, splits=1,
+                             k0=k0, k1=k0 + bk, out=acc)
+        return acc
+
+    def plain_revisit():
+        return tsmm._torch_tall(
+            a, w, bias, None, mode=tsmm.ACCUM_F32, splits=1, k0=0, k1=k,
+            out=torch.zeros((m, n), dtype=torch.float32, device="cuda"))
+
+    modes = {
+        # name: (kernel counter, kernel call, plain call, tol)
+        "baseline": ("tsmm_tall_a",
+                     lambda: tsmm.tsmm_tall_a(a, w, bias, bm=m, bk=bk),
+                     lambda: plain(a, tsmm.EPILOGUE, bias), BF16_TOL),
+        "packed": ("tsmm_packed_a",
+                   lambda: tsmm.tsmm_packed_a(ap, w, bias),
+                   lambda: plain(ap, tsmm.EPILOGUE, bias), BF16_TOL),
+        "resident": ("tall_kinner",
+                     lambda: gen._tall_kinner(
+                         a, w, bias, bm=m, bk=bk, act=None, packed=False,
+                         resident=True, revisit=False),
+                     lambda: plain(a, tsmm.EPILOGUE, bias), BF16_TOL),
+        "revisit": ("tall_kinner",
+                    lambda: gen._tall_kinner(
+                        a, w, bias, bm=m, bk=bk, act=None, packed=False,
+                        resident=False, revisit=True),
+                    plain_revisit, F32_TOL),
+        "ksplit2": ("tall_ksplit",
+                    lambda: gen._tall_ksplit(a, w, bm=m, bk=bk, splits=2,
+                                             packed=False, resident=False),
+                    lambda: plain(a, tsmm.RAW_F32, splits=2), F32_TOL),
+        "kouter": ("tall_kouter",
+                   lambda: gen._tall_kouter(a, w, bm=m, bk=bk, packed=False),
+                   plain_kouter, F32_TOL),
+        "pack": ("pack_blocks",
+                 lambda: tsmm.pack_blocks_kernel(a, pbm, bk),
+                 lambda: ref.pack_ref(a, pbm, bk), dict(rtol=0.0, atol=0.0)),
+    }
+    nm, nk = m // pbm, k // bk
+    cases = []
+    for mode, (name, kern, plainf, tol) in modes.items():
+        got = kern()
+        want = plainf()
+        torch.cuda.synchronize()
+        if mode == "pack":
+            ok = bool(torch.equal(got, want))
+            err = float((got.float() - want.float()).abs().max())
+        else:
+            ok, err = within(got, want, **tol)
+        if not ok:
+            raise AssertionError(f"{name}/{mode} {GLM_KV}: max |err| {err} "
+                                 f"outside {tol}")
+        worst[name] = max(worst.get(name, 0.0), err)
+        if mode == "pack":
+            # one PyTorch copy computes the same re-tile (the shape divides
+            # the blocks); read once, written once
+            lib = (lambda: a.unflatten(0, (nm, pbm)).unflatten(2, (nk, bk))
+                   .permute(0, 2, 1, 3).contiguous())
+            bound_ms, bound_by = bound(2 * 2 * m * k, 0)
+        else:
+            lib = lambda: torch.matmul(a, w)
+            # each input read once (bf16 A, B, bias), the output written
+            # once (bf16, or the fp32 sums / partial slabs)
+            bound_ms, bound_by = bound(
+                2 * (m * k + k * n + n) + got.numel() * got.element_size(),
+                2 * m * k * n)
+        cases.append({"kernel": name, "mode": mode, "m": m, "K": k, "N": n,
+                      "max_abs_err": err, "tol": tol, "ms": timer(kern),
+                      "plain_ms": timer(plainf), "library_ms": timer(lib),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bit_equal": ok if mode == "pack" else None})
+        del got, want
+    return cases
+
+
+def phase_tall(timer):
+    """``tsmm_dot`` through an explicit plan of every tall family at
+    GLM-4-9B's wk shape; each result against the plain product, each
+    family's counter must rise."""
+    import torch
+    from repro_torch.core.plan import Plan, Problem
+    from repro_torch.core.tsmm import tsmm_dot
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.kernels.variants import KernelSpec
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    _, k, n = GLM_KV
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(bf)
+    bias = (0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
+    families = {
+        # family: (plan fields, counters that must rise)
+        "baseline": (dict(prepack=False), ("tsmm_tall_a",)),
+        "baseline_prepack": (dict(prepack=True),
+                             ("pack_blocks", "tsmm_packed_a")),
+        "b_resident": (dict(prepack=False,
+                            kernel=KernelSpec.make("b_resident")),
+                       ("tall_kinner",)),
+        "revisit": (dict(prepack=False,
+                         kernel=KernelSpec.make("gen", acc="revisit")),
+                    ("tall_kinner",)),
+        "ksplit": (dict(prepack=False,
+                        kernel=KernelSpec.make("ksplit", splits=2)),
+                   ("tall_ksplit",)),
+        "kmajor": (dict(prepack=False, kernel=KernelSpec.make("kmajor")),
+                   ("tall_kouter",)),
+    }
+    counts = {}
+    for m in (2048, 8192):
+        a = torch.randn((m, k), generator=g, device="cuda").to(bf)
+        want = ref.tsmm_ref(a, w, bias=bias)
+        for fam, (fields, names) in families.items():
+            plan = Plan(Problem(m, k, n, "bfloat16"), "tall_a", bm=256,
+                        bk=128, bn=n, **fields)
+            cuda.reset_launches()
+            got = tsmm_dot(a, w, bias=bias, plan=plan)
+            rose = {c: cuda.launches[c] for c in names}
+            torch.cuda.synchronize()
+            ok, err = within(got, want, **BF16_TOL)
+            ms = timer(lambda: tsmm_dot(a, w, bias=bias, plan=plan), iters=3)
+            emit({"phase": "tall", "family": fam, "m": m, "K": k, "N": n,
+                  "kernel": plan.kernel.key(), "prepack": plan.prepack,
+                  "launches": rose, "max_abs_err": err, "tol": BF16_TOL,
+                  "ms": ms})
+            if not ok or got.shape != (m, n) or got.dtype != bf:
+                raise AssertionError(f"tall {fam} m={m}: max |err| {err} "
+                                     f"outside {BF16_TOL}")
+            if not all(rose.values()):
+                raise AssertionError(f"tall {fam} m={m}: no launch of "
+                                     f"{[c for c, v in rose.items() if not v]}")
+            for c, v in rose.items():
+                counts[c] = counts.get(c, 0) + v
+        del a, want
+    return counts
+
+
+# the GLM-shaped parity config of tests/test_torch_glm4.py (2 layers,
+# vocab 512): wk/wv are (1024, 256), so a 2 x 1024-token prefill takes the
+# tall-A path
+GLM_PARITY = dict(d_model=1024, num_heads=8, num_kv_heads=2, head_dim=128,
+                  d_ff=2048, dtype="float32")
+
+
+def phase_parity(cfg, batch, prompt_len):
+    """``cfg`` (2 layers, fp32): card (kernels) vs CPU (plain versions) on
+    the same packed weights and the same token stream.  Returns the card
+    run's launch counts."""
+    import torch
     from repro_torch.core.linear import serving_ctx
+    from repro_torch.kernels import cuda
     from repro_torch.models.param import tree_map
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import pack_tree_for_serving
 
-    cfg = dataclasses.replace(get_config("qwen1_5_4b"), num_layers=2,
-                              dtype="float32")
     model = build_model(cfg)
     params, axes = model.init(torch.Generator().manual_seed(0))
-    packed, report = pack_tree_for_serving(params, axes, (1,))
+    packed, report = pack_tree_for_serving(params, axes, (batch,))
     del params
-    prompt = ((torch.arange(256) * 7 + 3) % cfg.vocab_size).to(torch.int32)
-    steps, max_len = 4, 256 + 8
+    prompt = ((torch.arange(batch * prompt_len) * 7 + 3)
+              % cfg.vocab_size).to(torch.int32).reshape(batch, prompt_len)
+    steps, max_len = 4, prompt_len + 8
 
     def run(params, device, feed=None):
         out, toks = [], []
         with torch.inference_mode(), serving_ctx():
-            cache = model.init_cache(1, max_len, device)
+            cache = model.init_cache(batch, max_len, device)
             logits, cache = model.prefill(
-                params, {"tokens": prompt[None].to(device)}, cache)
+                params, {"tokens": prompt.to(device)}, cache)
             out.append(logits[:, -1].float().cpu())
             for i in range(steps):
                 tok = (feed[i] if feed is not None
-                       else int(out[-1].argmax(dim=-1)[0]))
+                       else out[-1].argmax(dim=-1).to(torch.int32)[:, None])
                 toks.append(tok)
-                t = torch.tensor([[tok]], dtype=torch.int32, device=device)
-                logits, cache = model.decode_step(params, cache, t)
+                logits, cache = model.decode_step(params, cache,
+                                                  tok.to(device))
                 out.append(logits[:, -1].float().cpu())
         return out, toks
 
@@ -303,21 +514,39 @@ def phase_parity():
     ref, toks = run(packed, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     gpu_params = tree_map(lambda t: t.to("cuda"), packed)
+    cuda.reset_launches()
     t0 = time.perf_counter()
     got, _ = run(gpu_params, torch.device("cuda"), feed=toks)
     gpu_s = time.perf_counter() - t0
+    launches = dict(cuda.launches)
     errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
     scale = max(1.0, max(float(r.abs().max()) for r in ref))
     tol = PARITY_RTOL * scale
-    emit({"phase": "parity", "layers": cfg.num_layers, "dtype": cfg.dtype,
-          "prompt": 256, "decode_steps": steps,
+    emit({"phase": "parity", "config": cfg.name, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": batch,
+          "prompt": prompt_len, "decode_steps": steps,
           "packed_leaves": len(report), "max_abs_err_per_step": errs,
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
-          "cpu_s": cpu_s, "gpu_s": gpu_s})
+          "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches})
     if not all(torch.isfinite(g).all() for g in got):
-        raise AssertionError("parity: non-finite logits on the card")
+        raise AssertionError(f"parity {cfg.name}: non-finite logits on the "
+                             f"card")
     if max(errs) > tol:
-        raise AssertionError(f"parity: max |err| {max(errs)} > {tol}")
+        raise AssertionError(f"parity {cfg.name}: max |err| {max(errs)} > "
+                             f"{tol}")
+    return launches
+
+
+def check_group(res, b, steps, vocab):
+    """A served group's tokens: (b, steps) in the vocabulary, finite
+    logits.  Returns the tokens."""
+    import torch
+    toks = res.tokens
+    if (toks.shape != (b, steps) or not torch.isfinite(res.logits_last).all()
+            or int(toks.min()) < 0 or int(toks.max()) >= vocab):
+        raise AssertionError(f"serve b={b}: bad output {tuple(toks.shape)}")
+    return toks
 
 
 def phase_serve():
@@ -353,10 +582,7 @@ def phase_serve():
     first = []
     for b in (1, 3, 4):
         res = eng.generate(make_group(cfg, b, prompt, "cuda"), steps=steps)
-        toks = res.tokens
-        if (toks.shape != (b, steps) or not torch.isfinite(res.logits_last).all()
-                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
-            raise AssertionError(f"serve b={b}: bad output {tuple(toks.shape)}")
+        toks = check_group(res, b, steps, cfg.vocab_size)
         first.append(toks[0].tolist())
         emit({"phase": "serve", "group": b, "buckets": res.buckets,
               "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
@@ -371,45 +597,179 @@ def phase_serve():
     return launches
 
 
+# the launch counters of the five tall-A kernels
+TALL = ("tsmm_tall_a", "tsmm_packed_a", "tall_kinner", "tall_ksplit",
+        "tall_kouter")
+
+
+def phase_serve_glm4():
+    """GLM-4-9B at full width and depth on the card; its unpacked K/V
+    projections run the tall-A kernel at prefill."""
+    import gc
+    from collections import Counter
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import registry
+    from repro_torch.core.plan import Problem
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import make_group
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("glm4_9b")
+    model = build_model(cfg)
+    prompt, steps, max_batch = 2048, 8, 2
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = Engine(model, params, axes, max_len=prompt + steps + 8,
+                 max_batch=max_batch, max_prompt=prompt, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_launches = dict(cuda.launches)
+    variants = Counter(eng.variant_report().values())
+    emit({"phase": "serve.glm4.load", "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+          "packed_leaves": sorted(eng.pack_report), "buckets": eng.buckets,
+          "variants": dict(sorted(variants.items())), "load_s": load_s,
+          "load_launches": load_launches,
+          "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    unpacked_kv = not any(p.endswith(("/wk", "/wv")) for p in eng.pack_report)
+    if len(eng.pack_report) != 6 or not unpacked_kv:
+        raise AssertionError(f"expected the 6 leaves other than wk/wv "
+                             f"packed, got {sorted(eng.pack_report)}")
+    if load_launches.get("pack_blocks", 0) == 0:
+        raise AssertionError("no pack_blocks launch while packing at load")
+
+    # count the launches of every prefill call separately from decode
+    prefill_launches = Counter()
+    inner = eng.model.prefill
+
+    def prefill(p, b, c):
+        before = Counter(cuda.launches)
+        out = inner(p, b, c)
+        prefill_launches.update(Counter(cuda.launches) - before)
+        return out
+
+    eng.model = dataclasses.replace(eng.model, prefill=prefill)
+    cuda.reset_launches()
+    tall_plans = {}
+    for b in (1, 2):
+        res = eng.generate(make_group(cfg, b, prompt, "cuda"), steps=steps)
+        toks = check_group(res, b, steps, cfg.vocab_size)
+        m = res.buckets[0] * prompt
+        plan = registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
+                                     * cfg.head_dim, cfg.dtype).key(), "cuda")
+        if plan is None or plan.orientation != "tall_a":
+            raise AssertionError(f"serve.glm4: no tall_a plan for m={m}")
+        tall_plans[m] = str(plan)
+        emit({"phase": "serve.glm4", "group": b, "buckets": res.buckets,
+              "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
+              "tall_plan": str(plan), "tokens[0]": toks[0].tolist()})
+    launches = dict(cuda.launches)
+    tall_rose = sorted(k for k in TALL if prefill_launches.get(k, 0))
+    emit({"phase": "serve.glm4.launches", "launches": launches,
+          "prefill_launches": dict(prefill_launches),
+          "tall_kernels_in_prefill": tall_rose, "tall_plans": tall_plans})
+    missing = [] if tall_rose else ["any tall-A kernel at prefill"]
+    missing += [k for k in ("tsmm_skinny_a", "flash_attention", "pack_blocks")
+                if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"GLM-4-9B path launched no {missing}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, load_launches
+
+
+# name -> (source, replaced TPU kernel file:line); the rows of the
+# ``kernels`` line
+KERNELS = {
+    "tsmm_skinny_a": ("src/repro_torch/csrc/tsmm_skinny.cu",
+                      "src/repro/kernels/tsmm.py:295"),
+    "skinny_kinner": ("src/repro_torch/csrc/tsmm_skinny.cu",
+                      "src/repro/kernels/gen.py:310"),
+    "skinny_ksplit": ("src/repro_torch/csrc/tsmm_skinny.cu",
+                      "src/repro/kernels/gen.py:374"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:76"),
+    "tsmm_tall_a": ("src/repro_torch/csrc/tsmm_tall.cu",
+                    "src/repro/kernels/tsmm.py:111"),
+    "tsmm_packed_a": ("src/repro_torch/csrc/tsmm_tall.cu",
+                      "src/repro/kernels/tsmm.py:181"),
+    "tall_kinner": ("src/repro_torch/csrc/tsmm_tall.cu",
+                    "src/repro/kernels/gen.py:115"),
+    "tall_ksplit": ("src/repro_torch/csrc/tsmm_tall.cu",
+                    "src/repro/kernels/gen.py:193"),
+    "tall_kouter": ("src/repro_torch/csrc/tsmm_tall.cu",
+                    "src/repro/kernels/gen.py:247"),
+    "pack_blocks": ("src/repro_torch/csrc/pack_blocks.cu",
+                    "src/repro/kernels/tsmm.py:238"),
+}
+
+
 def main():
     phase_env()
     import torch
     phase_build()
     timer = Timer()
     cases, worst = phase_kernels(timer)
-    phase_parity()
-    launches = phase_serve()
-    replaces = {
-        "tsmm_skinny_a": ("src/repro_torch/csrc/tsmm_skinny.cu",
-                          "src/repro/kernels/tsmm.py:295", "baseline", 6912, 1024),
-        "skinny_kinner": ("src/repro_torch/csrc/tsmm_skinny.cu",
-                          "src/repro/kernels/gen.py:310", "resident", 151936, 4),
-        "skinny_ksplit": ("src/repro_torch/csrc/tsmm_skinny.cu",
-                          "src/repro/kernels/gen.py:374", "ksplit2", 6912, 4),
+    tall_launches = phase_tall(timer)
+    from repro_torch.configs.base import get_config
+    phase_parity(dataclasses.replace(get_config("qwen1_5_4b"), num_layers=2,
+                                     dtype="float32"), 1, 256)
+    glm_parity = phase_parity(get_config("glm4_9b").reduced(**GLM_PARITY), 2,
+                              1024)
+    if not any(glm_parity.get(k, 0) for k in TALL):
+        raise AssertionError("GLM-shaped parity ran no tall-A kernel")
+    qwen_launches = phase_serve()
+    glm_launches, glm_load = phase_serve_glm4()
+
+    # each row: its case at the shape of the path that runs it, and the
+    # launches of that path (the serve paths, or the tall phase for the
+    # tall points no H100 plan picks)
+    picks = {
+        "tsmm_skinny_a": (dict(mode="baseline", m=1024, K=2560, N=6912),
+                          "serve", qwen_launches),
+        "skinny_kinner": (dict(mode="resident", m=4, K=2560, N=151936),
+                          "serve", qwen_launches),
+        "skinny_ksplit": (dict(mode="ksplit2", m=4, K=2560, N=6912),
+                          "serve", qwen_launches),
+        "flash_attention": (dict(mode="causal", B=1, S=2048, H=32, KH=2),
+                            "serve.glm4", glm_launches),
+        "tsmm_tall_a": (dict(mode="baseline"), "serve.glm4", glm_launches),
+        "tsmm_packed_a": (dict(mode="packed"), "tall", tall_launches),
+        "tall_kinner": (dict(mode="resident"), "tall", tall_launches),
+        "tall_ksplit": (dict(mode="ksplit2"), "tall", tall_launches),
+        "tall_kouter": (dict(mode="kouter"), "tall", tall_launches),
+        "pack_blocks": (dict(mode="pack"), "serve.glm4.load", glm_load),
     }
     tol = (f"every case: |err| <= atol + rtol*|plain|, bf16 outputs "
-           f"{BF16_TOL}, fp32 raw/partial outputs {F32_TOL}")
+           f"{BF16_TOL}, fp32 raw/partial/accumulated outputs {F32_TOL}; "
+           f"pack_blocks bit-equal")
     line = []
-    for name, (src, rep, mode, n, m) in replaces.items():
-        c = next(c for c in cases if c["kernel"] == name and c["mode"] == mode
-                 and c["N"] == n and c["m"] == m and c["K"] == 2560)
+    for name, (src, rep) in KERNELS.items():
+        want, path, launches = picks[name]
+        c = next(c for c in cases if c["kernel"] == name
+                 and all(c.get(k) == v for k, v in want.items()))
+        shape = {k: c[k] for k in ("m", "K", "N", "B", "S", "H", "KH", "D")
+                 if k in c}
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches.get(name, 0),
+                     "launches_path": path,
                      "max_abs_err": worst[name], "tol": tol, "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"],
-                     "shape": f"m={m} K=2560 N={n} {mode}"})
-    c = next(c for c in cases if c["kernel"] == "flash_attention")
-    line.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention.py:76",
-                 "launches": launches.get("flash_attention", 0),
-                 "max_abs_err": worst["flash_attention"], "tol": tol,
-                 "ms": c["ms"],
-                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                 "shape": "B=4 H=20 S=256 D=128 causal"})
+                     "shape": {**shape, "mode": c["mode"]}})
+    bad = [r["name"] for r in line if r["launches"] == 0]
+    if bad:
+        raise AssertionError(f"kernels with no launch on a path: {bad}")
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 One ``ModelConfig`` dataclass covers every architecture family of the
 reference; architecture files under ``repro_torch/configs/`` export
 ``CONFIG`` (the published dims) and ``REDUCED`` (a structurally-identical
-small config for CPU tests).  Only ``qwen1_5_4b`` is ported so far.
+small config for CPU tests).  Ported so far: ``qwen1_5_4b`` and
+``glm4_9b``.
 """
 
 from __future__ import annotations

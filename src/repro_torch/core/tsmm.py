@@ -1,10 +1,11 @@
 """Public TSMM API: planned matmul and the serving pre-pack.
 
 ``tsmm_dot`` is the entry point applications use; it consults the plan
-registry (the paper's runtime stage) and dispatches pre-packed and
-TSMM-shaped weights to the planned skinny-A kernel, plain GEMM
-otherwise.  The planned kernel is called directly: a kernel that fails
-raises, there is no fallback ladder (that is a later slice).
+registry (the paper's runtime stage) and dispatches pre-packed weights
+to the planned skinny-A kernel, TSMM-shaped plain weights to the planned
+skinny-A or tall-A kernel, plain GEMM otherwise.  The planned kernel is
+called directly: a kernel that fails raises, there is no fallback ladder
+(that is a later slice).
 """
 
 from __future__ import annotations
@@ -116,10 +117,21 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
         out = variants.run_skinny_a(spec, a2, b, bias, act, bk=plan.bk,
                                     bn=plan.bn, packed=False, schedule=sched)
         return out[:, :n].reshape(*lead, n)
-    if plan is not None:
-        raise NotImplementedError(
-            f"tall-A TSMM ({m}x{k}x{n}) is not ported to the GPU yet: its "
-            f"kernels are ROADMAP.md Queue 2 items")
+    if plan is not None and plan.orientation == "tall_a":
+        # bias and activation fuse into the point's epilogue placement
+        spec = _override_spec(plan.kernel, override, "tall_a")
+        sched = sched_override or plan.schedule
+        if plan.prepack:
+            # the per-call pack of A (the pack kernel on the card)
+            ap = pack(a2, plan.bm, plan.bk)
+            out = variants.run_tall_a(spec, ap.blocks, b, bias, act,
+                                      bm=plan.bm, bk=plan.bk, packed=True,
+                                      schedule=sched)[:m, :n]
+        else:
+            out = variants.run_tall_a(spec, a2, b, bias, act, bm=plan.bm,
+                                      bk=plan.bk, packed=False,
+                                      schedule=sched)
+        return out.reshape(*lead, n)
     return _gemm_epilogue(a2, b, bias, act, a.dtype).reshape(*lead, n)
 
 

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("tsmm_skinny", "flash_attention")
+SOURCES = ("tsmm_skinny", "tsmm_tall", "pack_blocks", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,15 @@ def _declare(libs: dict) -> None:
     # x, w, bias, out, m, K, N, ldx, bk, bn, natural, splits, mode, act,
     # dtype, stream
     f.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    f.restype = i
+    f = libs["tsmm_tall"].tsmm_tall_launch
+    # a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, sms,
+    # mode, act, dtype, stream
+    f.argtypes = [p, p, p, p] + [i] * 13 + [p]
+    f.restype = i
+    f = libs["pack_blocks"].pack_blocks_launch
+    # a, out, L, M, K, bm, bk, alpha, dtype, stream
+    f.argtypes = [p, p, i, i, i, i, i, ctypes.c_float, i, p]
     f.restype = i
     f = libs["flash_attention"].flash_attention_launch
     # q, k, v, out, B, Sq, Sk, H, KH, D, q strides (b, s, h), k strides,

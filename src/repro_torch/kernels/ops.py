@@ -1,18 +1,22 @@
-"""Wrappers around the skinny-A TSMM kernel.
+"""Wrappers around the TSMM kernels.
 
 Responsibilities, as in the reference package's ``kernels/ops.py``:
-  * pad operands to the packed layout's shapes and slice the result back;
-  * pick the implementation: ``cuda`` (the hand-written kernel) for CUDA
-    tensors, ``torch`` (the plain blocked einsum, same math on the same
-    packed layout) for CPU tensors;
-  * pack/unpack as layout transforms.
+  * pad operands to the kernels' shapes and slice the result back;
+  * pick the implementation: the hand-written CUDA kernel for CUDA
+    tensors, the plain PyTorch version (the same math on the same layout)
+    for CPU tensors — the choice lives in each ``kernels/tsmm.py``
+    wrapper;
+  * pack/unpack as layout transforms (a CUDA tensor packs through the
+    pack kernel).
 
-The kernel masks ragged rows itself, so unlike the TPU wrappers nothing
-here pads X rows to a sublane multiple.
+The skinny kernel masks ragged rows itself, so nothing here pads X rows
+to a sublane multiple; the tall wrappers keep the reference's padding of
+M to the row block and N to 128 columns.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
@@ -30,10 +34,18 @@ def pad2(x, m, n):
     return F.pad(x, (0, pn, 0, pm))
 
 
+def sublane(dtype) -> int:
+    """The reference's row granularity per dtype (its TPU sublane tile),
+    kept so the tall wrappers pad M exactly as the reference does."""
+    return {torch.float32: 8, torch.bfloat16: 16, torch.float16: 16}.get(
+        dtype, 8)
+
+
 def pack_blocks(a, bm: int, bk: int, alpha: float = 1.0):
-    """(M, K) -> (nm, nk, bm, bk) block-major, zero-padded, alpha folded:
-    a reshape, bit-identical to the reference's layout."""
-    return _ref.pack_ref(a, bm, bk, alpha=alpha)
+    """(M, K) -> (nm, nk, bm, bk) block-major, zero-padded, alpha folded,
+    bit-identical to the reference's layout: the pack kernel for a CUDA
+    tensor, the plain reshape/transpose on the CPU."""
+    return _k.pack_blocks_kernel(a, bm, bk, alpha=alpha)
 
 
 def unpack_blocks(ap, m: int, k: int):
@@ -65,3 +77,43 @@ def tsmm_skinny(x, wp, bias=None, *, act=None):
     xp = pad2(x, m, nk * bk).contiguous()
     out = _k.tsmm_skinny_a(xp, wp, _pad_bias(bias, n), act=act)
     return out[:, : (bias.shape[0] if bias is not None else n)]
+
+
+def pad_tall(a, b, bm: int, bk: int):
+    """Pad a natural tall-A pair to the kernel's shapes: M to the row block
+    (itself capped at M rounded up to the sublane), K to bk, N to 128.
+    Returns (a_pad, b_pad, bm_eff)."""
+    m, k = a.shape
+    bm_ = min(bm, _ceil_to(m, sublane(a.dtype)))
+    mp, kp = _ceil_to(m, bm_), _ceil_to(k, bk)
+    return (pad2(a, mp, kp).contiguous(),
+            pad2(b, kp, _ceil_to(b.shape[1], 128)).contiguous(), bm_)
+
+
+def pad_b_for_packed(ap, b):
+    """Pad B to a packed A's K (nk * bk) and to 128 columns."""
+    _, nk, _, bk = ap.shape
+    return pad2(b, nk * bk, _ceil_to(b.shape[1], 128)).contiguous()
+
+
+def tsmm(a, b, bias=None, *, bm: int = 512, bk: int = 512, act=None,
+         dims: tuple = (), m_split: int = 1):
+    """Unpacked tall-A TSMM: act(A @ B + bias), fused into the kernel's
+    store (padded by :func:`pad_tall`, sliced back).  ``dims``/``m_split``
+    (the plan's TPU grid schedule) have no effect on the card."""
+    m, n = a.shape[0], b.shape[1]
+    ap, bp, bm_ = pad_tall(a, b, bm, bk)
+    out = _k.tsmm_tall_a(ap, bp, _pad_bias(bias, bp.shape[1]), bm=bm_, bk=bk,
+                         act=act, dims=dims, m_split=m_split)
+    return out[:m, :n]
+
+
+def tsmm_packed(ap, b, bias=None, *, act=None, dims: tuple = (),
+                m_split: int = 1):
+    """Packed tall-A TSMM: act(unpack(Ap) @ B + bias) with Ap (nm, nk, bm,
+    bk); returns (nm*bm, N) (the caller slices rows)."""
+    n = b.shape[1]
+    bp = pad_b_for_packed(ap, b)
+    out = _k.tsmm_packed_a(ap, bp, _pad_bias(bias, bp.shape[1]), act=act,
+                           dims=dims, m_split=m_split)
+    return out[:, :n]

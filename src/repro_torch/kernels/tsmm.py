@@ -1,10 +1,21 @@
-"""Skinny-A TSMM: the wrapper of the CUDA kernel ``csrc/tsmm_skinny.cu``
-and its plain PyTorch version.
+"""TSMM kernels: the wrappers of the CUDA kernels ``csrc/tsmm_skinny.cu``,
+``csrc/tsmm_tall.cu`` and ``csrc/pack_blocks.cu``, and their plain PyTorch
+versions.
 
-``tsmm_skinny_a`` is the port of the reference's baseline skinny-A Pallas
-kernel (``kernels/tsmm.py::tsmm_skinny_a`` there): act(X @ unpack(Wp) +
-bias) with fp32 accumulation and one cast.  ``kernels/gen.py`` drives the
-same CUDA kernel in its other modes for the non-baseline grammar points.
+Ports of the reference's Pallas kernels of the same names
+(``kernels/tsmm.py`` there), with the reference's signatures:
+
+* ``tsmm_skinny_a`` — act(X @ unpack(Wp) + bias), skinny X, packed W;
+* ``tsmm_tall_a``   — act(A @ B + bias), tall natural A, skinny B;
+* ``tsmm_packed_a`` — the same on a block-major packed A;
+* ``pack_blocks_kernel`` — the block-major re-tile with alpha folded.
+
+All accumulate in fp32 and cast once.  ``kernels/gen.py`` drives the
+skinny and tall CUDA kernels in their other modes for the non-baseline
+grammar points.  The TPU grid schedule's ``dims`` (dimension semantics)
+and ``m_split`` (a leading parallel row-panel axis) are accepted and have
+no effect on the card: a CUDA grid has no dimension semantics and already
+spreads the row tiles over every SM.
 
 A wrapper launches the kernel for a CUDA tensor and takes the plain
 version only for a tensor on the CPU; there is no fallback between them.
@@ -12,16 +23,21 @@ version only for a tensor on the CPU; there is no fallback between them.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.ref import act_ref
+from repro_torch.kernels.ref import act_ref, pack_ref
 
 _ACT = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel output modes (csrc/tsmm_skinny.cu)
-EPILOGUE, RAW_F32 = 0, 1
+# kernel output modes (csrc/tsmm_skinny.cu, csrc/tsmm_tall.cu): the cast
+# epilogue, raw fp32 sums one slab per k-split, and (tall only)
+# accumulate-into an fp32 output
+EPILOGUE, RAW_F32, ACCUM_F32 = 0, 1, 2
 
 
 def _torch_skinny(x, w, bias, act, *, natural: bool, splits: int, mode: int):
@@ -116,3 +132,173 @@ def tsmm_skinny_a(x, wp, bias=None, *, act=None):
     Returns (m, nn*bn) in X's type."""
     return launch_skinny("tsmm_skinny_a", x, wp, bias, act, natural=False,
                          splits=1, mode=EPILOGUE)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (picks the tall kernel's row
+    tile), read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tall_dims(a) -> tuple:
+    """(M, K) of a natural (M, K) or a packed (nm, nk, bm, bk) A."""
+    if a.dim() == 4:
+        nm, nk, bm, bk = a.shape
+        return nm * bm, nk * bk
+    return tuple(a.shape)
+
+
+def _torch_tall(a, b, bias, act, *, mode: int, splits: int, k0: int, k1: int,
+                out):
+    """Plain version of the tall CUDA kernel over k in [k0, k1): the blocked
+    einsum of the reference's ``impl="xla"`` twins (natural or packed A)
+    with fp32 accumulation, the k range cut into ``splits`` partial sums.
+    Mode ``RAW_F32`` returns the fp32 partials (splits, M, N);
+    ``ACCUM_F32`` adds the sum into the fp32 ``out``, applies bias and the
+    activation there, and returns ``out``; ``EPILOGUE`` applies them to
+    the fp32 sum and casts once to B's type."""
+    n = b.shape[1]
+    bf = b[k0:k1].float()
+    if a.dim() == 4:
+        nm, _, bm, bk = a.shape
+        ap = a[:, k0 // bk:k1 // bk].float()
+        nki = ap.shape[1] // splits
+        parts = torch.einsum("msjab,sjbn->sman",
+                             ap.reshape(nm, splits, nki, bm, bk),
+                             bf.reshape(splits, nki, bk, n)
+                             ).reshape(splits, nm * bm, n)
+    else:
+        m = a.shape[0]
+        kk = (k1 - k0) // splits
+        parts = torch.einsum("msk,skn->smn",
+                             a[:, k0:k1].float().reshape(m, splits, kk),
+                             bf.reshape(splits, kk, n))
+    if mode == RAW_F32:
+        return parts
+    acc = parts.sum(0)
+    if mode == ACCUM_F32:
+        acc = acc + out
+    if bias is not None:
+        acc = acc + bias.float()[None, :]
+    acc = act_ref(acc, act)
+    if mode == ACCUM_F32:
+        return out.copy_(acc)
+    return acc.to(b.dtype)
+
+
+def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
+                k0: int = 0, k1=None, out=None):
+    """Run the tall-A function on ``a``'s device: the CUDA kernel for a
+    CUDA tensor (counted under ``name``), the plain version on the CPU.
+
+    ``a`` natural (M, K) or packed (nm, nk, bm, bk), contiguous; ``b``
+    (K, N) with N a multiple of 128; ``bias`` (N,) or None.  The k range
+    is [k0, k1) (default all of K), cut into ``splits`` equal parts.
+    ``EPILOGUE`` returns (M, N) in B's type; ``RAW_F32`` the fp32 partials
+    (splits, M, N); ``ACCUM_F32`` updates and returns the fp32 (M, N)
+    ``out``."""
+    m, k = _tall_dims(a)
+    k1 = k if k1 is None else k1
+    if (b.dim() != 2 or b.shape[0] != k or not 0 <= k0 < k1 <= k
+            or (k1 - k0) % splits or (splits > 1 and mode != RAW_F32)):
+        raise ValueError(f"{name}: A {tuple(a.shape)}, B {tuple(b.shape)}, "
+                         f"k range [{k0}, {k1}) / {splits} splits, mode "
+                         f"{mode} do not fit")
+    n = b.shape[1]
+    if mode == ACCUM_F32 and (out is None or out.shape != (m, n)
+                              or out.dtype != torch.float32):
+        raise ValueError(f"{name}: accumulate mode needs an fp32 ({m}, {n}) "
+                         f"output")
+    if bias is not None and bias.shape != (n,):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} != ({n},)")
+    if a.device.type == "cpu":
+        return _torch_tall(a, b, bias, act, mode=mode, splits=splits, k0=k0,
+                           k1=k1, out=out)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a.device}")
+    if a.dtype not in _DTYPE:
+        raise TypeError(f"{name}: dtype {a.dtype} not supported")
+    if act not in _ACT:
+        raise ValueError(f"{name}: unknown activation {act!r}")
+    for t, what in ((a, "A"), (b, "B"), (bias, "bias"), (out, "output")):
+        if t is None:
+            continue
+        if t.device != a.device or (t.dtype != a.dtype and what != "output"):
+            raise TypeError(f"{name}: {what} is {t.dtype} on {t.device}, "
+                            f"A is {a.dtype} on {a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if b.data_ptr() % 8:
+        raise ValueError(f"{name}: B must be 8-byte aligned (paired loads)")
+    if n % 128:
+        raise ValueError(f"{name}: N={n} is not a multiple of 128")
+    packed = a.dim() == 4
+    pbm, pbk = (a.shape[2], a.shape[3]) if packed else (0, 0)
+    if out is None:
+        out = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=a.device) if mode == RAW_F32 else
+               torch.empty((m, n), dtype=b.dtype, device=a.device))
+    lib = cuda.load()["tsmm_tall"]
+    rc = lib.tsmm_tall_launch(
+        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), m, k, n, int(packed), pbm, pbk, k0,
+        (k1 - k0) // splits, splits, _sm_count(a.device.index), mode,
+        _ACT[act], _DTYPE[a.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    cuda.check(rc, name)
+    cuda.launches[name] += 1
+    return out
+
+
+def tsmm_tall_a(a, b, bias=None, *, bm: int, bk: int, act=None, dims=(),
+                m_split: int = 1):
+    """C = act(A @ B + bias).  A (M, K) with M % bm == 0, K % bk == 0; B
+    (K, N), N a multiple of 128 and the whole skinny width one CTA holds.
+    The epilogue is fused into the kernel's store.  ``dims`` and
+    ``m_split`` have no effect on the card (see the module docstring)."""
+    del dims, m_split
+    m, k = a.shape
+    if b.shape[0] != k or m % bm or k % bk:
+        raise ValueError(f"tsmm_tall_a: A {tuple(a.shape)}, B "
+                         f"{tuple(b.shape)} do not tile by ({bm}, {bk})")
+    return launch_tall("tsmm_tall_a", a, b, bias, act, mode=EPILOGUE)
+
+
+def tsmm_packed_a(ap, b, bias=None, *, act=None, dims=(), m_split: int = 1):
+    """C = act(unpack(Ap) @ B + bias) with Ap (nm, nk, bm, bk) block-major;
+    returns (nm*bm, N) in B's type.  Epilogue fused as in
+    ``tsmm_tall_a``; ``dims`` and ``m_split`` have no effect."""
+    del dims, m_split
+    return launch_tall("tsmm_packed_a", ap, b, bias, act, mode=EPILOGUE)
+
+
+def pack_blocks_kernel(a, bm: int, bk: int, *, alpha: float = 1.0):
+    """(..., M, K) -> (..., nm, nk, bm, bk) block-major, zero-padded to
+    block multiples, alpha folded (fp32 multiply, cast back).
+
+    A CUDA tensor launches ``csrc/pack_blocks.cu`` (which writes the
+    padding itself, so M and K need not divide); a CPU tensor takes the
+    plain reshape/transpose, ``kernels/ref.py::pack_ref``."""
+    if a.device.type == "cpu":
+        return pack_ref(a, bm, bk, alpha=alpha)
+    if a.device.type != "cuda":
+        raise ValueError(f"pack_blocks: unsupported device {a.device}")
+    if a.dtype not in _DTYPE:
+        raise TypeError(f"pack_blocks: dtype {a.dtype} not supported")
+    if a.dim() < 2 or bm <= 0 or bk <= 0:
+        raise ValueError(f"pack_blocks: {tuple(a.shape)} by ({bm}, {bk})")
+    a = a.contiguous()
+    m, k = a.shape[-2:]
+    lead = a.shape[:-2]
+    nm, nk = -(-m // bm), -(-k // bk)
+    out = torch.empty((*lead, nm, nk, bm, bk), dtype=a.dtype, device=a.device)
+    mats = math.prod(lead)
+    if out.numel() == 0:
+        return out
+    rc = cuda.load()["pack_blocks"].pack_blocks_launch(
+        a.data_ptr(), out.data_ptr(), mats, m, k, bm, bk, float(alpha),
+        _DTYPE[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+    cuda.check(rc, "pack_blocks")
+    cuda.launches["pack_blocks"] += 1
+    return out

@@ -1,11 +1,10 @@
-"""Inner-kernel variant subsystem: the skinny-A dispatch.
+"""Inner-kernel variant subsystem: the tall-A and skinny-A dispatch.
 
 A :class:`KernelSpec` names one point of the ``variants.grammar`` spec
 grammar (legacy names are aliases for their grammar points);
-``run_skinny_a`` lowers any valid skinny-A point through
-``kernels.gen.emit_skinny_a`` onto the CUDA skinny kernel, or onto its
-plain PyTorch version for CPU tensors.  The tall-A dispatch is not ported
-yet (ROADMAP, Queue 2).
+``run_tall_a`` and ``run_skinny_a`` lower any valid point through
+``kernels.gen.emit_tall_a`` / ``emit_skinny_a`` onto the CUDA tall and
+skinny kernels, or onto their plain PyTorch versions for CPU tensors.
 
 This ``__init__`` imports only the spec/grammar modules; the emitter
 module loads the first time a spec is run.
@@ -25,8 +24,8 @@ from repro_torch.kernels.variants.spec import (BASELINE, BASELINE_NAME,
 __all__ = [
     "BASELINE", "BASELINE_NAME", "GRAMMAR_VERSION", "GenSpec", "KernelSpec",
     "applies_to", "from_kernel_spec", "grammar", "legacy_specs_for",
-    "parse_spec", "run_skinny_a", "sampled_specs_for", "specs_for",
-    "to_kernel_spec", "variant_names",
+    "parse_spec", "run_skinny_a", "run_tall_a", "sampled_specs_for",
+    "specs_for", "to_kernel_spec", "variant_names",
 ]
 
 
@@ -46,6 +45,22 @@ def applies_to(spec: KernelSpec, orientation: str) -> bool:
     g = from_kernel_spec(spec)
     return (grammar.valid(g, orientation, True)
             or grammar.valid(g, orientation, False))
+
+
+def run_tall_a(spec: KernelSpec, a, b, bias=None, act=None, *, bm: int = 0,
+               bk: int = 0, packed: bool = False, schedule=None):
+    """Dispatch a tall-A (prefill) matmul at ``spec``'s grammar point.
+
+    ``a`` is natural (M, K) or pre-packed (nm, nk, bm, bk) per ``packed``
+    (the caller owns the pack).  ``bias``/``act`` fuse into the point's
+    epilogue placement; ``schedule`` is the plan's ScheduleSpec (None:
+    the default)."""
+    if not applies_to(spec, "tall_a"):
+        raise ValueError(f"kernel variant {spec.key()!r} has no tall_a "
+                         f"implementation")
+    from repro_torch.kernels import gen
+    return gen.emit_tall_a(from_kernel_spec(spec), a, b, bias, act, bm=bm,
+                           bk=bk, packed=packed, schedule=schedule)
 
 
 def run_skinny_a(spec: KernelSpec, x, w, bias=None, act=None, *,

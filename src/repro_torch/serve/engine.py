@@ -5,7 +5,10 @@ At load, every weight the decode step hits is planned by the autotuner
 and packed ONCE into block-major ``PackedTensor``s whose blocks conform
 to every power-of-two batch bucket; every decoded token then replays the
 bucket's stamped plan through the skinny-A kernel — the paper's
-data-reuse scenario, where the pack cost amortizes to zero.
+data-reuse scenario, where the pack cost amortizes to zero.  A weight
+narrower than ``MIN_COLS`` (GLM-4-9B's (4096, 256) ``wk``/``wv``) stays
+unpacked: a long prefill runs it through the planned tall-A kernel, a
+decode step through the skinny kernel with a per-call pack.
 
 A request group of any size b <= max_batch is padded to the nearest
 bucket; larger groups are split.  Calls run eagerly (there is no program

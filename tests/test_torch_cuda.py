@@ -10,7 +10,7 @@ Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 import pytest
 import torch
 
-from repro_torch.kernels import cuda, gen, ops, tsmm
+from repro_torch.kernels import cuda, gen, ops, ref, tsmm
 from repro_torch.kernels.flash_attention import _torch_attention, flash_attention
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +73,65 @@ def test_flash_matches_plain(dev, dtype, b, s, h, kh, d, causal):
             for _ in range(2))
     _close(flash_attention(q, k, v, causal=causal),
            _torch_attention(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(300, 128), (2048, 256), (64, 384)])
+def test_tall_modes_match_plain(dev, dtype, m, n):
+    """Every tall mode (natural / packed A, epilogue / k-split partials /
+    fp32 accumulate) against the plain version on the card."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    k, bm, bk = 1024, 64, 128
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    c = torch.randn((n,), generator=g, device=dev).to(dtype)
+    ap = ops.pack_blocks(a, bm, bk)
+    for x in (a, ap):
+        _close(tsmm.launch_tall("t", x, b, c, "gelu", mode=tsmm.EPILOGUE),
+               tsmm._torch_tall(x, b, c, "gelu", mode=tsmm.EPILOGUE,
+                                splits=1, k0=0, k1=k, out=None), dtype)
+        for s in (2, 4, 8):
+            _close(tsmm.launch_tall("t", x, b, None, None, mode=tsmm.RAW_F32,
+                                    splits=s),
+                   tsmm._torch_tall(x, b, None, None, mode=tsmm.RAW_F32,
+                                    splits=s, k0=0, k1=k, out=None),
+                   torch.float32)
+        rows = x.shape[0] * x.shape[2] if x.dim() == 4 else m
+        got = torch.ones((rows, n), device=dev)
+        want = torch.ones((rows, n), device=dev)
+        for k0 in range(0, k, bk):
+            tsmm.launch_tall("t", x, b, None, None, mode=tsmm.ACCUM_F32,
+                             k0=k0, k1=k0 + bk, out=got)
+            tsmm._torch_tall(x, b, None, None, mode=tsmm.ACCUM_F32, splits=1,
+                             k0=k0, k1=k0 + bk, out=want)
+        tsmm.launch_tall("t", x, b, c, "silu", mode=tsmm.ACCUM_F32, out=got)
+        tsmm._torch_tall(x, b, c, "silu", mode=tsmm.ACCUM_F32, splits=1, k0=0,
+                         k1=k, out=want)
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bm,bk", [((2048, 4096), 256, 128),
+                                         ((300, 520), 128, 256),
+                                         ((3, 96, 384), 32, 128)])
+def test_pack_kernel_bit_equal_to_plain(dev, dtype, shape, bm, bk):
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    a = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = cuda.launches["pack_blocks"]
+    got = tsmm.pack_blocks_kernel(a, bm, bk)
+    assert cuda.launches["pack_blocks"] == before + 1
+    assert torch.equal(got, ref.pack_ref(a, bm, bk))
+    torch.testing.assert_close(tsmm.pack_blocks_kernel(a, bm, bk, alpha=0.5),
+                               ref.pack_ref(a, bm, bk, alpha=0.5), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("b,s,h,kh", [(1, 2048, 32, 2), (2, 1024, 8, 2)])
+def test_flash_gqa16_long_prefill_matches_plain(dev, b, s, h, kh):
+    """GLM-4-9B's prefill attention: S = 2048, 16 query heads per KV head."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((b, s, h, 128), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kh, 128), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    _close(flash_attention(q, k, v, causal=True),
+           _torch_attention(q, k, v, causal=True), torch.bfloat16)

@@ -122,9 +122,10 @@ def test_flash_plain_gqa_indexes_kv_head():
         torch.testing.assert_close(got[:, :, hq:hq + 1], one)
 
 
-def test_variant_override_and_tall_a_refusal(monkeypatch):
+def test_variant_override_and_tall_a_dispatch(monkeypatch):
     """``REPRO_TSMM_VARIANT`` rebinds the packed path's kernel (a bad name
-    raises); a tall-A plan is refused, not served by a fallback."""
+    raises); an unpacked tall-A problem is planned and served by the tall
+    kernel's path, equal to the plain product."""
     from repro_torch.core.packing import pack
     from repro_torch.core.tsmm import tsmm_dot
 
@@ -139,6 +140,8 @@ def test_variant_override_and_tall_a_refusal(monkeypatch):
     with pytest.raises(ValueError, match="unknown kernel variant"):
         tsmm_dot(x, pack(w, 128, 128))
     monkeypatch.delenv("REPRO_TSMM_VARIANT")
-    tall = torch.zeros((4096, 1024))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsmm_dot(tall, torch.zeros((1024, 16)))
+    tall = torch.from_numpy(rng.standard_normal((4096, 1024)).astype(np.float32))
+    skinny = torch.from_numpy(rng.standard_normal((1024, 16)).astype(np.float32))
+    # fp32: sums in another order over K = 1024 terms
+    torch.testing.assert_close(tsmm_dot(tall, skinny), tall @ skinny,
+                               rtol=1e-5, atol=1e-6 * 1024)

@@ -64,14 +64,43 @@ def _close(got, want, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_params_from_numpy_is_bit_exact():
-    ref_cfg, _ = configs("bfloat16")
+# GLM-4-9B's attention at full width (32 query heads on 2 KV heads of 128,
+# QKV bias: wk/wv are (4096, 256)), one layer and a narrow MLP
+GLM_ATTN = dict(d_model=4096, num_heads=32, num_kv_heads=2, head_dim=128,
+                d_ff=1024, num_layers=1, dtype="bfloat16")
+
+
+def _converted_bit_exact(ref_cfg):
+    """Every leaf of the reference's bf16 tree, carried across, keeps its
+    shape and bits; returns the port's tree."""
     _, _, np_params = reference_params(ref_cfg)
     tp = params_from_numpy(np_params, "cpu")
-    w = np_params["layers"]["attn"]["wq"]
-    assert tp["layers"]["attn"]["wq"].dtype == torch.bfloat16
-    assert np.array_equal(tp["layers"]["attn"]["wq"].view(torch.int16).numpy(),
-                          w.view(np.int16))
+
+    def check(t, a, path):
+        if isinstance(a, dict):
+            assert sorted(t) == sorted(a), path
+            for k in a:
+                check(t[k], a[k], path + (k,))
+            return
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == a.shape, path
+        assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16)), \
+            path
+
+    check(tp, np_params, ())
+    return tp
+
+
+def test_params_from_numpy_is_bit_exact():
+    ref_cfg, _ = configs("bfloat16")
+    _converted_bit_exact(ref_cfg)
+
+
+def test_params_from_numpy_covers_the_glm4_tree():
+    attn = _converted_bit_exact(ref_reduced_config("glm4_9b").reduced(
+        **GLM_ATTN))["layers"]["attn"]
+    assert attn["wk"].shape == attn["wv"].shape == (1, 4096, 256)
+    assert attn["bk"].shape == attn["bv"].shape == (1, 256)
+    assert attn["bq"].shape == (1, 4096)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
