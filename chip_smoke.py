@@ -9,17 +9,24 @@ printing JSON lines:
 1. env        — torch / CUDA versions and the card (``nvidia-smi`` name
                 and power limit, also printed raw on a line of its own);
 2. build      — nvcc builds every kernel from ``src/repro_torch/csrc``;
+                ``cuobjdump -sass`` counts each library's tensor-core
+                (``HGMMA``) and TMA (``UTMALDG``/``UBLKCP``) instructions,
+                and the bf16 tall and flash kernels must have both;
 3. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
                 prefill, GLM-4-9B's tall K/V projections and the pack of
                 its prefill activations, flash attention at both models'
-                prefill) against its plain PyTorch version
+                prefill, GLM-4-9B's at both of its groups) against its
+                plain PyTorch version
                 on the same inputs (max error within the stated
-                tolerance; the pack bit-equal), with kernel, plain and
-                library times (CUDA events, L2 flushed before each
-                launch) and the least time the card could take
-                (``bound_ms``);
-4. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 8192,
+                tolerance; the pack bit-equal), with the design that ran
+                it, kernel, plain and library times (CUDA events, L2
+                flushed before each launch; the tall and flash cases also
+                ``device_ms``, the host's time hidden) and the least time
+                the card could take (``bound_ms``);
+4. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 4096
+                (its two groups' prefill, which the plan runs on 4- and
+                2-CTA clusters) and 8192 (no cluster),
                 once per tall family through an explicit plan (natural
                 and packed baseline, B-resident, revisit, k-split,
                 k-outer), each against the plain product; each family's
@@ -40,7 +47,9 @@ printing JSON lines:
                 unpacked wk/wv run the tall-A kernel at prefill.
 
 Each serve path zeroes the launch counts just before it and reads them
-just after; every kernel of the path must have launched.
+just after; every kernel of the path must have launched, and every bf16
+tall-A and flash launch must have run the wgmma design
+(``cuda.design_launches``).
 Then the ``kernels`` summary line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero before the last line.
 """
@@ -50,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -87,7 +97,10 @@ def within(got, want, rtol, atol) -> tuple:
 class Timer:
     """CUDA-event timing of single launches, each after an L2 flush (a
     256 MB write), so every launch finds its operands in HBM as the main
-    path does; returns the mean of ``iters`` launches after ``warmup``."""
+    path does; returns the mean of ``iters`` launches after ``warmup``.
+    The events also take in whatever host time the call spends before its
+    launch; ``device`` queues a device-side sleep first, long enough to
+    hide that, so the events see the device time alone."""
 
     def __init__(self):
         import torch
@@ -95,13 +108,23 @@ class Timer:
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn, iters=5, warmup=1) -> float:
+    def __call__(self, fn, iters=5, warmup=1, device=False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
+        cycles = 0
+        if device:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            # ~2e9 cycles a second bounds the H100's SM clock from above
+            cycles = int(max(4 * (time.perf_counter() - t0), 1e-4) * 2e9)
+            torch.cuda.synchronize()
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            if cycles:
+                torch.cuda._sleep(cycles)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -133,6 +156,45 @@ def phase_env():
     return smi
 
 
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, else the copy Triton's package carries."""
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(path):
+        return path
+    import importlib.util
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        path = os.path.join(os.path.dirname(spec.origin), "backends", "nvidia",
+                            "bin", "cuobjdump")
+        if os.path.exists(path):
+            return path
+    raise RuntimeError("no cuobjdump: cannot check the kernels' SASS")
+
+
+# the SASS instructions that show a kernel uses the tensor cores' wgmma and
+# the TMA
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+# the wgmma kernels that must carry both
+WGMMA_KERNELS = {"tsmm_tall": "tall_wgmma_kernel",
+                 "flash_attention": "flash_wgmma"}
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{function name: {op: count}} over the SASS of one library."""
+    text = subprocess.run([_cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            funcs[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
+            for op in SASS_OPS:
+                if op in line:
+                    funcs[cur][op] += 1
+    return funcs
+
+
 def phase_build():
     from repro_torch.kernels import cuda
     t0 = time.perf_counter()
@@ -141,8 +203,57 @@ def phase_build():
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, log in rep.get("ptxas", {}).items()}
+    sass = {}
+    for name in cuda.SOURCES:
+        funcs = sass_counts(os.path.join(rep["dir"], f"lib{name}.so"))
+        total = {op: sum(f[op] for f in funcs.values()) for op in SASS_OPS}
+        sass[name] = total
+        if name in WGMMA_KERNELS:
+            mine = [f for fn, f in funcs.items() if WGMMA_KERNELS[name] in fn]
+            sass[name]["wgmma_kernels"] = len(mine)
+            if not mine or not all(f["HGMMA"] and (f["UTMALDG"] or f["UBLKCP"])
+                                   for f in mine):
+                raise AssertionError(f"{name}: the bf16 kernel "
+                                     f"{WGMMA_KERNELS[name]} has no HGMMA or "
+                                     f"no TMA load in its SASS: {funcs}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": rep.get("built", []), "ptxas": regs})
+          "built": rep.get("built", []), "ptxas": regs, "sass": sass})
+
+
+class Designs:
+    """The designs (``cuda.design_launches``) a call ran: ``with
+    Designs() as d: ...`` then ``d.ran``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import cuda
+        self.cuda = cuda
+        self.before = dict(cuda.design_launches)
+        return self
+
+    def __exit__(self, *exc):
+        self.ran = {k: v - self.before.get(k, 0)
+                    for k, v in self.cuda.design_launches.items()
+                    if v != self.before.get(k, 0)}
+
+
+def design_of(ran: dict, default: str = "simt") -> str:
+    """The one design a kernel call ran (the skinny and pack kernels have
+    one design, SIMT, and no design counter)."""
+    if len(ran) > 1:
+        raise AssertionError(f"one call ran several designs: {ran}")
+    return next(iter(ran)).split("_", 1)[1] if ran else default
+
+
+def check_wgmma(path: str, launches: dict, designs: dict) -> None:
+    """Every bf16 tall-A and flash launch of a serve path ran the wgmma
+    design."""
+    tall = sum(launches.get(k, 0) for k in TALL)
+    want = {"tall_wgmma": tall, "flash_wgmma": launches.get("flash_attention", 0)}
+    got = {k: designs.get(k, 0) for k in want}
+    simt = {k: designs[k] for k in ("tall_simt", "flash_simt") if designs.get(k)}
+    if got != want or simt:
+        raise AssertionError(f"{path}: design launches {designs} do not put "
+                             f"every tall / flash launch on wgmma ({want})")
 
 
 def bound(moved_bytes, flops) -> tuple:
@@ -239,7 +350,8 @@ def phase_kernels(timer):
                         x, wp, None, None, natural=False, splits=s,
                         mode=tsmm.RAW_F32), F32_TOL)
             for mode, (name, kern, plain, tol) in modes.items():
-                got = kern()
+                with Designs() as d:
+                    got = kern()
                 want = plain()
                 torch.cuda.synchronize()
                 ok, err = within(got, want, **tol)
@@ -257,7 +369,8 @@ def phase_kernels(timer):
                 moved = (2 * (m * k + k * n + n)
                          + got.numel() * got.element_size())
                 bound_ms, bound_by = bound(moved, 2 * m * k * n)
-                cases.append({"kernel": name, "mode": mode, "m": m, "K": k,
+                cases.append({"kernel": name, "mode": mode,
+                              "design": design_of(d.ran), "m": m, "K": k,
                               "N": n, "max_abs_err": err, "tol": tol,
                               "ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -269,13 +382,15 @@ def phase_kernels(timer):
     cases += tall_cases(timer, g, worst)
 
     # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads) and GLM-4-9B's
-    # (1 x 2048 tokens, 32 query heads on 2 KV heads)
-    for b, s, h, kh in ((4, 256, 20, 20), (1, 2048, 32, 2)):
+    # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads)
+    for b, s, h, kh in ((4, 256, 20, 20), (1, 2048, 32, 2),
+                        (2, 2048, 32, 2)):
         d = 128
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
                  for _ in range(2))
-        got = flash_attention(q, kk, v, causal=True)
+        with Designs() as dz:
+            got = flash_attention(q, kk, v, causal=True)
         want = _torch_attention(q, kk, v, causal=True)
         torch.cuda.synchronize()
         ok, err = within(got, want, **BF16_TOL)
@@ -292,9 +407,12 @@ def phase_kernels(timer):
         bound_ms, bound_by = bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d),
                                    4 * b * h * d * (s * (s + 1) // 2))
         cases.append({
-            "kernel": "flash_attention", "mode": "causal", "B": b, "H": h,
+            "kernel": "flash_attention", "mode": "causal",
+            "design": design_of(dz.ran), "B": b, "H": h,
             "KH": kh, "S": s, "D": d, "max_abs_err": err, "tol": BF16_TOL,
             "ms": timer(lambda: flash_attention(q, kk, v, causal=True)),
+            "device_ms": timer(lambda: flash_attention(q, kk, v, causal=True),
+                               device=True),
             "plain_ms": timer(lambda: _torch_attention(q, kk, v,
                                                        causal=True)),
             "library_ms": timer(lambda: F.scaled_dot_product_attention(
@@ -373,7 +491,8 @@ def tall_cases(timer, g, worst):
     nm, nk = m // pbm, k // bk
     cases = []
     for mode, (name, kern, plainf, tol) in modes.items():
-        got = kern()
+        with Designs() as d:
+            got = kern()
         want = plainf()
         torch.cuda.synchronize()
         if mode == "pack":
@@ -398,8 +517,10 @@ def tall_cases(timer, g, worst):
             bound_ms, bound_by = bound(
                 2 * (m * k + k * n + n) + got.numel() * got.element_size(),
                 2 * m * k * n)
-        cases.append({"kernel": name, "mode": mode, "m": m, "K": k, "N": n,
+        cases.append({"kernel": name, "mode": mode, "design": design_of(d.ran),
+                      "m": m, "K": k, "N": n,
                       "max_abs_err": err, "tol": tol, "ms": timer(kern),
+                      "device_ms": timer(kern, device=True),
                       "plain_ms": timer(plainf), "library_ms": timer(lib),
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bit_equal": ok if mode == "pack" else None})
@@ -414,7 +535,7 @@ def phase_tall(timer):
     import torch
     from repro_torch.core.plan import Plan, Problem
     from repro_torch.core.tsmm import tsmm_dot
-    from repro_torch.kernels import cuda, ref
+    from repro_torch.kernels import cuda, ref, tsmm
     from repro_torch.kernels.variants import KernelSpec
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -440,25 +561,36 @@ def phase_tall(timer):
                    ("tall_kouter",)),
     }
     counts = {}
-    for m in (2048, 8192):
+    for m in (2048, 4096, 8192):
         a = torch.randn((m, k), generator=g, device="cuda").to(bf)
         want = ref.tsmm_ref(a, w, bias=bias)
+        # the wgmma launch plan of a one-launch epilogue at this m
+        epi_plan = tsmm.tall_plan(
+            m, k, n, dtype=bf, packed=False, pbm=0, pbk=0,
+            mode=tsmm.EPILOGUE, splits=1, kps=k,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
         for fam, (fields, names) in families.items():
             plan = Plan(Problem(m, k, n, "bfloat16"), "tall_a", bm=256,
                         bk=128, bn=n, **fields)
             cuda.reset_launches()
             got = tsmm_dot(a, w, bias=bias, plan=plan)
             rose = {c: cuda.launches[c] for c in names}
+            designs = dict(cuda.design_launches)
             torch.cuda.synchronize()
             ok, err = within(got, want, **BF16_TOL)
             ms = timer(lambda: tsmm_dot(a, w, bias=bias, plan=plan), iters=3)
             emit({"phase": "tall", "family": fam, "m": m, "K": k, "N": n,
                   "kernel": plan.kernel.key(), "prepack": plan.prepack,
-                  "launches": rose, "max_abs_err": err, "tol": BF16_TOL,
-                  "ms": ms})
+                  "epilogue_plan": dataclasses.asdict(epi_plan),
+                  "launches": rose, "design_launches": designs,
+                  "max_abs_err": err, "tol": BF16_TOL, "ms": ms})
             if not ok or got.shape != (m, n) or got.dtype != bf:
                 raise AssertionError(f"tall {fam} m={m}: max |err| {err} "
                                      f"outside {BF16_TOL}")
+            tall_n = sum(v for c, v in rose.items() if c in TALL)
+            if designs != {"tall_wgmma": tall_n}:
+                raise AssertionError(f"tall {fam} m={m}: designs {designs}, "
+                                     f"{tall_n} tall launches")
             if not all(rose.values()):
                 raise AssertionError(f"tall {fam} m={m}: no launch of "
                                      f"{[c for c, v in rose.items() if not v]}")
@@ -519,6 +651,7 @@ def phase_parity(cfg, batch, prompt_len):
     got, _ = run(gpu_params, torch.device("cuda"), feed=toks)
     gpu_s = time.perf_counter() - t0
     launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
     errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
     scale = max(1.0, max(float(r.abs().max()) for r in ref))
     tol = PARITY_RTOL * scale
@@ -528,7 +661,11 @@ def phase_parity(cfg, batch, prompt_len):
           "prompt": prompt_len, "decode_steps": steps,
           "packed_leaves": len(report), "max_abs_err_per_step": errs,
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
-          "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches})
+          "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches,
+          "design_launches": designs})
+    if any(not k.endswith("_simt") for k in designs):
+        raise AssertionError(f"parity {cfg.name}: fp32 ran a non-SIMT design "
+                             f"{designs}")
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"parity {cfg.name}: non-finite logits on the "
                              f"card")
@@ -588,8 +725,11 @@ def phase_serve():
               "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
               "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
     emit({"phase": "serve.launches", "launches": launches,
+          "design_launches": designs,
           "tokens0_equal_across_groups": all(t == first[0] for t in first)})
+    check_wgmma("serve", launches, designs)
     missing = [k for k in ("tsmm_skinny_a", "skinny_kinner", "skinny_ksplit",
                            "flash_attention") if launches.get(k, 0) == 0]
     if missing:
@@ -672,8 +812,10 @@ def phase_serve_glm4():
               "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
               "tall_plan": str(plan), "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
     tall_rose = sorted(k for k in TALL if prefill_launches.get(k, 0))
     emit({"phase": "serve.glm4.launches", "launches": launches,
+          "design_launches": designs,
           "prefill_launches": dict(prefill_launches),
           "tall_kernels_in_prefill": tall_rose, "tall_plans": tall_plans})
     missing = [] if tall_rose else ["any tall-A kernel at prefill"]
@@ -681,6 +823,7 @@ def phase_serve_glm4():
                 if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"GLM-4-9B path launched no {missing}")
+    check_wgmma("serve.glm4", launches, designs)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -760,9 +903,11 @@ def main():
         shape = {k: c[k] for k in ("m", "K", "N", "B", "S", "H", "KH", "D")
                  if k in c}
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches.get(name, 0),
+                     "replaces": rep, "design": c["design"],
+                     "launches": launches.get(name, 0),
                      "launches_path": path,
                      "max_abs_err": worst[name], "tol": tol, "ms": c["ms"],
+                     "device_ms": c.get("device_ms"),
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"],

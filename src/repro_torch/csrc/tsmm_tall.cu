@@ -29,7 +29,7 @@
 // [kbeg + z*kps, kbeg + (z+1)*kps).
 //
 // "B resident" (bres=resident) changes only where the TPU kept B.  Here B
-// is staged through shared memory in 32-deep k slices whatever the point:
+// is staged through shared memory in k slices whatever the point:
 // the whole of B (4096 x 256 bf16 = 2 MB at GLM-4-9B's K/V projections) is
 // far above the 227 KB of shared memory a CTA may hold, but far below the
 // 50 MB L2, which keeps it on chip across the CTAs that all read it.  Both
@@ -41,26 +41,49 @@
 // What bounds it.  At GLM-4-9B's prefill shape (M, K, N) = (2048, 4096,
 // 256) in bf16 the function moves ~20 MB (A once, B once, the output once)
 // and does 4.3 GFLOP: ~6 us of HBM time against ~4.3 us of bf16
-// tensor-core time, so the bound is the bytes.  This first kernel is the
-// simple one and runs far from that bound: a SIMT tiled GEMM (fp32 FMA on
-// CUDA cores, no wgmma/mma, no TMA).  Its design choices:
-//   * a CTA owns BM rows and the whole skinny width (NT = 256, or 128 when
-//     N is not a multiple of 256), as the paper's GEBB keeps the whole B
-//     panel: A is read from HBM exactly once;
-//   * the CTA tile over M is the kernel's own choice, not the plan's bm
-//     (the H100 plan at M = 2048 is one 2048-row panel): the largest of
-//     BM = 64, 32, 16 that still gives at least one CTA per SM, so M = 2048
-//     runs 128 CTAs of 16 rows instead of 32 CTAs of 64;
-//   * 256 threads as 8 row groups x 32 column groups, each thread TM x TN
-//     outputs (TM = BM/8, TN = NT/32); A and B k slices staged in shared
-//     memory as fp32 (A transposed, so a warp's TM row values are
-//     broadcasts and B's TN values two float4 loads);
-//   * ragged rows and k ranges are masked; the packed layout is addressed
-//     per element (its (bm, bk) is the layout, not the tile).
+// tensor-core time, so the bound is the bytes.
+//
+// bf16: a warp-specialised wgmma kernel (tall_wgmma_kernel).
+//   * Tensor cores: one consumer warpgroup issues wgmma m64n128k16 on a
+//     64 x 128 tile, A K-major from shared memory, B (K, N) row-major as
+//     the MN-major operand.  A 64 x 128 tile's ring of 4 stages takes
+//     99 KB, so two CTAs share an SM; a 64 x 256 tile (the whole skinny
+//     panel, as the paper's GEBB keeps it) takes one SM per CTA and
+//     measured slower at GLM-4-9B's shapes, so the kernel has one column
+//     tile.  launch/tall_sweep.py times every (cluster, stages) it takes.
+//   * Copies: one producer warp keeps TMA loads of 64-deep k tiles (A:
+//     64 rows x 64 k; B: two boxes of 64 columns x 64 k) in flight
+//     through a ring of `stages` shared-memory stages with full / empty
+//     mbarriers, 128-byte swizzle.
+//   * Packed A costs what natural A costs: the (nm, nk, pbm, pbk) array is
+//     a 2-D tensor map over its (nm*nk*pbm, pbk) view; each (pbm, pbk)
+//     block is contiguous and row-major, so a 64 x 64 tile inside a block
+//     is a plain box (the wrapper requires 64 | pbm and 64 | pbk).
+//   * Filling 132 SMs: GLM's M = 2048 has only 32 x 2 tiles of 64 x 128, so K
+//     is split across a thread-block cluster of `cluster` CTAs (1 to 8,
+//     on grid x beside the tile).  Each CTA keeps its fp32 partial in
+//     registers; the cluster reduce-scatters the partials through
+//     distributed shared memory (each CTA sums one 64/cluster-row slice,
+//     in the freed ring, and runs the epilogue on it), so the fp32 sums
+//     never leave the chip and no second pass runs.  The alternative, a
+//     split-K through an fp32 workspace, writes and rereads cluster x the
+//     output in HBM and needs a second launch.
+//   * Ragged M: TMA fills rows past M with zeros and the stores are masked.
+//     A kouter launch (one 128-deep k block) is a 2-CTA cluster of one
+//     k tile each, so it stays cheap.
+//
+// fp32: the SIMT kernel (tall_kernel): wgmma has no fp32 path and TF32
+// would break the card-vs-CPU fp32 parity.  A CTA owns BM rows (64, 32 or
+// 16, chosen by the same Python plan) and the whole skinny width; 256
+// threads as 8 row groups x 32 column groups, each TM x TN outputs; A and
+// B k slices staged in shared memory as fp32; ragged rows and k ranges
+// are masked; the packed layout is addressed per element.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -198,7 +221,7 @@ tall_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restric
 }
 
 template <typename T, int TM, int TN>
-cudaError_t launch_tile(const void* a, const void* b, const void* bias, void* out, int M,
+cudaError_t launch_simt(const void* a, const void* b, const void* bias, void* out, int M,
                         int K, int N, int packed, int pbm, int pbk, int kbeg, int kps,
                         int splits, int mode, int act, cudaStream_t stream) {
   constexpr int BM = TM * TY, NT = TN * TX;
@@ -209,57 +232,286 @@ cudaError_t launch_tile(const void* a, const void* b, const void* bias, void* ou
   return cudaGetLastError();
 }
 
-template <typename T, int TN>
-cudaError_t launch_rows(const void* a, const void* b, const void* bias, void* out, int M,
-                        int K, int N, int packed, int pbm, int pbk, int kbeg, int kps,
-                        int splits, int sms, int mode, int act, cudaStream_t stream) {
-  // the largest row tile that still gives every SM a CTA
-  const long long cols = (long long)(N / (TN * TX)) * splits;
-  if ((long long)((M + 63) / 64) * cols >= sms)
-    return launch_tile<T, 8, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps,
-                                 splits, mode, act, stream);
-  if ((long long)((M + 31) / 32) * cols >= sms)
-    return launch_tile<T, 4, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps,
-                                 splits, mode, act, stream);
-  return launch_tile<T, 2, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits,
-                               mode, act, stream);
+template <int TN>
+cudaError_t simt_rows(const void* a, const void* b, const void* bias, void* out, int M, int K,
+                      int N, int packed, int pbm, int pbk, int kbeg, int kps, int splits,
+                      int bm, int mode, int act, cudaStream_t s) {
+  switch (bm) {
+    case 64: return launch_simt<float, 8, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg,
+                                              kps, splits, mode, act, s);
+    case 32: return launch_simt<float, 4, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg,
+                                              kps, splits, mode, act, s);
+    case 16: return launch_simt<float, 2, TN>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg,
+                                              kps, splits, mode, act, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const void* b, const void* bias, void* out, int M, int K,
-                   int N, int packed, int pbm, int pbk, int kbeg, int kps, int splits,
-                   int sms, int mode, int act, cudaStream_t stream) {
-  if (N % 256 == 0)
-    return launch_rows<T, 8>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits,
-                             sms, mode, act, stream);
-  return launch_rows<T, 4>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits,
-                           sms, mode, act, stream);
+// ---- bf16: the wgmma kernel ------------------------------------------------
+
+constexpr int WBM = 64;                  // rows of a CTA tile (one wgmma M)
+constexpr int WNT = 128;                 // columns of a CTA tile (one wgmma N)
+constexpr int WBK = 64;                  // k depth of a stage (one 128-byte swizzle row)
+constexpr int WTHREADS = 160;            // consumer warpgroup (warps 0-3) + producer warp 4
+
+// The shared-memory layout: a 1024-aligned ring of `stages` (A, B) tiles,
+// then a full and an empty mbarrier per stage.  The cluster's reduction
+// buffer reuses the drained ring.
+constexpr uint32_t A_BYTES = WBM * WBK * 2;
+constexpr uint32_t B_BYTES = WBK * WNT * 2;
+constexpr uint32_t STAGE = A_BYTES + B_BYTES;              // a multiple of 1024
+constexpr int LD = WNT + 8;                                // reduction row stride (floats)
+static_assert((size_t)2 * STAGE >= (size_t)WBM * LD * 4, "two stages hold the reduction");
+inline size_t ring_bytes(int stages) { return 1024 + (size_t)stages * (STAGE + 16); }
+
+__global__ void __launch_bounds__(WTHREADS, 1)
+tall_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap,
+                  const __nv_bfloat16* __restrict__ bias, void* __restrict__ out, int M, int N,
+                  int packed, int pbm, int pbk, int nkb, int kbeg, int kps, int stages,
+                  int cluster, int mode, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* red = reinterpret_cast<float*>(smem_raw + (base - raw));   // aliases the ring
+  const uint32_t bars = base + stages * STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (stages + s); };
+  auto stage_a = [&](int s) { return base + s * STAGE; };
+  auto stage_b = [&](int s) { return base + s * STAGE + A_BYTES; };
+
+  // grid x: (row tile, column tile, cluster rank), the rank fastest and
+  // the column tiles of one row tile next, so they share A through L2
+  const int rank = (int)hopper::cluster_rank();
+  const int tile = blockIdx.x / cluster, ntn = N / WNT;
+  const int r0 = (tile / ntn) * WBM;
+  const int n0 = (tile % ntn) * WNT;
+  const int split = blockIdx.z;
+  const int ktiles = kps / (WBK * cluster);
+  const int kstart = kbeg + split * kps + rank * ktiles * WBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[WNT / 2];
+#pragma unroll
+  for (int i = 0; i < WNT / 2; ++i) acc[i] = 0.f;
+
+  if (warp == 4) {
+    // producer: one thread issues every TMA load
+    if (lane == 0) {
+      for (int t = 0; t < ktiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) hopper::mbar_wait(empty(s), ((t / stages) - 1) & 1);
+        hopper::mbar_expect_tx(full(s), STAGE);
+        const int k = kstart + t * WBK;
+        int arow = r0, acol = k;
+        if (packed) {
+          const int ib = r0 / pbm, kb = k / pbk;
+          arow = (ib * nkb + kb) * pbm + (r0 - ib * pbm);
+          acol = k - kb * pbk;
+        }
+        hopper::tma_load_2d(stage_a(s), &amap, full(s), acol, arow);
+#pragma unroll
+        for (int j = 0; j < WNT / 64; ++j)
+          hopper::tma_load_2d(stage_b(s) + j * WBK * 128, &bmap, full(s), n0 + 64 * j, k);
+      }
+    }
+  } else {
+    // consumer warpgroup: wgmma over each arrived stage, one group in flight
+    for (int t = 0; t < ktiles; ++t) {
+      const int s = t % stages;
+      hopper::mbar_wait(full(s), (t / stages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WBK / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(stage_a(s) + 32 * kk, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(stage_b(s) + 2048 * kk, WBK * 128, 1024);
+        hopper::wgmma_ss_n128_t1(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      if (t > 0) hopper::mbar_arrive(empty((t - 1) % stages));
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+
+  // Reduce-scatter over the cluster through distributed shared memory: CTA
+  // q owns rows [q*R, (q+1)*R) of the tile and receives every CTA's partial
+  // of them in slot (sender rank) of its buffer red[cluster][R][LD].  A
+  // lane pair of a quad swaps halves first, so each lane stores 4
+  // consecutive columns of one row (even lanes row_a, odd lanes row_a + 8).
+  const int R = WBM / cluster;
+  __syncwarp();
+  if (cluster > 1) hopper::cluster_sync(); else __syncthreads();   // rings drained
+  if (warp < 4) {
+    const int quad = lane % 4, odd = quad & 1;
+    const int row = 16 * warp + lane / 4 + 8 * odd;
+    const int dst = row / R, lr = row - dst * R;
+    const uint32_t slot = hopper::smem_u32(red + ((size_t)rank * R + lr) * LD);
+    const uint32_t to = cluster > 1 ? hopper::map_rank(slot, dst) : slot;
+#pragma unroll
+    for (int j = 0; j < WNT / 8; ++j) {
+      const float k0 = odd ? acc[4 * j + 2] : acc[4 * j];
+      const float k1 = odd ? acc[4 * j + 3] : acc[4 * j + 1];
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * j] : acc[4 * j + 2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * j + 1] : acc[4 * j + 3], 1);
+      const uint32_t at = to + 4 * (8 * j + 2 * (quad & 2));
+      if (odd)
+        hopper::st_cluster_f32x4(at, s0, s1, k0, k1);
+      else
+        hopper::st_cluster_f32x4(at, k0, k1, s0, s1);
+    }
+  }
+  if (cluster > 1) hopper::cluster_sync(); else __syncthreads();   // partials landed
+
+  // epilogue on this CTA's R rows: each thread owns 4 columns (its bias
+  // read once) and walks rows
+  constexpr int G = WNT / 4;
+  constexpr int LANES = WTHREADS / G;
+  if (threadIdx.x >= LANES * G) return;
+  const int c4 = 4 * (threadIdx.x % G);
+  const int col = n0 + c4;
+  float bv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (bias != nullptr && mode != MODE_PARTIAL) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bv[i] = __bfloat162float(bias[col + i]);
+  }
+  for (int lr = threadIdx.x / G; lr < R; lr += LANES) {
+    const int row = r0 + rank * R + lr;
+    if (row >= M) break;
+    float4 v = *reinterpret_cast<const float4*>(red + (size_t)lr * LD + c4);
+    for (int q = 1; q < cluster; ++q) {
+      const float4 w = *reinterpret_cast<const float4*>(red + ((size_t)q * R + lr) * LD + c4);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    if (mode == MODE_PARTIAL) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + ((size_t)split * M + row) * N + col) = v;
+      continue;
+    }
+    float r[4] = {v.x, v.y, v.z, v.w};
+    float* accum = static_cast<float*>(out) + (size_t)row * N + col;
+    if (mode == MODE_ACCUM) {
+      const float4 o = *reinterpret_cast<const float4*>(accum);
+      r[0] += o.x;
+      r[1] += o.y;
+      r[2] += o.z;
+      r[3] += o.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = activate(r[i] + bv[i], act);
+    if (mode == MODE_ACCUM) {
+      *reinterpret_cast<float4*>(accum) = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
+          static_cast<__nv_bfloat16*>(out) + (size_t)row * N + col);
+      o2[0] = __floats2bfloat162_rn(r[0], r[1]);
+      o2[1] = __floats2bfloat162_rn(r[2], r[3]);
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const void* a, const void* b, const void* bias, void* out, int M,
+                         int K, int N, int packed, int pbm, int pbk, int kbeg, int kps,
+                         int splits, int cluster, int stages, int mode, int act,
+                         cudaStream_t stream) {
+  if (stages < 2 || ring_bytes(stages) > 232448) return cudaErrorInvalidValue;
+  CUtensorMap amap, bmap;
+  const uint32_t box[2] = {WBK, WBM};
+  bool ok;
+  if (packed) {
+    const uint64_t dims[2] = {(uint64_t)pbk, (uint64_t)(M / pbm) * (K / pbk) * pbm};
+    const uint64_t strides[1] = {(uint64_t)pbk * 2};
+    ok = hopper::make_map(&amap, a, 2, dims, strides, box);
+  } else {
+    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)M};
+    const uint64_t strides[1] = {(uint64_t)K * 2};
+    ok = hopper::make_map(&amap, a, 2, dims, strides, box);
+  }
+  const uint64_t bdims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t bstrides[1] = {(uint64_t)N * 2};
+  const uint32_t bbox[2] = {64, WBK};
+  ok = ok && hopper::make_map(&bmap, b, 2, bdims, bstrides, bbox);
+  if (!ok) return cudaErrorInvalidValue;
+  // the opt-in shared memory, raised once to the most any plan takes, and
+  // the L1 / shared split set to all shared, so two 99 KB CTAs fit an SM
+  static const cudaError_t raised = [] {
+    cudaError_t e = cudaFuncSetAttribute(tall_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(tall_wgmma_kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  if (raised != cudaSuccess) return raised;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((M + WBM - 1) / WBM) * (N / WNT) * cluster, 1, splits);
+  cfg.blockDim = dim3(WTHREADS);
+  cfg.dynamicSmemBytes = ring_bytes(stages);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, tall_wgmma_kernel, amap, bmap, static_cast<const __nv_bfloat16*>(bias),
+      out, M, N, packed, pbm, pbk, packed ? K / pbk : 0, kbeg, kps, stages, cluster, mode, act);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  M, K: A's logical (padded) dims; for a
-// packed A, M = nm * pbm and K = nk * pbk.  N must be a multiple of 128
-// (the wrapper pads it).  The launch covers k in [kbeg, kbeg + splits*kps),
-// within [0, K); with splits > 1 only mode 1 is meaningful.  sms: the
-// card's SM count (the caller reads it once), which picks the row tile.
-// Returns cudaGetLastError() after the launch (non-zero: the launch was
-// refused).
+// packed A, M = nm * pbm and K = nk * pbk.  N must be a multiple of nt
+// (fp32: 256 or 128; bf16: 128; the wrapper pads N to 128).  The launch
+// covers k in [kbeg, kbeg + splits*kps), within [0, K); with splits > 1
+// only mode 1 is meaningful.  The launch plan comes from the caller
+// (kernels/tsmm.py::tall_plan): bm, the CTA row tile (bf16: 64; fp32: 64,
+// 32 or 16); nt, the CTA column tile (bf16: 128); cluster, the CTAs that split each
+// kps range (bf16 only; kps % (64 * cluster) == 0); stages, the ring depth
+// (bf16 only).  bf16 also needs A and B 16-byte aligned, K % 8 == 0 for a
+// natural A and 64 | pbm, 64 | pbk for a packed one (TMA boxes), and a
+// ring that fits shared memory and holds the cluster's reduction.  Returns
+// cudaGetLastError() after the launch (non-zero: refused).
 extern "C" int tsmm_tall_launch(const void* a, const void* b, const void* bias, void* out,
                                 int M, int K, int N, int packed, int pbm, int pbk, int kbeg,
-                                int kps, int splits, int sms, int mode, int act,
-                                int dtype, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % 128 != 0 || kbeg < 0 || kps <= 0 || splits <= 0 ||
-      sms <= 0 || (long long)kbeg + (long long)splits * kps > K || mode < 0 || mode > 2 ||
-      act < 0 || act > 3 || (splits > 1 && mode != MODE_PARTIAL))
+                                int kps, int splits, int bm, int nt, int cluster, int stages,
+                                int mode, int act, int dtype, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || (nt != 128 && nt != 256) || N % nt != 0 || kbeg < 0 ||
+      kps <= 0 || splits <= 0 || (long long)kbeg + (long long)splits * kps > K || mode < 0 ||
+      mode > 2 || act < 0 || act > 3 || (splits > 1 && mode != MODE_PARTIAL))
     return (int)cudaErrorInvalidValue;
   if (packed && (pbm <= 0 || pbk <= 0 || M % pbm != 0 || K % pbk != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1
-      ? launch<__nv_bfloat16>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits,
-                              sms, mode, act, s)
-      : launch<float>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, sms,
-                      mode, act, s);
+  if (dtype == 1) {
+    if (bm != WBM || nt != WNT || (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+        kps % (WBK * cluster) != 0 || ((uintptr_t)a | (uintptr_t)b) % 16 != 0 ||
+        (packed ? (pbm % WBM != 0 || pbk % WBK != 0) : K % 8 != 0))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits,
+                             cluster, stages, mode, act, s);
+  }
+  if (dtype != 0 || cluster != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = nt == 256
+      ? simt_rows<8>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, bm, mode,
+                     act, s)
+      : simt_rows<4>(a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, bm, mode,
+                     act, s);
   return (int)err;
 }

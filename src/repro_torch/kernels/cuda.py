@@ -9,7 +9,11 @@ rebuilt and an unchanged one is loaded as it is.  All sources compile in
 parallel, one ``nvcc`` each.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else.  ``design_launches``
+counts the same launches by the design that ran them: ``tall_wgmma`` /
+``tall_simt`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
+(``csrc/flash_attention.cu``).  ``csrc/hopper.cuh`` holds the helpers the
+wgmma designs share.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: Counter = Counter()
+design_launches: Counter = Counter()
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -39,6 +44,7 @@ build_report: dict = {}
 
 def reset_launches() -> None:
     launches.clear()
+    design_launches.clear()
 
 
 def _nvcc() -> str:
@@ -65,9 +71,9 @@ def _declare(libs: dict) -> None:
     f.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
     f.restype = i
     f = libs["tsmm_tall"].tsmm_tall_launch
-    # a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, sms,
-    # mode, act, dtype, stream
-    f.argtypes = [p, p, p, p] + [i] * 13 + [p]
+    # a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, bm,
+    # nt, cluster, stages, mode, act, dtype, stream
+    f.argtypes = [p, p, p, p] + [i] * 16 + [p]
     f.restype = i
     f = libs["pack_blocks"].pack_blocks_launch
     # a, out, L, M, K, bm, bk, alpha, dtype, stream
@@ -75,9 +81,9 @@ def _declare(libs: dict) -> None:
     f.restype = i
     f = libs["flash_attention"].flash_attention_launch
     # q, k, v, out, B, Sq, Sk, H, KH, D, q strides (b, s, h), k strides,
-    # v strides, out strides, causal, dtype, stream
+    # v strides, out strides, causal, dtype, design, stream
     f.argtypes = [p, p, p, p, i, i, i, i, i, i] + [ctypes.c_longlong] * 12 \
-        + [i, i, p]
+        + [i, i, i, p]
     f.restype = i
 
 

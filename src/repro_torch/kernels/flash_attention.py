@@ -7,6 +7,11 @@ self-attention with an online softmax, fp32 running max / sum /
 accumulator.  The port keeps the model's (B, S, H, D) layout at its
 interface (the kernel reads it through strides) and takes grouped-query
 K/V as they are, (B, S, KH, D), indexing KV head ``h // (H // KH)``.
+
+Two designs in the one source, chosen by :func:`flash_design` from the
+dtype and the head dim, never by a failure: bf16 with D 64 or 128 runs
+the wgmma kernel (TMA-fed, 128-query CTAs on the tensor cores); fp32, and
+D = 32, run the SIMT kernel.
 """
 
 from __future__ import annotations
@@ -14,10 +19,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
+from repro_torch.kernels.tsmm import check_tma
 
 NEG_INF = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+_DESIGN = {"simt": 0, "wgmma": 1}
+
+
+def flash_design(dtype, d: int) -> str:
+    """The kernel design for a dtype and head dim: ``wgmma`` for bf16 with
+    D in 64 / 128, ``simt`` otherwise (fp32, and D = 32)."""
+    return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+            else "simt")
 
 
 def _torch_attention(q, k, v, *, causal: bool):
@@ -41,7 +56,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """q (B, Sq, H, D), k/v (B, Sk, KH, D) -> (B, Sq, H, D).
 
     A CUDA tensor launches the kernel (D in 32/64/128, f32 or bf16, the
-    last dim contiguous); a CPU tensor takes the plain version."""
+    last dim contiguous; the wgmma design also needs 16-byte aligned
+    tensors with strides of a multiple of 8 elements, and raises
+    otherwise); a CPU tensor takes the plain version."""
     if q.device.type == "cpu":
         return _torch_attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -59,13 +76,18 @@ def flash_attention(q, k, v, *, causal: bool = True):
         raise ValueError("flash_attention: q, k, v on different devices")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    design = flash_design(q.dtype, d)
+    if design == "wgmma":
+        for t, what in ((q, "q"), (k, "k"), (v, "v")):
+            check_tma(t, "flash_attention", what)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = cuda.load()["flash_attention"]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, sk, h, kh, d, *strides, int(causal), _DTYPE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DESIGN[design], torch.cuda.current_stream(q.device).cuda_stream)
     cuda.check(rc, "flash_attention")
     cuda.launches["flash_attention"] += 1
+    cuda.design_launches[f"flash_{design}"] += 1
     return out

@@ -23,6 +23,7 @@ version only for a tensor on the CPU; there is no fallback between them.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -136,9 +137,93 @@ def tsmm_skinny_a(x, wp, bias=None, *, act=None):
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
-    """The SM count of CUDA device ``index`` (picks the tall kernel's row
-    tile), read once per device."""
+    """The SM count of CUDA device ``index`` (the tall launch plan's CTA
+    target), read once per device."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the bf16 wgmma tall kernel's tile: 64 x 128 (one wgmma m64n128k16
+# warpgroup) and 64-deep ring stages (one 128-byte swizzle row of bf16);
+# 4 stages (99 KB, so two CTAs share an SM), 3 with clusters of 4 or
+# more; clusters of at most 8 (the portable limit).  The ring's layout and
+# the shared memory it takes are ``csrc/tsmm_tall.cu``'s, which refuses a
+# ring that does not fit.
+TALL_BM, TALL_NT, TALL_BK, TALL_STAGES, TALL_MAX_CLUSTER = 64, 128, 64, 4, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TallPlan:
+    """How ``csrc/tsmm_tall.cu`` runs one launch: ``design`` (``wgmma`` for
+    bf16, ``simt`` for fp32), the CTA row tile ``bm`` and column tile
+    ``nt``, the ``cluster`` of CTAs that split each k range (wgmma) and
+    the ring ``stages`` (wgmma).  The grid is ceil(m / bm) x n / nt x
+    splits x cluster CTAs."""
+    design: str
+    bm: int
+    nt: int
+    cluster: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=1024)
+def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
+              pbk: int, mode: int, splits: int, kps: int,
+              sms: int) -> TallPlan:
+    """The launch plan of the tall kernel for A (m, k) (packed at
+    (pbm, pbk) when ``packed``), B (k, n), ``splits`` k ranges of ``kps``
+    each, on a card of ``sms`` SMs.  Pure: the CPU tests reach it.
+
+    bf16 (wgmma): 64 x 128 tiles; the smallest cluster (1, 2, 4, 8) whose
+    k split gives every SM a CTA, limited to what divides the range's
+    64-deep k tiles (a single 128-deep ``kouter`` block gets 2); a ring of
+    4 stages, 3 with a cluster of 4 or more.  The rule fills the card at
+    any m without a table of measured shapes; ``launch/tall_sweep.py``
+    times it against every other cluster and ring depth (at GLM-4-9B's
+    m = 2048 a 2-CTA cluster, 128 CTAs with 4 SMs idle, measured faster:
+    PERF.md §6).  fp32 (SIMT): the whole skinny width (256, or 128 when
+    n % 256 != 0) and the largest row tile of 64, 32, 16 that still gives
+    every SM a CTA.  Raises ValueError on a layout the kernel cannot
+    take."""
+    if n <= 0 or n % 128:
+        raise ValueError(f"tall plan: N={n} is not a multiple of 128")
+    if kps <= 0 or splits <= 0 or (splits > 1 and mode != RAW_F32):
+        raise ValueError(f"tall plan: {splits} splits of {kps} in mode {mode}")
+    if dtype == torch.bfloat16:
+        if packed and (pbm % TALL_BM or pbk % TALL_BK):
+            raise ValueError(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
+                             f"cut by the wgmma tile ({TALL_BM}, {TALL_BK})")
+        if kps % TALL_BK:
+            raise ValueError(f"tall plan: a k range of {kps} is not a multiple "
+                             f"of the {TALL_BK}-deep wgmma stage")
+        base = -(-m // TALL_BM) * (n // TALL_NT) * splits
+        ktiles = kps // TALL_BK
+        cluster = 1
+        while (cluster < TALL_MAX_CLUSTER and base * cluster < sms
+               and ktiles % (2 * cluster) == 0):
+            cluster *= 2
+        return TallPlan("wgmma", TALL_BM, TALL_NT, cluster,
+                        TALL_STAGES - (cluster >= 4))
+    if dtype != torch.float32:
+        raise TypeError(f"tall plan: dtype {dtype} not supported")
+    nt = 256 if n % 256 == 0 else 128
+    cols = (n // nt) * splits
+    bm = next((b for b in (64, 32) if -(-m // b) * cols >= sms), 16)
+    return TallPlan("simt", bm, nt, 1, 0)
+
+
+def check_tma(t, name: str, what: str) -> None:
+    """Raise unless ``t`` can be read through a TMA tensor map: a 16-byte
+    aligned base, the last dim contiguous and every other stride a
+    multiple of 16 bytes."""
+    es = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} is not 16-byte aligned (TMA)")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dim of {what} must be contiguous")
+    for d in range(t.dim() - 1):
+        if (t.stride(d) * es) % 16:
+            raise ValueError(f"{name}: {what} stride {t.stride(d)} of dim {d} "
+                             f"is not a multiple of 16 bytes (TMA)")
 
 
 def _tall_dims(a) -> tuple:
@@ -195,6 +280,9 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
     ``a`` natural (M, K) or packed (nm, nk, bm, bk), contiguous; ``b``
     (K, N) with N a multiple of 128; ``bias`` (N,) or None.  The k range
     is [k0, k1) (default all of K), cut into ``splits`` equal parts.
+    :func:`tall_plan` picks the design by dtype (bf16: wgmma, fp32: SIMT)
+    and its launch configuration; a bf16 layout the wgmma kernel cannot
+    take (:func:`tall_plan`, :func:`check_tma`) raises.
     ``EPILOGUE`` returns (M, N) in B's type; ``RAW_F32`` the fp32 partials
     (splits, M, N); ``ACCUM_F32`` updates and returns the fp32 (M, N)
     ``out``."""
@@ -229,12 +317,19 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
                             f"A is {a.dtype} on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    if b.data_ptr() % 8:
-        raise ValueError(f"{name}: B must be 8-byte aligned (paired loads)")
-    if n % 128:
-        raise ValueError(f"{name}: N={n} is not a multiple of 128")
     packed = a.dim() == 4
     pbm, pbk = (a.shape[2], a.shape[3]) if packed else (0, 0)
+    kps = (k1 - k0) // splits
+    plan = tall_plan(m, k, n, dtype=a.dtype, packed=packed, pbm=pbm, pbk=pbk,
+                     mode=mode, splits=splits, kps=kps,
+                     sms=_sm_count(a.device.index))
+    if plan.design == "wgmma":
+        check_tma(a, name, "A")
+        check_tma(b, name, "B")
+        if out is not None and out.data_ptr() % 16:
+            raise ValueError(f"{name}: the output is not 16-byte aligned")
+    elif b.data_ptr() % 8:
+        raise ValueError(f"{name}: B must be 8-byte aligned (paired loads)")
     if out is None:
         out = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=a.device) if mode == RAW_F32 else
@@ -242,12 +337,12 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
     lib = cuda.load()["tsmm_tall"]
     rc = lib.tsmm_tall_launch(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, k, n, int(packed), pbm, pbk, k0,
-        (k1 - k0) // splits, splits, _sm_count(a.device.index), mode,
-        _ACT[act], _DTYPE[a.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
+        out.data_ptr(), m, k, n, int(packed), pbm, pbk, k0, kps, splits,
+        plan.bm, plan.nt, plan.cluster, plan.stages, mode, _ACT[act],
+        _DTYPE[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
     cuda.check(rc, name)
     cuda.launches[name] += 1
+    cuda.design_launches[f"tall_{plan.design}"] += 1
     return out
 
 

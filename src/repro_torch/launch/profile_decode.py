@@ -36,7 +36,7 @@ from repro_torch.serve.engine import Engine
 
 
 # kernel family -> substrings of the CUDA kernel names (csrc/*.cu)
-FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel",),
+FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel", "tall_wgmma"),
             "pack": ("pack_kernel",), "flash": ("flash",)}
 
 

@@ -5,13 +5,18 @@ kernels have no CPU mode).  On the card run
 ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q``.
 Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 (one bf16 rounding of outputs of magnitude ~1, in different places).
+The bf16 tall and flash cases also assert, through
+``cuda.design_launches``, that the wgmma designs ran them.
 """
 
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.kernels import cuda, gen, ops, ref, tsmm
 from repro_torch.kernels.flash_attention import _torch_attention, flash_attention
+from repro_torch.models import attention
+from repro_torch.models.layers import apply_rope, rope_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +140,189 @@ def test_flash_gqa16_long_prefill_matches_plain(dev, b, s, h, kh):
             .to(torch.bfloat16) for _ in range(2))
     _close(flash_attention(q, k, v, causal=True),
            _torch_attention(q, k, v, causal=True), torch.bfloat16)
+
+
+def _designs(fn):
+    """Run ``fn``; return its result and the design launches it added."""
+    before = dict(cuda.design_launches)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in cuda.design_launches.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("m", [300, 2050])
+@pytest.mark.parametrize("n", [128, 256, 384])
+@pytest.mark.parametrize("pbm", [64, 256])
+def test_tall_wgmma_modes_match_plain(dev, m, n, pbm):
+    """bf16 tall-A through the wgmma design: ragged M, N of one or several
+    column tiles, natural and packed A, every mode (fused epilogue,
+    k-split partials 2/4/8, one-block k-outer passes, revisit)."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(m + n + pbm)
+    k, bk = 1024, 128
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    c = torch.randn((n,), generator=g, device=dev).to(dtype)
+    ap = ops.pack_blocks(a, pbm, bk)
+
+    def run():
+        for x in (a, ap):
+            _close(tsmm.launch_tall("t", x, b, c, "gelu", mode=tsmm.EPILOGUE),
+                   tsmm._torch_tall(x, b, c, "gelu", mode=tsmm.EPILOGUE,
+                                    splits=1, k0=0, k1=k, out=None), dtype)
+            for s in (2, 4, 8):
+                _close(tsmm.launch_tall("t", x, b, None, None,
+                                        mode=tsmm.RAW_F32, splits=s),
+                       tsmm._torch_tall(x, b, None, None, mode=tsmm.RAW_F32,
+                                        splits=s, k0=0, k1=k, out=None),
+                       torch.float32)
+            rows = x.shape[0] * x.shape[2] if x.dim() == 4 else m
+            got = torch.ones((rows, n), device=dev)
+            want = torch.ones((rows, n), device=dev)
+            for k0 in range(0, k, bk):
+                tsmm.launch_tall("t", x, b, None, None, mode=tsmm.ACCUM_F32,
+                                 k0=k0, k1=k0 + bk, out=got)
+                tsmm._torch_tall(x, b, None, None, mode=tsmm.ACCUM_F32,
+                                 splits=1, k0=k0, k1=k0 + bk, out=want)
+            _close(got, want, torch.float32)
+            got = torch.zeros((rows, n), device=dev)
+            want = torch.zeros((rows, n), device=dev)
+            tsmm.launch_tall("t", x, b, c, "silu", mode=tsmm.ACCUM_F32, out=got)
+            tsmm._torch_tall(x, b, c, "silu", mode=tsmm.ACCUM_F32, splits=1,
+                             k0=0, k1=k, out=want)
+            _close(got, want, torch.float32)
+
+    _, designs = _designs(run)
+    per_layout = 1 + 3 + k // bk + 1
+    assert designs == {"tall_wgmma": 2 * per_layout}
+
+
+@pytest.mark.parametrize("m,cluster", [(2048, 4), (4096, 2), (8192, 1)])
+def test_tall_wgmma_glm_kv_shapes_match_plain(dev, m, cluster):
+    """GLM-4-9B's wk/wv with their bias at the prefill of one and two
+    2048-token prompts (and four), natural and packed at (256, 128): the
+    plan's cluster at each m, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 4096, 256
+    a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    c = (0.1 * torch.randn((n,), generator=g, device=dev)).to(torch.bfloat16)
+    plan = tsmm.tall_plan(m, k, n, dtype=torch.bfloat16, packed=False, pbm=0,
+                          pbk=0, mode=tsmm.EPILOGUE, splits=1, kps=k,
+                          sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert plan.cluster == cluster
+    want = tsmm._torch_tall(a, b, c, None, mode=tsmm.EPILOGUE, splits=1, k0=0,
+                            k1=k, out=None)
+    ap = ops.pack_blocks(a, 256, 128)
+    got, designs = _designs(lambda: [tsmm.launch_tall("t", x, b, c, None,
+                                                      mode=tsmm.EPILOGUE)
+                                     for x in (a, ap)])
+    assert designs == {"tall_wgmma": 2}
+    for y in got:
+        _close(y, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_tall_wgmma_every_column_tile_and_cluster(dev, cluster):
+    """The wgmma kernel at its one column tile (128) and every cluster
+    size, through its C interface, with the ring depths
+    ``launch/tall_sweep.py`` times; it refuses another column tile and a
+    ring deeper than shared memory holds."""
+    g = torch.Generator(device=dev).manual_seed(cluster)
+    m, k, n = 300, 1024, 256
+    a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    c = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
+    want = tsmm._torch_tall(a, b, c, "relu", mode=tsmm.EPILOGUE, splits=1, k0=0,
+                            k1=k, out=None)
+    lib = cuda.load()["tsmm_tall"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+
+    def launch(nt, stages):
+        return lib.tsmm_tall_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    out.data_ptr(), m, k, n, 0, 0, 0, 0, k, 1,
+                                    64, nt, cluster, stages, tsmm.EPILOGUE, 1,
+                                    1, stream)
+
+    for stages in (3, 4, 5):
+        out.zero_()
+        cuda.check(launch(tsmm.TALL_NT, stages), "tsmm_tall")
+        _close(out, want, torch.bfloat16)
+    assert launch(256, 4) != 0
+    assert launch(tsmm.TALL_NT, 10) != 0
+
+
+def test_tall_fp32_runs_simt_and_wgmma_refuses_bad_layouts(dev):
+    """fp32 stays on the SIMT design; a bf16 layout the wgmma kernel cannot
+    take raises instead of taking another path."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, n = 512, 256
+    a = torch.randn((256, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    _, designs = _designs(lambda: tsmm.launch_tall("t", a, b, None, None,
+                                                   mode=tsmm.EPILOGUE))
+    assert designs == {"tall_simt": 1}
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma tile"):
+        tsmm.launch_tall("t", ops.pack_blocks(ab, 32, 128), bb, None, None,
+                         mode=tsmm.EPILOGUE)
+    flat = torch.zeros(256 * k + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsmm.launch_tall("t", flat[1:].view(256, k), bb, None, None,
+                         mode=tsmm.EPILOGUE)
+    with pytest.raises(ValueError, match="64-deep"):
+        tsmm.launch_tall("t", ab, bb, None, None, mode=tsmm.ACCUM_F32, k0=0,
+                         k1=96, out=torch.zeros((256, n), device=dev))
+
+
+@pytest.mark.parametrize("s", [100, 256, 1024, 2048])
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_matches_plain(dev, s, group, d, causal):
+    """bf16 flash through the wgmma design: ragged and long S, MHA and
+    GQA 4 / 16, both head dims, causal and full."""
+    kh = 2
+    g = torch.Generator(device=dev).manual_seed(s + group + d)
+    q = torch.randn((1, s, kh * group, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, kh, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    got, designs = _designs(lambda: flash_attention(q, k, v, causal=causal))
+    assert designs == {"flash_wgmma": 1}
+    _close(got, _torch_attention(q, k, v, causal=causal), torch.bfloat16)
+
+
+def test_flash_wgmma_on_the_models_qkv_views(dev):
+    """The q/k/v the attention block makes (projections with bias, RoPE) go
+    through the wgmma design as the prefill gives them."""
+    cfg = get_config("glm4_9b").reduced(d_model=512, num_heads=8,
+                                        num_kv_heads=2, head_dim=128,
+                                        d_ff=1024, dtype="bfloat16")
+    gen_ = torch.Generator(device=dev).manual_seed(3)
+    p, _ = attention.init_gqa(gen_, cfg)
+    for name in ("bq", "bk", "bv"):
+        p[name] = 0.1 * torch.randn(p[name].shape, generator=gen_, device=dev
+                                    ).to(p[name].dtype)
+    b, s = 2, 512
+    x = torch.randn((b, s, cfg.d_model), generator=gen_, device=dev).to(torch.bfloat16)
+    q, k, v = attention._qkv(p, cfg, x)
+    cos, sin = rope_tables(torch.arange(s, device=dev), cfg.head_dim,
+                           cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    got, designs = _designs(lambda: attention.chunked_attention(q, k, v,
+                                                                causal=True))
+    assert designs == {"flash_wgmma": 1}
+    _close(got, _torch_attention(q, k, v, causal=True), torch.bfloat16)
+
+
+def test_flash_fp32_and_d32_run_simt(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 32)):
+        q = torch.randn((1, 128, 4, d), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((1, 128, 2, d), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        got, designs = _designs(lambda: flash_attention(q, k, v))
+        assert designs == {"flash_simt": 1}
+        _close(got, _torch_attention(q, k, v, causal=True), dtype)
