@@ -11,7 +11,8 @@ printing JSON lines:
 2. build      — nvcc builds every kernel from ``src/repro_torch/csrc``;
                 ``cuobjdump -sass`` counts each library's tensor-core
                 (``HGMMA``) and TMA (``UTMALDG``/``UBLKCP``) instructions,
-                and the bf16 tall and flash kernels must have both;
+                and the bf16 skinny (wgmma and stream), tall and flash
+                kernels must have both;
 3. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
                 prefill, GLM-4-9B's tall K/V projections and the pack of
@@ -21,9 +22,9 @@ printing JSON lines:
                 on the same inputs (max error within the stated
                 tolerance; the pack bit-equal), with the design that ran
                 it, kernel, plain and library times (CUDA events, L2
-                flushed before each launch; the tall and flash cases also
-                ``device_ms``, the host's time hidden) and the least time
-                the card could take (``bound_ms``);
+                flushed before each launch) and ``device_ms`` (the host's
+                time hidden) and the least time the card could take
+                (``bound_ms``);
 4. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 4096
                 (its two groups' prefill, which the plan runs on 4- and
                 2-CTA clusters) and 8192 (no cluster),
@@ -48,8 +49,8 @@ printing JSON lines:
 
 Each serve path zeroes the launch counts just before it and reads them
 just after; every kernel of the path must have launched, and every bf16
-tall-A and flash launch must have run the wgmma design
-(``cuda.design_launches``).
+skinny-A launch must have run the wgmma or the stream design and every
+bf16 tall-A and flash launch the wgmma design (``cuda.design_launches``).
 Then the ``kernels`` summary line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero before the last line.
 """
@@ -174,9 +175,10 @@ def _cuobjdump() -> str:
 # the SASS instructions that show a kernel uses the tensor cores' wgmma and
 # the TMA
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
-# the wgmma kernels that must carry both
-WGMMA_KERNELS = {"tsmm_tall": "tall_wgmma_kernel",
-                 "flash_attention": "flash_wgmma"}
+# the Hopper kernels of each library that must carry both
+WGMMA_KERNELS = {"tsmm_skinny": ("skinny_wgmma_kernel", "skinny_stream_kernel"),
+                 "tsmm_tall": ("tall_wgmma_kernel",),
+                 "flash_attention": ("flash_wgmma",)}
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -208,14 +210,14 @@ def phase_build():
         funcs = sass_counts(os.path.join(rep["dir"], f"lib{name}.so"))
         total = {op: sum(f[op] for f in funcs.values()) for op in SASS_OPS}
         sass[name] = total
-        if name in WGMMA_KERNELS:
-            mine = [f for fn, f in funcs.items() if WGMMA_KERNELS[name] in fn]
-            sass[name]["wgmma_kernels"] = len(mine)
+        for kern in WGMMA_KERNELS.get(name, ()):
+            mine = [f for fn, f in funcs.items() if kern in fn]
+            sass[name][kern] = mine
             if not mine or not all(f["HGMMA"] and (f["UTMALDG"] or f["UBLKCP"])
                                    for f in mine):
-                raise AssertionError(f"{name}: the bf16 kernel "
-                                     f"{WGMMA_KERNELS[name]} has no HGMMA or "
-                                     f"no TMA load in its SASS: {funcs}")
+                raise AssertionError(f"{name}: the bf16 kernel {kern} has no "
+                                     f"HGMMA or no TMA load in its SASS: "
+                                     f"{funcs}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": rep.get("built", []), "ptxas": regs, "sass": sass})
 
@@ -237,22 +239,28 @@ class Designs:
 
 
 def design_of(ran: dict, default: str = "simt") -> str:
-    """The one design a kernel call ran (the skinny and pack kernels have
-    one design, SIMT, and no design counter)."""
+    """The one design a kernel call ran (``skinny_stream`` -> ``stream``);
+    the pack kernel has one design, SIMT, and no design counter."""
     if len(ran) > 1:
         raise AssertionError(f"one call ran several designs: {ran}")
     return next(iter(ran)).split("_", 1)[1] if ran else default
 
 
 def check_wgmma(path: str, launches: dict, designs: dict) -> None:
-    """Every bf16 tall-A and flash launch of a serve path ran the wgmma
-    design."""
+    """Every bf16 skinny-A launch of a serve path ran the wgmma or the
+    stream design, and every tall-A and flash launch the wgmma design."""
+    skinny = sum(launches.get(k, 0) for k in SKINNY)
     tall = sum(launches.get(k, 0) for k in TALL)
-    want = {"tall_wgmma": tall, "flash_wgmma": launches.get("flash_attention", 0)}
-    got = {k: designs.get(k, 0) for k in want}
-    simt = {k: designs[k] for k in ("tall_simt", "flash_simt") if designs.get(k)}
+    want = {"skinny": skinny, "tall_wgmma": tall,
+            "flash_wgmma": launches.get("flash_attention", 0)}
+    got = {"skinny": designs.get("skinny_wgmma", 0)
+           + designs.get("skinny_stream", 0),
+           **{k: designs.get(k, 0) for k in ("tall_wgmma", "flash_wgmma")}}
+    simt = {k: designs[k] for k in ("skinny_simt", "tall_simt", "flash_simt")
+            if designs.get(k)}
     if got != want or simt:
         raise AssertionError(f"{path}: design launches {designs} do not put "
+                             f"every skinny launch on wgmma / stream and "
                              f"every tall / flash launch on wgmma ({want})")
 
 
@@ -362,6 +370,7 @@ def phase_kernels(timer):
                 worst[name] = max(worst.get(name, 0.0), err)
                 iters = 2 if m * n > 4 * 151936 else 5
                 ms = timer(kern, iters=iters)
+                device_ms = timer(kern, iters=iters, device=True)
                 plain_ms = timer(plain, iters=iters)
                 lib_ms = timer(lambda: torch.matmul(x, w), iters=iters)
                 # each input read once (bf16 X, W, bias), the output written
@@ -372,7 +381,8 @@ def phase_kernels(timer):
                 cases.append({"kernel": name, "mode": mode,
                               "design": design_of(d.ran), "m": m, "K": k,
                               "N": n, "max_abs_err": err, "tol": tol,
-                              "ms": ms, "plain_ms": plain_ms,
+                              "ms": ms, "device_ms": device_ms,
+                              "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by})
             del x
@@ -737,7 +747,8 @@ def phase_serve():
     return launches
 
 
-# the launch counters of the five tall-A kernels
+# the launch counters of the three skinny-A and the five tall-A kernels
+SKINNY = ("tsmm_skinny_a", "skinny_kinner", "skinny_ksplit")
 TALL = ("tsmm_tall_a", "tsmm_packed_a", "tall_kinner", "tall_ksplit",
         "tall_kouter")
 

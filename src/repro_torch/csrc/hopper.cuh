@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (csrc/tsmm_tall.cu, csrc/flash_attention.cu): shared-memory addresses,
+// (csrc/tsmm_tall.cu, csrc/tsmm_skinny.cu, csrc/flash_attention.cu):
+// shared-memory addresses,
 // mbarriers, TMA tile loads, warpgroup MMA (wgmma) descriptors and
 // instructions, and thread-block-cluster helpers.  PTX inline assembly
 // only; nothing here launches a kernel.
@@ -154,6 +155,10 @@ __device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float a, float b
                :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
 }
 
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
 // ---- host: tensor maps ---------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -198,7 +203,8 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
 
 // ---- wgmma instructions (m64nNk16, bf16 in, fp32 accumulate) -------------
 // `_ss_`: A and B from shared memory (descriptors); `_rs_`: A from
-// registers.  `_t1`: B is MN-major (transposed), `_t0`: K-major.  scale_d
+// registers.  `_t1`: B is MN-major (transposed), `_t0`: K-major; `_ta`: A
+// is MN-major and B K-major.  scale_d
 // 0 overwrites the accumulator, 1 adds to it.
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B from shared memory (A K-major, B MN-major).
@@ -281,5 +287,18 @@ __device__ __forceinline__ void wgmma_rs_n64_t1(float (&d)[32], const uint32_t (
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 8] (+)= A[64 x 16] . B[16 x 8], A and B from shared memory (A MN-major, B K-major):
+// the swapped product of a decode step, W's columns as the 64 rows and X's rows as the 8
+// columns.
+__device__ __forceinline__ void wgmma_ss_n8_ta(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 }  // namespace hopper

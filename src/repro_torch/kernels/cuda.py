@@ -10,10 +10,11 @@ parallel, one ``nvcc`` each.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds
 one where it launches its kernel and nowhere else.  ``design_launches``
-counts the same launches by the design that ran them: ``tall_wgmma`` /
-``tall_simt`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
-(``csrc/flash_attention.cu``).  ``csrc/hopper.cuh`` holds the helpers the
-wgmma designs share.
+counts the same launches by the design that ran them: ``skinny_wgmma`` /
+``skinny_stream`` / ``skinny_simt`` (``csrc/tsmm_skinny.cu``),
+``tall_wgmma`` / ``tall_simt`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` /
+``flash_simt`` (``csrc/flash_attention.cu``).  ``csrc/hopper.cuh`` holds
+the helpers the Hopper designs share.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ def _declare(libs: dict) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     f = libs["tsmm_skinny"].tsmm_skinny_launch
     # x, w, bias, out, m, K, N, ldx, bk, bn, natural, splits, mode, act,
-    # dtype, stream
-    f.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    # dtype, design, bm, nt, cluster, stages, stream
+    f.argtypes = [p, p, p, p] + [i] * 16 + [p]
     f.restype = i
     f = libs["tsmm_tall"].tsmm_tall_launch
     # a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, bm,

@@ -67,6 +67,96 @@ def _torch_skinny(x, w, bias, act, *, natural: bool, splits: int, mode: int):
     return act_ref(out, act).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (the launch plans' CTA
+    target), read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the bf16 skinny kernel's designs (csrc/tsmm_skinny.cu): at most
+# SKINNY_STREAM_M rows stream W (one 8-row wgmma N), more rows run the
+# wgmma GEMM; 128-column tiles and 64-deep ring stages for both.  The
+# wgmma ring is 3 stages deep, so two 128-row CTAs (or three 64-row ones)
+# share an SM; the stream ring 4 (~68 KB in flight per CTA).  The stream
+# design splits a tile's k range over a cluster of at most 8 CTAs (the
+# portable limit), each keeping at least SKINNY_MIN_RANK_STAGES stages.
+SKINNY_STREAM_M, SKINNY_NT, SKINNY_BK = 8, 128, 64
+SKINNY_WGMMA_STAGES, SKINNY_STREAM_STAGES = 3, 4
+SKINNY_MAX_CLUSTER, SKINNY_MIN_RANK_STAGES = 8, 10
+_SKINNY_DESIGN = {"simt": 0, "wgmma": 1, "stream": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class SkinnyPlan:
+    """How ``csrc/tsmm_skinny.cu`` runs one launch: ``design`` (bf16:
+    ``wgmma`` or ``stream``; fp32: ``simt``), the CTA row tile ``bm`` and
+    column tile ``nt``, the ``cluster`` of CTAs that split each tile's k
+    range (stream) and the ring ``stages`` (bf16).  The grid is
+    ceil(m / bm) x n / nt x splits x cluster CTAs."""
+    design: str
+    bm: int
+    nt: int
+    cluster: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=1024)
+def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
+                bn: int, mode: int, splits: int, kps: int,
+                sms: int) -> SkinnyPlan:
+    """The launch plan of the skinny kernel for X (m, k) times W (k, n),
+    natural or packed at (bk, bn), ``splits`` k ranges of ``kps`` each, on
+    a card of ``sms`` SMs.  Pure: the CPU tests reach it.
+
+    bf16, m <= ``SKINNY_STREAM_M`` (decode, bound by W's bytes): the
+    stream design on 128-column tiles; the smallest cluster (1, 2, 4, 8)
+    that gives every SM a CTA, as long as each CTA keeps at least
+    ``SKINNY_MIN_RANK_STAGES`` 64-deep stages (160 KB of W) to amortise
+    its fixed cost.  bf16, larger m (prefill, bound by operations): the
+    wgmma design, 128 x 128 tiles of two consumer warpgroups when they
+    give every SM two CTAs, else 64 x 128 tiles of one (three CTAs an
+    SM).  ``launch/skinny_sweep.py`` times every plan these rules choose
+    from; the rules were set from its measurements at qwen1.5-4b's and
+    GLM-4-9B's projections (PERF.md §6), not from a table of shapes.
+    fp32: the SIMT kernel (8-row CTAs at m <= 8, else 64 x 64 tiles).
+    Raises ValueError on a layout the kernel cannot take: a k range off
+    the 64-deep stage, packed blocks the tile would cut, N off the column
+    tile."""
+    if m <= 0 or n <= 0 or splits <= 0 or kps <= 0 or kps * splits != k:
+        raise ValueError(f"skinny plan: ({m}, {k}, {n}) in {splits} splits "
+                         f"of {kps}")
+    if splits > 1 and mode != RAW_F32:
+        raise ValueError(f"skinny plan: {splits} splits in mode {mode}")
+    if dtype == torch.bfloat16:
+        if n % SKINNY_NT:
+            raise ValueError(f"skinny plan: N={n} is not a multiple of the "
+                             f"{SKINNY_NT}-column tile")
+        if kps % SKINNY_BK:
+            raise ValueError(f"skinny plan: a k range of {kps} is not a "
+                             f"multiple of the {SKINNY_BK}-deep stage")
+        if not natural and (bk % SKINNY_BK or bn % SKINNY_NT):
+            raise ValueError(f"skinny plan: packed blocks ({bk}, {bn}) are "
+                             f"cut by the tile ({SKINNY_BK}, {SKINNY_NT})")
+        if m <= SKINNY_STREAM_M:
+            base = (n // SKINNY_NT) * splits
+            ktiles = kps // SKINNY_BK
+            cluster = 1
+            while (cluster < SKINNY_MAX_CLUSTER and base * cluster < sms
+                   and ktiles >= 2 * cluster * SKINNY_MIN_RANK_STAGES):
+                cluster *= 2
+            return SkinnyPlan("stream", SKINNY_STREAM_M, SKINNY_NT, cluster,
+                              SKINNY_STREAM_STAGES)
+        tiles = -(-m // 128) * (n // SKINNY_NT) * splits
+        return SkinnyPlan("wgmma", 128 if tiles >= 2 * sms else 64, SKINNY_NT,
+                          1, SKINNY_WGMMA_STAGES)
+    if dtype != torch.float32:
+        raise TypeError(f"skinny plan: dtype {dtype} not supported")
+    if n % 64:
+        raise ValueError(f"skinny plan: N={n} is not a multiple of 64")
+    return SkinnyPlan("simt", 8 if m <= 8 else 64, 64, 1, 0)
+
+
 def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
                   mode: int, bk: int = 0, bn: int = 0):
     """Run the skinny-A function on ``x``'s device: the CUDA kernel for a
@@ -74,6 +164,10 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
 
     ``x`` (m, K) contiguous; ``w`` packed (nk, nn, bk, bn) or, with
     ``natural``, (K, N) with N a multiple of ``bn``; ``bias`` (N,) or None.
+    :func:`skinny_plan` picks the design (bf16: ``wgmma`` above
+    ``SKINNY_STREAM_M`` rows, ``stream`` at or below; fp32: SIMT) and its
+    launch configuration; a bf16 layout the kernel cannot take
+    (:func:`skinny_plan`, :func:`check_tma`) raises.
     Returns (m, N) in ``x``'s type, or (splits, m, N) fp32 for
     ``RAW_F32``."""
     if x.device.type == "cpu":
@@ -112,6 +206,12 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
                          f"do not tile K={k}, N={n}")
     if bias is not None and bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} != ({n},)")
+    plan = skinny_plan(m, k, n, dtype=x.dtype, natural=natural, bk=bk, bn=bn,
+                       mode=mode, splits=splits, kps=k // splits,
+                       sms=_sm_count(x.device.index))
+    if plan.design != "simt":
+        check_tma(x, name, "X")
+        check_tma(w, name, "W")
     out = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
            if mode == RAW_F32 else
            torch.empty((m, n), dtype=x.dtype, device=x.device))
@@ -119,9 +219,12 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
     rc = lib.tsmm_skinny_launch(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, k, n, k, bk, bn, int(natural), splits, mode,
-        _ACT[act], _DTYPE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        _ACT[act], _DTYPE[x.dtype], _SKINNY_DESIGN[plan.design], plan.bm,
+        plan.nt, plan.cluster, plan.stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda.check(rc, name)
     cuda.launches[name] += 1
+    cuda.design_launches[f"skinny_{plan.design}"] += 1
     return out
 
 
@@ -133,13 +236,6 @@ def tsmm_skinny_a(x, wp, bias=None, *, act=None):
     Returns (m, nn*bn) in X's type."""
     return launch_skinny("tsmm_skinny_a", x, wp, bias, act, natural=False,
                          splits=1, mode=EPILOGUE)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """The SM count of CUDA device ``index`` (the tall launch plan's CTA
-    target), read once per device."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # the bf16 wgmma tall kernel's tile: 64 x 128 (one wgmma m64n128k16

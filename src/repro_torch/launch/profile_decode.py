@@ -12,7 +12,8 @@ no profiler), then under ``torch.profiler`` (CPU and CUDA activities).
 Prints the card (``nvidia-smi`` name and power limit), the wall time per
 step, the device time per step summed over CUDA kernels and split by
 kernel family (skinny-A, tall-A, pack, flash attention, the rest), the
-kernel launches per step, and the ``key_averages`` tables.  A wall time
+kernel launches per step (``cudaLaunchKernel`` and the cluster launches,
+``cudaLaunchKernelExC``), and the ``key_averages`` tables.  A wall time
 well above the device time means the host bounds the step.
 """
 
@@ -87,7 +88,8 @@ def main(argv=None):
             run()
     ka = prof.key_averages()
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in ka
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
     families = {f: 0.0 for f in FAMILIES}
     families["other"] = 0.0
     for e in kernels:

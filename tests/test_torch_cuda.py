@@ -5,8 +5,9 @@ kernels have no CPU mode).  On the card run
 ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q``.
 Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 (one bf16 rounding of outputs of magnitude ~1, in different places).
-The bf16 tall and flash cases also assert, through
-``cuda.design_launches``, that the wgmma designs ran them.
+The bf16 skinny, tall and flash cases also assert, through
+``cuda.design_launches``, that the Hopper designs (wgmma, and the
+skinny kernel's byte-streaming design at decode) ran them.
 """
 
 import pytest
@@ -326,3 +327,136 @@ def test_flash_fp32_and_d32_run_simt(dev):
         got, designs = _designs(lambda: flash_attention(q, k, v))
         assert designs == {"flash_simt": 1}
         _close(got, _torch_attention(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 100, 1000, 2048])
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("bn", [128, 256])
+def test_skinny_bf16_designs_match_plain(dev, m, natural, bn):
+    """bf16 skinny-A through its two Hopper designs (stream at m <= 8,
+    wgmma above): packed and natural W, blocks 128 and 256 wide, every
+    activation with and without bias, k-split partials 2/4/8."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(m + bn + natural)
+    k, n, bk = 1024, 512, 128
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    c = torch.randn((n,), generator=g, device=dev).to(dtype)
+    wq = w if natural else ops.pack_blocks(w, bk, bn)
+    design = "skinny_stream" if m <= tsmm.SKINNY_STREAM_M else "skinny_wgmma"
+
+    def run():
+        for act in (None, "relu", "silu", "gelu"):
+            for bias in (None, c):
+                _close(tsmm.launch_skinny("t", x, wq, bias, act,
+                                          natural=natural, splits=1,
+                                          mode=tsmm.EPILOGUE, bk=bk, bn=bn),
+                       tsmm._torch_skinny(x, wq, bias, act, natural=natural,
+                                          splits=1, mode=tsmm.EPILOGUE),
+                       dtype)
+        for s in (2, 4, 8):
+            _close(tsmm.launch_skinny("t", x, wq, None, None, natural=natural,
+                                      splits=s, mode=tsmm.RAW_F32, bk=bk,
+                                      bn=bn),
+                   tsmm._torch_skinny(x, wq, None, None, natural=natural,
+                                      splits=s, mode=tsmm.RAW_F32),
+                   torch.float32)
+
+    _, designs = _designs(run)
+    assert designs == {design: 8 + 3}
+
+
+@pytest.mark.parametrize("m", [1, 2, 2048])
+def test_skinny_glm_w_down_matches_plain(dev, m):
+    """GLM-4-9B's w_down (K = 13696 = 214 stages of 64, no split divides
+    its 107 blocks) with SiLU and bias: at decode through the stream
+    design on an 8-CTA cluster of unequal k ranges, at prefill through
+    wgmma."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 13696, 4096
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    c = (0.1 * torch.randn((n,), generator=g, device=dev)).to(torch.bfloat16)
+    wp = ops.pack_blocks(w, 128, 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tsmm.skinny_plan(m, k, n, dtype=torch.bfloat16, natural=False,
+                            bk=128, bn=128, mode=tsmm.EPILOGUE, splits=1,
+                            kps=k, sms=sms)
+    if m <= tsmm.SKINNY_STREAM_M and sms == 132:
+        assert plan.cluster == 8
+    got, designs = _designs(lambda: tsmm.tsmm_skinny_a(x, wp, c, act="silu"))
+    assert designs == {f"skinny_{plan.design}": 1}
+    _close(got, tsmm._torch_skinny(x, wp, c, "silu", natural=False, splits=1,
+                                   mode=tsmm.EPILOGUE), torch.bfloat16)
+
+
+def test_skinny_every_plan_through_the_c_entry(dev):
+    """Both bf16 designs at every plan ``launch/skinny_sweep.py`` times
+    (wgmma row tiles 64 / 128 x rings 2-6 that hold the fp32 tile; stream
+    clusters 1-8 x rings 2-6), through the C interface; the entry refuses
+    a cluster it does not take, another column tile, a ring deeper than
+    shared memory and the stream design above 8 rows."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    k, n, bk, bn = 1024, 384, 128, 128
+    w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    c = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
+    wp = ops.pack_blocks(w, bk, bn)
+    lib = cuda.load()["tsmm_skinny"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(x, out, design, bm, nt, cluster, stages):
+        return lib.tsmm_skinny_launch(
+            x.data_ptr(), wp.data_ptr(), c.data_ptr(), out.data_ptr(),
+            x.shape[0], k, n, k, bk, bn, 0, 1, tsmm.EPILOGUE, 3, 1, design,
+            bm, nt, cluster, stages, stream)
+
+    for m, design, plans in (
+            (300, 1, [(bm, 128, 1, st) for bm in (64, 128)
+                      for st in (2, 3, 4, 5, 6)
+                      if st * (bm + 128) * 128 >= bm * 136 * 4]),
+            (5, 2, [(8, 128, cl, st) for cl in (1, 2, 4, 8)
+                    for st in (2, 4, 6)])):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        want = tsmm._torch_skinny(x, wp, c, "gelu", natural=False, splits=1,
+                                  mode=tsmm.EPILOGUE)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        for bm, nt, cluster, stages in plans:
+            out.zero_()
+            cuda.check(launch(x, out, design, bm, nt, cluster, stages),
+                       "skinny")
+            _close(out, want, torch.bfloat16)
+        bm, nt = plans[0][:2]
+        assert launch(x, out, design, bm, nt, 3, 4) != 0
+        assert launch(x, out, design, bm, nt, 1, 20) != 0
+        assert launch(x, out, design, bm, 256, 1, 4) != 0
+    x = torch.zeros((9, k), dtype=torch.bfloat16, device=dev)
+    assert launch(x, torch.empty((9, n), dtype=torch.bfloat16, device=dev),
+                  2, 8, 128, 1, 4) != 0
+
+
+def test_skinny_fp32_runs_simt_and_bf16_refuses_bad_layouts(dev):
+    """fp32 stays on the SIMT design at decode and prefill rows; a bf16
+    layout the Hopper designs cannot take raises instead of taking
+    another path."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    k, n = 512, 256
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    for m in (4, 70):
+        x = torch.randn((m, k), generator=g, device=dev)
+        wp = ops.pack_blocks(w, 128, 128)
+        got, designs = _designs(lambda: tsmm.tsmm_skinny_a(x, wp))
+        assert designs == {"skinny_simt": 1}
+        _close(got, tsmm._torch_skinny(x, wp, None, None, natural=False,
+                                       splits=1, mode=tsmm.EPILOGUE),
+               torch.float32)
+    wb = w.to(torch.bfloat16)
+    xb = torch.randn((4, k), generator=g, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="cut by the tile"):
+        tsmm.tsmm_skinny_a(xb, ops.pack_blocks(wb, 128, 64))
+    flat = torch.zeros(4 * k + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsmm.tsmm_skinny_a(flat[1:].view(4, k), ops.pack_blocks(wb, 128, 128))
+    with pytest.raises(ValueError, match="64-deep"):
+        tsmm.launch_skinny("t", xb[:, :96].contiguous(), wb[:96], None, None,
+                           natural=True, splits=1, mode=tsmm.EPILOGUE, bk=96,
+                           bn=128)
