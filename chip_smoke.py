@@ -10,15 +10,19 @@ printing JSON lines:
                 and power limit, also printed raw on a line of its own);
 2. build      — nvcc builds every kernel from ``src/repro_torch/csrc``;
                 ``cuobjdump -sass`` counts each library's tensor-core
-                (``HGMMA``) and TMA (``UTMALDG``/``UBLKCP``) instructions,
-                and the bf16 skinny (wgmma and stream), tall and flash
-                kernels must have both;
+                (``HGMMA``) and TMA (``UTMALDG``/``UTMASTG``/``UBLKCP``)
+                instructions; the bf16 skinny (wgmma and stream), tall
+                and flash kernels must have wgmma and a TMA load, the
+                pack kernel's TMA design a TMA load and a TMA or bulk
+                store;
 3. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
-                prefill, GLM-4-9B's tall K/V projections and the pack of
-                its prefill activations, flash attention at both models'
-                prefill, GLM-4-9B's at both of its groups) against its
-                plain PyTorch version
+                prefill, GLM-4-9B's tall K/V projections, the pack at
+                GLM-4-9B's three pack shapes (its prefill activations,
+                the per-call decode pack of wk/wv, its largest leaf at
+                load), flash attention at both models' prefill,
+                GLM-4-9B's at both of its groups) against its plain
+                PyTorch version
                 on the same inputs (max error within the stated
                 tolerance; the pack bit-equal), with the design that ran
                 it, kernel, plain and library times (CUDA events, L2
@@ -49,8 +53,9 @@ printing JSON lines:
 
 Each serve path zeroes the launch counts just before it and reads them
 just after; every kernel of the path must have launched, and every bf16
-skinny-A launch must have run the wgmma or the stream design and every
-bf16 tall-A and flash launch the wgmma design (``cuda.design_launches``).
+skinny-A launch must have run the wgmma or the stream design, every
+bf16 tall-A and flash launch the wgmma design and every pack launch (at
+load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero before the last line.
 """
@@ -59,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -172,13 +178,15 @@ def _cuobjdump() -> str:
     raise RuntimeError("no cuobjdump: cannot check the kernels' SASS")
 
 
-# the SASS instructions that show a kernel uses the tensor cores' wgmma and
-# the TMA
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
-# the Hopper kernels of each library that must carry both
+# the SASS instructions that show a kernel uses the tensor cores' wgmma,
+# TMA loads, TMA tile stores and bulk copies
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
+# the Hopper kernels of each library that must carry wgmma and a TMA load
 WGMMA_KERNELS = {"tsmm_skinny": ("skinny_wgmma_kernel", "skinny_stream_kernel"),
                  "tsmm_tall": ("tall_wgmma_kernel",),
                  "flash_attention": ("flash_wgmma",)}
+# the TMA kernels that must carry a TMA load and a TMA or bulk store
+TMA_COPY_KERNELS = {"pack_blocks": ("pack_tma_kernel",)}
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -218,6 +226,14 @@ def phase_build():
                 raise AssertionError(f"{name}: the bf16 kernel {kern} has no "
                                      f"HGMMA or no TMA load in its SASS: "
                                      f"{funcs}")
+        for kern in TMA_COPY_KERNELS.get(name, ()):
+            mine = [f for fn, f in funcs.items() if kern in fn]
+            sass[name][kern] = mine
+            if not mine or not all(f["UTMALDG"] and (f["UTMASTG"] or f["UBLKCP"])
+                                   for f in mine):
+                raise AssertionError(f"{name}: the kernel {kern} has no TMA "
+                                     f"load or no TMA / bulk store in its "
+                                     f"SASS: {funcs}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": rep.get("built", []), "ptxas": regs, "sass": sass})
 
@@ -238,12 +254,11 @@ class Designs:
                     if v != self.before.get(k, 0)}
 
 
-def design_of(ran: dict, default: str = "simt") -> str:
-    """The one design a kernel call ran (``skinny_stream`` -> ``stream``);
-    the pack kernel has one design, SIMT, and no design counter."""
-    if len(ran) > 1:
-        raise AssertionError(f"one call ran several designs: {ran}")
-    return next(iter(ran)).split("_", 1)[1] if ran else default
+def design_of(ran: dict) -> str:
+    """The one design a kernel call ran (``skinny_stream`` -> ``stream``)."""
+    if len(ran) != 1:
+        raise AssertionError(f"a kernel call ran designs {ran}, not one")
+    return next(iter(ran)).split("_", 1)[1]
 
 
 def check_wgmma(path: str, launches: dict, designs: dict) -> None:
@@ -262,6 +277,17 @@ def check_wgmma(path: str, launches: dict, designs: dict) -> None:
         raise AssertionError(f"{path}: design launches {designs} do not put "
                              f"every skinny launch on wgmma / stream and "
                              f"every tall / flash launch on wgmma ({want})")
+
+
+def check_pack(path: str, launches: dict, designs: dict) -> None:
+    """Every pack_blocks launch of a serve path ran a Hopper pack design
+    (TMA or vec) and none another (the per-element SIMT kernel is gone)."""
+    packs = {k: v for k, v in designs.items() if k.startswith("pack_")}
+    if (sum(packs.values()) != launches.get("pack_blocks", 0)
+            or set(packs) - {"pack_tma", "pack_vec"}):
+        raise AssertionError(f"{path}: pack designs {packs} do not cover "
+                             f"its {launches.get('pack_blocks', 0)} pack "
+                             f"launches with the TMA and vec designs")
 
 
 def bound(moved_bytes, flops) -> tuple:
@@ -287,8 +313,9 @@ SKINNY_SHAPES = (
 
 
 def phase_kernels(timer):
-    """Every skinny mode at the main paths' shapes, every tall mode and the
-    pack at GLM-4-9B's K/V projection, and flash attention."""
+    """Every skinny mode at the main paths' shapes, every tall mode at
+    GLM-4-9B's K/V projection, the pack at GLM-4-9B's three pack shapes,
+    and flash attention."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gen, ops, tsmm
@@ -390,6 +417,7 @@ def phase_kernels(timer):
         torch.cuda.empty_cache()
 
     cases += tall_cases(timer, g, worst)
+    cases += pack_cases(timer, g, worst)
 
     # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads) and GLM-4-9B's
     # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads)
@@ -439,11 +467,11 @@ GLM_KV = (2048, 4096, 256)     # GLM-4-9B's wk/wv at a 2048-token prefill
 
 
 def tall_cases(timer, g, worst):
-    """Every tall mode and the pack kernel at GLM-4-9B's K/V projection at
-    prefill, (m, K, N) = (2048, 4096, 256), bf16, with its bias: each
-    against its plain version on the same inputs."""
+    """Every tall mode at GLM-4-9B's K/V projection at prefill, (m, K, N)
+    = (2048, 4096, 256), bf16, with its bias: each against its plain
+    version on the same inputs."""
     import torch
-    from repro_torch.kernels import gen, ref, tsmm
+    from repro_torch.kernels import gen, tsmm
 
     bf = torch.bfloat16
     m, k, n = GLM_KV
@@ -494,47 +522,89 @@ def tall_cases(timer, g, worst):
         "kouter": ("tall_kouter",
                    lambda: gen._tall_kouter(a, w, bm=m, bk=bk, packed=False),
                    plain_kouter, F32_TOL),
-        "pack": ("pack_blocks",
-                 lambda: tsmm.pack_blocks_kernel(a, pbm, bk),
-                 lambda: ref.pack_ref(a, pbm, bk), dict(rtol=0.0, atol=0.0)),
     }
-    nm, nk = m // pbm, k // bk
     cases = []
     for mode, (name, kern, plainf, tol) in modes.items():
         with Designs() as d:
             got = kern()
         want = plainf()
         torch.cuda.synchronize()
-        if mode == "pack":
-            ok = bool(torch.equal(got, want))
-            err = float((got.float() - want.float()).abs().max())
-        else:
-            ok, err = within(got, want, **tol)
+        ok, err = within(got, want, **tol)
         if not ok:
             raise AssertionError(f"{name}/{mode} {GLM_KV}: max |err| {err} "
                                  f"outside {tol}")
         worst[name] = max(worst.get(name, 0.0), err)
-        if mode == "pack":
-            # one PyTorch copy computes the same re-tile (the shape divides
-            # the blocks); read once, written once
-            lib = (lambda: a.unflatten(0, (nm, pbm)).unflatten(2, (nk, bk))
-                   .permute(0, 2, 1, 3).contiguous())
-            bound_ms, bound_by = bound(2 * 2 * m * k, 0)
-        else:
-            lib = lambda: torch.matmul(a, w)
-            # each input read once (bf16 A, B, bias), the output written
-            # once (bf16, or the fp32 sums / partial slabs)
-            bound_ms, bound_by = bound(
-                2 * (m * k + k * n + n) + got.numel() * got.element_size(),
-                2 * m * k * n)
+        # each input read once (bf16 A, B, bias), the output written once
+        # (bf16, or the fp32 sums / partial slabs)
+        bound_ms, bound_by = bound(
+            2 * (m * k + k * n + n) + got.numel() * got.element_size(),
+            2 * m * k * n)
         cases.append({"kernel": name, "mode": mode, "design": design_of(d.ran),
                       "m": m, "K": k, "N": n,
                       "max_abs_err": err, "tol": tol, "ms": timer(kern),
                       "device_ms": timer(kern, device=True),
-                      "plain_ms": timer(plainf), "library_ms": timer(lib),
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bit_equal": ok if mode == "pack" else None})
+                      "plain_ms": timer(plainf),
+                      "library_ms": timer(lambda: torch.matmul(a, w)),
+                      "bound_ms": bound_ms, "bound_by": bound_by})
         del got, want
+    return cases
+
+
+# the pack's three shapes on GLM-4-9B's path, bf16, (L, M, K, bm, bk): its
+# prefill activations for a packed tall plan, the per-call decode pack of
+# its unpacked wk/wv, and its largest layer-stacked leaf at load at the
+# blocks prepack_for gives it (phase_serve_glm4 checks it against
+# eng.pack_report)
+PACK_SHAPES = {"prefill": (1, 2048, 4096, 256, 128),
+               "decode": (1, 4096, 256, 256, 128),
+               "load": (40, 4096, 13696, 128, 128)}
+
+
+def pack_cases(timer, g, worst):
+    """The pack kernel at ``PACK_SHAPES``, bit-equal to its plain version
+    on the same inputs, with the design that ran it."""
+    import torch
+    from repro_torch.kernels import ref, tsmm
+
+    cases = []
+    for mode, (L, m, k, bm, bk) in PACK_SHAPES.items():
+        a = torch.randn((L, m, k) if L > 1 else (m, k), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        with Designs() as d:
+            got = tsmm.pack_blocks_kernel(a, bm, bk)
+        want = ref.pack_ref(a, bm, bk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"pack_blocks/{mode} {(L, m, k)} by "
+                                 f"({bm}, {bk}): not bit-equal to pack_ref")
+        del got, want
+        worst["pack_blocks"] = 0.0          # bit-equal
+
+        def kern():
+            return tsmm.pack_blocks_kernel(a, bm, bk)
+
+        def plain():
+            return ref.pack_ref(a, bm, bk)
+
+        def lib():
+            # one PyTorch copy computes the same re-tile (the shapes divide
+            # the blocks)
+            return (a.unflatten(-2, (m // bm, bm)).unflatten(-1, (k // bk, bk))
+                    .transpose(-3, -2).contiguous())
+
+        # read once, written once (no padding at these shapes)
+        bound_ms, bound_by = bound(2 * 2 * L * m * k, 0)
+        iters = 3 if L > 1 else 5
+        cases.append({"kernel": "pack_blocks", "mode": mode,
+                      "design": design_of(d.ran), "L": L, "M": m, "K": k,
+                      "bm": bm, "bk": bk, "max_abs_err": 0.0,
+                      "tol": "bit-equal", "ms": timer(kern, iters=iters),
+                      "device_ms": timer(kern, iters=iters, device=True),
+                      "plain_ms": timer(plain, iters=iters),
+                      "library_ms": timer(lib, iters=iters),
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+        del a
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -598,9 +668,12 @@ def phase_tall(timer):
                 raise AssertionError(f"tall {fam} m={m}: max |err| {err} "
                                      f"outside {BF16_TOL}")
             tall_n = sum(v for c, v in rose.items() if c in TALL)
-            if designs != {"tall_wgmma": tall_n}:
+            tall_designs = {k: v for k, v in designs.items()
+                            if not k.startswith("pack_")}
+            if tall_designs != {"tall_wgmma": tall_n}:
                 raise AssertionError(f"tall {fam} m={m}: designs {designs}, "
                                      f"{tall_n} tall launches")
+            check_pack(f"tall {fam} m={m}", rose, designs)
             if not all(rose.values()):
                 raise AssertionError(f"tall {fam} m={m}: no launch of "
                                      f"{[c for c, v in rose.items() if not v]}")
@@ -673,9 +746,11 @@ def phase_parity(cfg, batch, prompt_len):
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
           "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches,
           "design_launches": designs})
-    if any(not k.endswith("_simt") for k in designs):
+    if any(not k.endswith("_simt") for k in designs
+           if not k.startswith("pack_")):
         raise AssertionError(f"parity {cfg.name}: fp32 ran a non-SIMT design "
                              f"{designs}")
+    check_pack(f"parity {cfg.name}", launches, designs)
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"parity {cfg.name}: non-finite logits on the "
                              f"card")
@@ -740,6 +815,7 @@ def phase_serve():
           "design_launches": designs,
           "tokens0_equal_across_groups": all(t == first[0] for t in first)})
     check_wgmma("serve", launches, designs)
+    check_pack("serve", launches, designs)
     missing = [k for k in ("tsmm_skinny_a", "skinny_kinner", "skinny_ksplit",
                            "flash_attention") if launches.get(k, 0) == 0]
     if missing:
@@ -782,13 +858,14 @@ def phase_serve_glm4():
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     load_launches = dict(cuda.launches)
+    load_designs = dict(cuda.design_launches)
     variants = Counter(eng.variant_report().values())
     emit({"phase": "serve.glm4.load", "layers": cfg.num_layers,
           "d_model": cfg.d_model, "heads": cfg.num_heads,
           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
-          "packed_leaves": sorted(eng.pack_report), "buckets": eng.buckets,
+          "pack_report": eng.pack_report, "buckets": eng.buckets,
           "variants": dict(sorted(variants.items())), "load_s": load_s,
-          "load_launches": load_launches,
+          "load_launches": load_launches, "load_designs": load_designs,
           "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     unpacked_kv = not any(p.endswith(("/wk", "/wv")) for p in eng.pack_report)
     if len(eng.pack_report) != 6 or not unpacked_kv:
@@ -796,6 +873,15 @@ def phase_serve_glm4():
                              f"packed, got {sorted(eng.pack_report)}")
     if load_launches.get("pack_blocks", 0) == 0:
         raise AssertionError("no pack_blocks launch while packing at load")
+    check_pack("serve.glm4.load", load_launches, load_designs)
+    # the load case of the kernels phase is a largest layer-stacked leaf
+    L, m, k, bm, bk = PACK_SHAPES["load"]
+    stacked = {s: math.prod(s) for s in eng.pack_report.values()
+               if len(s) == 5}
+    if stacked.get((L, m // bm, k // bk, bm, bk)) != max(stacked.values()):
+        raise AssertionError(f"the timed load case {PACK_SHAPES['load']} "
+                             f"is not a largest layer-stacked leaf of "
+                             f"{eng.pack_report}")
 
     # count the launches of every prefill call separately from decode
     prefill_launches = Counter()
@@ -835,10 +921,18 @@ def phase_serve_glm4():
     if missing:
         raise AssertionError(f"GLM-4-9B path launched no {missing}")
     check_wgmma("serve.glm4", launches, designs)
+    check_pack("serve.glm4", launches, designs)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return launches, load_launches
+
+
+def shape_of(case: dict) -> dict:
+    """The shape fields of a kernels case, and its mode."""
+    return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "B",
+                                    "S", "H", "KH", "D") if k in case},
+            "mode": case["mode"]}
 
 
 # name -> (source, replaced TPU kernel file:line); the rows of the
@@ -901,7 +995,7 @@ def main():
         "tall_kinner": (dict(mode="resident"), "tall", tall_launches),
         "tall_ksplit": (dict(mode="ksplit2"), "tall", tall_launches),
         "tall_kouter": (dict(mode="kouter"), "tall", tall_launches),
-        "pack_blocks": (dict(mode="pack"), "serve.glm4.load", glm_load),
+        "pack_blocks": (dict(mode="decode"), "serve.glm4", glm_launches),
     }
     tol = (f"every case: |err| <= atol + rtol*|plain|, bf16 outputs "
            f"{BF16_TOL}, fp32 raw/partial/accumulated outputs {F32_TOL}; "
@@ -911,8 +1005,6 @@ def main():
         want, path, launches = picks[name]
         c = next(c for c in cases if c["kernel"] == name
                  and all(c.get(k) == v for k, v in want.items()))
-        shape = {k: c[k] for k in ("m", "K", "N", "B", "S", "H", "KH", "D")
-                 if k in c}
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "design": c["design"],
                      "launches": launches.get(name, 0),
@@ -921,8 +1013,19 @@ def main():
                      "device_ms": c.get("device_ms"),
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"],
-                     "shape": {**shape, "mode": c["mode"]}})
+                     "library_ms": c["library_ms"], "shape": shape_of(c)})
+    # the pack's row also carries its other shapes and its launches on
+    # each path (load, decode, the packed tall family)
+    pack = next(r for r in line if r["name"] == "pack_blocks")
+    pack["launches_by_path"] = {
+        "serve.glm4.load": glm_load.get("pack_blocks", 0),
+        "serve.glm4": glm_launches.get("pack_blocks", 0),
+        "tall": tall_launches.get("pack_blocks", 0)}
+    pack["shapes"] = [
+        {**shape_of(c), **{k: c[k] for k in ("design", "ms", "device_ms",
+                                             "plain_ms", "library_ms",
+                                             "bound_ms")}}
+        for c in cases if c["kernel"] == "pack_blocks"]
     bad = [r["name"] for r in line if r["launches"] == 0]
     if bad:
         raise AssertionError(f"kernels with no launch on a path: {bad}")

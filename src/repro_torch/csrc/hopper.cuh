@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (csrc/tsmm_tall.cu, csrc/tsmm_skinny.cu, csrc/flash_attention.cu):
-// shared-memory addresses,
-// mbarriers, TMA tile loads, warpgroup MMA (wgmma) descriptors and
+// Hopper (sm_90a) building blocks shared by the port's Hopper kernels
+// (csrc/tsmm_tall.cu, csrc/tsmm_skinny.cu, csrc/flash_attention.cu,
+// csrc/pack_blocks.cu): shared-memory addresses, mbarriers, TMA tile loads
+// and stores, bulk-group waits, warpgroup MMA (wgmma) descriptors and
 // instructions, and thread-block-cluster helpers.  PTX inline assembly
 // only; nothing here launches a kernel.
 //
@@ -9,7 +9,7 @@
 // up once through the runtime's entry-point query, so the libraries link
 // against the runtime alone.
 //
-// Every operand tile in shared memory uses the 128-byte swizzle: a TMA box
+// Every wgmma operand tile in shared memory uses the 128-byte swizzle: a TMA box
 // whose inner extent is 64 bf16 values (128 bytes), rows 128 bytes apart,
 // 8-row atoms of 1024 bytes, each buffer 1024-byte aligned.  A wgmma
 // descriptor for such a tile:
@@ -77,6 +77,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -85,6 +94,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3)
       : "memory");
+}
+
+// a TMA tile store from shared memory, tracked by the thread's bulk groups
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of the thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// order this thread's generic-proxy shared-memory accesses before later
+// async-proxy (TMA) accesses to the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -185,20 +225,29 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first), strides in bytes for
-// dims 1.., a box of `box` elements per dim, 128-byte swizzle; reads out of
-// bounds fill zeros.  Returns false if the layout is refused.
-inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first) of `dtype` elements,
+// strides in bytes for dims 1.., a box of `box` elements per dim, the given
+// shared-memory swizzle; reads out of bounds fill zeros.  Returns false if
+// the layout is refused.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  return fn(map, dtype, rank, const_cast<void*>(base),
             reinterpret_cast<const cuuint64_t*>(dims),
             reinterpret_cast<const cuuint64_t*>(strides),
             reinterpret_cast<const cuuint32_t*>(box), ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map with the 128-byte swizzle (the wgmma operand tiles).
+inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                     const uint64_t* strides, const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---- wgmma instructions (m64nNk16, bf16 in, fp32 accumulate) -------------

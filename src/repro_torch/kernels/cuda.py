@@ -13,8 +13,9 @@ one where it launches its kernel and nowhere else.  ``design_launches``
 counts the same launches by the design that ran them: ``skinny_wgmma`` /
 ``skinny_stream`` / ``skinny_simt`` (``csrc/tsmm_skinny.cu``),
 ``tall_wgmma`` / ``tall_simt`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` /
-``flash_simt`` (``csrc/flash_attention.cu``).  ``csrc/hopper.cuh`` holds
-the helpers the Hopper designs share.
+``flash_simt`` (``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
+(``csrc/pack_blocks.cu``).  ``stream`` gives a launch its stream.
+``csrc/hopper.cuh`` holds the helpers the Hopper designs share.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
@@ -77,8 +80,9 @@ def _declare(libs: dict) -> None:
     f.argtypes = [p, p, p, p] + [i] * 16 + [p]
     f.restype = i
     f = libs["pack_blocks"].pack_blocks_launch
-    # a, out, L, M, K, bm, bk, alpha, dtype, stream
-    f.argtypes = [p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    # a, out, L, M, K, bm, bk, alpha, dtype, design, rows, grid, threads,
+    # stages, box, stream
+    f.argtypes = [p, p, i, i, i, i, i, ctypes.c_float] + [i] * 7 + [p]
     f.restype = i
     f = libs["flash_attention"].flash_attention_launch
     # q, k, v, out, B, Sq, Sk, H, KH, D, q strides (b, s, h), k strides,
@@ -126,6 +130,20 @@ def load() -> dict:
         _declare(libs)
         _libs.update(libs)
         return _libs
+
+
+# PyTorch's accessor of the current stream's raw handle (the one its own
+# generated kernels call), which skips building a Stream object on every
+# launch of the host-bound decode step; the public accessor where a build
+# lacks it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, name: str) -> None:

@@ -86,7 +86,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, sk, h, kh, d, *strides, int(causal), _DTYPE[q.dtype],
-        _DESIGN[design], torch.cuda.current_stream(q.device).cuda_stream)
+        _DESIGN[design], cuda.stream(q.device))
     cuda.check(rc, "flash_attention")
     cuda.launches["flash_attention"] += 1
     cuda.design_launches[f"flash_{design}"] += 1

@@ -1,6 +1,6 @@
 """TSMM kernels: the wrappers of the CUDA kernels ``csrc/tsmm_skinny.cu``,
-``csrc/tsmm_tall.cu`` and ``csrc/pack_blocks.cu``, and their plain PyTorch
-versions.
+``csrc/tsmm_tall.cu`` and ``csrc/pack_blocks.cu``, their launch plans and
+their plain PyTorch versions.
 
 Ports of the reference's Pallas kernels of the same names
 (``kernels/tsmm.py`` there), with the reference's signatures:
@@ -221,7 +221,7 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
         out.data_ptr(), m, k, n, k, bk, bn, int(natural), splits, mode,
         _ACT[act], _DTYPE[x.dtype], _SKINNY_DESIGN[plan.design], plan.bm,
         plan.nt, plan.cluster, plan.stages,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda.stream(x.device))
     cuda.check(rc, name)
     cuda.launches[name] += 1
     cuda.design_launches[f"skinny_{plan.design}"] += 1
@@ -435,7 +435,7 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, k, n, int(packed), pbm, pbk, k0, kps, splits,
         plan.bm, plan.nt, plan.cluster, plan.stages, mode, _ACT[act],
-        _DTYPE[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+        _DTYPE[a.dtype], cuda.stream(a.device))
     cuda.check(rc, name)
     cuda.launches[name] += 1
     cuda.design_launches[f"tall_{plan.design}"] += 1
@@ -464,13 +464,182 @@ def tsmm_packed_a(ap, b, bias=None, *, act=None, dims=(), m_split: int = 1):
     return launch_tall("tsmm_packed_a", ap, b, bias, act, mode=EPILOGUE)
 
 
+# the pack kernel's designs (csrc/pack_blocks.cu): packs whose output
+# reaches PACK_TMA_MIN_BYTES run the TMA design where its layout rules
+# allow (chunks of at most PACK_TMA_CHUNK_BYTES, a ring of
+# PACK_TMA_STAGES, PACK_TMA_CTAS_PER_SM persistent CTAs an SM); the rest
+# run the vec design (CTAs of PACK_VEC_THREADS threads, each with up to
+# PACK_VEC_UNROLL rows of one 16-byte column vector in flight).
+PACK_TMA_MIN_BYTES = 8 << 20
+PACK_TMA_CHUNK_BYTES = 16 << 10
+PACK_TMA_STAGES, PACK_TMA_CTAS_PER_SM, PACK_TMA_THREADS = 4, 2, 128
+PACK_VEC_THREADS, PACK_VEC_UNROLL = 256, 4
+PACK_BOX_MAX = 256                # elements a side of a TMA box
+PACK_SMEM_MAX = 232448            # opt-in shared memory of one CTA
+_PACK_DESIGN = {"vec": 0, "tma": 1}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPlan:
+    """How ``csrc/pack_blocks.cu`` runs one pack: ``design`` (``tma`` or
+    ``vec``), the block ``rows`` of one chunk (tma) or of one CTA (vec),
+    the ``grid`` of CTAs of ``threads`` threads, the ring ``stages`` (tma;
+    0 for vec) and ``box``: the columns of one TMA box (tma) or the
+    elements of one access (vec)."""
+    design: str
+    rows: int
+    grid: int
+    threads: int
+    stages: int
+    box: int
+
+
+def pack_tma_box(k: int, bk: int, esize: int, align: int) -> int:
+    """The TMA box width (columns) of a pack of rows of ``k`` elements into
+    ``bk``-wide blocks from a source base aligned to ``align`` bytes, or 0
+    where TMA cannot take the layout: the base and the row stride must be
+    16-byte aligned, a box is at most ``PACK_BOX_MAX`` elements (a wider
+    bk moves as bk / 256 boxes, so it must divide by 256) and its row a
+    multiple of 16 bytes."""
+    if align % 16 or (k * esize) % 16:
+        return 0
+    box = bk if bk <= PACK_BOX_MAX else PACK_BOX_MAX
+    if bk % box or (box * esize) % 16:
+        return 0
+    return box
+
+
+def pack_tma_rows(bm: int) -> tuple:
+    """The chunk heights the TMA design takes for ``bm``-row blocks:
+    divisors of bm, multiples of 8 (a box of 128-byte multiples), at most
+    ``PACK_BOX_MAX``."""
+    return tuple(r for r in range(8, min(bm, PACK_BOX_MAX) + 1, 8)
+                 if bm % r == 0)
+
+
+def pack_tma_smem(rows: int, bk: int, esize: int, stages: int) -> int:
+    """Shared memory of one TMA-design CTA, as ``csrc/pack_blocks.cu``
+    lays it out: 128 bytes of alignment slack, then per stage a chunk and
+    an 8-byte mbarrier."""
+    return 128 + stages * (rows * bk * esize + 8)
+
+
+def pack_vec_shape(bk: int, esize: int, threads: int) -> tuple:
+    """(elements per access, rows a pass) of a vec-design CTA: the widest
+    access of at most 16 bytes that divides a block row of ``bk``
+    elements; the threads lie over the row's accesses first, so a pass
+    covers threads // (bk / access) rows (at least one)."""
+    box = math.gcd(16, bk * esize) // esize
+    return box, threads // min(bk // box, threads)
+
+
+def pack_tma_plan(L: int, M: int, K: int, bm: int, bk: int, esize: int,
+                  align: int, sms: int):
+    """The TMA design's plan for a pack of any size, or None where its
+    layout rules refuse it: the box of :func:`pack_tma_box`, the tallest
+    chunk of :func:`pack_tma_rows` within ``PACK_TMA_CHUNK_BYTES``, a ring
+    of ``PACK_TMA_STAGES`` and a persistent grid of
+    ``PACK_TMA_CTAS_PER_SM`` CTAs an SM (fewer if there are fewer
+    chunks)."""
+    box = pack_tma_box(K, bk, esize, align)
+    rows = [r for r in pack_tma_rows(bm)
+            if r * bk * esize <= PACK_TMA_CHUNK_BYTES]
+    if not box or not rows:
+        return None
+    chunks = L * -(-M // bm) * -(-K // bk) * (bm // rows[-1])
+    return PackPlan("tma", rows[-1], min(chunks, PACK_TMA_CTAS_PER_SM * sms),
+                    PACK_TMA_THREADS, PACK_TMA_STAGES, box)
+
+
+@functools.lru_cache(maxsize=1024)
+def pack_plan(L: int, M: int, K: int, bm: int, bk: int, dtype, align: int,
+              sms: int) -> PackPlan:
+    """The launch plan of the pack kernel for ``L`` stacked (M, K)
+    matrices into (bm, bk) blocks, the source base aligned to ``align``
+    bytes, on a card of ``sms`` SMs.  Pure: the CPU tests reach it.
+
+    Packs whose output reaches ``PACK_TMA_MIN_BYTES`` (weights at load,
+    the prefill A pack) take the TMA design where its layout rules allow
+    (:func:`pack_tma_plan`).  Every other pack takes the vec design: one
+    CTA per chunk of rows, the chunk cut from ``PACK_VEC_UNROLL`` rows a
+    thread down to one until the grid fills a wave of the card (``sms`` x
+    2048 threads), so the per-call decode pack of a (4096, 256) weight
+    spreads over every SM.  Below the threshold the vec design also spares
+    the host the two tensor-map encodings.  ``launch/pack_sweep.py`` times
+    every plan these rules choose from.  Raises ValueError on sizes the
+    kernel does not take, TypeError on a dtype other than float32 and
+    bfloat16."""
+    if dtype not in _ESIZE:
+        raise TypeError(f"pack plan: dtype {dtype} not supported")
+    if min(L, M, K, bm, bk) <= 0 or align <= 0:
+        raise ValueError(f"pack plan: {L} x ({M}, {K}) by ({bm}, {bk}), "
+                         f"align {align}")
+    es = _ESIZE[dtype]
+    blocks = L * -(-M // bm) * -(-K // bk)
+    if bm * bk >= 2 ** 31 or blocks >= 2 ** 31:
+        raise ValueError(f"pack plan: {blocks} blocks of ({bm}, {bk}) are "
+                         f"out of range")
+    if blocks * bm * bk * es >= PACK_TMA_MIN_BYTES:
+        plan = pack_tma_plan(L, M, K, bm, bk, es, align, sms)
+        if plan is not None:
+            return plan
+    box, ty = pack_vec_shape(bk, es, PACK_VEC_THREADS)
+    wave = sms * (2048 // PACK_VEC_THREADS)
+    rows = min(ty * PACK_VEC_UNROLL, -(-bm // ty) * ty)
+    while rows > ty and blocks * -(-bm // rows) < wave:
+        rows //= 2
+    grid = blocks * -(-bm // rows)
+    if grid >= 2 ** 31:
+        raise ValueError(f"pack plan: a grid of {grid} CTAs")
+    return PackPlan("vec", rows, grid, PACK_VEC_THREADS, 0, box)
+
+
+def pack_work(plan: PackPlan, L: int, M: int, K: int, bm: int, bk: int):
+    """The chunks each CTA of ``plan`` moves, in the kernel's order: yields
+    (cta, blk, l, i, j, r0, r1): rows [r0, r1) of output block ``blk`` =
+    (l, i, j) (layer, block row, block column), read from rows i*bm + r0
+    .. i*bm + r1 and columns j*bk .. j*bk + bk of layer l (zero past M and
+    K) and written to the output's elements (blk*bm + r0)*bk ..
+    (blk*bm + r1)*bk.  The vec design gives CTA c chunk c; the TMA design
+    chunks c, c + grid, ...  Pure: the CPU tests replay it."""
+    nm, nk = -(-M // bm), -(-K // bk)
+    cpb = -(-bm // plan.rows)
+    chunks = L * nm * nk * cpb
+    for cta in range(plan.grid):
+        for chunk in (range(cta, chunks, plan.grid) if plan.design == "tma"
+                      else (cta,)):
+            blk, g = divmod(chunk, cpb)
+            l, ij = divmod(blk, nm * nk)
+            i, j = divmod(ij, nk)
+            yield (cta, blk, l, i, j, g * plan.rows,
+                   min(bm, (g + 1) * plan.rows))
+
+
+def launch_pack(a, out, bm: int, bk: int, alpha: float, plan: PackPlan):
+    """Launch ``csrc/pack_blocks.cu`` by ``plan``: ``a`` (..., M, K)
+    contiguous on the card, ``out`` its (..., nm, nk, bm, bk) pack.
+    Counts the launch under ``pack_blocks`` and its design."""
+    m, k = a.shape[-2:]
+    rc = cuda.load()["pack_blocks"].pack_blocks_launch(
+        a.data_ptr(), out.data_ptr(), a.numel() // (m * k), m, k, bm, bk,
+        alpha, _DTYPE[a.dtype], _PACK_DESIGN[plan.design], plan.rows,
+        plan.grid, plan.threads, plan.stages, plan.box,
+        cuda.stream(a.device))
+    cuda.check(rc, "pack_blocks")
+    cuda.launches["pack_blocks"] += 1
+    cuda.design_launches[f"pack_{plan.design}"] += 1
+    return out
+
+
 def pack_blocks_kernel(a, bm: int, bk: int, *, alpha: float = 1.0):
     """(..., M, K) -> (..., nm, nk, bm, bk) block-major, zero-padded to
     block multiples, alpha folded (fp32 multiply, cast back).
 
     A CUDA tensor launches ``csrc/pack_blocks.cu`` (which writes the
-    padding itself, so M and K need not divide); a CPU tensor takes the
-    plain reshape/transpose, ``kernels/ref.py::pack_ref``."""
+    padding itself, so M and K need not divide) by :func:`pack_plan`'s
+    design; a CPU tensor takes the plain reshape/transpose,
+    ``kernels/ref.py::pack_ref``."""
     if a.device.type == "cpu":
         return pack_ref(a, bm, bk, alpha=alpha)
     if a.device.type != "cuda":
@@ -482,14 +651,10 @@ def pack_blocks_kernel(a, bm: int, bk: int, *, alpha: float = 1.0):
     a = a.contiguous()
     m, k = a.shape[-2:]
     lead = a.shape[:-2]
-    nm, nk = -(-m // bm), -(-k // bk)
-    out = torch.empty((*lead, nm, nk, bm, bk), dtype=a.dtype, device=a.device)
-    mats = math.prod(lead)
+    out = torch.empty((*lead, -(-m // bm), -(-k // bk), bm, bk),
+                      dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    rc = cuda.load()["pack_blocks"].pack_blocks_launch(
-        a.data_ptr(), out.data_ptr(), mats, m, k, bm, bk, float(alpha),
-        _DTYPE[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
-    cuda.check(rc, "pack_blocks")
-    cuda.launches["pack_blocks"] += 1
-    return out
+    plan = pack_plan(math.prod(lead), m, k, bm, bk, a.dtype,
+                     math.gcd(a.data_ptr(), 16), _sm_count(a.device.index))
+    return launch_pack(a, out, bm, bk, float(alpha), plan)

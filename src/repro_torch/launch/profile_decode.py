@@ -38,7 +38,8 @@ from repro_torch.serve.engine import Engine
 
 # kernel family -> substrings of the CUDA kernel names (csrc/*.cu)
 FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel", "tall_wgmma"),
-            "pack": ("pack_kernel",), "flash": ("flash",)}
+            "pack": ("pack_kernel", "pack_tma_kernel", "pack_vec_kernel"),
+            "flash": ("flash",)}
 
 
 def main(argv=None):

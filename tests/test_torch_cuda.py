@@ -7,7 +7,8 @@ Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 (one bf16 rounding of outputs of magnitude ~1, in different places).
 The bf16 skinny, tall and flash cases also assert, through
 ``cuda.design_launches``, that the Hopper designs (wgmma, and the
-skinny kernel's byte-streaming design at decode) ran them.
+skinny kernel's byte-streaming design at decode) ran them; the pack
+cases (bit-equal) that the TMA or the vec design ran each.
 """
 
 import pytest
@@ -116,20 +117,84 @@ def test_tall_modes_match_plain(dev, dtype, m, n):
         _close(got, want, torch.float32)
 
 
+# (shape, bm, bk, source offset in elements, the design the plan picks):
+# the prefill A pack, ragged and stacked small packs, GLM-4-9B's per-call
+# decode pack of wk/wv, a layer-stacked GLM-like leaf at reduced size
+# (ragged K), a misaligned row stride (K = 1001), a misaligned base, and
+# bk = 512 (two 256-wide TMA boxes a chunk) on both designs
+PACK_CASES = [((2048, 4096), 256, 128, 0, "tma"),
+              ((300, 520), 128, 256, 0, "vec"),
+              ((3, 96, 384), 32, 128, 0, "vec"),
+              ((4096, 256), 256, 128, 0, "vec"),
+              ((8, 1024, 1712), 128, 128, 0, "tma"),
+              ((2048, 1001), 256, 128, 0, "vec"),
+              ((2048, 4096), 256, 128, 1, "vec"),
+              ((2048, 4096), 128, 512, 0, "tma"),
+              ((300, 1100), 64, 512, 0, "vec")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,bm,bk", [((2048, 4096), 256, 128),
-                                         ((300, 520), 128, 256),
-                                         ((3, 96, 384), 32, 128)])
-def test_pack_kernel_bit_equal_to_plain(dev, dtype, shape, bm, bk):
+@pytest.mark.parametrize("shape,bm,bk,offset,design", PACK_CASES)
+def test_pack_kernel_bit_equal_to_plain(dev, dtype, shape, bm, bk, offset,
+                                        design):
     g = torch.Generator(device=dev).manual_seed(len(shape))
-    a = torch.randn(shape, generator=g, device=dev).to(dtype)
+    n = torch.Size(shape).numel()
+    a = torch.randn((n + offset,), generator=g, device=dev).to(dtype)
+    a = a[offset:].view(shape)
     before = cuda.launches["pack_blocks"]
-    got = tsmm.pack_blocks_kernel(a, bm, bk)
+    got, ran = _designs(lambda: tsmm.pack_blocks_kernel(a, bm, bk))
     assert cuda.launches["pack_blocks"] == before + 1
+    assert ran == {f"pack_{design}": 1}
     assert torch.equal(got, ref.pack_ref(a, bm, bk))
-    torch.testing.assert_close(tsmm.pack_blocks_kernel(a, bm, bk, alpha=0.5),
-                               ref.pack_ref(a, bm, bk, alpha=0.5), rtol=0,
-                               atol=0)
+    got, ran = _designs(lambda: tsmm.pack_blocks_kernel(a, bm, bk, alpha=0.5))
+    assert ran == {f"pack_{design}": 1}
+    torch.testing.assert_close(got, ref.pack_ref(a, bm, bk, alpha=0.5),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bm,bk", [((3, 300, 520), 64, 256),
+                                         ((2, 256, 1024), 128, 512)])
+def test_pack_every_plan_bit_equal(dev, dtype, shape, bm, bk):
+    """Every TMA plan (chunk heights, rings of 2 to 4, persistent grids of
+    1 CTA to one per chunk) and every vec plan (128 or 256 threads, 1 to 8
+    rows a thread) through the C entry, ragged and stacked, alpha 1 and
+    0.5: bit-equal to the plain version."""
+    a = torch.randn(shape, generator=torch.Generator(device=dev)
+                    .manual_seed(bk), device=dev).to(dtype)
+    L, m, k = shape
+    es = a.element_size()
+    blocks = L * -(-m // bm) * -(-k // bk)
+    plans = []
+    box = tsmm.pack_tma_box(k, bk, es, 16)
+    for rows in (r for r in tsmm.pack_tma_rows(bm) if r & (r - 1) == 0):
+        chunks = blocks * (bm // rows)
+        plans += [tsmm.PackPlan("tma", rows, grid, 128, stages, box)
+                  for stages in (2, 3, 4) for grid in (1, 7, chunks)
+                  if tsmm.pack_tma_smem(rows, bk, es, stages)
+                  <= tsmm.PACK_SMEM_MAX]
+    for threads in (128, 256):
+        vbox, ty = tsmm.pack_vec_shape(bk, es, threads)
+        plans += [tsmm.PackPlan("vec", ty * per, blocks * -(-bm // (ty * per)),
+                                threads, 0, vbox) for per in (1, 2, 4, 8)]
+    assert box and len(plans) > 20
+    out = torch.empty_like(ref.pack_ref(a, bm, bk))
+    for alpha in (1.0, 0.5):
+        want = ref.pack_ref(a, bm, bk, alpha=alpha)
+        for p in plans:
+            out.fill_(float("nan"))
+            tsmm.launch_pack(a, out, bm, bk, alpha, p)
+            assert torch.equal(out, want), (p, alpha)
+
+
+def test_pack_refuses_a_one_stage_ring(dev):
+    """A TMA ring refills a stage only after the next chunk's store, so
+    one stage cannot run: the C entry refuses it and the launch raises."""
+    a = torch.ones((256, 256), device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(ref.pack_ref(a, 128, 128))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tsmm.launch_pack(a, out, 128, 128, 1.0,
+                         tsmm.PackPlan("tma", 64, 4, 128, 1, 128))
 
 
 @pytest.mark.parametrize("b,s,h,kh", [(1, 2048, 32, 2), (2, 1024, 8, 2)])
