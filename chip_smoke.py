@@ -15,7 +15,20 @@ printing JSON lines:
                 and flash kernels must have wgmma and a TMA load, the
                 pack kernel's TMA design a TMA load and a TMA or bulk
                 store;
-3. kernels    — each kernel at the main paths' shapes (the skinny
+3. install    — the install-time stage at full width into a temporary
+                plan cache (``repro_torch.core.install``): ``--measure``
+                for qwen1.5-4b (buckets 1, 2, 4; prompts to 256) and
+                GLM-4-9B (buckets 1, 2; prompts to 2048), every candidate
+                timed on the hand-written kernels and held to the serving
+                path; ``--calibrate``; ``--check`` (zero misses, then every
+                sampled grammar point and schedule through the CUDA
+                kernels against their plain versions, fp32 and bf16).
+                Prints the records, the fit, the Spearman rank correlation
+                of model and measurement per problem before and after the
+                fit, and GLM-4-9B's K/V model pick against the measured
+                winner.  The pack cases of the kernels phase then take the
+                layouts the installed plans give GLM-4-9B;
+4. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
                 prefill, GLM-4-9B's tall K/V projections, the pack at
                 GLM-4-9B's three pack shapes (its prefill activations,
@@ -29,35 +42,43 @@ printing JSON lines:
                 flushed before each launch) and ``device_ms`` (the host's
                 time hidden) and the least time the card could take
                 (``bound_ms``);
-4. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 4096
+5. tall       — ``tsmm_dot`` at GLM-4-9B's wk shape, m = 2048 and 4096
                 (its two groups' prefill, which the plan runs on 4- and
                 2-CTA clusters) and 8192 (no cluster),
                 once per tall family through an explicit plan (natural
                 and packed baseline, B-resident, revisit, k-split,
                 k-outer), each against the plain product; each family's
                 counter must rise;
-5. parity     — qwen1.5-4b at full width (1 x 256 tokens) and a
+6. parity     — qwen1.5-4b at full width (1 x 256 tokens) and a
                 GLM-shaped config (d_model 1024, 8 heads on 2 KV heads of
                 128, 2 x 1024 tokens, so wk/wv take the tall path), 2
                 layers, float32: prefill + 4 decode steps on the card
                 (kernels) against the port on the CPU (plain versions)
                 with the same packed weights;
-6. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
+7. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
                 greedy steps;
-7. serve.glm4 — GLM-4-9B at full width and full depth (40 layers), bf16,
+8. serve.glm4 — GLM-4-9B at full width and full depth (40 layers), bf16,
                 seeded random weights, ``Engine(max_batch=2)``: groups of 1
                 and 2 with 2048-token prompts and 8 greedy steps; its
                 unpacked wk/wv run the tall-A kernel at prefill.
 
-Each serve path zeroes the launch counts just before it and reads them
-just after; every kernel of the path must have launched, and every bf16
+Both serve phases start on the registry the install phase wrote and must
+make zero registry misses over load, prefill and decode.
+
+Each path (install, serve, serve.glm4) zeroes the launch counts just
+before it and reads them just after; every kernel of the path must have
+launched (on the serve paths: the baseline, flash and the kernel of every
+variant the installed plans stamp; on the install path: every TSMM
+kernel), and every bf16
 skinny-A launch must have run the wgmma or the stream design, every
 bf16 tall-A and flash launch the wgmma design and every pack launch (at
 load and at decode) the TMA or the vec design (``cuda.design_launches``).
-Then the ``kernels`` summary line and, last, the ``{"ok": true, ...}``
-line.  Any failure raises and exits non-zero before the last line.
+Then the ``kernels`` summary line (each kernel's launches on the serve
+path that runs it, or on the install path where the measured plans keep
+it off both) and, last, the ``{"ok": true, ...}`` line.  Any failure
+raises and exits non-zero before the last line.
 """
 
 from __future__ import annotations
@@ -69,6 +90,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -99,47 +121,6 @@ def within(got, want, rtol, atol) -> tuple:
     err = (got.float() - want.float()).abs()
     ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
     return ok, float(err.max())
-
-
-class Timer:
-    """CUDA-event timing of single launches, each after an L2 flush (a
-    256 MB write), so every launch finds its operands in HBM as the main
-    path does; returns the mean of ``iters`` launches after ``warmup``.
-    The events also take in whatever host time the call spends before its
-    launch; ``device`` queues a device-side sleep first, long enough to
-    hide that, so the events see the device time alone."""
-
-    def __init__(self):
-        import torch
-        self.torch = torch
-        self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
-                                 device="cuda")
-
-    def __call__(self, fn, iters=5, warmup=1, device=False) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        cycles = 0
-        if device:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            # ~2e9 cycles a second bounds the H100's SM clock from above
-            cycles = int(max(4 * (time.perf_counter() - t0), 1e-4) * 2e9)
-            torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(iters):
-            self.flush.zero_()
-            if cycles:
-                torch.cuda._sleep(cycles)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            total += e0.elapsed_time(e1)
-        return total / iters
 
 
 def phase_env():
@@ -683,6 +664,143 @@ def phase_tall(timer):
     return counts
 
 
+# the install phase's sweeps: (arch, largest batch bucket, largest prompt
+# bucket), the shapes the serve phases then serve
+INSTALL = (("qwen1_5_4b", 4, 256), ("glm4_9b", 2, 2048))
+# GLM-4-9B's K/V projection at its two prefill token counts
+GLM_KV_PREFILL = ((2048, 4096, 256), (4096, 4096, 256))
+
+
+def phase_install():
+    """``repro_torch.core.install`` as a user runs it, on the card:
+    ``--measure`` per model, ``--calibrate``, ``--check``.  Returns the
+    phase's launch counts."""
+    import torch
+    from repro_torch.core import install, registry
+    from repro_torch.core.autotuner import candidate_blocks, dedupe_short_list
+    from repro_torch.core.evaluator import measure_plan
+    from repro_torch.core.hw import for_device
+    from repro_torch.core.plan import Problem
+    from repro_torch.core.smem_model import launch_key
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.calibration_quality import rank_quality
+
+    hw = for_device("cuda")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    per_model, by_arch = {}, {}
+    for arch, max_batch, max_prompt in INSTALL:
+        argv = ["--archs", arch, "--max-batch", str(max_batch),
+                "--max-prompt", str(max_prompt), "--device", "cuda"]
+        before = {id(r) for r in registry.measurements("cuda")}
+        res = install.main(argv + ["--measure"])
+        by_arch[arch] = [r for r in registry.measurements("cuda")
+                         if id(r) not in before]
+        per_model[arch] = {"plans": res["plans"],
+                           "records": len(by_arch[arch]),
+                           "seconds": res["seconds"][arch], "argv": argv}
+    measure_s = time.perf_counter() - t0
+    records = registry.measurements("cuda")
+    bad = [r for r in records if r.impl != "cuda"]
+    if not records or bad:
+        raise AssertionError(f"install: {len(records)} records, {len(bad)} "
+                             f"not timed on the cuda path")
+    # every record's candidate passed parity_check before it was timed (a
+    # failure raises out of the sweep); each problem times each of its
+    # launches once
+    by_problem = {}
+    for r in records:
+        by_problem.setdefault(r.plan.problem.key(), []).append(r)
+    launches_timed = {(pk, launch_key(r.plan, hw))
+                      for pk, rs in by_problem.items() for r in rs}
+    if len(launches_timed) != len(records):
+        raise AssertionError(f"install: {len(records)} records for "
+                             f"{len(launches_timed)} distinct launches")
+    for arch, recs in by_arch.items():
+        emit({"phase": "install.records", "arch": arch, "records": [
+            {"problem": r.plan.problem.key(), "kernel": r.plan.kernel.key(),
+             "schedule": r.plan.schedule.key(),
+             "blocks": [r.plan.bm, r.plan.bk, r.plan.bn],
+             "prepack": r.plan.prepack, "ms": r.seconds * 1e3,
+             "dispersion": r.dispersion, "model_ms": r.plan.score * 1e3}
+            for r in recs]})
+
+    t1 = time.perf_counter()
+    hw_cal = None
+    for arch, _, _ in INSTALL:
+        hw_cal = install.main(per_model[arch]["argv"] + ["--calibrate"])["hw"]
+    calibrate_s = time.perf_counter() - t1
+    if not hw_cal.calibrated:
+        raise AssertionError("install --calibrate fitted nothing")
+
+    # mean per-problem Spearman of the model against the measurements
+    _, rho0 = rank_quality(list(by_problem.items()), hw)
+    _, rho1 = rank_quality(list(by_problem.items()), hw_cal)
+
+    # GLM-4-9B's K/V at prefill: the model's pick (nominal spec) against
+    # the tournament's winner, each with its time
+    kv = []
+    for m, k, n in GLM_KV_PREFILL:
+        prob = Problem(m, k, n, "bfloat16")
+        pick = dedupe_short_list(candidate_blocks(prob, hw), hw)[0]
+        pick_key = launch_key(pick, hw)
+        rec = next((r for r in by_problem.get(prob.key(), [])
+                    if launch_key(r.plan, hw) == pick_key), None)
+        if rec is None:
+            rec = measure_plan(pick, "cuda", source="chip_smoke")
+        won = registry.peek(prob.key(), "cuda")
+        if won is None or won.chosen_by != "measured":
+            raise AssertionError(f"install: no measured plan for {prob}")
+        kv.append({"problem": prob.key(), "model_pick": str(pick),
+                   "model_pick_ms": rec.seconds * 1e3,
+                   "measured_winner": str(won), "winner_ms": won.score * 1e3,
+                   "winner_launches": repr(launch_key(won, hw))})
+
+    t2 = time.perf_counter()
+    checks = {}
+    for arch, _, _ in INSTALL:
+        checks[arch] = install.main(per_model[arch]["argv"] + ["--check"])
+    check_s = time.perf_counter() - t2
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
+    absent = [k for k in (*SKINNY, *TALL, "pack_blocks")
+              if not launches.get(k)]
+    emit({"phase": "install", "seconds": time.perf_counter() - t0,
+          "measure_s": measure_s, "calibrate_s": calibrate_s,
+          "check_s": check_s, "models": per_model,
+          "problems": len(by_problem), "records": len(records),
+          "distinct_launches_timed": len(launches_timed),
+          "hbm_efficiency": hw_cal.hbm_efficiency,
+          "mxu_efficiency": hw_cal.mxu_efficiency,
+          "grid_overhead_s": hw_cal.grid_overhead_s,
+          "spearman_per_problem_before": rho0,
+          "spearman_per_problem_after": rho1, "glm_kv": kv,
+          "check": {a: {"stats": c["stats"], "grammar": c["grammar"]}
+                    for a, c in checks.items()},
+          "launches": launches, "design_launches": designs})
+    if absent:
+        raise AssertionError(f"install: no launch of {absent}")
+    return launches
+
+
+def set_pack_shapes():
+    """Point ``PACK_SHAPES``' load and decode cases at the layouts the
+    installed plans give GLM-4-9B: its largest layer-stacked leaf (w_gate,
+    (4096, 13696), at the blocks ``prepack_for`` picks) and the per-call
+    pack of its K/V weight at decode batch 1 (where its plan packs)."""
+    from repro_torch.core import registry
+    from repro_torch.core.plan import Problem
+    from repro_torch.core.tsmm import prepack_blocks
+    blocks = prepack_blocks((1, 2), 4096, 13696, "bfloat16", device="cuda")
+    if blocks is None:
+        raise AssertionError("GLM-4-9B's w_gate would stay unpacked")
+    PACK_SHAPES["load"] = (40, 4096, 13696, *blocks)
+    plan = registry.peek(Problem(1, 4096, 256, "bfloat16").key(), "cuda")
+    if plan is not None and packs_per_call(plan):
+        PACK_SHAPES["decode"] = (1, 4096, 256, plan.bk, plan.bn)
+
+
 # the GLM-shaped parity config of tests/test_torch_glm4.py (2 layers,
 # vocab 512): wk/wv are (1024, 256), so a 2 x 1024-token prefill takes the
 # tall-A path
@@ -776,6 +894,7 @@ def phase_serve():
     from collections import Counter
 
     from repro_torch.configs.base import get_config
+    from repro_torch.core import registry
     from repro_torch.kernels import cuda
     from repro_torch.launch.serve import make_group
     from repro_torch.models.registry import build_model
@@ -783,6 +902,7 @@ def phase_serve():
 
     cfg = get_config("qwen1_5_4b")
     model = build_model(cfg)
+    registry.reset_stats()
     t0 = time.perf_counter()
     params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
     prompt, steps = 256, 16
@@ -795,7 +915,11 @@ def phase_serve():
     emit({"phase": "serve.load", "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype,
           "packed_leaves": len(eng.pack_report), "buckets": eng.buckets,
-          "variants": dict(sorted(variants.items())), "load_s": load_s,
+          "pack_report": eng.pack_report,
+          "variants": dict(sorted(variants.items())),
+          "schedules": dict(sorted(Counter(
+              eng.schedule_report().values()).items())),
+          "registry": registry.stats(), "load_s": load_s,
           "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     if len(eng.pack_report) != 8:
         raise AssertionError(f"expected 8 packed leaves, got "
@@ -811,16 +935,42 @@ def phase_serve():
               "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
+    stats = registry.stats()
     emit({"phase": "serve.launches", "launches": launches,
-          "design_launches": designs,
+          "design_launches": designs, "registry": stats,
           "tokens0_equal_across_groups": all(t == first[0] for t in first)})
+    if stats["misses"]:
+        raise AssertionError(f"serve: {stats['misses']} registry misses after "
+                             f"the install sweep")
     check_wgmma("serve", launches, designs)
     check_pack("serve", launches, designs)
-    missing = [k for k in ("tsmm_skinny_a", "skinny_kinner", "skinny_ksplit",
-                           "flash_attention") if launches.get(k, 0) == 0]
+    # the baseline (the 4 x 256-token prefill: no plan past the buckets),
+    # flash, and the kernel of every variant the install stamped
+    need = {"tsmm_skinny_a", "flash_attention"} | {
+        skinny_counter(v) for v in eng.variant_report().values()}
+    missing = sorted(k for k in need if launches.get(k, 0) == 0)
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     return launches
+
+
+def skinny_counter(spec_key: str) -> str:
+    """The launch counter a packed weight's stamped variant (its
+    ``KernelSpec.key()``, e.g. ``gen[bres=resident]``) runs under."""
+    from repro_torch.kernels.variants import from_kernel_spec, parse_spec
+    from repro_torch.kernels.variants.grammar import BASELINE_POINT
+    g = from_kernel_spec(parse_spec(spec_key.replace("[", ":").rstrip("]")))
+    if g == BASELINE_POINT or g.packfuse:
+        return "tsmm_skinny_a"
+    return "skinny_ksplit" if g.ksplit > 1 else "skinny_kinner"
+
+
+def packs_per_call(plan) -> bool:
+    """Whether ``tsmm_dot`` packs an operand on every call of ``plan``: a
+    packed tall A, or a natural skinny weight a non-fusing point packs."""
+    if plan.orientation == "tall_a":
+        return plan.prepack
+    return not plan.prepack and not plan.gen_spec().packfuse
 
 
 # the launch counters of the three skinny-A and the five tall-A kernels
@@ -850,6 +1000,7 @@ def phase_serve_glm4():
     model = build_model(cfg)
     prompt, steps, max_batch = 2048, 8, 2
     cuda.reset_launches()
+    registry.reset_stats()
     t0 = time.perf_counter()
     params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
     eng = Engine(model, params, axes, max_len=prompt + steps + 8,
@@ -864,7 +1015,10 @@ def phase_serve_glm4():
           "d_model": cfg.d_model, "heads": cfg.num_heads,
           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
           "pack_report": eng.pack_report, "buckets": eng.buckets,
-          "variants": dict(sorted(variants.items())), "load_s": load_s,
+          "variants": dict(sorted(variants.items())),
+          "schedules": dict(sorted(Counter(
+              eng.schedule_report().values()).items())),
+          "registry": registry.stats(), "load_s": load_s,
           "load_launches": load_launches, "load_designs": load_designs,
           "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     unpacked_kv = not any(p.endswith(("/wk", "/wv")) for p in eng.pack_report)
@@ -910,14 +1064,25 @@ def phase_serve_glm4():
               "tall_plan": str(plan), "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
+    stats = registry.stats()
     tall_rose = sorted(k for k in TALL if prefill_launches.get(k, 0))
     emit({"phase": "serve.glm4.launches", "launches": launches,
-          "design_launches": designs,
+          "design_launches": designs, "registry": stats,
           "prefill_launches": dict(prefill_launches),
           "tall_kernels_in_prefill": tall_rose, "tall_plans": tall_plans})
+    if stats["misses"]:
+        raise AssertionError(f"serve.glm4: {stats['misses']} registry misses "
+                             f"after the install sweep")
     missing = [] if tall_rose else ["any tall-A kernel at prefill"]
-    missing += [k for k in ("tsmm_skinny_a", "flash_attention", "pack_blocks")
-                if launches.get(k, 0) == 0]
+    # the K/V plans of the groups served (decode buckets, prefill tokens)
+    kv_plans = [registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
+                                      * cfg.head_dim, cfg.dtype).key(),
+                              "cuda")
+                for m in (*eng.buckets, *(b * prompt for b in eng.buckets))]
+    need = ["tsmm_skinny_a", "flash_attention"]
+    if any(p is not None and packs_per_call(p) for p in kv_plans):
+        need.append("pack_blocks")
+    missing += [k for k in need if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"GLM-4-9B path launched no {missing}")
     check_wgmma("serve.glm4", launches, designs)
@@ -963,9 +1128,27 @@ KERNELS = {
 
 def main():
     phase_env()
+    # the install phase's plan and measurement cache, inside the checkout
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="install-",
+                             dir=os.path.join(ROOT, "build"))
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "measurements.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        os.environ[var] = os.path.join(cache, name)
+    try:
+        run()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def run():
     import torch
+    from repro_torch.core.evaluator import Timer
     phase_build()
     timer = Timer()
+    install_launches = phase_install()
+    set_pack_shapes()
     cases, worst = phase_kernels(timer)
     tall_launches = phase_tall(timer)
     from repro_torch.configs.base import get_config
@@ -978,9 +1161,10 @@ def main():
     qwen_launches = phase_serve()
     glm_launches, glm_load = phase_serve_glm4()
 
-    # each row: its case at the shape of the path that runs it, and the
-    # launches of that path (the serve paths, or the tall phase for the
-    # tall points no H100 plan picks)
+    # each row: its case at the shape of the serve path that runs it, and
+    # the launches of that path; a kernel the measured plans keep off the
+    # serve paths counts the install path's launches (its measured
+    # candidates and the grammar check)
     picks = {
         "tsmm_skinny_a": (dict(mode="baseline", m=1024, K=2560, N=6912),
                           "serve", qwen_launches),
@@ -991,12 +1175,15 @@ def main():
         "flash_attention": (dict(mode="causal", B=1, S=2048, H=32, KH=2),
                             "serve.glm4", glm_launches),
         "tsmm_tall_a": (dict(mode="baseline"), "serve.glm4", glm_launches),
-        "tsmm_packed_a": (dict(mode="packed"), "tall", tall_launches),
-        "tall_kinner": (dict(mode="resident"), "tall", tall_launches),
-        "tall_ksplit": (dict(mode="ksplit2"), "tall", tall_launches),
-        "tall_kouter": (dict(mode="kouter"), "tall", tall_launches),
+        "tsmm_packed_a": (dict(mode="packed"), "serve.glm4", glm_launches),
+        "tall_kinner": (dict(mode="resident"), "serve.glm4", glm_launches),
+        "tall_ksplit": (dict(mode="ksplit2"), "serve.glm4", glm_launches),
+        "tall_kouter": (dict(mode="kouter"), "serve.glm4", glm_launches),
         "pack_blocks": (dict(mode="decode"), "serve.glm4", glm_launches),
     }
+    picks = {name: (want, path, launches) if launches.get(name, 0)
+             else (want, "install", install_launches)
+             for name, (want, path, launches) in picks.items()}
     tol = (f"every case: |err| <= atol + rtol*|plain|, bf16 outputs "
            f"{BF16_TOL}, fp32 raw/partial/accumulated outputs {F32_TOL}; "
            f"pack_blocks bit-equal")
@@ -1020,6 +1207,7 @@ def main():
     pack["launches_by_path"] = {
         "serve.glm4.load": glm_load.get("pack_blocks", 0),
         "serve.glm4": glm_launches.get("pack_blocks", 0),
+        "install": install_launches.get("pack_blocks", 0),
         "tall": tall_launches.get("pack_blocks", 0)}
     pack["shapes"] = [
         {**shape_of(c), **{k: c[k] for k in ("design", "ms", "device_ms",

@@ -18,6 +18,17 @@ other and the cost model ranks identically.  On the H100 the fields read:
 
 ``sm_count`` is the number of streaming multiprocessors (132 on the SXM
 part), read from the device on a card.
+
+``gate`` picks the on-chip feasibility gate of the cost model
+(``core/smem_model.py::feasible``): ``"vmem"`` charges the reference's
+whole-block VMEM working set against ``vmem_bytes`` (a spec rebuilt from
+the reference's fields gets it, so it ranks byte-identically); ``"launch"``
+asks the CUDA wrappers' launch plans (``tall_plan``, ``skinny_plan``,
+``pack_plan``) whether they take the plan's layout and charges their CTA
+shared memory against ``vmem_bytes``.  ``launch_steps`` is what one extra
+kernel launch costs, in ``grid_overhead_s`` steps: a ``loop=kouter`` point
+makes one launch per k block (0 under the reference's fields, where the
+k loop is one program).
 """
 
 from __future__ import annotations
@@ -47,6 +58,8 @@ class HwSpec:
     grid_overhead_s: float = 1.5e-7
     calibrated: bool = False
     sm_count: int = 0
+    gate: str = "vmem"
+    launch_steps: float = 0.0
 
     @property
     def peak_flops_f32(self) -> float:
@@ -70,6 +83,11 @@ H100 = HwSpec(
     # An uncalibrated estimate; the measured install stage fits it.
     grid_overhead_s=5e-8,
     sm_count=132,
+    gate="launch",
+    # a launch from the eager host path costs ~20 us (PERF.md §6: the
+    # k-outer point's 32 launches take 0.744 ms at GLM-4-9B's K/V shape),
+    # 400 steps of 5e-8 s; calibration refits the step's cost
+    launch_steps=400.0,
 )
 
 # Fraction of the on-chip budget the autotuner may plan into (the same

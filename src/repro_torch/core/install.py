@@ -1,0 +1,269 @@
+"""Install-time stage CLI — the paper's inner-kernel selector, run once per
+card.
+
+    PYTHONPATH=src python -m repro_torch.core.install [--measure]
+        [--calibrate] [--check] [--archs a,b] [--iters N] [--shapes N]
+        [--max-batch N] [--max-prompt S] [--reduced] [--override k=v,...]
+        [--device cuda|cpu]
+
+The port of the reference package's ``core/install.py``.  It fills the
+persistent plan registry with execution plans for every TSMM-shaped
+matmul the serving path of the ported models will hit, over the 2D
+bucket grid:
+
+* decode: every power-of-two batch bucket (1..max_batch) x each arch's
+  projection shapes;
+* prefill: every (batch bucket x length bucket) cell's token count
+  (``bb * lb``) x the same shapes.
+
+An Engine started afterwards on the same shapes makes registry lookups
+only.  With ``--measure`` the evaluator times the model-ranked short list
+of every problem on ``--device`` (on a CUDA device: the hand-written
+kernels, CUDA-event timed; on the CPU: their plain versions), recording
+each timing in the persistent measurement cache.  With ``--calibrate`` the
+roofline coefficients are least-squares fitted from that cache and the
+whole sweep is re-ranked under the fitted model (measured winners are
+kept by the registry's provenance guard).  With ``--check`` the sweep
+runs against a fresh in-memory registry and fails on any miss, then the
+grammar's self-checks (``verify_variants``, ``verify_schedules``) run on
+``--device``; any failure exits non-zero.
+
+The reference's ``--mesh``, ``--precompile`` and ``--find-db`` belong to
+later slices (sharding, the program store, the tuning fleet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from repro_torch.configs.base import get_config, get_reduced_config
+from repro_torch.core import registry
+from repro_torch.core.autotuner import make_plan_grid, make_plan_set
+from repro_torch.core.plan import (BucketGrid, Problem, buckets_for, is_tsmm,
+                                   length_buckets_for)
+
+# the configurations the port serves
+ARCHS = ("qwen1_5_4b", "glm4_9b")
+# serving batch buckets swept at install time: every power of two up to
+# the largest batch
+MAX_SERVE_BATCH = 128
+SERVE_BUCKETS = buckets_for(MAX_SERVE_BATCH)
+# prompt-length buckets swept for the prefill path
+MAX_SERVE_PROMPT = 512
+SERVE_LENGTHS = length_buckets_for(MAX_SERVE_PROMPT)
+
+
+def serving_shapes(cfg) -> set:
+    """The (k, n) weight shapes the serving path hits for one arch."""
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = set()
+    if h:
+        shapes |= {(d, h * hd), (d, kh * hd), (h * hd, d)}
+    if cfg.d_ff:
+        shapes |= {(d, cfg.d_ff), (cfg.d_ff, d)}
+    if cfg.num_experts:
+        shapes |= {(d, cfg.d_ff_expert), (cfg.d_ff_expert, d)}
+    if cfg.ssm_state:
+        di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+        shapes |= {(d, 2 * di + 2 * g * n + cfg.ssm_heads), (di, d)}
+    if cfg.use_mla:
+        shapes |= {(d, cfg.q_lora_rank), (cfg.kv_lora_rank,
+                                          h * (cfg.head_dim + cfg.v_head_dim))}
+    shapes.add((d, cfg.vocab_size))
+    return shapes
+
+
+def serving_problems(cfg, buckets: tuple = SERVE_BUCKETS,
+                     lengths: tuple = ()) -> list[Problem]:
+    """The (m, k, n) set the serving path hits for one architecture:
+    every batch bucket (decode, m = bb) plus, when ``lengths`` is given,
+    every grid cell's token count (prefill, m = bb * lb)."""
+    shapes = sorted(serving_shapes(cfg))
+    ms = list(buckets)
+    if lengths:
+        grid = BucketGrid(tuple(buckets), tuple(lengths))
+        ms = sorted(set(ms) | set(grid.token_buckets()))
+    out = []
+    for m in ms:
+        for (k, n) in shapes:
+            if is_tsmm(m, k, n):
+                out.append(Problem(m, k, n, cfg.dtype))
+    return out
+
+
+def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
+                 measure: bool = False, hw=None, iters: int = 5,
+                 limit_shapes: int = 0, force: bool = False,
+                 device="cuda") -> int:
+    """Sweep one arch's serving shapes over the bucket grid on ``device``.
+    Plans land in the in-memory registry; the caller flushes once.
+    ``hw``/``force`` drive the calibrated re-rank pass; ``limit_shapes``
+    caps the (k, n) shapes per arch.  Returns the number of distinct
+    plans."""
+    n_plans = 0
+    mm = "wallclock" if measure else None
+    shapes = sorted(serving_shapes(cfg))
+    if limit_shapes:
+        shapes = shapes[:limit_shapes]
+    for (k, n) in shapes:
+        pset = make_plan_set(k, n, buckets, cfg.dtype, hw=hw, measure=mm,
+                             persist=False, iters=iters, force=force,
+                             device=device)
+        n_plans += len(pset.plans)
+        if lengths:
+            grid = BucketGrid(tuple(buckets), tuple(lengths))
+            pg = make_plan_grid(k, n, grid, cfg.dtype, hw=hw, measure=mm,
+                                persist=False, iters=iters, force=force,
+                                device=device)
+            # cells sharing a token count share a plan; count distinct
+            n_plans += len({p.problem.m for p in pg.plans.values()
+                            if p.problem.m not in buckets})
+    return n_plans
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--measure", action="store_true",
+                    help="time the short list (evaluator stage; records "
+                         "land in the persistent measurement cache and are "
+                         "reused across runs)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="least-squares fit the roofline coefficients from "
+                         "the measurement cache and re-rank the sweep under "
+                         "the calibrated model (measured winners are kept)")
+    ap.add_argument("--iters", type=int, default=5,
+                    help="timed iterations per measured candidate")
+    ap.add_argument("--shapes", type=int, default=0,
+                    help="cap (k, n) serving shapes per arch (0 = all)")
+    ap.add_argument("--archs", default="",
+                    help=f"comma-separated, of {', '.join(ARCHS)} "
+                         f"(default: all)")
+    ap.add_argument("--max-batch", type=int, default=MAX_SERVE_BATCH,
+                    help="largest serving batch; buckets are powers of two "
+                         "up to this")
+    ap.add_argument("--max-prompt", type=int, default=MAX_SERVE_PROMPT,
+                    help="largest prompt-length bucket for the prefill "
+                         "sweep (0 disables the length axis)")
+    ap.add_argument("--check", action="store_true",
+                    help="verify only: re-run the sweep against the cache "
+                         "file with a fresh memory and fail on any registry "
+                         "miss, then self-check the kernel grammar on the "
+                         "device")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced (CPU-sized) configs")
+    ap.add_argument("--override", default="",
+                    help="comma-separated int config overrides applied with "
+                         "reduced(), as the serving launcher's")
+    ap.add_argument("--device", default="cuda",
+                    help="the device to plan, measure and check on")
+    args = ap.parse_args(argv)
+    import torch
+
+    from repro_torch.core.hw import for_device
+    from repro_torch.launch.serve import parse_overrides
+    from repro_torch.serve.engine import resolve_device
+    device = resolve_device(args.device)
+    archs = ([a.strip() for a in args.archs.split(",") if a.strip()]
+             or list(ARCHS))
+    buckets = buckets_for(args.max_batch)
+    lengths = length_buckets_for(args.max_prompt) if args.max_prompt else ()
+
+    def cfg_of(arch):
+        cfg = get_reduced_config(arch) if args.reduced else get_config(arch)
+        if args.override:
+            cfg = cfg.reduced(**parse_overrides(args.override))
+        return cfg
+
+    if args.check:
+        registry.clear_memory()
+
+    t0 = time.time()
+    n_plans, seconds = 0, {}
+    for arch in archs:
+        ta = time.time()
+        n = install_arch(cfg_of(arch), buckets, lengths,
+                         measure=args.measure and not args.check,
+                         iters=args.iters, limit_shapes=args.shapes,
+                         device=device)
+        if not args.check:
+            registry.flush()   # one write per arch: an interrupted sweep
+        n_plans += n           # keeps its work
+        seconds[arch] = time.time() - ta
+        print(f"{arch:24s} {n:3d} plans  {seconds[arch]:.1f}s")
+    result = {"plans": n_plans, "seconds": seconds, "device": str(device)}
+
+    if args.check:
+        stats = registry.stats()
+        result["stats"] = stats
+        if stats["misses"]:
+            print(f"CHECK FAILED: {stats['misses']} registry misses — the "
+                  f"cache at {registry.cache_path()} does not cover the "
+                  f"serving sweep (hits={stats['hits']})")
+            sys.exit(1)
+        print(f"check ok: {stats['hits']} lookups, all hits "
+              f"-> {registry.cache_path()}")
+        # the kernel grammar's self-check on the device: an unemittable or
+        # numerically broken grammar point or schedule fails the workflow
+        # before a tuned registry can point serving at it.  The card runs
+        # both dtypes (fp32: SIMT kernels, bf16: the Hopper designs)
+        from repro_torch.kernels.variants import (verify_schedules,
+                                                  verify_variants)
+        rows = []
+        for dt in (("float32", "bfloat16") if device.type == "cuda"
+                   else ("float32",)):
+            rows += [{"check": "variant", "dtype": dt, **r}
+                     for r in verify_variants(str(device), dtype=dt)]
+            rows += [{"check": "schedule", "dtype": dt, **r}
+                     for r in verify_schedules(str(device), dtype=dt)]
+        bad = [r for r in rows if not r["ok"]]
+        for r in bad:
+            print(f"{r['check']} {r['dtype']} {r['spec']:24s} "
+                  f"{r.get('schedule', ''):20s} {r['orientation']:9s} "
+                  f"FAILED ({r['error']})")
+        result["grammar"] = {"rows": len(rows), "failed": len(bad)}
+        if bad:
+            print(f"CHECK FAILED: {len(bad)}/{len(rows)} grammar points or "
+                  f"schedules broken on {device}")
+            sys.exit(1)
+        print(f"grammar check ok: {len(rows)} (point or schedule) x dtype "
+              f"combinations verified on {device}")
+        return result
+
+    if args.calibrate:
+        from repro_torch.core.evaluator import MIN_FIT_RECORDS, calibrated_hw
+        hw_cal = calibrated_hw(for_device(device), device=device)
+        n_rec = len(registry.measurements(device))
+        result["hw"] = hw_cal
+        if not hw_cal.calibrated:
+            if n_rec < MIN_FIT_RECORDS:
+                print(f"calibrate: only {n_rec} cached measurements "
+                      f"(need >= {MIN_FIT_RECORDS}) — skipped; run with "
+                      f"--measure first")
+            else:
+                print(f"calibrate: fit over {n_rec} measurements is "
+                      f"degenerate (collinear roofline features) — "
+                      f"skipped; measure a more shape-diverse sweep")
+        else:
+            print(f"calibrated from {n_rec} measurements: "
+                  f"eff_hbm={hw_cal.hbm_bw * hw_cal.hbm_efficiency / 1e9:.2f}"
+                  f"GB/s (x{hw_cal.hbm_efficiency:.3g}) "
+                  f"mxu_eff=x{hw_cal.mxu_efficiency:.3g} "
+                  f"grid_overhead={hw_cal.grid_overhead_s:.3g}s")
+            for arch in archs:
+                install_arch(cfg_of(arch), buckets, lengths, hw=hw_cal,
+                             force=True, limit_shapes=args.shapes,
+                             device=device)
+            registry.flush()
+            print("re-ranked sweep under the calibrated model "
+                  "(measured winners preserved)")
+
+    print(f"\ninstalled {n_plans} execution plans over buckets {buckets} "
+          f"x lengths {lengths or '(none)'} in {time.time() - t0:.1f}s "
+          f"on {torch.device(device)} -> {registry.cache_path()}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

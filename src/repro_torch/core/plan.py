@@ -439,3 +439,41 @@ class BucketGrid:
         real tokens."""
         bb, lb = self.cell_for(b, s)
         return bb * lb - b * s
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanGrid:
+    """Per-cell prefill plans for one (k, n) weight shape.
+
+    The cell (bb, lb) maps to the TSMM problem (bb*lb, k, n); cells whose
+    token count is not TSMM-shaped are absent (plain GEMM at runtime).
+    Distinct cells with the same token count share one Plan object."""
+
+    grid: BucketGrid
+    plans: Mapping[tuple, Plan]
+
+    def for_request(self, b: int, s: int) -> Optional[Plan]:
+        """Plan of the minimal covering cell (None if outside the grid or
+        the cell is not TSMM-shaped)."""
+        try:
+            cell = self.grid.cell_for(b, s)
+        except ValueError:
+            return None
+        return self.plans.get(cell)
+
+    def to_json(self) -> dict:
+        return {
+            "batch": list(self.grid.batch),
+            "length": list(self.grid.length),
+            "plans": {f"{bb}x{lb}": p.to_json()
+                      for (bb, lb), p in self.plans.items()},
+        }
+
+    @staticmethod
+    def from_json(d: dict) -> "PlanGrid":
+        grid = BucketGrid(tuple(d["batch"]), tuple(d["length"]))
+        plans = {}
+        for key, pj in d["plans"].items():
+            bb, lb = key.split("x")
+            plans[(int(bb), int(lb))] = Plan.from_json(pj)
+        return PlanGrid(grid, plans)

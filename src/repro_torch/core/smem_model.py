@@ -4,18 +4,29 @@ A port of the reference package's ``core/vmem_model.py``: the same
 per-axis HBM-traffic terms, roofline and per-step overhead, so that a
 spec built from the reference's TPU numbers ranks plans byte-identically.
 
-What the on-chip gate (:func:`feasible`, :func:`vmem_bytes_needed`)
-means here.  On the TPU a plan's ``(bk, bn)`` is both the packed layout
-and the VMEM block one grid step holds, so the gate is a fact about the
-kernel.  On the H100 the CUDA kernel's CTA tile is its own, smaller than
-the layout block (``csrc/tsmm_skinny.cu`` streams a ``(bk, bn)`` block in
-k-tiles of a few rows), so the same formula charged against
-``HwSpec.vmem_bytes`` — the 227 KB of shared memory one CTA may opt
-into — is a modelling choice: it caps the packed block at the size a
-double-buffered, whole-block staging kernel could hold on chip.  It
-keeps layouts small enough for a later TMA-fed kernel that stages whole
-blocks, and it is not a constraint the present kernel needs.  A cost
-model built for the CTA tile is later work.
+The on-chip gate (:func:`feasible`) is chosen by ``HwSpec.gate``:
+
+* ``"vmem"`` — the reference's gate.  On the TPU a plan's ``(bk, bn)`` is
+  both the packed layout and the VMEM block one grid step holds, so its
+  double-buffered working set (:func:`vmem_bytes_needed`) is charged
+  against ``HwSpec.vmem_bytes``.  A spec rebuilt from the reference's
+  fields keeps it, and with it the reference's enumeration and ranking.
+* ``"launch"`` (the H100 spec) — a model of the launches the plan
+  produces on the card (:func:`plan_launches`).  The CUDA kernels' CTA
+  tile is their own, far smaller than the layout block, so a plan is
+  feasible when every wrapper it would run takes its layout
+  (``kernels/tsmm.py::tall_plan``, ``skinny_plan`` and, for a per-call
+  pack, ``pack_plan`` do not raise) and each chosen launch plan's shared
+  memory fits ``HwSpec.vmem_bytes`` (the 227 KB one CTA may opt into).
+
+Both gates keep the grammar's structural and k-split rules.  Under the
+launch gate the memory term also charges the pack ``tsmm_dot`` makes of
+a tall A on every call of a packed tall plan (:func:`call_pack_bytes`),
+which the evaluator times with the call; the reference amortizes it.
+:func:`launch_key` names the launches a plan produces: plans that differ
+only in axes the card does not see (``m_split``, ``dims``,
+``multibuffer``, a natural A's ``bm``) share a key, and the measured
+tournament times each key once.
 
 The paper's Eq.2/Eq.3 cache bounds become this gate; the model ranks
 every grammar point (:class:`~repro_torch.kernels.variants.grammar.GenSpec`)
@@ -27,12 +38,19 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.hw import H100, VMEM_USABLE_FRACTION, HwSpec, dtype_bytes
-from repro_torch.core.plan import SEMANTICS, Plan
+from repro_torch.core.plan import SEMANTICS, Plan, Problem
 from repro_torch.kernels.variants import grammar
 from repro_torch.kernels.variants.grammar import GenSpec, from_kernel_spec
 
 # The per-contraction-step overhead lives on ``HwSpec.grid_overhead_s``
-# so a calibration pass can fit it from measurements (a later slice).
+# so the calibration pass (``core/evaluator.py::fit_hw``) can fit it.
+
+
+def nominal(hw: HwSpec) -> HwSpec:
+    """``hw`` with the calibration coefficients reset — the datasheet
+    roofline the fit regresses against (see :func:`features`)."""
+    return dataclasses.replace(hw, mxu_efficiency=1.0, hbm_efficiency=1.0,
+                               calibrated=False)
 
 
 def _ceil(a, b):
@@ -73,7 +91,7 @@ def grid_rank(plan: Plan) -> int:
     return base
 
 
-def overhead_steps(plan: Plan) -> float:
+def overhead_steps(plan: Plan, hw: HwSpec = H100) -> float:
     """Schedule-aware per-step overhead count — the regressor the fitted
     ``HwSpec.grid_overhead_s`` multiplies (DESIGN.md §9/§11).
 
@@ -85,11 +103,17 @@ def overhead_steps(plan: Plan) -> float:
     * each extra M-partition adds one per-partition launch/semaphore
       overhead (``m_split - 1``).
 
+    * a ``loop=kouter`` point makes one kernel launch per k block, each
+      ``hw.launch_steps`` steps (0 under the reference's fields).
+
     A default schedule reproduces ``contraction_steps`` exactly, so
     calibration fits over pre-schedule measurement records are
     unchanged."""
     sched = plan.schedule
     steps = contraction_steps(plan) * (2.0 / max(sched.multibuffer, 2))
+    if hw.launch_steps and plan.orientation == "tall_a" \
+            and _gen(plan).loop == "kouter":
+        steps += plan.grid[1] * hw.launch_steps
     return steps + (sched.m_split - 1)
 
 
@@ -187,7 +211,73 @@ def feasible(plan: Plan, hw: HwSpec = H100) -> bool:
             return False
         if len(sched.dims) != grid_rank(plan):
             return False
+    if hw.gate == "launch":
+        try:
+            launches = plan_launches(plan, hw)
+        except (ValueError, TypeError):
+            return False      # a wrapper refuses the layout
+        return all(smem <= hw.vmem_bytes for *_, smem in launches)
     return vmem_bytes_needed(plan, hw) <= hw.vmem_bytes * VMEM_USABLE_FRACTION
+
+
+# ---------------------------------------------------------------------------
+# The launch model (``HwSpec.gate == "launch"``)
+# ---------------------------------------------------------------------------
+
+
+def _torch_dtype(dtype: str):
+    import torch
+    if dtype not in ("float32", "bfloat16"):
+        raise TypeError(f"the CUDA kernels take float32 and bfloat16, not "
+                        f"{dtype}")
+    return getattr(torch, dtype)
+
+
+def plan_launches(plan: Plan, hw: HwSpec = H100) -> tuple:
+    """The launches ``core/tsmm.py::tsmm_dot`` makes for ``plan`` on a card
+    of ``hw.sm_count`` SMs: ``kernels/gen.py::launches``, whose step lists
+    the emitters follow, for the call the evaluator times (no bias and no
+    activation).  Raises ValueError (TypeError for a dtype the kernels do
+    not take) where a wrapper refuses the layout."""
+    from repro_torch.kernels import gen
+    p = plan.problem
+    return gen.launches(_gen(plan), plan.orientation, p.m, p.k, p.n,
+                        dtype=_torch_dtype(p.dtype), bm=plan.bm, bk=plan.bk,
+                        bn=plan.bn, prepack=plan.prepack,
+                        sms=hw.sm_count or H100.sm_count)
+
+
+def launch_key(plan: Plan, hw: HwSpec = H100) -> tuple:
+    """The launches ``plan`` produces on the card, without their shared
+    memory — what the measured tournament dedupes on: two plans with one
+    key run the same kernels on the same layouts, so timing both would
+    time one program twice.  Plans that differ only in ``m_split``,
+    ``dims``, ``multibuffer`` or, for a natural A, ``bm`` (where the
+    padded M does not change) share a key.  Raises where
+    :func:`plan_launches` does."""
+    return tuple(entry[:-1] for entry in plan_launches(plan, hw))
+
+
+def launch_count(plan: Plan, hw: HwSpec = H100) -> int:
+    """How many launches one call of ``plan`` makes: its kernels, each as
+    many times as it runs, and its plain passes.  The tournament's tie
+    rule prefers the smaller."""
+    return sum(e[7] if e[0] != "torch" else 1
+               for e in plan_launches(plan, hw))
+
+
+def call_pack_bytes(plan: Plan, hw: HwSpec = H100) -> int:
+    """HBM bytes of the pack ``tsmm_dot`` makes of a tall A on every call
+    of a ``prepack=True`` tall plan (read A, write its blocks), charged
+    under the launch gate only: the reference's model amortizes it
+    (paper Eq.7, :func:`hbm_traffic_bytes`), and its spec keeps that."""
+    if hw.gate != "launch" or plan.orientation != "tall_a" \
+            or not plan.prepack:
+        return 0
+    p = plan.problem
+    eb = dtype_bytes(p.dtype)
+    return (p.m * p.k + _ceil(p.m, plan.bm) * plan.bm
+            * _ceil(p.k, plan.bk) * plan.bk) * eb
 
 
 def epilogue_roundtrip_bytes(plan: Plan) -> int:
@@ -297,7 +387,19 @@ def compute_time_s(plan: Plan, hw: HwSpec = H100) -> float:
 
 
 def memory_time_s(plan: Plan, hw: HwSpec = H100) -> float:
-    return hbm_traffic_bytes(plan) / (hw.hbm_bw * hw.hbm_efficiency)
+    return ((hbm_traffic_bytes(plan) + call_pack_bytes(plan, hw))
+            / (hw.hbm_bw * hw.hbm_efficiency))
+
+
+def features(plan: Plan, hw: HwSpec = H100) -> tuple:
+    """Nominal-roofline regressors for the calibration fit: (memory
+    seconds at datasheet bandwidth, compute seconds at datasheet FLOPs,
+    schedule-aware overhead-step count).  A measured time t then fits
+    ``t ~= t_mem / hbm_efficiency + t_cmp / mxu_efficiency
+    + steps * grid_overhead_s`` — linear in the three coefficients."""
+    base = nominal(hw)
+    return (memory_time_s(plan, base), compute_time_s(plan, base),
+            overhead_steps(plan, hw))
 
 
 def predict(plan: Plan, hw: HwSpec = H100) -> Plan:
@@ -323,7 +425,14 @@ def predict(plan: Plan, hw: HwSpec = H100) -> Plan:
     (DESIGN.md §11)."""
     t_c = compute_time_s(plan, hw)
     t_m = memory_time_s(plan, hw)
-    steps = overhead_steps(plan)
+    steps = overhead_steps(plan, hw)
     base = (t_c + t_m) if hw.calibrated else max(t_c, t_m)
     score = base + steps * hw.grid_overhead_s
     return dataclasses.replace(plan, t_compute=t_c, t_memory=t_m, score=score)
+
+
+def pack_time_s(problem: Problem, hw: HwSpec = H100) -> float:
+    """One-time pre-pack cost: read + write the tall operand."""
+    eb = dtype_bytes(problem.dtype)
+    tall_elems = problem.tall * problem.k
+    return 2 * tall_elems * eb / hw.hbm_bw

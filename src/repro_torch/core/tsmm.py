@@ -17,8 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.autotuner import make_plan_set, plan_for_matmul
-from repro_torch.core.hw import HwSpec, dtype_name, for_device
+from repro_torch.core.autotuner import (default_hw, make_plan_set,
+                                        plan_for_matmul)
+from repro_torch.core.hw import HwSpec, dtype_name
 from repro_torch.core.packing import PackedTensor, is_packed, pack
 from repro_torch.core.plan import (Plan, Problem, ScheduleSpec, is_tsmm,
                                    parse_schedule)
@@ -135,6 +136,30 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
     return _gemm_epilogue(a2, b, bias, act, a.dtype).reshape(*lead, n)
 
 
+def _layout(buckets: tuple, ks: int, ns: int, dt: str, hw: HwSpec,
+            device) -> tuple:
+    """(the per-bucket PlanSet, the (bk, bn) blocks or None) of a (ks, ns)
+    weight packed for ``buckets``."""
+    pset = make_plan_set(ks, ns, buckets, dt, hw=hw, persist=False,
+                         device=device)
+    problems = [pset.plans[m].problem if m in pset.plans
+                else Problem(m, ks, ns, dt) for m in buckets]
+    caps = (max((pl.bk for pl in pset.plans.values()), default=None),
+            max((pl.bn for pl in pset.plans.values()), default=None))
+    return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps)
+
+
+def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
+                   hw: Optional[HwSpec] = None,
+                   device="cuda") -> Optional[tuple]:
+    """The (bk, bn) blocks :func:`prepack_for` packs a (ks, ns) weight of
+    ``dtype`` into on ``device`` (None: it stays unpacked), without
+    packing anything."""
+    buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
+    return _layout(buckets, ks, ns, dtype, hw or default_hw(device),
+                   device)[1]
+
+
 def prepack_for(m_skinny, w, *,
                 hw: Optional[HwSpec] = None) -> Optional[PackedTensor]:
     """Plan and pack a weight for decode-time reuse.
@@ -146,16 +171,10 @@ def prepack_for(m_skinny, w, *,
     buckets.  The per-bucket (variant, schedule) is stamped on the packed
     weight.  Returns None when no conforming block exists."""
     device = w.device
-    hw = hw or for_device(device)
+    hw = hw or default_hw(device)
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
-    ks, ns = int(w.shape[-2]), int(w.shape[-1])
-    dt = dtype_name(w.dtype)
-    pset = make_plan_set(ks, ns, buckets, dt, hw=hw, device=device)
-    problems = [pset.plans[m].problem if m in pset.plans
-                else Problem(m, ks, ns, dt) for m in buckets]
-    caps = (max((pl.bk for pl in pset.plans.values()), default=None),
-            max((pl.bn for pl in pset.plans.values()), default=None))
-    chosen = _conforming_blocks(problems, ks, ns, hw, caps=caps)
+    pset, chosen = _layout(buckets, int(w.shape[-2]), int(w.shape[-1]),
+                           dtype_name(w.dtype), hw, device)
     if chosen is None:
         return None
     pk = pack(w, *chosen)

@@ -27,6 +27,11 @@ kept for every point:
   shared-memory choice on the TPU with the same result; on the card the
   L2 holds the resident operand (see the kernels' source notes).
 
+:func:`tall_steps` and :func:`skinny_steps` name the kernels and plain
+passes of each point; the emitters run them and :func:`launches` plans
+them (the cost model's launch gate and launch key read it), so the
+dispatch lives here only.
+
 The grid schedule (``dims``, ``m_split``) has nothing to apply to on the
 GPU (a CUDA grid has no dimension semantics and already spreads row tiles
 over every SM), so it is accepted and ignored.  The
@@ -35,8 +40,6 @@ baseline points delegate to ``ops.tsmm_skinny`` / ``ops.tsmm`` /
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -158,45 +161,126 @@ def _skinny_ksplit(x, w, *, bk, bn, splits, natural, resident):
                             bk=bk, bn=bn)
 
 
-def _tall_compute(a, b, bias, *, g, bm, bk, act, packed):
-    """One tall grammar point on padded operands; ``bias``/``act`` arrive
-    pre-gated (None for ``epi=split`` points)."""
-    out_dtype = b.dtype
+def tall_steps(g: GenSpec, nk: int, packed: bool) -> tuple:
+    """What a tall grammar point runs over ``nk`` k blocks, in order: each
+    kernel as ``(launch counter, mode, splits, count)`` and each plain pass
+    between kernels as ``("torch", pass, arg, 0)``.  For a call without
+    bias and activation: an ``epi=split`` point adds its second pass only
+    when there is an epilogue to apply.  :func:`emit_tall_a` follows it,
+    and :func:`launches` plans it for the cost model's launch gate."""
+    if g == BASELINE_POINT:
+        return (("tsmm_packed_a" if packed else "tsmm_tall_a",
+                 _k.EPILOGUE, 1, 1),)
     if g.loop == "kouter":
-        out = _tall_kouter(a, b, bm=bm, bk=bk, packed=packed)
-        return _epilogue_f32(out, bias, act, out_dtype)
-    resident = g.bres == "resident"
-    if g.ksplit > 1:
-        parts = _tall_ksplit(a, b, bm=bm, bk=bk, splits=g.ksplit,
-                             packed=packed, resident=resident)
-        return _epilogue_f32(parts.sum(0), bias, act, out_dtype)
-    revisit = g.acc == "revisit"
-    out = _tall_kinner(a, b, bias, bm=bm, bk=bk, act=act, packed=packed,
-                       resident=resident, revisit=revisit)
-    if revisit:
-        out = out.to(out_dtype)
+        return (("tall_kouter", _k.ACCUM_F32, 1, nk),
+                ("torch", "epilogue_cast", None, 0))
+    s = split_divisor(nk, g.ksplit)
+    if s > 1:
+        return (("tall_ksplit", _k.RAW_F32, s, 1), ("torch", "reduce", s, 0))
+    if g.acc == "revisit":
+        return (("tall_kinner", _k.ACCUM_F32, 1, 1), ("torch", "cast", None, 0))
+    return (("tall_kinner", _k.EPILOGUE, 1, 1),)
+
+
+def skinny_steps(g: GenSpec, nk: int, packed: bool) -> tuple:
+    """:func:`tall_steps` for the skinny-A orientation; a natural weight
+    that the point does not read in place is packed first, every call
+    (``("pack_blocks", 0, 1, 1)``)."""
+    out = ()
+    if not packed and not g.packfuse:
+        out = (("pack_blocks", 0, 1, 1),)
+    if g == BASELINE_POINT or (g.packfuse and packed):
+        return out + (("tsmm_skinny_a", _k.EPILOGUE, 1, 1),)
+    s = split_divisor(nk, g.ksplit)
+    if s > 1:
+        return out + (("skinny_ksplit", _k.RAW_F32, s, 1),
+                      ("torch", "reduce", s, 0))
+    if g.acc == "revisit":
+        return out + (("skinny_kinner", _k.RAW_F32, 1, 1),
+                      ("torch", "epilogue_cast", None, 0))
+    return out + (("skinny_kinner", _k.EPILOGUE, 1, 1),)
+
+
+def _post(out, passes, bias, act, dtype):
+    """The plain passes of a step list on the last kernel's output."""
+    for _, what, _, _ in passes:
+        if what == "cast":
+            out = out.to(dtype)
+        else:   # "reduce" the fp32 partials, or "epilogue_cast"
+            out = _epilogue_f32(out.sum(0) if what == "reduce" else out,
+                                bias, act, dtype)
     return out
 
 
-def _skinny_compute(x, w, bias, *, g, bk, bn, act, natural):
-    """One grammar point on padded operands; ``bias``/``act`` arrive
-    pre-gated (None for ``epi=split`` points)."""
-    resident = g.bres == "resident"
-    if g.ksplit > 1:
-        parts = _skinny_ksplit(x, w, bk=bk, bn=bn, splits=g.ksplit,
-                               natural=natural, resident=resident)
-        return _epilogue_f32(parts.sum(0), bias, act, x.dtype)
-    revisit = g.acc == "revisit"
-    out = _skinny_kinner(x, w, bias, bk=bk, bn=bn, act=act, natural=natural,
-                         resident=resident, revisit=revisit)
-    if revisit:
-        out = _epilogue_f32(out, bias, act, x.dtype)
-    return out
+def launches(g: GenSpec, orientation: str, m: int, k: int, n: int, *,
+             dtype, bm: int, bk: int, bn: int, prepack: bool,
+             sms: int) -> tuple:
+    """The launches ``core/tsmm.py::tsmm_dot`` makes for one plan on a card
+    of ``sms`` SMs, as the wrappers would plan them (pure: nothing is
+    launched), for a call without bias and activation.
+
+    Each entry is ``(kernel, mode, splits, kps, launch plan, layout, dims,
+    count, smem)``: the kernel source (``tsmm_tall``, ``tsmm_skinny``,
+    ``pack_blocks``), its output mode and k split, the k range of one
+    split, the :class:`~repro_torch.kernels.tsmm.TallPlan` /
+    ``SkinnyPlan`` / ``PackPlan``, the operand layout it reads, the padded
+    (M, K, N) (a pack: (L, M, K, bm, bk)), how many times it runs per call
+    and the shared memory of one of its CTAs; the plain passes of
+    :func:`tall_steps` / :func:`skinny_steps` enter as ``("torch", pass,
+    arg, 0)``.  ``tsmm_dot`` packs a tall A on every call; a pre-packed
+    skinny weight was packed at load.  Raises ValueError where a wrapper
+    refuses the layout."""
+    eb = torch.empty((), dtype=dtype).element_size()
+    out = []
+
+    def pack(rows, cols, b0, b1):
+        pp = _k.pack_plan(1, rows, cols, b0, b1, dtype, 16, sms)
+        out.append(("pack_blocks", 0, 1, 0, pp, "natural",
+                    (1, rows, cols, b0, b1), 1, _k.pack_smem(pp, b1, eb)))
+
+    if orientation == "tall_a":
+        np_ = _ceil_to(n, 128)
+        if prepack:
+            pack(m, k, bm, bk)
+            layout, pbm, pbk = ("packed", bm, bk), bm, bk
+        else:
+            bm = ops.tall_row_block(m, bm, dtype)
+            layout, pbm, pbk = ("natural",), 0, 0
+        mp, kp = _ceil_to(m, bm), _ceil_to(k, bk)
+        for name, mode, splits, count in tall_steps(g, kp // bk, prepack):
+            if name == "torch":
+                out.append((name, mode, splits, 0))
+                continue
+            kps = kp // (splits * count)
+            tp = _k.tall_plan(mp, kp, np_, dtype=dtype, packed=prepack,
+                              pbm=pbm, pbk=pbk, mode=mode, splits=splits,
+                              kps=kps, sms=sms)
+            out.append(("tsmm_tall", mode, splits, kps, tp, layout,
+                        (mp, kp, np_), count, _k.tall_smem(tp)))
+        return tuple(out)
+    if bn % 64:
+        raise ValueError(f"skinny launch: bn={bn} is not a multiple of 64")
+    natural = bool(g.packfuse) and not prepack
+    kp, np_ = _ceil_to(k, bk), _ceil_to(n, bn)
+    layout = ("natural",) if natural else ("packed", bk, bn)
+    for name, mode, splits, count in skinny_steps(g, kp // bk, prepack):
+        if name == "torch":
+            out.append((name, mode, splits, 0))
+        elif name == "pack_blocks":
+            pack(k, n, bk, bn)
+        else:
+            sp = _k.skinny_plan(m, kp, np_, dtype=dtype, natural=natural,
+                                bk=bk, bn=bn, mode=mode, splits=splits,
+                                kps=kp // splits, sms=sms)
+            out.append(("tsmm_skinny", mode, splits, kp // splits, sp,
+                        layout, (m, kp, np_), count, _k.skinny_smem(sp)))
+    return tuple(out)
 
 
 def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
                 bk: int = 0, packed: bool = False, schedule=None):
-    """Lower grammar point ``g`` for the tall-A orientation.
+    """Lower grammar point ``g`` for the tall-A orientation, running the
+    kernels of :func:`tall_steps`.
 
     ``a`` is natural (M, K) or packed (nm, nk, bm, bk) per ``packed``.
     Returns (M, N) for natural inputs (padding sliced off) or (nm*bm, N)
@@ -214,14 +298,20 @@ def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
         m = a.shape[0]
         ap, bp, bm = ops.pad_tall(a, b, bm, bk)
         nk = bp.shape[0] // bk
-    if g.ksplit > 1:
-        s = split_divisor(nk, g.ksplit)
-        if s != g.ksplit:
-            g = dataclasses.replace(g, ksplit=s)
     fused = g.epi != "split"
     biasp = _pad_bias(bias, bp.shape[1])
-    out = _tall_compute(ap, bp, biasp if fused else None, g=g, bm=bm, bk=bk,
-                        act=act if fused else None, packed=packed)
+    bias_, act_ = (biasp, act) if fused else (None, None)
+    (kernel, mode, splits, _), *passes = tall_steps(g, nk, packed)
+    if kernel == "tall_kouter":
+        out = _tall_kouter(ap, bp, bm=bm, bk=bk, packed=packed)
+    elif kernel == "tall_ksplit":
+        out = _tall_ksplit(ap, bp, bm=bm, bk=bk, splits=splits,
+                           packed=packed, resident=g.bres == "resident")
+    else:
+        out = _tall_kinner(ap, bp, bias_, bm=bm, bk=bk, act=act_,
+                           packed=packed, resident=g.bres == "resident",
+                           revisit=mode == _k.ACCUM_F32)
+    out = _post(out, passes, bias_, act_, b.dtype)
     if not fused and (bias is not None or act not in (None, "none")):
         out = _split_epilogue(out, biasp, act)
     if packed:
@@ -231,41 +321,43 @@ def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
 
 def emit_skinny_a(g: GenSpec, x, w, bias=None, act=None, *, bk: int = 0,
                   bn: int = 0, packed: bool = True, schedule=None):
-    """Lower grammar point ``g`` for the skinny-A orientation.
+    """Lower grammar point ``g`` for the skinny-A orientation, running the
+    steps of :func:`skinny_steps`.
 
     ``w`` is the packed (nk, nn, bk, bn) weight when ``packed`` else the
     natural (K, N) layout — non-packfuse points then pack it per call;
     packfuse points read the natural layout inside the kernel.  Returns
     (m, n_padded); the caller slices padded columns."""
     del schedule
-    if g.packfuse and packed:
-        # weight already block-major: nothing to fuse — the baseline kernel
-        return ops.tsmm_skinny(x, w, bias, act=act)
-    if g == BASELINE_POINT:
-        if not packed:
-            w = packing.pack(w, bk, bn).blocks
-        return ops.tsmm_skinny(x, w, bias, act=act)
     m = x.shape[0]
-    natural = bool(g.packfuse)
+    nk = w.shape[0] if packed else _ceil_to(x.shape[1], bk) // bk
+    steps = skinny_steps(g, nk, packed)
+    if steps[0][0] == "pack_blocks":
+        w = packing.pack(w, bk, bn).blocks
+        steps = steps[1:]
+    (kernel, mode, splits, _), *passes = steps
+    if kernel == "tsmm_skinny_a":
+        return ops.tsmm_skinny(x, w, bias, act=act)
+    natural = w.dim() == 2
     if natural:
-        k, n = x.shape[1], w.shape[1]
-        kp, np_ = _ceil_to(k, bk), _ceil_to(n, bn)
+        kp, np_ = _ceil_to(x.shape[1], bk), _ceil_to(w.shape[1], bn)
         wq = ops.pad2(w, kp, np_).contiguous()
-        nk = kp // bk
     else:
-        if not packed:
-            w = packing.pack(w, bk, bn).blocks
-        nk, nn, bk, bn = w.shape
+        _, nn, bk, bn = w.shape
         wq, kp, np_ = w, nk * bk, nn * bn
     xp = ops.pad2(x, m, kp).contiguous()
-    if g.ksplit > 1:
-        s = split_divisor(nk, g.ksplit)
-        if s != g.ksplit:
-            g = dataclasses.replace(g, ksplit=s)
     fused = g.epi != "split"
     biasp = _pad_bias(bias, np_)
-    out = _skinny_compute(xp, wq, biasp if fused else None, g=g, bk=bk, bn=bn,
-                          act=act if fused else None, natural=natural)
+    bias_, act_ = (biasp, act) if fused else (None, None)
+    if kernel == "skinny_ksplit":
+        out = _skinny_ksplit(xp, wq, bk=bk, bn=bn, splits=splits,
+                             natural=natural,
+                             resident=g.bres == "resident")
+    else:
+        out = _skinny_kinner(xp, wq, bias_, bk=bk, bn=bn, act=act_,
+                             natural=natural, resident=g.bres == "resident",
+                             revisit=mode == _k.RAW_F32)
+    out = _post(out, passes, bias_, act_, x.dtype)
     if not fused and (bias is not None or act not in (None, "none")):
         out = _split_epilogue(out, biasp, act)
     return out[:m]

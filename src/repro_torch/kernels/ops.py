@@ -79,12 +79,18 @@ def tsmm_skinny(x, wp, bias=None, *, act=None):
     return out[:, : (bias.shape[0] if bias is not None else n)]
 
 
+def tall_row_block(m: int, bm: int, dtype) -> int:
+    """The row block a natural tall A of ``m`` rows is padded to: ``bm``,
+    capped at ``m`` rounded up to the reference's sublane."""
+    return min(bm, _ceil_to(m, sublane(dtype)))
+
+
 def pad_tall(a, b, bm: int, bk: int):
     """Pad a natural tall-A pair to the kernel's shapes: M to the row block
     (itself capped at M rounded up to the sublane), K to bk, N to 128.
     Returns (a_pad, b_pad, bm_eff)."""
     m, k = a.shape
-    bm_ = min(bm, _ceil_to(m, sublane(a.dtype)))
+    bm_ = tall_row_block(m, bm, a.dtype)
     mp, kp = _ceil_to(m, bm_), _ceil_to(k, bk)
     return (pad2(a, mp, kp).contiguous(),
             pad2(b, kp, _ceil_to(b.shape[1], 128)).contiguous(), bm_)

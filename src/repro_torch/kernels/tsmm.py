@@ -157,6 +157,18 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
     return SkinnyPlan("simt", 8 if m <= 8 else 64, 64, 1, 0)
 
 
+def skinny_smem(plan: SkinnyPlan) -> int:
+    """Shared memory of one CTA of ``plan``, as ``csrc/tsmm_skinny.cu`` lays
+    it out: the bf16 designs' 1024-aligned ring of (X, W) stages and an
+    mbarrier pair per stage; the SIMT kernels' static tiles (8-row: the X
+    chunk and the per-warp reduction; 64-row: the X and W slices)."""
+    if plan.design == "simt":
+        return 4 * (8 * 512 + 8 * 8 * 64) if plan.bm == 8 \
+            else 4 * 2 * 16 * (64 + 4)
+    stage = plan.bm * SKINNY_BK * 2 + SKINNY_BK * SKINNY_NT * 2
+    return 1024 + plan.stages * (stage + 16)
+
+
 def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
                   mode: int, bk: int = 0, bn: int = 0):
     """Run the skinny-A function on ``x``'s device: the CUDA kernel for a
@@ -305,6 +317,17 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
     cols = (n // nt) * splits
     bm = next((b for b in (64, 32) if -(-m // b) * cols >= sms), 16)
     return TallPlan("simt", bm, nt, 1, 0)
+
+
+def tall_smem(plan: TallPlan) -> int:
+    """Shared memory of one CTA of ``plan``, as ``csrc/tsmm_tall.cu`` lays
+    it out: the wgmma design's 1024-aligned ring of (A, B) stages and an
+    mbarrier pair per stage; the SIMT kernel's static fp32 slices of 32 k
+    rows."""
+    if plan.design == "simt":
+        return 4 * 32 * (plan.bm + 1 + plan.nt)
+    return 1024 + plan.stages * (TALL_BM * TALL_BK * 2
+                                 + TALL_BK * TALL_NT * 2 + 16)
 
 
 def check_tma(t, name: str, what: str) -> None:
@@ -593,6 +616,14 @@ def pack_plan(L: int, M: int, K: int, bm: int, bk: int, dtype, align: int,
     if grid >= 2 ** 31:
         raise ValueError(f"pack plan: a grid of {grid} CTAs")
     return PackPlan("vec", rows, grid, PACK_VEC_THREADS, 0, box)
+
+
+def pack_smem(plan: PackPlan, bk: int, esize: int) -> int:
+    """Shared memory of one CTA of ``plan``: the TMA design's ring
+    (:func:`pack_tma_smem`); the vec design holds none."""
+    if plan.design == "tma":
+        return pack_tma_smem(plan.rows, bk, esize, plan.stages)
+    return 0
 
 
 def pack_work(plan: PackPlan, L: int, M: int, K: int, bm: int, bk: int):

@@ -6,7 +6,10 @@
 Each comma-separated ``--trace`` entry is one request group admitted
 against the bucket set.  ``--device`` defaults to ``cuda``; pass
 ``--device cpu`` (with ``--reduced``) to run the plain PyTorch versions
-on the CPU.  Params are random, from seed 0.
+on the CPU.  Params are random, from seed 0.  After an install sweep
+(``repro_torch.core.install``) on the same shapes the registry line
+reads 0 misses; ``--background-tune`` times the problems that did miss
+on a thread of their own and commits the measured plans.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=0)
     ap.add_argument("--no-prepack", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--background-tune", action="store_true",
+                    help="time registry-missed problems off the serving "
+                         "thread and commit the measured plans")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -70,7 +76,7 @@ def main(argv=None):
     max_len = args.max_len or (args.prompt_len + args.steps + 8)
     eng = Engine(model, params, axes, max_len=max_len, max_batch=max_batch,
                  max_prompt=args.prompt_len, prepack=not args.no_prepack,
-                 device=device)
+                 background_tune=args.background_tune, device=device)
     del params
     print(f"buckets={eng.buckets} length_buckets={eng.grid.length} "
           f"packed_leaves={len(eng.pack_report)} device={device}")
@@ -83,6 +89,10 @@ def main(argv=None):
         print("  tokens[0]:", res.tokens[0].tolist())
     s = registry.stats()
     print(f"plan registry: {s['hits']} hits / {s['misses']} misses")
+    if eng.tuner is not None:
+        eng.tuner.join()
+        print(f"background tuner: {len(eng.tuner.committed)} measured plans "
+              f"committed")
     vr = eng.variant_report()
     if vr:
         counts = Counter(vr.values())

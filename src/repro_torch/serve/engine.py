@@ -14,22 +14,32 @@ A request group of any size b <= max_batch is padded to the nearest
 bucket; larger groups are split.  Calls run eagerly (there is no program
 store yet); times are taken with ``time.perf_counter`` after
 ``torch.cuda.synchronize()``.
+
+After an install sweep (``core/install.py``) on the same shapes, the
+engine's start and traffic are registry lookups only.  A lookup that
+misses is served at once off the model-ranked plan; with
+``background_tune`` the missed problems are then timed on a thread of
+their own (its own CUDA stream) and the measured winners committed to
+the registry; without it they go to the persisted miss log.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import registry
 from repro_torch.core.linear import serving_ctx
 from repro_torch.core.packing import PackedTensor
-from repro_torch.core.plan import BucketGrid, bucket_for, buckets_for, \
-    length_buckets_for
+from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
+    buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import tree_map
 
@@ -98,7 +108,82 @@ def pack_tree_for_serving(params, axes, batch_m):
         report["/".join(path)] = tuple(pk.blocks.shape)
         return pk
 
-    return walk(params, axes, ()), report
+    misses_before = registry.stats()["misses"]
+    packed = walk(params, axes, ())
+    if registry.stats()["misses"] > misses_before:
+        registry.flush()   # persist freshly tuned plans in ONE write; after
+    return packed, report  # an install sweep every lookup hits, no write
+
+
+class _BackgroundTuner:
+    """Measures registry-missed problems off the serving thread and
+    commits the winners.
+
+    On a miss the engine serves at once off the model-ranked plan; the
+    missed problem keys are drained here, timed on a daemon thread with
+    the adaptive short-list search and the measured winner committed to
+    the registry (whose provenance guard keeps it over later model-ranked
+    puts).  On a CUDA device the thread launches and times on a CUDA
+    stream of its own: every wrapper launches on the current stream, so
+    timings on the serving stream would interleave with serving."""
+
+    def __init__(self, hw=None, *, device, top_k: int = 4, stable: int = 2,
+                 iters: int = 3, warmup: int = 1):
+        self.hw = hw
+        self.device = torch.device(device)
+        self.top_k, self.stable = top_k, stable
+        self.iters, self.warmup = iters, warmup
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self.committed: list = []
+        self._seen: set = set()
+        self._threads: list = []
+        self._lock = threading.Lock()
+
+    def submit(self, problem_keys: list) -> None:
+        with self._lock:
+            fresh = [k for k in problem_keys if k not in self._seen]
+            self._seen.update(fresh)
+        if not fresh:
+            return
+        t = threading.Thread(target=self._work, args=(fresh,), daemon=True,
+                             name="repro-torch-bg-tuner")
+        with self._lock:
+            self._threads.append(t)
+        t.start()
+
+    def busy(self) -> bool:
+        with self._lock:
+            return any(t.is_alive() for t in self._threads)
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
+            t.join(timeout)
+
+    def _work(self, keys: list) -> None:
+        from repro_torch.core.autotuner import make_plan
+        ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+               else contextlib.nullcontext())
+        with ctx, torch.inference_mode():
+            for key in keys:
+                try:
+                    cur = registry.peek(key, self.device)
+                    if cur is not None and cur.chosen_by == "measured":
+                        continue         # already timed
+                    plan = make_plan(Problem.from_key(key), self.hw,
+                                     measure="wallclock", force=True,
+                                     persist=False, top_k=self.top_k,
+                                     stable=self.stable, iters=self.iters,
+                                     warmup=self.warmup, device=self.device)
+                    self.committed.append(plan)
+                    log.info("background tuner committed %s", plan)
+                except Exception:        # the thread must not die silently
+                    log.exception("background tune failed for %s", key)
+            if self.stream is not None:
+                self.stream.synchronize()
+        registry.flush()                 # plans + measurement records
 
 
 @dataclasses.dataclass
@@ -121,9 +206,19 @@ class Engine:
                  max_batch: Optional[int] = None,
                  buckets: Optional[tuple] = None,
                  max_prompt: Optional[int] = None, min_prompt: int = 8,
-                 prepack: bool = True, device="cuda"):
+                 prepack: bool = True, background_tune: bool = False,
+                 tuner_opts: Optional[dict] = None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model
+        self.tuner: Optional[_BackgroundTuner] = None
+        if background_tune:
+            # misses rank against the measurement-calibrated model, and the
+            # missed problems are timed and committed off-thread
+            from repro_torch.core import autotuner, evaluator
+            hw = evaluator.calibrated_hw(device=self.device)
+            autotuner.set_default_hw(hw)
+            self.tuner = _BackgroundTuner(hw, device=self.device,
+                                          **(tuner_opts or {}))
         if buckets:
             self.buckets = tuple(sorted(buckets))
             self.max_batch = (min(max_batch, self.buckets[-1])
@@ -148,14 +243,16 @@ class Engine:
             log.info("pre-packed %d weight leaves for buckets %s",
                      len(self.pack_report), self.buckets)
         self.params = params
+        self._drain_misses()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def variant_report(self) -> dict:
-        """``m{bucket}_k{k}_n{n}`` -> the kernel variant each packed weight
-        replays per batch bucket (its ``kernel_specs`` stamp)."""
+    def _stamp_report(self, field: int) -> dict:
+        """``m{bucket}_k{k}_n{n}`` -> field ``field`` of each packed
+        weight's ``kernel_specs`` stamp entries (1: the KernelSpec, 2: the
+        ScheduleSpec), as its key."""
         out = {}
 
         def walk(p):
@@ -164,11 +261,34 @@ class Engine:
                     walk(v)
             elif isinstance(p, PackedTensor):
                 k, n = p.shape[-2:]
-                for m, spec, _ in p.kernel_specs:
-                    out[f"m{m}_k{k}_n{n}"] = spec.key()
+                for entry in p.kernel_specs:
+                    out[f"m{entry[0]}_k{k}_n{n}"] = entry[field].key()
 
         walk(self.params)
         return out
+
+    def variant_report(self) -> dict:
+        """The kernel variant each packed weight replays per batch bucket
+        (``KernelSpec.key()`` values)."""
+        return self._stamp_report(1)
+
+    def schedule_report(self) -> dict:
+        """The grid schedule each packed weight replays per batch bucket
+        (``ScheduleSpec.key()`` values; ``default`` = the pre-schedule
+        behaviour)."""
+        return self._stamp_report(2)
+
+    def _drain_misses(self) -> None:
+        """Hand the registry misses since the last drain to the background
+        tuner (serving already ran off the model-ranked plans), or, without
+        one, to the persisted miss log.  A no-op when nothing missed."""
+        if self.tuner is None:
+            registry.flush_misses()
+            return
+        keys = registry.drain_misses()
+        if keys:
+            log.info("background-tuning %d registry misses", len(keys))
+            self.tuner.submit(keys)
 
     def bucket_of(self, b: int) -> int:
         return bucket_for(b, self.buckets)
@@ -225,29 +345,55 @@ class Engine:
         tokens = (torch.cat(toks, dim=1) if toks
                   else torch.zeros((bucket, 0), dtype=torch.int32,
                                    device=self.device))
+        self._drain_misses()
         return GenerateResult(tokens=tokens[:b], logits_last=logits[:b],
                               prefill_s=t1 - t0,
                               per_token_s=(t2 - t1) / max(steps, 1),
                               buckets=(bucket,))
 
+    def ragged_supported(self) -> bool:
+        """Whether ragged prompts can be left-padded and masked per row:
+        an attention-cache LM with a per-row prefill, fed tokens."""
+        cfg = self.model.cfg
+        return (self.model.prefill_row is not None
+                and not cfg.embeds_input
+                and not getattr(cfg, "is_encoder_decoder", False))
+
     def serve(self, requests: list, steps: int) -> list:
-        """A list of single requests (dicts with 1D ``tokens``) becomes one
-        aligned group.  Ragged prompt lengths are left-padded to the
+        """A list of single requests (dicts with 1D ``tokens`` and any
+        other per-request keys) becomes one aligned group; every key is
+        stacked into it.  Ragged prompt lengths are left-padded to the
         group's length bucket and masked per row (``batch["pad"]``), so
-        decode stays lockstep.  Returns one GenerateResult per request."""
+        decode stays lockstep; a model without ragged support refuses
+        them.  Returns one GenerateResult per request."""
         if not requests:
             return []
         lens = sorted({int(r["tokens"].shape[-1]) for r in requests})
-        lb = (lens[-1] if lens[-1] > self.grid.max_prompt
-              else self.grid.length_bucket(lens[-1]))
-        toks = [torch.as_tensor(r["tokens"]) for r in requests]
-        if len(lens) == 1 and lens[0] == lb:
-            group = {"tokens": torch.stack(toks)}
+        keys = requests[0].keys()
+        if not self.ragged_supported():
+            if len(lens) != 1:
+                raise ValueError(
+                    f"ragged prompt lengths {lens} need an attention-cache "
+                    f"LM (family={self.model.cfg.family}); pad the prompts "
+                    f"to a common length for this architecture")
+            lb = lens[-1]
+        elif lens[-1] > self.grid.max_prompt:
+            lb = lens[-1]
         else:
+            lb = self.grid.length_bucket(lens[-1])
+        if len(lens) == 1 and lens[0] == lb:
+            group = {k: torch.stack([torch.as_tensor(r[k]) for r in requests])
+                     for k in keys}
+        else:
+            toks = [torch.as_tensor(r["tokens"]) for r in requests]
             pads = [lb - t.shape[-1] for t in toks]
             group = {"tokens": torch.stack([F.pad(t, (p, 0))
                                             for t, p in zip(toks, pads)]),
                      "pad": torch.tensor(pads, dtype=torch.int32)}
+            for k in keys:
+                if k not in ("tokens", "pad"):
+                    group[k] = torch.stack([torch.as_tensor(r[k])
+                                            for r in requests])
         res = self.generate(group, steps)
         return [GenerateResult(tokens=res.tokens[i:i + 1],
                                logits_last=res.logits_last[i:i + 1],

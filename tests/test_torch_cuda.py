@@ -25,6 +25,15 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 
 
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """The port's plan, measurement and miss files in a temporary
+    directory (planning persists)."""
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "meas.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        monkeypatch.setenv(var, str(tmp_path / name))
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -525,3 +534,52 @@ def test_skinny_fp32_runs_simt_and_bf16_refuses_bad_layouts(dev):
         tsmm.launch_skinny("t", xb[:, :96].contiguous(), wb[:96], None, None,
                            natural=True, splits=1, mode=tsmm.EPILOGUE, bk=96,
                            bn=128)
+
+
+@pytest.mark.parametrize("shape", [(4, 2560, 6912), (2048, 4096, 256)],
+                         ids=["skinny", "tall"])
+def test_measure_plan_times_the_kernels_after_parity(dev, shape):
+    """The evaluator times a plan's CUDA kernels (never a plain version),
+    after holding the timed call to the serving path."""
+    from repro_torch.core import evaluator, registry
+    from repro_torch.core.autotuner import candidate_blocks
+    from repro_torch.core.hw import for_device
+    from repro_torch.core.plan import Problem
+    registry.clear_memory()
+    plan = candidate_blocks(Problem(*shape, "bfloat16"), for_device(dev))[0]
+    before = sum(cuda.launches.values())
+    rec = evaluator.measure_plan(plan, dev, iters=5)
+    assert sum(cuda.launches.values()) >= before + 7   # parity + 2 + 5
+    assert rec.impl == "cuda" and rec.iters == 5 and 0 < rec.seconds < 0.1
+    assert registry.lookup_measurement(plan, dev) == rec
+    registry.clear_memory()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grammar_check_on_the_card(dev, dtype):
+    """Every sampled grammar point and schedule through the CUDA kernels,
+    against their plain versions (install --check)."""
+    from repro_torch.kernels.variants import verify_schedules, verify_variants
+    rows = verify_variants("cuda", dtype=dtype) + \
+        verify_schedules("cuda", dtype=dtype)
+    assert rows and [r for r in rows if not r["ok"]] == []
+
+
+def test_event_timing_is_positive_and_stable(dev):
+    import numpy as np
+
+    from repro_torch.core import evaluator
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, 4096), generator=g, device=dev).to(torch.bfloat16)
+    wp = ops.pack_blocks(torch.randn((4096, 4096), generator=g, device=dev)
+                         .to(torch.bfloat16), 128, 128)
+
+    def fn():
+        return tsmm.tsmm_skinny_a(x, wp)
+
+    a = evaluator.time_samples(fn, warmup=3, iters=30, device=dev)
+    b = evaluator.time_samples(fn, warmup=3, iters=30, device=dev)
+    assert len(a) == 30 and min(a) > 0 and min(b) > 0
+    q25, q75 = np.percentile(a, (25, 75))
+    spread = max((q75 - q25) / min(a), 0.1)
+    assert abs(min(b) - min(a)) <= spread * min(a)

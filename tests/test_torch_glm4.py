@@ -36,6 +36,17 @@ from repro_torch.models import lm
 from repro_torch.models.param import params_from_numpy
 from repro_torch.serve.engine import pack_tree_for_serving
 
+
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """The port's plan, measurement and miss files in a temporary
+    directory (planning persists)."""
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "meas.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        monkeypatch.setenv(var, str(tmp_path / name))
+
+
 GLM = dict(d_model=1024, num_heads=8, num_kv_heads=2, head_dim=128,
            d_ff=2048, dtype="float32")
 BATCH, PROMPT, STEPS = 2, 1024, 4
@@ -57,7 +68,7 @@ def test_config_is_the_reference_config():
 def isolated_registries(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans.json"))
     ref_registry.clear_memory()
-    registry.default().clear()
+    registry.clear_memory()
     yield
     ref_registry.clear_memory()
 

@@ -23,6 +23,17 @@ from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import ops, variants
 from repro_torch.kernels.flash_attention import flash_attention
 
+
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """The port's plan, measurement and miss files in a temporary
+    directory (planning persists)."""
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "meas.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        monkeypatch.setenv(var, str(tmp_path / name))
+
+
 ACTS = (None, "relu", "silu", "gelu")
 
 

@@ -30,6 +30,17 @@ from repro_torch.models import lm
 from repro_torch.models.param import params_from_numpy
 from repro_torch.serve.engine import pack_tree_for_serving
 
+
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """The port's plan, measurement and miss files in a temporary
+    directory (planning persists)."""
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "meas.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        monkeypatch.setenv(var, str(tmp_path / name))
+
+
 WIDE = dict(d_model=512, d_ff=1024, num_heads=4, num_kv_heads=4, head_dim=128)
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
@@ -45,7 +56,7 @@ def configs(dtype):
 def isolated_registries(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans.json"))
     ref_registry.clear_memory()
-    registry.default().clear()
+    registry.clear_memory()
     yield
     ref_registry.clear_memory()
 

@@ -35,6 +35,15 @@ PROBLEMS = [(1, 2048, 1024, "float32"), (4, 1024, 4096, "bfloat16"),
             (2048, 4096, 128, "float32")]
 
 
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """The port's plan, measurement and miss files in a temporary
+    directory (planning persists)."""
+    for var, name in (("REPRO_TORCH_PLAN_CACHE", "plans.json"),
+                      ("REPRO_TORCH_MEASURE_CACHE", "meas.json"),
+                      ("REPRO_TORCH_MISS_LOG", "misses.json")):
+        monkeypatch.setenv(var, str(tmp_path / name))
+
 def _js(plan) -> str:
     return json.dumps(plan.to_json(), sort_keys=True)
 
@@ -91,7 +100,7 @@ def test_candidates_and_tuning_keys_match_reference(m, k, n, dt):
 
 @pytest.mark.parametrize("m,k,n,dt", PROBLEMS)
 def test_make_plan_matches_reference(m, k, n, dt, ref_registry_isolated):
-    registry.default().clear()
+    registry.clear_memory()
     got = autotuner.make_plan(Problem(m, k, n, dt), PORT_TPU, device="cpu")
     want = ref_autotuner.make_plan(RefProblem(m, k, n, dt), TPU_V5E,
                                    persist=False)
@@ -108,7 +117,7 @@ def test_make_plan_matches_reference(m, k, n, dt, ref_registry_isolated):
                                        (512, 2048, "bfloat16"),
                                        (2560, 768, "float32")])
 def test_prepack_for_matches_reference(k, n, dtype, ref_registry_isolated):
-    registry.default().clear()
+    registry.clear_memory()
     rng = np.random.default_rng(0)
     w = rng.standard_normal((k, n)).astype(np.float32)
     wj = jnp.asarray(w).astype(dtype)
