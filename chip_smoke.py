@@ -65,10 +65,23 @@ printing JSON lines:
                 unpacked wk/wv run the tall-A kernel at prefill.
 
 Both serve phases start on the registry the install phase wrote and must
-make zero registry misses over load, prefill and decode.
+make zero registry misses over load, precompile, prefill and decode.
+Each captures its engine's whole grid at load (``Engine.precompile``:
+one CUDA graph per decode bucket and per (bucket x length) prefill, with
+and without pad; the ``programs`` line: cells, capture seconds, graph
+pool bytes, and the cells captured by traffic, which must be 0), then
+serves every group twice: eagerly (an eager ``ProgramStore``, the same
+cells without graphs) and graphed (the main path).  The graphed tokens
+and last logits must be bit-equal to the eager ones (same kernels, same
+launch order), and so must the launch counts (a replay adds what its
+capture recorded).  Each prints ``prefill_s`` and ``per_token_s`` of
+both runs, and a ``profile`` of one decode step (qwen1.5-4b bucket 4,
+GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
+launch calls and kernels per step (``launch/profile_decode.py``).
 
 Each path (install, serve, serve.glm4) zeroes the launch counts just
-before it and reads them just after; every kernel of the path must have
+before it (on the serve paths: before the graphed groups) and reads them
+just after; every kernel of the path must have
 launched (on the serve paths: the baseline, flash and the kernel of every
 variant the installed plans stamp; on the install path: every TSMM
 kernel), and every bf16
@@ -924,21 +937,26 @@ def phase_serve():
     if len(eng.pack_report) != 8:
         raise AssertionError(f"expected 8 packed leaves, got "
                              f"{sorted(eng.pack_report)}")
-    cuda.reset_launches()
+    groups = {b: make_group(cfg, b, prompt, "cuda") for b in (1, 3, 4)}
+    base, pre = serve_both(eng, groups, steps, "serve")
     first = []
-    for b in (1, 3, 4):
-        res = eng.generate(make_group(cfg, b, prompt, "cuda"), steps=steps)
-        toks = check_group(res, b, steps, cfg.vocab_size)
+    for b, (want, got) in base.items():
+        toks = check_group(got, b, steps, cfg.vocab_size)
         first.append(toks[0].tolist())
-        emit({"phase": "serve", "group": b, "buckets": res.buckets,
-              "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
-              "tokens[0]": toks[0].tolist()})
+        emit({"phase": "serve", "group": b, "buckets": got.buckets,
+              "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
+              "eager_prefill_s": want.prefill_s,
+              "eager_per_token_s": want.per_token_s,
+              "compile_s": got.compile_s,
+              "bit_equal_to_eager": True, "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
+    check_programs("serve", eng, pre)
     stats = registry.stats()
     emit({"phase": "serve.launches", "launches": launches,
           "design_launches": designs, "registry": stats,
           "tokens0_equal_across_groups": all(t == first[0] for t in first)})
+    profile("serve", eng, groups[4], steps=4)
     if stats["misses"]:
         raise AssertionError(f"serve: {stats['misses']} registry misses after "
                              f"the install sweep")
@@ -952,6 +970,83 @@ def phase_serve():
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     return launches
+
+
+def serve_both(eng, groups: dict, steps: int, path: str) -> tuple:
+    """Capture ``eng``'s grid at load, serve every group eagerly (an eager
+    store of the same model) and then graphed, the main path: the launch
+    counts are zeroed just before the graphed groups and read by the
+    caller just after them.  Raises unless every graphed group's tokens
+    and last logits are bit-equal to its eager run's and both runs'
+    launch counts are equal.  Returns ({b: (eager result, graphed
+    result)}, the precompile's rows, seconds and store stats)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.serve.programs import ProgramStore
+    t0 = time.perf_counter()
+    rows = eng.precompile()
+    torch.cuda.synchronize()
+    pre = {"rows": rows, "seconds": time.perf_counter() - t0,
+           "loaded": eng.programs.stats()}
+    graphed = eng.programs
+    eng.programs = ProgramStore(eng.model, device=eng.device, capture=False)
+    out = {}
+    cuda.reset_launches()
+    try:
+        for b, batch in groups.items():
+            out[b] = [eng.generate(batch, steps)]
+    finally:
+        eng.programs = graphed
+    torch.cuda.synchronize()
+    eager_counts = (dict(cuda.launches), dict(cuda.design_launches))
+    cuda.reset_launches()
+    for b, batch in groups.items():
+        out[b].append(eng.generate(batch, steps))
+    torch.cuda.synchronize()
+    counts = (dict(cuda.launches), dict(cuda.design_launches))
+    for b, (want, got) in out.items():
+        if not (torch.equal(got.tokens, want.tokens)
+                and torch.equal(got.logits_last, want.logits_last)):
+            raise AssertionError(f"{path} b={b}: the graphed tokens or "
+                                 f"logits differ from the eager run's")
+    if counts != eager_counts:
+        raise AssertionError(f"{path}: launches under replay {counts} differ "
+                             f"from the eager run's {eager_counts}")
+    return {b: tuple(v) for b, v in out.items()}, pre
+
+
+def check_programs(path: str, eng, pre: dict) -> None:
+    """The ``programs`` line: the cells captured at load, their capture
+    seconds, the shared pool's bytes, and the cells traffic captured
+    (must be 0)."""
+    from collections import Counter
+    st = eng.programs.stats()
+    loaded = pre["loaded"]
+    traffic = ((st["captured"] + st["eager"])
+               - (loaded["captured"] + loaded["eager"]))
+    emit({"phase": "programs", "path": path, "cells": len(pre["rows"]),
+          "kinds": dict(Counter(r["kind"] + ("+pad" if r["pad"] else "")
+                                for r in pre["rows"])),
+          "captured": loaded["captured"], "capture_s": loaded["capture_s"],
+          "precompile_s": pre["seconds"], "pool_bytes": st["pool_bytes"],
+          "captured_by_traffic": traffic, "reused": st["reused"],
+          "slowest_cells": sorted(
+              ({k: r[k] for k in ("kind", "bucket", "tokens", "pad",
+                                  "compile_s")} for r in pre["rows"]),
+              key=lambda r: -r["compile_s"])[:3]})
+    if traffic or loaded["captured"] != len(pre["rows"]):
+        raise AssertionError(f"{path}: {loaded['captured']} of "
+                             f"{len(pre['rows'])} cells captured at load, "
+                             f"{traffic} by traffic")
+
+
+def profile(path: str, eng, batch: dict, steps: int) -> None:
+    """One ``profile`` line per mode: ``steps`` decode steps of ``batch``
+    eagerly and as graph replays (``launch/profile_decode.py``)."""
+    from repro_torch.launch.profile_decode import profile_steps
+    for graphs in (False, True):
+        summary, _ = profile_steps(eng, batch, steps=steps, graphs=graphs)
+        emit({"phase": "profile", "path": path, **summary})
 
 
 def skinny_counter(spec_key: str) -> str:
@@ -1037,31 +1132,30 @@ def phase_serve_glm4():
                              f"is not a largest layer-stacked leaf of "
                              f"{eng.pack_report}")
 
-    # count the launches of every prefill call separately from decode
-    prefill_launches = Counter()
-    inner = eng.model.prefill
-
-    def prefill(p, b, c):
-        before = Counter(cuda.launches)
-        out = inner(p, b, c)
-        prefill_launches.update(Counter(cuda.launches) - before)
-        return out
-
-    eng.model = dataclasses.replace(eng.model, prefill=prefill)
-    cuda.reset_launches()
+    groups = {b: make_group(cfg, b, prompt, "cuda") for b in (1, 2)}
+    base, pre = serve_both(eng, groups, steps, "serve.glm4")
     tall_plans = {}
-    for b in (1, 2):
-        res = eng.generate(make_group(cfg, b, prompt, "cuda"), steps=steps)
-        toks = check_group(res, b, steps, cfg.vocab_size)
-        m = res.buckets[0] * prompt
+    for b, (want, got) in base.items():
+        toks = check_group(got, b, steps, cfg.vocab_size)
+        m = got.buckets[0] * prompt
         plan = registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
                                      * cfg.head_dim, cfg.dtype).key(), "cuda")
         if plan is None or plan.orientation != "tall_a":
             raise AssertionError(f"serve.glm4: no tall_a plan for m={m}")
         tall_plans[m] = str(plan)
-        emit({"phase": "serve.glm4", "group": b, "buckets": res.buckets,
-              "prefill_s": res.prefill_s, "per_token_s": res.per_token_s,
+        emit({"phase": "serve.glm4", "group": b, "buckets": got.buckets,
+              "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
+              "eager_prefill_s": want.prefill_s,
+              "eager_per_token_s": want.per_token_s,
+              "compile_s": got.compile_s, "bit_equal_to_eager": True,
               "tall_plan": str(plan), "tokens[0]": toks[0].tolist()})
+    # the launches of one call of each prefill cell the groups ran,
+    # recorded at its capture (a replay launches exactly these)
+    prefill_launches = Counter()
+    for p in eng.programs.programs():
+        if (p.kind == "prefill" and p.tokens == prompt
+                and "pad" not in p.args[1]):
+            prefill_launches.update(p.launches)
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
     stats = registry.stats()
@@ -1087,6 +1181,8 @@ def phase_serve_glm4():
         raise AssertionError(f"GLM-4-9B path launched no {missing}")
     check_wgmma("serve.glm4", launches, designs)
     check_pack("serve.glm4", launches, designs)
+    check_programs("serve.glm4", eng, pre)
+    profile("serve.glm4", eng, make_group(cfg, 1, prompt, "cuda"), steps=4)
     del eng
     gc.collect()
     torch.cuda.empty_cache()

@@ -49,9 +49,13 @@ DROPPED_TERM_EFFICIENCY = 1e9
 
 def resolve_impl(device) -> str:
     """``"cuda"`` (the hand-written kernels) on a CUDA device, ``"torch"``
-    (their plain versions) on the CPU."""
+    (their plain versions) on the CPU.  A CUDA device without a GPU
+    raises: nothing is timed on the CPU unless the caller asks for it."""
     device = torch.device(device)
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("evaluator: no CUDA device is available; pass "
+                               "device='cpu' to time the plain versions")
         return "cuda"
     if device.type == "cpu":
         return "torch"
@@ -122,7 +126,7 @@ def _materialize(plan: Plan, device, seed: int = 0):
     return a, b
 
 
-def build_callable(plan: Plan, device="cpu") -> Callable:
+def build_callable(plan: Plan, device="cuda") -> Callable:
     """A zero-arg callable executing the plan's serving path on operands
     made from a seed on ``device`` (``fn.operands`` holds them).
 
@@ -173,13 +177,14 @@ def _launches() -> int:
     return sum(cuda.launches.values())
 
 
-def parity_check(plan: Plan, device="cpu", rtol: float = 1e-2,
+def parity_check(plan: Plan, device="cuda", rtol: float = 1e-2,
                  atol: float = 1e-2, fn: Optional[Callable] = None) -> None:
     """Raise unless the timed callable's output matches the serving path
     (``tsmm_dot`` replaying the same plan on the same operands), so a fast
     wrong kernel never wins.  On a CUDA device the timed call must also
     have launched a kernel: a plain version is never timed there."""
     from repro_torch.core.tsmm import tsmm_dot  # lazy: avoids a cycle
+    resolve_impl(device)
     p = plan.problem
     fn = fn or build_callable(plan, device)
     a, b = fn.operands
@@ -204,13 +209,13 @@ def parity_check(plan: Plan, device="cpu", rtol: float = 1e-2,
 
 
 def time_samples(fn: Callable, *, warmup: int = 2, iters: int = 5,
-                 device="cpu") -> list:
+                 device="cuda") -> list:
     """Per-call seconds after warmup — the shared timing loop of the
     measurement path and the benchmarks (min-of-iters; see
     :func:`measure_plan`).  On a CUDA device: CUDA events around each
     call after an L2 flush (:class:`Timer`); on the CPU: the host clock."""
     device = torch.device(device)
-    if device.type == "cuda":
+    if resolve_impl(device) == "cuda":
         return [t / 1e3 for t in _timer(device).samples(fn, iters=iters,
                                                         warmup=warmup)]
     for _ in range(warmup):
@@ -224,7 +229,7 @@ def time_samples(fn: Callable, *, warmup: int = 2, iters: int = 5,
 
 
 def time_callable(fn: Callable, *, warmup: int = 2, iters: int = 5,
-                  device="cpu") -> float:
+                  device="cuda") -> float:
     """Median seconds per call."""
     return float(np.median(time_samples(fn, warmup=warmup, iters=iters,
                                         device=device)))
@@ -239,7 +244,7 @@ def _record(plan: Plan, ts: list, device, source: str) -> MeasureRecord:
                          wall_time=time.time())
 
 
-def measure_plan(plan: Plan, device="cpu", *, warmup: int = 2,
+def measure_plan(plan: Plan, device="cuda", *, warmup: int = 2,
                  iters: int = 5, check: bool = True,
                  reg: Optional[Registry] = None,
                  source: str = "evaluator") -> MeasureRecord:
@@ -258,7 +263,7 @@ def measure_plan(plan: Plan, device="cpu", *, warmup: int = 2,
     return rec
 
 
-def measure_plans(plans: list, device="cpu", warmup: int = 2, iters: int = 5,
+def measure_plans(plans: list, device="cuda", warmup: int = 2, iters: int = 5,
                   *, check: bool = True, reuse: bool = True,
                   reg: Optional[Registry] = None,
                   source: str = "evaluator") -> Plan:
@@ -266,6 +271,7 @@ def measure_plans(plans: list, device="cpu", warmup: int = 2, iters: int = 5,
     ``reuse`` consults the measurement cache first."""
     if not plans:
         raise ValueError("measure_plans needs at least one candidate plan")
+    resolve_impl(device)
     reg = reg or registry.default()
     best, best_rec = None, None
     for plan in plans:
@@ -279,7 +285,7 @@ def measure_plans(plans: list, device="cpu", warmup: int = 2, iters: int = 5,
                                chosen_by="measured")
 
 
-def measure_plans_interleaved(plans: list, device="cpu", *, rounds: int = 4,
+def measure_plans_interleaved(plans: list, device="cuda", *, rounds: int = 4,
                               warmup: int = 2, check: bool = True,
                               reg: Optional[Registry] = None,
                               source: str = "evaluator") -> list:

@@ -4,7 +4,7 @@ card.
     PYTHONPATH=src python -m repro_torch.core.install [--measure]
         [--calibrate] [--check] [--archs a,b] [--iters N] [--shapes N]
         [--max-batch N] [--max-prompt S] [--reduced] [--override k=v,...]
-        [--device cuda|cpu]
+        [--precompile] [--device cuda|cpu]
 
 The port of the reference package's ``core/install.py``.  It fills the
 persistent plan registry with execution plans for every TSMM-shaped
@@ -28,8 +28,17 @@ runs against a fresh in-memory registry and fails on any miss, then the
 grammar's self-checks (``verify_variants``, ``verify_schedules``) run on
 ``--device``; any failure exits non-zero.
 
-The reference's ``--mesh``, ``--precompile`` and ``--find-db`` belong to
-later slices (sharding, the program store, the tuning fleet).
+With ``--precompile`` each model's engine is built at the swept shapes
+(seeded random weights) and its whole serving grid captured as CUDA
+graphs (``serve/programs.py``); every cell is then replayed once against
+its eager run, which must be bit-equal, and the cells, capture seconds
+and graph-pool bytes per model are printed.  Unlike the reference's,
+this persists nothing: a CUDA graph cannot outlive its process, so a
+serving process captures its own grid at load (``launch/serve.py
+--precompile``).  On the CPU the cells are eager and the check trivial.
+
+The reference's ``--mesh`` and ``--find-db`` belong to later slices
+(sharding, the tuning fleet).
 """
 
 from __future__ import annotations
@@ -123,6 +132,35 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     return n_plans
 
 
+def precompile_arch(cfg, buckets: tuple, lengths: tuple, *, max_len: int,
+                    device="cuda") -> dict:
+    """Build an engine of ``cfg`` at these shapes on ``device`` (seeded
+    random weights), capture its serving grid, and replay every cell once
+    against its eager run.  Returns ``{"rows", "checks", "stats"}``; a
+    cell that is not bit-equal to its eager run raises.  Nothing is
+    persisted (the restart contract of ``serve/programs.py``)."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import check_cells, precompile_grid
+
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=device).manual_seed(0))
+    eng = Engine(model, params, axes, max_len=max_len, buckets=buckets,
+                 max_prompt=lengths[-1] if lengths else None, device=device)
+    del params
+    rows = precompile_grid(model, eng.params, buckets=eng.buckets,
+                           lengths=lengths, max_len=max_len,
+                           store=eng.programs)
+    checks = check_cells(eng.programs)
+    bad = [c for c in checks if not c["equal"]]
+    if bad:
+        raise AssertionError(f"precompile: {len(bad)} cells differ from their "
+                             f"eager runs: {bad[:3]}")
+    return {"rows": rows, "checks": checks, "stats": eng.programs.stats()}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--measure", action="store_true",
@@ -156,6 +194,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--override", default="",
                     help="comma-separated int config overrides applied with "
                          "reduced(), as the serving launcher's")
+    ap.add_argument("--precompile", action="store_true",
+                    help="also capture each model's serving grid as CUDA "
+                         "graphs and check every cell against its eager run "
+                         "(persists nothing: a graph lives in its process)")
     ap.add_argument("--device", default="cuda",
                     help="the device to plan, measure and check on")
     args = ap.parse_args(argv)
@@ -258,6 +300,24 @@ def main(argv=None) -> dict:
             registry.flush()
             print("re-ranked sweep under the calibrated model "
                   "(measured winners preserved)")
+
+    if args.precompile:
+        # the engine cache capacity the grid is captured at (the
+        # reference's default)
+        max_len = 2 * (lengths[-1] if lengths else 64)
+        result["precompile"] = {}
+        for arch in archs:
+            pre = precompile_arch(cfg_of(arch), buckets, lengths,
+                                  max_len=max_len, device=device)
+            st = pre["stats"]
+            result["precompile"][arch] = st
+            print(f"{arch:24s} {st['programs']:3d} cells ({st['captured']} "
+                  f"captured, {st['eager']} eager) capture_s="
+                  f"{st['capture_s']:.1f} pool_bytes={st['pool_bytes']}, "
+                  f"{len(pre['checks'])} bit-equal to their eager runs")
+        print("precompiled serving grids: nothing persisted (a CUDA graph "
+              "lives in its process; serve with --precompile to capture "
+              "at load)")
 
     print(f"\ninstalled {n_plans} execution plans over buckets {buckets} "
           f"x lengths {lengths or '(none)'} in {time.time() - t0:.1f}s "

@@ -9,17 +9,23 @@ rebuilt and an unchanged one is loaded as it is.  All sources compile in
 parallel, one ``nvcc`` each.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds
-one where it launches its kernel and nowhere else.  ``design_launches``
-counts the same launches by the design that ran them: ``skinny_wgmma`` /
-``skinny_stream`` / ``skinny_simt`` (``csrc/tsmm_skinny.cu``),
-``tall_wgmma`` / ``tall_simt`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` /
-``flash_simt`` (``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
-(``csrc/pack_blocks.cu``).  ``stream`` gives a launch its stream.
+one (:func:`count`) where it launches its kernel and nowhere else.
+``design_launches`` counts the same launches by the design that ran them:
+``skinny_wgmma`` / ``skinny_stream`` / ``skinny_simt``
+(``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_simt``
+(``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
+(``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
+(``csrc/pack_blocks.cu``).  A launch made while a CUDA graph captures
+runs nothing: inside :func:`recording` it is counted into the recorder
+instead, and :func:`replayed` adds a recorder's counts once per replay
+of the graph (``serve/programs.py``), so counts under graphs equal the
+eager counts.  ``stream`` gives a launch its stream.
 ``csrc/hopper.cuh`` holds the helpers the Hopper designs share.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,9 +52,44 @@ _libs: dict = {}
 build_report: dict = {}
 
 
+_recorder = threading.local()
+
+
 def reset_launches() -> None:
     launches.clear()
     design_launches.clear()
+
+
+def count(name: str, design: str) -> None:
+    """Count one launch of kernel ``name`` by ``design``: into the
+    calling thread's recorder while one is open, else into ``launches``
+    and ``design_launches``."""
+    rec = getattr(_recorder, "counts", None)
+    if rec is not None:
+        rec[0][name] += 1
+        rec[1][design] += 1
+        return
+    launches[name] += 1
+    design_launches[design] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the calling thread's launches into a recorder, (by kernel,
+    by design), instead of the global counts: what a graph capture
+    launches has not run.  Other threads keep counting globally."""
+    prev = getattr(_recorder, "counts", None)
+    _recorder.counts = (Counter(), Counter())
+    try:
+        yield _recorder.counts
+    finally:
+        _recorder.counts = prev
+
+
+def replayed(rec) -> None:
+    """Add a recorder's counts once: one replay of what it recorded."""
+    launches.update(rec[0])
+    design_launches.update(rec[1])
 
 
 def _nvcc() -> str:

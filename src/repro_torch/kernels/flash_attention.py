@@ -88,6 +88,5 @@ def flash_attention(q, k, v, *, causal: bool = True):
         b, sq, sk, h, kh, d, *strides, int(causal), _DTYPE[q.dtype],
         _DESIGN[design], cuda.stream(q.device))
     cuda.check(rc, "flash_attention")
-    cuda.launches["flash_attention"] += 1
-    cuda.design_launches[f"flash_{design}"] += 1
+    cuda.count("flash_attention", f"flash_{design}")
     return out

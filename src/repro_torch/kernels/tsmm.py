@@ -235,8 +235,7 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
         plan.nt, plan.cluster, plan.stages,
         cuda.stream(x.device))
     cuda.check(rc, name)
-    cuda.launches[name] += 1
-    cuda.design_launches[f"skinny_{plan.design}"] += 1
+    cuda.count(name, f"skinny_{plan.design}")
     return out
 
 
@@ -460,8 +459,7 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
         plan.bm, plan.nt, plan.cluster, plan.stages, mode, _ACT[act],
         _DTYPE[a.dtype], cuda.stream(a.device))
     cuda.check(rc, name)
-    cuda.launches[name] += 1
-    cuda.design_launches[f"tall_{plan.design}"] += 1
+    cuda.count(name, f"tall_{plan.design}")
     return out
 
 
@@ -658,8 +656,7 @@ def launch_pack(a, out, bm: int, bk: int, alpha: float, plan: PackPlan):
         plan.grid, plan.threads, plan.stages, plan.box,
         cuda.stream(a.device))
     cuda.check(rc, "pack_blocks")
-    cuda.launches["pack_blocks"] += 1
-    cuda.design_launches[f"pack_{plan.design}"] += 1
+    cuda.count("pack_blocks", f"pack_{plan.design}")
     return out
 
 

@@ -3,18 +3,24 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --layers 4
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --arch glm4_9b --layers 40 --batch 1 --prompt-len 2048 --prefill
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --arch glm4_9b --layers 40 --batch 1 --graphs
 
 Builds ``--arch`` at full width (depth cut to ``--layers``), bf16, seeded
 random weights, packs it through ``Engine``, prefills one group and then
 times ``--steps`` decode steps (or, with ``--prefill``, one prefill of
 the group) twice: by the host clock (one ``cuda.synchronize`` at the end,
 no profiler), then under ``torch.profiler`` (CPU and CUDA activities).
+The steps run as the engine's serving cells (``serve/programs.py``):
+eagerly, or with ``--graphs`` as replays of their captured CUDA graphs.
 Prints the card (``nvidia-smi`` name and power limit), the wall time per
 step, the device time per step summed over CUDA kernels and split by
 kernel family (skinny-A, tall-A, pack, flash attention, the rest), the
-kernel launches per step (``cudaLaunchKernel`` and the cluster launches,
-``cudaLaunchKernelExC``), and the ``key_averages`` tables.  A wall time
-well above the device time means the host bounds the step.
+host's kernel launch calls per step (``cudaLaunchKernel`` and the
+cluster launches, ``cudaLaunchKernelExC``), its graph launches
+(``cudaGraphLaunch``), the kernels the device ran per step, and the
+``key_averages`` tables.  A wall time well above the device time means
+the host bounds the step.
 """
 
 from __future__ import annotations
@@ -34,12 +40,86 @@ from repro_torch.core.linear import serving_ctx
 from repro_torch.launch.serve import make_group
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.programs import ProgramStore
 
 
 # kernel family -> substrings of the CUDA kernel names (csrc/*.cu)
 FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel", "tall_wgmma"),
             "pack": ("pack_kernel", "pack_tma_kernel", "pack_vec_kernel"),
             "flash": ("flash",)}
+
+
+def profile_steps(eng, batch: dict, *, steps: int, graphs: bool,
+                  prefill: bool = False) -> tuple:
+    """Wall and device time per step of ``eng``'s decode cell (or its
+    prefill cell) on ``batch``, through the engine's store (``graphs``)
+    or an eager store of the same model.  The group is prefilled before
+    each run, so the cache never passes the prompt plus ``steps``.
+    Returns (summary dict, the profiler's ``key_averages``)."""
+    store = (eng.programs if graphs
+             else ProgramStore(eng.model, device=eng.device, capture=False))
+    b, width = batch["tokens"].shape
+    cell = store.static_batch(batch)
+    cell["tokens"].copy_(batch["tokens"])
+    cache = store.static_cache(b, eng.max_len)
+    tok = store.static_tokens(b)
+    with torch.inference_mode(), serving_ctx():
+        pprog = store.program("prefill", (eng.params, cell, cache),
+                              bucket=b, tokens=width)
+
+        def start():
+            logits, _ = pprog.fn(eng.params, cell, cache)
+            tok.copy_(logits[:, -1].argmax(-1, keepdim=True))
+            return logits
+
+        start()
+        dprog = store.program("decode", (eng.params, cache, tok), bucket=b,
+                              tokens=1)
+        n = 1 if prefill else steps
+
+        def run():
+            if prefill:
+                start()
+            else:
+                for _ in range(n):
+                    logits, _ = dprog.fn(eng.params, cache, tok)
+                    tok.copy_(logits[:, -1].argmax(-1, keepdim=True))
+            torch.cuda.synchronize()
+
+        start()
+        run()                                   # warm
+        start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) / n
+        start()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    calls = {k: sum(e.count for e in ka if e.key == k)
+             for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cudaGraphLaunch")}
+    families = {f: 0.0 for f in FAMILIES}
+    families["other"] = 0.0
+    for e in kernels:
+        fam = next((f for f, keys in FAMILIES.items()
+                    if any(k in e.key for k in keys)), "other")
+        families[fam] += e.self_device_time_total / 1e3 / n
+    return {
+        "step": "prefill" if prefill else "decode", "graphs": graphs,
+        "batch": b, "prompt_len": width, "steps": n,
+        "wall_ms_per_step": 1e3 * wall,
+        "device_ms_per_step": sum(e.self_device_time_total for e in kernels)
+        / 1e3 / n,
+        "device_ms_per_step_by_family": families,
+        "cuda_launches_per_step": (calls["cudaLaunchKernel"]
+                                   + calls["cudaLaunchKernelExC"]) / n,
+        "graph_launches_per_step": calls["cudaGraphLaunch"] / n,
+        "kernels_per_step": sum(e.count for e in kernels) / n}, ka
 
 
 def main(argv=None):
@@ -51,6 +131,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--prefill", action="store_true",
                     help="profile one prefill instead of the decode steps")
+    ap.add_argument("--graphs", action="store_true",
+                    help="replay the captured CUDA graphs of the cells")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -60,52 +142,14 @@ def main(argv=None):
     cfg = dataclasses.replace(get_config(args.arch), num_layers=args.layers)
     model = build_model(cfg)
     params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
-    max_len = args.prompt_len + 2 * args.steps + 8
+    max_len = args.prompt_len + args.steps + 8
     eng = Engine(model, params, axes, max_len=max_len, max_batch=args.batch,
                  max_prompt=args.prompt_len, device="cuda")
     del params
     batch = make_group(cfg, args.batch, args.prompt_len, "cuda")
-    eng.generate(batch, args.steps)                     # warm-up
-    with torch.inference_mode(), serving_ctx():
-        cache = model.init_cache(args.batch, max_len, "cuda")
-        logits, cache = model.prefill(eng.params, batch, cache)
-        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-        steps = 1 if args.prefill else args.steps
-
-        def run():
-            for _ in range(steps):
-                if args.prefill:
-                    model.prefill(eng.params, batch, cache)
-                else:
-                    model.decode_step(eng.params, cache, tok)
-            torch.cuda.synchronize()
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        wall = (time.perf_counter() - t0) / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-    launches = sum(e.count for e in ka
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    families = {f: 0.0 for f in FAMILIES}
-    families["other"] = 0.0
-    for e in kernels:
-        fam = next((f for f, keys in FAMILIES.items()
-                    if any(k in e.key for k in keys)), "other")
-        families[fam] += e.self_device_time_total / 1e3 / steps
-    print(json.dumps({
-        "arch": args.arch, "layers": args.layers, "batch": args.batch,
-        "prompt_len": args.prompt_len,
-        "phase": "prefill" if args.prefill else "decode", "steps": steps,
-        "wall_ms_per_step": 1e3 * wall,
-        "device_ms_per_step": sum(e.self_device_time_total for e in kernels)
-        / 1e3 / steps,
-        "device_ms_per_step_by_family": families,
-        "cuda_launches_per_step": launches / steps}))
+    summary, ka = profile_steps(eng, batch, steps=args.steps,
+                                graphs=args.graphs, prefill=args.prefill)
+    print(json.dumps({"arch": args.arch, "layers": args.layers, **summary}))
     print(ka.table(sort_by="cpu_time_total", row_limit=25,
                    max_name_column_width=50))
     print(ka.table(sort_by="self_cuda_time_total", row_limit=15,

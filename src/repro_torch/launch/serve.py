@@ -10,6 +10,13 @@ on the CPU.  Params are random, from seed 0.  After an install sweep
 (``repro_torch.core.install``) on the same shapes the registry line
 reads 0 misses; ``--background-tune`` times the problems that did miss
 on a thread of their own and commits the measured plans.
+
+On a CUDA device every (kind, bucket, prompt length) cell is a captured
+CUDA graph (``serve/programs.py``).  ``--precompile`` captures the whole
+grid at load; ``--require-warm`` then exits 1 if serving missed the
+registry or captured any cell: the reference's "restart is lookup-only"
+gate, under the port's restart contract (a graph lives in its process,
+so the load captures the grid and traffic must capture nothing).
 """
 
 from __future__ import annotations
@@ -60,6 +67,11 @@ def main(argv=None):
     ap.add_argument("--background-tune", action="store_true",
                     help="time registry-missed problems off the serving "
                          "thread and commit the measured plans")
+    ap.add_argument("--precompile", action="store_true",
+                    help="capture every serving cell at load")
+    ap.add_argument("--require-warm", action="store_true",
+                    help="exit 1 if serving logged any registry miss or "
+                         "captured any cell")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -80,15 +92,30 @@ def main(argv=None):
     del params
     print(f"buckets={eng.buckets} length_buckets={eng.grid.length} "
           f"packed_leaves={len(eng.pack_report)} device={device}")
+    if args.precompile:
+        rows = eng.precompile()
+        st = eng.programs.stats()
+        print(f"precompiled {len(rows)} cells ({st['captured']} captured, "
+              f"{st['eager']} eager) in {st['capture_s']:.2f}s, "
+              f"pool_bytes={st['pool_bytes']}")
+    loaded = eng.programs.stats()
     for b in trace:
         res = eng.generate(make_group(cfg, b, args.prompt_len, device),
                            steps=args.steps)
         print(f"group b={b:4d} -> buckets={res.buckets} "
               f"prefill={res.prefill_s:.3f}s "
-              f"per_token={res.per_token_s * 1e3:.2f}ms")
+              f"per_token={res.per_token_s * 1e3:.2f}ms "
+              f"compile={res.compile_s:.3f}s")
         print("  tokens[0]:", res.tokens[0].tolist())
     s = registry.stats()
     print(f"plan registry: {s['hits']} hits / {s['misses']} misses")
+    ps = eng.programs.stats()
+    cold = (ps["captured"] + ps["eager"]) - (loaded["captured"]
+                                             + loaded["eager"])
+    print(f"program store: {ps['programs']} cells (captured="
+          f"{ps['captured']} eager={ps['eager']} reused={ps['reused']}) "
+          f"capture_s={ps['capture_s']:.2f} pool_bytes={ps['pool_bytes']}; "
+          f"{cold} acquired cold by traffic")
     if eng.tuner is not None:
         eng.tuner.join()
         print(f"background tuner: {len(eng.tuner.committed)} measured plans "
@@ -102,6 +129,10 @@ def main(argv=None):
         from repro_torch.kernels import cuda
         print("kernel launches: " + ", ".join(
             f"{k}={v}" for k, v in sorted(cuda.launches.items())))
+    if args.require_warm and (s["misses"] or cold):
+        raise SystemExit(f"--require-warm: serving was not lookup-only "
+                         f"({s['misses']} registry misses, {cold} cells "
+                         f"acquired by traffic)")
 
 
 if __name__ == "__main__":

@@ -89,10 +89,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
 
 
-def decode_attention(q, k_cache, v_cache, k_pos, cur_pos: int, *,
+def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *,
                      window: int = 0, valid_from=None):
     """One-step attention.  q: (B,1,H,D); caches (B,S,KH,D); k_pos (S,)
-    absolute position held by each cache slot (-1 = empty); valid_from
+    absolute position held by each cache slot (-1 = empty); ``cur_pos``
+    the step's position (an int or a 0-d tensor on the device); valid_from
     (B,) per-row first valid position."""
     b, _, h, d = q.shape
     kh = k_cache.shape[2]
@@ -153,22 +154,23 @@ def gqa_forward(p, cfg, x, *, causal=True, pos_offset: int = 0,
     return linear(out, p["wo"]), (k, v)
 
 
-def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos: int, *,
+def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
                use_rope: bool = True, valid_from=None):
-    """One token.  x: (B,1,d); caches (B,S,KH,D) are updated IN PLACE at
-    slot ``cur_pos``; slot_pos (S,) absolute position per slot (already
-    updated by the caller)."""
+    """One token.  x: (B,1,d); ``cur_pos`` the step's position, a 0-d int
+    tensor on the device, and ``slot`` its cache slot, (1,) int64 on the
+    device; caches (B,S,KH,D) are updated IN PLACE at ``slot``; slot_pos
+    (S,) absolute position per slot (already updated by the caller).
+    Nothing here reads the position on the host, so a captured step
+    replays at whatever position the cache holds."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     if use_rope:
-        # built on the device: a host tensor here would be a blocking
-        # copy per layer that keeps the host from running ahead
-        pos = torch.full((1,), cur_pos, dtype=torch.int32, device=x.device)
-        cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_tables(cur_pos.reshape(1), cfg.head_dim,
+                               cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    cache_k[:, cur_pos] = k[:, 0]
-    cache_v[:, cur_pos] = v[:, 0]
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
     out = decode_attention(q, cache_k, cache_v, slot_pos, cur_pos,
                            window=cfg.sliding_window, valid_from=valid_from)
     return linear(out.reshape(b, 1, cfg.num_heads * cfg.head_dim), p["wo"])

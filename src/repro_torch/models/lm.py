@@ -5,7 +5,11 @@ pre-norm residual blocks (RMSNorm, GQA, SwiGLU), layer-stacked params,
 tied or separate unembedding.  The reference's ``layer_stack`` scan is a
 Python loop over layers here.  The decode cache is a dict of tensors that
 :func:`lm_prefill`, :func:`lm_decode_step` and :func:`lm_prefill_row`
-update IN PLACE (and also return); its ``pos`` entry is a Python int.
+update IN PLACE (and also return).  Its ``pos`` entry is a 0-d int32
+tensor on the cache's device, as in the reference: the decode step reads
+it on the device (RoPE, the cache write, the mask) and advances it in
+place, so a step captured in a CUDA graph decodes the step the cache is
+at on every replay (``serve/programs.py``).
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ def init_cache(cfg, batch_size: int, max_len: int, device):
     dt = torch_dtype(cfg.dtype)
     shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
         "slot_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
         # per-row admission boundary: cache positions below it are
         # left-padding or a recycled slot's dead stream
@@ -124,25 +128,28 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
     sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
                       device=cache["slot_pos"].device)
     cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
-    cache["pos"] = s
-    return logits[:, -1:], cache
+    cache["pos"].fill_(s)
+    # a copy: the (B, S, V) logits are freed, not held as the output (of
+    # a captured program, where they would pin the graph's scratch)
+    return logits[:, -1:].clone(), cache
 
 
 def lm_decode_step(params, cfg, cache, tokens):
     """tokens (B,1) -> (logits (B,1,V), cache updated in place)."""
     pos = cache["pos"]
+    idx = pos.reshape(1).long()            # the cache slot, on the device
     x = embed_tokens(params["embed"], tokens)
-    cache["slot_pos"][pos] = pos
+    cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     for i in range(_num_layers(params)):
         p = layer_params(params["layers"], i)
         h = A.gqa_decode(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                          cache["k"][i], cache["v"][i], cache["slot_pos"], pos,
-                         valid_from=cache["valid_from"])
+                         idx, valid_from=cache["valid_from"])
         x = x + h
         x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return logits, cache
 
 
@@ -151,7 +158,9 @@ def lm_prefill_row(params, cfg, batch, cache, row: int, t_end: int):
     left-padded to a length bucket ``lb``, ``batch["pad"]`` its pad count)
     into row ``row`` of a live decode cache at absolute positions
     ``[t_end - lb, t_end)``, without touching the other rows.  Returns
-    (last_logits (1,1,V), cache); ``cache["pos"]`` is the caller's."""
+    (last_logits (1,1,V), cache); ``cache["pos"]`` is the caller's.
+    ``row``, ``t_end`` and the pad count are host values here (the
+    scheduler's, which is not ported yet)."""
     lb = batch["tokens"].shape[1]
     t0 = t_end - lb
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,

@@ -1,7 +1,7 @@
 """Serving engine: batch-adaptive pre-packed decode.
 
-The port of the reference's ``serve/engine.py`` (single device, eager).
-At load, every weight the decode step hits is planned by the autotuner
+The port of the reference's ``serve/engine.py`` (single device).  At
+load, every weight the decode step hits is planned by the autotuner
 and packed ONCE into block-major ``PackedTensor``s whose blocks conform
 to every power-of-two batch bucket; every decoded token then replays the
 bucket's stamped plan through the skinny-A kernel — the paper's
@@ -11,8 +11,17 @@ unpacked: a long prefill runs it through the planned tall-A kernel, a
 decode step through the skinny kernel with a per-call pack.
 
 A request group of any size b <= max_batch is padded to the nearest
-bucket; larger groups are split.  Calls run eagerly (there is no program
-store yet); times are taken with ``time.perf_counter`` after
+bucket; larger groups are split.  Prefill and decode run as the cells of
+a :class:`~repro_torch.serve.programs.ProgramStore`: on a CUDA device one
+captured CUDA graph per (kind, bucket, prompt length) cell, replayed on
+the store's static buffers (each group's tokens and pad are copied into
+the cell's inputs, each bucket keeps one decode cache across groups, and
+each step's argmax lands in the decode cell's token buffer); on the CPU,
+or in an eager store (``capture=False``), the same cells run eagerly.
+:meth:`Engine.precompile` captures the whole grid at load, after which
+traffic captures nothing.  A cell captured on first traffic is paid for
+inside the timed window (``GenerateResult.compile_s``), as in the
+reference.  Times are taken with ``time.perf_counter`` after
 ``torch.cuda.synchronize()``.
 
 After an install sweep (``core/install.py``) on the same shapes, the
@@ -42,6 +51,8 @@ from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
     buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import tree_map
+from repro_torch.serve.programs import (ProgramStore, precompile_grid,
+                                       ragged_supported)
 
 log = logging.getLogger(__name__)
 
@@ -193,6 +204,7 @@ class GenerateResult:
     prefill_s: float = 0.0
     per_token_s: float = 0.0
     buckets: tuple = ()           # bucket(s) the group was served from
+    compile_s: float = 0.0        # acquire seconds of cells cold for it
 
 
 class Engine:
@@ -200,7 +212,10 @@ class Engine:
 
     The engine owns power-of-two batch buckets 1..max_batch (or the given
     ``buckets``); weights are packed once with blocks conforming to all of
-    them.  ``device`` is ``"cuda"`` unless the caller asks for the CPU."""
+    them.  ``device`` is ``"cuda"`` unless the caller asks for the CPU.
+    On CUDA the cells are captured graphs; an eager
+    ``ProgramStore(model, device=..., capture=False)`` set as
+    ``engine.programs`` serves the same cells without graphs."""
 
     def __init__(self, model, params, axes, *, max_len: int,
                  max_batch: Optional[int] = None,
@@ -210,6 +225,7 @@ class Engine:
                  tuner_opts: Optional[dict] = None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model
+        self.programs = ProgramStore(model, device=self.device)
         self.tuner: Optional[_BackgroundTuner] = None
         if background_tune:
             # misses rank against the measurement-calibrated model, and the
@@ -318,46 +334,80 @@ class Engine:
             logits_last=torch.cat([r.logits_last for r in parts]),
             prefill_s=sum(r.prefill_s for r in parts),
             per_token_s=sum(r.per_token_s for r in parts),
-            buckets=tuple(bk for r in parts for bk in r.buckets))
+            buckets=tuple(bk for r in parts for bk in r.buckets),
+            compile_s=sum(r.compile_s for r in parts))
+
+    def precompile(self) -> list:
+        """Capture every cell of the engine's grid (each bucket's decode
+        step, each (bucket x length bucket) prefill with and without pad)
+        into its store; afterwards traffic on the grid captures nothing.
+        Returns the per-cell rows."""
+        return precompile_grid(self.model, self.params, buckets=self.buckets,
+                               lengths=self.grid.length, max_len=self.max_len,
+                               store=self.programs)
 
     @torch.inference_mode()
     def _generate_bucket(self, batch: dict, steps: int) -> GenerateResult:
         b = batch["tokens"].shape[0]
         bucket = self.bucket_of(b)
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        batch = self._pad_group(batch, b, bucket)
-        model = self.model
+        width = batch["tokens"].shape[-1]
+        if width + steps > self.max_len:
+            raise ValueError(f"a {width}-token prompt and {steps} steps do "
+                             f"not fit the engine's max_len {self.max_len}")
+        batch = self._pad_group({k: (v.to(torch.int32) if k in ("tokens", "pad")
+                                     else v) for k, v in batch.items()},
+                                b, bucket)
+        store = self.programs
+        cell = store.static_batch(batch)
+        for k, v in batch.items():
+            cell[k].copy_(v)
+        cache = store.static_cache(bucket, self.max_len)
+        tok = store.static_tokens(bucket)
+        tokens = torch.empty((bucket, steps), dtype=torch.int32,
+                             device=self.device)
+        compile_s = 0.0
         with serving_ctx():
-            cache = model.init_cache(bucket, self.max_len, self.device)
             self._sync()
+            # a cold cell's capture runs inside the timed window, so
+            # compile_s means what it means in the reference
             t0 = time.perf_counter()
-            logits, cache = model.prefill(self.params, batch, cache)
+            pprog = store.program("prefill", (self.params, cell, cache),
+                                  bucket=bucket, tokens=width)
+            logits, _ = pprog.fn(self.params, cell, cache)
             self._sync()
             t1 = time.perf_counter()
-            toks = []
-            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
-            for _ in range(steps):
-                toks.append(tok)
-                logits, cache = model.decode_step(self.params, cache, tok)
-                tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            if pprog.cold:
+                compile_s += t1 - t0
+            tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
+            dprog = None
+            for i in range(steps):
+                tokens[:, i:i + 1].copy_(tok)
+                if dprog is None:
+                    td = time.perf_counter()
+                    dprog = store.program("decode", (self.params, cache, tok),
+                                          bucket=bucket, tokens=1)
+                    logits, _ = dprog.fn(self.params, cache, tok)
+                    if dprog.cold:
+                        self._sync()
+                        compile_s += time.perf_counter() - td
+                else:
+                    logits, _ = dprog.fn(self.params, cache, tok)
+                # the next step's input, in the decode cell's buffer
+                tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
             self._sync()
             t2 = time.perf_counter()
-        tokens = (torch.cat(toks, dim=1) if toks
-                  else torch.zeros((bucket, 0), dtype=torch.int32,
-                                   device=self.device))
+        # a copy: the cell's output buffer is rewritten by its next replay
+        logits_last = logits[:b].clone()
         self._drain_misses()
-        return GenerateResult(tokens=tokens[:b], logits_last=logits[:b],
+        return GenerateResult(tokens=tokens[:b], logits_last=logits_last,
                               prefill_s=t1 - t0,
                               per_token_s=(t2 - t1) / max(steps, 1),
-                              buckets=(bucket,))
+                              buckets=(bucket,), compile_s=compile_s)
 
     def ragged_supported(self) -> bool:
         """Whether ragged prompts can be left-padded and masked per row:
         an attention-cache LM with a per-row prefill, fed tokens."""
-        cfg = self.model.cfg
-        return (self.model.prefill_row is not None
-                and not cfg.embeds_input
-                and not getattr(cfg, "is_encoder_decoder", False))
+        return ragged_supported(self.model)
 
     def serve(self, requests: list, steps: int) -> list:
         """A list of single requests (dicts with 1D ``tokens`` and any
@@ -399,5 +449,6 @@ class Engine:
                                logits_last=res.logits_last[i:i + 1],
                                prefill_s=res.prefill_s,
                                per_token_s=res.per_token_s,
-                               buckets=res.buckets)
+                               buckets=res.buckets,
+                               compile_s=res.compile_s)
                 for i in range(len(requests))]

@@ -583,3 +583,133 @@ def test_event_timing_is_positive_and_stable(dev):
     q25, q75 = np.percentile(a, (25, 75))
     spread = max((q75 - q25) / min(a), 0.1)
     assert abs(min(b) - min(a)) <= spread * min(a)
+
+
+# ---------------------------------------------------------------------------
+# the program store: captured CUDA graphs against eager cells
+# ---------------------------------------------------------------------------
+
+
+def _graph_engine(dev, arch, **kw):
+    """A 2-layer ``arch`` at full width, bf16, seeded random weights, its
+    buckets 1 and 2 and prompts to 256."""
+    import dataclasses
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    return Engine(model, params, axes, max_len=256 + 16, max_batch=2,
+                  max_prompt=256, device=dev, **kw), cfg
+
+
+def _serve(eng, store, batch, steps):
+    """One group through ``store``; returns (result, launches by kernel,
+    by design) counted around it."""
+    from collections import Counter
+    eng.programs, prev = store, eng.programs
+    before = Counter(cuda.launches), Counter(cuda.design_launches)
+    try:
+        res = eng.generate(batch, steps)
+        torch.cuda.synchronize()
+    finally:
+        eng.programs = prev
+    return (res, Counter(cuda.launches) - before[0],
+            Counter(cuda.design_launches) - before[1])
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_4b", "glm4_9b"])
+def test_graphed_cells_bit_equal_to_eager_with_equal_counts(dev, arch):
+    from repro_torch.serve.programs import ProgramStore
+    eng, cfg = _graph_engine(dev, arch)
+    rows = eng.precompile()
+    assert len(rows) == 2 * (1 + 2 * len(eng.grid.length))
+    assert eng.programs.stats()["captured"] == len(rows)
+    assert eng.programs.stats()["pool_bytes"] > 0
+    eager = ProgramStore(eng.model, device=dev, capture=False)
+    g = torch.Generator().manual_seed(1)
+    groups = [{"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                       dtype=torch.int32)}
+              for b, s in ((1, 256), (2, 128), (2, 64))]
+    for batch in groups:
+        want, wl, wd = _serve(eng, eager, batch, 6)
+        got, gl, gd = _serve(eng, eng.programs, batch, 6)
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.logits_last, want.logits_last)
+        assert gl == wl and gd == wd and sum(gl.values()) > 0
+        assert got.compile_s == 0.0
+    assert eng.programs.stats()["captured"] == len(rows)
+
+
+def test_cells_of_several_buckets_interleaved_in_one_pool(dev):
+    """Prefill and decode cells of both buckets and three lengths share
+    the store's pool; replayed in an interleaved order, twice, every
+    group stays bit-equal to its eager run."""
+    from repro_torch.serve.programs import ProgramStore
+    eng, cfg = _graph_engine(dev, "qwen1_5_4b")
+    eng.precompile()
+    eager = ProgramStore(eng.model, device=dev, capture=False)
+    g = torch.Generator().manual_seed(2)
+    groups = [{"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                       dtype=torch.int32)}
+              for b, s in ((1, 256), (2, 32), (1, 64), (2, 256), (1, 32))]
+    want = [_serve(eng, eager, batch, 5)[0] for batch in groups]
+    for order in ([0, 3, 1, 4, 2], [4, 2, 0, 1, 3]):
+        for i in order:
+            got = _serve(eng, eng.programs, groups[i], 5)[0]
+            assert torch.equal(got.tokens, want[i].tokens), i
+            assert torch.equal(got.logits_last, want[i].logits_last), i
+    ragged = [{"tokens": torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                                       dtype=torch.int32)} for n in (20, 31)]
+    eng.programs, graphed = eager, eng.programs
+    want_r = eng.serve(ragged, 4)
+    eng.programs = graphed
+    got_r = eng.serve(ragged, 4)
+    for a, b in zip(got_r, want_r):
+        assert torch.equal(a.tokens, b.tokens)
+        assert torch.equal(a.logits_last, b.logits_last)
+    assert eng.programs.stats()["captured"] == 2 * (1 + 2 * len(
+        eng.grid.length))
+
+
+def test_capture_while_the_background_tuner_times(dev):
+    """The background tuner times registry misses on its own thread and
+    stream; cells captured meanwhile (thread-local capture mode) succeed
+    and serve the same tokens as eager cells."""
+    from repro_torch.core import autotuner
+    from repro_torch.core.plan import Problem
+    from repro_torch.serve.programs import ProgramStore
+    prev = autotuner.set_default_hw(None)
+    try:
+        eng, cfg = _graph_engine(dev, "qwen1_5_4b", background_tune=True,
+                                 tuner_opts=dict(iters=50, warmup=2))
+        store = eng.programs
+        busy, capture = [], store._capture
+
+        def capture_noting_the_tuner(*a, **k):
+            busy.append(eng.tuner.busy())
+            return capture(*a, **k)
+
+        store._capture = capture_noting_the_tuner
+        eng.tuner.submit([Problem(m, 2560, n, "bfloat16").key()
+                          for m in (3, 5, 6, 7, 9, 12, 17, 24, 33, 48)
+                          for n in (2560, 6912, 151936)])
+        rows = eng.precompile()
+        assert eng.programs.stats()["captured"] == len(rows) == len(busy)
+        # the captures that ran while the tuner was timing (at least the
+        # first one, which started right after the submit)
+        assert busy[0], busy
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                         generator=torch.Generator()
+                                         .manual_seed(3), dtype=torch.int32)}
+        got = _serve(eng, eng.programs, batch, 4)[0]
+        want = _serve(eng, ProgramStore(eng.model, device=dev,
+                                        capture=False), batch, 4)[0]
+        assert torch.equal(got.tokens, want.tokens)
+        eng.tuner.join(timeout=600)
+        assert not eng.tuner.busy() and eng.tuner.committed
+        print(f"captures made while the tuner timed: {sum(busy)} of "
+              f"{len(busy)}")
+    finally:
+        autotuner.set_default_hw(prev)

@@ -324,3 +324,37 @@ def test_natural_tall_siblings_compete_on_the_card_only():
         assert not cands[0].prepack
         ref = autotuner.candidate_blocks(prob, PORT_TPU)
         assert all(c.prepack for c in ref)
+
+
+@pytest.mark.parametrize("entry", [
+    "measure_plan", "measure_plans", "measure_plans_interleaved",
+    "build_callable", "parity_check", "time_samples", "time_callable"])
+def test_evaluator_defaults_to_the_card(entry, monkeypatch):
+    """Every public timing entry point of the evaluator defaults to the
+    card, like the rest of the port: called without a device where there
+    is no GPU it raises before it makes operands or times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    made, ran = [], []
+    monkeypatch.setattr(evaluator, "_materialize",
+                        lambda *a, **k: made.append(a))
+
+    def fn():
+        ran.append(1)
+
+    plan = autotuner.candidate_blocks(Problem(4, 1024, 2048, "float32"),
+                                      PORT_TPU)[0]
+    calls = {
+        "measure_plan": lambda: evaluator.measure_plan(plan),
+        "measure_plans": lambda: evaluator.measure_plans([plan]),
+        "measure_plans_interleaved":
+            lambda: evaluator.measure_plans_interleaved([plan]),
+        "build_callable": lambda: evaluator.build_callable(plan),
+        "parity_check": lambda: evaluator.parity_check(plan, fn=fn),
+        "time_samples": lambda: evaluator.time_samples(fn),
+        "time_callable": lambda: evaluator.time_callable(fn),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert not made and not ran
+    assert registry.measurements("cpu") == []

@@ -155,7 +155,7 @@ def test_prefill_and_decode_logits_match(packed, isolated_registries):
         got, tcache = lm.lm_decode_step(tparams, cfg, tcache,
                                         torch.from_numpy(t))
         _close(got, want, dtype)
-    assert tcache["pos"] == int(cache["pos"]) == 15
+    assert int(tcache["pos"]) == int(cache["pos"]) == 15
 
 
 def test_bf16_prefill_logits_match(isolated_registries):
