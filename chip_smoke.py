@@ -62,13 +62,41 @@ printing JSON lines:
 8. serve.glm4 — GLM-4-9B at full width and full depth (40 layers), bf16,
                 seeded random weights, ``Engine(max_batch=2)``: groups of 1
                 and 2 with 2048-token prompts and 8 greedy steps; its
-                unpacked wk/wv run the tall-A kernel at prefill.
+                unpacked wk/wv run the tall-A kernel at prefill;
+9. queue.parity — continuous batching (``Engine.serve_queue``) from 2
+                slots at qwen1.5-4b's widths, 2 layers, float32: the
+                reference test's ragged queue, later requests joining a
+                running batch; each stream's tokens against its solo
+                ``generate`` (a token that differs must be a near-tie:
+                the logits it was chosen from agree with the solo run's
+                within ``F32_TOL`` and the two tokens' logits are within
+                it);
+10. queue     — qwen1.5-4b at full width and depth, bf16, on a queue
+                engine of its own (4 slots, prompts to 256, ``max_len`` by
+                the ragged rule, its 57 cells captured at load): 16
+                ragged requests (the continuous-batching tool's lengths
+                scaled into 5-256 tokens, budgets 2-16) through
+                ``serve_queue`` eagerly and then graphed (the main path):
+                tokens bit-equal, launches equal, 0 cells captured by
+                traffic, 0 registry misses; the telemetry, admission and
+                step wall times, the comparison against aligned groups
+                (``launch/continuous_batching.py``) and the profile of
+                one step (the bucket-4 decode cell on the queue engine's
+                cache);
+11. queue.frontend — on the same engine: ``AsyncEngine.simulate`` on a
+                virtual clock (all arrivals at 0) must serve
+                ``serve_queue``'s tokens; then ``AsyncEngine.run()`` on
+                the real clock under a producer submitting a seeded
+                Poisson trace of the 16 requests at half the request rate
+                the queue sustained: TTFT and queue delay percentiles,
+                every stream completed, none rejected.
 
 Both serve phases start on the registry the install phase wrote and must
 make zero registry misses over load, precompile, prefill and decode.
 Each captures its engine's whole grid at load (``Engine.precompile``:
 one CUDA graph per decode bucket and per (bucket x length) prefill, with
-and without pad; the ``programs`` line: cells, capture seconds, graph
+and without pad, and per (bucket x length) the scheduler's one-row
+admission ``prefill_row``; the ``programs`` line: cells, capture seconds, graph
 pool bytes, and the cells captured by traffic, which must be 0), then
 serves every group twice: eagerly (an eager ``ProgramStore``, the same
 cells without graphs) and graphed (the main path).  The graphed tokens
@@ -79,18 +107,19 @@ both runs, and a ``profile`` of one decode step (qwen1.5-4b bucket 4,
 GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
 launch calls and kernels per step (``launch/profile_decode.py``).
 
-Each path (install, serve, serve.glm4) zeroes the launch counts just
-before it (on the serve paths: before the graphed groups) and reads them
-just after; every kernel of the path must have
+Each path (install, serve, serve.glm4, queue) zeroes the launch counts
+just before it (on the serve paths: before the graphed groups; on the
+queue path: before the graphed queue) and reads them just after; every kernel of the path must have
 launched (on the serve paths: the baseline, flash and the kernel of every
-variant the installed plans stamp; on the install path: every TSMM
-kernel), and every bf16
+variant the installed plans stamp; on the queue path: the variant
+stamped for the slot bucket and the installed plan of every admission's
+length bucket; on the install path: every TSMM kernel), and every bf16
 skinny-A launch must have run the wgmma or the stream design, every
 bf16 tall-A and flash launch the wgmma design and every pack launch (at
 load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
-it off both) and, last, the ``{"ok": true, ...}`` line.  Any failure
+it off both; ``launches_by_path`` adds the queue path's) and, last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
 
@@ -1189,6 +1218,362 @@ def phase_serve_glm4():
     return launches, load_launches
 
 
+# the reference test's ragged queue, (prompt length, decode budget):
+# served from 2 slots, so later requests join a running batch
+QUEUE_PARITY_SPEC = ((5, 4), (12, 2), (20, 6), (9, 3), (3, 5))
+
+
+def queue_logits(eng, reqs, idx: int, d: int):
+    """The logits a 2-slot queue of ``reqs`` chose stream ``idx``'s token
+    ``d`` from: the queue served again with the store's cells and the
+    scheduler's admissions recorded (the stream's row, and every cell's
+    last logits row, in order)."""
+    import dataclasses as dc
+
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    store, rec, rows = eng.programs, [], {}
+    program = store.program
+
+    def recorded(kind, args, **kw):
+        prog = program(kind, args, **kw)
+
+        def fn(*a):
+            out = prog.fn(*a)
+            rec.append((kind, out[0][:, -1].float().cpu()))
+            return out
+        return dc.replace(prog, fn=fn)
+
+    sched = ContinuousScheduler(eng, slots=2)
+    admit = sched.admit
+
+    def admit_noting_the_row(req, *a, **k):
+        emitted, finished = admit(req, *a, **k)
+        rows[req.rid] = (emitted[0][0]["row"], len(rec) - 1)
+        return emitted, finished
+
+    sched.admit = admit_noting_the_row
+    store.program = recorded
+    try:
+        sched.run(reqs)
+    finally:
+        del store.program
+    row, at = rows[reqs[idx].rid]
+    if d == 0:
+        return rec[at][1][0]
+    decodes = [lg for kind, lg in rec[at + 1:] if kind == "decode"]
+    return decodes[d - 1][row]
+
+
+def phase_queue_parity(cfg, device="cuda"):
+    """``Engine.serve_queue`` from 2 slots (qwen1.5-4b widths, 2 layers,
+    fp32): each stream's tokens against its solo ``generate``.  Where a
+    token differs, the logits the queue chose it from and the solo run's
+    must agree within ``F32_TOL`` and the two tokens' logits must be
+    within it too (a near-tie); both are printed.  Returns the queue's
+    launch counts."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=device).manual_seed(0))
+    eng = Engine(model, params, axes, max_len=128, max_batch=2, max_prompt=32,
+                 device=device)
+    del params
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32) for n, _ in QUEUE_PARITY_SPEC]
+    reqs = [Request(tokens=p, max_new_tokens=m, rid=i)
+            for i, (p, (_, m)) in enumerate(zip(prompts, QUEUE_PARITY_SPEC))]
+    cuda.reset_launches()
+    results, stats = eng.serve_queue(reqs, slots=2)
+    launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
+    streams = []
+    for i, (r, p) in enumerate(zip(results, prompts)):
+        m = reqs[i].max_new_tokens
+        solo = eng.generate({"tokens": p[None].to(device)}, steps=m)
+        want, got = solo.tokens[0].tolist(), r.tokens.tolist()
+        row = {"rid": r.rid, "prompt": len(p), "steps": m,
+               "admitted_at": r.admitted_at, "equal": want == got,
+               "tokens": got}
+        if want != got:
+            d = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+            solo_lg = eng.generate({"tokens": p[None].to(device)},
+                                   steps=d).logits_last[0, -1].float().cpu()
+            queue_lg = queue_logits(eng, reqs, i, d)
+            ok, err = within(queue_lg, solo_lg, **F32_TOL)
+            gap = float(solo_lg[want[d]] - solo_lg[got[d]])
+            qgap = float(queue_lg[got[d]] - queue_lg[want[d]])
+            top = float(solo_lg[want[d]].abs())
+            near = max(gap, qgap) <= F32_TOL["atol"] + F32_TOL["rtol"] * top
+            row.update(first_divergence=d, solo_token=want[d],
+                       queue_token=got[d], max_abs_err=err,
+                       solo_top2_gap=gap, queue_top2_gap=qgap,
+                       near_tie=ok and near)
+            emit({"phase": "queue.parity.divergence", **row})
+            if not (ok and near):
+                raise AssertionError(f"queue.parity: stream {r.rid} diverges "
+                                     f"at token {d} without a near-tie: "
+                                     f"{row}")
+        streams.append(row)
+    emit({"phase": "queue.parity", "config": cfg.name, "d_model": cfg.d_model,
+          "layers": cfg.num_layers, "dtype": cfg.dtype, "slots": stats.slots,
+          "streams": streams, "telemetry": dict(stats.rows()),
+          "tol": F32_TOL, "launches": launches, "design_launches": designs,
+          "seconds": time.perf_counter() - t0})
+    if stats.admitted != stats.completed or stats.completed != len(reqs):
+        raise AssertionError(f"queue.parity: {stats.rows()}")
+    if not max(r.admitted_at for r in results) > min(r.admitted_at
+                                                     for r in results):
+        raise AssertionError("queue.parity: no request joined a running "
+                             "batch")
+    if any(not k.endswith("_simt") for k in designs
+           if not k.startswith("pack_")):
+        raise AssertionError(f"queue.parity: fp32 ran a non-SIMT design "
+                             f"{designs}")
+    return launches
+
+
+# the queue phase's workload: the continuous-batching tool's prompt
+# lengths scaled from 5-120 into 5-256 tokens, its budgets from 2-12 into
+# 2-16 (launch/continuous_batching.py)
+def queue_workload(cfg, n: int = 16) -> list:
+    from repro_torch.launch.continuous_batching import (DEFAULT_LENS,
+                                                        DEFAULT_STEPS,
+                                                        workload)
+    lens = tuple(max(5, round(p * 256 / max(DEFAULT_LENS)))
+                 for p in DEFAULT_LENS)
+    steps = tuple(max(2, round(s * 16 / max(DEFAULT_STEPS)))
+                  for s in DEFAULT_STEPS)
+    return workload(cfg, n, lens=lens, steps=steps)
+
+
+def queue_kernels(eng, lengths) -> set:
+    """The skinny-A counters the queue path must launch: the variant each
+    packed weight has stamped for the slot bucket (every lockstep step)
+    and the installed plan of each admission's token count (a
+    ``prefill_row`` at length bucket lb is m = lb rows; no plan: the
+    baseline)."""
+    from repro_torch.core import registry
+    from repro_torch.core.packing import PackedTensor
+    from repro_torch.core.plan import Problem
+    need = {skinny_counter(v) for key, v in eng.variant_report().items()
+            if key.startswith(f"m{eng.max_batch}_")}
+    shapes = set()
+
+    def walk(p):
+        if isinstance(p, dict):
+            for v in p.values():
+                walk(v)
+        elif isinstance(p, PackedTensor):
+            shapes.add((p.shape[-2], p.orig_cols))
+
+    walk(eng.params)
+    for lb in lengths:
+        for k, n in shapes:
+            plan = registry.peek(Problem(lb, k, n, eng.model.cfg.dtype).key(),
+                                 eng.device)
+            need.add(skinny_counter(plan.kernel.key()) if plan is not None
+                     else "tsmm_skinny_a")
+    return need
+
+
+def timed(fn, into: list):
+    """``fn`` with each call's wall seconds appended to ``into`` (each
+    admission and step ends in a host read, so the call is synchronous)."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        into.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def phase_queue(cfg=None, device="cuda"):
+    """qwen1.5-4b at full width and depth, bf16, on a queue engine of its
+    own (4 slots, prompts to 256, ``max_len`` by the ragged rule), its
+    grid (``prefill_row`` cells included) captured at load: 16 ragged
+    requests through ``serve_queue`` on an eager store, then graphed (the
+    main path): tokens bit-equal, launch counts equal.  Then a timed
+    graphed run (admission and step wall times), the continuous-batching
+    comparison against aligned groups and the profile of one step.
+    Returns (the graphed run's launches, the load's launches, the engine,
+    the requests, the graphed results and stats)."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import continuous_batching
+    from repro_torch.launch.serve import make_group
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config("qwen1_5_4b")
+    model = build_model(cfg)
+    reqs = queue_workload(cfg)
+    max_len = continuous_batching.ragged_max_len(reqs)
+    registry.reset_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    params, axes = model.init(torch.Generator(device=device).manual_seed(0))
+    eng = Engine(model, params, axes, max_len=max_len, max_batch=4,
+                 max_prompt=256, device=device)
+    del params
+    load_s = time.perf_counter() - t0
+    load_launches = dict(cuda.launches)     # the weight pre-pack
+    t0 = time.perf_counter()
+    rows = eng.precompile()
+    pre = {"rows": rows, "seconds": time.perf_counter() - t0,
+           "loaded": eng.programs.stats()}
+    graphed = eng.programs
+    eng.programs = ProgramStore(model, device=eng.device, capture=False)
+    cuda.reset_launches()
+    try:
+        want, wstats = eng.serve_queue(reqs)
+    finally:
+        eng.programs = graphed
+    eager_counts = (dict(cuda.launches), dict(cuda.design_launches))
+    cuda.reset_launches()
+    got, stats = eng.serve_queue(reqs)             # the main path
+    launches, designs = dict(cuda.launches), dict(cuda.design_launches)
+    for a, b in zip(got, want):
+        if a.tokens.tolist() != b.tokens.tolist() or not a.completed:
+            raise AssertionError(f"queue: request {a.rid}'s graphed tokens "
+                                 f"differ from the eager run's")
+    if (launches, designs) != eager_counts:
+        raise AssertionError(f"queue: launches under replay "
+                             f"{(launches, designs)} differ from the eager "
+                             f"run's {eager_counts}")
+    reg = registry.stats()
+    emit({"phase": "queue", "config": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "slots": stats.slots,
+          "max_len": max_len, "load_s": load_s, "load_launches": load_launches,
+          "requests": len(reqs),
+          "prompts": [len(r.tokens) for r in reqs],
+          "budgets": [r.max_new_tokens for r in reqs],
+          "telemetry": dict(stats.rows()),
+          "eager_telemetry": dict(wstats.rows()),
+          "tokens_per_s": stats.tokens_per_s,
+          "eager_tokens_per_s": wstats.tokens_per_s,
+          "bit_equal_to_eager": True, "registry": reg,
+          "streams": [{"rid": r.rid, "prompt": r.prompt_len,
+                       "lb": r.length_bucket, "admitted_at": r.admitted_at,
+                       "finished_at": r.finished_at,
+                       "queue_steps": r.queue_steps,
+                       "tokens": r.tokens.tolist()} for r in got],
+          "launches": launches, "design_launches": designs})
+    check_programs("queue", eng, pre)
+    if reg["misses"]:
+        raise AssertionError(f"queue: {reg['misses']} registry misses after "
+                             f"the install sweep")
+    check_wgmma("queue", launches, designs)
+    need = queue_kernels(eng, sorted({r.length_bucket for r in got}))
+    missing = sorted(k for k in need if not launches.get(k))
+    if missing:
+        raise AssertionError(f"queue path launched no {missing} ({need})")
+
+    # wall time of each admission (by length bucket) and each step
+    sched = ContinuousScheduler(eng)
+    adm, steps = [], []
+    sched.admit = timed(sched.admit, adm)
+    sched.step = timed(sched.step, steps)
+    again, _ = sched.run(reqs)
+    if [r.tokens.tolist() for r in again] != [r.tokens.tolist() for r in got]:
+        raise AssertionError("queue: a second graphed run served other "
+                             "tokens")
+    by_lb = {}
+    for r, sec in zip(again, adm):          # FIFO: admitted in queue order
+        by_lb.setdefault(r.length_bucket, []).append(1e3 * sec)
+    emit({"phase": "queue.times",
+          "prefill_row_ms_by_lb": {lb: statistics.median(v)
+                                   for lb, v in sorted(by_lb.items())},
+          "step_ms_median": 1e3 * statistics.median(steps),
+          "step_ms_min": 1e3 * min(steps), "step_ms_max": 1e3 * max(steps),
+          "steps": len(steps), "admissions": len(adm)})
+    emit({"phase": "queue.continuous_batching",
+          "rows": continuous_batching.compare(eng, reqs, repeats=1)})
+    profile("queue", eng, make_group(cfg, 4, 256, device), steps=4)
+    emit({"phase": "queue.seconds", "seconds": time.perf_counter() - t_phase})
+    return launches, load_launches, eng, reqs, got, stats
+
+
+def phase_queue_frontend(eng, reqs, results, stats):
+    """The front end on the queue engine: ``simulate`` on a virtual clock
+    with every arrival at 0 must serve ``serve_queue``'s tokens; then
+    ``run()`` on the real clock under a producer submitting a seeded
+    Poisson trace of the same requests at half the request rate the
+    queue sustained.  Every stream must complete, none rejected."""
+    import asyncio
+    import dataclasses as dc
+
+    import numpy as np
+    from repro_torch.serve.clock import RealClock, VirtualClock
+    from repro_torch.serve.frontend import AsyncEngine
+
+    streams, sim = AsyncEngine(eng, clock=VirtualClock()).simulate(
+        [dc.replace(r, arrival_time=0.0) for r in reqs])
+    for s, r in zip(streams, results):
+        if (s.tokens != r.tokens.tolist() or s.result.admitted_at
+                != r.admitted_at or s.result.finished_at != r.finished_at):
+            raise AssertionError(f"queue.frontend: simulate served request "
+                                 f"{r.rid} otherwise than serve_queue")
+    rate = 0.5 * len(reqs) / max(stats.wall_s - stats.compile_s, 1e-9)
+    rng = np.random.default_rng(0)
+    gaps = rng.exponential(1.0 / rate, size=len(reqs))
+    clock = RealClock()
+    afe = AsyncEngine(eng, clock=clock)
+
+    async def produce():
+        out, t_next = [], clock.now()
+        for r, gap in zip(reqs, gaps):
+            t_next += float(gap)
+            await clock.sleep(max(t_next - clock.now(), 0.0))
+            out.append(await afe.submit(
+                dc.replace(r, arrival_time=clock.now())))
+        afe.request_stop()
+        return out
+
+    async def main():
+        afe.open()
+        loop = asyncio.create_task(afe.run())
+        out = await produce()
+        await loop
+        return out
+
+    t0 = time.perf_counter()
+    live = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    ttft = np.asarray([s.ttft for s in live if s.ttft is not None])
+    delay = np.asarray([s.queue_delay for s in live
+                        if s.queue_delay is not None])
+    st = afe.stats
+    emit({"phase": "queue.frontend", "simulate_bit_equal_to_serve_queue": True,
+          "simulate_virtual_wall_s": sim.wall_s, "offered_rate_per_s": rate,
+          "requests": len(live), "wall_s": wall,
+          "completed": sum(s.completed for s in live),
+          "rejected": st.rejected,
+          "ttft_p50_s": float(np.percentile(ttft, 50)),
+          "ttft_p99_s": float(np.percentile(ttft, 99)),
+          "queue_delay_p50_s": float(np.percentile(delay, 50)),
+          "queue_delay_p99_s": float(np.percentile(delay, 99)),
+          "telemetry": dict(st.rows())})
+    if st.rejected or not all(s.completed for s in live) or \
+            len(ttft) != len(reqs):
+        raise AssertionError(f"queue.frontend: {st.rows()}")
+
+
 def shape_of(case: dict) -> dict:
     """The shape fields of a kernels case, and its mode."""
     return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "B",
@@ -1256,6 +1641,11 @@ def run():
         raise AssertionError("GLM-shaped parity ran no tall-A kernel")
     qwen_launches = phase_serve()
     glm_launches, glm_load = phase_serve_glm4()
+    phase_queue_parity(dataclasses.replace(get_config("qwen1_5_4b"),
+                                           num_layers=2, dtype="float32"))
+    queue_launches, queue_load, eng, reqs, results, stats = phase_queue()
+    phase_queue_frontend(eng, reqs, results, stats)
+    del eng
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the
@@ -1292,6 +1682,9 @@ def run():
                      "replaces": rep, "design": c["design"],
                      "launches": launches.get(name, 0),
                      "launches_path": path,
+                     "launches_by_path": {
+                         path: launches.get(name, 0),
+                         "queue": queue_launches.get(name, 0)},
                      "max_abs_err": worst[name], "tol": tol, "ms": c["ms"],
                      "device_ms": c.get("device_ms"),
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1301,6 +1694,8 @@ def run():
     # each path (load, decode, the packed tall family)
     pack = next(r for r in line if r["name"] == "pack_blocks")
     pack["launches_by_path"] = {
+        "queue.load": queue_load.get("pack_blocks", 0),
+        "queue": queue_launches.get("pack_blocks", 0),
         "serve.glm4.load": glm_load.get("pack_blocks", 0),
         "serve.glm4": glm_launches.get("pack_blocks", 0),
         "install": install_launches.get("pack_blocks", 0),

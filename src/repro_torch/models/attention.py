@@ -47,12 +47,17 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B,Sq,H,D)  k,v: (B,Sk,KH,D).  Returns (B,Sq,H,D).
 
     Online softmax over q chunks (outer) and k chunks (inner) carrying
-    fp32 m / l / acc.  ``k_offset`` defaults to ``q_offset``;
-    ``valid_from``: (B,) absolute first-real-token position per row."""
+    fp32 m / l / acc.  ``q_offset`` / ``k_offset`` (defaulting to
+    ``q_offset``) are ints or 0-d device tensors; ``valid_from``: (B,)
+    absolute first-real-token position per row."""
     if k_offset is None:
         k_offset = q_offset
-    if (q.is_cuda and window == 0 and q_offset == 0 and k_offset == 0
-            and valid_from is None
+    # the offsets are compared only when they are host ints: a 0-d device
+    # offset (a captured ``prefill_row``) never reaches ``bool()``, which
+    # would sync the host (and fail inside a capture)
+    if (valid_from is None and q.is_cuda and window == 0
+            and isinstance(q_offset, int) and isinstance(k_offset, int)
+            and q_offset == 0 and k_offset == 0
             and q.shape[1] == k.shape[1] and q.shape[1] % 256 == 0):
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal)

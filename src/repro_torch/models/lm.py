@@ -153,24 +153,35 @@ def lm_decode_step(params, cfg, cache, tokens):
     return logits, cache
 
 
-def lm_prefill_row(params, cfg, batch, cache, row: int, t_end: int):
+def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     """Ragged admission: prefill ONE request (leading dim 1, prompt
     left-padded to a length bucket ``lb``, ``batch["pad"]`` its pad count)
     into row ``row`` of a live decode cache at absolute positions
     ``[t_end - lb, t_end)``, without touching the other rows.  Returns
     (last_logits (1,1,V), cache); ``cache["pos"]`` is the caller's.
-    ``row``, ``t_end`` and the pad count are host values here (the
-    scheduler's, which is not ported yet)."""
+
+    ``row`` and ``t_end`` are Python ints or 0-d int32 tensors on the
+    cache's device, and so is the pad count: with device values nothing
+    here reads the host, so one captured cell per length bucket serves
+    every row and clock value (``serve/programs.py``).  The rows are
+    written with index ops on device indices; ``lb`` is static."""
     lb = batch["tokens"].shape[1]
+    dev = cache["k"].device
     t0 = t_end - lb
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
                                 pos_offset=t0)
+    idx = t0 + torch.arange(lb, device=dev)              # int64 slots
+    row = torch.as_tensor(row, device=dev).reshape(1).long()
+    b, s = cache["k"].shape[1:3]
+    # this row's slots of the flattened (B * max_len) axis
+    flat = row * s + idx
     for i, (k, v) in enumerate(kvs):
-        cache["k"][i, row, t0:t_end] = k[0]
-        cache["v"][i, row, t0:t_end] = v[0]
+        for name, t in (("k", k), ("v", v)):
+            cache[name][i].view(b * s, *t.shape[2:]).index_copy_(
+                0, flat, t[0].to(cache[name].dtype))
     pad = batch.get("pad")
-    cache["valid_from"][row] = t0 + (int(pad[0]) if pad is not None else 0)
-    cache["slot_pos"][t0:t_end] = torch.arange(
-        t0, t_end, dtype=torch.int32, device=cache["slot_pos"].device)
-    return logits[:, -1:], cache
-
+    vf = idx[:1] + (pad[:1].to(idx.dtype) if pad is not None else 0)
+    cache["valid_from"].index_copy_(0, row, vf.to(torch.int32))
+    cache["slot_pos"].index_copy_(0, idx, idx.to(torch.int32))
+    # a copy: the (1, lb, V) logits are scratch of a captured cell
+    return logits[:, -1:].clone(), cache

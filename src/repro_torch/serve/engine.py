@@ -21,8 +21,14 @@ or in an eager store (``capture=False``), the same cells run eagerly.
 :meth:`Engine.precompile` captures the whole grid at load, after which
 traffic captures nothing.  A cell captured on first traffic is paid for
 inside the timed window (``GenerateResult.compile_s``), as in the
-reference.  Times are taken with ``time.perf_counter`` after
-``torch.cuda.synchronize()``.
+reference.  Times are read through the engine's clock
+(``serve/clock.py``): real time after ``torch.cuda.synchronize()``, or on
+a ``VirtualClock`` the modelled ``StepCost`` of each operation.
+
+:meth:`Engine.serve_queue` serves a ragged queue from a slot pool
+(``serve/scheduler.py``): finished streams free their row mid-flight and
+queued requests join the running batch through the store's
+``prefill_row`` cells.
 
 After an install sweep (``core/install.py``) on the same shapes, the
 engine's start and traffic are registry lookups only.  A lookup that
@@ -38,7 +44,6 @@ import contextlib
 import dataclasses
 import logging
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -51,6 +56,7 @@ from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
     buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import tree_map
+from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import (ProgramStore, precompile_grid,
                                        ragged_supported)
 
@@ -215,16 +221,23 @@ class Engine:
     them.  ``device`` is ``"cuda"`` unless the caller asks for the CPU.
     On CUDA the cells are captured graphs; an eager
     ``ProgramStore(model, device=..., capture=False)`` set as
-    ``engine.programs`` serves the same cells without graphs."""
+    ``engine.programs`` serves the same cells without graphs.  ``clock``
+    (default real time) and ``step_cost`` (what a virtual clock charges)
+    time generation and the scheduler."""
 
     def __init__(self, model, params, axes, *, max_len: int,
                  max_batch: Optional[int] = None,
                  buckets: Optional[tuple] = None,
                  max_prompt: Optional[int] = None, min_prompt: int = 8,
                  prepack: bool = True, background_tune: bool = False,
-                 tuner_opts: Optional[dict] = None, device="cuda"):
+                 tuner_opts: Optional[dict] = None, device="cuda",
+                 clock=None, step_cost: Optional[StepCost] = None):
         self.device = resolve_device(device)
         self.model = model
+        self.clock = ensure_clock(clock)
+        self.step_cost = step_cost or StepCost()
+        # batch buckets whose static cache an open scheduler holds
+        self._pools: set = set()
         self.programs = ProgramStore(model, device=self.device)
         self.tuner: Optional[_BackgroundTuner] = None
         if background_tune:
@@ -309,6 +322,18 @@ class Engine:
     def bucket_of(self, b: int) -> int:
         return bucket_for(b, self.buckets)
 
+    def claim_pool(self, bucket: int) -> None:
+        """An opening scheduler takes ``bucket``'s static cache as its
+        slot pool; a second claim, or ``generate`` on the bucket until
+        :meth:`release_pool`, raises."""
+        if bucket in self._pools:
+            raise RuntimeError(f"bucket {bucket}'s cache is already the "
+                               f"pool of an open scheduler")
+        self._pools.add(bucket)
+
+    def release_pool(self, bucket: int) -> None:
+        self._pools.discard(bucket)
+
     @staticmethod
     def _pad_group(batch: dict, b: int, bucket: int) -> dict:
         if b == bucket:
@@ -339,8 +364,9 @@ class Engine:
 
     def precompile(self) -> list:
         """Capture every cell of the engine's grid (each bucket's decode
-        step, each (bucket x length bucket) prefill with and without pad)
-        into its store; afterwards traffic on the grid captures nothing.
+        step, each (bucket x length bucket) prefill with and without pad
+        and the scheduler's ``prefill_row``) into its store; afterwards
+        traffic on the grid, aligned or queued, captures nothing.
         Returns the per-cell rows."""
         return precompile_grid(self.model, self.params, buckets=self.buckets,
                                lengths=self.grid.length, max_len=self.max_len,
@@ -348,8 +374,12 @@ class Engine:
 
     @torch.inference_mode()
     def _generate_bucket(self, batch: dict, steps: int) -> GenerateResult:
+        clock, cost = self.clock, self.step_cost
         b = batch["tokens"].shape[0]
         bucket = self.bucket_of(b)
+        if bucket in self._pools:
+            raise RuntimeError(f"bucket {bucket}'s cache is the slot pool of "
+                               f"an open scheduler; close it first")
         width = batch["tokens"].shape[-1]
         if width + steps > self.max_len:
             raise ValueError(f"a {width}-token prompt and {steps} steps do "
@@ -370,12 +400,16 @@ class Engine:
             self._sync()
             # a cold cell's capture runs inside the timed window, so
             # compile_s means what it means in the reference
-            t0 = time.perf_counter()
+            t0 = clock.now()
             pprog = store.program("prefill", (self.params, cell, cache),
                                   bucket=bucket, tokens=width)
             logits, _ = pprog.fn(self.params, cell, cache)
             self._sync()
-            t1 = time.perf_counter()
+            if clock.virtual:
+                if pprog.cold:
+                    clock.advance(cost.compile_s)
+                clock.advance(cost.prefill_s(bucket * width))
+            t1 = clock.now()
             if pprog.cold:
                 compile_s += t1 - t0
             tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
@@ -383,19 +417,23 @@ class Engine:
             for i in range(steps):
                 tokens[:, i:i + 1].copy_(tok)
                 if dprog is None:
-                    td = time.perf_counter()
+                    td = clock.now()
                     dprog = store.program("decode", (self.params, cache, tok),
                                           bucket=bucket, tokens=1)
                     logits, _ = dprog.fn(self.params, cache, tok)
                     if dprog.cold:
                         self._sync()
-                        compile_s += time.perf_counter() - td
+                        if clock.virtual:
+                            clock.advance(cost.compile_s)
+                        compile_s += clock.now() - td
                 else:
                     logits, _ = dprog.fn(self.params, cache, tok)
+                if clock.virtual:
+                    clock.advance(cost.decode_step_s)
                 # the next step's input, in the decode cell's buffer
                 tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
             self._sync()
-            t2 = time.perf_counter()
+            t2 = clock.now()
         # a copy: the cell's output buffer is rewritten by its next replay
         logits_last = logits[:b].clone()
         self._drain_misses()
@@ -452,3 +490,15 @@ class Engine:
                                buckets=res.buckets,
                                compile_s=res.compile_s)
                 for i in range(len(requests))]
+
+    def serve_queue(self, requests: list, *, slots: Optional[int] = None):
+        """Continuous batching: serve a queue of
+        :class:`~repro_torch.serve.scheduler.Request`s with different
+        prompt lengths and per-request stop state from a fixed slot pool
+        (``slots`` snapped to a batch bucket; default ``max_batch``).
+        Finished streams free their slot mid-flight and queued requests
+        join the running decode batch.  Returns (results, stats)."""
+        from repro_torch.serve.scheduler import ContinuousScheduler
+        out = ContinuousScheduler(self, slots=slots).run(requests)
+        self._drain_misses()
+        return out

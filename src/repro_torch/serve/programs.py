@@ -3,7 +3,9 @@
 The port of the reference's ``serve/programs.py`` (DESIGN.md §13).  The
 engine's grid of cells — per batch bucket one decode step, per (batch
 bucket x prompt length) one prefill without and one with a per-row
-``pad`` mask — is acquired through a :class:`ProgramStore`.  Where the
+``pad`` mask, and one ``prefill_row`` (the continuous-batching
+scheduler's admission of one request into a row of the bucket's live
+cache) — is acquired through a :class:`ProgramStore`.  Where the
 reference AOT-compiles each cell into an XLA executable, the port
 captures it as one CUDA graph: a replay launches the cell's few thousand
 kernels (the same kernels, in the same order, as the eager call) with
@@ -13,6 +15,9 @@ one host call, so a decode step no longer waits on Python dispatch.
   capture (``torch.cuda.graph`` under ``serving_ctx()``).  Every one-time
   host step (kernel attribute calls, launch plans, registry lookups, lazy
   inits) runs in the warm-up, so the capture records launches only.
+  A ``prefill_row`` warm-up writes the same cache row, positions and
+  ``valid_from`` entry as the replay that follows it, from the same
+  inputs: it is idempotent, and nothing is undone.
   ``source='captured'``; with ``capture=False`` nothing is captured and
   the cell runs eagerly (``source='eager'``).
 * **memory** — re-acquiring a key returns the held program
@@ -22,7 +27,8 @@ A graph replays the device addresses it was captured with: the tensor
 maps of the TMA kernels are encoded on the host at capture and baked into
 the graph.  So every input, output and cache of a cell is a STATIC buffer
 that the store owns and hands out (:meth:`ProgramStore.static_batch`,
-:meth:`~ProgramStore.static_cache`, :meth:`~ProgramStore.static_tokens`);
+:meth:`~ProgramStore.static_cache`, :meth:`~ProgramStore.static_tokens`,
+:meth:`~ProgramStore.static_scalar` for the admission's row and clock);
 the engine copies each group into them, and a program called with any
 other buffers raises.  The decode position is a device tensor in the
 cache (``models/lm.py``), advanced in place, so one decode graph serves
@@ -71,7 +77,7 @@ from repro_torch.kernels.variants.grammar import GRAMMAR_VERSION
 
 # bump when what a cell captures changes shape
 PROGRAM_SCHEMA = 1
-KINDS = ("prefill", "decode")
+KINDS = ("prefill", "decode", "prefill_row")
 
 
 def config_fingerprint(cfg, device: torch.device) -> str:
@@ -146,7 +152,8 @@ class ProgramStore:
                                f"{self.device}; pass capture=False to run "
                                f"the cells eagerly")
         self.capture = capture
-        self._fns = {"prefill": model.prefill, "decode": model.decode_step}
+        self._fns = {"prefill": model.prefill, "decode": model.decode_step,
+                     "prefill_row": model.prefill_row}
         self._fingerprint = config_fingerprint(model.cfg, self.device)
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self._programs: dict[str, Program] = {}
@@ -186,6 +193,16 @@ class ProgramStore:
         key = ("tokens", bucket)
         if key not in self._buffers:
             self._buffers[key] = torch.zeros((bucket, 1), dtype=torch.int32,
+                                             device=self.device)
+        return self._buffers[key]
+
+    @torch.inference_mode(False)
+    def static_scalar(self, name: str):
+        """A 0-d int32 input of the ``prefill_row`` cells (``"row"``,
+        ``"t_end"``); the caller fills it before a call."""
+        key = ("scalar", name)
+        if key not in self._buffers:
+            self._buffers[key] = torch.zeros((), dtype=torch.int32,
                                              device=self.device)
         return self._buffers[key]
 
@@ -326,12 +343,21 @@ def ragged_supported(model) -> bool:
             and not getattr(cfg, "is_encoder_decoder", False))
 
 
+def row_args(store: ProgramStore, params, cache, length: int) -> tuple:
+    """The static arguments of a ``prefill_row`` cell of ``length``
+    tokens on ``cache``: (params, the (1, length) batch with its pad,
+    cache, row, t_end)."""
+    return (params, store.static_batch(batch_template(1, length, pad=True)),
+            cache, store.static_scalar("row"), store.static_scalar("t_end"))
+
+
 def precompile_grid(model, params, *, buckets, lengths, max_len: int,
                     store: ProgramStore) -> list:
     """Acquire every cell a same-shaped engine serves into ``store``: per
     batch bucket one decode step; per (bucket x length) a prefill without
-    and (ragged families) with per-row pad masking.  The reference's
-    ``prefill_row`` cells go with the scheduler, their only caller.
+    and (ragged families) with per-row pad masking, and (ragged families)
+    the scheduler's one-row admission ``prefill_row`` on that bucket's
+    cache, as the reference does.
 
     ``params`` is the engine's packed param tree (the reference takes the
     logical axes and builds an abstract tree: a graph captures real
@@ -354,43 +380,82 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
                 for pad in ((False, True) if ragged else (False,)):
                     batch = store.static_batch(batch_template(bb, lb, pad=pad))
                     acquire("prefill", (params, batch, cache), bb, lb)
+                if ragged:
+                    # the warm-up admits into row 0 at [0, lb): in range
+                    args = row_args(store, params, cache, lb)
+                    args[3].fill_(0)
+                    args[4].fill_(lb)
+                    acquire("prefill_row", args, bb, lb)
     return rows
+
+
+def _row_state(cache, row: int, t0: int, t_end: int) -> list:
+    """Copies of what a ``prefill_row`` at ``row``, ``[t0, t_end)``
+    writes: its k / v rows, ``valid_from`` and ``slot_pos``."""
+    return [cache["k"][:, row, t0:t_end].clone(),
+            cache["v"][:, row, t0:t_end].clone(),
+            cache["valid_from"].clone(), cache["slot_pos"].clone()]
 
 
 def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
     """Run every held cell once eagerly and once through its program, on
-    its static buffers filled from ``seed`` (random tokens, pads), and
-    compare the logits bit for bit.  A decode cell runs at the cache's
-    position both times.  Returns one row per cell: key, ``equal``,
-    ``max_abs_err``."""
+    its static buffers filled from ``seed`` (random tokens, pads; for a
+    ``prefill_row`` a random row and clock), and compare the logits bit
+    for bit.  A decode cell runs at the cache's position both times.  A
+    ``prefill_row`` cell's written cache row (k, v, ``valid_from``,
+    ``slot_pos``) is compared too: between the two runs it is scrubbed,
+    so the program must write it again.  Returns one row per cell: key,
+    ``equal``, ``max_abs_err``."""
     g = torch.Generator().manual_seed(seed)
     vocab = store.model.cfg.vocab_size
     rows = []
+
+    def randint(lo, hi, shape=()):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
     with torch.inference_mode(), serving_ctx():
         for prog in store.programs():
             args = prog.args
-            if prog.kind == "prefill":
+            fn = store._fns[prog.kind]
+            if prog.kind in ("prefill", "prefill_row"):
                 batch = args[1]
                 toks = batch["tokens"]
-                toks.copy_(torch.randint(0, vocab, tuple(toks.shape),
-                                         generator=g, dtype=torch.int32))
+                toks.copy_(randint(0, vocab, tuple(toks.shape)))
                 if "pad" in batch:
-                    batch["pad"].copy_(torch.randint(
-                        0, toks.shape[1], tuple(batch["pad"].shape),
-                        generator=g, dtype=torch.int32))
-                want = store._fns["prefill"](*args)[0].clone()
+                    batch["pad"].copy_(randint(0, toks.shape[1],
+                                               tuple(batch["pad"].shape)))
+            written = True
+            if prog.kind == "prefill":
+                want = fn(*args)[0].clone()
                 got = prog.fn(*args)[0].clone()
+            elif prog.kind == "prefill_row":
+                cache = args[2]
+                lb = args[1]["tokens"].shape[1]
+                bucket, max_len = cache["k"].shape[1:3]
+                row = int(randint(0, bucket))
+                t_end = int(randint(lb, max_len + 1))
+                t0 = t_end - lb
+                args[3].fill_(row)
+                args[4].fill_(t_end)
+                want = fn(*args)[0].clone()
+                want_row = _row_state(cache, row, t0, t_end)
+                cache["k"][:, row, t0:t_end].zero_()
+                cache["v"][:, row, t0:t_end].zero_()
+                cache["valid_from"][row] = -1
+                cache["slot_pos"][t0:t_end] = -1
+                got = prog.fn(*args)[0].clone()
+                written = all(torch.equal(a, b) for a, b in zip(
+                    _row_state(cache, row, t0, t_end), want_row))
             else:
                 cache, tok = args[1], args[2]
-                tok.copy_(torch.randint(0, vocab, tuple(tok.shape),
-                                        generator=g, dtype=torch.int32))
+                tok.copy_(randint(0, vocab, tuple(tok.shape)))
                 pos = cache["pos"].clone()
-                want = store._fns["decode"](*args)[0].clone()
+                want = fn(*args)[0].clone()
                 cache["pos"].copy_(pos)
                 got = prog.fn(*args)[0].clone()
                 cache["pos"].copy_(pos)
             rows.append({"key": prog.key, "kind": prog.kind,
-                         "equal": bool(torch.equal(got, want)),
+                         "equal": bool(torch.equal(got, want)) and written,
                          "max_abs_err": float((got.float() - want.float())
                                               .abs().max())})
     return rows

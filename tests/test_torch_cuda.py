@@ -624,7 +624,7 @@ def test_graphed_cells_bit_equal_to_eager_with_equal_counts(dev, arch):
     from repro_torch.serve.programs import ProgramStore
     eng, cfg = _graph_engine(dev, arch)
     rows = eng.precompile()
-    assert len(rows) == 2 * (1 + 2 * len(eng.grid.length))
+    assert len(rows) == 2 * (1 + 3 * len(eng.grid.length))
     assert eng.programs.stats()["captured"] == len(rows)
     assert eng.programs.stats()["pool_bytes"] > 0
     eager = ProgramStore(eng.model, device=dev, capture=False)
@@ -669,7 +669,7 @@ def test_cells_of_several_buckets_interleaved_in_one_pool(dev):
     for a, b in zip(got_r, want_r):
         assert torch.equal(a.tokens, b.tokens)
         assert torch.equal(a.logits_last, b.logits_last)
-    assert eng.programs.stats()["captured"] == 2 * (1 + 2 * len(
+    assert eng.programs.stats()["captured"] == 2 * (1 + 3 * len(
         eng.grid.length))
 
 
@@ -713,3 +713,115 @@ def test_capture_while_the_background_tuner_times(dev):
               f"{len(busy)}")
     finally:
         autotuner.set_default_hw(prev)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: the captured prefill_row cells and the slot pool
+# ---------------------------------------------------------------------------
+
+
+def test_captured_prefill_row_replays_bit_equal_to_eager(dev):
+    """Every ``prefill_row`` cell of the grid, captured at load, replays
+    at a seeded row and clock bit-equal to its eager run: logits and the
+    written cache row (``check_cells`` scrubs the row between the runs),
+    and an admission through an eager store writes the same row."""
+    from repro_torch.serve.programs import ProgramStore, check_cells, row_args
+    eng, cfg = _graph_engine(dev, "qwen1_5_4b")
+    eng.precompile()
+    checks = check_cells(eng.programs, seed=5)
+    rows = [c for c in checks if c["kind"] == "prefill_row"]
+    assert len(rows) == 2 * len(eng.grid.length)
+    assert all(c["equal"] for c in checks), [c for c in checks
+                                             if not c["equal"]]
+    eager = ProgramStore(eng.model, device=dev, capture=False)
+    g = torch.Generator().manual_seed(6)
+    lb = 64
+    outs = []
+    for store in (eager, eng.programs):
+        cache = store.static_cache(2, eng.max_len)
+        for k in ("k", "v"):
+            cache[k].zero_()
+        args = row_args(store, eng.params, cache, lb)
+        args[1]["tokens"].copy_(torch.randint(0, cfg.vocab_size, (1, lb),
+                                              generator=g.manual_seed(6),
+                                              dtype=torch.int32))
+        args[1]["pad"].fill_(9)
+        args[3].fill_(1)
+        args[4].fill_(200)
+        prog = store.program("prefill_row", args, bucket=2, tokens=lb)
+        with torch.inference_mode():
+            logits = prog.fn(*args)[0].clone()
+        torch.cuda.synchronize()
+        outs.append((logits, cache["k"][:, 1, 136:200].clone(),
+                     int(cache["valid_from"][1])))
+    (a, ka, va), (b, kb, vb) = outs
+    assert torch.equal(a, b) and torch.equal(ka, kb) and va == vb == 145
+
+
+def test_graphed_serve_queue_bit_equal_to_eager(dev):
+    """A ragged queue from a 2-slot pool (later requests join a running
+    batch) through the captured cells and through an eager store: the
+    same tokens, the same launches, nothing captured by traffic."""
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.serve.programs import ProgramStore
+    from repro_torch.serve.scheduler import Request
+    eng, cfg = _graph_engine(dev, "qwen1_5_4b")
+    rows = eng.precompile()
+    loaded = eng.programs.stats()
+    rng = np.random.default_rng(7)
+    spec = [(5, 4), (12, 2), (40, 6), (9, 3), (3, 5), (100, 2)]
+
+    def queue():
+        return [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                        max_new_tokens=m, rid=i)
+                for i, (n, m) in enumerate(spec)]
+
+    reqs = queue()
+    runs = []
+    for store in (ProgramStore(eng.model, device=dev, capture=False),
+                  eng.programs):
+        eng.programs, prev = store, eng.programs
+        before = Counter(cuda.launches), Counter(cuda.design_launches)
+        try:
+            results, stats = eng.serve_queue(reqs)
+        finally:
+            eng.programs = prev
+        torch.cuda.synchronize()
+        runs.append((results, stats, Counter(cuda.launches) - before[0],
+                     Counter(cuda.design_launches) - before[1]))
+    (want, wstats, wl, wd), (got, gstats, gl, gd) = runs
+    for a, b in zip(got, want):
+        assert a.tokens.tolist() == b.tokens.tolist() and a.completed
+        assert (a.admitted_at, a.finished_at) == (b.admitted_at, b.finished_at)
+    assert max(r.admitted_at for r in got) > min(r.admitted_at for r in got)
+    assert gl == wl and gd == wd and gl["tsmm_skinny_a"] > 0
+    assert gstats.compile_s == 0.0
+    st = eng.programs.stats()
+    assert st["captured"] == loaded["captured"] == len(rows)
+
+
+def test_launcher_queue_precompiled_captures_nothing_on_traffic(dev, tmp_path):
+    """``launch/serve.py --queue --precompile`` on the card: the ragged
+    trace runs through the slot pool on cells captured at load."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"),
+               REPRO_TORCH_PLAN_CACHE=str(tmp_path / "plans.json"),
+               REPRO_TORCH_MEASURE_CACHE=str(tmp_path / "meas.json"),
+               REPRO_TORCH_MISS_LOG=str(tmp_path / "misses.json"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen1_5_4b", "--reduced", "--override",
+         "d_model=512,d_ff=1024,num_heads=4,num_kv_heads=4,head_dim=128",
+         "--trace", "2:9,3:30,1:5", "--max-batch", "4", "--steps", "4",
+         "--queue", "--precompile"], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "-- scheduler telemetry --" in out.stdout
+    assert "0 acquired cold by traffic" in out.stdout

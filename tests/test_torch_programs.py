@@ -252,21 +252,22 @@ def test_precompile_grid_enumerates_the_cells(small, buckets, lengths):
     store = ProgramStore(model, device="cpu")
     rows = precompile_grid(model, params, buckets=buckets, lengths=lengths,
                            max_len=32, store=store)
-    assert len(rows) == len(buckets) * (1 + 2 * len(lengths))
+    assert len(rows) == len(buckets) * (1 + 3 * len(lengths))
     assert len({r["key"] for r in rows}) == len(rows)
     assert all(r["source"] == "eager" for r in rows)
     assert sorted((r["kind"], r["bucket"], r["tokens"], r["pad"])
                   for r in rows) == sorted(
         [("decode", b, 1, False) for b in buckets]
         + [("prefill", b, lb, pad) for b in buckets for lb in lengths
-           for pad in (False, True)])
+           for pad in (False, True)]
+        + [("prefill_row", b, lb, False) for b in buckets for lb in lengths])
     assert all(c["equal"] for c in check_cells(store))
 
 
 def test_precompiled_engine_acquires_no_cold_cell(wide):
     eng = _engine(wide)
     rows = eng.precompile()
-    assert len(rows) == len(eng.buckets) * (1 + 2 * len(eng.grid.length))
+    assert len(rows) == len(eng.buckets) * (1 + 3 * len(eng.grid.length))
     loaded = eng.programs.stats()
     rng = np.random.default_rng(0)
     vocab = wide[3].vocab_size
@@ -349,7 +350,7 @@ def test_engine_through_the_store_matches_the_reference(wide, b):
                                    np.asarray(want.logits_last), rtol=TOL,
                                    atol=TOL)
     assert eng.programs.stats()["eager"] == len(
-        eng.buckets) * (1 + 2 * len(eng.grid.length))
+        eng.buckets) * (1 + 3 * len(eng.grid.length))
 
 
 def test_ragged_serve_through_the_store_matches_the_reference(wide):
@@ -380,9 +381,9 @@ def test_precompile_arch_checks_every_cell():
     from repro_torch.core.install import precompile_arch
     cfg = get_reduced_config("qwen1_5_4b")
     out = precompile_arch(cfg, (1, 2), (8, 16), max_len=32, device="cpu")
-    assert len(out["rows"]) == 2 * (1 + 2 * 2) == len(out["checks"])
+    assert len(out["rows"]) == 2 * (1 + 3 * 2) == len(out["checks"])
     assert all(c["equal"] for c in out["checks"])
-    assert out["stats"]["eager"] == 10 and out["stats"]["captured"] == 0
+    assert out["stats"]["eager"] == 14 and out["stats"]["captured"] == 0
 
 
 def _launcher(tmp_path, *extra):
@@ -400,7 +401,7 @@ def _launcher(tmp_path, *extra):
 def test_launcher_precompile_then_require_warm(tmp_path):
     out = _launcher(tmp_path, "--precompile", "--require-warm")
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "precompiled 15 cells" in out.stdout
+    assert "precompiled 21 cells" in out.stdout
     assert "0 acquired cold by traffic" in out.stdout
 
 
@@ -418,7 +419,7 @@ def test_cold_start_tool_on_the_cpu(tmp_path):
     by = {r["row"]: r for r in rows}
     assert by["first_traffic_after_precompile_s"]["cold_cells"] == 0
     assert by["capture_at_first_traffic_s"]["eager"] > 0
-    assert by["precompile_at_load_s"]["cells"] == 2 * (1 + 2 * 2)
+    assert by["precompile_at_load_s"]["cells"] == 2 * (1 + 3 * 2)
     assert by["warm_restart_from_disk"]["value"] is None
-    assert sum(r["row"] == "cell" for r in rows) == 10
+    assert sum(r["row"] == "cell" for r in rows) == 14
     assert path.exists()
