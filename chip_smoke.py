@@ -17,8 +17,11 @@ printing JSON lines:
                 store;
 3. install    — the install-time stage at full width into a temporary
                 plan cache (``repro_torch.core.install``): ``--measure``
-                for qwen1.5-4b (buckets 1, 2, 4; prompts to 256) and
-                GLM-4-9B (buckets 1, 2; prompts to 2048), every candidate
+                for qwen1.5-4b (buckets 1, 2, 4; prompts to 256),
+                GLM-4-9B (buckets 1, 2; prompts to 2048), OLMoE-1B-7B
+                (buckets 1, 2, 4; prompts to 256) and DeepSeek-V2 (its
+                published widths, MLA's five projections among them;
+                buckets 1, 2; prompts to 512), every candidate
                 timed on the hand-written kernels and held to the serving
                 path; ``--calibrate``; ``--check`` (zero misses, then every
                 sampled grammar point and schedule through the CUDA
@@ -27,14 +30,19 @@ printing JSON lines:
                 of model and measurement per problem before and after the
                 fit, and GLM-4-9B's K/V model pick against the measured
                 winner.  The pack cases of the kernels phase then take the
-                layouts the installed plans give GLM-4-9B;
+                layouts the installed plans give GLM-4-9B and
+                DeepSeek-V2's ``wo``;
 4. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
-                prefill, GLM-4-9B's tall K/V projections, the pack at
+                prefill, OLMoE-1B-7B's attention projections and head,
+                DeepSeek-V2's MLA projections, dense first-layer MLP
+                and head, GLM-4-9B's tall K/V
+                projections, the pack at
                 GLM-4-9B's three pack shapes (its prefill activations,
                 the per-call decode pack of wk/wv, its largest leaf at
-                load), flash attention at both models' prefill,
-                GLM-4-9B's at both of its groups) against its plain
+                load) and at DeepSeek-V2's largest leaf at load, flash
+                attention at qwen's, OLMoE's and GLM-4-9B's
+                prefill, GLM-4-9B's at both of its groups) against its plain
                 PyTorch version
                 on the same inputs (max error within the stated
                 tolerance; the pack bit-equal), with the design that ran
@@ -49,9 +57,12 @@ printing JSON lines:
                 and packed baseline, B-resident, revisit, k-split,
                 k-outer), each against the plain product; each family's
                 counter must rise;
-6. parity     — qwen1.5-4b at full width (1 x 256 tokens) and a
+6. parity     — qwen1.5-4b at full width (1 x 256 tokens), a
                 GLM-shaped config (d_model 1024, 8 heads on 2 KV heads of
-                128, 2 x 1024 tokens, so wk/wv take the tall path), 2
+                128, 2 x 1024 tokens, so wk/wv take the tall path),
+                OLMoE-1B-7B at full width (1 x 256) and DeepSeek-V2 at
+                full width but 16 routed experts (1 x 128; the cut is on
+                the line), both MoE drop-free (capacity factor 8), 2
                 layers, float32: prefill + 4 decode steps on the card
                 (kernels) against the port on the CPU (plain versions)
                 with the same packed weights;
@@ -89,9 +100,29 @@ printing JSON lines:
                 the real clock under a producer submitting a seeded
                 Poisson trace of the 16 requests at half the request rate
                 the queue sustained: TTFT and queue delay percentiles,
-                every stream completed, none rejected.
+                every stream completed, none rejected;
+12. serve.olmoe — OLMoE-1B-7B at its published dims, all 16 layers (64
+                experts, top-8), bf16, seeded random weights,
+                ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
+                256-token prompts and 16 greedy steps; prints
+                ``param_count`` / ``active_param_count`` and the profile
+                of a bucket-4 step with the ``moe_experts`` and
+                ``moe_dispatch`` families;
+13. queue.olmoe — OLMoE-1B-7B on a queue engine of its own (4 slots): 8
+                ragged requests through ``serve_queue`` eagerly and then
+                graphed: tokens bit-equal, 0 cells captured by traffic,
+                0 misses;
+14. serve.deepseek — DeepSeek-V2 at its published widths cut to 3 layers
+                (the dense first layer and 2 MoE layers of 160 experts,
+                top-6, 2 shared; the cut is on the line), bf16,
+                ``Engine(max_batch=2)``: groups of 1 and 2 with 512-token
+                prompts and 8 steps.  MLA's prefill runs the chunked body
+                (``flash_attention`` must not launch; the body is timed
+                apart at the 2 x 512 group beside its bound and SDPA, and
+                held to SDPA), its decode the absorbed form over the
+                compressed cache.
 
-Both serve phases start on the registry the install phase wrote and must
+Every serve phase starts on the registry the install phase wrote and must
 make zero registry misses over load, precompile, prefill and decode.
 Each captures its engine's whole grid at load (``Engine.precompile``:
 one CUDA graph per decode bucket and per (bucket x length) prefill, with
@@ -107,7 +138,8 @@ both runs, and a ``profile`` of one decode step (qwen1.5-4b bucket 4,
 GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
 launch calls and kernels per step (``launch/profile_decode.py``).
 
-Each path (install, serve, serve.glm4, queue) zeroes the launch counts
+Each path (install, serve, serve.glm4, queue, serve.olmoe, queue.olmoe,
+serve.deepseek) zeroes the launch counts
 just before it (on the serve paths: before the graphed groups; on the
 queue path: before the graphed queue) and reads them just after; every kernel of the path must have
 launched (on the serve paths: the baseline, flash and the kernel of every
@@ -119,7 +151,8 @@ bf16 tall-A and flash launch the wgmma design and every pack launch (at
 load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
-it off both; ``launches_by_path`` adds the queue path's) and, last, the ``{"ok": true, ...}`` line.  Any failure
+it off both; ``launches_by_path`` adds the queue and MoE paths') and,
+last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
 
@@ -332,7 +365,18 @@ SKINNY_SHAPES = (
     + [(k, n, (1, 2, 2048))
        for k, n in ((4096, 4096), (4096, 13696), (13696, 4096),
                     (4096, 151552))]
-    + [(4096, 256, (1, 2))])
+    + [(4096, 256, (1, 2))]
+    # OLMoE-1B-7B's attention projections and head (decode batches 1 and
+    # 4, a 4 x 256-token prefill)
+    + [(k, n, (1, 4, 1024)) for k, n in ((2048, 2048), (2048, 50304))]
+    # DeepSeek-V2's MLA projections wq_a, wq_b, wkv_a (576 wide: its
+    # packed blocks are zero-padded to 640), wkv_b and wo, its dense first
+    # layer's MLP (w_gate / w_up, w_down) and its head (decode batches 1
+    # and 2, a 2 x 512-token prefill)
+    + [(k, n, (1, 2, 1024))
+       for k, n in ((5120, 1536), (1536, 24576), (5120, 576), (512, 32768),
+                    (16384, 5120), (5120, 12288), (12288, 5120),
+                    (5120, 102400))])
 
 
 def phase_kernels(timer):
@@ -352,9 +396,10 @@ def phase_kernels(timer):
     for k, n, ms in SKINNY_SHAPES:
         w = (torch.randn((k, n), generator=g, device="cuda")
              / k ** 0.5).to(bf)
-        bias = (0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
         bk, bn = 128, 128
-        wp = ops.pack_blocks(w, bk, bn)
+        wp = ops.pack_blocks(w, bk, bn)      # zero-padded to whole blocks
+        bias = (0.1 * torch.randn((wp.shape[1] * bn,), generator=g,
+                                  device="cuda")).to(bf)
         for m in ms:
             x = torch.randn((m, k), generator=g, device="cuda").to(bf)
             modes = {
@@ -394,6 +439,11 @@ def phase_kernels(timer):
                                   x, wp, None, None, natural=False, splits=1,
                                   mode=tsmm.EPILOGUE), BF16_TOL),
             }
+            # the natural layout takes N in whole 128-column tiles
+            # (``skinny_plan``), so wkv_a (576 wide) runs packed only, as
+            # on its path
+            if n % bn:
+                del modes["natural"]
             # the splits that cut the K-block count evenly (the planner's
             # gate): none for GLM-4-9B's w_down, whose 107 blocks are prime
             for s in (2, 4, 8):
@@ -442,10 +492,11 @@ def phase_kernels(timer):
     cases += tall_cases(timer, g, worst)
     cases += pack_cases(timer, g, worst)
 
-    # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads) and GLM-4-9B's
-    # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads)
+    # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads), GLM-4-9B's
+    # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads) and
+    # OLMoE-1B-7B's (4 x 256 tokens, 16 MHA heads)
     for b, s, h, kh in ((4, 256, 20, 20), (1, 2048, 32, 2),
-                        (2, 2048, 32, 2)):
+                        (2, 2048, 32, 2), (4, 256, 16, 16)):
         d = 128
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
@@ -577,10 +628,13 @@ def tall_cases(timer, g, worst):
 # prefill activations for a packed tall plan, the per-call decode pack of
 # its unpacked wk/wv, and its largest layer-stacked leaf at load at the
 # blocks prepack_for gives it (phase_serve_glm4 checks it against
-# eng.pack_report)
+# eng.pack_report); and DeepSeek-V2's largest layer-stacked leaf at load,
+# MLA's wo (16384, 5120) on the 2 MoE layers of its serve path
+# (phase_serve_moe checks it)
 PACK_SHAPES = {"prefill": (1, 2048, 4096, 256, 128),
                "decode": (1, 4096, 256, 256, 128),
-               "load": (40, 4096, 13696, 128, 128)}
+               "load": (40, 4096, 13696, 128, 128),
+               "load.deepseek": (2, 16384, 5120, 16384, 128)}
 
 
 def pack_cases(timer, g, worst):
@@ -708,7 +762,8 @@ def phase_tall(timer):
 
 # the install phase's sweeps: (arch, largest batch bucket, largest prompt
 # bucket), the shapes the serve phases then serve
-INSTALL = (("qwen1_5_4b", 4, 256), ("glm4_9b", 2, 2048))
+INSTALL = (("qwen1_5_4b", 4, 256), ("glm4_9b", 2, 2048),
+           ("olmoe_1b_7b", 4, 256), ("deepseek_v2_236b", 2, 512))
 # GLM-4-9B's K/V projection at its two prefill token counts
 GLM_KV_PREFILL = ((2048, 4096, 256), (4096, 4096, 256))
 
@@ -830,14 +885,18 @@ def set_pack_shapes():
     """Point ``PACK_SHAPES``' load and decode cases at the layouts the
     installed plans give GLM-4-9B: its largest layer-stacked leaf (w_gate,
     (4096, 13696), at the blocks ``prepack_for`` picks) and the per-call
-    pack of its K/V weight at decode batch 1 (where its plan packs)."""
+    pack of its K/V weight at decode batch 1 (where its plan packs); and
+    the DeepSeek-V2 load case at the blocks its wo is packed in."""
     from repro_torch.core import registry
     from repro_torch.core.plan import Problem
     from repro_torch.core.tsmm import prepack_blocks
-    blocks = prepack_blocks((1, 2), 4096, 13696, "bfloat16", device="cuda")
-    if blocks is None:
-        raise AssertionError("GLM-4-9B's w_gate would stay unpacked")
-    PACK_SHAPES["load"] = (40, 4096, 13696, *blocks)
+    for case, (L, k, n), what in (
+            ("load", (40, 4096, 13696), "GLM-4-9B's w_gate"),
+            ("load.deepseek", (2, 16384, 5120), "DeepSeek-V2's wo")):
+        blocks = prepack_blocks((1, 2), k, n, "bfloat16", device="cuda")
+        if blocks is None:
+            raise AssertionError(f"{what} would stay unpacked")
+        PACK_SHAPES[case] = (L, k, n, *blocks)
     plan = registry.peek(Problem(1, 4096, 256, "bfloat16").key(), "cuda")
     if plan is not None and packs_per_call(plan):
         PACK_SHAPES["decode"] = (1, 4096, 256, plan.bk, plan.bn)
@@ -850,10 +909,11 @@ GLM_PARITY = dict(d_model=1024, num_heads=8, num_kv_heads=2, head_dim=128,
                   d_ff=2048, dtype="float32")
 
 
-def phase_parity(cfg, batch, prompt_len):
+def phase_parity(cfg, batch, prompt_len, cut=None):
     """``cfg`` (2 layers, fp32): card (kernels) vs CPU (plain versions) on
-    the same packed weights and the same token stream.  Returns the card
-    run's launch counts."""
+    the same packed weights and the same token stream; ``cut`` names how
+    ``cfg`` departs from the published config, printed on the line.
+    Returns the card run's launch counts."""
     import torch
     from repro_torch.core.linear import serving_ctx
     from repro_torch.kernels import cuda
@@ -900,7 +960,11 @@ def phase_parity(cfg, batch, prompt_len):
     tol = PARITY_RTOL * scale
     emit({"phase": "parity", "config": cfg.name, "d_model": cfg.d_model,
           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": batch,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+          "capacity_factor": cfg.capacity_factor, "mla": cfg.use_mla,
+          "cut": cut, "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "batch": batch,
           "prompt": prompt_len, "decode_steps": steps,
           "packed_leaves": len(report), "max_abs_err_per_step": errs,
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
@@ -1218,6 +1282,196 @@ def phase_serve_glm4():
     return launches, load_launches
 
 
+# the MoE family's serve paths: OLMoE-1B-7B whole, DeepSeek-V2 at its
+# published widths cut to 3 layers (the dense first layer and 2 MoE
+# layers: 160 experts x 3 x 5120 x 1536 bf16 = 7.55 GB a layer; 60 do
+# not fit one card)
+MOE_SERVE = {
+    "serve.olmoe": dict(arch="olmoe_1b_7b", cut={}, max_batch=4, prompt=256,
+                        steps=16, groups=(1, 3, 4), flash=True),
+    "serve.deepseek": dict(arch="deepseek_v2_236b", cut={"num_layers": 3},
+                           max_batch=2, prompt=512, steps=8, groups=(1, 2),
+                           flash=False),
+}
+# DeepSeek-V2's packed leaves the serve path must hold: MLA's projections
+# (but wkv_a, (5120, 576), which no block layout divides: it runs the
+# skinny kernels unpacked, on its planned problem), the dense first
+# layer's MLP and the head
+DEEPSEEK_PACKED = ("layers/attn/wq_a", "layers/attn/wq_b",
+                   "layers/attn/wkv_b", "layers/attn/wo", "dense0/attn/wq_a",
+                   "dense0/mlp/w_gate", "dense0/mlp/w_up",
+                   "dense0/mlp/w_down", "embed/head")
+
+
+def phase_serve_moe(path: str):
+    """A model of the MoE family through ``Engine`` on the card (bf16,
+    seeded random weights on a CUDA generator, at the widths and depth of
+    ``MOE_SERVE[path]``): its grid captured at load, every group served
+    eagerly and then graphed (bit-equal, equal launches), 0 registry
+    misses and 0 cells captured by traffic; the skinny-A kernels must
+    launch, and flash where the model's attention takes it (MLA does
+    not: its 192-wide Q/K against a 128-wide V take the chunked body).
+    Returns (the graphed groups' launches, the load's launches)."""
+    import gc
+    from collections import Counter
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import make_group
+    from repro_torch.models.registry import (active_param_count,
+                                             build_model, param_count)
+    from repro_torch.serve.engine import Engine
+
+    spec = MOE_SERVE[path]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
+    model = build_model(cfg)
+    prompt, steps = spec["prompt"], spec["steps"]
+    cuda.reset_launches()
+    registry.reset_stats()
+    t0 = time.perf_counter()
+    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = Engine(model, params, axes, max_len=prompt + steps + 8,
+                 max_batch=spec["max_batch"], max_prompt=prompt,
+                 device="cuda")
+    del params
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_launches = dict(cuda.launches)
+    load_designs = dict(cuda.design_launches)
+    emit({"phase": f"{path}.load", "config": cfg.name,
+          "layers": cfg.num_layers, "cut": spec["cut"] or None,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "experts": cfg.num_experts, "shared_experts":
+          cfg.num_shared_experts, "top_k": cfg.experts_per_token,
+          "first_k_dense": cfg.first_k_dense, "mla": cfg.use_mla,
+          "dtype": cfg.dtype, "packed_leaves": len(eng.pack_report),
+          "param_count": param_count(model),
+          "active_param_count": active_param_count(model),
+          "pack_report": eng.pack_report, "buckets": eng.buckets,
+          "variants": dict(sorted(Counter(
+              eng.variant_report().values()).items())),
+          "schedules": dict(sorted(Counter(
+              eng.schedule_report().values()).items())),
+          "registry": registry.stats(), "load_s": load_s,
+          "load_launches": load_launches, "load_designs": load_designs,
+          "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    check_pack(f"{path}.load", load_launches, load_designs)
+    if cfg.use_mla:
+        absent = [p for p in DEEPSEEK_PACKED if p not in eng.pack_report]
+        if absent:
+            raise AssertionError(f"{path}: {absent} not packed at load")
+        # the kernels phase's DeepSeek load case is this leaf, at its
+        # blocks, and a largest layer-stacked leaf
+        L, m, k, bm, bk = PACK_SHAPES["load.deepseek"]
+        stacked = {s: math.prod(s) for s in eng.pack_report.values()
+                   if len(s) == 5}
+        if (tuple(eng.pack_report["layers/attn/wo"])
+                != (L, m // bm, k // bk, bm, bk)
+                or math.prod((L, m, k)) != max(stacked.values())):
+            raise AssertionError(f"the timed load case "
+                                 f"{PACK_SHAPES['load.deepseek']} is not "
+                                 f"wo, a largest layer-stacked leaf of "
+                                 f"{eng.pack_report}")
+    groups = {b: make_group(cfg, b, prompt, "cuda") for b in spec["groups"]}
+    base, pre = serve_both(eng, groups, steps, path)
+    for b, (want, got) in base.items():
+        toks = check_group(got, b, steps, cfg.vocab_size)
+        emit({"phase": path, "group": b, "buckets": got.buckets,
+              "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
+              "eager_prefill_s": want.prefill_s,
+              "eager_per_token_s": want.per_token_s,
+              "compile_s": got.compile_s, "bit_equal_to_eager": True,
+              "tokens[0]": toks[0].tolist()})
+    launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
+    stats = registry.stats()
+    emit({"phase": f"{path}.launches", "launches": launches,
+          "design_launches": designs, "registry": stats})
+    check_programs(path, eng, pre)
+    if stats["misses"]:
+        raise AssertionError(f"{path}: {stats['misses']} registry misses "
+                             f"after the install sweep")
+    check_wgmma(path, launches, designs)
+    check_pack(path, launches, designs)
+    # the baseline (prefills past the buckets) and the kernel of every
+    # variant the install stamped; flash where the attention takes it
+    need = {"tsmm_skinny_a"} | {skinny_counter(v)
+                                for v in eng.variant_report().values()}
+    if spec["flash"]:
+        need.add("flash_attention")
+    elif launches.get("flash_attention", 0):
+        raise AssertionError(f"{path}: MLA reached the flash kernel "
+                             f"({launches['flash_attention']} launches)")
+    missing = sorted(k for k in need if launches.get(k, 0) == 0)
+    if missing:
+        raise AssertionError(f"{path} launched no {missing}")
+    profile(path, eng, make_group(cfg, spec["max_batch"], prompt, "cuda"),
+            steps=4)
+    if cfg.use_mla:
+        mla_prefill_attention(path, cfg, spec["max_batch"], prompt,
+                              base[spec["max_batch"]][1].prefill_s)
+    emit({"phase": f"{path}.seconds", "seconds": time.perf_counter() - t_phase})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, load_launches
+
+
+def mla_prefill_attention(path: str, cfg, b: int, s: int, prefill_s: float):
+    """The chunked torch body that MLA's prefill attention runs (192-wide
+    Q/K against a 128-wide V: no flash design takes it), at the path's
+    largest group (``b`` x ``s`` tokens, bf16, every head): its wall and
+    device ms beside the FLOP bound, SDPA on the same inputs (held to the
+    body within the bf16 tolerance) and the graphed prefill it sits in."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.evaluator import Timer
+    from repro_torch.models.attention import chunked_attention
+
+    h, dk, dv = (cfg.num_heads, cfg.head_dim + cfg.rope_head_dim,
+                 cfg.v_head_dim)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k = (torch.randn((b, s, h, dk), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+    def body():
+        return chunked_attention(q, k, v, causal=True)
+
+    def lib():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+
+    ok, err = within(body(), lib().transpose(1, 2), **BF16_TOL)
+    if not ok:
+        raise AssertionError(f"{path}: MLA's chunked prefill attention "
+                             f"against SDPA: max |err| {err} outside "
+                             f"{BF16_TOL}")
+    timer = Timer()
+    device_ms = timer(body, device=True)
+    # QK^T (dk wide) and PV (dv wide) over the causal triangle; q, k, v
+    # read once, the output written once
+    bound_ms, bound_by = bound(2 * b * s * h * (2 * dk + 2 * dv),
+                               2 * b * h * (dk + dv) * (s * (s + 1) // 2))
+    emit({"phase": f"{path}.mla_prefill_attention", "B": b, "S": s, "H": h,
+          "dk": dk, "dv": dv, "dtype": "bfloat16", "route": "chunked torch",
+          "ms": timer(body), "device_ms": device_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": timer(lib),
+          "library_device_ms": timer(lib, device=True),
+          "max_abs_err_vs_library": err, "layers": cfg.num_layers,
+          "device_ms_per_prefill": device_ms * cfg.num_layers,
+          "graphed_prefill_ms": 1e3 * prefill_s})
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 # the reference test's ragged queue, (prompt length, decode budget):
 # served from 2 slots, so later requests join a running batch
 QUEUE_PARITY_SPEC = ((5, 4), (12, 2), (20, 6), (9, 3), (3, 5))
@@ -1393,16 +1647,18 @@ def timed(fn, into: list):
     return call
 
 
-def phase_queue(cfg=None, device="cuda"):
-    """qwen1.5-4b at full width and depth, bf16, on a queue engine of its
-    own (4 slots, prompts to 256, ``max_len`` by the ragged rule), its
-    grid (``prefill_row`` cells included) captured at load: 16 ragged
-    requests through ``serve_queue`` on an eager store, then graphed (the
-    main path): tokens bit-equal, launch counts equal.  Then a timed
-    graphed run (admission and step wall times), the continuous-batching
-    comparison against aligned groups and the profile of one step.
-    Returns (the graphed run's launches, the load's launches, the engine,
-    the requests, the graphed results and stats)."""
+def phase_queue(cfg=None, device="cuda", *, n=16, path="queue",
+                extras=True):
+    """``cfg`` (default qwen1.5-4b) at full width and depth, bf16, on a
+    queue engine of its own (4 slots, prompts to 256, ``max_len`` by the
+    ragged rule), its grid (``prefill_row`` cells included) captured at
+    load: ``n`` ragged requests through ``serve_queue`` on an eager
+    store, then graphed (the main path): tokens bit-equal, launch counts
+    equal.  With ``extras``, then a timed graphed run (admission and step
+    wall times), the continuous-batching comparison against aligned
+    groups and the profile of one step.  Returns (the graphed run's
+    launches, the load's launches, the engine, the requests, the graphed
+    results and stats)."""
     import gc
     import statistics
 
@@ -1422,7 +1678,7 @@ def phase_queue(cfg=None, device="cuda"):
     t_phase = time.perf_counter()
     cfg = cfg or get_config("qwen1_5_4b")
     model = build_model(cfg)
-    reqs = queue_workload(cfg)
+    reqs = queue_workload(cfg, n)
     max_len = continuous_batching.ragged_max_len(reqs)
     registry.reset_stats()
     cuda.reset_launches()
@@ -1450,14 +1706,14 @@ def phase_queue(cfg=None, device="cuda"):
     launches, designs = dict(cuda.launches), dict(cuda.design_launches)
     for a, b in zip(got, want):
         if a.tokens.tolist() != b.tokens.tolist() or not a.completed:
-            raise AssertionError(f"queue: request {a.rid}'s graphed tokens "
+            raise AssertionError(f"{path}: request {a.rid}'s graphed tokens "
                                  f"differ from the eager run's")
     if (launches, designs) != eager_counts:
-        raise AssertionError(f"queue: launches under replay "
+        raise AssertionError(f"{path}: launches under replay "
                              f"{(launches, designs)} differ from the eager "
                              f"run's {eager_counts}")
     reg = registry.stats()
-    emit({"phase": "queue", "config": cfg.name, "layers": cfg.num_layers,
+    emit({"phase": path, "config": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "slots": stats.slots,
           "max_len": max_len, "load_s": load_s, "load_launches": load_launches,
           "requests": len(reqs),
@@ -1474,15 +1730,19 @@ def phase_queue(cfg=None, device="cuda"):
                        "queue_steps": r.queue_steps,
                        "tokens": r.tokens.tolist()} for r in got],
           "launches": launches, "design_launches": designs})
-    check_programs("queue", eng, pre)
+    check_programs(path, eng, pre)
     if reg["misses"]:
-        raise AssertionError(f"queue: {reg['misses']} registry misses after "
+        raise AssertionError(f"{path}: {reg['misses']} registry misses after "
                              f"the install sweep")
-    check_wgmma("queue", launches, designs)
+    check_wgmma(path, launches, designs)
     need = queue_kernels(eng, sorted({r.length_bucket for r in got}))
     missing = sorted(k for k in need if not launches.get(k))
     if missing:
-        raise AssertionError(f"queue path launched no {missing} ({need})")
+        raise AssertionError(f"{path} path launched no {missing} ({need})")
+    if not extras:
+        emit({"phase": f"{path}.seconds",
+              "seconds": time.perf_counter() - t_phase})
+        return launches, load_launches, eng, reqs, got, stats
 
     # wall time of each admission (by length bucket) and each step
     sched = ContinuousScheduler(eng)
@@ -1639,6 +1899,16 @@ def run():
                               1024)
     if not any(glm_parity.get(k, 0) for k in TALL):
         raise AssertionError("GLM-shaped parity ran no tall-A kernel")
+    # the MoE family, 2 layers, fp32, drop-free (capacity factor 8):
+    # OLMoE-1B-7B at its published widths, DeepSeek-V2 at its published
+    # widths but 16 routed experts (160 fp32 experts are 15 GB a layer on
+    # the host)
+    for arch, cut, prompt in (("olmoe_1b_7b", {}, 256),
+                              ("deepseek_v2_236b", {"num_experts": 16}, 128)):
+        phase_parity(dataclasses.replace(
+            get_config(arch), num_layers=2, dtype="float32",
+            capacity_factor=8.0, **cut), 1, prompt,
+            cut={"num_layers": 2, **cut})
     qwen_launches = phase_serve()
     glm_launches, glm_load = phase_serve_glm4()
     phase_queue_parity(dataclasses.replace(get_config("qwen1_5_4b"),
@@ -1646,6 +1916,13 @@ def run():
     queue_launches, queue_load, eng, reqs, results, stats = phase_queue()
     phase_queue_frontend(eng, reqs, results, stats)
     del eng
+    by_path = {"queue": queue_launches}
+    by_path["serve.olmoe"], olmoe_load = phase_serve_moe("serve.olmoe")
+    by_path["queue.olmoe"], olmoe_queue_load, eng, *_ = phase_queue(
+        get_config("olmoe_1b_7b"), n=8, path="queue.olmoe", extras=False)
+    del eng
+    by_path["serve.deepseek"], deepseek_load = phase_serve_moe(
+        "serve.deepseek")
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the
@@ -1684,7 +1961,7 @@ def run():
                      "launches_path": path,
                      "launches_by_path": {
                          path: launches.get(name, 0),
-                         "queue": queue_launches.get(name, 0)},
+                         **{p: ls.get(name, 0) for p, ls in by_path.items()}},
                      "max_abs_err": worst[name], "tol": tol, "ms": c["ms"],
                      "device_ms": c.get("device_ms"),
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1695,11 +1972,14 @@ def run():
     pack = next(r for r in line if r["name"] == "pack_blocks")
     pack["launches_by_path"] = {
         "queue.load": queue_load.get("pack_blocks", 0),
-        "queue": queue_launches.get("pack_blocks", 0),
         "serve.glm4.load": glm_load.get("pack_blocks", 0),
         "serve.glm4": glm_launches.get("pack_blocks", 0),
+        "serve.olmoe.load": olmoe_load.get("pack_blocks", 0),
+        "queue.olmoe.load": olmoe_queue_load.get("pack_blocks", 0),
+        "serve.deepseek.load": deepseek_load.get("pack_blocks", 0),
         "install": install_launches.get("pack_blocks", 0),
-        "tall": tall_launches.get("pack_blocks", 0)}
+        "tall": tall_launches.get("pack_blocks", 0),
+        **{p: ls.get("pack_blocks", 0) for p, ls in by_path.items()}}
     pack["shapes"] = [
         {**shape_of(c), **{k: c[k] for k in ("design", "ms", "device_ms",
                                              "plain_ms", "library_ms",

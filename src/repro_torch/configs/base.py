@@ -3,8 +3,9 @@
 One ``ModelConfig`` dataclass covers every architecture family of the
 reference; architecture files under ``repro_torch/configs/`` export
 ``CONFIG`` (the published dims) and ``REDUCED`` (a structurally-identical
-small config for CPU tests).  Ported so far: ``qwen1_5_4b`` and
-``glm4_9b``.
+small config for CPU tests).  Ported so far: the dense family
+(``qwen1_5_4b``, ``glm4_9b``) and the MoE family (``olmoe_1b_7b``,
+``deepseek_v2_236b``).
 """
 
 from __future__ import annotations

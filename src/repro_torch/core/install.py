@@ -47,14 +47,13 @@ import argparse
 import sys
 import time
 
-from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.core import registry
 from repro_torch.core.autotuner import make_plan_grid, make_plan_set
 from repro_torch.core.plan import (BucketGrid, Problem, buckets_for, is_tsmm,
                                    length_buckets_for)
 
 # the configurations the port serves
-ARCHS = ("qwen1_5_4b", "glm4_9b")
+ARCHS = ("qwen1_5_4b", "glm4_9b", "olmoe_1b_7b", "deepseek_v2_236b")
 # serving batch buckets swept at install time: every power of two up to
 # the largest batch
 MAX_SERVE_BATCH = 128
@@ -65,7 +64,13 @@ SERVE_LENGTHS = length_buckets_for(MAX_SERVE_PROMPT)
 
 
 def serving_shapes(cfg) -> set:
-    """The (k, n) weight shapes the serving path hits for one arch."""
+    """The (k, n) weight shapes the serving path hits for one arch.
+
+    Every shape of the reference's copy, and for MLA also ``wq_b``
+    (q_lora_rank, H * (head_dim + rope_head_dim)), ``wkv_a`` (d_model,
+    kv_lora_rank + rope_head_dim) and ``wo`` (H * v_head_dim, d_model),
+    which the reference's leaves out: without them an MLA engine's
+    packed leaves would miss the registry at serve."""
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = set()
     if h:
@@ -80,6 +85,9 @@ def serving_shapes(cfg) -> set:
     if cfg.use_mla:
         shapes |= {(d, cfg.q_lora_rank), (cfg.kv_lora_rank,
                                           h * (cfg.head_dim + cfg.v_head_dim))}
+        dr = cfg.rope_head_dim
+        shapes |= {(cfg.q_lora_rank, h * (cfg.head_dim + dr)),
+                   (d, cfg.kv_lora_rank + dr), (h * cfg.v_head_dim, d)}
     shapes.add((d, cfg.vocab_size))
     return shapes
 
@@ -192,8 +200,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced (CPU-sized) configs")
     ap.add_argument("--override", default="",
-                    help="comma-separated int config overrides applied with "
-                         "reduced(), as the serving launcher's")
+                    help="comma-separated int config overrides, as the "
+                         "serving launcher's (with --reduced applied with "
+                         "reduced(), else to the published config)")
     ap.add_argument("--precompile", action="store_true",
                     help="also capture each model's serving grid as CUDA "
                          "graphs and check every cell against its eager run "
@@ -204,7 +213,7 @@ def main(argv=None) -> dict:
     import torch
 
     from repro_torch.core.hw import for_device
-    from repro_torch.launch.serve import parse_overrides
+    from repro_torch.launch.serve import config_for
     from repro_torch.serve.engine import resolve_device
     device = resolve_device(args.device)
     archs = ([a.strip() for a in args.archs.split(",") if a.strip()]
@@ -213,10 +222,7 @@ def main(argv=None) -> dict:
     lengths = length_buckets_for(args.max_prompt) if args.max_prompt else ()
 
     def cfg_of(arch):
-        cfg = get_reduced_config(arch) if args.reduced else get_config(arch)
-        if args.override:
-            cfg = cfg.reduced(**parse_overrides(args.override))
-        return cfg
+        return config_for(arch, reduced=args.reduced, override=args.override)
 
     if args.check:
         registry.clear_memory()

@@ -15,7 +15,11 @@ The steps run as the engine's serving cells (``serve/programs.py``):
 eagerly, or with ``--graphs`` as replays of their captured CUDA graphs.
 Prints the card (``nvidia-smi`` name and power limit), the wall time per
 step, the device time per step summed over CUDA kernels and split by
-kernel family (skinny-A, tall-A, pack, flash attention, the rest), the
+kernel family (skinny-A, tall-A, pack, flash attention, the rest; in an
+eager run of an MoE model also ``moe_experts``, the routed and shared
+experts' GEMMs, and ``moe_dispatch``, the routing, sort, dispatch and
+combine, both split out of the rest by the profiler ranges of
+``models/moe.py``), the
 host's kernel launch calls per step (``cudaLaunchKernel`` and the
 cluster launches, ``cudaLaunchKernelExC``), its graph launches
 (``cudaGraphLaunch``), the kernels the device ran per step, and the
@@ -38,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.base import get_config
 from repro_torch.core.linear import serving_ctx
 from repro_torch.launch.serve import make_group
+from repro_torch.models.moe import DISPATCH_RANGE, EXPERTS_RANGE
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.programs import ProgramStore
@@ -47,6 +52,18 @@ from repro_torch.serve.programs import ProgramStore
 FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel", "tall_wgmma"),
             "pack": ("pack_kernel", "pack_tma_kernel", "pack_vec_kernel"),
             "flash": ("flash",)}
+# families read from the profiler ranges the model code opens
+# (models/moe.py): the kernels launched inside each, library GEMMs and
+# elementwise kernels that no name tells apart from the rest
+RANGES = (EXPERTS_RANGE, DISPATCH_RANGE)
+
+
+def range_device_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside every ``name`` range of an
+    eager run (the kernels of a graph replay belong to its launch, not to
+    the ranges, so a graphed run reads 0)."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
 
 
 def profile_steps(eng, batch: dict, *, steps: int, graphs: bool,
@@ -99,7 +116,9 @@ def profile_steps(eng, batch: dict, *, steps: int, graphs: bool,
                                  ProfilerActivity.CUDA]) as prof:
             run()
     ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    # the ranges' own device-side annotations are not kernels
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+               and e.key not in RANGES]
     calls = {k: sum(e.count for e in ka if e.key == k)
              for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cudaGraphLaunch")}
@@ -109,6 +128,12 @@ def profile_steps(eng, batch: dict, *, steps: int, graphs: bool,
         fam = next((f for f, keys in FAMILIES.items()
                     if any(k in e.key for k in keys)), "other")
         families[fam] += e.self_device_time_total / 1e3 / n
+    # the ranges hold library and elementwise kernels only, which the
+    # names put under "other"; an eager run splits them out of it
+    if not graphs:
+        for r in RANGES:
+            families[r] = range_device_ms(prof, r) / n
+            families["other"] -= families[r]
     return {
         "step": "prefill" if prefill else "decode", "graphs": graphs,
         "batch": b, "prompt_len": width, "steps": n,

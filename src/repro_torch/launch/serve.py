@@ -39,6 +39,7 @@ captures one fails it as well.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 from collections import Counter
 
@@ -47,7 +48,8 @@ import torch
 
 from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.core import registry
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import (active_param_count, build_model,
+                                         param_count)
 from repro_torch.serve.engine import Engine, resolve_device
 from repro_torch.serve.scheduler import Request
 
@@ -89,13 +91,25 @@ def parse_overrides(text: str) -> dict:
     return out
 
 
+def config_for(arch: str, *, reduced: bool, override: str = ""):
+    """``arch``'s config: the reduced one with the overrides applied
+    through ``reduced()``, or the published one with the overrides
+    replacing its fields (``num_layers=3``: full width, cut depth)."""
+    if reduced:
+        cfg = get_reduced_config(arch)
+        return cfg.reduced(**parse_overrides(override)) if override else cfg
+    return dataclasses.replace(get_config(arch), **parse_overrides(override))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--override", default="",
-                    help="comma-separated int config overrides (e.g. "
-                         "d_model=512,num_layers=1) applied with reduced()")
+                    help="comma-separated int config overrides: with "
+                         "--reduced applied with reduced() (e.g. "
+                         "d_model=512), else to the published config (e.g. "
+                         "num_layers=3: full width, cut depth)")
     ap.add_argument("--trace", default="4",
                     help="comma-separated request groups: sizes (1,3,4) or "
                          "b:prompt_len pairs (2:9,3:30); mixed lengths run "
@@ -132,9 +146,7 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
-    cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.override:
-        cfg = cfg.reduced(**parse_overrides(args.override))
+    cfg = config_for(args.arch, reduced=args.reduced, override=args.override)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params, axes = model.init(gen)
@@ -155,7 +167,10 @@ def main(argv=None):
                  background_tune=args.background_tune, device=device)
     del params
     print(f"buckets={eng.buckets} length_buckets={eng.grid.length} "
-          f"packed_leaves={len(eng.pack_report)} device={device}")
+          f"packed_leaves={len(eng.pack_report)} "
+          f"param_count={param_count(model)} "
+          f"active_param_count={active_param_count(model)} "
+          f"layers={cfg.num_layers} device={device}")
     if args.precompile:
         rows = eng.precompile()
         st = eng.programs.stats()

@@ -33,6 +33,11 @@ def apply_rope(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
+def silu(x):
+    """x * sigmoid(x) in x's dtype, as the reference's ``layers.silu``."""
+    return x * torch.sigmoid(x)
+
+
 def init_swiglu(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
     pt = ParamTree(gen, dtype)
     pt.dense("w_gate", (d_model, d_ff), ("embed", "mlp"))

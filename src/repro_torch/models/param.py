@@ -24,9 +24,19 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted: a
+    tree built from it lives on the ``meta`` device and allocates nothing
+    (``models/registry.py::param_count``)."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen, shape, dtype, scale):
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(torch_dtype(dtype))
+    x = torch.randn(shape, device=gen.device, dtype=torch.float32,
+                    generator=None if gen.device.type == "meta" else gen)
+    # scaled in place: a stacked expert leaf's fp32 draw is held once
+    return x.mul_(scale).to(torch_dtype(dtype))
 
 
 class ParamTree:
@@ -48,9 +58,11 @@ class ParamTree:
         self._axes[name] = axes
         return value
 
-    def dense(self, name, shape, axes, fan_in=None):
+    def dense(self, name, shape, axes, fan_in=None, dtype=None):
+        """A scaled normal leaf in the tree's dtype, or in ``dtype`` (the
+        MoE router is float32 in a bf16 model)."""
         fan_in = fan_in if fan_in is not None else shape[0]
-        return self.add(name, _normal(self.gen, shape, self.dtype,
+        return self.add(name, _normal(self.gen, shape, dtype or self.dtype,
                                       1.0 / math.sqrt(max(fan_in, 1))), axes)
 
     def embed(self, name, shape, axes):
@@ -77,20 +89,33 @@ class ParamTree:
 
 def stack_inits(init_fn: Callable, n: int, stacked_axis: str = "layers"):
     """Initialize ``n`` structurally-identical layers and stack their
-    params along a new leading axis.  ``init_fn() -> (params, axes)``."""
-    trees = [init_fn() for _ in range(n)]
+    params along a new leading axis.  ``init_fn() -> (params, axes)``.
 
-    def stack(*xs):
-        if isinstance(xs[0], dict):
-            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return torch.stack(xs)
+    The layers are drawn one at a time, in order, each copied into its
+    slot of the preallocated stack and then freed, so the peak is the
+    stack plus one layer (a layer of 160 experts is 7.5 GB in bf16)."""
+    params0, axes0 = init_fn()
+    stacked = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                             device=t.device), params0)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    put(stacked, params0, 0)
+    del params0
+    for i in range(1, n):
+        put(stacked, init_fn()[0], i)
 
     def prepend(a):
         if isinstance(a, dict):
             return {k: prepend(v) for k, v in a.items()}
         return (stacked_axis,) + a
 
-    return stack(*(t[0] for t in trees)), prepend(trees[0][1])
+    return stacked, prepend(axes0)
 
 
 def tree_map(fn, tree):

@@ -1,7 +1,7 @@
 """Unified model interface: one ModelDef per architecture family.
 
-The port of the reference's ``models/registry.py``; only the dense family
-is ported so far.
+The port of the reference's ``models/registry.py``; the dense and MoE
+families are ported so far (both through ``models/lm.py``).
 
     init(generator)                -> (params, logical_axes)
     forward(params, batch)         -> (logits, aux_loss)
@@ -18,6 +18,7 @@ from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm as LM
+from repro_torch.models.param import MetaGenerator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,9 +33,12 @@ class ModelDef:
 
 
 def build_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1)")
+    # ragged admission for every family ported: the reference's rule
+    # withholds it from SSM state and sliding windows, which the port's
+    # LM refuses altogether (models/lm.py::_kind)
     return ModelDef(
         cfg=cfg,
         init=lambda gen: LM.init_lm(cfg, gen),
@@ -45,3 +49,33 @@ def build_model(cfg: ModelConfig) -> ModelDef:
         prefill_row=lambda p, b, c, row, t_end: LM.lm_prefill_row(
             p, cfg, b, c, row, t_end),
     )
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _shapes(model: ModelDef):
+    """The param tree on the ``meta`` device: shapes only, no memory."""
+    return model.init(MetaGenerator())[0]
+
+
+def param_count(model: ModelDef) -> int:
+    """Exact param count from the shapes alone (nothing allocated)."""
+    return sum(t.numel() for _, t in _leaves(_shapes(model)))
+
+
+def active_param_count(model: ModelDef) -> int:
+    """Params touched per token (MoE: shared + top-k of routed)."""
+    cfg = model.cfg
+    leaves = list(_leaves(_shapes(model)))
+    total = sum(t.numel() for _, t in leaves)
+    if not cfg.num_experts:
+        return total
+    routed = sum(t.numel() for path, t in leaves
+                 if path[-1] in ("w_gate", "w_up", "w_down") and t.ndim == 4)
+    return total - routed + routed * cfg.experts_per_token // cfg.num_experts

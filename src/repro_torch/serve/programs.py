@@ -74,6 +74,7 @@ from repro_torch.core.linear import serving_ctx
 from repro_torch.core.packing import PackedTensor
 from repro_torch.kernels import cuda
 from repro_torch.kernels.variants.grammar import GRAMMAR_VERSION
+from repro_torch.models.lm import cache_slabs
 
 # bump when what a cell captures changes shape
 PROGRAM_SCHEMA = 1
@@ -389,12 +390,20 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
     return rows
 
 
-def _row_state(cache, row: int, t0: int, t_end: int) -> list:
+def _row_views(cfg, cache, row: int, t0: int, t_end: int) -> list:
+    """Views of the cache entries a ``prefill_row`` at ``row``,
+    ``[t0, t_end)`` writes in every layer's slabs (GQA's k / v, MLA's
+    c / kr, the dense layers' ``dense{i}_*``)."""
+    return [slab[row, t0:t_end] for pair in cache_slabs(cfg, cache)
+            for slab in pair]
+
+
+def _row_state(cfg, cache, row: int, t0: int, t_end: int) -> list:
     """Copies of what a ``prefill_row`` at ``row``, ``[t0, t_end)``
-    writes: its k / v rows, ``valid_from`` and ``slot_pos``."""
-    return [cache["k"][:, row, t0:t_end].clone(),
-            cache["v"][:, row, t0:t_end].clone(),
-            cache["valid_from"].clone(), cache["slot_pos"].clone()]
+    writes: its rows of every cache slab, ``valid_from`` and
+    ``slot_pos``."""
+    return ([v.clone() for v in _row_views(cfg, cache, row, t0, t_end)]
+            + [cache["valid_from"].clone(), cache["slot_pos"].clone()])
 
 
 def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
@@ -402,12 +411,13 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
     its static buffers filled from ``seed`` (random tokens, pads; for a
     ``prefill_row`` a random row and clock), and compare the logits bit
     for bit.  A decode cell runs at the cache's position both times.  A
-    ``prefill_row`` cell's written cache row (k, v, ``valid_from``,
-    ``slot_pos``) is compared too: between the two runs it is scrubbed,
-    so the program must write it again.  Returns one row per cell: key,
-    ``equal``, ``max_abs_err``."""
+    ``prefill_row`` cell's written cache row (its entries in every
+    layer's slabs, ``valid_from``, ``slot_pos``) is compared too: between
+    the two runs it is scrubbed, so the program must write it again.
+    Returns one row per cell: key, ``equal``, ``max_abs_err``."""
     g = torch.Generator().manual_seed(seed)
-    vocab = store.model.cfg.vocab_size
+    cfg = store.model.cfg
+    vocab = cfg.vocab_size
     rows = []
 
     def randint(lo, hi, shape=()):
@@ -431,21 +441,22 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
             elif prog.kind == "prefill_row":
                 cache = args[2]
                 lb = args[1]["tokens"].shape[1]
-                bucket, max_len = cache["k"].shape[1:3]
+                bucket = cache["valid_from"].shape[0]
+                max_len = cache["slot_pos"].shape[0]
                 row = int(randint(0, bucket))
                 t_end = int(randint(lb, max_len + 1))
                 t0 = t_end - lb
                 args[3].fill_(row)
                 args[4].fill_(t_end)
                 want = fn(*args)[0].clone()
-                want_row = _row_state(cache, row, t0, t_end)
-                cache["k"][:, row, t0:t_end].zero_()
-                cache["v"][:, row, t0:t_end].zero_()
+                want_row = _row_state(cfg, cache, row, t0, t_end)
+                for v in _row_views(cfg, cache, row, t0, t_end):
+                    v.zero_()
                 cache["valid_from"][row] = -1
                 cache["slot_pos"][t0:t_end] = -1
                 got = prog.fn(*args)[0].clone()
                 written = all(torch.equal(a, b) for a, b in zip(
-                    _row_state(cache, row, t0, t_end), want_row))
+                    _row_state(cfg, cache, row, t0, t_end), want_row))
             else:
                 cache, tok = args[1], args[2]
                 tok.copy_(randint(0, vocab, tuple(tok.shape)))

@@ -825,3 +825,134 @@ def test_launcher_queue_precompiled_captures_nothing_on_traffic(dev, tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "-- scheduler telemetry --" in out.stdout
     assert "0 acquired cold by traffic" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the MoE family at its published widths: the card against the CPU
+# ---------------------------------------------------------------------------
+
+# OLMoE-1B-7B's MoE layer whole; DeepSeek-V2's at its widths (d 5120,
+# expert width 1536, top-6, 2 shared) with 16 routed experts (its 160
+# fp32 experts are 15 GB on the host)
+MOE_WIDTHS = {"olmoe_1b_7b": {}, "deepseek_v2_236b": {"num_experts": 16}}
+
+
+@pytest.mark.parametrize("factor", [1.25, 8.0])
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_apply_on_the_card_matches_the_cpu(dev, arch, factor):
+    """fp32 ``moe_apply`` on 2 x 64 tokens, with drops (1.25) and
+    drop-free (8): the same output as the CPU's within 1e-4 (the GEMMs'
+    sums in another order) and the same aux; the routing runs on the
+    card (sort, searchsorted, gather), nothing reads the host."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **MOE_WIDTHS[arch])
+    p, _ = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = 0.5 * torch.randn((2, 64, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_apply(p, cfg, x, capacity_factor=factor)
+    got, aux = moe.moe_apply({k: v.to(dev) for k, v in p.items()}, cfg,
+                             x.to(dev), capacity_factor=factor)
+    _close(got.cpu(), want, torch.float32)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_apply_captured_replays_bit_equal(dev, arch):
+    """bf16 ``moe_apply`` on the card, where a scatter-add combine would
+    add with atomics: two eager calls give the same bits (the combine
+    sums each token's contributions in one order), and so does every
+    replay of the call captured in a CUDA graph (topk, the stable
+    argsort, searchsorted and the sort-inverting combine inside it), on
+    new inputs too."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch), **MOE_WIDTHS[arch])
+    p, _ = moe.init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((4, 1, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        moe.moe_apply(p, cfg, x)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, aux = moe.moe_apply(p, cfg, x)
+    for _ in range(3):
+        want, want_aux = moe.moe_apply(p, cfg, x)
+        again, again_aux = moe.moe_apply(p, cfg, x)
+        assert torch.equal(again, want) and torch.equal(again_aux, want_aux)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(aux, want_aux)
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+
+
+def test_mla_at_deepseek_widths_on_the_card_matches_the_cpu(dev):
+    """DeepSeek-V2's MLA at its published widths (128 heads, ranks 1536 /
+    512), fp32: a 64-token prefill (the chunked body: Q/K 192 wide, V
+    128) and one absorbed decode step against the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import attention as A
+    cfg = dataclasses.replace(get_config("deepseek_v2_236b"),
+                              dtype="float32")
+    p, _ = A.init_mla(torch.Generator().manual_seed(0), cfg)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    x = 0.1 * torch.randn((1, 64, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+    before = cuda.launches["flash_attention"]
+    want, (c, kr) = A.mla_forward(p, cfg, x)
+    got, (tc, tkr) = A.mla_forward(pd, cfg, x.to(dev))
+    assert cuda.launches["flash_attention"] == before
+    _close(got.cpu(), want, torch.float32)
+    _close(tc.cpu(), c, torch.float32)
+    caches = []
+    for device, params, c_, kr_ in (("cpu", p, c, kr), (dev, pd, tc, tkr)):
+        cache_c = torch.zeros((1, 72, cfg.kv_lora_rank), device=device)
+        cache_kr = torch.zeros((1, 72, cfg.rope_head_dim), device=device)
+        cache_c[:, :64] = c_
+        cache_kr[:, :64] = kr_
+        pos = torch.tensor(64, dtype=torch.int32, device=device)
+        step = A.mla_decode(params, cfg, x[:, -1:].to(device), cache_c,
+                            cache_kr, pos, pos.reshape(1).long())
+        caches.append((step.cpu(), cache_c.cpu()))
+    _close(caches[1][0], caches[0][0], torch.float32)
+    _close(caches[1][1], caches[0][1], torch.float32)
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_family_graphed_cells_bit_equal_to_eager(dev, arch):
+    """A 2-layer model of the MoE family at its widths (DeepSeek-V2: the
+    dense first layer and one MoE layer of 16 experts), bf16: its grid
+    captured, a group served graphed bit-equal to an eager store, equal
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore, check_cells
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              **MOE_WIDTHS[arch])
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, axes, max_len=256 + 16, max_batch=2,
+                 max_prompt=256, device=dev)
+    rows = eng.precompile()
+    assert all(c["equal"] for c in check_cells(eng.programs))
+    eager = ProgramStore(eng.model, device=dev, capture=False)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=torch.Generator().manual_seed(3),
+                                     dtype=torch.int32)}
+    want, wl, wd = _serve(eng, eager, batch, 6)
+    got, gl, gd = _serve(eng, eng.programs, batch, 6)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits_last, want.logits_last)
+    assert gl == wl and gd == wd and gl["tsmm_skinny_a"] > 0
+    assert (gl["flash_attention"] > 0) == (not cfg.use_mla)
+    assert eng.programs.stats()["captured"] == len(rows)
