@@ -19,9 +19,12 @@ printing JSON lines:
                 plan cache (``repro_torch.core.install``): ``--measure``
                 for qwen1.5-4b (buckets 1, 2, 4; prompts to 256),
                 GLM-4-9B (buckets 1, 2; prompts to 2048), OLMoE-1B-7B
-                (buckets 1, 2, 4; prompts to 256) and DeepSeek-V2 (its
+                (buckets 1, 2, 4; prompts to 256), DeepSeek-V2 (its
                 published widths, MLA's five projections among them;
-                buckets 1, 2; prompts to 512), every candidate
+                buckets 1, 2; prompts to 512), Mamba2-780m (buckets 1, 2,
+                4; prompts to 256) and Zamba2-2.7B (its shared block's
+                2 x d_model-wide projections among them; buckets 1, 2;
+                prompts to 2048), every candidate
                 timed on the hand-written kernels and held to the serving
                 path; ``--calibrate``; ``--check`` (zero misses, then every
                 sampled grammar point and schedule through the CUDA
@@ -36,13 +39,15 @@ printing JSON lines:
                 projections of qwen1.5-4b and GLM-4-9B at decode and
                 prefill, OLMoE-1B-7B's attention projections and head,
                 DeepSeek-V2's MLA projections, dense first-layer MLP
-                and head, GLM-4-9B's tall K/V
+                and head, Mamba2-780m's and Zamba2-2.7B's projections
+                and heads, GLM-4-9B's tall K/V
                 projections, the pack at
                 GLM-4-9B's three pack shapes (its prefill activations,
                 the per-call decode pack of wk/wv, its largest leaf at
                 load) and at DeepSeek-V2's largest leaf at load, flash
                 attention at qwen's, OLMoE's and GLM-4-9B's
-                prefill, GLM-4-9B's at both of its groups) against its plain
+                prefill, GLM-4-9B's at both of its groups, and at
+                Zamba2-2.7B's head dim 80) against its plain
                 PyTorch version
                 on the same inputs (max error within the stated
                 tolerance; the pack bit-equal), with the design that ran
@@ -63,9 +68,12 @@ printing JSON lines:
                 OLMoE-1B-7B at full width (1 x 256) and DeepSeek-V2 at
                 full width but 16 routed experts (1 x 128; the cut is on
                 the line), both MoE drop-free (capacity factor 8), 2
-                layers, float32: prefill + 4 decode steps on the card
-                (kernels) against the port on the CPU (plain versions)
-                with the same packed weights;
+                layers, Mamba2-780m at full width (2 layers, 1 x 256) and
+                Zamba2-2.7B at full width (12 layers: two groups, so the
+                shared block serves two K/V caches; 1 x 256, flash's
+                SIMT kernel at D 80), float32: prefill + 4 decode steps
+                on the card (kernels) against the port on the CPU (plain
+                versions) with the same packed weights;
 7. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
@@ -120,14 +128,30 @@ printing JSON lines:
                 (``flash_attention`` must not launch; the body is timed
                 apart at the 2 x 512 group beside its bound and SDPA, and
                 held to SDPA), its decode the absorbed form over the
-                compressed cache.
+                compressed cache;
+15. serve.mamba2 — Mamba2-780m whole (48 layers), bf16,
+                ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
+                256-token prompts and 16 steps; every Mamba leaf, and the
+                tied head as a packed copy of the table's transpose, packed
+                at load; no pack launch and no flash launch on the path;
+16. serve.zamba2 — Zamba2-2.7B whole (54 Mamba2 layers, the shared
+                attention + MLP block applied 9 times), bf16,
+                ``Engine(max_batch=2)``: groups of 1 and 2 with 2048-token
+                prompts and 8 steps; every leaf packed at load, no pack
+                launch on the path, and the 2048-token prefill cells
+                launch flash at D 80.  Both SSM paths also print the
+                eager profile of one prefill (the ``ssm_conv``,
+                ``ssm_scan`` and ``ssm_state`` families).
 
+The serve paths (7, 8, 12, 14, 15, 16) run one table-driven phase
+(``phase_serve`` over ``SERVE``), each with its own checks as hooks.
 Every serve phase starts on the registry the install phase wrote and must
 make zero registry misses over load, precompile, prefill and decode.
 Each captures its engine's whole grid at load (``Engine.precompile``:
-one CUDA graph per decode bucket and per (bucket x length) prefill, with
-and without pad, and per (bucket x length) the scheduler's one-row
-admission ``prefill_row``; the ``programs`` line: cells, capture seconds, graph
+one CUDA graph per decode bucket and per (bucket x length) prefill, and
+for the ragged families (not the SSM family or the hybrid) the prefill
+with pad and the scheduler's one-row admission ``prefill_row`` per
+(bucket x length); the ``programs`` line: cells, capture seconds, graph
 pool bytes, and the cells captured by traffic, which must be 0), then
 serves every group twice: eagerly (an eager ``ProgramStore``, the same
 cells without graphs) and graphed (the main path).  The graphed tokens
@@ -139,7 +163,7 @@ GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
 launch calls and kernels per step (``launch/profile_decode.py``).
 
 Each path (install, serve, serve.glm4, queue, serve.olmoe, queue.olmoe,
-serve.deepseek) zeroes the launch counts
+serve.deepseek, serve.mamba2, serve.zamba2) zeroes the launch counts
 just before it (on the serve paths: before the graphed groups; on the
 queue path: before the graphed queue) and reads them just after; every kernel of the path must have
 launched (on the serve paths: the baseline, flash and the kernel of every
@@ -151,7 +175,8 @@ bf16 tall-A and flash launch the wgmma design and every pack launch (at
 load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
-it off both; ``launches_by_path`` adds the queue and MoE paths') and,
+it off both; ``launches_by_path`` adds the queue, MoE and SSM paths';
+flash's row carries its D = 80 case with its launches on serve.zamba2) and,
 last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
@@ -376,7 +401,18 @@ SKINNY_SHAPES = (
     + [(k, n, (1, 2, 1024))
        for k, n in ((5120, 1536), (1536, 24576), (5120, 576), (512, 32768),
                     (16384, 5120), (5120, 12288), (12288, 5120),
-                    (5120, 102400))])
+                    (5120, 102400))]
+    # Mamba2-780m's w_in (6448 wide: zero-padded to whole blocks, packed
+    # only), w_out and tied head (50280 wide, padded too; decode batches 1
+    # and 4, a 4 x 256-token prefill)
+    + [(k, n, (1, 4, 1024))
+       for k, n in ((1536, 6448), (3072, 1536), (1536, 50280))]
+    # Zamba2-2.7B's w_in (10448 wide, padded), w_out and the shared block's
+    # wq / wk / wv (both (5120, 2560)), wo, w_gate / w_up and w_down, and
+    # its head (decode batches 1 and 2, a 2048-token prefill)
+    + [(k, n, (1, 2, 2048))
+       for k, n in ((2560, 10448), (5120, 2560), (2560, 2560),
+                    (5120, 10240), (10240, 2560), (2560, 32000))])
 
 
 def phase_kernels(timer):
@@ -493,11 +529,12 @@ def phase_kernels(timer):
     cases += pack_cases(timer, g, worst)
 
     # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads), GLM-4-9B's
-    # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads) and
-    # OLMoE-1B-7B's (4 x 256 tokens, 16 MHA heads)
-    for b, s, h, kh in ((4, 256, 20, 20), (1, 2048, 32, 2),
-                        (2, 2048, 32, 2), (4, 256, 16, 16)):
-        d = 128
+    # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads), OLMoE-1B-7B's
+    # (4 x 256 tokens, 16 MHA heads), all at D 128, and Zamba2-2.7B's
+    # shared block (1 x 2048 tokens, 32 MHA heads of 80)
+    for b, s, h, kh, d in ((4, 256, 20, 20, 128), (1, 2048, 32, 2, 128),
+                           (2, 2048, 32, 2, 128), (4, 256, 16, 16, 128),
+                           (1, 2048, 32, 32, 80)):
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
                  for _ in range(2))
@@ -627,10 +664,10 @@ def tall_cases(timer, g, worst):
 # the pack's three shapes on GLM-4-9B's path, bf16, (L, M, K, bm, bk): its
 # prefill activations for a packed tall plan, the per-call decode pack of
 # its unpacked wk/wv, and its largest layer-stacked leaf at load at the
-# blocks prepack_for gives it (phase_serve_glm4 checks it against
+# blocks prepack_for gives it (the serve.glm4 path checks it against
 # eng.pack_report); and DeepSeek-V2's largest layer-stacked leaf at load,
-# MLA's wo (16384, 5120) on the 2 MoE layers of its serve path
-# (phase_serve_moe checks it)
+# MLA's wo (16384, 5120) on the 2 MoE layers of its serve path (the
+# serve.deepseek path checks it)
 PACK_SHAPES = {"prefill": (1, 2048, 4096, 256, 128),
                "decode": (1, 4096, 256, 256, 128),
                "load": (40, 4096, 13696, 128, 128),
@@ -763,7 +800,8 @@ def phase_tall(timer):
 # the install phase's sweeps: (arch, largest batch bucket, largest prompt
 # bucket), the shapes the serve phases then serve
 INSTALL = (("qwen1_5_4b", 4, 256), ("glm4_9b", 2, 2048),
-           ("olmoe_1b_7b", 4, 256), ("deepseek_v2_236b", 2, 512))
+           ("olmoe_1b_7b", 4, 256), ("deepseek_v2_236b", 2, 512),
+           ("mamba2_780m", 4, 256), ("zamba2_2_7b", 2, 2048))
 # GLM-4-9B's K/V projection at its two prefill token counts
 GLM_KV_PREFILL = ((2048, 4096, 256), (4096, 4096, 256))
 
@@ -995,74 +1033,124 @@ def check_group(res, b, steps, vocab):
     return toks
 
 
-def phase_serve():
-    import torch
+def phase_serve(path: str) -> tuple:
+    """One model through ``Engine`` on the card (bf16, seeded random
+    weights on a CUDA generator, at the widths and depth of
+    ``SERVE[path]``): its grid captured at load, every group served
+    eagerly and then graphed (bit-equal, equal launches), 0 registry
+    misses and 0 cells captured by traffic; the baseline skinny-A kernel
+    and the kernel of every variant the install stamped must launch, and
+    flash exactly where the model's attention takes it; then the path's
+    own checks (``SERVE[path]["hooks"]``) and the profile of a decode
+    step.  Returns (the graphed groups' launches, the load's launches)."""
+    import gc
     from collections import Counter
 
+    import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import registry
     from repro_torch.kernels import cuda
     from repro_torch.launch.serve import make_group
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import (active_param_count,
+                                             build_model, param_count)
     from repro_torch.serve.engine import Engine
 
-    cfg = get_config("qwen1_5_4b")
+    spec = SERVE[path]
+    hooks = spec["hooks"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
     model = build_model(cfg)
+    prompt, steps = spec["prompt"], spec["steps"]
+    cuda.reset_launches()
     registry.reset_stats()
     t0 = time.perf_counter()
     params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
-    prompt, steps = 256, 16
     eng = Engine(model, params, axes, max_len=prompt + steps + 8,
-                 max_batch=4, max_prompt=prompt, device="cuda")
+                 max_batch=spec["max_batch"], max_prompt=prompt,
+                 device="cuda")
     del params
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    variants = Counter(eng.variant_report().values())
-    emit({"phase": "serve.load", "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype,
-          "packed_leaves": len(eng.pack_report), "buckets": eng.buckets,
-          "pack_report": eng.pack_report,
-          "variants": dict(sorted(variants.items())),
+    load_launches = dict(cuda.launches)
+    load_designs = dict(cuda.design_launches)
+    emit({"phase": f"{path}.load", "config": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "cut": spec["cut"] or None,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "experts": cfg.num_experts,
+          "shared_experts": cfg.num_shared_experts,
+          "top_k": cfg.experts_per_token,
+          "first_k_dense": cfg.first_k_dense, "mla": cfg.use_mla,
+          "ssm_state": cfg.ssm_state, "attn_every": cfg.attn_every,
+          "dtype": cfg.dtype, "packed_leaves": len(eng.pack_report),
+          "param_count": param_count(model),
+          "active_param_count": active_param_count(model),
+          "pack_report": eng.pack_report, "buckets": eng.buckets,
+          "variants": dict(sorted(Counter(
+              eng.variant_report().values()).items())),
           "schedules": dict(sorted(Counter(
               eng.schedule_report().values()).items())),
           "registry": registry.stats(), "load_s": load_s,
+          "load_launches": load_launches, "load_designs": load_designs,
           "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    if len(eng.pack_report) != 8:
-        raise AssertionError(f"expected 8 packed leaves, got "
-                             f"{sorted(eng.pack_report)}")
-    groups = {b: make_group(cfg, b, prompt, "cuda") for b in (1, 3, 4)}
-    base, pre = serve_both(eng, groups, steps, "serve")
+    check_pack(f"{path}.load", load_launches, load_designs)
+    if "load" in hooks:
+        hooks["load"](path, eng, cfg, load_launches)
+
+    groups = {b: make_group(cfg, b, prompt, "cuda") for b in spec["groups"]}
+    base, pre = serve_both(eng, groups, steps, path)
     first = []
     for b, (want, got) in base.items():
         toks = check_group(got, b, steps, cfg.vocab_size)
         first.append(toks[0].tolist())
-        emit({"phase": "serve", "group": b, "buckets": got.buckets,
+        extra = (hooks["group"](path, eng, cfg, b, got) if "group" in hooks
+                 else {})
+        emit({"phase": path, "group": b, "buckets": got.buckets,
               "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
               "eager_prefill_s": want.prefill_s,
               "eager_per_token_s": want.per_token_s,
-              "compile_s": got.compile_s,
-              "bit_equal_to_eager": True, "tokens[0]": toks[0].tolist()})
+              "compile_s": got.compile_s, "bit_equal_to_eager": True,
+              **extra, "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
-    check_programs("serve", eng, pre)
     stats = registry.stats()
-    emit({"phase": "serve.launches", "launches": launches,
+    # the baseline (prefills past the buckets) and the kernel of every
+    # variant the install stamped; flash where the attention takes it
+    need = {"tsmm_skinny_a"} | {skinny_counter(v)
+                                for v in eng.variant_report().values()}
+    extra, more = (hooks["path"](path, eng, cfg, launches) if "path" in hooks
+                   else ({}, set()))
+    emit({"phase": f"{path}.launches", "launches": launches,
           "design_launches": designs, "registry": stats,
-          "tokens0_equal_across_groups": all(t == first[0] for t in first)})
-    profile("serve", eng, groups[4], steps=4)
+          "decode_cell_launches": dict(cell_launches(eng, "decode")),
+          "tokens0_equal_across_groups": all(t == first[0] for t in first),
+          **extra})
+    check_programs(path, eng, pre)
     if stats["misses"]:
-        raise AssertionError(f"serve: {stats['misses']} registry misses after "
-                             f"the install sweep")
-    check_wgmma("serve", launches, designs)
-    check_pack("serve", launches, designs)
-    # the baseline (the 4 x 256-token prefill: no plan past the buckets),
-    # flash, and the kernel of every variant the install stamped
-    need = {"tsmm_skinny_a", "flash_attention"} | {
-        skinny_counter(v) for v in eng.variant_report().values()}
-    missing = sorted(k for k in need if launches.get(k, 0) == 0)
+        raise AssertionError(f"{path}: {stats['misses']} registry misses "
+                             f"after the install sweep")
+    check_wgmma(path, launches, designs)
+    check_pack(path, launches, designs)
+    if spec["flash"]:
+        need.add("flash_attention")
+    elif launches.get("flash_attention", 0):
+        raise AssertionError(f"{path}: the flash kernel launched "
+                             f"{launches['flash_attention']} times on a "
+                             f"path whose attention it does not take")
+    missing = sorted(k for k in need | more if launches.get(k, 0) == 0)
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
-    return launches
+        raise AssertionError(f"{path} launched no {missing}")
+    profile(path, eng, make_group(cfg, spec["profile_batch"], prompt, "cuda"),
+            steps=4)
+    if "after" in hooks:
+        hooks["after"](path, eng, cfg, base)
+    emit({"phase": f"{path}.seconds", "seconds": time.perf_counter() - t_phase})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, load_launches
 
 
 def serve_both(eng, groups: dict, steps: int, path: str) -> tuple:
@@ -1167,56 +1255,34 @@ TALL = ("tsmm_tall_a", "tsmm_packed_a", "tall_kinner", "tall_ksplit",
         "tall_kouter")
 
 
-def phase_serve_glm4():
-    """GLM-4-9B at full width and depth on the card; its unpacked K/V
-    projections run the tall-A kernel at prefill."""
-    import gc
+def cell_launches(eng, kind: str, tokens: int = 0):
+    """The launches of one call of each ``kind`` cell the engine's store
+    holds (of ``tokens`` tokens, if given, without pad), summed: recorded
+    at capture, a replay launches exactly these."""
     from collections import Counter
+    out = Counter()
+    for p in eng.programs.programs():
+        if (p.kind == kind and (not tokens or p.tokens == tokens)
+                and "pad" not in p.args[1]):
+            out.update(p.launches)
+    return out
 
-    import torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.core import registry
-    from repro_torch.core.plan import Problem
-    from repro_torch.kernels import cuda
-    from repro_torch.launch.serve import make_group
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import Engine
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = get_config("glm4_9b")
-    model = build_model(cfg)
-    prompt, steps, max_batch = 2048, 8, 2
-    cuda.reset_launches()
-    registry.reset_stats()
-    t0 = time.perf_counter()
-    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = Engine(model, params, axes, max_len=prompt + steps + 8,
-                 max_batch=max_batch, max_prompt=prompt, device="cuda")
-    del params
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    load_launches = dict(cuda.launches)
-    load_designs = dict(cuda.design_launches)
-    variants = Counter(eng.variant_report().values())
-    emit({"phase": "serve.glm4.load", "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "heads": cfg.num_heads,
-          "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
-          "pack_report": eng.pack_report, "buckets": eng.buckets,
-          "variants": dict(sorted(variants.items())),
-          "schedules": dict(sorted(Counter(
-              eng.schedule_report().values()).items())),
-          "registry": registry.stats(), "load_s": load_s,
-          "load_launches": load_launches, "load_designs": load_designs,
-          "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+def qwen_load(path, eng, cfg, load_launches):
+    if len(eng.pack_report) != 8:
+        raise AssertionError(f"{path}: expected 8 packed leaves, got "
+                             f"{sorted(eng.pack_report)}")
+
+
+def glm_load(path, eng, cfg, load_launches):
+    """GLM-4-9B packs every leaf but its (4096, 256) wk / wv at load, and
+    the kernels phase's load case is a largest layer-stacked leaf."""
     unpacked_kv = not any(p.endswith(("/wk", "/wv")) for p in eng.pack_report)
     if len(eng.pack_report) != 6 or not unpacked_kv:
         raise AssertionError(f"expected the 6 leaves other than wk/wv "
                              f"packed, got {sorted(eng.pack_report)}")
     if load_launches.get("pack_blocks", 0) == 0:
         raise AssertionError("no pack_blocks launch while packing at load")
-    check_pack("serve.glm4.load", load_launches, load_designs)
-    # the load case of the kernels phase is a largest layer-stacked leaf
     L, m, k, bm, bk = PACK_SHAPES["load"]
     stacked = {s: math.prod(s) for s in eng.pack_report.values()
                if len(s) == 5}
@@ -1225,73 +1291,144 @@ def phase_serve_glm4():
                              f"is not a largest layer-stacked leaf of "
                              f"{eng.pack_report}")
 
-    groups = {b: make_group(cfg, b, prompt, "cuda") for b in (1, 2)}
-    base, pre = serve_both(eng, groups, steps, "serve.glm4")
-    tall_plans = {}
-    for b, (want, got) in base.items():
-        toks = check_group(got, b, steps, cfg.vocab_size)
-        m = got.buckets[0] * prompt
-        plan = registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
-                                     * cfg.head_dim, cfg.dtype).key(), "cuda")
-        if plan is None or plan.orientation != "tall_a":
-            raise AssertionError(f"serve.glm4: no tall_a plan for m={m}")
-        tall_plans[m] = str(plan)
-        emit({"phase": "serve.glm4", "group": b, "buckets": got.buckets,
-              "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
-              "eager_prefill_s": want.prefill_s,
-              "eager_per_token_s": want.per_token_s,
-              "compile_s": got.compile_s, "bit_equal_to_eager": True,
-              "tall_plan": str(plan), "tokens[0]": toks[0].tolist()})
-    # the launches of one call of each prefill cell the groups ran,
-    # recorded at its capture (a replay launches exactly these)
-    prefill_launches = Counter()
-    for p in eng.programs.programs():
-        if (p.kind == "prefill" and p.tokens == prompt
-                and "pad" not in p.args[1]):
-            prefill_launches.update(p.launches)
-    launches = dict(cuda.launches)
-    designs = dict(cuda.design_launches)
-    stats = registry.stats()
-    tall_rose = sorted(k for k in TALL if prefill_launches.get(k, 0))
-    emit({"phase": "serve.glm4.launches", "launches": launches,
-          "design_launches": designs, "registry": stats,
-          "prefill_launches": dict(prefill_launches),
-          "tall_kernels_in_prefill": tall_rose, "tall_plans": tall_plans})
-    if stats["misses"]:
-        raise AssertionError(f"serve.glm4: {stats['misses']} registry misses "
-                             f"after the install sweep")
-    missing = [] if tall_rose else ["any tall-A kernel at prefill"]
-    # the K/V plans of the groups served (decode buckets, prefill tokens)
-    kv_plans = [registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
-                                      * cfg.head_dim, cfg.dtype).key(),
-                              "cuda")
+
+def glm_kv_plan(eng, cfg, m: int):
+    from repro_torch.core import registry
+    from repro_torch.core.plan import Problem
+    return registry.peek(Problem(m, cfg.d_model, cfg.num_kv_heads
+                                 * cfg.head_dim, cfg.dtype).key(), "cuda")
+
+
+def glm_group(path, eng, cfg, b, res):
+    """The tall-A plan of the group's K/V projection at prefill."""
+    m = res.buckets[0] * SERVE[path]["prompt"]
+    plan = glm_kv_plan(eng, cfg, m)
+    if plan is None or plan.orientation != "tall_a":
+        raise AssertionError(f"{path}: no tall_a plan for m={m}")
+    return {"tall_plan": str(plan)}
+
+
+def glm_path(path, eng, cfg, launches):
+    """A tall-A kernel in the captured 2048-token prefill cells; the pack
+    kernel wherever a K/V plan packs per call."""
+    prompt = SERVE[path]["prompt"]
+    prefill = cell_launches(eng, "prefill", prompt)
+    tall_rose = sorted(k for k in TALL if prefill.get(k, 0))
+    if not tall_rose:
+        raise AssertionError(f"{path} launched no tall-A kernel at prefill")
+    kv_plans = [glm_kv_plan(eng, cfg, m)
                 for m in (*eng.buckets, *(b * prompt for b in eng.buckets))]
-    need = ["tsmm_skinny_a", "flash_attention"]
-    if any(p is not None and packs_per_call(p) for p in kv_plans):
-        need.append("pack_blocks")
-    missing += [k for k in need if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"GLM-4-9B path launched no {missing}")
-    check_wgmma("serve.glm4", launches, designs)
-    check_pack("serve.glm4", launches, designs)
-    check_programs("serve.glm4", eng, pre)
-    profile("serve.glm4", eng, make_group(cfg, 1, prompt, "cuda"), steps=4)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, load_launches
+    need = {"pack_blocks"} if any(p is not None and packs_per_call(p)
+                                  for p in kv_plans) else set()
+    return ({"prefill_launches": dict(prefill),
+             "tall_kernels_in_prefill": tall_rose}, need)
 
 
-# the MoE family's serve paths: OLMoE-1B-7B whole, DeepSeek-V2 at its
-# published widths cut to 3 layers (the dense first layer and 2 MoE
-# layers: 160 experts x 3 x 5120 x 1536 bf16 = 7.55 GB a layer; 60 do
-# not fit one card)
-MOE_SERVE = {
+def deepseek_load(path, eng, cfg, load_launches):
+    """MLA's projections (but wkv_a), the dense first layer's MLP and the
+    head are packed; the kernels phase's DeepSeek load case is ``wo``, at
+    its blocks, and a largest layer-stacked leaf."""
+    absent = [p for p in DEEPSEEK_PACKED if p not in eng.pack_report]
+    if absent:
+        raise AssertionError(f"{path}: {absent} not packed at load")
+    L, m, k, bm, bk = PACK_SHAPES["load.deepseek"]
+    stacked = {s: math.prod(s) for s in eng.pack_report.values()
+               if len(s) == 5}
+    if (tuple(eng.pack_report["layers/attn/wo"])
+            != (L, m // bm, k // bk, bm, bk)
+            or math.prod((L, m, k)) != max(stacked.values())):
+        raise AssertionError(f"the timed load case "
+                             f"{PACK_SHAPES['load.deepseek']} is not wo, a "
+                             f"largest layer-stacked leaf of "
+                             f"{eng.pack_report}")
+
+
+def deepseek_after(path, eng, cfg, base):
+    b = SERVE[path]["max_batch"]
+    mla_prefill_attention(path, cfg, b, SERVE[path]["prompt"],
+                          base[b][1].prefill_s)
+
+
+def ssm_load(path, eng, cfg, load_launches):
+    """Every Mamba leaf (w_in zero-padded to whole blocks), the head (a
+    tied one as a packed copy of the table's transpose) and the hybrid's
+    shared block are packed at load."""
+    stack = "mamba_layers" if cfg.family == "hybrid" else "layers"
+    want = [f"{stack}/mamba/w_in", f"{stack}/mamba/w_out", "embed/head"]
+    if cfg.shared_block:
+        want += [f"shared/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
+        want += [f"shared/mlp/{w}" for w in ("w_gate", "w_up", "w_down")]
+    absent = [p for p in want if p not in eng.pack_report]
+    if absent or len(eng.pack_report) != len(want):
+        raise AssertionError(f"{path}: packed {sorted(eng.pack_report)}, "
+                             f"want {want}")
+
+
+def ssm_path(path, eng, cfg, launches):
+    """No decode cell packs (every weight the step reads is packed at
+    load); the hybrid's 2048-token prefill cells launch flash at its head
+    dim (80, the only attention the model has)."""
+    decode = cell_launches(eng, "decode")
+    if decode.get("pack_blocks", 0) or launches.get("pack_blocks", 0):
+        raise AssertionError(f"{path}: pack_blocks launched on the serve "
+                             f"path ({launches.get('pack_blocks', 0)}; "
+                             f"{decode.get('pack_blocks', 0)} per decode "
+                             f"cell call)")
+    extra = {"pack_blocks_on_path": launches.get("pack_blocks", 0)}
+    if cfg.shared_block:
+        prefill = cell_launches(eng, "prefill", SERVE[path]["prompt"])
+        if cfg.head_dim != 80 or not prefill.get("flash_attention", 0):
+            raise AssertionError(f"{path}: the {SERVE[path]['prompt']}-token "
+                                 f"prefill cells launched no flash at D = "
+                                 f"{cfg.head_dim}: {dict(prefill)}")
+        extra.update(prefill_launches=dict(prefill), flash_head_dim=80)
+    return extra, set()
+
+
+def ssm_after(path, eng, cfg, base):
+    """The profile of one prefill of the profiled group, eager (the
+    ``ssm_*`` families come from the ranges of an eager run)."""
+    from repro_torch.launch.profile_decode import profile_steps
+    from repro_torch.launch.serve import make_group
+    spec = SERVE[path]
+    summary, _ = profile_steps(
+        eng, make_group(cfg, spec["profile_batch"], spec["prompt"], "cuda"),
+        steps=1, graphs=False, prefill=True)
+    emit({"phase": "profile", "path": path, **summary})
+
+
+# the serve paths: (arch, cut of the published config, max batch, prompt,
+# decode steps, groups, the profiled batch, whether flash runs, the path's
+# own checks).  OLMoE-1B-7B, Mamba2-780m and Zamba2-2.7B whole;
+# DeepSeek-V2 at its published widths cut to 3 layers (the dense first
+# layer and 2 MoE layers: 160 experts x 3 x 5120 x 1536 bf16 = 7.55 GB a
+# layer; 60 do not fit one card)
+SERVE = {
+    "serve": dict(arch="qwen1_5_4b", cut={}, max_batch=4, prompt=256,
+                  steps=16, groups=(1, 3, 4), profile_batch=4, flash=True,
+                  hooks={"load": qwen_load}),
+    "serve.glm4": dict(arch="glm4_9b", cut={}, max_batch=2, prompt=2048,
+                       steps=8, groups=(1, 2), profile_batch=1, flash=True,
+                       hooks={"load": glm_load, "group": glm_group,
+                              "path": glm_path}),
     "serve.olmoe": dict(arch="olmoe_1b_7b", cut={}, max_batch=4, prompt=256,
-                        steps=16, groups=(1, 3, 4), flash=True),
+                        steps=16, groups=(1, 3, 4), profile_batch=4,
+                        flash=True, hooks={}),
     "serve.deepseek": dict(arch="deepseek_v2_236b", cut={"num_layers": 3},
                            max_batch=2, prompt=512, steps=8, groups=(1, 2),
-                           flash=False),
+                           profile_batch=2, flash=False,
+                           hooks={"load": deepseek_load,
+                                  "after": deepseek_after}),
+    "serve.mamba2": dict(arch="mamba2_780m", cut={}, max_batch=4, prompt=256,
+                         steps=16, groups=(1, 3, 4), profile_batch=4,
+                         flash=False, hooks={"load": ssm_load,
+                                             "path": ssm_path,
+                                             "after": ssm_after}),
+    "serve.zamba2": dict(arch="zamba2_2_7b", cut={}, max_batch=2,
+                         prompt=2048, steps=8, groups=(1, 2),
+                         profile_batch=1, flash=True,
+                         hooks={"load": ssm_load, "path": ssm_path,
+                                "after": ssm_after}),
 }
 # DeepSeek-V2's packed leaves the serve path must hold: MLA's projections
 # (but wkv_a, (5120, 576), which no block layout divides: it runs the
@@ -1301,125 +1438,6 @@ DEEPSEEK_PACKED = ("layers/attn/wq_a", "layers/attn/wq_b",
                    "layers/attn/wkv_b", "layers/attn/wo", "dense0/attn/wq_a",
                    "dense0/mlp/w_gate", "dense0/mlp/w_up",
                    "dense0/mlp/w_down", "embed/head")
-
-
-def phase_serve_moe(path: str):
-    """A model of the MoE family through ``Engine`` on the card (bf16,
-    seeded random weights on a CUDA generator, at the widths and depth of
-    ``MOE_SERVE[path]``): its grid captured at load, every group served
-    eagerly and then graphed (bit-equal, equal launches), 0 registry
-    misses and 0 cells captured by traffic; the skinny-A kernels must
-    launch, and flash where the model's attention takes it (MLA does
-    not: its 192-wide Q/K against a 128-wide V take the chunked body).
-    Returns (the graphed groups' launches, the load's launches)."""
-    import gc
-    from collections import Counter
-
-    import torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.core import registry
-    from repro_torch.kernels import cuda
-    from repro_torch.launch.serve import make_group
-    from repro_torch.models.registry import (active_param_count,
-                                             build_model, param_count)
-    from repro_torch.serve.engine import Engine
-
-    spec = MOE_SERVE[path]
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
-    model = build_model(cfg)
-    prompt, steps = spec["prompt"], spec["steps"]
-    cuda.reset_launches()
-    registry.reset_stats()
-    t0 = time.perf_counter()
-    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = Engine(model, params, axes, max_len=prompt + steps + 8,
-                 max_batch=spec["max_batch"], max_prompt=prompt,
-                 device="cuda")
-    del params
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    load_launches = dict(cuda.launches)
-    load_designs = dict(cuda.design_launches)
-    emit({"phase": f"{path}.load", "config": cfg.name,
-          "layers": cfg.num_layers, "cut": spec["cut"] or None,
-          "d_model": cfg.d_model, "heads": cfg.num_heads,
-          "experts": cfg.num_experts, "shared_experts":
-          cfg.num_shared_experts, "top_k": cfg.experts_per_token,
-          "first_k_dense": cfg.first_k_dense, "mla": cfg.use_mla,
-          "dtype": cfg.dtype, "packed_leaves": len(eng.pack_report),
-          "param_count": param_count(model),
-          "active_param_count": active_param_count(model),
-          "pack_report": eng.pack_report, "buckets": eng.buckets,
-          "variants": dict(sorted(Counter(
-              eng.variant_report().values()).items())),
-          "schedules": dict(sorted(Counter(
-              eng.schedule_report().values()).items())),
-          "registry": registry.stats(), "load_s": load_s,
-          "load_launches": load_launches, "load_designs": load_designs,
-          "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    check_pack(f"{path}.load", load_launches, load_designs)
-    if cfg.use_mla:
-        absent = [p for p in DEEPSEEK_PACKED if p not in eng.pack_report]
-        if absent:
-            raise AssertionError(f"{path}: {absent} not packed at load")
-        # the kernels phase's DeepSeek load case is this leaf, at its
-        # blocks, and a largest layer-stacked leaf
-        L, m, k, bm, bk = PACK_SHAPES["load.deepseek"]
-        stacked = {s: math.prod(s) for s in eng.pack_report.values()
-                   if len(s) == 5}
-        if (tuple(eng.pack_report["layers/attn/wo"])
-                != (L, m // bm, k // bk, bm, bk)
-                or math.prod((L, m, k)) != max(stacked.values())):
-            raise AssertionError(f"the timed load case "
-                                 f"{PACK_SHAPES['load.deepseek']} is not "
-                                 f"wo, a largest layer-stacked leaf of "
-                                 f"{eng.pack_report}")
-    groups = {b: make_group(cfg, b, prompt, "cuda") for b in spec["groups"]}
-    base, pre = serve_both(eng, groups, steps, path)
-    for b, (want, got) in base.items():
-        toks = check_group(got, b, steps, cfg.vocab_size)
-        emit({"phase": path, "group": b, "buckets": got.buckets,
-              "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
-              "eager_prefill_s": want.prefill_s,
-              "eager_per_token_s": want.per_token_s,
-              "compile_s": got.compile_s, "bit_equal_to_eager": True,
-              "tokens[0]": toks[0].tolist()})
-    launches = dict(cuda.launches)
-    designs = dict(cuda.design_launches)
-    stats = registry.stats()
-    emit({"phase": f"{path}.launches", "launches": launches,
-          "design_launches": designs, "registry": stats})
-    check_programs(path, eng, pre)
-    if stats["misses"]:
-        raise AssertionError(f"{path}: {stats['misses']} registry misses "
-                             f"after the install sweep")
-    check_wgmma(path, launches, designs)
-    check_pack(path, launches, designs)
-    # the baseline (prefills past the buckets) and the kernel of every
-    # variant the install stamped; flash where the attention takes it
-    need = {"tsmm_skinny_a"} | {skinny_counter(v)
-                                for v in eng.variant_report().values()}
-    if spec["flash"]:
-        need.add("flash_attention")
-    elif launches.get("flash_attention", 0):
-        raise AssertionError(f"{path}: MLA reached the flash kernel "
-                             f"({launches['flash_attention']} launches)")
-    missing = sorted(k for k in need if launches.get(k, 0) == 0)
-    if missing:
-        raise AssertionError(f"{path} launched no {missing}")
-    profile(path, eng, make_group(cfg, spec["max_batch"], prompt, "cuda"),
-            steps=4)
-    if cfg.use_mla:
-        mla_prefill_attention(path, cfg, spec["max_batch"], prompt,
-                              base[spec["max_batch"]][1].prefill_s)
-    emit({"phase": f"{path}.seconds", "seconds": time.perf_counter() - t_phase})
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, load_launches
 
 
 def mla_prefill_attention(path: str, cfg, b: int, s: int, prefill_s: float):
@@ -1909,20 +1927,27 @@ def run():
             get_config(arch), num_layers=2, dtype="float32",
             capacity_factor=8.0, **cut), 1, prompt,
             cut={"num_layers": 2, **cut})
-    qwen_launches = phase_serve()
-    glm_launches, glm_load = phase_serve_glm4()
+    # the SSM family, 2 layers (Zamba2-2.7B 12: two groups, so the shared
+    # block's weights serve two K/V caches), float32, at full width
+    for arch, layers in (("mamba2_780m", 2), ("zamba2_2_7b", 12)):
+        phase_parity(dataclasses.replace(get_config(arch), num_layers=layers,
+                                         dtype="float32"), 1, 256,
+                     cut={"num_layers": layers})
+    qwen_launches, _ = phase_serve("serve")
+    glm_launches, glm_load = phase_serve("serve.glm4")
     phase_queue_parity(dataclasses.replace(get_config("qwen1_5_4b"),
                                            num_layers=2, dtype="float32"))
     queue_launches, queue_load, eng, reqs, results, stats = phase_queue()
     phase_queue_frontend(eng, reqs, results, stats)
     del eng
     by_path = {"queue": queue_launches}
-    by_path["serve.olmoe"], olmoe_load = phase_serve_moe("serve.olmoe")
+    by_path["serve.olmoe"], olmoe_load = phase_serve("serve.olmoe")
     by_path["queue.olmoe"], olmoe_queue_load, eng, *_ = phase_queue(
         get_config("olmoe_1b_7b"), n=8, path="queue.olmoe", extras=False)
     del eng
-    by_path["serve.deepseek"], deepseek_load = phase_serve_moe(
-        "serve.deepseek")
+    by_path["serve.deepseek"], deepseek_load = phase_serve("serve.deepseek")
+    by_path["serve.mamba2"], mamba2_load = phase_serve("serve.mamba2")
+    by_path["serve.zamba2"], zamba2_load = phase_serve("serve.zamba2")
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the
@@ -1977,6 +2002,8 @@ def run():
         "serve.olmoe.load": olmoe_load.get("pack_blocks", 0),
         "queue.olmoe.load": olmoe_queue_load.get("pack_blocks", 0),
         "serve.deepseek.load": deepseek_load.get("pack_blocks", 0),
+        "serve.mamba2.load": mamba2_load.get("pack_blocks", 0),
+        "serve.zamba2.load": zamba2_load.get("pack_blocks", 0),
         "install": install_launches.get("pack_blocks", 0),
         "tall": tall_launches.get("pack_blocks", 0),
         **{p: ls.get("pack_blocks", 0) for p, ls in by_path.items()}}
@@ -1985,6 +2012,18 @@ def run():
                                              "plain_ms", "library_ms",
                                              "bound_ms")}}
         for c in cases if c["kernel"] == "pack_blocks"]
+    # the flash row also carries Zamba2's head dim (80) at its prefill,
+    # with its launches on that path
+    flash = next(r for r in line if r["name"] == "flash_attention")
+    flash["cases"] = [
+        {**shape_of(c), "launches_path": "serve.zamba2",
+         "launches": by_path["serve.zamba2"].get("flash_attention", 0),
+         **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
+                              "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")}}
+        for c in cases if c["kernel"] == "flash_attention" and c["D"] == 80]
+    if not flash["cases"] or not flash["cases"][0]["launches"]:
+        raise AssertionError(f"flash at D = 80: {flash['cases']}")
     bad = [r["name"] for r in line if r["launches"] == 0]
     if bad:
         raise AssertionError(f"kernels with no launch on a path: {bad}")

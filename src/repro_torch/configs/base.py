@@ -4,8 +4,9 @@ One ``ModelConfig`` dataclass covers every architecture family of the
 reference; architecture files under ``repro_torch/configs/`` export
 ``CONFIG`` (the published dims) and ``REDUCED`` (a structurally-identical
 small config for CPU tests).  Ported so far: the dense family
-(``qwen1_5_4b``, ``glm4_9b``) and the MoE family (``olmoe_1b_7b``,
-``deepseek_v2_236b``).
+(``qwen1_5_4b``, ``glm4_9b``), the MoE family (``olmoe_1b_7b``,
+``deepseek_v2_236b``), the SSM family (``mamba2_780m``) and the hybrid
+(``zamba2_2_7b``).
 """
 
 from __future__ import annotations

@@ -53,7 +53,8 @@ from repro_torch.core.plan import (BucketGrid, Problem, buckets_for, is_tsmm,
                                    length_buckets_for)
 
 # the configurations the port serves
-ARCHS = ("qwen1_5_4b", "glm4_9b", "olmoe_1b_7b", "deepseek_v2_236b")
+ARCHS = ("qwen1_5_4b", "glm4_9b", "olmoe_1b_7b", "deepseek_v2_236b",
+         "mamba2_780m", "zamba2_2_7b")
 # serving batch buckets swept at install time: every power of two up to
 # the largest batch
 MAX_SERVE_BATCH = 128
@@ -69,8 +70,11 @@ def serving_shapes(cfg) -> set:
     Every shape of the reference's copy, and for MLA also ``wq_b``
     (q_lora_rank, H * (head_dim + rope_head_dim)), ``wkv_a`` (d_model,
     kv_lora_rank + rope_head_dim) and ``wo`` (H * v_head_dim, d_model),
-    which the reference's leaves out: without them an MLA engine's
-    packed leaves would miss the registry at serve."""
+    and for the hybrid's shared block, which reads [x, x0], its
+    (2 d_model, H * head_dim), (2 d_model, KH * head_dim) and
+    (2 d_model, d_ff) projections: the reference's copy leaves them out,
+    and without them an MLA or hybrid engine's packed leaves would miss
+    the registry at serve."""
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = set()
     if h:
@@ -88,6 +92,8 @@ def serving_shapes(cfg) -> set:
         dr = cfg.rope_head_dim
         shapes |= {(cfg.q_lora_rank, h * (cfg.head_dim + dr)),
                    (d, cfg.kv_lora_rank + dr), (h * cfg.v_head_dim, d)}
+    if cfg.shared_block:
+        shapes |= {(2 * d, h * hd), (2 * d, kh * hd), (2 * d, cfg.d_ff)}
     shapes.add((d, cfg.vocab_size))
     return shapes
 

@@ -137,31 +137,31 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
 
 
 def _layout(buckets: tuple, ks: int, ns: int, dt: str, hw: HwSpec,
-            device) -> tuple:
+            device, pad: bool = False) -> tuple:
     """(the per-bucket PlanSet, the (bk, bn) blocks or None) of a (ks, ns)
-    weight packed for ``buckets``."""
+    weight packed for ``buckets`` (``pad``: see :func:`prepack_for`)."""
     pset = make_plan_set(ks, ns, buckets, dt, hw=hw, persist=False,
                          device=device)
     problems = [pset.plans[m].problem if m in pset.plans
                 else Problem(m, ks, ns, dt) for m in buckets]
     caps = (max((pl.bk for pl in pset.plans.values()), default=None),
             max((pl.bn for pl in pset.plans.values()), default=None))
-    return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps)
+    return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps, pad=pad)
 
 
 def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
-                   hw: Optional[HwSpec] = None,
-                   device="cuda") -> Optional[tuple]:
+                   hw: Optional[HwSpec] = None, device="cuda",
+                   pad: bool = False) -> Optional[tuple]:
     """The (bk, bn) blocks :func:`prepack_for` packs a (ks, ns) weight of
     ``dtype`` into on ``device`` (None: it stays unpacked), without
     packing anything."""
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
     return _layout(buckets, ks, ns, dtype, hw or default_hw(device),
-                   device)[1]
+                   device, pad)[1]
 
 
-def prepack_for(m_skinny, w, *,
-                hw: Optional[HwSpec] = None) -> Optional[PackedTensor]:
+def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
+                pad: bool = False) -> Optional[PackedTensor]:
     """Plan and pack a weight for decode-time reuse.
 
     ``m_skinny`` is one serving batch size or a tuple of batch buckets:
@@ -169,12 +169,15 @@ def prepack_for(m_skinny, w, *,
     blocks that divide the weight's dims and pass the cost model's
     on-chip gate for every bucket, ranked by predicted time summed over
     buckets.  The per-bucket (variant, schedule) is stamped on the packed
-    weight.  Returns None when no conforming block exists."""
+    weight.  With ``pad`` a block width need not divide N: the weight is
+    zero-padded to whole blocks (the kernel's output columns past N are
+    sliced off), for weights whose width no multiple of 128 divides.
+    Returns None when no conforming block exists."""
     device = w.device
     hw = hw or default_hw(device)
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
     pset, chosen = _layout(buckets, int(w.shape[-2]), int(w.shape[-1]),
-                           dtype_name(w.dtype), hw, device)
+                           dtype_name(w.dtype), hw, device, pad)
     if chosen is None:
         return None
     pk = pack(w, *chosen)
@@ -208,14 +211,19 @@ def _stamp_spec_for_blocks(plan: Plan, bk: int, bn: int, *,
 
 
 def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
-                       caps: tuple = (None, None)) -> Optional[tuple]:
+                       caps: tuple = (None, None),
+                       pad: bool = False) -> Optional[tuple]:
     """Best (bk, bn) conforming for EVERY problem: multiples of 128 that
-    divide the weight's dims (within the tuned ``caps``), feasible for
-    all buckets, minimal predicted time summed across buckets."""
+    divide the weight's dims within the tuned ``caps`` (with ``pad``,
+    where no width divides N, any width up to N rounded up to 128: N is
+    zero-padded), feasible for all buckets, minimal predicted time summed
+    across buckets."""
     cap_bk = min(ks, caps[0]) if caps[0] else ks
     cap_bn = min(ns, caps[1]) if caps[1] else ns
     bks = [d for d in range(128, max(cap_bk, 128) + 1, 128) if ks % d == 0]
     bns = [d for d in range(128, max(cap_bn, 128) + 1, 128) if ns % d == 0]
+    if pad and ns % 128:
+        bns = list(range(128, max(cap_bn, 128) + 128, 128))
     best, best_score = None, None
     for bk in bks:
         for bn in bns:

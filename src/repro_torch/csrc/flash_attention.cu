@@ -13,14 +13,14 @@
 // strides (the last dim contiguous), so the model's (batch, seq, heads,
 // dim) tensors need no transpose.  Grouped-query attention reads KV head
 // h / (H / KH) for query head h: the KV heads are never repeated in
-// memory.  D is 32, 64 or 128.
+// memory.  D is 32, 64, 80 or 128.
 //
 // What bounds it.  At GLM-4-9B's prefill (B 1, S 2048, 32 heads on 2 KV
 // heads, D 128, causal) attention does 34 GFLOP over the causal triangle
 // and reads ~18 MB: its bound is the flops of QK^T and PV over the
 // tensor-core rate (~35 us).
 //
-// bf16 with D in {64, 128}: a FlashAttention-3-style forward kernel
+// bf16 with D in {64, 80, 128}: a FlashAttention-3-style forward kernel
 // (flash_wgmma).
 //   * Tensor cores: a CTA takes 128 queries as two consumer warpgroups of
 //     64 rows.  S = Q.K^T is wgmma m64n128k16 with Q and K from shared
@@ -39,12 +39,17 @@
 //   * Causal work: key tiles wholly above the diagonal are never loaded;
 //     only tiles that cross the diagonal (or the ragged end of the keys)
 //     are masked; the longest q tiles launch first.
+//   * D = 80 (Zamba2's shared block) runs the D = 128 layout: its tensor
+//     maps are 80 wide, so TMA zero-fills columns 80-127 of every Q, K and
+//     V tile.  Q.K^T stops after the 5 16-deep steps that hold data; P.V
+//     runs 128 wide (its columns 80-127 are zeros) and the store keeps the
+//     first 80.  The scale is 80^-0.5.
 //
 // fp32, and D = 32: the SIMT kernel (flash_fwd): one CTA of 4 warps per
 // (batch*head, 16-query tile); 32-key K/V tiles staged in shared memory as
 // fp32; each warp owns 4 query rows, each lane one key of the tile for the
-// scores and D/32 output dims for P.V, with warp shuffles for the row max
-// and sum.  The wrapper picks the kernel by dtype and D
+// scores and up to ceil(D/32) output dims for P.V (lane + 32 i < D), with
+// warp shuffles for the row max and sum.  The wrapper picks the kernel by dtype and D
 // (kernels/flash_attention.py::flash_design).
 
 #include <cuda_runtime.h>
@@ -85,7 +90,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ out, int Sq, int Sk, int H, int KH, Strides qs_, Strides ks_,
           Strides vs_, Strides os_, int causal, float scale) {
-  constexpr int DPL = D / 32;
+  constexpr int DPL = (D + 31) / 32;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
   __shared__ float vs[BKV][D];
@@ -145,7 +150,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int j = 0; j < BKV; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pr, j);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
+        for (int i = 0; i < DPL; ++i)
+          if (D % 32 == 0 || lane + 32 * i < D)
+            acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
       }
     }
   }
@@ -156,7 +163,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float inv = 1.f / fmaxf(l[rr], 1e-30f);
     T* ob = out + b * os_.b + h * os_.h + qpos * os_.s;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) ob[lane + 32 * i] = from_f<T>(acc[rr][i] * inv);
+    for (int i = 0; i < DPL; ++i)
+      if (D % 32 == 0 || lane + 32 * i < D) ob[lane + 32 * i] = from_f<T>(acc[rr][i] * inv);
   }
 }
 
@@ -179,12 +187,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
+    case 80: return launch<T, 80>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// ---- bf16, D 64 / 128: the wgmma kernel --------------------------------
+// ---- bf16, D 64 / 80 / 128: the wgmma kernel ---------------------------
 
 constexpr int WBQ = 128, WBKV = 128;     // queries per CTA, keys per K/V tile
 constexpr int WTHREADS = 288;            // consumer warpgroups 0, 1 + producer warp 8
@@ -197,7 +206,9 @@ struct FlashSmem {
   static constexpr size_t BYTES = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 64;
 };
 
-template <int D>
+// D: the shared-memory tile width (64 or 128); DR <= D: the head dim of the
+// tensors (80 runs the 128-wide tiles, columns DR..D-1 zero-filled by TMA)
+template <int D, int DR>
 __global__ void __launch_bounds__(WTHREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int B,
@@ -281,7 +292,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     float sc[WBKV / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DR / 16; ++kk) {   // the zero-filled columns add nothing
       const int c = kk / 4;
       const uint64_t da = hopper::desc_sw128(
           sq + c * WBQ * 128 + wg * 64 * 128 + 32 * (kk % 4), 16, 1024);
@@ -373,7 +384,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
   __nv_bfloat16* ob = out + b * os_.b + h * os_.h;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DR / 8; ++j) {
     const int col = 8 * j + 2 * (lane % 4);
     if (ra < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + ra * os_.s + col) =
@@ -394,29 +405,30 @@ bool map_bshd(CUtensorMap* map, const void* base, int B, int S, int Hn, int D, S
   return hopper::make_map(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, int DR>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                          int Sk, int H, int KH, Strides qs_, Strides ks_, Strides vs_,
                          Strides os_, int causal, cudaStream_t stream) {
   using L = FlashSmem<D>;
   CUtensorMap qmap, kmap, vmap;
-  if (!map_bshd(&qmap, q, B, Sq, H, D, qs_, WBQ) || !map_bshd(&kmap, k, B, Sk, KH, D, ks_, WBKV) ||
-      !map_bshd(&vmap, v, B, Sk, KH, D, vs_, WBKV))
+  if (!map_bshd(&qmap, q, B, Sq, H, DR, qs_, WBQ) ||
+      !map_bshd(&kmap, k, B, Sk, KH, DR, ks_, WBKV) ||
+      !map_bshd(&vmap, v, B, Sk, KH, DR, vs_, WBKV))
     return cudaErrorInvalidValue;
   static const cudaError_t raised = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+      flash_wgmma<D, DR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (raised != cudaSuccess) return raised;
   const int nq = (Sq + WBQ - 1) / WBQ;
-  flash_wgmma<D><<<nq * B * H, WTHREADS, L::BYTES, stream>>>(
+  flash_wgmma<D, DR><<<nq * B * H, WTHREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, KH, os_, causal,
-      1.4426950408889634f / sqrtf((float)D));
+      1.4426950408889634f / sqrtf((float)DR));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  design: 0 = the SIMT kernel (any
-// dtype, D 32 / 64 / 128), 1 = the wgmma kernel (bf16, D 64 / 128; every
+// dtype, D 32 / 64 / 80 / 128), 1 = the wgmma kernel (bf16, D 64 / 80 / 128; every
 // tensor 16-byte aligned with strides of a multiple of 8 elements, the TMA
 // rule).  Strides are in elements; the last dim of every tensor is
 // contiguous.  Returns cudaGetLastError() after the launch (non-zero:
@@ -435,9 +447,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (design == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (D == 128)
-      return (int)launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
+      return (int)launch_wgmma<128, 128>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal,
+                                         s);
+    if (D == 80)
+      return (int)launch_wgmma<128, 80>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal,
+                                        s);
     if (D == 64)
-      return (int)launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal, s);
+      return (int)launch_wgmma<64, 64>(q, k, v, out, B, Sq, Sk, H, KH, qs_, ks_, vs_, os_, causal,
+                                       s);
     return (int)cudaErrorInvalidValue;
   }
   if (design != 0) return (int)cudaErrorInvalidValue;

@@ -9,9 +9,10 @@ interface (the kernel reads it through strides) and takes grouped-query
 K/V as they are, (B, S, KH, D), indexing KV head ``h // (H // KH)``.
 
 Two designs in the one source, chosen by :func:`flash_design` from the
-dtype and the head dim, never by a failure: bf16 with D 64 or 128 runs
-the wgmma kernel (TMA-fed, 128-query CTAs on the tensor cores); fp32, and
-D = 32, run the SIMT kernel.
+dtype and the head dim, never by a failure: bf16 with D 64, 80 or 128
+runs the wgmma kernel (TMA-fed, 128-query CTAs on the tensor cores; D 80,
+Zamba2's shared block, on the 128-wide tiles with the columns past 80
+zero-filled by TMA); fp32, and D = 32, run the SIMT kernel.
 """
 
 from __future__ import annotations
@@ -23,14 +24,14 @@ from repro_torch.kernels.tsmm import check_tma
 
 NEG_INF = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 _DESIGN = {"simt": 0, "wgmma": 1}
 
 
 def flash_design(dtype, d: int) -> str:
     """The kernel design for a dtype and head dim: ``wgmma`` for bf16 with
-    D in 64 / 128, ``simt`` otherwise (fp32, and D = 32)."""
+    D in 64 / 80 / 128, ``simt`` otherwise (fp32, and D = 32)."""
     return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
             else "simt")
 
@@ -55,7 +56,7 @@ def _torch_attention(q, k, v, *, causal: bool):
 def flash_attention(q, k, v, *, causal: bool = True):
     """q (B, Sq, H, D), k/v (B, Sk, KH, D) -> (B, Sq, H, D).
 
-    A CUDA tensor launches the kernel (D in 32/64/128, f32 or bf16, the
+    A CUDA tensor launches the kernel (D in 32/64/80/128, f32 or bf16, the
     last dim contiguous; the wgmma design also needs 16-byte aligned
     tensors with strides of a multiple of 8 elements, and raises
     otherwise); a CPU tensor takes the plain version."""

@@ -19,7 +19,9 @@ kernel family (skinny-A, tall-A, pack, flash attention, the rest; in an
 eager run of an MoE model also ``moe_experts``, the routed and shared
 experts' GEMMs, and ``moe_dispatch``, the routing, sort, dispatch and
 combine, both split out of the rest by the profiler ranges of
-``models/moe.py``), the
+``models/moe.py``; of an SSM or hybrid model ``ssm_conv``, the causal
+conv, ``ssm_scan``, the chunked scan at prefill, and ``ssm_state``, the
+state update at decode, from the ranges of ``models/mamba2.py``), the
 host's kernel launch calls per step (``cudaLaunchKernel`` and the
 cluster launches, ``cudaLaunchKernelExC``), its graph launches
 (``cudaGraphLaunch``), the kernels the device ran per step, and the
@@ -42,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.base import get_config
 from repro_torch.core.linear import serving_ctx
 from repro_torch.launch.serve import make_group
+from repro_torch.models.mamba2 import CONV_RANGE, SCAN_RANGE, STATE_RANGE
 from repro_torch.models.moe import DISPATCH_RANGE, EXPERTS_RANGE
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import Engine
@@ -53,9 +56,10 @@ FAMILIES = {"skinny": ("skinny",), "tall": ("tall_kernel", "tall_wgmma"),
             "pack": ("pack_kernel", "pack_tma_kernel", "pack_vec_kernel"),
             "flash": ("flash",)}
 # families read from the profiler ranges the model code opens
-# (models/moe.py): the kernels launched inside each, library GEMMs and
-# elementwise kernels that no name tells apart from the rest
-RANGES = (EXPERTS_RANGE, DISPATCH_RANGE)
+# (models/moe.py, models/mamba2.py): the kernels launched inside each,
+# library GEMMs and elementwise kernels that no name tells apart from the
+# rest
+RANGES = (EXPERTS_RANGE, DISPATCH_RANGE, CONV_RANGE, SCAN_RANGE, STATE_RANGE)
 
 
 def range_device_ms(prof, name: str) -> float:

@@ -64,6 +64,9 @@ def embed_tokens(p, tokens):
 
 
 def unembed(p, x, tie: bool):
-    """Logits in the compute dtype, as in the reference."""
-    w = p["tok"].T if tie else p["head"]
+    """Logits in the compute dtype, as in the reference.  A tied model
+    reads ``tok.T``, unless the serving engine gave it a packed ``head``
+    of its own (``serve/engine.py::tied_head``): the transposed view
+    would be padded and packed on every call."""
+    w = p["tok"].T if tie and "head" not in p else p["head"]
     return linear(x, w)

@@ -1,10 +1,11 @@
 """Decoder-only LM: init, forward, KV cache, prefill and decode.
 
-The port of the reference's ``models/lm.py`` for the dense and MoE
+The port of the reference's ``models/lm.py`` for the dense, MoE and SSM
 families: pre-norm residual blocks (RMSNorm, GQA or MLA attention, a
-SwiGLU or MoE MLP), optional unstacked leading dense layers
-(``first_k_dense``, DeepSeek-V2's ``dense{i}`` subtrees) before the
-layer-stacked ``layers``, tied or separate unembedding.  The reference's
+SwiGLU or MoE MLP; or RMSNorm and a Mamba2 block, ``models/mamba2.py``),
+optional unstacked leading dense layers (``first_k_dense``,
+DeepSeek-V2's ``dense{i}`` subtrees) before the layer-stacked
+``layers``, tied or separate unembedding.  The reference's
 ``layer_stack`` scan is a Python loop over layers here.
 
 The decode cache is a dict of tensors that :func:`lm_prefill`,
@@ -13,11 +14,15 @@ also return): per layer a pair of slabs, ``k``/``v`` (B, S, KH, D) for
 GQA or MLA's compressed ``c`` (B, S, kv_lora_rank) and ``kr`` (B, S,
 rope_head_dim), stacked over the scanned layers under the pair's names
 and kept per dense layer under ``dense{i}_<name>`` (:func:`cache_slabs`
-lists them in layer order).  Its ``pos`` entry is a 0-d int32 tensor on
-the cache's device, as in the reference: the decode step reads it on
-the device (RoPE, the cache write, the mask) and advances it in place,
-so a step captured in a CUDA graph decodes the step the cache is at on
-every replay (``serve/programs.py``).
+lists them in layer order).  An SSM model's pair is its recurrent state
+instead, ``ssm`` (B, H, P, N) fp32 and ``conv`` (B, conv-1, C), the last
+raw inputs of the causal conv, and its cache has no ``slot_pos`` or
+``valid_from``, as in the reference: the decode step copies the new
+state into those slabs in place.  The ``pos`` entry is a 0-d int32
+tensor on the cache's device, as in the reference: the decode step reads
+it on the device (RoPE, the cache write, the mask) and advances it in
+place, so a step captured in a CUDA graph decodes the step the cache is
+at on every replay (``serve/programs.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
                                        rmsnorm, swiglu, unembed)
@@ -32,13 +38,14 @@ from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 
 
 def _kind(cfg) -> str:
-    """The scanned block: ``"moe"`` or ``"dense"``.  The SSM block, the
+    """The scanned block: ``"moe"``, ``"ssm"`` or ``"dense"``.  The
     sliding-window cache and embedding inputs are later slices."""
-    if (cfg.family not in ("dense", "moe") or cfg.sliding_window
+    if (cfg.family not in ("dense", "moe", "ssm") or cfg.sliding_window
             or cfg.embeds_input):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families without a sliding "
-            f"window or embedding inputs are ported (ROADMAP.md Queue 1)")
+            f"{cfg.name}: only the dense, MoE and SSM families without a "
+            f"sliding window or embedding inputs are ported (ROADMAP.md "
+            f"Queue 1)")
     return cfg.family
 
 
@@ -53,6 +60,9 @@ def layer_params(stacked, i: int):
 def _init_layer(gen, cfg, kind: str):
     pt = ParamTree(gen, cfg.dtype)
     pt.ones("ln1", (cfg.d_model,), ("embed",))
+    if kind == "ssm":
+        pt.sub("mamba", M.init_mamba2(gen, cfg))
+        return pt.build()
     pt.sub("attn", A.init_mla(gen, cfg) if cfg.use_mla
            else A.init_gqa(gen, cfg))
     pt.ones("ln2", (cfg.d_model,), ("embed",))
@@ -96,6 +106,9 @@ def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
                valid_from=None):
     """Returns (x, the layer's cache pair, aux or None)."""
     hin = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "ssm":
+        h, state = M.mamba2_forward(p["mamba"], cfg, hin)
+        return x + h, state, None
     attn = A.mla_forward if cfg.use_mla else A.gqa_forward
     h, kv = attn(p["attn"], cfg, hin, pos_offset=pos_offset, chunk=chunk,
                  valid_from=valid_from)
@@ -130,17 +143,37 @@ def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
 
 
 def _cache_pair_names(cfg) -> tuple:
+    if cfg.family == "ssm":
+        return ("ssm", "conv")
     return ("c", "kr") if cfg.use_mla else ("k", "v")
+
+
+def ssm_cache(cfg, lead: tuple, batch_size: int, device) -> dict:
+    """Zeroed recurrent state of Mamba2 layers stacked as ``lead``:
+    ``ssm`` (*lead, B, H, P, N) fp32 and ``conv`` (*lead, B, conv-1, C)
+    in the model's type."""
+    di, h, p_, n, g = M.dims(cfg)
+    return {
+        "ssm": torch.zeros((*lead, batch_size, h, p_, n), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((*lead, batch_size, cfg.ssm_conv - 1,
+                             di + 2 * g * n), dtype=torch_dtype(cfg.dtype),
+                            device=device)}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device):
     """Zeroed decode cache: the pair of :func:`_cache_pair_names`, k/v
     (n_scan, B, max_len, KH, D) or MLA's c (n_scan, B, max_len,
     kv_lora_rank) and kr (n_scan, B, max_len, rope_head_dim), and per
-    leading dense layer ``dense{i}_<name>`` without the layer axis."""
-    _kind(cfg)
+    leading dense layer ``dense{i}_<name>`` without the layer axis; for
+    the SSM family the recurrent state of :func:`ssm_cache` and ``pos``
+    only."""
+    kind = _kind(cfg)
     dt = torch_dtype(cfg.dtype)
     n_scan = cfg.num_layers - cfg.first_k_dense
+    if kind == "ssm":
+        return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+                **ssm_cache(cfg, (n_scan,), batch_size, device)}
     if cfg.use_mla:
         widths = ((cfg.kv_lora_rank,), (cfg.rope_head_dim,))
     else:
@@ -164,9 +197,9 @@ def init_cache(cfg, batch_size: int, max_len: int, device):
 
 
 def cache_slabs(cfg, cache) -> list:
-    """Each layer's pair of cache slabs (B, max_len, ...) in layer order
-    (the dense layers first): views into ``cache``, so writing a slab
-    writes the cache."""
+    """Each layer's pair of cache slabs (B, max_len, ...), or an SSM
+    layer's (ssm, conv) state, in layer order (the dense layers first):
+    views into ``cache``, so writing a slab writes the cache."""
     a, b = _cache_pair_names(cfg)
     out = [(cache[f"dense{i}_{a}"], cache[f"dense{i}_{b}"])
            for i in range(cfg.first_k_dense)]
@@ -179,6 +212,13 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
     s = batch["tokens"].shape[1]
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
                                 chunk=chunk)
+    if _kind(cfg) == "ssm":
+        # the final state of each layer replaces the slab's
+        for slabs, state in zip(cache_slabs(cfg, cache), kvs):
+            for slab, t in zip(slabs, state):
+                slab.copy_(t)
+        cache["pos"].fill_(s)
+        return logits[:, -1:].clone(), cache
     pad = batch.get("pad")
     if pad is not None:
         cache["valid_from"].copy_(pad.to(torch.int32))
@@ -198,6 +238,8 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
 
 def lm_decode_step(params, cfg, cache, tokens):
     """tokens (B,1) -> (logits (B,1,V), cache updated in place)."""
+    if _kind(cfg) == "ssm":
+        return _ssm_decode_step(params, cfg, cache, tokens)
     pos = cache["pos"]
     idx = pos.reshape(1).long()            # the cache slot, on the device
     x = embed_tokens(params["embed"], tokens)
@@ -220,6 +262,28 @@ def lm_decode_step(params, cfg, cache, tokens):
     return logits, cache
 
 
+def mamba_decode_into(p, cfg, x, ssm_slab, conv_slab):
+    """One Mamba2 layer's residual decode step (``p``: ln1 and mamba),
+    the new state copied INTO the given slabs.  Returns x."""
+    h, ssm, conv = M.mamba2_decode(p["mamba"], cfg,
+                                   rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                   ssm_slab, conv_slab)
+    ssm_slab.copy_(ssm)
+    conv_slab.copy_(conv)
+    return x + h
+
+
+def _ssm_decode_step(params, cfg, cache, tokens):
+    x = embed_tokens(params["embed"], tokens)
+    for (p, _), (ssm, conv) in zip(_layers(params, cfg),
+                                   cache_slabs(cfg, cache)):
+        x = mamba_decode_into(p, cfg, x, ssm, conv)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    cache["pos"].add_(1)
+    return logits, cache
+
+
 def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     """Ragged admission: prefill ONE request (leading dim 1, prompt
     left-padded to a length bucket ``lb``, ``batch["pad"]`` its pad count)
@@ -233,6 +297,10 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     every row and clock value (``serve/programs.py``).  Every layer's
     slabs, GQA's or MLA's, are written with index ops on device indices;
     ``lb`` is static."""
+    if _kind(cfg) == "ssm":
+        raise NotImplementedError(
+            "ragged admission needs an attention cache; SSM state is "
+            "order-dependent and cannot mask left-padding")
     lb = batch["tokens"].shape[1]
     dev = cache["slot_pos"].device
     t0 = t_end - lb

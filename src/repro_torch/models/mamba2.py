@@ -1,0 +1,226 @@
+"""Mamba2 (SSD, state-space duality) block: the chunked prefill scan and
+the O(1)-state decode step.
+
+The port of the reference's ``models/mamba2.py``.  The chunked SSD
+algorithm cuts the sequence into Q-length chunks: within a chunk the
+computation is a masked (B, Q, Q) product (attention-like), across
+chunks a recurrent state (B, H, P, N) is carried, here by a Python loop
+over the chunks where the reference scans.  The chunk's products and
+the state update are plain ``torch`` einsums in fp32, as the reference
+computes them outside any Pallas kernel; the in and out projections go
+through ``core/linear.py::linear`` (the planned TSMM kernels at serve).
+
+Semantics (held to the sequential :func:`mamba2_ref_scan` in the tests):
+    h_t = exp(dt_t A) h_{t-1} + dt_t * (B_t ⊗ x_t)
+    y_t = C_t · h_t + D * x_t
+
+The decode step writes nothing: it returns the new state, and the
+caller (``models/lm.py``, ``models/hybrid.py``) copies it into the
+cache's slabs in place, so a captured step replays on fixed addresses.
+Profiler ranges (``launch/profile_decode.py`` reads them in an eager
+run): ``ssm_conv`` (the causal conv), ``ssm_scan`` (the chunked scan at
+prefill) and ``ssm_state`` (the state update and readout at decode).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.core.linear import linear
+from repro_torch.models.layers import rmsnorm, silu
+from repro_torch.models.param import ParamTree, torch_dtype
+
+CONV_RANGE, SCAN_RANGE, STATE_RANGE = "ssm_conv", "ssm_scan", "ssm_state"
+
+
+def dims(cfg):
+    """(d_inner, heads H, head dim P, state N, groups G) of the block."""
+    return (cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_groups)
+
+
+def _uniform(gen, shape, lo: float, hi: float):
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if gen.device.type == "meta":
+        return x
+    return x.uniform_(lo, hi, generator=gen)
+
+
+def init_mamba2(gen, cfg):
+    d = cfg.d_model
+    di, h, _, n, g = dims(cfg)
+    conv_dim = di + 2 * g * n
+    pt = ParamTree(gen, cfg.dtype)
+    pt.dense("w_in", (d, 2 * di + 2 * g * n + h), ("embed", "ssm_inner"))
+    conv_w = torch.randn((cfg.ssm_conv, conv_dim), dtype=torch.float32,
+                         device=gen.device,
+                         generator=None if gen.device.type == "meta" else gen)
+    pt.add("conv_w", conv_w.mul_(0.1).to(torch_dtype(cfg.dtype)),
+           ("conv", "ssm_inner"))
+    pt.zeros("conv_b", (conv_dim,), ("ssm_inner",))
+    a0 = _uniform(gen, (h,), 1.0, 16.0)
+    pt.add("a_log", torch.log(a0), ("ssm_heads",))
+    # dt_bias: inverse-softplus of dt ~ U[1e-3, 1e-1] (log-uniform)
+    dt0 = torch.exp(_uniform(gen, (h,), math.log(1e-3), math.log(1e-1)))
+    pt.add("dt_bias", torch.log(torch.expm1(dt0)), ("ssm_heads",))
+    pt.ones("d_skip", (h,), ("ssm_heads",))
+    pt.ones("norm", (di,), ("ssm_inner",))
+    pt.dense("w_out", (di, d), ("ssm_inner", "embed"))
+    return pt.build()
+
+
+def _split_in(cfg, proj):
+    """The in-projection's (z, xBC, dt)."""
+    di, h, _, n, g = dims(cfg)
+    z, xc, bc, cc, dt = torch.split(proj, [di, di, g * n, g * n, h], dim=-1)
+    return z, torch.cat([xc, bc, cc], dim=-1), dt
+
+
+def _causal_conv(xbc, w, b):
+    """Depthwise causal conv of width ``w.shape[0]`` over (B, S, C), in
+    fp32 (so the full-sequence path matches the decode step's fp32 sum),
+    then SiLU, cast back to ``xbc``'s type."""
+    k = w.shape[0]
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0)).float()
+    wf = w.float()
+    out = pad[:, 0:s] * wf[0][None, None]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * wf[i][None, None]
+    return silu(out + b.float()[None, None]).to(xbc.dtype)
+
+
+def _chunk(s: int, chunk: int) -> int:
+    """The largest chunk <= ``chunk`` that divides s (ragged prefills)."""
+    q = min(chunk, s)
+    while s % q:
+        q -= 1
+    return q
+
+
+def _ssd_chunked(x, dt, a_neg, bmat, cmat, h0, chunk: int):
+    """Chunked SSD scan.
+
+    x (B,S,H,P)  dt (B,S,H)  a_neg (H,) negative  bmat/cmat (B,S,G,N),
+    h0 (B,H,P,N) fp32.  Returns (y (B,S,H,P) fp32, h_final (B,H,P,N)
+    fp32)."""
+    b, s, h, p_ = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    q = _chunk(s, chunk)
+    nc = s // q
+    rep = h // g
+
+    xc = x.reshape(b, nc, q, h, p_).float()
+    dtc = dt.reshape(b, nc, q, h).float()
+    bc = bmat.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+    cc = cmat.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+    a = dtc * a_neg[None, None, None]            # (B,nc,Q,H), negative
+    acum = torch.cumsum(a, dim=2)                # inclusive
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+
+    hprev = h0
+    ys = []
+    for c in range(nc):
+        xq, dtq, bq, cq, acq = xc[:, c], dtc[:, c], bc[:, c], cc[:, c], acum[:, c]
+        # intra-chunk (the diagonal block)
+        li = acq[:, :, None, :] - acq[:, None, :, :]          # (B,Qi,Qj,H)
+        decay = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
+        scores = (torch.einsum("bihn,bjhn->bijh", cq, bq) * decay
+                  * dtq[:, None])
+        y = torch.einsum("bijh,bjhp->bihp", scores, xq)
+        # inter-chunk (the carried state's contribution)
+        y = y + torch.einsum("bihn,bhpn,bih->bihp", cq, hprev, torch.exp(acq))
+        # the state update: dt_j * decay to the chunk's end
+        dte = dtq * torch.exp(acq[:, -1:, :] - acq)
+        s_c = torch.einsum("bjhn,bjh,bjhp->bhpn", bq, dte, xq)
+        hprev = torch.exp(acq[:, -1])[:, :, None, None] * hprev + s_c
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, s, h, p_)
+    return y, hprev
+
+
+def mamba2_forward(p, cfg, x, *, h0=None, conv_init=None):
+    """Full-sequence Mamba2 block.  x: (B,S,d).  Returns (out (B,S,d),
+    (h_final (B,H,P,N) fp32, conv_tail (B, conv-1, C))) for the cache
+    handoff; ``h0`` / ``conv_init`` continue from a cached state."""
+    b, s, _ = x.shape
+    di, h, p_, n, g = dims(cfg)
+    proj = linear(x, p["w_in"])
+    z, xbc_raw, dt = _split_in(cfg, proj)
+    with record_function(CONV_RANGE):
+        if conv_init is not None:   # continue from a cached conv tail
+            full = torch.cat([conv_init.to(xbc_raw.dtype), xbc_raw], dim=1)
+            xbc = _causal_conv(full, p["conv_w"],
+                               p["conv_b"])[:, conv_init.shape[1]:]
+        else:
+            xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+        # the raw inputs the decode step's window needs (zeros before the
+        # start of a prompt shorter than the window)
+        tail = xbc_raw[:, -(cfg.ssm_conv - 1):]
+        if tail.shape[1] < cfg.ssm_conv - 1:
+            tail = F.pad(tail, (0, 0, cfg.ssm_conv - 1 - tail.shape[1], 0))
+    with record_function(SCAN_RANGE):
+        xs, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
+        xh = xs.reshape(b, s, h, p_)
+        dtv = F.softplus(dt.float() + p["dt_bias"].float())
+        a_neg = -torch.exp(p["a_log"].float())
+        if h0 is None:
+            h0 = torch.zeros((b, h, p_, n), dtype=torch.float32,
+                             device=x.device)
+        y, hfin = _ssd_chunked(xh, dtv, a_neg, bmat.reshape(b, s, g, n),
+                               cmat.reshape(b, s, g, n), h0, cfg.ssm_chunk)
+        y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
+        y = y.reshape(b, s, di).to(x.dtype)
+    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
+    return linear(y, p["w_out"]), (hfin, tail)
+
+
+def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
+    """One-token step.  x: (B,1,d); ssm_state (B,H,P,N) fp32; conv_cache
+    (B, conv-1, C) raw (pre-activation) inputs.  Returns (out (B,1,d),
+    the new ssm_state, the new conv_cache); the inputs are not written."""
+    b = x.shape[0]
+    di, h, p_, n, g = dims(cfg)
+    proj = linear(x[:, 0], p["w_in"])                       # (B, ...)
+    z, xbc_new, dt = _split_in(cfg, proj)
+    with record_function(CONV_RANGE):
+        window = torch.cat([conv_cache, xbc_new[:, None].to(conv_cache.dtype)],
+                           dim=1)                            # (B, conv, C)
+        xbc = silu(torch.einsum("bkc,kc->bc", window.float(),
+                                p["conv_w"].float())
+                   + p["conv_b"].float()[None]).to(x.dtype)
+    with record_function(STATE_RANGE):
+        xs, bvec, cvec = torch.split(xbc, [di, g * n, g * n], dim=-1)
+        xh = xs.reshape(b, h, p_).float()
+        bvec = bvec.reshape(b, g, n).repeat_interleave(h // g, dim=1).float()
+        cvec = cvec.reshape(b, g, n).repeat_interleave(h // g, dim=1).float()
+        dtv = F.softplus(dt.float() + p["dt_bias"].float())
+        a_neg = -torch.exp(p["a_log"].float())
+        decay = torch.exp(dtv * a_neg[None])                 # (B,H)
+        ssm_state = (decay[:, :, None, None] * ssm_state
+                     + dtv[:, :, None, None] * xh[..., None]
+                     * bvec[:, :, None, :])
+        y = torch.einsum("bhpn,bhn->bhp", ssm_state, cvec)
+        y = y + p["d_skip"].float()[None, :, None] * xh
+        y = y.reshape(b, di).to(x.dtype)
+    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
+    return linear(y[:, None], p["w_out"]), ssm_state, window[:, 1:]
+
+
+def mamba2_ref_scan(p, cfg, x):
+    """Sequential-scan oracle for the tests: the same params and
+    semantics, one decode step per position, no chunking."""
+    b, s, _ = x.shape
+    di, h, p_, n, g = dims(cfg)
+    ssm = torch.zeros((b, h, p_, n), dtype=torch.float32, device=x.device)
+    conv = torch.zeros((b, cfg.ssm_conv - 1, di + 2 * g * n), dtype=x.dtype,
+                       device=x.device)
+    ys = []
+    for t in range(s):
+        out, ssm, conv = mamba2_decode(p, cfg, x[:, t:t + 1], ssm, conv)
+        ys.append(out[:, 0])
+    return torch.stack(ys, dim=1)

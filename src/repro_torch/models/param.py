@@ -138,6 +138,12 @@ def _to_torch(a: np.ndarray, device):
 
 def params_from_numpy(tree, device):
     """Carry the reference's parameters (nested dicts of numpy arrays,
-    layer-stacked) into the port unchanged in layout and bit-exact in
-    value, on ``device``."""
-    return tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
+    layer-stacked) into the port bit-exact in value, on ``device``.  The
+    layout is unchanged but for the hybrid's Mamba stack, whose leaves the
+    reference stacks as (groups, per_group, ...) and the port as
+    (num_layers, ...) (``models/hybrid.py``): they are reshaped."""
+    out = tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
+    if isinstance(out, dict) and "mamba_layers" in out:
+        out["mamba_layers"] = tree_map(
+            lambda t: t.reshape(-1, *t.shape[2:]), out["mamba_layers"])
+    return out

@@ -1,22 +1,25 @@
 """Unified model interface: one ModelDef per architecture family.
 
-The port of the reference's ``models/registry.py``; the dense and MoE
-families are ported so far (both through ``models/lm.py``).
+The port of the reference's ``models/registry.py``; the dense, MoE and
+SSM families are ported so far (through ``models/lm.py``), and the
+hybrid (through ``models/hybrid.py``).
 
     init(generator)                -> (params, logical_axes)
     forward(params, batch)         -> (logits, aux_loss)
     init_cache(batch, max_len, device) -> zeroed cache
     prefill(params, batch, cache)  -> (last_logits, cache)
     decode_step(params, cache, tk) -> (logits, cache)
-    prefill_row(params, batch, cache, row, t_end) -> (logits, cache)
+    prefill_row(params, batch, cache, row, t_end) -> (logits, cache),
+        or None for a family without an attention cache (SSM, hybrid)
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import lm as LM
 from repro_torch.models.param import MetaGenerator
 
@@ -29,16 +32,27 @@ class ModelDef:
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
-    prefill_row: Callable
+    # ragged admission: None for families without an attention cache
+    prefill_row: Optional[Callable] = None
 
 
 def build_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "hybrid":
+        return ModelDef(
+            cfg=cfg,
+            init=lambda gen: HY.init_hybrid(cfg, gen),
+            forward=lambda p, b: HY.hybrid_forward(p, cfg, b)[:2],
+            init_cache=lambda bs, ml, device: HY.hybrid_init_cache(
+                cfg, bs, ml, device),
+            prefill=lambda p, b, c: HY.hybrid_prefill(p, cfg, b, c),
+            decode_step=lambda p, c, t: HY.hybrid_decode_step(p, cfg, c, t),
+        )
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1)")
-    # ragged admission for every family ported: the reference's rule
-    # withholds it from SSM state and sliding windows, which the port's
-    # LM refuses altogether (models/lm.py::_kind)
+    # the reference's rule: no ragged admission for SSM state (sliding
+    # windows, which it also withholds, the port's LM refuses altogether)
+    ragged_ok = cfg.family != "ssm"
     return ModelDef(
         cfg=cfg,
         init=lambda gen: LM.init_lm(cfg, gen),
@@ -46,8 +60,8 @@ def build_model(cfg: ModelConfig) -> ModelDef:
         init_cache=lambda bs, ml, device: LM.init_cache(cfg, bs, ml, device),
         prefill=lambda p, b, c: LM.lm_prefill(p, cfg, b, c),
         decode_step=lambda p, c, t: LM.lm_decode_step(p, cfg, c, t),
-        prefill_row=lambda p, b, c, row, t_end: LM.lm_prefill_row(
-            p, cfg, b, c, row, t_end),
+        prefill_row=(lambda p, b, c, row, t_end: LM.lm_prefill_row(
+            p, cfg, b, c, row, t_end)) if ragged_ok else None,
     )
 
 

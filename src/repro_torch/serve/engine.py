@@ -66,6 +66,12 @@ log = logging.getLogger(__name__)
 PACKABLE = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
             "w_out", "head", "wq_a", "wq_b", "wkv_a", "wkv_b"}
 MIN_ROWS, MIN_COLS = 512, 512
+# Leaves packed zero-padded to whole blocks where no block width divides
+# them (the reference leaves them unpacked): the SSM in-projection, whose
+# width 2 d_inner + 2 G N + H no multiple of 128 divides at any published
+# width, and a tied head (the vocabulary), so no decode step pads or
+# packs them per call
+PAD_COLS = {"w_in", "head"}
 
 
 def resolve_device(device) -> torch.device:
@@ -106,20 +112,38 @@ def iter_packable(params, axes):
     yield from walk(params, axes, ())
 
 
+def tied_head(params, axes) -> tuple:
+    """A tied model's head, the transpose of its token table, as a leaf
+    ``embed/head`` (d_model, vocab) with its axes: ``unembed`` reads a
+    ``head`` in place of ``tok.T``, so the packed copy the engine makes
+    of it serves every step; an untied tree is returned as it is."""
+    emb = params.get("embed", {})
+    if "head" in emb or "tok" not in emb:
+        return params, axes
+    head = emb["tok"].T.contiguous()
+    params = {**params, "embed": {**emb, "head": head}}
+    axes = {**axes, "embed": {**axes["embed"], "head": ("embed", "vocab")}}
+    return params, axes
+
+
 def pack_tree_for_serving(params, axes, batch_m):
-    """Replace packable weight leaves with planned PackedTensors.
+    """Replace packable weight leaves with planned PackedTensors (a tied
+    head first becomes a leaf of its own: :func:`tied_head`).
 
     ``batch_m``: the serving batch size, or a tuple of batch buckets (the
     chosen blocks conform to every bucket).  Returns (packed_params,
-    report: {path: blocks_shape})."""
+    report: {path: blocks_shape}).  A tied head that does not pack is
+    dropped again (``unembed`` reads ``tok.T``)."""
     report = {}
+    given = params
+    params, axes = tied_head(params, axes)
 
     def walk(p, a, path):
         if isinstance(p, dict):
             return {k: walk(p[k], a[k], path + (k,)) for k in p}
         if packable_divisors(path, a, p) is None:
             return p
-        pk = prepack_for(batch_m, p)
+        pk = prepack_for(batch_m, p, pad=path[-1] in PAD_COLS)
         if pk is None:
             return p
         report["/".join(path)] = tuple(pk.blocks.shape)
@@ -127,6 +151,8 @@ def pack_tree_for_serving(params, axes, batch_m):
 
     misses_before = registry.stats()["misses"]
     packed = walk(params, axes, ())
+    if params is not given and "embed/head" not in report:
+        del packed["embed"]["head"]
     if registry.stats()["misses"] > misses_before:
         registry.flush()   # persist freshly tuned plans in ONE write; after
     return packed, report  # an install sweep every lookup hits, no write

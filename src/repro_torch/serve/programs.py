@@ -79,6 +79,21 @@ from repro_torch.models.lm import cache_slabs
 # bump when what a cell captures changes shape
 PROGRAM_SCHEMA = 1
 KINDS = ("prefill", "decode", "prefill_row")
+# the cache entries a decode step reads and rewrites whole: the position
+# and an SSM layer's recurrent state (an attention cache's step writes one
+# slot, the same one again on a second run, and needs no restore)
+RECURRENT = ("pos", "ssm", "conv")
+
+
+def recurrent_state(cache: dict) -> dict:
+    """Copies of the cache entries a decode step advances in place
+    (:data:`RECURRENT`), to put back with :func:`restore`."""
+    return {k: cache[k].clone() for k in RECURRENT if k in cache}
+
+
+def restore(cache: dict, state: dict) -> None:
+    for k, v in state.items():
+        cache[k].copy_(v)
 
 
 def config_fingerprint(cfg, device: torch.device) -> str:
@@ -253,17 +268,16 @@ class ProgramStore:
     def _capture(self, kind: str, fn, args) -> tuple:
         dev = self.device
         main = torch.cuda.current_stream(dev)
-        # a decode step advances the cache's position in place: the
-        # warm-up's advance is undone, so the capture (and the first
-        # replay) decodes the step the cache is at
-        pos = args[1]["pos"].clone() if kind == "decode" else None
+        # a decode step advances the cache's position (and an SSM's state)
+        # in place: the warm-up's advance is undone, so the capture (and
+        # the first replay) decodes the step the cache is at
+        state = recurrent_state(args[1]) if kind == "decode" else {}
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side), serving_ctx():
             fn(*args)
         main.wait_stream(side)
-        if pos is not None:
-            args[1]["pos"].copy_(pos)
+        restore(args[1], state)
         # what torch.cuda.graph does on entry, done first so the reserved
         # bytes before the capture are read after it: the growth is the
         # shared pool's
@@ -414,7 +428,10 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
     ``prefill_row`` cell's written cache row (its entries in every
     layer's slabs, ``valid_from``, ``slot_pos``) is compared too: between
     the two runs it is scrubbed, so the program must write it again.
-    Returns one row per cell: key, ``equal``, ``max_abs_err``."""
+    A decode cell's recurrent entries (``pos``, an SSM's ``ssm`` and
+    ``conv``) are put back before the replay and after it, so both runs
+    step from the same state.  Returns one row per cell: key, ``equal``,
+    ``max_abs_err``."""
     g = torch.Generator().manual_seed(seed)
     cfg = store.model.cfg
     vocab = cfg.vocab_size
@@ -460,11 +477,11 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
             else:
                 cache, tok = args[1], args[2]
                 tok.copy_(randint(0, vocab, tuple(tok.shape)))
-                pos = cache["pos"].clone()
+                state = recurrent_state(cache)
                 want = fn(*args)[0].clone()
-                cache["pos"].copy_(pos)
+                restore(cache, state)
                 got = prog.fn(*args)[0].clone()
-                cache["pos"].copy_(pos)
+                restore(cache, state)
             rows.append({"key": prog.key, "kind": prog.kind,
                          "equal": bool(torch.equal(got, want)) and written,
                          "max_abs_err": float((got.float() - want.float())

@@ -590,14 +590,14 @@ def test_event_timing_is_positive_and_stable(dev):
 # ---------------------------------------------------------------------------
 
 
-def _graph_engine(dev, arch, **kw):
-    """A 2-layer ``arch`` at full width, bf16, seeded random weights, its
-    buckets 1 and 2 and prompts to 256."""
+def _graph_engine(dev, arch, layers=2, **kw):
+    """A ``layers``-layer ``arch`` at full width, bf16, seeded random
+    weights, its buckets 1 and 2 and prompts to 256."""
     import dataclasses
 
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     model = build_model(cfg)
     params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
     return Engine(model, params, axes, max_len=256 + 16, max_batch=2,
@@ -955,4 +955,91 @@ def test_moe_family_graphed_cells_bit_equal_to_eager(dev, arch):
     assert torch.equal(got.logits_last, want.logits_last)
     assert gl == wl and gd == wd and gl["tsmm_skinny_a"] > 0
     assert (gl["flash_attention"] > 0) == (not cfg.use_mla)
+    assert eng.programs.stats()["captured"] == len(rows)
+
+
+# ---------------------------------------------------------------------------
+# the SSM family and flash at Zamba2's head dim
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [256, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_d80_matches_plain(dev, dtype, s, causal):
+    """Flash at D = 80 (Zamba2-2.7B's shared block): bf16 through the
+    wgmma design (the 128-wide tiles, columns past 80 zero-filled), fp32
+    through the SIMT kernel, both against the plain version."""
+    h = 8
+    g = torch.Generator(device=dev).manual_seed(s + causal)
+    q, k, v = (torch.randn((1, s, h, 80), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    got, designs = _designs(lambda: flash_attention(q, k, v, causal=causal))
+    assert designs == {"flash_wgmma" if dtype == torch.bfloat16
+                       else "flash_simt": 1}
+    _close(got, _torch_attention(q, k, v, causal=causal), dtype)
+
+
+def test_mamba2_captured_decode_replays_like_two_eager_steps(dev):
+    """Mamba2-780m at full width (2 layers), bf16: its captured decode
+    cell replayed twice from one state gives the same logits and the same
+    recurrent state, bit for bit, as two eager steps from that state (the
+    step writes its state into the cache's slabs in place)."""
+    from repro_torch.core.linear import serving_ctx
+    from repro_torch.serve.programs import recurrent_state, restore
+    eng, cfg = _graph_engine(dev, "mamba2_780m")
+    rows = eng.precompile()
+    assert {r["kind"] for r in rows} == {"prefill", "decode"}
+    store, b, width = eng.programs, 2, 64
+    cache, tok = store.static_cache(b, eng.max_len), store.static_tokens(b)
+    cell = store.static_batch({"tokens": torch.zeros((b, width),
+                                                     dtype=torch.int32)})
+    cell["tokens"].copy_(torch.randint(0, cfg.vocab_size, (b, width),
+                                       generator=torch.Generator()
+                                       .manual_seed(4), dtype=torch.int32))
+    with torch.inference_mode(), serving_ctx():
+        pprog = store.program("prefill", (eng.params, cell, cache), bucket=b,
+                              tokens=width)
+        logits, _ = pprog.fn(eng.params, cell, cache)
+        tok.copy_(logits[:, -1].argmax(-1, keepdim=True))
+        dprog = store.program("decode", (eng.params, cache, tok), bucket=b,
+                              tokens=1)
+        assert not dprog.cold and dprog.source == "memory"
+        start = recurrent_state(cache)
+        want = [eng.model.decode_step(eng.params, cache, tok)[0].clone()
+                for _ in range(2)]
+        want_state = recurrent_state(cache)
+        restore(cache, start)
+        got = [dprog.fn(eng.params, cache, tok)[0].clone() for _ in range(2)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert not torch.equal(got[0], got[1])       # the state moved on
+    state = recurrent_state(cache)
+    assert all(torch.equal(state[k], want_state[k]) for k in want_state)
+    assert int(state["pos"]) == width + 2
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2_780m", 2),
+                                         ("zamba2_2_7b", 12)])
+def test_ssm_family_graphed_cells_bit_equal_to_eager(dev, arch, layers):
+    """Mamba2-780m (2 layers) and Zamba2-2.7B (12 layers: two groups, the
+    shared block over two K/V caches) at full width, bf16: the grid
+    (prefill and decode cells only) captured and checked cell by cell, a
+    2 x 256 group served graphed bit-equal to an eager store with equal
+    launch counts, no pack launch, flash only in the hybrid."""
+    from repro_torch.serve.programs import ProgramStore, check_cells
+    eng, cfg = _graph_engine(dev, arch, layers=layers)
+    rows = eng.precompile()
+    assert len(rows) == 2 * (1 + len(eng.grid.length))
+    assert all(c["equal"] for c in check_cells(eng.programs))
+    eager = ProgramStore(eng.model, device=dev, capture=False)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=torch.Generator().manual_seed(3),
+                                     dtype=torch.int32)}
+    want, wl, wd = _serve(eng, eager, batch, 6)
+    got, gl, gd = _serve(eng, eng.programs, batch, 6)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits_last, want.logits_last)
+    assert gl == wl and gd == wd and gl["tsmm_skinny_a"] > 0
+    assert gl["pack_blocks"] == 0
+    assert (gl["flash_attention"] > 0) == (cfg.family == "hybrid")
     assert eng.programs.stats()["captured"] == len(rows)
