@@ -35,6 +35,24 @@ printing JSON lines:
                 winner.  The pack cases of the kernels phase then take the
                 layouts the installed plans give GLM-4-9B and
                 DeepSeek-V2's ``wo``;
+3a. gate      — the calibration gate on the card: ``launch/
+                calibration_quality.py``'s ``run`` as the tool runs it; its
+                assert (the calibrated model ranks the gate problems'
+                short lists better than the data-sheet model) must hold;
+3b. paper     — the paper's experiment at its full size
+                (``configs/tsmm_paper.py``'s ``PAPER_WORKLOAD``: A 25600 x
+                25600 fp32 made on the card from a seeded generator, N
+                over 4-240, 200 reuses) through
+                ``launch/prepack_vs_conventional.py``: one line per N with
+                the conventional (pack every call + GEMM), pre-pack (GEMM
+                + pack / 200) and planned rows (the tournament's pack-once
+                plan, A packed once, its fp32 SIMT tall kernel replayed
+                200 times; its output held to ``torch.matmul`` within the
+                K-scaled fp32 tolerance) and the pack share; then the pack
+                of one A at 256 x 256 blocks (2.62 GB, past 2^31 bytes)
+                bit-equal to ``pack_ref`` and back through ``unpack_ref``,
+                with its times.  The phase frees its memory and prints its
+                seconds;
 4. kernels    — each kernel at the main paths' shapes (the skinny
                 projections of qwen1.5-4b and GLM-4-9B at decode and
                 prefill, OLMoE-1B-7B's attention projections and head,
@@ -162,8 +180,9 @@ both runs, and a ``profile`` of one decode step (qwen1.5-4b bucket 4,
 GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
 launch calls and kernels per step (``launch/profile_decode.py``).
 
-Each path (install, serve, serve.glm4, queue, serve.olmoe, queue.olmoe,
-serve.deepseek, serve.mamba2, serve.zamba2) zeroes the launch counts
+Each path (install, paper, serve, serve.glm4, queue, serve.olmoe,
+queue.olmoe, serve.deepseek, serve.mamba2, serve.zamba2) zeroes the
+launch counts
 just before it (on the serve paths: before the graphed groups; on the
 queue path: before the graphed queue) and reads them just after; every kernel of the path must have
 launched (on the serve paths: the baseline, flash and the kernel of every
@@ -175,8 +194,10 @@ bf16 tall-A and flash launch the wgmma design and every pack launch (at
 load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
-it off both; ``launches_by_path`` adds the queue, MoE and SSM paths';
-flash's row carries its D = 80 case with its launches on serve.zamba2) and,
+it off both; ``launches_by_path`` adds the paper, queue, MoE and SSM
+paths'; flash's row carries its D = 80 case with its launches on
+serve.zamba2; each tall row the paper's planned rows it ran, fp32 on the
+SIMT design, and the pack row its case at the paper's shape) and,
 last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
@@ -919,6 +940,101 @@ def phase_install():
     return launches
 
 
+def phase_gate():
+    """The calibration gate on the card: ``launch/calibration_quality.py``
+    as its tool runs it (its own plan and measurement cache), whose assert
+    must hold: the calibrated model ranks the gate problems' short lists
+    better than the data-sheet model.  A failure raises out of the run."""
+    from repro_torch.core import registry
+    from repro_torch.launch import calibration_quality
+    # the tool's miss-path demo swaps the cache paths and clears the
+    # in-memory registry when it is done: the install phase's plans and
+    # measurements must be on disk first
+    registry.flush()
+    t0 = time.perf_counter()
+    blob = calibration_quality.run(
+        device="cuda",
+        json_path=os.path.join(ROOT, "build", "bench",
+                               "calibration_quality.json"))
+    emit({"phase": "gate", "seconds": time.perf_counter() - t0,
+          **blob["rows"]})
+
+
+def phase_paper(timer):
+    """The paper's experiment (its Figs. 5-7) at its full size,
+    ``PAPER_WORKLOAD``: A 25600 x 25600 fp32 made on the card from a
+    seeded generator, N over the sweep, 200 reuses.  Per N the
+    conventional, pre-pack and planned rows of
+    ``launch/prepack_vs_conventional.py`` (the planned row: the
+    tournament's pack-once plan, A packed once, its tall kernel replayed
+    200 times; its output held to ``torch.matmul``) and the pack share.
+    Then, outside the path's counts, the pack of one A at the paper's
+    blocks (2.62 GB: past 2^31 bytes) against ``pack_ref`` bit for bit,
+    with its times.  Returns the path's launch counts, the rows and the
+    pack case; frees its memory."""
+    import torch
+    from repro_torch.configs.tsmm_paper import PAPER_WORKLOAD
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.launch import prepack_vs_conventional as pvc
+
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    rows = []
+    for row in pvc.sweep(PAPER_WORKLOAD, "cuda", iters=3, top_k=3):
+        rows.append(row)
+        emit({"phase": "paper", **row})
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    designs = dict(cuda.design_launches)
+    torch.cuda.empty_cache()
+    emit({"phase": "paper", "seconds": time.perf_counter() - t0,
+          "M": PAPER_WORKLOAD.M, "K": PAPER_WORKLOAD.K,
+          "n_sweep": list(PAPER_WORKLOAD.n_sweep),
+          "repeats": PAPER_WORKLOAD.repeats, "launches": launches,
+          "design_launches": designs})
+    if [r["n"] for r in rows] != list(PAPER_WORKLOAD.n_sweep):
+        raise AssertionError(f"paper: rows for {[r['n'] for r in rows]}")
+    tall = sum(launches.get(k, 0) for k in TALL)
+    simt = {k: v for k, v in designs.items() if not k.startswith("pack_")}
+    if not tall or simt != {"tall_simt": tall}:
+        raise AssertionError(f"paper: {tall} tall launches ran {designs}, "
+                             f"not the fp32 SIMT design")
+    check_pack("paper", launches, designs)
+    if not launches.get("pack_blocks"):
+        raise AssertionError("paper: no pack launch")
+
+    m, k, blk = PAPER_WORKLOAD.M, PAPER_WORKLOAD.K, pvc.PACK_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((m, k), generator=g, device="cuda")
+    kern = pvc.pack_fn(a)
+    with Designs() as d:
+        got = kern()
+    if not torch.equal(got, ref.pack_ref(a, blk, blk)) or \
+            not torch.equal(ref.unpack_ref(got, m, k), a):
+        raise AssertionError(f"pack_blocks ({m}, {k}) fp32 by ({blk}, {blk}): "
+                             f"not bit-equal to pack_ref / unpack_ref")
+    del got
+    torch.cuda.empty_cache()
+
+    def lib():
+        return (a.unflatten(0, (m // blk, blk)).unflatten(-1, (k // blk, blk))
+                .transpose(1, 2).contiguous())
+
+    bound_ms, bound_by = bound(2 * 4 * m * k, 0)
+    pack = {"kernel": "pack_blocks", "mode": "paper",
+            "design": design_of(d.ran), "M": m, "K": k, "bm": blk, "bk": blk, "dtype": "float32",
+            "max_abs_err": 0.0, "tol": "bit-equal",
+            "ms": timer(kern, iters=3), "device_ms": timer(kern, iters=3,
+                                                           device=True),
+            "plain_ms": timer(lambda: ref.pack_ref(a, blk, blk), iters=3),
+            "library_ms": timer(lib, iters=3),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "paper.pack", **pack})
+    del a
+    torch.cuda.empty_cache()
+    return launches, designs, rows, pack
+
+
 def set_pack_shapes():
     """Point ``PACK_SHAPES``' load and decode cases at the layouts the
     installed plans give GLM-4-9B: its largest layer-stacked leaf (w_gate,
@@ -1629,10 +1745,14 @@ def queue_kernels(eng, lengths) -> set:
     packed weight has stamped for the slot bucket (every lockstep step)
     and the installed plan of each admission's token count (a
     ``prefill_row`` at length bucket lb is m = lb rows; no plan: the
-    baseline)."""
+    baseline), each as the dispatch runs it on the weight's packed k
+    blocks (``kernels/gen.py::skinny_steps``: a k-split whose split does
+    not divide them is clamped to a divisor, 1 meaning k-inner)."""
     from repro_torch.core import registry
     from repro_torch.core.packing import PackedTensor
     from repro_torch.core.plan import Problem
+    from repro_torch.kernels import gen
+    from repro_torch.kernels.variants.grammar import BASELINE_POINT
     need = {skinny_counter(v) for key, v in eng.variant_report().items()
             if key.startswith(f"m{eng.max_batch}_")}
     shapes = set()
@@ -1642,15 +1762,15 @@ def queue_kernels(eng, lengths) -> set:
             for v in p.values():
                 walk(v)
         elif isinstance(p, PackedTensor):
-            shapes.add((p.shape[-2], p.orig_cols))
+            shapes.add((p.shape[-2], p.orig_cols, p.blocks.shape[-4]))
 
     walk(eng.params)
     for lb in lengths:
-        for k, n in shapes:
+        for k, n, nk in shapes:
             plan = registry.peek(Problem(lb, k, n, eng.model.cfg.dtype).key(),
                                  eng.device)
-            need.add(skinny_counter(plan.kernel.key()) if plan is not None
-                     else "tsmm_skinny_a")
+            g = plan.gen_spec() if plan is not None else BASELINE_POINT
+            need.add(gen.skinny_steps(g, nk, True)[0][0])
     return need
 
 
@@ -1907,6 +2027,8 @@ def run():
     phase_build()
     timer = Timer()
     install_launches = phase_install()
+    phase_gate()
+    paper_launches, paper_designs, paper_rows, paper_pack = phase_paper(timer)
     set_pack_shapes()
     cases, worst = phase_kernels(timer)
     tall_launches = phase_tall(timer)
@@ -1940,7 +2062,7 @@ def run():
     queue_launches, queue_load, eng, reqs, results, stats = phase_queue()
     phase_queue_frontend(eng, reqs, results, stats)
     del eng
-    by_path = {"queue": queue_launches}
+    by_path = {"paper": paper_launches, "queue": queue_launches}
     by_path["serve.olmoe"], olmoe_load = phase_serve("serve.olmoe")
     by_path["queue.olmoe"], olmoe_queue_load, eng, *_ = phase_queue(
         get_config("olmoe_1b_7b"), n=8, path="queue.olmoe", extras=False)
@@ -2012,6 +2134,23 @@ def run():
                                              "plain_ms", "library_ms",
                                              "bound_ms")}}
         for c in cases if c["kernel"] == "pack_blocks"]
+    # the fp32 paper path by design (every tall launch on the SIMT
+    # design): each tall row carries the planned rows it ran, the pack row
+    # its case at the paper's shape
+    for r in line:
+        if r["name"] in TALL:
+            r["paper"] = [
+                {"n": p["n"], "M": p["M"], "K": p["K"], "dtype": "float32",
+                 "design": "simt", **{k: p["planned"][k] for k in (
+                     "kernel", "blocks", "kernel_ms", "bound_ms", "bound_by",
+                     "library_ms", "max_abs_err", "tol")}}
+                for p in paper_rows if p["planned"]["launch"] == r["name"]]
+        family = ("pack_" if r["name"] == "pack_blocks"
+                  else "tall_" if r["name"] in TALL else None)
+        r["paper_design_launches"] = {
+            k: v for k, v in paper_designs.items()
+            if family and k.startswith(family)}
+    pack["paper"] = paper_pack
     # the flash row also carries Zamba2's head dim (80) at its prefill,
     # with its launches on that path
     flash = next(r for r in line if r["name"] == "flash_attention")

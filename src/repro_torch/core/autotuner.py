@@ -111,10 +111,12 @@ def candidate_blocks(problem: Problem, hw: HwSpec) -> list[Plan]:
             cf = dataclasses.replace(c, prepack=False)
             for spec in specs_for("skinny_a", prepack=False):
                 expanded.append(dataclasses.replace(cf, kernel=spec))
-        elif c.orientation == "tall_a" and hw.gate == "launch":
+        elif c.orientation == "tall_a" and hw.gate == "launch" \
+                and not hw.pack_once:
             # on the card tsmm_dot packs a tall A on every call, and the
             # model charges that pack: a natural-A sibling (no pack)
-            # competes with each packed plan
+            # competes with each packed plan (a caller that packs A once
+            # replays a packed plan only)
             cf = dataclasses.replace(c, prepack=False)
             for spec in specs_for("tall_a", prepack=False):
                 expanded.append(dataclasses.replace(cf, kernel=spec))
@@ -173,16 +175,22 @@ def dedupe_short_list(cands: list, hw: HwSpec) -> list:
 
 def measure_short_list(cands: list, *, top_k: int, stable: int,
                        iters: int, warmup: int, device,
-                       hw: Optional[HwSpec] = None) -> Plan:
+                       hw: Optional[HwSpec] = None,
+                       reg: Optional[registry.Registry] = None) -> Plan:
     """The tournament: the model-ranked short list is measured in order
-    (cached records replay for free), the leader defending against each
-    challenger, until it has beaten ``stable`` challengers in a row.  A
-    challenger that differs from the leader by no more than the leader's
-    dispersion (IQR over its min) ties; a tie goes to fewer launches under
-    the launch gate of ``hw``, then to the earlier place in ``cands``."""
+    (cached records of ``reg``, default the process registry, replay for
+    free), the leader defending against each challenger, until it has
+    beaten ``stable`` challengers in a row.  A challenger that differs
+    from the leader by no more than the leader's dispersion (IQR over its
+    min) ties; a tie goes to fewer launches under the launch gate of
+    ``hw``, then to the earlier place in ``cands``.  Under a ``hw`` with
+    ``pack_once`` a packed tall plan is timed on an A packed before the
+    call; such records share the tuning keys of per-call timings, so they
+    belong in a ``reg`` of their own."""
     from repro_torch.core.evaluator import measure_plan  # lazy: a cycle
-    reg = registry.default()
+    reg = reg or registry.default()
     count = hw is not None and hw.gate == "launch"
+    pack_once = hw is not None and hw.pack_once
 
     def order(rank, plan):
         return (launch_count(plan, hw) if count else 0, rank)
@@ -192,7 +200,8 @@ def measure_short_list(cands: list, *, top_k: int, stable: int,
         rec = reg.lookup_measurement(plan, device)
         if rec is None:
             rec = measure_plan(plan, device, warmup=warmup, iters=iters,
-                               reg=reg, source="autotuner")
+                               reg=reg, source="autotuner",
+                               pack_once=pack_once)
         tried += 1
         if best_rec is not None and abs(rec.seconds - best_rec.seconds) \
                 <= best_rec.dispersion * best_rec.seconds:

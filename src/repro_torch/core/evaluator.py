@@ -126,7 +126,8 @@ def _materialize(plan: Plan, device, seed: int = 0):
     return a, b
 
 
-def build_callable(plan: Plan, device="cuda") -> Callable:
+def build_callable(plan: Plan, device="cuda", *,
+                   pack_once: bool = False) -> Callable:
     """A zero-arg callable executing the plan's serving path on operands
     made from a seed on ``device`` (``fn.operands`` holds them).
 
@@ -136,16 +137,25 @@ def build_callable(plan: Plan, device="cuda") -> Callable:
     case); a ``prepack=False`` skinny plan packs the weight on every call,
     so that pack is timed.  ``tsmm_dot`` packs a tall A on every call too,
     and so does the timed call: a packed tall candidate pays for its pack
-    against a natural one.  (The reference keeps the tall pack outside
-    the call for both tall variants; its model amortizes it, the port's
-    charges it under the launch gate, ``smem_model.call_pack_bytes``.)
-    The callable dispatches through ``kernels.variants.run_*`` with the
-    plan's kernel and schedule — the entry point ``tsmm_dot`` replays."""
+    against a natural one (the port's model charges it under the launch
+    gate, ``smem_model.call_pack_bytes``).  With ``pack_once`` (a caller
+    that packs A once and replays the plan on it, ``HwSpec.pack_once``)
+    the tall A is packed before the call and the pack stays outside it,
+    as the reference keeps it (its Eq. 7 placement).  The callable
+    dispatches through ``kernels.variants.run_*`` with the plan's kernel
+    and schedule — the entry point ``tsmm_dot`` replays."""
     resolve_impl(device)
     a, b = _materialize(plan, device)
     spec, sched = plan.kernel, plan.schedule
     if plan.orientation == "tall_a":
-        if plan.prepack:
+        if plan.prepack and pack_once:
+            ap = ops.pack_blocks(a, plan.bm, plan.bk)
+
+            def fn():
+                return variants.run_tall_a(spec, ap, b, bm=plan.bm,
+                                           bk=plan.bk, packed=True,
+                                           schedule=sched)
+        elif plan.prepack:
             def fn():
                 ap = ops.pack_blocks(a, plan.bm, plan.bk)
                 return variants.run_tall_a(spec, ap, b, bm=plan.bm,
@@ -247,14 +257,16 @@ def _record(plan: Plan, ts: list, device, source: str) -> MeasureRecord:
 def measure_plan(plan: Plan, device="cuda", *, warmup: int = 2,
                  iters: int = 5, check: bool = True,
                  reg: Optional[Registry] = None,
-                 source: str = "evaluator") -> MeasureRecord:
+                 source: str = "evaluator",
+                 pack_once: bool = False) -> MeasureRecord:
     """Time one plan (with parity verification) and cache the record.
 
     ``seconds`` is the FASTEST of the timed calls: noise on a shared
     machine is additive, so the min is the stable estimator of the
     kernel's own cost.  ``dispersion`` (IQR over min) records how noisy
-    the samples were.  The operands are freed when the call returns."""
-    fn = build_callable(plan, device)
+    the samples were.  ``pack_once``: see :func:`build_callable`.  The
+    operands are freed when the call returns."""
+    fn = build_callable(plan, device, pack_once=pack_once)
     if check:
         parity_check(plan, device, fn=fn)
     ts = time_samples(fn, warmup=warmup, iters=iters, device=device)

@@ -19,6 +19,22 @@ other and the cost model ranks identically.  On the H100 the fields read:
 ``sm_count`` is the number of streaming multiprocessors (132 on the SXM
 part), read from the device on a card.
 
+``peak_flops_fp32`` is the float32 rate of the kernels that take float32.
+The port's fp32 kernels are SIMT (no tensor cores), so on the H100 it is
+the data sheet's FP32 rate outside the tensor cores, 67 TFLOP/s, not a
+fraction of the bf16 tensor-core peak.  0 keeps the reference's rate,
+bf16 / 4 (its matrix unit runs fp32 in passes), so a spec rebuilt from
+the reference's fields ranks as the reference does.
+
+``pack_once`` says where the pack of a packed tall A is paid.  False (the
+default, serving): ``tsmm_dot`` packs a tall A on every call, so the
+launch gate's model charges that pack (``smem_model.call_pack_bytes``),
+the evaluator times it inside the call and a natural-A sibling competes
+with each packed plan.  True (the paper's data reuse, its Eq. 7): the
+caller packs A once and replays the plan on it, so the model charges no
+pack, the timed call runs on an A packed beforehand and only packed plans
+compete (``autotuner.candidate_blocks``).
+
 ``gate`` picks the on-chip feasibility gate of the cost model
 (``core/smem_model.py::feasible``): ``"vmem"`` charges the reference's
 whole-block VMEM working set against ``vmem_bytes`` (a spec rebuilt from
@@ -60,10 +76,12 @@ class HwSpec:
     sm_count: int = 0
     gate: str = "vmem"
     launch_steps: float = 0.0
+    peak_flops_fp32: float = 0.0
+    pack_once: bool = False
 
     @property
     def peak_flops_f32(self) -> float:
-        return self.peak_flops_bf16 / 4
+        return self.peak_flops_fp32 or self.peak_flops_bf16 / 4
 
     def peak_flops(self, dtype: str) -> float:
         return self.peak_flops_bf16 if dtype == "bfloat16" else self.peak_flops_f32
@@ -88,6 +106,9 @@ H100 = HwSpec(
     # k-outer point's 32 launches take 0.744 ms at GLM-4-9B's K/V shape),
     # 400 steps of 5e-8 s; calibration refits the step's cost
     launch_steps=400.0,
+    # the data sheet's FP32 rate outside the tensor cores (SXM, 700 W):
+    # the rate of the port's fp32 SIMT kernels
+    peak_flops_fp32=67e12,
 )
 
 # Fraction of the on-chip budget the autotuner may plan into (the same

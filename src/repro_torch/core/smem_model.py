@@ -22,7 +22,11 @@ The on-chip gate (:func:`feasible`) is chosen by ``HwSpec.gate``:
 Both gates keep the grammar's structural and k-split rules.  Under the
 launch gate the memory term also charges the pack ``tsmm_dot`` makes of
 a tall A on every call of a packed tall plan (:func:`call_pack_bytes`),
-which the evaluator times with the call; the reference amortizes it.
+which the evaluator times with the call; the reference amortizes it, and
+so does a spec with ``HwSpec.pack_once`` (the paper's data reuse).  The
+launch gate also prices how well the plan's kernel fills the card
+(:func:`occupancy`): a launch of too few CTAs, or a last wave that leaves
+SMs idle, scales its compute term up.
 :func:`launch_key` names the launches a plan produces: plans that differ
 only in axes the card does not see (``m_split``, ``dims``,
 ``multibuffer``, a natural A's ``bm``) share a key, and the measured
@@ -270,9 +274,10 @@ def call_pack_bytes(plan: Plan, hw: HwSpec = H100) -> int:
     """HBM bytes of the pack ``tsmm_dot`` makes of a tall A on every call
     of a ``prepack=True`` tall plan (read A, write its blocks), charged
     under the launch gate only: the reference's model amortizes it
-    (paper Eq.7, :func:`hbm_traffic_bytes`), and its spec keeps that."""
-    if hw.gate != "launch" or plan.orientation != "tall_a" \
-            or not plan.prepack:
+    (paper Eq.7, :func:`hbm_traffic_bytes`), and its spec keeps that, as
+    does a spec whose caller packs A once (``HwSpec.pack_once``)."""
+    if hw.gate != "launch" or hw.pack_once \
+            or plan.orientation != "tall_a" or not plan.prepack:
         return 0
     p = plan.problem
     eb = dtype_bytes(p.dtype)
@@ -374,10 +379,22 @@ def hbm_traffic_bytes(plan: Plan, *, epilogue: str = "fused") -> int:
 
 
 def compute_time_s(plan: Plan, hw: HwSpec = H100) -> float:
-    """MXU-occupancy-aware compute time: the systolic array processes
-    128-wide output tiles, so the skinny dim is padded up to 128."""
+    """Tile-padding-aware compute time at the dtype's peak: the tall
+    kernels compute whole 128-wide column tiles (the TPU's MXU width,
+    and on the card the padded N the tall launch plans tile by 128 or
+    256), so the skinny dim is padded up to 128.  Under the launch gate
+    the kernel runs over the padded (M, K, N) of its launch
+    (:func:`plan_launches`): a block that does not divide M or K adds
+    the zero rows or k steps the card computes (the skinny rows padded to
+    8 as before)."""
     p = plan.problem
-    if plan.orientation == "tall_a":
+    if hw.gate == "launch":
+        m, k, n = next(e[6] for e in plan_launches(plan, hw)
+                       if e[0] in ("tsmm_tall", "tsmm_skinny"))
+        if plan.orientation == "skinny_a":
+            m = _ceil(max(m, 1), 8) * 8
+        flops = 2.0 * m * k * n
+    elif plan.orientation == "tall_a":
         eff_n = _ceil(p.n, 128) * 128
         flops = 2.0 * p.m * p.k * eff_n
     else:
@@ -391,15 +408,54 @@ def memory_time_s(plan: Plan, hw: HwSpec = H100) -> float:
             / (hw.hbm_bw * hw.hbm_efficiency))
 
 
+def occupancy(plan: Plan, hw: HwSpec = H100) -> float:
+    """How much longer the plan's kernel runs than a launch that fills
+    the card, >= 1: under the launch gate, for each TSMM launch of
+    :func:`plan_launches`, its CTAs against the ``hw.sm_count`` SMs times
+    the CTAs each SM must hold to run the design at its rate
+    (``kernels/tsmm.py::fill_ctas``: one for the TMA designs, every CTA
+    the registers allow for the SIMT kernels), quantised to whole waves:
+    ``ceil(ctas / slots) * slots / ctas``; the largest over the launches.
+    A launch that fills every SM in whole waves scores 1, so its plan
+    scores as it did before the term.  1 under the reference's gate.
+
+    It scales the compute term only (:func:`_terms`).  A byte-bound launch
+    of few CTAs, each keeping a ring of TMA loads in flight, is held back
+    by fixed launch and pipeline latency, not in proportion to its idle
+    SMs: scaling its bytes too ranked k-splits first at every decode
+    shape, and the tournament's short lists there measured 4-6x slower
+    than the unsplit plans (PERF.md §6)."""
+    if hw.gate != "launch":
+        return 1.0
+    from repro_torch.kernels import tsmm as kt
+    sms = hw.sm_count or H100.sm_count
+    occ = 1.0
+    for entry in plan_launches(plan, hw):
+        if entry[0] not in ("tsmm_tall", "tsmm_skinny"):
+            continue
+        lp, (m, _, n) = entry[4], entry[6]
+        ctas = kt.grid_ctas(lp, m, n, entry[2])
+        slots = sms * kt.fill_ctas(lp)
+        occ = max(occ, _ceil(ctas, slots) * slots / ctas)
+    return occ
+
+
+def _terms(plan: Plan, hw: HwSpec) -> tuple:
+    """(memory seconds, compute seconds) under ``hw``, the compute scaled
+    by the plan's :func:`occupancy`."""
+    return (memory_time_s(plan, hw),
+            compute_time_s(plan, hw) * occupancy(plan, hw))
+
+
 def features(plan: Plan, hw: HwSpec = H100) -> tuple:
     """Nominal-roofline regressors for the calibration fit: (memory
-    seconds at datasheet bandwidth, compute seconds at datasheet FLOPs,
-    schedule-aware overhead-step count).  A measured time t then fits
+    seconds at datasheet bandwidth, compute seconds at datasheet FLOPs
+    scaled by the plan's :func:`occupancy`, and the schedule-aware
+    overhead-step count).  A measured time t then fits
     ``t ~= t_mem / hbm_efficiency + t_cmp / mxu_efficiency
-    + steps * grid_overhead_s`` — linear in the three coefficients."""
-    base = nominal(hw)
-    return (memory_time_s(plan, base), compute_time_s(plan, base),
-            overhead_steps(plan, hw))
+    + steps * grid_overhead_s`` — linear in the three coefficients (the
+    occupancy is a property of the plan, not a fitted coefficient)."""
+    return (*_terms(plan, nominal(hw)), overhead_steps(plan, hw))
 
 
 def predict(plan: Plan, hw: HwSpec = H100) -> Plan:
@@ -423,8 +479,7 @@ def predict(plan: Plan, hw: HwSpec = H100) -> Plan:
     M partition adds a per-partition launch overhead — so grid geometry
     ranks in the same units as blocks and grammar points
     (DESIGN.md §11)."""
-    t_c = compute_time_s(plan, hw)
-    t_m = memory_time_s(plan, hw)
+    t_m, t_c = _terms(plan, hw)
     steps = overhead_steps(plan, hw)
     base = (t_c + t_m) if hw.calibrated else max(t_c, t_m)
     score = base + steps * hw.grid_overhead_s

@@ -41,6 +41,8 @@ baseline points delegate to ``ops.tsmm_skinny`` / ``ops.tsmm`` /
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import packing
@@ -212,6 +214,7 @@ def _post(out, passes, bias, act, dtype):
     return out
 
 
+@functools.lru_cache(maxsize=8192)
 def launches(g: GenSpec, orientation: str, m: int, k: int, n: int, *,
              dtype, bm: int, bk: int, bn: int, prepack: bool,
              sms: int) -> tuple:

@@ -329,6 +329,37 @@ def tall_smem(plan: TallPlan) -> int:
                                  + TALL_BK * TALL_NT * 2 + 16)
 
 
+# CTAs of one launch an SM must hold at once to run a design at its rate
+# (the cost model's occupancy term, core/smem_model.py::occupancy).  The
+# TMA designs (wgmma, stream) keep their loads in flight from one CTA's
+# ring, so one CTA an SM fills the card.  The SIMT kernels load
+# synchronously and hide that latency with other warps only, so they need
+# every CTA an SM can hold, which their registers bound: ptxas -v on
+# csrc/tsmm_tall.cu and csrc/tsmm_skinny.cu (CUDA 12.8; chip_smoke.py's
+# build line prints it), 65536 registers an SM, 256 threads a CTA.
+# Tall: (bm, nt) -> 58, 80, 106 / 80, 128, 183 registers; skinny: bm ->
+# 40 (8 rows), 64 (64 rows).
+TALL_SIMT_CTAS = {(16, 128): 4, (32, 128): 3, (64, 128): 2,
+                  (16, 256): 3, (32, 256): 2, (64, 256): 1}
+SKINNY_SIMT_CTAS = {8: 6, 64: 4}
+
+
+def fill_ctas(plan) -> int:
+    """The CTAs a :class:`TallPlan` or :class:`SkinnyPlan` needs on each
+    SM to run at its design's rate (see ``TALL_SIMT_CTAS``)."""
+    if plan.design != "simt":
+        return 1
+    if isinstance(plan, TallPlan):
+        return TALL_SIMT_CTAS[(plan.bm, plan.nt)]
+    return SKINNY_SIMT_CTAS[plan.bm]
+
+
+def grid_ctas(plan, m: int, n: int, splits: int) -> int:
+    """CTAs of one launch of ``plan`` over (m, n) outputs in ``splits`` k
+    ranges: ceil(m / bm) x n / nt x splits x cluster."""
+    return -(-m // plan.bm) * (n // plan.nt) * splits * plan.cluster
+
+
 def check_tma(t, name: str, what: str) -> None:
     """Raise unless ``t`` can be read through a TMA tensor map: a 16-byte
     aligned base, the last dim contiguous and every other stride a

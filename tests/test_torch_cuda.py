@@ -1043,3 +1043,52 @@ def test_ssm_family_graphed_cells_bit_equal_to_eager(dev, arch, layers):
     assert gl["pack_blocks"] == 0
     assert (gl["flash_attention"] > 0) == (cfg.family == "hybrid")
     assert eng.programs.stats()["captured"] == len(rows)
+
+
+def test_pack_past_2_31_bytes_bit_equal(dev):
+    """The paper's A, 25600 x 25600 fp32 (2.62 GB: 655 M elements, past
+    2^31 bytes), packed into 256 x 256 blocks by the TMA design: bit-equal
+    to ``pack_ref`` and unpacked back bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    m = k = 25600
+    a = torch.randn((m, k), generator=g, device=dev)
+    assert a.numel() * a.element_size() > 2 ** 31
+    got, ran = _designs(lambda: ops.pack_blocks(a, 256, 256))
+    assert ran == {"pack_tma": 1}
+    assert torch.equal(got, ref.pack_ref(a, 256, 256))
+    assert torch.equal(ref.unpack_ref(got, m, k), a)
+
+
+@pytest.mark.parametrize("n", [4, 240])
+def test_paper_planned_row_at_full_size(dev, n):
+    """The paper tool's planned row at ``PAPER_WORKLOAD``'s shape: the
+    pack-once tournament's plan, A packed once, the fp32 SIMT tall kernel
+    replayed, held to ``torch.matmul`` (TF32 off) within the K-scaled fp32
+    tolerance."""
+    from repro_torch.launch import prepack_vs_conventional as pvc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(n)
+    m = k = 25600
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev)
+    plan = pvc.plan_packed_once(m, k, n, dev, top_k=2, iters=2)
+    assert plan.prepack and plan.chosen_by == "measured"
+    (seconds, out), ran = _designs(lambda: pvc.replay(plan, a, b, 2, dev))
+    assert seconds > 0 and out.shape == (m, n)
+    assert ran["tall_simt"] and set(ran) <= {"tall_simt", "pack_tma",
+                                             "pack_vec"}
+    pvc.check_planned(out, torch.matmul(a, b), k)
+
+
+def test_pack_once_timing_leaves_the_pack_out(dev):
+    """The evaluator under ``pack_once`` times a packed tall plan without
+    its pack: faster than the per-call placement serving pays."""
+    from repro_torch.core.evaluator import measure_plan
+    from repro_torch.core.plan import Plan, Problem
+    from repro_torch.core.registry import Registry
+    plan = Plan(Problem(16384, 1024, 128, "float32"), "tall_a", 256, 1024,
+                128, prepack=True)
+    reg = Registry()
+    once = measure_plan(plan, dev, reg=reg, pack_once=True)
+    per_call = measure_plan(plan, dev, reg=reg)
+    assert once.seconds < per_call.seconds

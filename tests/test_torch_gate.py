@@ -246,8 +246,8 @@ def _tournament(prob, seed, base, monkeypatch):
     registry.clear_memory()
     real_build = evaluator.build_callable
 
-    def build(plan, device="cpu"):
-        fn = real_build(plan, device)
+    def build(plan, device="cpu", **kw):
+        fn = real_build(plan, device, **kw)
         fn.plan = plan
         return fn
 
