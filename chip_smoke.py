@@ -12,9 +12,10 @@ printing JSON lines:
                 ``cuobjdump -sass`` counts each library's tensor-core
                 (``HGMMA``) and TMA (``UTMALDG``/``UTMASTG``/``UBLKCP``)
                 instructions; the bf16 skinny (wgmma and stream), tall
-                and flash kernels must have wgmma and a TMA load, the
-                pack kernel's TMA design a TMA load and a TMA or bulk
-                store;
+                and flash kernels and the fp32 tall 3xTF32 kernel must
+                have wgmma and a TMA load, the fp32 tall FMA kernel a TMA
+                load, the pack kernel's TMA design a TMA load and a TMA
+                or bulk store;
 3. install    — the install-time stage at full width into a temporary
                 plan cache (``repro_torch.core.install``): ``--measure``
                 for qwen1.5-4b (buckets 1, 2, 4; prompts to 256),
@@ -46,9 +47,10 @@ printing JSON lines:
                 ``launch/prepack_vs_conventional.py``: one line per N with
                 the conventional (pack every call + GEMM), pre-pack (GEMM
                 + pack / 200) and planned rows (the tournament's pack-once
-                plan, A packed once, its fp32 SIMT tall kernel replayed
-                200 times; its output held to ``torch.matmul`` within the
-                K-scaled fp32 tolerance) and the pack share; then the pack
+                plan, A packed once, its fp32 tall kernel replayed 200
+                times on the design of its N, ``f32`` or ``tf32x3``; its
+                output held to ``torch.matmul`` within the K-scaled fp32
+                tolerance) and the pack share; then the pack
                 of one A at 256 x 256 blocks (2.62 GB, past 2^31 bytes)
                 bit-equal to ``pack_ref`` and back through ``unpack_ref``,
                 with its times.  The phase frees its memory and prints its
@@ -196,8 +198,10 @@ Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
 it off both; ``launches_by_path`` adds the paper, queue, MoE and SSM
 paths'; flash's row carries its D = 80 case with its launches on
-serve.zamba2; each tall row the paper's planned rows it ran, fp32 on the
-SIMT design, and the pack row its case at the paper's shape) and,
+serve.zamba2; each tall row the paper's planned rows it ran and the fp32
+rows at N = 4, 32, 128, 240 (``f32`` or ``tf32x3``: ms, device_ms, the
+bound at the design's rate beside the FMA bound, torch.matmul), and the
+pack row its case at the paper's shape) and,
 last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
@@ -284,11 +288,19 @@ def _cuobjdump() -> str:
 # TMA loads, TMA tile stores and bulk copies
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
 # the Hopper kernels of each library that must carry wgmma and a TMA load
+# (the bf16 designs, and fp32 tall-A's 3xTF32 design)
 WGMMA_KERNELS = {"tsmm_skinny": ("skinny_wgmma_kernel", "skinny_stream_kernel"),
-                 "tsmm_tall": ("tall_wgmma_kernel",),
+                 "tsmm_tall": ("tall_wgmma_kernel", "tall_tf32x3_kernel"),
                  "flash_attention": ("flash_wgmma",)}
+# the FMA kernels fed by TMA that must carry a TMA load (fp32 tall-A's
+# narrow-N design)
+TMA_LOAD_KERNELS = {"tsmm_tall": ("tall_f32_kernel",)}
 # the TMA kernels that must carry a TMA load and a TMA or bulk store
 TMA_COPY_KERNELS = {"pack_blocks": ("pack_tma_kernel",)}
+# the designs an fp32 path may run: FMA (the SIMT kernels, tall-A's f32)
+# and tall-A's 3xTF32
+FP32_DESIGNS = {"skinny_simt", "flash_simt", "tall_f32", "tall_tf32x3"}
+FP32_TALL_DESIGNS = {"tall_f32", "tall_tf32x3"}
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -325,9 +337,15 @@ def phase_build():
             sass[name][kern] = mine
             if not mine or not all(f["HGMMA"] and (f["UTMALDG"] or f["UBLKCP"])
                                    for f in mine):
-                raise AssertionError(f"{name}: the bf16 kernel {kern} has no "
+                raise AssertionError(f"{name}: the wgmma kernel {kern} has no "
                                      f"HGMMA or no TMA load in its SASS: "
                                      f"{funcs}")
+        for kern in TMA_LOAD_KERNELS.get(name, ()):
+            mine = [f for fn, f in funcs.items() if kern in fn]
+            sass[name][kern] = mine
+            if not mine or not all(f["UTMALDG"] for f in mine):
+                raise AssertionError(f"{name}: the kernel {kern} has no TMA "
+                                     f"load in its SASS: {funcs}")
         for kern in TMA_COPY_KERNELS.get(name, ()):
             mine = [f for fn, f in funcs.items() if kern in fn]
             sass[name][kern] = mine
@@ -373,8 +391,7 @@ def check_wgmma(path: str, launches: dict, designs: dict) -> None:
     got = {"skinny": designs.get("skinny_wgmma", 0)
            + designs.get("skinny_stream", 0),
            **{k: designs.get(k, 0) for k in ("tall_wgmma", "flash_wgmma")}}
-    simt = {k: designs[k] for k in ("skinny_simt", "tall_simt", "flash_simt")
-            if designs.get(k)}
+    simt = {k: designs[k] for k in FP32_DESIGNS if designs.get(k)}
     if got != want or simt:
         raise AssertionError(f"{path}: design launches {designs} do not put "
                              f"every skinny launch on wgmma / stream and "
@@ -995,10 +1012,12 @@ def phase_paper(timer):
     if [r["n"] for r in rows] != list(PAPER_WORKLOAD.n_sweep):
         raise AssertionError(f"paper: rows for {[r['n'] for r in rows]}")
     tall = sum(launches.get(k, 0) for k in TALL)
-    simt = {k: v for k, v in designs.items() if not k.startswith("pack_")}
-    if not tall or simt != {"tall_simt": tall}:
+    ran = {k: v for k, v in designs.items() if not k.startswith("pack_")}
+    if (not tall or set(ran) - FP32_TALL_DESIGNS
+            or sum(ran.values()) != tall):
         raise AssertionError(f"paper: {tall} tall launches ran {designs}, "
-                             f"not the fp32 SIMT design")
+                             f"not every one on the fp32 designs "
+                             f"{sorted(FP32_TALL_DESIGNS)}")
     check_pack("paper", launches, designs)
     if not launches.get("pack_blocks"):
         raise AssertionError("paper: no pack launch")
@@ -1033,6 +1052,10 @@ def phase_paper(timer):
     del a
     torch.cuda.empty_cache()
     return launches, designs, rows, pack
+
+
+# the paper's N at which the kernels line shows the fp32 tall designs
+PAPER_FP32_N = (4, 32, 128, 240)
 
 
 def set_pack_shapes():
@@ -1124,9 +1147,8 @@ def phase_parity(cfg, batch, prompt_len, cut=None):
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
           "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches,
           "design_launches": designs})
-    if any(not k.endswith("_simt") for k in designs
-           if not k.startswith("pack_")):
-        raise AssertionError(f"parity {cfg.name}: fp32 ran a non-SIMT design "
+    if set(designs) - FP32_DESIGNS - {"pack_tma", "pack_vec"}:
+        raise AssertionError(f"parity {cfg.name}: fp32 ran a bf16 design "
                              f"{designs}")
     check_pack(f"parity {cfg.name}", launches, designs)
     if not all(torch.isfinite(g).all() for g in got):
@@ -1719,9 +1741,8 @@ def phase_queue_parity(cfg, device="cuda"):
                                                      for r in results):
         raise AssertionError("queue.parity: no request joined a running "
                              "batch")
-    if any(not k.endswith("_simt") for k in designs
-           if not k.startswith("pack_")):
-        raise AssertionError(f"queue.parity: fp32 ran a non-SIMT design "
+    if set(designs) - FP32_DESIGNS - {"pack_tma", "pack_vec"}:
+        raise AssertionError(f"queue.parity: fp32 ran a bf16 design "
                              f"{designs}")
     return launches
 
@@ -2134,22 +2155,32 @@ def run():
                                              "plain_ms", "library_ms",
                                              "bound_ms")}}
         for c in cases if c["kernel"] == "pack_blocks"]
-    # the fp32 paper path by design (every tall launch on the SIMT
-    # design): each tall row carries the planned rows it ran, the pack row
-    # its case at the paper's shape
+    # the fp32 paper path by design (every tall launch on tall-A's fp32
+    # designs): each tall row carries the planned rows it ran, and the
+    # ``fp32`` rows at N = 4, 32, 128, 240 (the design, its kernel's ms and
+    # device_ms, the bound at the design's rate beside the fp32 FMA bound,
+    # torch.matmul); the pack row its case at the paper's shape
+    fields = ("kernel", "design", "launch_plan", "blocks", "kernel_ms",
+              "kernel_device_ms", "bound_ms", "bound_by", "bound_ms_fp32",
+              "library_ms", "max_abs_err", "tol")
     for r in line:
         if r["name"] in TALL:
             r["paper"] = [
                 {"n": p["n"], "M": p["M"], "K": p["K"], "dtype": "float32",
-                 "design": "simt", **{k: p["planned"][k] for k in (
-                     "kernel", "blocks", "kernel_ms", "bound_ms", "bound_by",
-                     "library_ms", "max_abs_err", "tol")}}
+                 **{k: p["planned"][k] for k in fields}}
                 for p in paper_rows if p["planned"]["launch"] == r["name"]]
         family = ("pack_" if r["name"] == "pack_blocks"
                   else "tall_" if r["name"] in TALL else None)
         r["paper_design_launches"] = {
             k: v for k, v in paper_designs.items()
             if family and k.startswith(family)}
+    fp32 = [{"n": p["n"], "M": p["M"], "K": p["K"],
+             "launch": p["planned"]["launch"],
+             **{k: p["planned"][k] for k in fields}}
+            for p in paper_rows if p["n"] in PAPER_FP32_N]
+    for r in line:
+        if r["name"] in TALL:
+            r["fp32"] = fp32
     pack["paper"] = paper_pack
     # the flash row also carries Zamba2's head dim (80) at its prefill,
     # with its launches on that path

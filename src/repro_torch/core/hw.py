@@ -19,12 +19,18 @@ other and the cost model ranks identically.  On the H100 the fields read:
 ``sm_count`` is the number of streaming multiprocessors (132 on the SXM
 part), read from the device on a card.
 
-``peak_flops_fp32`` is the float32 rate of the kernels that take float32.
-The port's fp32 kernels are SIMT (no tensor cores), so on the H100 it is
-the data sheet's FP32 rate outside the tensor cores, 67 TFLOP/s, not a
-fraction of the bf16 tensor-core peak.  0 keeps the reference's rate,
-bf16 / 4 (its matrix unit runs fp32 in passes), so a spec rebuilt from
-the reference's fields ranks as the reference does.
+``peak_flops_fp32`` is the float32 rate of the kernels that take float32
+on FMA units: the fp32 skinny kernel (SIMT) and the tall kernel's
+narrow-N ``f32`` design.  On the H100 it is the data sheet's FP32 rate
+outside the tensor cores, 67 TFLOP/s, not a fraction of the bf16
+tensor-core peak.  0 keeps the reference's rate, bf16 / 4 (its matrix
+unit runs fp32 in passes), so a spec rebuilt from the reference's fields
+ranks as the reference does.  ``peak_flops_tf32`` is the TF32
+tensor-core rate (H100: 495 TFLOP/s); the tall kernel's ``tf32x3``
+design does three TF32 products for each fp32 one, so its bound is a
+third of it (``smem_model.peak_rate``) and the cost model prices it at
+the share of that the design reaches (``smem_model.launch_rate``).  0
+(the reference's fields) prices every fp32 launch at the fp32 rate.
 
 ``pack_once`` says where the pack of a packed tall A is paid.  False (the
 default, serving): ``tsmm_dot`` packs a tall A on every call, so the
@@ -78,6 +84,7 @@ class HwSpec:
     launch_steps: float = 0.0
     peak_flops_fp32: float = 0.0
     pack_once: bool = False
+    peak_flops_tf32: float = 0.0
 
     @property
     def peak_flops_f32(self) -> float:
@@ -107,8 +114,10 @@ H100 = HwSpec(
     # 400 steps of 5e-8 s; calibration refits the step's cost
     launch_steps=400.0,
     # the data sheet's FP32 rate outside the tensor cores (SXM, 700 W):
-    # the rate of the port's fp32 SIMT kernels
+    # the rate of the port's fp32 FMA kernels
     peak_flops_fp32=67e12,
+    # the data sheet's dense TF32 tensor-core rate (SXM, 700 W)
+    peak_flops_tf32=495e12,
 )
 
 # Fraction of the on-chip budget the autotuner may plan into (the same

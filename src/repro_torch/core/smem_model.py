@@ -378,23 +378,56 @@ def hbm_traffic_bytes(plan: Plan, *, epilogue: str = "fused") -> int:
     return total
 
 
+# The share of its data-sheet rate (a third of TF32's) the tall kernel's
+# tf32x3 design reaches where its tensor work dominates: 76-88 of 165
+# TFLOP/s at the paper's N = 128-240 (launch/tall_sweep.py --dtype
+# float32, PERF.md §6), the ring drained at every 32-deep stage to add the
+# stage's sums with round-to-nearest.  Priced at the data sheet's rate the
+# max() roofline ranked the calibration gate's fp32 short lists above what
+# the fit could reach, and the gate failed on the card (PERF.md §6).
+TF32X3_ACHIEVED = 0.5
+
+
+def peak_rate(lp, dtype: str, hw: HwSpec = H100) -> float:
+    """The data sheet's rate (FLOP/s of the fp32 product) of a TSMM
+    launch of launch plan ``lp``: the tall kernel's ``tf32x3`` design a
+    third of the TF32 tensor-core rate (three TF32 products for each fp32
+    one), every other design the dtype's rate (fp32: FMA; bf16: the bf16
+    tensor cores).  The bound of a launch (``bound_ms``) divides by it."""
+    if lp.design == "tf32x3" and hw.peak_flops_tf32:
+        return hw.peak_flops_tf32 / 3
+    return hw.peak_flops(dtype)
+
+
+def launch_rate(lp, dtype: str, hw: HwSpec = H100) -> float:
+    """The rate the cost model prices a TSMM launch of ``lp`` at: its
+    :func:`peak_rate`, ``TF32X3_ACHIEVED`` of it for ``tf32x3``."""
+    rate = peak_rate(lp, dtype, hw)
+    if lp.design == "tf32x3" and hw.peak_flops_tf32:
+        rate *= TF32X3_ACHIEVED
+    return rate
+
+
 def compute_time_s(plan: Plan, hw: HwSpec = H100) -> float:
-    """Tile-padding-aware compute time at the dtype's peak: the tall
-    kernels compute whole 128-wide column tiles (the TPU's MXU width,
-    and on the card the padded N the tall launch plans tile by 128 or
-    256), so the skinny dim is padded up to 128.  Under the launch gate
-    the kernel runs over the padded (M, K, N) of its launch
-    (:func:`plan_launches`): a block that does not divide M or K adds
-    the zero rows or k steps the card computes (the skinny rows padded to
-    8 as before)."""
+    """Tile-padding-aware compute time.  Under the reference's gate the
+    dtype's peak over the reference's padding: the tall skinny dim padded
+    to 128 (the TPU's MXU width), the skinny rows to 8.  Under the launch
+    gate the kernel runs over the padded (M, K, N) of its launch
+    (:func:`plan_launches`: a block that does not divide M or K adds the
+    zero rows or k steps the card computes; a tall N at
+    ``kernels/tsmm.py::tall_width``, a multiple of 8 for fp32; the skinny
+    rows padded to 8 as before) at its design's rate
+    (:func:`launch_rate`)."""
     p = plan.problem
     if hw.gate == "launch":
-        m, k, n = next(e[6] for e in plan_launches(plan, hw)
-                       if e[0] in ("tsmm_tall", "tsmm_skinny"))
+        entry = next(e for e in plan_launches(plan, hw)
+                     if e[0] in ("tsmm_tall", "tsmm_skinny"))
+        m, k, n = entry[6]
         if plan.orientation == "skinny_a":
             m = _ceil(max(m, 1), 8) * 8
-        flops = 2.0 * m * k * n
-    elif plan.orientation == "tall_a":
+        return 2.0 * m * k * n / (launch_rate(entry[4], p.dtype, hw)
+                                  * hw.mxu_efficiency)
+    if plan.orientation == "tall_a":
         eff_n = _ceil(p.n, 128) * 128
         flops = 2.0 * p.m * p.k * eff_n
     else:

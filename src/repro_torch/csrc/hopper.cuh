@@ -10,12 +10,12 @@
 // against the runtime alone.
 //
 // Every wgmma operand tile in shared memory uses the 128-byte swizzle: a TMA box
-// whose inner extent is 64 bf16 values (128 bytes), rows 128 bytes apart,
-// 8-row atoms of 1024 bytes, each buffer 1024-byte aligned.  A wgmma
-// descriptor for such a tile:
-//   * K-major operand (K contiguous, 64 K values a row): the stride between
-//     8-row groups (SBO) is 1024 bytes; a k16 step adds 32 bytes to the
-//     start address.
+// whose inner extent is 128 bytes (64 bf16 or 32 fp32 values), rows 128
+// bytes apart, 8-row atoms of 1024 bytes, each buffer 1024-byte aligned.  A
+// wgmma descriptor for such a tile:
+//   * K-major operand (K contiguous, 128 bytes of K a row): the stride
+//     between 8-row groups (SBO) is 1024 bytes; a k step of 32 bytes (k16
+//     bf16, k8 tf32) adds 32 bytes to the start address.
 //   * MN-major operand (MN contiguous: a row-major (K, N) B, or V): the
 //     tile is stored as 64-wide MN strips of rows k; SBO is the 1024-byte
 //     stride between 8-row k groups, LBO the stride between 64-wide MN
@@ -155,6 +155,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// Move this warpgroup's registers a thread to N (a multiple of 8 in 24 ..
+// 256): a producer warpgroup gives registers back to the CTA's pool, the
+// consumer warpgroups take them.  Every thread of the warpgroup runs it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // 2^x on the special-function unit (MUFU.EX2; relative error ~2^-22)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -243,7 +255,7 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ba
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A bf16 tensor map with the 128-byte swizzle (the wgmma operand tiles).
+// A bf16 tensor map with the 128-byte swizzle (the bf16 wgmma operand tiles).
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                      const uint64_t* strides, const uint32_t* box) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
@@ -349,5 +361,148 @@ __device__ __forceinline__ void wgmma_ss_n8_ta(float (&d)[4], uint64_t da, uint6
       "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- wgmma instructions (m64nNk8, tf32 in, fp32 accumulate) ---------------
+// A from registers as the m64k8 fragment (warp w of the warpgroup, lane l,
+// g = l / 4, t = l % 4: a0 (16w + g, t), a1 (16w + g + 8, t), a2 (16w + g,
+// t + 4), a3 (16w + g + 8, t + 4)); B K-major from shared memory (tf32 takes
+// no MN-major operand): N rows of 32 fp32 k values, 128-byte swizzle, a k8
+// step 32 bytes on.  scale_d 0 overwrites the accumulator, 1 adds to it.
+// The tensor cores' fp32 accumulation truncates: over a long K, move the
+// sums into registers added with round-to-nearest every few k steps.
+
+// x rounded to the nearest tf32 (10 mantissa bits), ties away from zero
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return __uint_as_float(u);
+}
+
+// D[64 x 8] (+)= A[64 x 8] . B[8 x 8], A from registers, B from shared memory (K-major).
+// D is the first 4 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n8(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 8] . B[8 x 16], A from registers, B from shared memory (K-major).
+// D is the first 8 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n16(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 24] (+)= A[64 x 8] . B[8 x 24], A from registers, B from shared memory (K-major).
+// D is the first 12 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n24(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 8] . B[8 x 32], A from registers, B from shared memory (K-major).
+// D is the first 16 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 40] (+)= A[64 x 8] . B[8 x 40], A from registers, B from shared memory (K-major).
+// D is the first 20 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n40(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 48] (+)= A[64 x 8] . B[8 x 48], A from registers, B from shared memory (K-major).
+// D is the first 24 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n48(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 56] (+)= A[64 x 8] . B[8 x 56], A from registers, B from shared memory (K-major).
+// D is the first 28 of the 32 registers.
+__device__ __forceinline__ void wgmma_rs_tf32_n56(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[8 x 64], A from registers, B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 }  // namespace hopper

@@ -12,8 +12,8 @@ parallel, one ``nvcc`` each.
 one (:func:`count`) where it launches its kernel and nowhere else.
 ``design_launches`` counts the same launches by the design that ran them:
 ``skinny_wgmma`` / ``skinny_stream`` / ``skinny_simt``
-(``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_simt``
-(``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
+(``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_f32`` /
+``tall_tf32x3`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
 (``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
 (``csrc/pack_blocks.cu``).  A launch made while a CUDA graph captures
 runs nothing: inside :func:`recording` it is counted into the recorder
@@ -116,9 +116,9 @@ def _declare(libs: dict) -> None:
     f.argtypes = [p, p, p, p] + [i] * 16 + [p]
     f.restype = i
     f = libs["tsmm_tall"].tsmm_tall_launch
-    # a, b, bias, out, M, K, N, packed, pbm, pbk, kbeg, kps, splits, bm,
-    # nt, cluster, stages, mode, act, dtype, stream
-    f.argtypes = [p, p, p, p] + [i] * 16 + [p]
+    # a, b, bias, out, scratch, M, K, N, packed, pbm, pbk, kbeg, kps,
+    # splits, design, bm, nt, cluster, stages, mode, act, dtype, stream
+    f.argtypes = [p, p, p, p, p] + [i] * 17 + [p]
     f.restype = i
     f = libs["pack_blocks"].pack_blocks_launch
     # a, out, L, M, K, bm, bk, alpha, dtype, design, rows, grid, threads,

@@ -227,8 +227,9 @@ def launches(g: GenSpec, orientation: str, m: int, k: int, n: int, *,
     ``pack_blocks``), its output mode and k split, the k range of one
     split, the :class:`~repro_torch.kernels.tsmm.TallPlan` /
     ``SkinnyPlan`` / ``PackPlan``, the operand layout it reads, the padded
-    (M, K, N) (a pack: (L, M, K, bm, bk)), how many times it runs per call
-    and the shared memory of one of its CTAs; the plain passes of
+    (M, K, N) (a tall N at ``tall_width``; a pack: (L, M, K, bm, bk)),
+    how many times it runs per call and the shared memory of one of its
+    CTAs; the plain passes of
     :func:`tall_steps` / :func:`skinny_steps` enter as ``("torch", pass,
     arg, 0)``.  ``tsmm_dot`` packs a tall A on every call; a pre-packed
     skinny weight was packed at load.  Raises ValueError where a wrapper
@@ -242,7 +243,7 @@ def launches(g: GenSpec, orientation: str, m: int, k: int, n: int, *,
                     (1, rows, cols, b0, b1), 1, _k.pack_smem(pp, b1, eb)))
 
     if orientation == "tall_a":
-        np_ = _ceil_to(n, 128)
+        np_ = _k.tall_width(n, dtype)
         if prepack:
             pack(m, k, bm, bk)
             layout, pbm, pbk = ("packed", bm, bk), bm, bk

@@ -11,7 +11,9 @@ Responsibilities, as in the reference package's ``kernels/ops.py``:
 
 The skinny kernel masks ragged rows itself, so nothing here pads X rows
 to a sublane multiple; the tall wrappers keep the reference's padding of
-M to the row block and N to 128 columns.
+M to the row block and pad N to the tall designs' width
+(``kernels/tsmm.py::tall_width``: 128 columns for bf16, as the reference
+pads every dtype; a multiple of 8 for fp32).
 """
 
 from __future__ import annotations
@@ -87,19 +89,21 @@ def tall_row_block(m: int, bm: int, dtype) -> int:
 
 def pad_tall(a, b, bm: int, bk: int):
     """Pad a natural tall-A pair to the kernel's shapes: M to the row block
-    (itself capped at M rounded up to the sublane), K to bk, N to 128.
-    Returns (a_pad, b_pad, bm_eff)."""
+    (itself capped at M rounded up to the sublane), K to bk, N to
+    :func:`~repro_torch.kernels.tsmm.tall_width`.  Returns (a_pad, b_pad,
+    bm_eff)."""
     m, k = a.shape
     bm_ = tall_row_block(m, bm, a.dtype)
     mp, kp = _ceil_to(m, bm_), _ceil_to(k, bk)
     return (pad2(a, mp, kp).contiguous(),
-            pad2(b, kp, _ceil_to(b.shape[1], 128)).contiguous(), bm_)
+            pad2(b, kp, _k.tall_width(b.shape[1], b.dtype)).contiguous(), bm_)
 
 
 def pad_b_for_packed(ap, b):
-    """Pad B to a packed A's K (nk * bk) and to 128 columns."""
+    """Pad B to a packed A's K (nk * bk) and its columns to
+    :func:`~repro_torch.kernels.tsmm.tall_width`."""
     _, nk, _, bk = ap.shape
-    return pad2(b, nk * bk, _ceil_to(b.shape[1], 128)).contiguous()
+    return pad2(b, nk * bk, _k.tall_width(b.shape[1], b.dtype)).contiguous()
 
 
 def tsmm(a, b, bias=None, *, bm: int = 512, bk: int = 512, act=None,

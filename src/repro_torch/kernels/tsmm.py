@@ -257,19 +257,61 @@ def tsmm_skinny_a(x, wp, bias=None, *, act=None):
 # ring that does not fit.
 TALL_BM, TALL_NT, TALL_BK, TALL_STAGES, TALL_MAX_CLUSTER = 64, 128, 64, 4, 8
 
+# the fp32 tall designs (``csrc/tsmm_tall.cu``): N (padded to 8) below
+# TALL_F32_CROSSOVER runs ``f32``, FMA tiles of TALL_F32_NT columns fed by
+# a TMA ring of TALL_F32_STAGES stages (the byte-bound side); at or above
+# it ``tf32x3``, 3xTF32 on wgmma over a column tile of up to TALL_X3_NT
+# (two sets of fp32 sums a thread cap it: the side bound by the FMA
+# rate), its ring as deep as shared memory allows, up to TALL_X3_STAGES.  Both take 32-deep k stages (TALL_FBK: one
+# 128-byte swizzle row of fp32) and row tiles of 128 or 64.  The crossover
+# is launch/tall_sweep.py --dtype float32's at the paper's shape (A 25600 x
+# 25600; PERF.md §6).
+TALL_F32_CROSSOVER = 32
+TALL_FBK, TALL_F32_NT, TALL_F32_STAGES = 32, (8, 16, 32, 64), 4
+TALL_X3_NT, TALL_X3_STAGES = 128, 4
+# a tf32x3 CTA's fixed cost a stage, in columns of its tile's work: a row
+# tile's k loop took 0.604 ms at 64 columns and 1.002 at 128 at the
+# paper's shape (launch/tall_sweep.py --dtype float32), ~33 columns at 0
+TALL_X3_TILE_COST = 32
+TALL_SMEM_MAX = 232448            # opt-in shared memory of one CTA
+_TALL_DESIGN = {"wgmma": 0, "f32": 1, "tf32x3": 2}
+
+
+def tall_width(n: int, dtype) -> int:
+    """The width a tall B (and its output and bias) is padded to: bf16, a
+    multiple of the wgmma design's 128-column tile; fp32, a multiple of 8
+    (both fp32 designs mask the columns of their last tile, so N is never
+    padded to 128)."""
+    q = TALL_NT if dtype == torch.bfloat16 else 8
+    return -(-n // q) * q
+
 
 @dataclasses.dataclass(frozen=True)
 class TallPlan:
     """How ``csrc/tsmm_tall.cu`` runs one launch: ``design`` (``wgmma`` for
-    bf16, ``simt`` for fp32), the CTA row tile ``bm`` and column tile
-    ``nt``, the ``cluster`` of CTAs that split each k range (wgmma) and
-    the ring ``stages`` (wgmma).  The grid is ceil(m / bm) x n / nt x
-    splits x cluster CTAs."""
+    bf16; ``f32`` or ``tf32x3`` for fp32), the CTA row tile ``bm`` and
+    column tile ``nt``, the ``cluster`` of CTAs that split each k range
+    (wgmma) and the ring ``stages``.  The grid is ceil(m / bm) x
+    ceil(n / nt) x splits x cluster CTAs."""
     design: str
     bm: int
     nt: int
     cluster: int
     stages: int
+
+
+def tall_smem(plan: TallPlan) -> int:
+    """Shared memory of one CTA of ``plan``, as ``csrc/tsmm_tall.cu`` lays
+    it out: 1 KB of alignment slack, then the ring's stages (wgmma: a
+    64 x 64 A tile and a 64 x 128 B tile, bf16; f32: a bm x 32 A tile and a
+    32 x nt B tile, fp32; tf32x3: a bm x 32 A tile and B^T big and small,
+    nt x 32 each, fp32) and an mbarrier pair per stage."""
+    if plan.design == "wgmma":
+        stage = TALL_BM * TALL_BK * 2 + TALL_BK * TALL_NT * 2
+    else:
+        b_tiles = 2 if plan.design == "tf32x3" else 1
+        stage = (plan.bm + b_tiles * plan.nt) * TALL_FBK * 4
+    return 1024 + plan.stages * (stage + 16)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -287,15 +329,36 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
     any m without a table of measured shapes; ``launch/tall_sweep.py``
     times it against every other cluster and ring depth (at GLM-4-9B's
     m = 2048 a 2-CTA cluster, 128 CTAs with 4 SMs idle, measured faster:
-    PERF.md §6).  fp32 (SIMT): the whole skinny width (256, or 128 when
-    n % 256 != 0) and the largest row tile of 64, 32, 16 that still gives
-    every SM a CTA.  Raises ValueError on a layout the kernel cannot
-    take."""
-    if n <= 0 or n % 128:
-        raise ValueError(f"tall plan: N={n} is not a multiple of 128")
+    PERF.md §6).
+
+    fp32: by N padded to 8, ``f32`` below ``TALL_F32_CROSSOVER`` (the
+    narrowest of 8, 16, 32, 64 columns that holds N, else 64-column
+    tiles; a ring of ``TALL_F32_STAGES``) and ``tf32x3`` at or above it
+    (N rounded up to 8 in equal tiles of at most ``TALL_X3_NT`` columns:
+    the fewest such tiles or one more, whichever takes fewer waves of the
+    card times the work of a CTA (its columns and ``TALL_X3_TILE_COST``),
+    the fewer on a tie; the deepest ring of up
+    to ``TALL_X3_STAGES`` that fits); both a row tile of 128 where that
+    still gives every SM a CTA, else 64.  At the paper's M = 25600 the
+    wave rule splits N = 192 into three 64-column tiles (600 CTAs, 4.5
+    waves) rather than two of 96 (400, 3.03 waves): 20 % faster in
+    ``launch/tall_sweep.py --dtype float32``; at N = 240 its three tiles
+    of 80 and two of 120 measured within 1-3 % (PERF.md §6).  ``launch/tall_sweep.py --dtype float32`` times every
+    design, column tile, row tile and ring depth.
+
+    Raises ValueError on a layout the design cannot take (no design takes
+    another's layouts): bf16 N off the 128-column tile, a k range off the
+    64-deep stage, packed blocks the tile cuts; fp32 N off a multiple of 4
+    (B's rows must be 16-byte multiples for TMA), a k range off the
+    32-deep stage, a natural K off a multiple of 4, packed blocks off
+    (8, 32)."""
+    if n <= 0 or m <= 0:
+        raise ValueError(f"tall plan: an ({m}, {n}) output")
     if kps <= 0 or splits <= 0 or (splits > 1 and mode != RAW_F32):
         raise ValueError(f"tall plan: {splits} splits of {kps} in mode {mode}")
     if dtype == torch.bfloat16:
+        if n % TALL_NT:
+            raise ValueError(f"tall plan: N={n} is not a multiple of 128")
         if packed and (pbm % TALL_BM or pbk % TALL_BK):
             raise ValueError(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
                              f"cut by the wgmma tile ({TALL_BM}, {TALL_BK})")
@@ -312,52 +375,65 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
                         TALL_STAGES - (cluster >= 4))
     if dtype != torch.float32:
         raise TypeError(f"tall plan: dtype {dtype} not supported")
-    nt = 256 if n % 256 == 0 else 128
-    cols = (n // nt) * splits
-    bm = next((b for b in (64, 32) if -(-m // b) * cols >= sms), 16)
-    return TallPlan("simt", bm, nt, 1, 0)
+    if n % 4:
+        raise ValueError(f"tall plan: N={n} is not a multiple of 4 (B's "
+                         f"rows are TMA rows of 16-byte multiples)")
+    if kps % TALL_FBK:
+        raise ValueError(f"tall plan: a k range of {kps} is not a multiple "
+                         f"of the {TALL_FBK}-deep fp32 stage")
+    if packed and (pbm % 8 or pbk % TALL_FBK):
+        raise ValueError(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
+                         f"cut by the fp32 tiles (8, {TALL_FBK})")
+    if not packed and k % 4:
+        raise ValueError(f"tall plan: K={k} is not a multiple of 4 (A's rows "
+                         f"are TMA rows of 16-byte multiples)")
+    def row_tile(nt):
+        cols = -(-n // nt) * splits
+        return 128 if -(-m // 128) * cols >= sms else 64
 
+    if tall_width(n, dtype) < TALL_F32_CROSSOVER:
+        nt = next((t for t in TALL_F32_NT if t >= n), TALL_F32_NT[-1])
+        return TallPlan("f32", row_tile(nt), nt, 1, TALL_F32_STAGES)
 
-def tall_smem(plan: TallPlan) -> int:
-    """Shared memory of one CTA of ``plan``, as ``csrc/tsmm_tall.cu`` lays
-    it out: the wgmma design's 1024-aligned ring of (A, B) stages and an
-    mbarrier pair per stage; the SIMT kernel's static fp32 slices of 32 k
-    rows."""
-    if plan.design == "simt":
-        return 4 * 32 * (plan.bm + 1 + plan.nt)
-    return 1024 + plan.stages * (TALL_BM * TALL_BK * 2
-                                 + TALL_BK * TALL_NT * 2 + 16)
+    def rounds_x_width(tiles):
+        nt = tall_width(-(-n // tiles), dtype)
+        ctas = -(-m // row_tile(nt)) * tiles * splits
+        return -(-ctas // sms) * (nt + TALL_X3_TILE_COST), tiles
+
+    tiles = -(-n // TALL_X3_NT)
+    _, tiles = min(rounds_x_width(t) for t in (tiles, tiles + 1))
+    nt = tall_width(-(-n // tiles), dtype)
+    bm = row_tile(nt)
+    stages = next(s for s in range(TALL_X3_STAGES, 1, -1)
+                  if tall_smem(TallPlan("tf32x3", bm, nt, 1, s))
+                  <= TALL_SMEM_MAX)
+    return TallPlan("tf32x3", bm, nt, 1, stages)
 
 
 # CTAs of one launch an SM must hold at once to run a design at its rate
 # (the cost model's occupancy term, core/smem_model.py::occupancy).  The
-# TMA designs (wgmma, stream) keep their loads in flight from one CTA's
-# ring, so one CTA an SM fills the card.  The SIMT kernels load
-# synchronously and hide that latency with other warps only, so they need
-# every CTA an SM can hold, which their registers bound: ptxas -v on
-# csrc/tsmm_tall.cu and csrc/tsmm_skinny.cu (CUDA 12.8; chip_smoke.py's
-# build line prints it), 65536 registers an SM, 256 threads a CTA.
-# Tall: (bm, nt) -> 58, 80, 106 / 80, 128, 183 registers; skinny: bm ->
-# 40 (8 rows), 64 (64 rows).
-TALL_SIMT_CTAS = {(16, 128): 4, (32, 128): 3, (64, 128): 2,
-                  (16, 256): 3, (32, 256): 2, (64, 256): 1}
+# TMA designs (every tall design; the skinny wgmma and stream) keep their
+# loads in flight from one CTA's ring, so one CTA an SM fills the card.
+# The skinny fp32 SIMT kernel loads synchronously and hides that latency
+# with other warps only, so it needs every CTA an SM can hold, which its
+# registers bound: ptxas -v on csrc/tsmm_skinny.cu (CUDA 12.8;
+# chip_smoke.py's build line prints it), 65536 registers an SM, 256
+# threads a CTA: bm -> 40 (8 rows), 64 (64 rows) registers.
 SKINNY_SIMT_CTAS = {8: 6, 64: 4}
 
 
 def fill_ctas(plan) -> int:
     """The CTAs a :class:`TallPlan` or :class:`SkinnyPlan` needs on each
-    SM to run at its design's rate (see ``TALL_SIMT_CTAS``)."""
+    SM to run at its design's rate (see ``SKINNY_SIMT_CTAS``)."""
     if plan.design != "simt":
         return 1
-    if isinstance(plan, TallPlan):
-        return TALL_SIMT_CTAS[(plan.bm, plan.nt)]
     return SKINNY_SIMT_CTAS[plan.bm]
 
 
 def grid_ctas(plan, m: int, n: int, splits: int) -> int:
     """CTAs of one launch of ``plan`` over (m, n) outputs in ``splits`` k
-    ranges: ceil(m / bm) x n / nt x splits x cluster."""
-    return -(-m // plan.bm) * (n // plan.nt) * splits * plan.cluster
+    ranges: ceil(m / bm) x ceil(n / nt) x splits x cluster."""
+    return -(-m // plan.bm) * -(-n // plan.nt) * splits * plan.cluster
 
 
 def check_tma(t, name: str, what: str) -> None:
@@ -427,11 +503,12 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
     CUDA tensor (counted under ``name``), the plain version on the CPU.
 
     ``a`` natural (M, K) or packed (nm, nk, bm, bk), contiguous; ``b``
-    (K, N) with N a multiple of 128; ``bias`` (N,) or None.  The k range
-    is [k0, k1) (default all of K), cut into ``splits`` equal parts.
-    :func:`tall_plan` picks the design by dtype (bf16: wgmma, fp32: SIMT)
-    and its launch configuration; a bf16 layout the wgmma kernel cannot
-    take (:func:`tall_plan`, :func:`check_tma`) raises.
+    (K, N) (bf16: N a multiple of 128; fp32: of 4, padded by the callers
+    to :func:`tall_width`); ``bias`` (N,) or None.  The k range is
+    [k0, k1) (default all of K), cut into ``splits`` equal parts.
+    :func:`tall_plan` picks the design (bf16: ``wgmma``; fp32: ``f32`` or
+    ``tf32x3`` by N) and its launch configuration; a layout the design
+    cannot take (:func:`tall_plan`, :func:`check_tma`) raises.
     ``EPILOGUE`` returns (M, N) in B's type; ``RAW_F32`` the fp32 partials
     (splits, M, N); ``ACCUM_F32`` updates and returns the fp32 (M, N)
     ``out``."""
@@ -472,21 +549,24 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
     plan = tall_plan(m, k, n, dtype=a.dtype, packed=packed, pbm=pbm, pbk=pbk,
                      mode=mode, splits=splits, kps=kps,
                      sms=_sm_count(a.device.index))
-    if plan.design == "wgmma":
-        check_tma(a, name, "A")
-        check_tma(b, name, "B")
-        if out is not None and out.data_ptr() % 16:
-            raise ValueError(f"{name}: the output is not 16-byte aligned")
-    elif b.data_ptr() % 8:
-        raise ValueError(f"{name}: B must be 8-byte aligned (paired loads)")
+    check_tma(a, name, "A")
+    check_tma(b, name, "B")
+    if out is not None and out.data_ptr() % 16:
+        raise ValueError(f"{name}: the output is not 16-byte aligned")
     if out is None:
         out = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=a.device) if mode == RAW_F32 else
                torch.empty((m, n), dtype=b.dtype, device=a.device))
+    # tf32x3: B^T big and small of the launch's k range, written by the
+    # design's split pass
+    scratch = (torch.empty((2, -(-n // plan.nt) * plan.nt, k1 - k0),
+                           dtype=torch.float32, device=a.device)
+               if plan.design == "tf32x3" else None)
     lib = cuda.load()["tsmm_tall"]
     rc = lib.tsmm_tall_launch(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, k, n, int(packed), pbm, pbk, k0, kps, splits,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), m, k,
+        n, int(packed), pbm, pbk, k0, kps, splits, _TALL_DESIGN[plan.design],
         plan.bm, plan.nt, plan.cluster, plan.stages, mode, _ACT[act],
         _DTYPE[a.dtype], cuda.stream(a.device))
     cuda.check(rc, name)
@@ -497,7 +577,7 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
 def tsmm_tall_a(a, b, bias=None, *, bm: int, bk: int, act=None, dims=(),
                 m_split: int = 1):
     """C = act(A @ B + bias).  A (M, K) with M % bm == 0, K % bk == 0; B
-    (K, N), N a multiple of 128 and the whole skinny width one CTA holds.
+    (K, N), N at :func:`tall_width` (bf16 a multiple of 128, fp32 of 8).
     The epilogue is fused into the kernel's store.  ``dims`` and
     ``m_split`` have no effect on the card (see the module docstring)."""
     del dims, m_split

@@ -24,11 +24,16 @@ row:
   plan's blocks, the plan's tall kernel replayed ``repeats`` times
   (CUDA events around the pack and the replays, over ``repeats``).  The
   row carries the plan, the launch counter of its kernel
-  (``kernels/gen.py::tall_steps``), its kernel's own time after an L2 flush
-  (``kernel_ms``), the least time the card could take for the product
-  (``bound_ms``: A, B and C over 3.35 TB/s against 2·M·K·N over the
-  67 TFLOP/s fp32 peak) and ``library_ms`` (``torch.matmul``).  Its
-  output is held to ``torch.matmul`` within ``f32_tol``.
+  (``kernels/gen.py::tall_steps``) and the fp32 design it runs
+  (``f32`` or ``tf32x3``, ``kernels/tsmm.py::tall_plan``), its kernel's
+  own time after an L2 flush (``kernel_ms``; on the card also
+  ``kernel_device_ms``, the host's time hidden), the least time the card
+  could take for the product at the design's rate (``bound_ms``: A, B
+  and C over 3.35 TB/s against 2·M·K·N over 67 TFLOP/s of fp32 FMA, or
+  over 495 / 3 TFLOP/s for 3xTF32's three TF32 products) with the FMA
+  bound beside it (``bound_ms_fp32``), and ``library_ms``
+  (``torch.matmul``).  Its output is held to ``torch.matmul`` within
+  ``f32_tol``.
 
 Timing is the evaluator's (``core/evaluator.py::time_samples``: CUDA
 events around each call after an L2 flush; on the CPU the host clock),
@@ -91,15 +96,23 @@ def amortized(t_comp: float, t_pack: float, repeats: int) -> float:
     return t_comp + t_pack / repeats
 
 
-def bound_ms(m: int, k: int, n: int) -> tuple:
+def bound_ms(m: int, k: int, n: int, rate: float = 0.0) -> tuple:
     """(bound_ms, bound_by) of an fp32 (m, k) x (k, n) product on the
     H100: each input read once and the output written once over HBM
-    (3.35 TB/s), against the operations over the fp32 SIMT peak (67
-    TFLOP/s)."""
+    (3.35 TB/s), against the operations over ``rate`` (FLOP/s of the
+    product; default the 67 TFLOP/s of fp32 FMA)."""
     t_bytes = 4 * (m * k + k * n + m * n) / H100.hbm_bw
-    t_ops = 2 * m * k * n / H100.peak_flops("float32")
+    t_ops = 2 * m * k * n / (rate or H100.peak_flops("float32"))
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def planned_launch(plan):
+    """The launch plan (``kernels/tsmm.py::TallPlan``) of ``plan``'s tall
+    kernel on the H100 (``core/smem_model.py::plan_launches``)."""
+    from repro_torch.core.smem_model import plan_launches
+    hw = dataclasses.replace(H100, pack_once=True)
+    return next(e[4] for e in plan_launches(plan, hw) if e[0] == "tsmm_tall")
 
 
 def best_s(fn, device, iters: int) -> float:
@@ -187,6 +200,8 @@ def sweep(workload: TSMMWorkload, device, *, iters: int = 5, top_k: int = 3):
     """Yield one dict per N of ``workload.n_sweep``: the three rows, the
     pack and GEMM seconds, the pack share and the planned row's checks.
     A (M, K) and each B are made on ``device`` from seed 0."""
+    from repro_torch.core.evaluator import _timer
+    from repro_torch.core.smem_model import peak_rate
     from repro_torch.kernels import gen, ops, variants
 
     device = torch.device(device)
@@ -204,13 +219,17 @@ def sweep(workload: TSMMWorkload, device, *, iters: int = 5, top_k: int = 3):
         err = check_planned(out, torch.matmul(a, b), k)
         del out
         ap = ops.pack_blocks(a, plan.bm, plan.bk)
-        kernel_ms = 1e3 * best_s(
-            lambda: variants.run_tall_a(plan.kernel, ap, b, bm=plan.bm,
-                                        bk=plan.bk, packed=True,
-                                        schedule=plan.schedule),
-            device, iters)
+
+        def kernel():
+            return variants.run_tall_a(plan.kernel, ap, b, bm=plan.bm,
+                                       bk=plan.bk, packed=True,
+                                       schedule=plan.schedule)
+        kernel_ms = 1e3 * best_s(kernel, device, iters)
+        device_ms = (_timer(device)(kernel, iters=iters, device=True)
+                     if device.type == "cuda" else None)
         del ap
-        bms, by = bound_ms(m, k, n)
+        lp = planned_launch(plan)
+        bms, by = bound_ms(m, k, n, peak_rate(lp, "float32", H100))
 
         def row(t):
             return {"us": t * 1e6, "gflops": gflops(m, k, n, t),
@@ -225,8 +244,13 @@ def sweep(workload: TSMMWorkload, device, *, iters: int = 5, top_k: int = 3):
                            "launch": gen.tall_steps(plan.gen_spec(),
                                                     plan.grid[1], True)[0][0],
                            "blocks": [plan.bm, plan.bk, plan.bn],
-                           "kernel_ms": kernel_ms, "bound_ms": bms,
-                           "bound_by": by, "library_ms": t_comp * 1e3,
+                           "design": lp.design, "launch_plan": [
+                               lp.bm, lp.nt, lp.stages],
+                           "kernel_ms": kernel_ms,
+                           "kernel_device_ms": device_ms, "bound_ms": bms,
+                           "bound_by": by,
+                           "bound_ms_fp32": bound_ms(m, k, n)[0],
+                           "library_ms": t_comp * 1e3,
                            "max_abs_err": err, "tol": f32_tol(k)}}
         if device.type == "cuda":
             torch.cuda.empty_cache()

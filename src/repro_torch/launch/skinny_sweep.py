@@ -2,6 +2,7 @@
 plans, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.skinny_sweep [--only prefill]
+    PYTHONPATH=src python -m repro_torch.launch.skinny_sweep --dtype float32
 
 At the skinny projections of qwen1.5-4b (K, N in (2560, 2560), (2560,
 6912), (6912, 2560), (2560, 151936)) and GLM-4-9B ((4096, 4096), (4096,
@@ -15,7 +16,15 @@ ring depth (2, 4, 6).  Each result is checked against the plain version
 prints one JSON line with its device time (``tall_sweep.device_ms``: an
 L2 flush and a device-side sleep before each launch), with
 ``torch.matmul`` on the natural operands timed the same way and the plan
-``kernels/tsmm.py::skinny_plan`` picks marked.  Needs a CUDA card; exits
+``kernels/tsmm.py::skinny_plan`` picks marked.
+
+``--dtype float32``: the fp32 design (SIMT) as it stands, at the
+calibration gate's fp32 context shapes (``launch/calibration_quality.py``:
+(m, K, N) = (16, 4096, 2048) and (32, 8192, 1024), W packed at (128,
+128)), through ``tsmm_skinny_a`` against ``torch.matmul`` (TF32 off) on
+the natural operands, each beside its bound (bytes over 3.35 TB/s
+against 2 m K N over the 67 TFLOP/s of fp32 FMA); a result off the plain
+version by more than 1e-4 + 1e-4 |ref| raises.  Needs a CUDA card; exits
 non-zero without one.
 """
 
@@ -37,9 +46,45 @@ SHAPES = {"qwen1_5_4b": (1024, ((2560, 2560), (2560, 6912), (6912, 2560),
 DECODE_M = (1, 4)
 
 
+# the calibration gate's fp32 skinny context problems (m, K, N)
+FP32_SHAPES = ((16, 4096, 2048), (32, 8192, 1024))
+F32_TOL = 1e-4
+
+
+def sweep_fp32(dev, sms, flush) -> None:
+    """The fp32 skinny design at ``FP32_SHAPES`` against torch.matmul."""
+    from repro_torch.launch.prepack_vs_conventional import bound_ms
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m, k, n in FP32_SHAPES:
+        x = torch.randn((m, k), generator=g, device=dev)
+        w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+        wp = ops.pack_blocks(w, 128, 128)
+        want = tsmm._torch_skinny(x, wp, None, None, natural=False, splits=1,
+                                  mode=tsmm.EPILOGUE)
+        got = tsmm.tsmm_skinny_a(x, wp)
+        err = (got - want).abs()
+        if bool((err > F32_TOL + F32_TOL * want.abs()).any()):
+            raise AssertionError(f"skinny_sweep fp32 ({m}, {k}, {n}): max "
+                                 f"|err| {float(err.max())}")
+        pick = tsmm.skinny_plan(m, k, n, dtype=torch.float32, natural=False,
+                                bk=128, bn=128, mode=tsmm.EPILOGUE, splits=1,
+                                kps=k, sms=sms)
+        bms, by = bound_ms(m, k, n)
+        print(json.dumps({
+            "dtype": "float32", "m": m, "K": k, "N": n,
+            "design": pick.design, "bm": pick.bm, "nt": pick.nt,
+            "ctas": -(-m // pick.bm) * (n // pick.nt),
+            "max_abs_err": float(err.max()),
+            "device_ms": device_ms(lambda: tsmm.tsmm_skinny_a(x, wp), flush),
+            "library_ms": device_ms(lambda: torch.matmul(x, w), flush),
+            "bound_ms": bms, "bound_by": by}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("prefill", "decode"), default=None)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("skinny_sweep: needs a CUDA card")
@@ -48,6 +93,9 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    if args.dtype == "float32":
+        sweep_fp32(dev, sms, flush)
+        return
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     stream = torch.cuda.current_stream().cuda_stream

@@ -7,8 +7,10 @@ Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 (one bf16 rounding of outputs of magnitude ~1, in different places).
 The bf16 skinny, tall and flash cases also assert, through
 ``cuda.design_launches``, that the Hopper designs (wgmma, and the
-skinny kernel's byte-streaming design at decode) ran them; the pack
-cases (bit-equal) that the TMA or the vec design ran each.
+skinny kernel's byte-streaming design at decode) ran them; the fp32
+tall cases that ``f32`` or ``tf32x3`` (3xTF32, held to the same fp32
+tolerance) did; the pack cases (bit-equal) that the TMA or the vec
+design ran each.
 """
 
 import pytest
@@ -317,9 +319,9 @@ def test_tall_wgmma_every_column_tile_and_cluster(dev, cluster):
 
     def launch(nt, stages):
         return lib.tsmm_tall_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                    out.data_ptr(), m, k, n, 0, 0, 0, 0, k, 1,
-                                    64, nt, cluster, stages, tsmm.EPILOGUE, 1,
-                                    1, stream)
+                                    out.data_ptr(), None, m, k, n, 0, 0, 0, 0,
+                                    k, 1, 0, 64, nt, cluster, stages,
+                                    tsmm.EPILOGUE, 1, 1, stream)
 
     for stages in (3, 4, 5):
         out.zero_()
@@ -329,16 +331,32 @@ def test_tall_wgmma_every_column_tile_and_cluster(dev, cluster):
     assert launch(tsmm.TALL_NT, 10) != 0
 
 
-def test_tall_fp32_runs_simt_and_wgmma_refuses_bad_layouts(dev):
-    """fp32 stays on the SIMT design; a bf16 layout the wgmma kernel cannot
-    take raises instead of taking another path."""
+def test_tall_fp32_runs_its_designs_and_every_design_refuses_bad_layouts(dev):
+    """fp32 runs ``f32`` below the crossover and ``tf32x3`` at or above it
+    (never another path); a layout a design cannot take raises instead of
+    taking another path, fp32 and bf16."""
     g = torch.Generator(device=dev).manual_seed(7)
-    k, n = 512, 256
+    k = 512
     a = torch.randn((256, k), generator=g, device=dev)
-    b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
-    _, designs = _designs(lambda: tsmm.launch_tall("t", a, b, None, None,
-                                                   mode=tsmm.EPILOGUE))
-    assert designs == {"tall_simt": 1}
+    for n, design in ((16, "tall_f32"), (256, "tall_tf32x3")):
+        b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+        got, designs = _designs(lambda: tsmm.launch_tall(
+            "t", a, b, None, None, mode=tsmm.EPILOGUE))
+        assert designs == {design: 1}
+        _close(got, a @ b, torch.float32)
+    with pytest.raises(ValueError, match="fp32 tiles"):
+        tsmm.launch_tall("t", ops.pack_blocks(a, 12, 128), b, None, None,
+                         mode=tsmm.EPILOGUE)
+    with pytest.raises(ValueError, match="32-deep"):
+        tsmm.launch_tall("t", a, b, None, None, mode=tsmm.ACCUM_F32, k0=0,
+                         k1=48, out=torch.zeros((256, 256), device=dev))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tsmm.launch_tall("t", a, b[:, :6].contiguous(), None, None,
+                         mode=tsmm.EPILOGUE)
+    flat = torch.zeros(256 * k + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsmm.launch_tall("t", flat[1:].view(256, k), b, None, None,
+                         mode=tsmm.EPILOGUE)
     ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
     with pytest.raises(ValueError, match="wgmma tile"):
         tsmm.launch_tall("t", ops.pack_blocks(ab, 32, 128), bb, None, None,
@@ -349,7 +367,100 @@ def test_tall_fp32_runs_simt_and_wgmma_refuses_bad_layouts(dev):
                          mode=tsmm.EPILOGUE)
     with pytest.raises(ValueError, match="64-deep"):
         tsmm.launch_tall("t", ab, bb, None, None, mode=tsmm.ACCUM_F32, k0=0,
-                         k1=96, out=torch.zeros((256, n), device=dev))
+                         k1=96, out=torch.zeros((256, 256), device=dev))
+
+
+FP32_NS = (4, 8, 24, 48, 64, 96, 128, 200, 240, 256)
+
+
+@pytest.mark.parametrize("n", FP32_NS)
+@pytest.mark.parametrize("layout", ["natural", (256, 128), (8, 32)])
+def test_tall_fp32_designs_match_plain(dev, n, layout):
+    """Each fp32 design (``f32`` below the crossover, ``tf32x3`` at or
+    above it) against the plain version at the unchanged fp32 tolerance:
+    ragged M (300 rows), natural A and A packed at (256, 128) or (8, 32)
+    (a block shorter than the row tile), the fused epilogue with the bias
+    and each activation, k-split partials 1 and 8, one-block k-outer
+    passes and a revisit with bias and SiLU into an fp32 output."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    m, k, bk = 300, 1024, 128
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    c = torch.randn((n,), generator=g, device=dev)
+    x = a if layout == "natural" else ops.pack_blocks(a, *layout)
+    rows = x.shape[0] * x.shape[2] if x.dim() == 4 else m
+    design = ("tall_f32" if tsmm.tall_width(n, torch.float32)
+              < tsmm.TALL_F32_CROSSOVER else "tall_tf32x3")
+
+    def plain(mode, bias=None, act=None, splits=1, k0=0, k1=k, out=None):
+        return tsmm._torch_tall(x, b, bias, act, mode=mode, splits=splits,
+                                k0=k0, k1=k1, out=out)
+
+    def run():
+        for act in (None, "relu", "silu", "gelu"):
+            _close(tsmm.launch_tall("t", x, b, c, act, mode=tsmm.EPILOGUE),
+                   plain(tsmm.EPILOGUE, c, act), torch.float32)
+        for s in (1, 8):
+            _close(tsmm.launch_tall("t", x, b, None, None, mode=tsmm.RAW_F32,
+                                    splits=s),
+                   plain(tsmm.RAW_F32, splits=s), torch.float32)
+        got = torch.ones((rows, n), device=dev)
+        want = torch.ones((rows, n), device=dev)
+        for k0 in range(0, k, bk):
+            tsmm.launch_tall("t", x, b, None, None, mode=tsmm.ACCUM_F32,
+                             k0=k0, k1=k0 + bk, out=got)
+            plain(tsmm.ACCUM_F32, k0=k0, k1=k0 + bk, out=want)
+        _close(got, want, torch.float32)
+        got = torch.zeros((rows, n), device=dev)
+        want = torch.zeros((rows, n), device=dev)
+        tsmm.launch_tall("t", x, b, c, "silu", mode=tsmm.ACCUM_F32, out=got)
+        plain(tsmm.ACCUM_F32, c, "silu", out=want)
+        _close(got, want, torch.float32)
+
+    _, designs = _designs(run)
+    assert designs == {design: 4 + 2 + k // bk + 1}
+
+
+@pytest.mark.parametrize("design", ["f32", "tf32x3"])
+def test_tall_fp32_every_plan_through_the_c_entry(dev, design):
+    """Every row tile, column tile and ring depth of each fp32 design
+    (what ``launch/tall_sweep.py --dtype float32`` times), through the C
+    interface, against the plain version; the entry refuses a column
+    tile the design does not take, a ring deeper than shared memory and a
+    tf32x3 launch without its scratch."""
+    g = torch.Generator(device=dev).manual_seed(len(design))
+    m, k = 300, 1024
+    lib = cuda.load()["tsmm_tall"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ntiles = (tsmm.TALL_F32_NT if design == "f32" else (8, 48, 64, 120, 128))
+    for nt in ntiles:
+        n = nt if design == "tf32x3" else max(4, nt - 4)
+        a = torch.randn((m, k), generator=g, device=dev)
+        b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+        c = torch.randn((n,), generator=g, device=dev)
+        want = tsmm._torch_tall(a, b, c, "gelu", mode=tsmm.EPILOGUE, splits=1,
+                                k0=0, k1=k, out=None)
+        out = torch.empty((m, n), device=dev)
+        scratch = torch.empty((2, nt, k), device=dev)
+
+        def launch(bm, stages, nt=nt, scratch=scratch.data_ptr()):
+            return lib.tsmm_tall_launch(
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+                scratch, m, k, n, 0, 0, 0, 0, k, 1, tsmm._TALL_DESIGN[design],
+                bm, nt, 1, stages, tsmm.EPILOGUE, 3, 0, stream)
+
+        for bm in (64, 128):
+            for stages in (2, 3, 4, 6):
+                plan = tsmm.TallPlan(design, bm, nt, 1, stages)
+                if tsmm.tall_smem(plan) > tsmm.TALL_SMEM_MAX:
+                    assert launch(bm, stages) != 0
+                    continue
+                out.zero_()
+                cuda.check(launch(bm, stages), "tsmm_tall")
+                _close(out, want, torch.float32)
+        assert launch(128, 4, nt=nt + 4) != 0
+        if design == "tf32x3":
+            assert launch(128, 2, scratch=None) != 0
 
 
 @pytest.mark.parametrize("s", [100, 256, 1024, 2048])
@@ -1062,9 +1173,9 @@ def test_pack_past_2_31_bytes_bit_equal(dev):
 @pytest.mark.parametrize("n", [4, 240])
 def test_paper_planned_row_at_full_size(dev, n):
     """The paper tool's planned row at ``PAPER_WORKLOAD``'s shape: the
-    pack-once tournament's plan, A packed once, the fp32 SIMT tall kernel
-    replayed, held to ``torch.matmul`` (TF32 off) within the K-scaled fp32
-    tolerance."""
+    pack-once tournament's plan, A packed once, the fp32 tall design of its
+    N (``f32`` at 4, ``tf32x3`` at 240) replayed, held to ``torch.matmul``
+    (TF32 off) within the K-scaled fp32 tolerance."""
     from repro_torch.launch import prepack_vs_conventional as pvc
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(n)
@@ -1075,8 +1186,8 @@ def test_paper_planned_row_at_full_size(dev, n):
     assert plan.prepack and plan.chosen_by == "measured"
     (seconds, out), ran = _designs(lambda: pvc.replay(plan, a, b, 2, dev))
     assert seconds > 0 and out.shape == (m, n)
-    assert ran["tall_simt"] and set(ran) <= {"tall_simt", "pack_tma",
-                                             "pack_vec"}
+    tall = {"tall_f32" if n < tsmm.TALL_F32_CROSSOVER else "tall_tf32x3"}
+    assert set(ran) - {"pack_tma", "pack_vec"} == tall
     pvc.check_planned(out, torch.matmul(a, b), k)
 
 

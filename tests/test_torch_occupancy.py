@@ -1,7 +1,8 @@
 """The H100 cost model's repair (pure; the CPU runs what the card would
-plan): the fp32 rate of the port's SIMT kernels, the occupancy term built
-from the launch plans, the fit staying linear in its three coefficients,
-and the pack-once placement of a packed tall A.
+plan): the fp32 rates of the port's kernels (FMA for the skinny SIMT
+kernel and the tall ``f32`` design, a third of TF32 for ``tf32x3``), the
+occupancy term built from the launch plans, the fit staying linear in
+its three coefficients, and the pack-once placement of a packed tall A.
 
 Under the reference's spec (``HwSpec(**asdict(TPU_V5E))``) none of it
 applies: the reference's fp32 rate and scores stand (test_torch_gate.py
@@ -12,16 +13,18 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.hw import TPU_V5E
 from repro_torch.core import autotuner, evaluator, registry
 from repro_torch.core.hw import H100, HwSpec
 from repro_torch.core.plan import Plan, Problem
 from repro_torch.core.registry import MeasureRecord
-from repro_torch.core.smem_model import (call_pack_bytes, compute_time_s,
-                                         features, memory_time_s, occupancy,
-                                         overhead_steps, plan_launches,
-                                         predict)
+from repro_torch.core.smem_model import (TF32X3_ACHIEVED, call_pack_bytes,
+                                         compute_time_s, features,
+                                         launch_rate, memory_time_s,
+                                         occupancy, overhead_steps,
+                                         peak_rate, plan_launches, predict)
 from repro_torch.kernels import tsmm as K
 
 PORT_TPU = HwSpec(**dataclasses.asdict(TPU_V5E))
@@ -53,15 +56,34 @@ def _score_without_occupancy(plan, hw):
 
 
 def test_fp32_peak_is_the_simt_rate_not_a_tpu_ratio():
+    """fp32 FMA at the data sheet's 67 TFLOP/s (the skinny SIMT kernel and
+    the tall ``f32`` design); the tall ``tf32x3`` design bounded by a
+    third of TF32's 495 and priced at the share of it the design reaches;
+    each over its launch's padded width."""
     assert H100.peak_flops("float32") == 67e12
     assert H100.peak_flops("float32") != H100.peak_flops_bf16 / 4
     assert H100.peak_flops("bfloat16") == 989e12
     # a spec rebuilt from the reference's fields keeps its rate
     assert PORT_TPU.peak_flops("float32") == TPU_V5E.peak_flops_f32
-    plan = autotuner.candidate_blocks(Problem(16384, 1024, 128, "float32"),
-                                      H100)[0]
-    assert compute_time_s(plan, H100) == pytest.approx(
-        2 * 16384 * 1024 * 128 / 67e12)
+    x3 = 495e12 / 3
+    assert 0 < TF32X3_ACHIEVED <= 1
+    for n, design, rate in ((16, "f32", 67e12), (4, "f32", 67e12),
+                            (128, "tf32x3", x3 * TF32X3_ACHIEVED),
+                            (240, "tf32x3", x3 * TF32X3_ACHIEVED)):
+        plan = autotuner.candidate_blocks(Problem(16384, 1024, n, "float32"),
+                                          H100)[0]
+        (entry,) = [e for e in plan_launches(plan, H100)
+                    if e[0] == "tsmm_tall"]
+        assert entry[4].design == design
+        assert launch_rate(entry[4], "float32", H100) == rate
+        assert peak_rate(entry[4], "float32", H100) == (
+            x3 if design == "tf32x3" else 67e12)
+        m, k, width = entry[6]
+        assert width == K.tall_width(n, torch.float32) < 128 + n
+        assert compute_time_s(plan, H100) == pytest.approx(
+            2 * m * k * width / rate)
+    # the reference's fields price every fp32 launch at its fp32 rate
+    assert launch_rate(entry[4], "float32", PORT_TPU) == TPU_V5E.peak_flops_f32
 
 
 @pytest.mark.parametrize("prob", PROBLEMS, ids=lambda p: p.key())
@@ -96,14 +118,23 @@ def test_whole_waves_score_one():
     assert occupancy(plan, H100) == 1.0
     for hw in (H100, CALIBRATED):
         assert predict(plan, hw).score == _score_without_occupancy(plan, hw)
-    # two and a half waves of the fp32 SIMT tall kernel (64 x 128 tiles,
-    # two CTAs an SM): the last half wave's idle slots are priced
-    slots = sms * K.TALL_SIMT_CTAS[(64, 128)]
-    plan = Plan(Problem(64 * slots * 5 // 2, 1024, 128, "float32"), "tall_a",
+    # two and a half waves of the fp32 tall kernel (the f32 design at N =
+    # 16: 128 x 16 tiles, one CTA an SM): the last half wave's idle SMs
+    # are priced
+    plan = Plan(Problem(128 * sms * 5 // 2, 1024, 16, "float32"), "tall_a",
                 256, 1024, 128, prepack=False)
     (entry,) = plan_launches(plan, H100)
-    assert (entry[4].design, entry[4].bm, entry[4].nt) == ("simt", 64, 128)
+    assert (entry[4].design, entry[4].bm, entry[4].nt) == ("f32", 128, 16)
+    assert K.fill_ctas(entry[4]) == 1
     assert occupancy(plan, H100) == pytest.approx(3 / 2.5)
+    # one whole wave of the tf32x3 design (two 120-column tiles): 1
+    plan = Plan(Problem(64 * sms, 1024, 240, "float32"), "tall_a", 64 * 12,
+                1024, 128, prepack=False)
+    (entry,) = plan_launches(plan, H100)
+    assert (entry[4].design, entry[4].bm, entry[4].nt) == ("tf32x3", 128,
+                                                           120)
+    assert K.grid_ctas(entry[4], *entry[6][::2], entry[2]) == sms
+    assert occupancy(plan, H100) == 1.0
     # the reference's gate prices no occupancy
     assert occupancy(plan, PORT_TPU) == 1.0
 

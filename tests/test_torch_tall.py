@@ -194,3 +194,59 @@ def test_tall_dispatch_matches_pallas_interpret(spec, packed, dtype, act):
                               packed=packed)
     assert got.dtype == getattr(torch, dtype)
     _check(got, want, dtype, k)
+
+
+# fp32 at narrow N: the port pads B to ``tall_width`` (8, 24, 200 columns),
+# where the reference pads every dtype to 128; both slice the result back
+NARROW_N = (4, 24, 200)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n", NARROW_N)
+def test_fp32_tall_a_at_narrow_n_matches_pallas_interpret(n, packed):
+    """``tsmm_tall_a`` / ``tsmm_packed_a`` through the padding wrappers,
+    ragged M, bias and SiLU."""
+    m, k = 300, 384
+    (ja, jb, jc), (ta, tb, tc) = _inputs(m, k, n, "float32", seed=8)
+    if packed:
+        want = ref_ops.tsmm_packed(ref_ops.pack_blocks(ja, 128, 128), jb, jc,
+                                   act="silu", impl="pallas_interpret")
+        got = ops.tsmm_packed(ops.pack_blocks(ta, 128, 128), tb, tc,
+                              act="silu")
+    else:
+        want = ref_ops.tsmm(ja, jb, jc, bm=128, bk=128, act="silu",
+                            impl="pallas_interpret")
+        got = ops.tsmm(ta, tb, tc, bm=128, bk=128, act="silu")
+    assert ops.pad_tall(ta, tb, 128, 128)[1].shape[1] == tsmm.tall_width(
+        n, torch.float32) < 128 + n
+    _check(got, want, "float32", k)
+
+
+NARROW_POINTS = {"b_resident": {}, "ksplit": {"splits": 4}, "kmajor": {}}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("point", ["b_resident", "revisit", "ksplit",
+                                   "kmajor"])
+@pytest.mark.parametrize("n", NARROW_N)
+def test_fp32_tall_points_at_narrow_n_match_pallas_interpret(n, point,
+                                                             packed):
+    """The three tall grammar kernels (``_tall_kinner`` epilogue and
+    revisit, ``_tall_ksplit``, ``_tall_kouter``) through ``run_tall_a``
+    in fp32 at N = 4, 24, 200, bias and GELU."""
+    m, k = 256, 512
+    (ja, jb, jc), (ta, tb, tc) = _inputs(m, k, n, "float32", seed=9)
+    if point == "revisit":
+        rspec = ref_variants.parse_spec("gen:acc=revisit")
+        spec = variants.parse_spec("gen:acc=revisit")
+    else:
+        rspec = ref_variants.KernelSpec.make(point, **NARROW_POINTS[point])
+        spec = variants.KernelSpec.make(point, **NARROW_POINTS[point])
+    if packed:
+        ja, ta = ref_ops.pack_blocks(ja, BM, BK), ops.pack_blocks(ta, BM, BK)
+    want = ref_variants.run_tall_a(rspec, ja, jb, jc, "gelu", bm=BM, bk=BK,
+                                   packed=packed, impl="pallas_interpret")
+    got = variants.run_tall_a(spec, ta, tb, tc, "gelu", bm=BM, bk=BK,
+                              packed=packed)
+    assert got.dtype == torch.float32
+    _check(got, want, "float32", k)
