@@ -12,10 +12,10 @@ printing JSON lines:
                 ``cuobjdump -sass`` counts each library's tensor-core
                 (``HGMMA``) and TMA (``UTMALDG``/``UTMASTG``/``UBLKCP``)
                 instructions; the bf16 skinny (wgmma and stream), tall
-                and flash kernels and the fp32 tall 3xTF32 kernel must
-                have wgmma and a TMA load, the fp32 tall FMA kernel a TMA
-                load, the pack kernel's TMA design a TMA load and a TMA
-                or bulk store;
+                and flash kernels and the fp32 skinny and tall 3xTF32
+                kernels must have wgmma and a TMA load, the fp32 skinny
+                and tall FMA kernels a TMA load, the pack kernel's TMA
+                design a TMA load and a TMA or bulk store;
 3. install    — the install-time stage at full width into a temporary
                 plan cache (``repro_torch.core.install``): ``--measure``
                 for qwen1.5-4b (buckets 1, 2, 4; prompts to 256),
@@ -40,6 +40,8 @@ printing JSON lines:
                 calibration_quality.py``'s ``run`` as the tool runs it; its
                 assert (the calibrated model ranks the gate problems'
                 short lists better than the data-sheet model) must hold;
+                its fp32 skinny context problems run the fp32 skinny
+                designs;
 3b. paper     — the paper's experiment at its full size
                 (``configs/tsmm_paper.py``'s ``PAPER_WORKLOAD``: A 25600 x
                 25600 fp32 made on the card from a seeded generator, N
@@ -67,8 +69,14 @@ printing JSON lines:
                 load) and at DeepSeek-V2's largest leaf at load, flash
                 attention at qwen's, OLMoE's and GLM-4-9B's
                 prefill, GLM-4-9B's at both of its groups, and at
-                Zamba2-2.7B's head dim 80) against its plain
-                PyTorch version
+                Zamba2-2.7B's head dim 80; and the three skinny-A
+                functions in fp32 at m = 1-2048 over the gate's two fp32
+                context widths, qwen1.5-4b's gate / up projection and
+                the fp32 parity paths' largest K, on ``f32`` or
+                ``tf32x3``: packed and natural W, bias and each
+                activation, raw sums and k-splits 2 and 4, within
+                ``F32_TOL``, beside ``torch.matmul`` with TF32 off)
+                against its plain PyTorch version
                 on the same inputs (max error within the stated
                 tolerance; the pack bit-equal), with the design that ran
                 it, kernel, plain and library times (CUDA events, L2
@@ -93,7 +101,9 @@ printing JSON lines:
                 shared block serves two K/V caches; 1 x 256, flash's
                 SIMT kernel at D 80), float32: prefill + 4 decode steps
                 on the card (kernels) against the port on the CPU (plain
-                versions) with the same packed weights;
+                versions) with the same packed weights; every skinny
+                launch on ``f32`` (decode) or ``tf32x3`` (prefill), and
+                both designs run;
 7. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
@@ -109,7 +119,7 @@ printing JSON lines:
                 ``generate`` (a token that differs must be a near-tie:
                 the logits it was chosen from agree with the solo run's
                 within ``F32_TOL`` and the two tokens' logits are within
-                it);
+                it); every skinny launch on ``f32`` or ``tf32x3``;
 10. queue     — qwen1.5-4b at full width and depth, bf16, on a queue
                 engine of its own (4 slots, prompts to 256, ``max_len`` by
                 the ragged rule, its 57 cells captured at load): 16
@@ -200,8 +210,10 @@ it off both; ``launches_by_path`` adds the paper, queue, MoE and SSM
 paths'; flash's row carries its D = 80 case with its launches on
 serve.zamba2; each tall row the paper's planned rows it ran and the fp32
 rows at N = 4, 32, 128, 240 (``f32`` or ``tf32x3``: ms, device_ms, the
-bound at the design's rate beside the FMA bound, torch.matmul), and the
-pack row its case at the paper's shape) and,
+bound at the design's rate beside the FMA bound, torch.matmul), each
+skinny row its ``fp32_skinny`` cases and its fp32 launches on the
+install, gate, parity and queue.parity paths, and the pack row its case
+at the paper's shape) and,
 last, the ``{"ok": true, ...}`` line.  Any failure
 raises and exits non-zero before the last line.
 """
@@ -288,19 +300,23 @@ def _cuobjdump() -> str:
 # TMA loads, TMA tile stores and bulk copies
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
 # the Hopper kernels of each library that must carry wgmma and a TMA load
-# (the bf16 designs, and fp32 tall-A's 3xTF32 design)
-WGMMA_KERNELS = {"tsmm_skinny": ("skinny_wgmma_kernel", "skinny_stream_kernel"),
+# (the bf16 designs, and the fp32 skinny-A and tall-A 3xTF32 designs)
+WGMMA_KERNELS = {"tsmm_skinny": ("skinny_wgmma_kernel", "skinny_stream_kernel",
+                                 "skinny_tf32x3_kernel"),
                  "tsmm_tall": ("tall_wgmma_kernel", "tall_tf32x3_kernel"),
                  "flash_attention": ("flash_wgmma",)}
-# the FMA kernels fed by TMA that must carry a TMA load (fp32 tall-A's
-# narrow-N design)
-TMA_LOAD_KERNELS = {"tsmm_tall": ("tall_f32_kernel",)}
+# the FMA kernels fed by TMA that must carry a TMA load (fp32 skinny-A's
+# few-row and tall-A's narrow-N designs)
+TMA_LOAD_KERNELS = {"tsmm_tall": ("tall_f32_kernel",),
+                    "tsmm_skinny": ("skinny_f32_kernel",)}
 # the TMA kernels that must carry a TMA load and a TMA or bulk store
 TMA_COPY_KERNELS = {"pack_blocks": ("pack_tma_kernel",)}
-# the designs an fp32 path may run: FMA (the SIMT kernels, tall-A's f32)
-# and tall-A's 3xTF32
-FP32_DESIGNS = {"skinny_simt", "flash_simt", "tall_f32", "tall_tf32x3"}
+# the designs an fp32 path may run: FMA (skinny-A's and tall-A's f32,
+# flash's SIMT kernel) and skinny-A's and tall-A's 3xTF32; every fp32
+# skinny-A launch runs one of FP32_SKINNY_DESIGNS
+FP32_SKINNY_DESIGNS = {"skinny_f32", "skinny_tf32x3"}
 FP32_TALL_DESIGNS = {"tall_f32", "tall_tf32x3"}
+FP32_DESIGNS = FP32_SKINNY_DESIGNS | FP32_TALL_DESIGNS | {"flash_simt"}
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -391,8 +407,8 @@ def check_wgmma(path: str, launches: dict, designs: dict) -> None:
     got = {"skinny": designs.get("skinny_wgmma", 0)
            + designs.get("skinny_stream", 0),
            **{k: designs.get(k, 0) for k in ("tall_wgmma", "flash_wgmma")}}
-    simt = {k: designs[k] for k in FP32_DESIGNS if designs.get(k)}
-    if got != want or simt:
+    fp32 = {k: designs[k] for k in FP32_DESIGNS if designs.get(k)}
+    if got != want or fp32:
         raise AssertionError(f"{path}: design launches {designs} do not put "
                              f"every skinny launch on wgmma / stream and "
                              f"every tall / flash launch on wgmma ({want})")
@@ -407,6 +423,30 @@ def check_pack(path: str, launches: dict, designs: dict) -> None:
         raise AssertionError(f"{path}: pack designs {packs} do not cover "
                              f"its {launches.get('pack_blocks', 0)} pack "
                              f"launches with the TMA and vec designs")
+
+
+# the fp32 skinny-A design launches of each path that runs them (install,
+# gate, the parity phases, queue.parity) and, on the fp32-only paths (the
+# parity phases, queue.parity), each skinny kernel's launches, for the
+# kernels line
+FP32_PATHS = {}
+
+
+def check_fp32(path: str, launches: dict, designs: dict) -> None:
+    """An fp32 path ran fp32 designs only, every skinny-A launch on
+    ``f32`` or ``tf32x3``; its skinny design launches go to
+    ``FP32_PATHS``."""
+    skinny = sum(launches.get(k, 0) for k in SKINNY)
+    ran = {k: v for k, v in designs.items() if k in FP32_SKINNY_DESIGNS}
+    FP32_PATHS[path] = {"designs": ran,
+                        "launches": {k: launches.get(k, 0) for k in SKINNY}}
+    if (set(designs) - FP32_DESIGNS - {"pack_tma", "pack_vec"}
+            or sum(ran.values()) != skinny):
+        raise AssertionError(f"{path}: fp32 design launches {designs} do "
+                             f"not put its {skinny} skinny launches on "
+                             f"{sorted(FP32_SKINNY_DESIGNS)} and nothing on "
+                             f"a bf16 design")
+    check_pack(path, launches, designs)
 
 
 def bound(moved_bytes, flops) -> tuple:
@@ -563,6 +603,7 @@ def phase_kernels(timer):
         del w, wp, bias
         torch.cuda.empty_cache()
 
+    cases += skinny_fp32_cases(timer, g, worst)
     cases += tall_cases(timer, g, worst)
     cases += pack_cases(timer, g, worst)
 
@@ -610,6 +651,124 @@ def phase_kernels(timer):
     for c in cases:
         emit({"phase": "kernels", **c})
     return cases, worst
+
+
+# fp32 skinny-A (K, N) and the m each is checked at: the calibration
+# gate's two fp32 context widths and qwen1.5-4b's gate / up projection at
+# decode and prefill rows around the designs' crossover, and the largest
+# K of the fp32 parity paths (DeepSeek-V2's MLA wo) at its decode and
+# prefill rows
+FP32_SKINNY_SHAPES = (
+    [(k, n, (1, 4, 16, 32, 64, 256, 2048))
+     for k, n in ((4096, 2048), (8192, 1024), (2560, 6912))]
+    + [(16384, 5120, (1, 128))])
+
+
+def skinny_fp32_cases(timer, g, worst):
+    """The three skinny-A functions in fp32 at ``FP32_SKINNY_SHAPES``:
+    packed and natural W, mode 0 with bias and each activation, mode 1
+    raw and at splits 2 and 4, each against its plain version at
+    ``F32_TOL`` and timed beside ``torch.matmul`` (TF32 off) and its bound
+    at the design's data-sheet rate (FMA 67 TFLOP/s for ``f32``, 495 / 3
+    for ``tf32x3``) with the FMA bound beside it."""
+    import torch
+    from repro_torch.core.hw import H100
+    from repro_torch.core.smem_model import peak_rate
+    from repro_torch.kernels import gen, ops, tsmm
+
+    cases = []
+    for k, n, ms in FP32_SKINNY_SHAPES:
+        w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+        bk = bn = 128
+        wp = ops.pack_blocks(w, bk, bn)
+        bias = 0.1 * torch.randn((n,), generator=g, device="cuda")
+        for m in ms:
+            x = torch.randn((m, k), generator=g, device="cuda")
+
+            def plain(wq, b, act, natural=False, splits=1, mode=tsmm.EPILOGUE):
+                return lambda: tsmm._torch_skinny(
+                    x, wq, b, act, natural=natural, splits=splits, mode=mode)
+
+            modes = {
+                # name: (kernel counter, kernel call, plain call)
+                "baseline": ("tsmm_skinny_a",
+                             lambda: tsmm.tsmm_skinny_a(x, wp, bias, act="silu"),
+                             plain(wp, bias, "silu")),
+                "natural": ("skinny_kinner",
+                            lambda: gen._skinny_kinner(
+                                x, w, bias, bk=bk, bn=bn, act="gelu",
+                                natural=True, resident=False, revisit=False),
+                            plain(w, bias, "gelu", natural=True)),
+                "resident": ("skinny_kinner",
+                             lambda: gen._skinny_kinner(
+                                 x, wp, bias, bk=bk, bn=bn, act="relu",
+                                 natural=False, resident=True, revisit=False),
+                             plain(wp, bias, "relu")),
+                "split_epi": ("skinny_kinner",
+                              lambda: gen._skinny_kinner(
+                                  x, wp, None, bk=bk, bn=bn, act=None,
+                                  natural=False, resident=False,
+                                  revisit=False),
+                              plain(wp, None, None)),
+                "revisit": ("skinny_kinner",
+                            lambda: gen._skinny_kinner(
+                                x, wp, None, bk=bk, bn=bn, act=None,
+                                natural=False, resident=False, revisit=True),
+                            lambda: tsmm._torch_skinny(
+                                x, wp, None, None, natural=False, splits=1,
+                                mode=tsmm.RAW_F32)[0]),
+            }
+            for sp in (2, 4):
+                modes[f"ksplit{sp}"] = (
+                    "skinny_ksplit",
+                    lambda sp=sp: gen._skinny_ksplit(
+                        x, wp, bk=bk, bn=bn, splits=sp, natural=False,
+                        resident=False),
+                    plain(wp, None, None, splits=sp, mode=tsmm.RAW_F32))
+            iters = 3 if m * n >= 256 * 6912 else 5
+            for mode, (name, kern, plainf) in modes.items():
+                with Designs() as d:
+                    got = kern()
+                want = plainf()
+                torch.cuda.synchronize()
+                ok, err = within(got, want, **F32_TOL)
+                design = design_of(d.ran)
+                if not ok or f"skinny_{design}" not in FP32_SKINNY_DESIGNS:
+                    raise AssertionError(
+                        f"{name}/{mode} fp32 m={m} K={k} N={n} ({design}): "
+                        f"max |err| {err} outside {F32_TOL}")
+                worst[f"{name}.fp32"] = max(worst.get(f"{name}.fp32", 0.0),
+                                            err)
+                splits = int(mode[6:]) if mode.startswith("ksplit") else 1
+                lp = tsmm.skinny_plan(
+                    m, k, n, dtype=torch.float32, natural=mode == "natural",
+                    bk=bk, bn=bn, mode=tsmm.RAW_F32 if splits > 1
+                    else tsmm.EPILOGUE, splits=splits, kps=k // splits,
+                    sms=torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+                # each input read once (fp32 X, W, bias), the output written
+                # once (fp32 sums, or the partial slabs)
+                moved = 4 * (m * k + k * n + n) + got.numel() * 4
+                t_ops = 2 * m * k * n / peak_rate(lp, "float32", H100)
+                t_bytes = moved / HBM_BYTES_PER_S
+                cases.append({
+                    "kernel": name, "mode": mode, "dtype": "float32",
+                    "design": design, "launch_plan": dataclasses.asdict(lp),
+                    "m": m, "K": k, "N": n, "max_abs_err": err,
+                    "tol": F32_TOL, "ms": timer(kern, iters=iters),
+                    "device_ms": timer(kern, iters=iters, device=True),
+                    "plain_ms": timer(plainf, iters=iters),
+                    "library_ms": timer(lambda: torch.matmul(x, w),
+                                        iters=iters),
+                    "bound_ms": 1e3 * max(t_ops, t_bytes),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bound_ms_fma": 1e3 * max(
+                        t_bytes, 2 * m * k * n / H100.peak_flops("float32"))})
+                del got, want
+            del x
+        del w, wp, bias
+        torch.cuda.empty_cache()
+    return cases
 
 
 GLM_KV = (2048, 4096, 256)     # GLM-4-9B's wk/wv at a 2048-token prefill
@@ -954,6 +1113,8 @@ def phase_install():
           "launches": launches, "design_launches": designs})
     if absent:
         raise AssertionError(f"install: no launch of {absent}")
+    FP32_PATHS["install"] = {"designs": {k: v for k, v in designs.items()
+                                         if k in FP32_SKINNY_DESIGNS}}
     return launches
 
 
@@ -969,12 +1130,15 @@ def phase_gate():
     # measurements must be on disk first
     registry.flush()
     t0 = time.perf_counter()
-    blob = calibration_quality.run(
-        device="cuda",
-        json_path=os.path.join(ROOT, "build", "bench",
-                               "calibration_quality.json"))
+    with Designs() as d:
+        blob = calibration_quality.run(
+            device="cuda",
+            json_path=os.path.join(ROOT, "build", "bench",
+                                   "calibration_quality.json"))
+    FP32_PATHS["gate"] = {"designs": {k: v for k, v in d.ran.items()
+                                      if k in FP32_SKINNY_DESIGNS}}
     emit({"phase": "gate", "seconds": time.perf_counter() - t0,
-          **blob["rows"]})
+          "design_launches": d.ran, **blob["rows"]})
 
 
 def phase_paper(timer):
@@ -1147,10 +1311,7 @@ def phase_parity(cfg, batch, prompt_len, cut=None):
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
           "cpu_s": cpu_s, "gpu_s": gpu_s, "launches": launches,
           "design_launches": designs})
-    if set(designs) - FP32_DESIGNS - {"pack_tma", "pack_vec"}:
-        raise AssertionError(f"parity {cfg.name}: fp32 ran a bf16 design "
-                             f"{designs}")
-    check_pack(f"parity {cfg.name}", launches, designs)
+    check_fp32(f"parity.{cfg.name}", launches, designs)
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"parity {cfg.name}: non-finite logits on the "
                              f"card")
@@ -1741,9 +1902,7 @@ def phase_queue_parity(cfg, device="cuda"):
                                                      for r in results):
         raise AssertionError("queue.parity: no request joined a running "
                              "batch")
-    if set(designs) - FP32_DESIGNS - {"pack_tma", "pack_vec"}:
-        raise AssertionError(f"queue.parity: fp32 ran a bf16 design "
-                             f"{designs}")
+    check_fp32("queue.parity", launches, designs)
     return launches
 
 
@@ -2076,6 +2235,12 @@ def run():
         phase_parity(dataclasses.replace(get_config(arch), num_layers=layers,
                                          dtype="float32"), 1, 256,
                      cut={"num_layers": layers})
+    parity_designs = {d for p, v in FP32_PATHS.items()
+                      if p.startswith("parity.") for d in v["designs"]}
+    if parity_designs != FP32_SKINNY_DESIGNS:
+        raise AssertionError(f"the fp32 parity paths ran skinny designs "
+                             f"{sorted(parity_designs)}, not both of "
+                             f"{sorted(FP32_SKINNY_DESIGNS)}")
     qwen_launches, _ = phase_serve("serve")
     glm_launches, glm_load = phase_serve("serve.glm4")
     phase_queue_parity(dataclasses.replace(get_config("qwen1_5_4b"),
@@ -2122,6 +2287,7 @@ def run():
     for name, (src, rep) in KERNELS.items():
         want, path, launches = picks[name]
         c = next(c for c in cases if c["kernel"] == name
+                 and c.get("dtype") != "float32"
                  and all(c.get(k) == v for k, v in want.items()))
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "design": c["design"],
@@ -2182,6 +2348,25 @@ def run():
         if r["name"] in TALL:
             r["fp32"] = fp32
     pack["paper"] = paper_pack
+    # each skinny row also carries its fp32 cases (``f32`` / ``tf32x3``:
+    # ms, device_ms, plain, torch.matmul, the bound at the design's rate
+    # beside the FMA bound), its launches on each fp32-only path and the
+    # fp32 designs each path ran (the install and gate paths run bf16
+    # launches of the same kernels too)
+    fp32_fields = ("mode", "design", "launch_plan", "m", "K", "N",
+                   "max_abs_err", "ms", "device_ms", "plain_ms",
+                   "library_ms", "bound_ms", "bound_by", "bound_ms_fma")
+    for r in line:
+        if r["name"] in SKINNY:
+            r["fp32_skinny"] = [
+                {k: c[k] for k in fp32_fields} for c in cases
+                if c["kernel"] == r["name"] and c.get("dtype") == "float32"]
+            r["fp32_max_abs_err"] = worst[f"{r['name']}.fp32"]
+            r["fp32_launches_by_path"] = {
+                p: v["launches"][r["name"]] for p, v in FP32_PATHS.items()
+                if "launches" in v}
+            r["fp32_design_launches_by_path"] = {
+                p: v["designs"] for p, v in FP32_PATHS.items()}
     # the flash row also carries Zamba2's head dim (80) at its prefill,
     # with its launches on that path
     flash = next(r for r in line if r["name"] == "flash_attention")

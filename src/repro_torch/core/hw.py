@@ -20,14 +20,14 @@ other and the cost model ranks identically.  On the H100 the fields read:
 part), read from the device on a card.
 
 ``peak_flops_fp32`` is the float32 rate of the kernels that take float32
-on FMA units: the fp32 skinny kernel (SIMT) and the tall kernel's
-narrow-N ``f32`` design.  On the H100 it is the data sheet's FP32 rate
+on FMA units: the ``f32`` designs of the skinny kernel (few rows) and of
+the tall kernel (narrow N).  On the H100 it is the data sheet's FP32 rate
 outside the tensor cores, 67 TFLOP/s, not a fraction of the bf16
 tensor-core peak.  0 keeps the reference's rate, bf16 / 4 (its matrix
 unit runs fp32 in passes), so a spec rebuilt from the reference's fields
 ranks as the reference does.  ``peak_flops_tf32`` is the TF32
-tensor-core rate (H100: 495 TFLOP/s); the tall kernel's ``tf32x3``
-design does three TF32 products for each fp32 one, so its bound is a
+tensor-core rate (H100: 495 TFLOP/s); the ``tf32x3`` designs (skinny
+and tall) do three TF32 products for each fp32 one, so their bound is a
 third of it (``smem_model.peak_rate``) and the cost model prices it at
 the share of that the design reaches (``smem_model.launch_rate``).  0
 (the reference's fields) prices every fp32 launch at the fp32 rate.

@@ -261,7 +261,8 @@ def main(argv=None) -> dict:
         # the kernel grammar's self-check on the device: an unemittable or
         # numerically broken grammar point or schedule fails the workflow
         # before a tuned registry can point serving at it.  The card runs
-        # both dtypes (fp32: SIMT kernels, bf16: the Hopper designs)
+        # both dtypes (fp32: the f32 and tf32x3 designs, bf16: wgmma and
+        # stream)
         from repro_torch.kernels.variants import (verify_schedules,
                                                   verify_variants)
         rows = []

@@ -378,19 +378,20 @@ def hbm_traffic_bytes(plan: Plan, *, epilogue: str = "fused") -> int:
     return total
 
 
-# The share of its data-sheet rate (a third of TF32's) the tall kernel's
-# tf32x3 design reaches where its tensor work dominates: 76-88 of 165
-# TFLOP/s at the paper's N = 128-240 (launch/tall_sweep.py --dtype
-# float32, PERF.md §6), the ring drained at every 32-deep stage to add the
-# stage's sums with round-to-nearest.  Priced at the data sheet's rate the
-# max() roofline ranked the calibration gate's fp32 short lists above what
-# the fit could reach, and the gate failed on the card (PERF.md §6).
+# The share of its data-sheet rate (a third of TF32's) a tf32x3 design
+# reaches where its tensor work dominates: tall, 76-88 of 165 TFLOP/s at
+# the paper's N = 128-240 (launch/tall_sweep.py --dtype float32); skinny,
+# 80-94 at m = 2048 (launch/skinny_sweep.py --dtype float32; PERF.md §6),
+# the ring drained at every 32-deep stage to add the stage's sums with
+# round-to-nearest.  Priced at the data sheet's rate the max() roofline
+# ranked the calibration gate's fp32 short lists above what the fit could
+# reach, and the gate failed on the card (PERF.md §6).
 TF32X3_ACHIEVED = 0.5
 
 
 def peak_rate(lp, dtype: str, hw: HwSpec = H100) -> float:
     """The data sheet's rate (FLOP/s of the fp32 product) of a TSMM
-    launch of launch plan ``lp``: the tall kernel's ``tf32x3`` design a
+    launch of launch plan ``lp``: a ``tf32x3`` design (tall or skinny) a
     third of the TF32 tensor-core rate (three TF32 products for each fp32
     one), every other design the dtype's rate (fp32: FMA; bf16: the bf16
     tensor cores).  The bound of a launch (``bound_ms``) divides by it."""
@@ -444,11 +445,11 @@ def memory_time_s(plan: Plan, hw: HwSpec = H100) -> float:
 def occupancy(plan: Plan, hw: HwSpec = H100) -> float:
     """How much longer the plan's kernel runs than a launch that fills
     the card, >= 1: under the launch gate, for each TSMM launch of
-    :func:`plan_launches`, its CTAs against the ``hw.sm_count`` SMs times
-    the CTAs each SM must hold to run the design at its rate
-    (``kernels/tsmm.py::fill_ctas``: one for the TMA designs, every CTA
-    the registers allow for the SIMT kernels), quantised to whole waves:
-    ``ceil(ctas / slots) * slots / ctas``; the largest over the launches.
+    :func:`plan_launches`, its CTAs (``kernels/tsmm.py::grid_ctas``, the
+    cluster's included) against the ``hw.sm_count`` SMs (every design
+    runs at its rate from one CTA an SM: its TMA ring keeps the loads in
+    flight), quantised to whole waves: ``ceil(ctas / sms) * sms /
+    ctas``; the largest over the launches.
     A launch that fills every SM in whole waves scores 1, so its plan
     scores as it did before the term.  1 under the reference's gate.
 
@@ -468,8 +469,7 @@ def occupancy(plan: Plan, hw: HwSpec = H100) -> float:
             continue
         lp, (m, _, n) = entry[4], entry[6]
         ctas = kt.grid_ctas(lp, m, n, entry[2])
-        slots = sms * kt.fill_ctas(lp)
-        occ = max(occ, _ceil(ctas, slots) * slots / ctas)
+        occ = max(occ, _ceil(ctas, sms) * sms / ctas)
     return occ
 
 

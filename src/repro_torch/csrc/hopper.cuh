@@ -207,6 +207,14 @@ __device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float a, float b
                :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
 }
 
+// 4 fp32 values from `addr` in the cluster's shared window (mapa)
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
 }
@@ -504,5 +512,35 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 3xTF32: the three products of one k8 step into one W-wide piece (8 .. 64
+// columns) of an fp32 product whose A (registers) and B (shared memory)
+// are each split into big = to_tf32(x) and small = to_tf32(x - big):
+// small.big and big.small first, then big.big, so a product keeps ~2^-21
+// of relative error; `add` 0 makes the first overwrite the accumulator.
+template <int W>
+__device__ __forceinline__ void tf32x3_step(float (&acc)[32], const uint32_t (&ab)[4],
+                                            const uint32_t (&as)[4], uint64_t dbig,
+                                            uint64_t dsmall, int add) {
+  auto mma = [&](const uint32_t(&a)[4], uint64_t db, int scale_d) {
+    if constexpr (W == 8) wgmma_rs_tf32_n8(acc, a, db, scale_d);
+    else if constexpr (W == 16) wgmma_rs_tf32_n16(acc, a, db, scale_d);
+    else if constexpr (W == 24) wgmma_rs_tf32_n24(acc, a, db, scale_d);
+    else if constexpr (W == 32) wgmma_rs_tf32_n32(acc, a, db, scale_d);
+    else if constexpr (W == 40) wgmma_rs_tf32_n40(acc, a, db, scale_d);
+    else if constexpr (W == 48) wgmma_rs_tf32_n48(acc, a, db, scale_d);
+    else if constexpr (W == 56) wgmma_rs_tf32_n56(acc, a, db, scale_d);
+    else wgmma_rs_tf32_n64(acc, a, db, scale_d);
+  };
+  mma(as, dbig, add);
+  mma(ab, dsmall, 1);
+  mma(ab, dbig, 1);
+}
+
+// a barrier over the first `threads` threads of the CTA (a multiple of
+// 32), named `id` (1 .. 15; __syncthreads is 0)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 }  // namespace hopper

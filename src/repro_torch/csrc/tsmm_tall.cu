@@ -395,27 +395,6 @@ tf32_split_kernel(const float* __restrict__ b, float* __restrict__ bt, int N, in
   }
 }
 
-// Three products of one k8 step into one W-wide piece (8 .. 64 columns):
-// small terms first, then big.big; `add` 0 makes the first overwrite it.
-template <int W>
-__device__ __forceinline__ void tf32x3_step(float (&acc)[32], const uint32_t (&ab)[4],
-                                            const uint32_t (&as)[4], uint64_t dbig,
-                                            uint64_t dsmall, int add) {
-  auto mma = [&](const uint32_t(&a)[4], uint64_t db, int scale_d) {
-    if constexpr (W == 8) hopper::wgmma_rs_tf32_n8(acc, a, db, scale_d);
-    else if constexpr (W == 16) hopper::wgmma_rs_tf32_n16(acc, a, db, scale_d);
-    else if constexpr (W == 24) hopper::wgmma_rs_tf32_n24(acc, a, db, scale_d);
-    else if constexpr (W == 32) hopper::wgmma_rs_tf32_n32(acc, a, db, scale_d);
-    else if constexpr (W == 40) hopper::wgmma_rs_tf32_n40(acc, a, db, scale_d);
-    else if constexpr (W == 48) hopper::wgmma_rs_tf32_n48(acc, a, db, scale_d);
-    else if constexpr (W == 56) hopper::wgmma_rs_tf32_n56(acc, a, db, scale_d);
-    else hopper::wgmma_rs_tf32_n64(acc, a, db, scale_d);
-  };
-  mma(as, dbig, add);
-  mma(ab, dsmall, 1);
-  mma(ab, dbig, 1);
-}
-
 // 1 or 2 consumer warpgroups and a producer warpgroup, whose one thread
 // issues the loads.  With 2 consumers the 384 threads get 168 registers
 // each at launch; the producer gives its registers to the consumers (a
@@ -523,9 +502,9 @@ tall_tf32x3_kernel(const __grid_constant__ CUtensorMap amap,
         const uint64_t ds0 = hopper::desc_sw128(small + 32 * kk, 16, 1024);
         const uint64_t db1 = hopper::desc_sw128(big + 64 * 128 + 32 * kk, 16, 1024);
         const uint64_t ds1 = hopper::desc_sw128(small + 64 * 128 + 32 * kk, 16, 1024);
-        tf32x3_step<Q >= 1 ? 64 : TAIL>(acc[0], ab[kk], as[kk], db0, ds0, add);
+        hopper::tf32x3_step<Q >= 1 ? 64 : TAIL>(acc[0], ab[kk], as[kk], db0, ds0, add);
         if constexpr (Q == 2 || (Q == 1 && TAIL > 0))
-          tf32x3_step<Q == 2 ? 64 : TAIL>(acc[1], ab[kk], as[kk], db1, ds1, add);
+          hopper::tf32x3_step<Q == 2 ? 64 : TAIL>(acc[1], ab[kk], as[kk], db1, ds1, add);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();

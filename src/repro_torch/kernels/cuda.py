@@ -11,8 +11,8 @@ parallel, one ``nvcc`` each.
 ``launches`` counts kernel launches by kernel name; each wrapper adds
 one (:func:`count`) where it launches its kernel and nowhere else.
 ``design_launches`` counts the same launches by the design that ran them:
-``skinny_wgmma`` / ``skinny_stream`` / ``skinny_simt``
-(``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_f32`` /
+``skinny_wgmma`` / ``skinny_stream`` / ``skinny_f32`` /
+``skinny_tf32x3`` (``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_f32`` /
 ``tall_tf32x3`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
 (``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
 (``csrc/pack_blocks.cu``).  A launch made while a CUDA graph captures
@@ -111,9 +111,9 @@ def _build_dir() -> Path:
 def _declare(libs: dict) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     f = libs["tsmm_skinny"].tsmm_skinny_launch
-    # x, w, bias, out, m, K, N, ldx, bk, bn, natural, splits, mode, act,
-    # dtype, design, bm, nt, cluster, stages, stream
-    f.argtypes = [p, p, p, p] + [i] * 16 + [p]
+    # x, w, bias, out, scratch, m, K, N, ldx, bk, bn, natural, splits,
+    # mode, act, dtype, design, bm, nt, cluster, stages, stream
+    f.argtypes = [p, p, p, p, p] + [i] * 16 + [p]
     f.restype = i
     f = libs["tsmm_tall"].tsmm_tall_launch
     # a, b, bias, out, scratch, M, K, N, packed, pbm, pbk, kbeg, kps,

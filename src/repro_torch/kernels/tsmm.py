@@ -84,21 +84,84 @@ def _sm_count(index: int) -> int:
 SKINNY_STREAM_M, SKINNY_NT, SKINNY_BK = 8, 128, 64
 SKINNY_WGMMA_STAGES, SKINNY_STREAM_STAGES = 3, 4
 SKINNY_MAX_CLUSTER, SKINNY_MIN_RANK_STAGES = 8, 10
-_SKINNY_DESIGN = {"simt": 0, "wgmma": 1, "stream": 2}
+
+# the fp32 skinny kernel's designs (csrc/tsmm_skinny.cu), both on 32-deep
+# stages (SKINNY_FBK: one 128-byte swizzle row of fp32) with the k range
+# split over a cluster as the bf16 stream's: at most SKINNY_F32_CROSSOVER
+# rows run ``f32``, the TMA-fed FMA stream (bound by W's bytes), on
+# column tiles of SKINNY_F32_NT, a power of two of rows (at least 8, and
+# one a consumer thread row: 512 / nt), rings of SKINNY_F32_STAGES, each
+# rank at least SKINNY_F32_MIN_RANK_STAGES stages; more rows run
+# ``tf32x3`` (3xTF32 on wgmma, bound by the FMA rate) on row tiles of at
+# most SKINNY_X3_ROWS and 128 or 64 W columns, each rank at least
+# SKINNY_X3_MIN_RANK_STAGES stages, its ring as deep as shared memory
+# allows, up to SKINNY_X3_STAGES.  The crossover and the rules are
+# launch/skinny_sweep.py --dtype float32's (PERF.md §6).
+SKINNY_F32_CROSSOVER = 16
+SKINNY_FBK, SKINNY_F32_NT = 32, (128, 64, 32)
+SKINNY_F32_STAGES, SKINNY_F32_MIN_RANK_STAGES = 4, 8
+# the share of the SMs a column tile's 8-CTA clusters must reach for
+# ``f32`` to take it over a narrower one
+SKINNY_F32_FILL = 7 / 8
+SKINNY_X3_ROWS, SKINNY_X3_NT, SKINNY_X3_STAGES = 128, (128, 64), 4
+SKINNY_X3_MIN_RANK_STAGES = 8
+# the share of the SMs a tf32x3 launch's clusters grow to: one CTA of two
+# consumer warpgroups on half the SMs measured faster than on all
+SKINNY_X3_FILL = 0.45
+SKINNY_SMEM_MAX = 232448          # opt-in shared memory of one CTA
+_SKINNY_DESIGN = {"f32": 0, "wgmma": 1, "stream": 2, "tf32x3": 3}
 
 
 @dataclasses.dataclass(frozen=True)
 class SkinnyPlan:
     """How ``csrc/tsmm_skinny.cu`` runs one launch: ``design`` (bf16:
-    ``wgmma`` or ``stream``; fp32: ``simt``), the CTA row tile ``bm`` and
-    column tile ``nt``, the ``cluster`` of CTAs that split each tile's k
-    range (stream) and the ring ``stages`` (bf16).  The grid is
+    ``wgmma`` or ``stream``; fp32: ``f32`` or ``tf32x3``), the CTA row
+    tile ``bm`` (the rows a CTA covers, m padded to it) and column tile
+    ``nt`` (tf32x3: W columns), the ``cluster`` of CTAs that split each
+    tile's k range (stream, f32, tf32x3) and the ring ``stages``.  The
+    grid is
     ceil(m / bm) x n / nt x splits x cluster CTAs."""
     design: str
     bm: int
     nt: int
     cluster: int
     stages: int
+
+
+def _cluster(base: int, ktiles: int, min_stages: int, sms: float) -> int:
+    """The smallest cluster (1, 2, 4, 8) that launches at least ``sms``
+    CTAs over ``base`` tiles, as long as each rank of ``ktiles`` stages
+    keeps at least ``min_stages``."""
+    cluster = 1
+    while (cluster < SKINNY_MAX_CLUSTER and base * cluster < sms
+           and ktiles >= 2 * cluster * min_stages):
+        cluster *= 2
+    return cluster
+
+
+def _fp32_skinny_plan(m: int, n: int, *, natural: bool, bn: int,
+                      splits: int, kps: int, sms: int) -> SkinnyPlan:
+    """The fp32 branch of :func:`skinny_plan` (its layout checks passed)."""
+    fits = [t for t in SKINNY_F32_NT if n % t == 0 and (natural or bn % t == 0)]
+    if m <= SKINNY_F32_CROSSOVER:
+        # the widest tile whose 8-CTA clusters fill the card to
+        # SKINNY_F32_FILL, else the narrowest
+        bm = max(8, 1 << (m - 1).bit_length())
+        nt = next((t for t in fits if (n // t) * splits * SKINNY_MAX_CLUSTER
+                   >= SKINNY_F32_FILL * sms), fits[-1])
+        cluster = _cluster((n // nt) * splits, kps // SKINNY_FBK,
+                           SKINNY_F32_MIN_RANK_STAGES, sms)
+        return SkinnyPlan("f32", max(bm, 512 // nt), nt, cluster,
+                          SKINNY_F32_STAGES)
+    tiles = -(-m // SKINNY_X3_ROWS)
+    bm = -(-m // (8 * tiles)) * 8
+    nt = next(t for t in SKINNY_X3_NT if t in fits)
+    cluster = _cluster(tiles * (n // nt) * splits, kps // SKINNY_FBK,
+                       SKINNY_X3_MIN_RANK_STAGES, SKINNY_X3_FILL * sms)
+    stages = next(s for s in range(SKINNY_X3_STAGES, 1, -1)
+                  if skinny_smem(SkinnyPlan("tf32x3", bm, nt, cluster, s))
+                  <= SKINNY_SMEM_MAX)
+    return SkinnyPlan("tf32x3", bm, nt, cluster, stages)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -119,10 +182,28 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
     SM).  ``launch/skinny_sweep.py`` times every plan these rules choose
     from; the rules were set from its measurements at qwen1.5-4b's and
     GLM-4-9B's projections (PERF.md §6), not from a table of shapes.
-    fp32: the SIMT kernel (8-row CTAs at m <= 8, else 64 x 64 tiles).
-    Raises ValueError on a layout the kernel cannot take: a k range off
-    the 64-deep stage, packed blocks the tile would cut, N off the column
-    tile."""
+
+    fp32, m <= ``SKINNY_F32_CROSSOVER`` (bound by W's bytes): ``f32``, the
+    widest column tile of 128, 64, 32 that divides N (and a packed bn)
+    and whose 8-CTA clusters reach ``SKINNY_F32_FILL`` of the SMs, else
+    the narrowest; the rows m rounded up to a power of two (at least 8
+    and 512 / nt: one a consumer thread row); the cluster by the stream
+    design's rule (each rank at least ``SKINNY_F32_MIN_RANK_STAGES``
+    32-deep stages); a ring of ``SKINNY_F32_STAGES``.  fp32, more rows
+    (bound by the FMA rate): ``tf32x3``, X's rows in the fewest equal
+    tiles of at most ``SKINNY_X3_ROWS`` (a multiple of 8: a wide tile
+    amortises the fixed cost of a stage), 128 W columns where they divide
+    N (and a packed bn), else 64; the smallest cluster that gives
+    ``SKINNY_X3_FILL`` of the SMs a CTA (each rank at least
+    ``SKINNY_X3_MIN_RANK_STAGES`` stages); the deepest ring of up to
+    ``SKINNY_X3_STAGES`` that fits.  ``launch/skinny_sweep.py --dtype
+    float32`` times every plan of both designs; the rules follow its
+    measurements at the gate's and qwen1.5-4b's widths (PERF.md §6).
+
+    Raises ValueError on a layout no design takes (there is no other
+    path): a k range off the stage (bf16 64 deep, fp32 32), packed blocks
+    the tile would cut, N off the column tile (bf16 128, fp32 a multiple
+    of 64)."""
     if m <= 0 or n <= 0 or splits <= 0 or kps <= 0 or kps * splits != k:
         raise ValueError(f"skinny plan: ({m}, {k}, {n}) in {splits} splits "
                          f"of {kps}")
@@ -139,12 +220,8 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
             raise ValueError(f"skinny plan: packed blocks ({bk}, {bn}) are "
                              f"cut by the tile ({SKINNY_BK}, {SKINNY_NT})")
         if m <= SKINNY_STREAM_M:
-            base = (n // SKINNY_NT) * splits
-            ktiles = kps // SKINNY_BK
-            cluster = 1
-            while (cluster < SKINNY_MAX_CLUSTER and base * cluster < sms
-                   and ktiles >= 2 * cluster * SKINNY_MIN_RANK_STAGES):
-                cluster *= 2
+            cluster = _cluster((n // SKINNY_NT) * splits, kps // SKINNY_BK,
+                               SKINNY_MIN_RANK_STAGES, sms)
             return SkinnyPlan("stream", SKINNY_STREAM_M, SKINNY_NT, cluster,
                               SKINNY_STREAM_STAGES)
         tiles = -(-m // 128) * (n // SKINNY_NT) * splits
@@ -154,18 +231,28 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
         raise TypeError(f"skinny plan: dtype {dtype} not supported")
     if n % 64:
         raise ValueError(f"skinny plan: N={n} is not a multiple of 64")
-    return SkinnyPlan("simt", 8 if m <= 8 else 64, 64, 1, 0)
+    if kps % SKINNY_FBK:
+        raise ValueError(f"skinny plan: a k range of {kps} is not a "
+                         f"multiple of the {SKINNY_FBK}-deep fp32 stage")
+    if not natural and (bk % SKINNY_FBK or bn % 64):
+        raise ValueError(f"skinny plan: packed blocks ({bk}, {bn}) are cut "
+                         f"by the fp32 tiles ({SKINNY_FBK}, 64)")
+    return _fp32_skinny_plan(m, n, natural=natural, bn=bn, splits=splits,
+                             kps=kps, sms=sms)
 
 
 def skinny_smem(plan: SkinnyPlan) -> int:
     """Shared memory of one CTA of ``plan``, as ``csrc/tsmm_skinny.cu`` lays
-    it out: the bf16 designs' 1024-aligned ring of (X, W) stages and an
-    mbarrier pair per stage; the SIMT kernels' static tiles (8-row: the X
-    chunk and the per-warp reduction; 64-row: the X and W slices)."""
-    if plan.design == "simt":
-        return 4 * (8 * 512 + 8 * 8 * 64) if plan.bm == 8 \
-            else 4 * 2 * 16 * (64 + 4)
-    stage = plan.bm * SKINNY_BK * 2 + SKINNY_BK * SKINNY_NT * 2
+    it out: 1 KB of alignment slack, then the ring's stages and an
+    mbarrier pair per stage.  A stage: bf16, the X rows x 64 k and 64 k x
+    128 W columns; f32, X's bm rows and W's nt columns x 32 k; tf32x3,
+    W's nt columns and X big and small's bm rows x 32 k (fp32)."""
+    if plan.design == "f32":
+        stage = (plan.bm + plan.nt) * SKINNY_FBK * 4
+    elif plan.design == "tf32x3":
+        stage = (plan.nt + 2 * plan.bm) * SKINNY_FBK * 4
+    else:
+        stage = plan.bm * SKINNY_BK * 2 + SKINNY_BK * SKINNY_NT * 2
     return 1024 + plan.stages * (stage + 16)
 
 
@@ -177,9 +264,11 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
     ``x`` (m, K) contiguous; ``w`` packed (nk, nn, bk, bn) or, with
     ``natural``, (K, N) with N a multiple of ``bn``; ``bias`` (N,) or None.
     :func:`skinny_plan` picks the design (bf16: ``wgmma`` above
-    ``SKINNY_STREAM_M`` rows, ``stream`` at or below; fp32: SIMT) and its
-    launch configuration; a bf16 layout the kernel cannot take
-    (:func:`skinny_plan`, :func:`check_tma`) raises.
+    ``SKINNY_STREAM_M`` rows, ``stream`` at or below; fp32: ``tf32x3``
+    above ``SKINNY_F32_CROSSOVER`` rows, ``f32`` at or below) and its
+    launch configuration; a layout no design takes (:func:`skinny_plan`,
+    :func:`check_tma`) raises.  ``tf32x3`` also gets the scratch its
+    split pass writes X big and small to.
     Returns (m, N) in ``x``'s type, or (splits, m, N) fp32 for
     ``RAW_F32``."""
     if x.device.type == "cpu":
@@ -221,16 +310,20 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
     plan = skinny_plan(m, k, n, dtype=x.dtype, natural=natural, bk=bk, bn=bn,
                        mode=mode, splits=splits, kps=k // splits,
                        sms=_sm_count(x.device.index))
-    if plan.design != "simt":
-        check_tma(x, name, "X")
-        check_tma(w, name, "W")
+    check_tma(x, name, "X")
+    check_tma(w, name, "W")
     out = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
            if mode == RAW_F32 else
            torch.empty((m, n), dtype=x.dtype, device=x.device))
+    # tf32x3: X big and small over the row tiles, written by its split pass
+    scratch = (torch.empty((2, -(-m // plan.bm) * plan.bm, k),
+                           dtype=torch.float32, device=x.device)
+               if plan.design == "tf32x3" else None)
     lib = cuda.load()["tsmm_skinny"]
     rc = lib.tsmm_skinny_launch(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, k, n, k, bk, bn, int(natural), splits, mode,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), m,
+        k, n, k, bk, bn, int(natural), splits, mode,
         _ACT[act], _DTYPE[x.dtype], _SKINNY_DESIGN[plan.design], plan.bm,
         plan.nt, plan.cluster, plan.stages,
         cuda.stream(x.device))
@@ -410,29 +503,12 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
     return TallPlan("tf32x3", bm, nt, 1, stages)
 
 
-# CTAs of one launch an SM must hold at once to run a design at its rate
-# (the cost model's occupancy term, core/smem_model.py::occupancy).  The
-# TMA designs (every tall design; the skinny wgmma and stream) keep their
-# loads in flight from one CTA's ring, so one CTA an SM fills the card.
-# The skinny fp32 SIMT kernel loads synchronously and hides that latency
-# with other warps only, so it needs every CTA an SM can hold, which its
-# registers bound: ptxas -v on csrc/tsmm_skinny.cu (CUDA 12.8;
-# chip_smoke.py's build line prints it), 65536 registers an SM, 256
-# threads a CTA: bm -> 40 (8 rows), 64 (64 rows) registers.
-SKINNY_SIMT_CTAS = {8: 6, 64: 4}
-
-
-def fill_ctas(plan) -> int:
-    """The CTAs a :class:`TallPlan` or :class:`SkinnyPlan` needs on each
-    SM to run at its design's rate (see ``SKINNY_SIMT_CTAS``)."""
-    if plan.design != "simt":
-        return 1
-    return SKINNY_SIMT_CTAS[plan.bm]
-
-
 def grid_ctas(plan, m: int, n: int, splits: int) -> int:
     """CTAs of one launch of ``plan`` over (m, n) outputs in ``splits`` k
-    ranges: ceil(m / bm) x ceil(n / nt) x splits x cluster."""
+    ranges: ceil(m / bm) x ceil(n / nt) x splits x cluster.  Every design
+    (tall and skinny) keeps its loads in flight from one CTA's TMA ring,
+    so one CTA an SM runs it at its rate: the cost model's occupancy term
+    (``core/smem_model.py::occupancy``) sets these CTAs against the SMs."""
     return -(-m // plan.bm) * -(-n // plan.nt) * splits * plan.cluster
 
 

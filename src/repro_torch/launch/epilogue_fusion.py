@@ -8,7 +8,7 @@ tall-A kernel applies bias and activation in its epilogue
 (``csrc/tsmm_tall.cu``, mode 0); a post-hoc epilogue would pay another
 read and write of the (m, n) output.  At the reference's three fp32 gate
 shapes (tall activations x skinny weight, the MLP up-projection case;
-the SIMT kernel on the card) it times both with ``_paired`` (A/B rounds
+the fp32 tall designs on the card) it times both with ``_paired`` (A/B rounds
 in alternating order, the speedup the median of the per-round ratios),
 each call timed by the evaluator (CUDA events after an L2 flush; the
 host clock on the CPU), after holding the two outputs to each other

@@ -19,8 +19,8 @@ assertions run inline:
   candidate set contains every hand-seeded plan, so a failure means the
   measurement itself is broken).
 
-The gate shapes are the reference's three (fp32: the SIMT kernels on the
-card) and two bf16 shapes of the ported models' serving paths (the Hopper
+The gate shapes are the reference's three (fp32: the tall ``f32`` /
+``tf32x3`` designs on the card) and two bf16 shapes of the ported models' serving paths (the Hopper
 designs): GLM-4-9B's K/V projection at a 2048-token prefill and a
 qwen1.5-4b MLP projection at decode batch 4.  Writes the rows as JSON to
 ``build/bench/inner_kernel_select.json`` (or ``--json``).

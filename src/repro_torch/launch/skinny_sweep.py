@@ -1,8 +1,9 @@
-"""Time the bf16 skinny-A kernel (``csrc/tsmm_skinny.cu``) over launch
-plans, on the card.
+"""Time the skinny-A kernel (``csrc/tsmm_skinny.cu``) over launch plans,
+on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.skinny_sweep [--only prefill]
-    PYTHONPATH=src python -m repro_torch.launch.skinny_sweep --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.skinny_sweep --dtype float32 \
+        [--wrapper-only]
 
 At the skinny projections of qwen1.5-4b (K, N in (2560, 2560), (2560,
 6912), (6912, 2560), (2560, 151936)) and GLM-4-9B ((4096, 4096), (4096,
@@ -18,14 +19,28 @@ L2 flush and a device-side sleep before each launch), with
 ``torch.matmul`` on the natural operands timed the same way and the plan
 ``kernels/tsmm.py::skinny_plan`` picks marked.
 
-``--dtype float32``: the fp32 design (SIMT) as it stands, at the
-calibration gate's fp32 context shapes (``launch/calibration_quality.py``:
-(m, K, N) = (16, 4096, 2048) and (32, 8192, 1024), W packed at (128,
-128)), through ``tsmm_skinny_a`` against ``torch.matmul`` (TF32 off) on
-the natural operands, each beside its bound (bytes over 3.35 TB/s
-against 2 m K N over the 67 TFLOP/s of fp32 FMA); a result off the plain
-version by more than 1e-4 + 1e-4 |ref| raises.  Needs a CUDA card; exits
-non-zero without one.
+``--dtype float32``: both fp32 designs (``f32``, the TMA-fed FMA
+stream; ``tf32x3``, 3xTF32 on wgmma) at m = 1, 4, 16, 32, 64, 256 and
+2048 over the calibration gate's fp32 context widths
+(``launch/calibration_quality.py``: (K, N) = (4096, 2048) and (8192,
+1024)) and qwen1.5-4b's gate / up projection (2560, 6912), W packed at
+(128, 128), through the C entry at every plan: ``f32`` at m <= 64 over
+its column tiles (32, 64, 128), clusters (1, 2, 4, 8) and rings (4, 8)
+on its smallest row tile, ``tf32x3`` over row tiles (16, 64 and the
+fewest of at most 128), 64 or 128 W columns and clusters on a ring of 4,
+and the pick.  Each plan's output is held to the plain version within
+1e-4 + 1e-4 |ref| (raises beyond it) and printed with its device time, its
+bound at the design's data-sheet rate (bytes over 3.35 TB/s against
+2 m K N over 67 TFLOP/s of FMA or 495 / 3 of 3xTF32) and the plan
+``skinny_plan`` picks marked; each (m, K, N) also prints
+``torch.matmul`` (TF32 off) on the natural operands, and each (K, N) the
+crossover the sweep finds: the smallest m at which the fastest
+``tf32x3`` plan beats the fastest ``f32`` one.  ``--wrapper-only`` times
+only ``tsmm_skinny_a`` at the same points, with the design it ran, so a
+parent checkout's package can be timed the same way (``PYTHONPATH=
+<parent>/src python3 src/repro_torch/launch/skinny_sweep.py --dtype
+float32 --wrapper-only``).  Needs a CUDA card; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -46,38 +61,139 @@ SHAPES = {"qwen1_5_4b": (1024, ((2560, 2560), (2560, 6912), (6912, 2560),
 DECODE_M = (1, 4)
 
 
-# the calibration gate's fp32 skinny context problems (m, K, N)
-FP32_SHAPES = ((16, 4096, 2048), (32, 8192, 1024))
+# the fp32 sweep's (K, N): the calibration gate's fp32 skinny context
+# widths and qwen1.5-4b's gate / up projection; its rows
+FP32_SHAPES = ((4096, 2048), (8192, 1024), (2560, 6912))
+FP32_M = (1, 4, 16, 32, 64, 256, 2048)
 F32_TOL = 1e-4
 
 
-def sweep_fp32(dev, sms, flush) -> None:
-    """The fp32 skinny design at ``FP32_SHAPES`` against torch.matmul."""
+def fp32_plans(m: int, k: int, n: int, pick) -> list:
+    """Every fp32 plan the sweep times at (m, k, n), W packed at 128 x
+    128: ``f32`` (m <= 64) over column tiles, clusters and rings 4 / 8 on
+    its smallest row tile; ``tf32x3`` over row tiles (16, 64 and the
+    fewest of at most 128), 64 / 128 W columns and clusters on a ring of
+    4; and the pick.  Each ring fits shared memory."""
+    plans = []
+    if m <= 64:
+        for nt in (32, 64, 128):
+            bm = max(8, 512 // nt, 1 << (m - 1).bit_length())
+            plans += [tsmm.SkinnyPlan("f32", bm, nt, c, st)
+                      for c in (1, 2, 4, 8) for st in (4, 8)
+                      if k // 32 >= c]
+    top = -(-m // (8 * -(-m // 128))) * 8
+    rows = {r for r in (16, 64) if r < top} | {top}
+    plans += [tsmm.SkinnyPlan("tf32x3", bm, nt, c, 4)
+              for bm in sorted(rows) for nt in (64, 128) for c in (1, 2, 4, 8)]
+    plans = [p for p in plans if tsmm.skinny_smem(p) <= tsmm.SKINNY_SMEM_MAX]
+    return plans if pick in plans else plans + [pick]
+
+
+def fp32_operands(g, dev, m, k, n):
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    wp = ops.pack_blocks(w, 128, 128)
+    want = tsmm._torch_skinny(x, wp, None, None, natural=False, splits=1,
+                              mode=tsmm.EPILOGUE)
+    return x, w, wp, want
+
+
+def check_fp32(got, want, what) -> float:
+    err = (got - want).abs()
+    if bool((err > F32_TOL + F32_TOL * want.abs()).any()):
+        raise AssertionError(f"skinny_sweep fp32 {what}: max |err| "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def sweep_fp32_wrapper(dev, flush) -> None:
+    """``tsmm_skinny_a`` (whatever design the package runs) and
+    ``torch.matmul`` at every fp32 point; public names only, so it times
+    a parent checkout's package too."""
     from repro_torch.launch.prepack_vs_conventional import bound_ms
     g = torch.Generator(device=dev).manual_seed(0)
-    for m, k, n in FP32_SHAPES:
-        x = torch.randn((m, k), generator=g, device=dev)
-        w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
-        wp = ops.pack_blocks(w, 128, 128)
-        want = tsmm._torch_skinny(x, wp, None, None, natural=False, splits=1,
-                                  mode=tsmm.EPILOGUE)
-        got = tsmm.tsmm_skinny_a(x, wp)
-        err = (got - want).abs()
-        if bool((err > F32_TOL + F32_TOL * want.abs()).any()):
-            raise AssertionError(f"skinny_sweep fp32 ({m}, {k}, {n}): max "
-                                 f"|err| {float(err.max())}")
-        pick = tsmm.skinny_plan(m, k, n, dtype=torch.float32, natural=False,
-                                bk=128, bn=128, mode=tsmm.EPILOGUE, splits=1,
-                                kps=k, sms=sms)
-        bms, by = bound_ms(m, k, n)
-        print(json.dumps({
-            "dtype": "float32", "m": m, "K": k, "N": n,
-            "design": pick.design, "bm": pick.bm, "nt": pick.nt,
-            "ctas": -(-m // pick.bm) * (n // pick.nt),
-            "max_abs_err": float(err.max()),
-            "device_ms": device_ms(lambda: tsmm.tsmm_skinny_a(x, wp), flush),
-            "library_ms": device_ms(lambda: torch.matmul(x, w), flush),
-            "bound_ms": bms, "bound_by": by}), flush=True)
+    for k, n in FP32_SHAPES:
+        for m in FP32_M:
+            x, w, wp, want = fp32_operands(g, dev, m, k, n)
+            before = dict(cuda.design_launches)
+            got = tsmm.tsmm_skinny_a(x, wp)
+            ran = sorted(d for d, v in cuda.design_launches.items()
+                         if v != before.get(d, 0))
+            print(json.dumps({
+                "dtype": "float32", "m": m, "K": k, "N": n,
+                "plan": "wrapper", "design": ran,
+                "max_abs_err": check_fp32(got, want, (m, k, n)),
+                "device_ms": device_ms(lambda: tsmm.tsmm_skinny_a(x, wp),
+                                       flush, iters=10),
+                "library_ms": device_ms(lambda: torch.matmul(x, w), flush,
+                                        iters=10),
+                "bound_ms": bound_ms(m, k, n)[0]}), flush=True)
+            del x, w, wp, want, got
+        torch.cuda.empty_cache()
+
+
+def sweep_fp32(lib, dev, sms, flush) -> None:
+    """Every plan of both fp32 designs at every fp32 point, through the
+    C entry, against torch.matmul; the crossover of each (K, N)."""
+    from repro_torch.core.hw import H100
+    from repro_torch.core.smem_model import peak_rate
+    from repro_torch.launch.prepack_vs_conventional import bound_ms
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, n in FP32_SHAPES:
+        best = {}
+        for m in FP32_M:
+            x, w, wp, want = fp32_operands(g, dev, m, k, n)
+            pick = tsmm.skinny_plan(m, k, n, dtype=torch.float32,
+                                    natural=False, bk=128, bn=128,
+                                    mode=tsmm.EPILOGUE, splits=1, kps=k,
+                                    sms=sms)
+            print(json.dumps({
+                "dtype": "float32", "m": m, "K": k, "N": n,
+                "plan": "torch.matmul",
+                "device_ms": device_ms(lambda: torch.matmul(x, w), flush,
+                                       iters=10)}), flush=True)
+            out = torch.empty((m, n), device=dev)
+            for p in fp32_plans(m, k, n, pick):
+                scratch = (torch.empty((2, -(-m // p.bm) * p.bm, k),
+                                       device=dev)
+                           if p.design == "tf32x3" else None)
+
+                def run(p=p, scratch=scratch):
+                    cuda.check(lib.tsmm_skinny_launch(
+                        x.data_ptr(), wp.data_ptr(), None, out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), m,
+                        k, n, k, 128, 128, 0, 1, tsmm.EPILOGUE, 0, 0,
+                        tsmm._SKINNY_DESIGN[p.design], p.bm, p.nt,
+                        p.cluster, p.stages, stream), "tsmm_skinny")
+                out.zero_()
+                run()
+                torch.cuda.synchronize()
+                err = check_fp32(out, want, (m, k, n, p))
+                ms = device_ms(run, flush, iters=10)
+                key = (m, p.design)
+                best[key] = min(best.get(key, ms), ms)
+                print(json.dumps({
+                    "dtype": "float32", "m": m, "K": k, "N": n,
+                    "design": p.design, "bm": p.bm, "nt": p.nt,
+                    "cluster": p.cluster, "stages": p.stages,
+                    "ctas": tsmm.grid_ctas(p, m, n, 1), "picked": p == pick,
+                    "max_abs_err": err, "device_ms": ms,
+                    "bound_ms": bound_ms(m, k, n,
+                                         peak_rate(p, "float32", H100))[0],
+                    "bound_ms_fma": bound_ms(m, k, n)[0]}), flush=True)
+                del scratch
+            del x, w, wp, want, out
+            torch.cuda.empty_cache()
+        cross = next((m for m in FP32_M if (m, "tf32x3") in best
+                      and best[(m, "tf32x3")] < best.get((m, "f32"),
+                                                         float("inf"))),
+                     None)
+        print(json.dumps({"dtype": "float32", "K": k, "N": n,
+                          "crossover_m": cross,
+                          "fastest": {f"{m}/{d}": v
+                                      for (m, d), v in best.items()}}),
+              flush=True)
 
 
 def main(argv=None) -> None:
@@ -85,6 +201,7 @@ def main(argv=None) -> None:
     ap.add_argument("--only", choices=("prefill", "decode"), default=None)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
+    ap.add_argument("--wrapper-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("skinny_sweep: needs a CUDA card")
@@ -94,7 +211,10 @@ def main(argv=None) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     if args.dtype == "float32":
-        sweep_fp32(dev, sms, flush)
+        if args.wrapper_only:
+            sweep_fp32_wrapper(dev, flush)
+        else:
+            sweep_fp32(lib, dev, sms, flush)
         return
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -137,7 +257,7 @@ def main(argv=None) -> None:
                         def run(p=p):
                             cuda.check(lib.tsmm_skinny_launch(
                                 x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-                                out.data_ptr(), m, k, n, k, bk, bn, 0, 1,
+                                out.data_ptr(), None, m, k, n, k, bk, bn, 0, 1,
                                 tsmm.EPILOGUE, 2, 1,
                                 tsmm._SKINNY_DESIGN[p.design], p.bm, p.nt,
                                 p.cluster, p.stages, stream), "tsmm_skinny")

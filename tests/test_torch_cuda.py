@@ -8,8 +8,8 @@ Tolerances: f32 within 1e-4 (fp32 sums reassociated); bf16 within 1.6e-2
 The bf16 skinny, tall and flash cases also assert, through
 ``cuda.design_launches``, that the Hopper designs (wgmma, and the
 skinny kernel's byte-streaming design at decode) ran them; the fp32
-tall cases that ``f32`` or ``tf32x3`` (3xTF32, held to the same fp32
-tolerance) did; the pack cases (bit-equal) that the TMA or the vec
+skinny and tall cases that ``f32`` or ``tf32x3`` (3xTF32, held to the
+same fp32 tolerance) did; the pack cases (bit-equal) that the TMA or the vec
 design ran each.
 """
 
@@ -591,7 +591,7 @@ def test_skinny_every_plan_through_the_c_entry(dev):
 
     def launch(x, out, design, bm, nt, cluster, stages):
         return lib.tsmm_skinny_launch(
-            x.data_ptr(), wp.data_ptr(), c.data_ptr(), out.data_ptr(),
+            x.data_ptr(), wp.data_ptr(), c.data_ptr(), out.data_ptr(), None,
             x.shape[0], k, n, k, bk, bn, 0, 1, tsmm.EPILOGUE, 3, 1, design,
             bm, nt, cluster, stages, stream)
 
@@ -619,32 +619,117 @@ def test_skinny_every_plan_through_the_c_entry(dev):
                   2, 8, 128, 1, 4) != 0
 
 
-def test_skinny_fp32_runs_simt_and_bf16_refuses_bad_layouts(dev):
-    """fp32 stays on the SIMT design at decode and prefill rows; a bf16
-    layout the Hopper designs cannot take raises instead of taking
-    another path."""
+@pytest.mark.parametrize("design", ["skinny_f32", "skinny_tf32x3"])
+def test_skinny_fp32_designs_match_plain_and_refuse_bad_layouts(dev, design):
+    """fp32 skinny-A through each of its two designs (``f32`` at m <=
+    ``SKINNY_F32_CROSSOVER``, ``tf32x3`` above): packed and natural W,
+    mode 0 with bias and every activation, mode 1 at splits 2 and 4,
+    ragged m, each against the plain version at 1e-4 (3xTF32 held to the
+    same fp32 tolerance); a layout neither design takes raises."""
     g = torch.Generator(device=dev).manual_seed(13)
-    k, n = 512, 256
+    k, n, bk, bn = 1024, 384, 128, 128
     w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
-    for m in (4, 70):
+    c = torch.randn((n,), generator=g, device=dev)
+    wp = ops.pack_blocks(w, bk, bn)
+    cross = tsmm.SKINNY_F32_CROSSOVER
+    rows = ((1, 3, 8, 13, cross) if design == "skinny_f32"
+            else (cross + 1, 70, 129, 300))
+    for m in rows:
         x = torch.randn((m, k), generator=g, device=dev)
-        wp = ops.pack_blocks(w, 128, 128)
-        got, designs = _designs(lambda: tsmm.tsmm_skinny_a(x, wp))
-        assert designs == {"skinny_simt": 1}
-        _close(got, tsmm._torch_skinny(x, wp, None, None, natural=False,
-                                       splits=1, mode=tsmm.EPILOGUE),
-               torch.float32)
-    wb = w.to(torch.bfloat16)
-    xb = torch.randn((4, k), generator=g, device=dev).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="cut by the tile"):
-        tsmm.tsmm_skinny_a(xb, ops.pack_blocks(wb, 128, 64))
-    flat = torch.zeros(4 * k + 1, dtype=torch.bfloat16, device=dev)
+
+        def run():
+            for wq, natural in ((wp, False), (w, True)):
+                for act in (None, "relu", "silu", "gelu"):
+                    for bias in (None, c):
+                        _close(tsmm.launch_skinny(
+                            "t", x, wq, bias, act, natural=natural, splits=1,
+                            mode=tsmm.EPILOGUE, bk=bk, bn=bn),
+                            tsmm._torch_skinny(x, wq, bias, act,
+                                               natural=natural, splits=1,
+                                               mode=tsmm.EPILOGUE),
+                            torch.float32)
+                for s in (2, 4):
+                    _close(tsmm.launch_skinny(
+                        "t", x, wq, None, None, natural=natural, splits=s,
+                        mode=tsmm.RAW_F32, bk=bk, bn=bn),
+                        tsmm._torch_skinny(x, wq, None, None, natural=natural,
+                                           splits=s, mode=tsmm.RAW_F32),
+                        torch.float32)
+
+        _, designs = _designs(run)
+        assert designs == {design: 2 * (8 + 2)}
+    x = torch.randn((rows[0], k), generator=g, device=dev)
+    flat = torch.zeros(rows[0] * k + 1, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
-        tsmm.tsmm_skinny_a(flat[1:].view(4, k), ops.pack_blocks(wb, 128, 128))
-    with pytest.raises(ValueError, match="64-deep"):
-        tsmm.launch_skinny("t", xb[:, :96].contiguous(), wb[:96], None, None,
-                           natural=True, splits=1, mode=tsmm.EPILOGUE, bk=96,
+        tsmm.tsmm_skinny_a(flat[1:].view(rows[0], k), wp)
+    with pytest.raises(ValueError, match="32-deep"):
+        tsmm.launch_skinny("t", x[:, :48].contiguous(), w[:48], None, None,
+                           natural=True, splits=1, mode=tsmm.EPILOGUE, bk=48,
                            bn=128)
+    with pytest.raises(ValueError, match="do not tile"):
+        tsmm.launch_skinny("t", x, w[:, :96].contiguous(), None, None,
+                           natural=True, splits=1, mode=tsmm.EPILOGUE, bk=bk,
+                           bn=96)
+
+
+def test_skinny_fp32_every_plan_through_the_c_entry(dev):
+    """Both fp32 designs at the kinds of plan ``launch/skinny_sweep.py
+    --dtype float32`` times (f32: row tiles 8-64 x column tiles 32-128 x
+    clusters 1-8 x rings 4 / 8; tf32x3: row tiles 8-128 x 64 / 128 W
+    columns x clusters 1, 4, 8 x rings 2 / 4 that fit), through the C
+    interface, against the plain version; the entry refuses an f32 tile
+    shorter than m or than a consumer thread row, a cluster it does not
+    take, a tf32x3 row tile off 8 or past 128, and
+    tf32x3 without its scratch."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    k, n, bk, bn = 2048, 512, 128, 128
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    c = torch.randn((n,), generator=g, device=dev)
+    wp = ops.pack_blocks(w, bk, bn)
+    lib = cuda.load()["tsmm_skinny"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(x, out, scratch, design, bm, nt, cluster, stages):
+        return lib.tsmm_skinny_launch(
+            x.data_ptr(), wp.data_ptr(), c.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), x.shape[0], k,
+            n, k, bk, bn, 0, 1, tsmm.EPILOGUE, 2, 0, design, bm, nt, cluster,
+            stages, stream)
+
+    for m in (5, 30, 100):
+        x = torch.randn((m, k), generator=g, device=dev)
+        want = tsmm._torch_skinny(x, wp, c, "silu", natural=False, splits=1,
+                                  mode=tsmm.EPILOGUE)
+        out = torch.empty((m, n), device=dev)
+        plans = []
+        if m <= 64:
+            plans += [(0, bm, nt, cl, st) for bm in (8, 16, 32, 64)
+                      for nt in (32, 64, 128) for cl in (1, 2, 4, 8)
+                      for st in (4, 8)
+                      if bm >= max(m, 512 // nt)]
+        plans += [(3, bm, nt, cl, st) for bm in (8, 24, 72, 128)
+                  for nt in (64, 128) for cl in (1, 4, 8) for st in (2, 4)
+                  if tsmm.skinny_smem(tsmm.SkinnyPlan("tf32x3", bm, nt, cl,
+                                                      st))
+                  <= tsmm.SKINNY_SMEM_MAX]
+        for design, bm, nt, cluster, stages in plans:
+            scratch = (torch.empty((2, -(-m // bm) * bm, k), device=dev)
+                       if design == 3 else None)
+            out.zero_()
+            cuda.check(launch(x, out, scratch, design, bm, nt, cluster,
+                              stages), f"skinny {design} {bm} {nt} {cluster}")
+            _close(out, want, torch.float32)
+        if m <= 64:
+            assert launch(x, out, None, 0, 8, 32, 1, 4) != 0      # 8 < 16
+            assert launch(x, out, None, 0, 64, 64, 3, 4) != 0     # cluster
+            assert launch(x, out, None, 0, 64, 256, 1, 4) != 0
+        if m > 8:
+            assert launch(x, out, None, 0, 8, 128, 1, 4) != 0     # m > bm
+        scratch = torch.empty((2, 256, k), device=dev)
+        assert launch(x, out, None, 3, 64, 64, 1, 4) != 0         # scratch
+        assert launch(x, out, scratch, 3, 12, 64, 1, 4) != 0
+        assert launch(x, out, scratch, 3, 136, 64, 1, 2) != 0
+        assert launch(x, out, scratch, 3, 64, 32, 1, 4) != 0
 
 
 @pytest.mark.parametrize("shape", [(4, 2560, 6912), (2048, 4096, 256)],

@@ -1,6 +1,6 @@
 """The H100 cost model's repair (pure; the CPU runs what the card would
-plan): the fp32 rates of the port's kernels (FMA for the skinny SIMT
-kernel and the tall ``f32`` design, a third of TF32 for ``tf32x3``), the
+plan): the fp32 rates of the port's kernels (FMA for the ``f32``
+designs, a third of TF32 for ``tf32x3``), the
 occupancy term built from the launch plans, the fit staying linear in
 its three coefficients, and the pack-once placement of a packed tall A.
 
@@ -34,7 +34,10 @@ PROBLEMS = [Problem(2048, 4096, 256, "bfloat16"),
             Problem(16384, 1024, 128, "float32"),
             Problem(2048, 2048, 128, "float32"),
             Problem(4, 2560, 6912, "bfloat16"),
-            Problem(16, 4096, 2048, "float32")]
+            Problem(16, 4096, 2048, "float32"),
+            # fp32 skinny launches that leave SMs idle even at their
+            # narrowest tiles
+            Problem(128, 1024, 128, "float32")]
 
 
 @pytest.fixture(autouse=True)
@@ -56,8 +59,8 @@ def _score_without_occupancy(plan, hw):
 
 
 def test_fp32_peak_is_the_simt_rate_not_a_tpu_ratio():
-    """fp32 FMA at the data sheet's 67 TFLOP/s (the skinny SIMT kernel and
-    the tall ``f32`` design); the tall ``tf32x3`` design bounded by a
+    """fp32 FMA at the data sheet's 67 TFLOP/s (the skinny and tall ``f32``
+    designs); the tall ``tf32x3`` design bounded by a
     third of TF32's 495 and priced at the share of it the design reaches;
     each over its launch's padded width."""
     assert H100.peak_flops("float32") == 67e12
@@ -125,7 +128,6 @@ def test_whole_waves_score_one():
                 256, 1024, 128, prepack=False)
     (entry,) = plan_launches(plan, H100)
     assert (entry[4].design, entry[4].bm, entry[4].nt) == ("f32", 128, 16)
-    assert K.fill_ctas(entry[4]) == 1
     assert occupancy(plan, H100) == pytest.approx(3 / 2.5)
     # one whole wave of the tf32x3 design (two 120-column tiles): 1
     plan = Plan(Problem(64 * sms, 1024, 240, "float32"), "tall_a", 64 * 12,
@@ -140,24 +142,25 @@ def test_whole_waves_score_one():
 
 
 def test_under_filled_plans_score_worse_as_ctas_fall():
-    """The fp32 skinny SIMT kernel launches N / 64 CTAs of 64 rows (at 64
-    rows, fp32, a product bound by its operations): as N falls, fewer
-    CTAs fill fewer of the card's slots, and the model's seconds per unit
-    of work rise with the occupancy."""
-    occ, per_flop = [], []
-    for n in (8192, 4096, 2048, 1024, 512):
-        prob = Problem(64, 4096, n, "float32")
-        plan = Plan(prob, "skinny_a", 64, 4096, n, prepack=True)
+    """The fp32 skinny design at 256 rows (``tf32x3``, a product bound by
+    its operations): even on 8-CTA clusters of 128-column tiles a narrower
+    N launches fewer CTAs, which fill fewer of the card's SMs, and the
+    model's seconds per unit of work rise with the occupancy."""
+    occ, per_flop, ctas = [], [], []
+    for n in (512, 256, 128):
+        prob = Problem(256, 4096, n, "float32")
+        plan = Plan(prob, "skinny_a", 256, 4096, n, prepack=True)
         (entry,) = plan_launches(plan, H100)
-        assert entry[4].design == "simt"
-        assert K.grid_ctas(entry[4], 64, n, 1) == n // 64
+        assert (entry[4].design, entry[4].nt, entry[4].cluster) == (
+            "tf32x3", 128, 8)
+        ctas.append(K.grid_ctas(entry[4], 256, n, 1))
         assert compute_time_s(plan, H100) > memory_time_s(plan, H100)
         occ.append(occupancy(plan, H100))
-        per_flop.append(predict(plan, H100).score / (2 * 64 * 4096 * n))
+        per_flop.append(predict(plan, H100).score / (2 * 256 * 4096 * n))
+    assert all(a > b for a, b in zip(ctas, ctas[1:])) and ctas[0] <= H100.sm_count
     assert all(a < b for a, b in zip(occ, occ[1:]))
     assert all(a < b for a, b in zip(per_flop, per_flop[1:]))
-    slots = H100.sm_count * K.SKINNY_SIMT_CTAS[64]
-    assert occ[-1] == slots / (512 // 64)
+    assert occ[-1] == H100.sm_count / ctas[-1]
 
 
 def test_fit_recovers_known_coefficients_through_occupancy():

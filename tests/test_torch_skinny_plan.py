@@ -57,10 +57,21 @@ def test_threshold_is_eight_rows():
     assert _plan(tsmm.SKINNY_STREAM_M + 1, 4096, 4096).design == "wgmma"
 
 
-@pytest.mark.parametrize("m,bm", [(1, 8), (8, 8), (9, 64), (2048, 64)])
-def test_fp32_runs_simt(m, bm):
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 32, 33, 64, 65, 256, 2048])
+def test_fp32_design_by_rows_around_the_crossover(m):
+    """fp32 runs ``f32`` (the FMA stream, its tile's rows a power of two
+    holding m) at m <= ``SKINNY_F32_CROSSOVER`` and ``tf32x3`` (row tiles
+    of at most 128, a multiple of 8, covering m) above it; no other
+    design."""
     p = _plan(m, 2560, 2560, dtype=F32)
-    assert p == tsmm.SkinnyPlan("simt", bm, 64, 1, 0)
+    if m <= tsmm.SKINNY_F32_CROSSOVER:
+        assert p.design == "f32" and p.nt in tsmm.SKINNY_F32_NT
+        assert p.bm >= m and p.bm & (p.bm - 1) == 0 and p.bm >= 512 // p.nt
+    else:
+        assert p.design == "tf32x3" and p.cluster in (1, 2, 4, 8)
+        assert p.bm % 8 == 0 and p.bm <= tsmm.SKINNY_X3_ROWS
+        assert p.nt in tsmm.SKINNY_X3_NT
+        assert -(-m // p.bm) * p.bm >= m > (-(-m // p.bm) - 1) * p.bm
 
 
 @pytest.mark.parametrize("k,n", QWEN + GLM + ((4096, 256),))
