@@ -23,9 +23,14 @@ printing JSON lines:
                 (buckets 1, 2, 4; prompts to 256), DeepSeek-V2 (its
                 published widths, MLA's five projections among them;
                 buckets 1, 2; prompts to 512), Mamba2-780m (buckets 1, 2,
-                4; prompts to 256) and Zamba2-2.7B (its shared block's
+                4; prompts to 256), Zamba2-2.7B (its shared block's
                 2 x d_model-wide projections among them; buckets 1, 2;
-                prompts to 2048), every candidate
+                prompts to 2048), h2o-danube-1.8b (buckets 1, 2; prompts
+                to 4352), the LLaVA-NeXT backbone (buckets 1, 2; prompts
+                to 192 after its 2880 image embeddings), whisper-base
+                (buckets 1, 2, 4; prompts to 256, its encoder's rows
+                too) and llama3-405b (buckets 1, 2; prompts to 512),
+                every candidate
                 timed on the hand-written kernels and held to the serving
                 path; ``--calibrate``; ``--check`` (zero misses, then every
                 sampled grammar point and schedule through the CUDA
@@ -68,8 +73,18 @@ printing JSON lines:
                 the per-call decode pack of wk/wv, its largest leaf at
                 load) and at DeepSeek-V2's largest leaf at load, flash
                 attention at qwen's, OLMoE's and GLM-4-9B's
-                prefill, GLM-4-9B's at both of its groups, and at
-                Zamba2-2.7B's head dim 80; and the three skinny-A
+                prefill, GLM-4-9B's at both of its groups, at
+                Zamba2-2.7B's head dim 80, at whisper-base's decoder (D
+                64, 4 x 256) and at the LLaVA-NeXT backbone's 3072
+                positions (32 on 8 heads), every bf16 case on the wgmma
+                design; the skinny-A kernel with bias + GELU at
+                whisper-base's w_in (m 4 and 4 x 1500); llama3-405b's
+                head (16384 x 128256, 4.2 GB packed: past 2^31 bytes)
+                and w_down (K 53248) packed as serve.llama3 packs them,
+                bit-equal to ``pack_ref``, with ``tsmm_skinny_a`` and the
+                resident k-inner kernel on the head at m 1 and 2, the
+                k-split kernel (2 splits) on w_down at m 1 and 2 and
+                ``tsmm_skinny_a`` at m 1, 2, 512; and the three skinny-A
                 functions in fp32 at m = 1-2048 over the gate's two fp32
                 context widths, qwen1.5-4b's gate / up projection and
                 the fp32 parity paths' largest K, on ``f32`` or
@@ -99,12 +114,18 @@ printing JSON lines:
                 layers, Mamba2-780m at full width (2 layers, 1 x 256) and
                 Zamba2-2.7B at full width (12 layers: two groups, so the
                 shared block serves two K/V caches; 1 x 256, flash's
-                SIMT kernel at D 80), float32: prefill + 4 decode steps
+                SIMT kernel at D 80), h2o-danube-1.8b at full width (2
+                layers, its window cut to 256 under a 384-token prompt:
+                the prefill rolls), the LLaVA-NeXT backbone at full width
+                (2 layers, 64 image embeddings + 64 tokens), whisper-base
+                whole (1500 frames, 4 decoder tokens) and llama3-405b's
+                reduced config widened so every leaf packs (each cut on
+                its line), float32: prefill + 4 decode steps
                 on the card (kernels) against the port on the CPU (plain
                 versions) with the same packed weights; every skinny
                 launch on ``f32`` (decode) or ``tf32x3`` (prefill), and
                 both designs run;
-7. serve      — qwen1.5-4b at full width and full depth (40 layers), bf16,
+7. serve      — qwen1.5-4b at full width, 20 of its 40 layers, bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
                 greedy steps;
@@ -120,7 +141,7 @@ printing JSON lines:
                 the logits it was chosen from agree with the solo run's
                 within ``F32_TOL`` and the two tokens' logits are within
                 it); every skinny launch on ``f32`` or ``tf32x3``;
-10. queue     — qwen1.5-4b at full width and depth, bf16, on a queue
+10. queue     — qwen1.5-4b at full width, 20 layers, bf16, on a queue
                 engine of its own (4 slots, prompts to 256, ``max_len`` by
                 the ragged rule, its 57 cells captured at load): 16
                 ragged requests (the continuous-batching tool's lengths
@@ -139,17 +160,17 @@ printing JSON lines:
                 Poisson trace of the 16 requests at half the request rate
                 the queue sustained: TTFT and queue delay percentiles,
                 every stream completed, none rejected;
-12. serve.olmoe — OLMoE-1B-7B at its published dims, all 16 layers (64
+12. serve.olmoe — OLMoE-1B-7B at its published dims, 8 of its 16 layers (64
                 experts, top-8), bf16, seeded random weights,
                 ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
                 256-token prompts and 16 greedy steps; prints
                 ``param_count`` / ``active_param_count`` and the profile
                 of a bucket-4 step with the ``moe_experts`` and
                 ``moe_dispatch`` families;
-13. queue.olmoe — OLMoE-1B-7B on a queue engine of its own (4 slots): 8
-                ragged requests through ``serve_queue`` eagerly and then
-                graphed: tokens bit-equal, 0 cells captured by traffic,
-                0 misses;
+13. queue.olmoe — OLMoE-1B-7B (8 layers) on a queue engine of its own (4
+                slots): 8 ragged requests through ``serve_queue`` eagerly
+                and then graphed: tokens bit-equal, 0 cells captured by
+                traffic, 0 misses;
 14. serve.deepseek — DeepSeek-V2 at its published widths cut to 3 layers
                 (the dense first layer and 2 MoE layers of 160 experts,
                 top-6, 2 shared; the cut is on the line), bf16,
@@ -159,21 +180,51 @@ printing JSON lines:
                 apart at the 2 x 512 group beside its bound and SDPA, and
                 held to SDPA), its decode the absorbed form over the
                 compressed cache;
-15. serve.mamba2 — Mamba2-780m whole (48 layers), bf16,
+15. serve.mamba2 — Mamba2-780m at full width, 24 of its 48 layers, bf16,
                 ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
                 256-token prompts and 16 steps; every Mamba leaf, and the
                 tied head as a packed copy of the table's transpose, packed
                 at load; no pack launch and no flash launch on the path;
-16. serve.zamba2 — Zamba2-2.7B whole (54 Mamba2 layers, the shared
-                attention + MLP block applied 9 times), bf16,
+16. serve.zamba2 — Zamba2-2.7B at full width, 24 of its 54 Mamba2
+                layers (the shared attention + MLP block applied 4
+                times), bf16,
                 ``Engine(max_batch=2)``: groups of 1 and 2 with 2048-token
                 prompts and 8 steps; every leaf packed at load, no pack
                 launch on the path, and the 2048-token prefill cells
                 launch flash at D 80.  Both SSM paths also print the
                 eager profile of one prefill (the ``ssm_conv``,
-                ``ssm_scan`` and ``ssm_state`` families).
+                ``ssm_scan`` and ``ssm_state`` families);
+17. serve.danube — h2o-danube-1.8b whole (24 layers, window 4096), bf16,
+                ``Engine(max_batch=2)`` whose length grid holds exactly
+                its two prompts: groups of 1 and 2 at 4352 tokens (the
+                prefill rolls past the window) and at 4088 (the graphed
+                decode crosses slot 4095 -> 0 at position 4096, checked
+                on each bucket's cache), 16 steps; windowed attention
+                takes the chunked body: flash must not launch;
+18. serve.llava — the LLaVA-NeXT Mistral-7B backbone whole (32 layers),
+                groups of 1 and 2 with 2880 seeded image embeddings and
+                192 tokens (3072 positions: flash at D 128 on 32 query /
+                8 KV heads), 16 steps;
+19. serve.whisper — whisper-base whole (6 + 6 layers), groups of 1, 3
+                and 4 with 1500 seeded frames and 256-token decoder
+                prompts (flash at D 64), 16 steps; every projection and
+                the tied head (zero-padded) packed at load; the skinny-A
+                kernel's bias + GELU epilogue counted on the graphed
+                groups (``cuda.epilogue_launches``): every encoder and
+                decoder layer's MLP of each prefill, and no epilogue
+                other than bias + GELU;
+20. serve.llama3 — llama3-405b at its published widths cut to 2 layers
+                (12.8 GB of layers, 8.4 GB of embedding and head), groups
+                of 1 and 2 with 512-token prompts, 8 steps, flash at D
+                128.
 
-The serve paths (7, 8, 12, 14, 15, 16) run one table-driven phase
+The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m and
+Zamba2-2.7B run at half their depth (``HALF_DEPTH``), so that with
+the paths of h2o-danube-1.8b, LLaVA-NeXT, whisper-base and llama3-405b
+the script stays well inside its time limit (each of the four fits the
+card whole; the cut only shortens the run: about 190 s on an H100,
+every width and kernel shape as at full depth).
+The serve paths (7, 8, 12, 14, 15, 16, 17-20) run one table-driven phase
 (``phase_serve`` over ``SERVE``), each with its own checks as hooks.
 Every serve phase starts on the registry the install phase wrote and must
 make zero registry misses over load, precompile, prefill and decode.
@@ -193,7 +244,8 @@ GLM-4-9B batch 1) with and without graphs: wall ms, device ms, host
 launch calls and kernels per step (``launch/profile_decode.py``).
 
 Each path (install, paper, serve, serve.glm4, queue, serve.olmoe,
-queue.olmoe, serve.deepseek, serve.mamba2, serve.zamba2) zeroes the
+queue.olmoe, serve.deepseek, serve.mamba2, serve.zamba2, serve.danube,
+serve.llava, serve.whisper, serve.llama3) zeroes the
 launch counts
 just before it (on the serve paths: before the graphed groups; on the
 queue path: before the graphed queue) and reads them just after; every kernel of the path must have
@@ -207,8 +259,12 @@ load and at decode) the TMA or the vec design (``cuda.design_launches``).
 Then the ``kernels`` summary line (each kernel's launches on the serve
 path that runs it, or on the install path where the measured plans keep
 it off both; ``launches_by_path`` adds the paper, queue, MoE and SSM
-paths'; flash's row carries its D = 80 case with its launches on
-serve.zamba2; each tall row the paper's planned rows it ran and the fp32
+paths' and the four of the rest of the zoo; flash's row carries its
+D = 80, D = 64 and 3072-position cases with their launches on
+serve.zamba2, serve.whisper and serve.llava; the skinny-A row its bias
++ GELU cases with its bias + GELU epilogue launches on serve.whisper;
+the skinny rows and the pack row llama3-405b's head and w_down cases
+with their launches on serve.llama3; each tall row the paper's planned rows it ran and the fp32
 rows at N = 4, 32, 128, 240 (``f32`` or ``tf32x3``: ms, device_ms, the
 bound at the design's rate beside the FMA bound, torch.matmul), each
 skinny row its ``fp32_skinny`` cases and its fp32 launches on the
@@ -430,6 +486,9 @@ def check_pack(path: str, launches: dict, designs: dict) -> None:
 # parity phases, queue.parity), each skinny kernel's launches, for the
 # kernels line
 FP32_PATHS = {}
+# each serve path's fused-epilogue launches on its graphed groups
+# (``cuda.epilogue_launches``: kernel/epilogue -> launches)
+EPILOGUES = {}
 
 
 def check_fp32(path: str, launches: dict, designs: dict) -> None:
@@ -603,17 +662,22 @@ def phase_kernels(timer):
         del w, wp, bias
         torch.cuda.empty_cache()
 
+    cases += gelu_cases(timer, g, worst)
+    cases += llama3_cases(timer, g, worst)
     cases += skinny_fp32_cases(timer, g, worst)
     cases += tall_cases(timer, g, worst)
     cases += pack_cases(timer, g, worst)
 
     # qwen1.5-4b's prefill (4 x 256 tokens, 20 MHA heads), GLM-4-9B's
     # (1 and 2 x 2048 tokens, 32 query heads on 2 KV heads), OLMoE-1B-7B's
-    # (4 x 256 tokens, 16 MHA heads), all at D 128, and Zamba2-2.7B's
-    # shared block (1 x 2048 tokens, 32 MHA heads of 80)
+    # (4 x 256 tokens, 16 MHA heads), all at D 128, Zamba2-2.7B's shared
+    # block (1 x 2048 tokens, 32 MHA heads of 80), whisper-base's decoder
+    # (4 x 256 tokens, 8 MHA heads of 64) and LLaVA-NeXT's backbone (1 x
+    # 3072 positions, 32 query heads on 8 KV heads of 128)
     for b, s, h, kh, d in ((4, 256, 20, 20, 128), (1, 2048, 32, 2, 128),
                            (2, 2048, 32, 2, 128), (4, 256, 16, 16, 128),
-                           (1, 2048, 32, 32, 80)):
+                           (1, 2048, 32, 32, 80), (4, 256, 8, 8, 64),
+                           (1, 3072, 32, 8, 128)):
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
                  for _ in range(2))
@@ -626,6 +690,9 @@ def phase_kernels(timer):
             raise AssertionError(f"flash_attention S={s} H={h} KH={kh}: max "
                                  f"|err| {err} outside {BF16_TOL}")
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        if design_of(dz.ran) != "wgmma":
+            raise AssertionError(f"flash_attention D={d} in bf16 ran "
+                                 f"{dz.ran}, not the wgmma design")
         # the library call takes the KV heads repeated to H (outside the
         # timed call)
         kr, vr = (t.repeat_interleave(h // kh, dim=2).transpose(1, 2)
@@ -651,6 +718,161 @@ def phase_kernels(timer):
     for c in cases:
         emit({"phase": "kernels", **c})
     return cases, worst
+
+
+# whisper-base's MLP in-projection w_in (K 512, N 2048) at decode batch 4
+# and its encoder's 4 x 1500 frames: the skinny-A kernel with bias and
+# tanh-GELU in its epilogue, the first serve path's GELU
+GELU_SHAPE = (512, 2048, (4, 4 * 1500))
+
+
+def gelu_cases(timer, g, worst):
+    """``tsmm_skinny_a`` with bias + GELU fused at ``GELU_SHAPE`` against
+    its plain version (bias and GELU on the fp32 sums, one cast)."""
+    import torch
+    from repro_torch.kernels import ops, tsmm
+    k, n, ms = GELU_SHAPE
+    bf = torch.bfloat16
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(bf)
+    wp = ops.pack_blocks(w, 128, 128)
+    bias = (0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
+    out = []
+    for m in ms:
+        x = torch.randn((m, k), generator=g, device="cuda").to(bf)
+
+        def kern():
+            return tsmm.tsmm_skinny_a(x, wp, bias, act="gelu")
+
+        def plain():
+            return tsmm._torch_skinny(x, wp, bias, "gelu", natural=False,
+                                      splits=1, mode=tsmm.EPILOGUE)
+
+        with Designs() as d:
+            got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        ok, err = within(got, want, **BF16_TOL)
+        if not ok:
+            raise AssertionError(f"tsmm_skinny_a bias+gelu m={m}: max |err| "
+                                 f"{err} outside {BF16_TOL}")
+        worst["tsmm_skinny_a"] = max(worst.get("tsmm_skinny_a", 0.0), err)
+        bound_ms, bound_by = bound(2 * (m * k + k * n + n + m * n),
+                                   2 * m * k * n)
+        out.append({"kernel": "tsmm_skinny_a", "mode": "bias_gelu",
+                    "design": design_of(d.ran), "m": m, "K": k, "N": n,
+                    "max_abs_err": err, "tol": BF16_TOL, "ms": timer(kern),
+                    "device_ms": timer(kern, device=True),
+                    "plain_ms": timer(plain),
+                    # the product alone: no one library call adds the bias
+                    # and the GELU
+                    "library_ms": timer(lambda: torch.matmul(x, w)),
+                    "library_call": "torch.matmul", "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        del x
+    del w, wp, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+# llama3-405b's widest packed leaves as serve.llama3 packs them: the head
+# (K 16384, N 128256, one (16384, 128) block a column tile: 4.2 GB bf16,
+# past 2^31 bytes) and w_down (K 53248 in 26 blocks of 2048, N 16384), its
+# one k-split point (2 splits of 416 64-deep stages each, cut unevenly over
+# a cluster), each at the rows the path gives it
+LLAMA3_LEAVES = {"head": (16384, 128256, 16384, 128, (1, 2)),
+                 "w_down": (53248, 16384, 2048, 128, (1, 2, 512))}
+
+
+def llama3_cases(timer, g, worst):
+    """llama3-405b's head and w_down at full width: the pack at load
+    bit-equal to ``pack_ref``; ``tsmm_skinny_a`` and the resident
+    ``_skinny_kinner`` on the packed head at m 1 and 2, ``_skinny_ksplit``
+    (2 splits) on w_down at m 1 and 2 and ``tsmm_skinny_a`` at its decode
+    and 512-token prefill rows, each against ``tsmm._torch_skinny``."""
+    import torch
+    from repro_torch.kernels import gen, ref, tsmm
+    bf = torch.bfloat16
+    out = []
+    for leaf, (k, n, bk, bn, ms) in LLAMA3_LEAVES.items():
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             / k ** 0.5).to(bf)
+        with Designs() as d:
+            wp = tsmm.pack_blocks_kernel(w, bk, bn)
+        want = ref.pack_ref(w, bk, bn)
+        torch.cuda.synchronize()
+        if not torch.equal(wp, want):
+            raise AssertionError(f"pack_blocks llama3 {leaf} {(k, n)} by "
+                                 f"({bk}, {bn}): not bit-equal to pack_ref")
+        del want
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(2 * 2 * k * n, 0)
+        out.append({"kernel": "pack_blocks", "mode": f"llama3_{leaf}",
+                    "leaf": leaf, "design": design_of(d.ran), "M": k,
+                    "K": n, "bm": bk,
+                    "bk": bn, "bytes": 2 * k * n, "max_abs_err": 0.0,
+                    "tol": "bit-equal",
+                    "ms": timer(lambda: tsmm.pack_blocks_kernel(w, bk, bn),
+                                iters=2),
+                    "device_ms": timer(
+                        lambda: tsmm.pack_blocks_kernel(w, bk, bn), iters=2,
+                        device=True),
+                    "plain_ms": timer(lambda: ref.pack_ref(w, bk, bn),
+                                      iters=2),
+                    # the same re-tile as one PyTorch copy (the blocks
+                    # divide the leaf)
+                    "library_ms": timer(lambda: w.unflatten(
+                        0, (k // bk, bk)).unflatten(-1, (n // bn, bn))
+                        .transpose(1, 2).contiguous(), iters=2),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        torch.cuda.empty_cache()
+        for m in ms:
+            x = torch.randn((m, k), generator=g, device="cuda").to(bf)
+            funcs = {"baseline": (
+                "tsmm_skinny_a", lambda: tsmm.tsmm_skinny_a(x, wp),
+                lambda: tsmm._torch_skinny(x, wp, None, None, natural=False,
+                                           splits=1, mode=tsmm.EPILOGUE),
+                BF16_TOL)}
+            if leaf == "head":
+                funcs["resident"] = (
+                    "skinny_kinner", lambda: gen._skinny_kinner(
+                        x, wp, None, bk=bk, bn=bn, act=None, natural=False,
+                        resident=True, revisit=False),
+                    funcs["baseline"][2], BF16_TOL)
+            elif m <= 2:
+                funcs = {"ksplit2": (
+                    "skinny_ksplit", lambda: gen._skinny_ksplit(
+                        x, wp, bk=bk, bn=bn, splits=2, natural=False,
+                        resident=True),
+                    lambda: tsmm._torch_skinny(
+                        x, wp, None, None, natural=False, splits=2,
+                        mode=tsmm.RAW_F32), F32_TOL), **funcs}
+            for mode, (name, kern, plain, tol) in funcs.items():
+                with Designs() as d:
+                    got = kern()
+                want = plain()
+                torch.cuda.synchronize()
+                ok, err = within(got, want, **tol)
+                if not ok:
+                    raise AssertionError(
+                        f"{name}/{mode} llama3 {leaf} m={m} K={k} N={n}: "
+                        f"max |err| {err} outside {tol}")
+                worst[name] = max(worst.get(name, 0.0), err)
+                moved = 2 * (m * k + k * n) + got.numel() * got.element_size()
+                bound_ms, bound_by = bound(moved, 2 * m * k * n)
+                del got, want
+                out.append({"kernel": name, "mode": mode, "leaf": leaf,
+                            "design": design_of(d.ran), "m": m, "K": k,
+                            "N": n, "bk": bk, "bn": bn, "max_abs_err": err,
+                            "tol": tol, "ms": timer(kern, iters=3),
+                            "device_ms": timer(kern, iters=3, device=True),
+                            "plain_ms": timer(plain, iters=2),
+                            "library_ms": timer(lambda: torch.matmul(x, w),
+                                                iters=3),
+                            "bound_ms": bound_ms, "bound_by": bound_by})
+            del x
+        del w, wp
+        torch.cuda.empty_cache()
+    return out
 
 
 # fp32 skinny-A (K, N) and the m each is checked at: the calibration
@@ -998,7 +1220,9 @@ def phase_tall(timer):
 # bucket), the shapes the serve phases then serve
 INSTALL = (("qwen1_5_4b", 4, 256), ("glm4_9b", 2, 2048),
            ("olmoe_1b_7b", 4, 256), ("deepseek_v2_236b", 2, 512),
-           ("mamba2_780m", 4, 256), ("zamba2_2_7b", 2, 2048))
+           ("mamba2_780m", 4, 256), ("zamba2_2_7b", 2, 2048),
+           ("h2o_danube_1_8b", 2, 4352), ("llava_next_mistral_7b", 2, 192),
+           ("whisper_base", 4, 256), ("llama3_405b", 2, 512))
 # GLM-4-9B's K/V projection at its two prefill token counts
 GLM_KV_PREFILL = ((2048, 4096, 256), (4096, 4096, 256))
 
@@ -1243,6 +1467,10 @@ def set_pack_shapes():
         PACK_SHAPES["decode"] = (1, 4096, 256, plan.bk, plan.bn)
 
 
+# llama3-405b's reduced config (2 layers, vocab 512, rope theta 500000)
+# widened so every leaf reaches 512 and packs
+LLAMA3_PARITY = dict(d_model=1024, num_heads=8, num_kv_heads=4,
+                     head_dim=128, d_ff=2048, dtype="float32")
 # the GLM-shaped parity config of tests/test_torch_glm4.py (2 layers,
 # vocab 512): wk/wv are (1024, 256), so a 2 x 1024-token prefill takes the
 # tall-A path
@@ -1258,6 +1486,7 @@ def phase_parity(cfg, batch, prompt_len, cut=None):
     import torch
     from repro_torch.core.linear import serving_ctx
     from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import make_group
     from repro_torch.models.param import tree_map
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import pack_tree_for_serving
@@ -1268,14 +1497,19 @@ def phase_parity(cfg, batch, prompt_len, cut=None):
     del params
     prompt = ((torch.arange(batch * prompt_len) * 7 + 3)
               % cfg.vocab_size).to(torch.int32).reshape(batch, prompt_len)
-    steps, max_len = 4, prompt_len + 8
+    # the model's other inputs (a VLM's image embeddings, an
+    # encoder-decoder's frames): seeded, bf16, made once on the host
+    inputs = {**make_group(cfg, batch, prompt_len, "cpu", seed=1),
+              "tokens": prompt}
+    image = cfg.num_image_tokens if cfg.embeds_input else 0
+    steps, max_len = 4, image + prompt_len + 8
 
     def run(params, device, feed=None):
         out, toks = [], []
         with torch.inference_mode(), serving_ctx():
             cache = model.init_cache(batch, max_len, device)
             logits, cache = model.prefill(
-                params, {"tokens": prompt.to(device)}, cache)
+                params, {k: v.to(device) for k, v in inputs.items()}, cache)
             out.append(logits[:, -1].float().cpu())
             for i in range(steps):
                 tok = (feed[i] if feed is not None
@@ -1305,7 +1539,10 @@ def phase_parity(cfg, batch, prompt_len, cut=None):
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
           "capacity_factor": cfg.capacity_factor, "mla": cfg.use_mla,
           "cut": cut, "layers": cfg.num_layers, "dtype": cfg.dtype,
-          "batch": batch,
+          "sliding_window": cfg.sliding_window, "image_tokens": image,
+          "encoder_layers": cfg.encoder_layers if cfg.is_encoder_decoder
+          else 0, "encoder_seq": cfg.encoder_seq if cfg.is_encoder_decoder
+          else 0, "batch": batch,
           "prompt": prompt_len, "decode_steps": steps,
           "packed_leaves": len(report), "max_abs_err_per_step": errs,
           "tol": tol, "tol_rule": f"{PARITY_RTOL} * max(1, max|logit|)",
@@ -1362,13 +1599,16 @@ def phase_serve(path: str) -> tuple:
     cfg = dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
     model = build_model(cfg)
     prompt, steps = spec["prompt"], spec["steps"]
+    prompts = spec.get("prompts", (prompt,))
+    image = cfg.num_image_tokens if cfg.embeds_input else 0
     cuda.reset_launches()
     registry.reset_stats()
     t0 = time.perf_counter()
     params, axes = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = Engine(model, params, axes, max_len=prompt + steps + 8,
-                 max_batch=spec["max_batch"], max_prompt=prompt,
-                 device="cuda")
+    eng = Engine(model, params, axes,
+                 max_len=image + max(prompts) + steps + 8,
+                 max_batch=spec["max_batch"], max_prompt=max(prompts),
+                 min_prompt=spec.get("min_prompt", 8), device="cuda")
     del params
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -1383,6 +1623,11 @@ def phase_serve(path: str) -> tuple:
           "top_k": cfg.experts_per_token,
           "first_k_dense": cfg.first_k_dense, "mla": cfg.use_mla,
           "ssm_state": cfg.ssm_state, "attn_every": cfg.attn_every,
+          "sliding_window": cfg.sliding_window, "image_tokens": image,
+          "encoder_layers": cfg.encoder_layers, "encoder_seq":
+          cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+          "vocab": cfg.vocab_size, "prompts": prompts,
+          "length_buckets": eng.grid.length,
           "dtype": cfg.dtype, "packed_leaves": len(eng.pack_report),
           "param_count": param_count(model),
           "active_param_count": active_param_count(model),
@@ -1398,15 +1643,18 @@ def phase_serve(path: str) -> tuple:
     if "load" in hooks:
         hooks["load"](path, eng, cfg, load_launches)
 
-    groups = {b: make_group(cfg, b, prompt, "cuda") for b in spec["groups"]}
+    # each group size at each prompt length, in that order; a VLM's image
+    # embeddings and an encoder-decoder's frames seeded
+    groups = {(b, p): make_group(cfg, b, p, "cuda", seed=0)
+              for p in prompts for b in spec["groups"]}
     base, pre = serve_both(eng, groups, steps, path)
-    first = []
-    for b, (want, got) in base.items():
+    first = {}
+    for (b, p), (want, got) in base.items():
         toks = check_group(got, b, steps, cfg.vocab_size)
-        first.append(toks[0].tolist())
+        first.setdefault(p, []).append(toks[0].tolist())
         extra = (hooks["group"](path, eng, cfg, b, got) if "group" in hooks
                  else {})
-        emit({"phase": path, "group": b, "buckets": got.buckets,
+        emit({"phase": path, "group": b, "prompt": p, "buckets": got.buckets,
               "prefill_s": got.prefill_s, "per_token_s": got.per_token_s,
               "eager_prefill_s": want.prefill_s,
               "eager_per_token_s": want.per_token_s,
@@ -1414,6 +1662,7 @@ def phase_serve(path: str) -> tuple:
               **extra, "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
+    EPILOGUES[path] = dict(cuda.epilogue_launches)
     stats = registry.stats()
     # the baseline (prefills past the buckets) and the kernel of every
     # variant the install stamped; flash where the attention takes it
@@ -1422,9 +1671,11 @@ def phase_serve(path: str) -> tuple:
     extra, more = (hooks["path"](path, eng, cfg, launches) if "path" in hooks
                    else ({}, set()))
     emit({"phase": f"{path}.launches", "launches": launches,
-          "design_launches": designs, "registry": stats,
+          "design_launches": designs, "epilogue_launches": EPILOGUES[path],
+          "registry": stats,
           "decode_cell_launches": dict(cell_launches(eng, "decode")),
-          "tokens0_equal_across_groups": all(t == first[0] for t in first),
+          "tokens0_equal_across_groups": all(
+              t == ts[0] for ts in first.values() for t in ts),
           **extra})
     check_programs(path, eng, pre)
     if stats["misses"]:
@@ -1441,8 +1692,8 @@ def phase_serve(path: str) -> tuple:
     missing = sorted(k for k in need | more if launches.get(k, 0) == 0)
     if missing:
         raise AssertionError(f"{path} launched no {missing}")
-    profile(path, eng, make_group(cfg, spec["profile_batch"], prompt, "cuda"),
-            steps=4)
+    profile(path, eng, make_group(cfg, spec["profile_batch"], prompt, "cuda",
+                                  seed=0), steps=4)
     if "after" in hooks:
         hooks["after"](path, eng, cfg, base)
     emit({"phase": f"{path}.seconds", "seconds": time.perf_counter() - t_phase})
@@ -1478,12 +1729,14 @@ def serve_both(eng, groups: dict, steps: int, path: str) -> tuple:
     finally:
         eng.programs = graphed
     torch.cuda.synchronize()
-    eager_counts = (dict(cuda.launches), dict(cuda.design_launches))
+    eager_counts = (dict(cuda.launches), dict(cuda.design_launches),
+                    dict(cuda.epilogue_launches))
     cuda.reset_launches()
     for b, batch in groups.items():
         out[b].append(eng.generate(batch, steps))
     torch.cuda.synchronize()
-    counts = (dict(cuda.launches), dict(cuda.design_launches))
+    counts = (dict(cuda.launches), dict(cuda.design_launches),
+              dict(cuda.epilogue_launches))
     for b, (want, got) in out.items():
         if not (torch.equal(got.tokens, want.tokens)
                 and torch.equal(got.logits_last, want.logits_last)):
@@ -1567,12 +1820,6 @@ def cell_launches(eng, kind: str, tokens: int = 0):
     return out
 
 
-def qwen_load(path, eng, cfg, load_launches):
-    if len(eng.pack_report) != 8:
-        raise AssertionError(f"{path}: expected 8 packed leaves, got "
-                             f"{sorted(eng.pack_report)}")
-
-
 def glm_load(path, eng, cfg, load_launches):
     """GLM-4-9B packs every leaf but its (4096, 256) wk / wv at load, and
     the kernels phase's load case is a largest layer-stacked leaf."""
@@ -1643,24 +1890,8 @@ def deepseek_load(path, eng, cfg, load_launches):
 
 
 def deepseek_after(path, eng, cfg, base):
-    b = SERVE[path]["max_batch"]
-    mla_prefill_attention(path, cfg, b, SERVE[path]["prompt"],
-                          base[b][1].prefill_s)
-
-
-def ssm_load(path, eng, cfg, load_launches):
-    """Every Mamba leaf (w_in zero-padded to whole blocks), the head (a
-    tied one as a packed copy of the table's transpose) and the hybrid's
-    shared block are packed at load."""
-    stack = "mamba_layers" if cfg.family == "hybrid" else "layers"
-    want = [f"{stack}/mamba/w_in", f"{stack}/mamba/w_out", "embed/head"]
-    if cfg.shared_block:
-        want += [f"shared/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
-        want += [f"shared/mlp/{w}" for w in ("w_gate", "w_up", "w_down")]
-    absent = [p for p in want if p not in eng.pack_report]
-    if absent or len(eng.pack_report) != len(want):
-        raise AssertionError(f"{path}: packed {sorted(eng.pack_report)}, "
-                             f"want {want}")
+    b, s = SERVE[path]["max_batch"], SERVE[path]["prompt"]
+    mla_prefill_attention(path, cfg, b, s, base[(b, s)][1].prefill_s)
 
 
 def ssm_path(path, eng, cfg, launches):
@@ -1675,12 +1906,7 @@ def ssm_path(path, eng, cfg, launches):
                              f"cell call)")
     extra = {"pack_blocks_on_path": launches.get("pack_blocks", 0)}
     if cfg.shared_block:
-        prefill = cell_launches(eng, "prefill", SERVE[path]["prompt"])
-        if cfg.head_dim != 80 or not prefill.get("flash_attention", 0):
-            raise AssertionError(f"{path}: the {SERVE[path]['prompt']}-token "
-                                 f"prefill cells launched no flash at D = "
-                                 f"{cfg.head_dim}: {dict(prefill)}")
-        extra.update(prefill_launches=dict(prefill), flash_head_dim=80)
+        extra.update(flash_path(path, eng, cfg, launches)[0])
     return extra, set()
 
 
@@ -1696,6 +1922,89 @@ def ssm_after(path, eng, cfg, base):
     emit({"phase": "profile", "path": path, **summary})
 
 
+def packed_load(path, eng, cfg, load_launches):
+    """Every leaf of ``PACKED[path]`` (and nothing else) packed at load."""
+    want = PACKED[path]
+    absent = [p for p in want if p not in eng.pack_report]
+    if absent or len(eng.pack_report) != len(want):
+        raise AssertionError(f"{path}: packed {sorted(eng.pack_report)}, "
+                             f"want {sorted(want)}")
+
+
+def flash_path(path, eng, cfg, launches):
+    """The path's prefill cells at its prompt launch flash at the model's
+    head dim (every launch on the wgmma design: ``check_wgmma``)."""
+    prompt = SERVE[path]["prompt"]
+    prefill = cell_launches(eng, "prefill", prompt)
+    if not prefill.get("flash_attention", 0):
+        raise AssertionError(f"{path}: the {prompt}-token prefill cells "
+                             f"launched no flash at D = {cfg.head_dim}: "
+                             f"{dict(prefill)}")
+    return ({"prefill_launches": dict(prefill),
+             "flash_head_dim": cfg.head_dim}, set())
+
+
+def window_path(path, eng, cfg, launches):
+    """h2o-danube's rolling cache after the graphed groups: each bucket's
+    last group (the shorter prompt, 4088 tokens) decoded past position
+    4096, so its graphed decode wrote slot 4095 and then slot 0 (the
+    slot computed on the device, on every replay); the longer prompt's
+    prefill cell rolled (more positions than slots)."""
+    import torch
+    spec = SERVE[path]
+    short = min(spec["prompts"])
+    out = {}
+    for bb in eng.buckets:
+        cache = eng.programs.static_cache(bb, eng.max_len)
+        slots = cache["slot_pos"].shape[0]
+        sp = cache["slot_pos"].cpu()
+        end = short + spec["steps"]
+        wrapped = list(range(slots, end))
+        ok = (slots == cfg.sliding_window < max(spec["prompts"])
+              and short < slots < end and int(cache["pos"]) == end
+              and sp[:end - slots].tolist() == wrapped
+              and int(sp[slots - 1]) == slots - 1
+              and bool(torch.all(sp[end - slots:short] == torch.arange(
+                  end - slots, short))))
+        out[bb] = {"slots": slots, "pos": int(cache["pos"]),
+                   "slot_pos_head": sp[:end - slots].tolist(),
+                   "slot_pos_last": int(sp[slots - 1]), "wrapped": ok}
+        if not ok:
+            raise AssertionError(f"{path}: bucket {bb}'s cache did not "
+                                 f"wrap as a {short}-token prompt + "
+                                 f"{spec['steps']} steps must: {out[bb]}")
+    return {"window": cfg.sliding_window, "wrap": out}, set()
+
+
+def encdec_path(path, eng, cfg, launches):
+    """whisper-base: flash at D 64 in the decoder's prefill cells, and
+    the skinny-A kernel's bias + GELU epilogue on the graphed groups
+    (``cuda.epilogue_launches``, zeroed with the other counts): each
+    group's prefill fuses it into every encoder layer's and every decoder
+    layer's MLP, and its decode steps into every decoder layer's, each a
+    ``bias_gelu`` epilogue launch and none an activation without bias."""
+    extra, _ = flash_path(path, eng, cfg, launches)
+    epi = EPILOGUES[path]
+    gelu = sum(v for k, v in epi.items() if k.endswith("/bias_gelu"))
+    least = len(SERVE[path]["groups"]) * (cfg.encoder_layers
+                                          + cfg.num_layers)
+    if gelu < least or any(not k.endswith("/bias_gelu") for k in epi):
+        raise AssertionError(f"{path}: fused epilogue launches {epi}, not "
+                             f"at least {least} bias + GELU launches and "
+                             f"no other")
+    extra["gelu_epilogue_launches"] = epi
+    return extra, set()
+
+
+# four models' serve and queue paths at half their depth, so the script
+# ends well inside its time limit with the ZOO paths (each model fits
+# the card whole; Zamba2 keeps whole groups of 6 Mamba layers)
+HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 20},
+                 "olmoe_1b_7b": {"num_layers": 8},
+                 "mamba2_780m": {"num_layers": 24},
+                 "zamba2_2_7b": {"num_layers": 24}}
+
+
 # the serve paths: (arch, cut of the published config, max batch, prompt,
 # decode steps, groups, the profiled batch, whether flash runs, the path's
 # own checks).  OLMoE-1B-7B, Mamba2-780m and Zamba2-2.7B whole;
@@ -1703,14 +2012,16 @@ def ssm_after(path, eng, cfg, base):
 # layer and 2 MoE layers: 160 experts x 3 x 5120 x 1536 bf16 = 7.55 GB a
 # layer; 60 do not fit one card)
 SERVE = {
-    "serve": dict(arch="qwen1_5_4b", cut={}, max_batch=4, prompt=256,
+    "serve": dict(arch="qwen1_5_4b", cut=HALF_DEPTH["qwen1_5_4b"],
+                  max_batch=4, prompt=256,
                   steps=16, groups=(1, 3, 4), profile_batch=4, flash=True,
-                  hooks={"load": qwen_load}),
+                  hooks={"load": packed_load}),
     "serve.glm4": dict(arch="glm4_9b", cut={}, max_batch=2, prompt=2048,
                        steps=8, groups=(1, 2), profile_batch=1, flash=True,
                        hooks={"load": glm_load, "group": glm_group,
                               "path": glm_path}),
-    "serve.olmoe": dict(arch="olmoe_1b_7b", cut={}, max_batch=4, prompt=256,
+    "serve.olmoe": dict(arch="olmoe_1b_7b", cut=HALF_DEPTH["olmoe_1b_7b"],
+                        max_batch=4, prompt=256,
                         steps=16, groups=(1, 3, 4), profile_batch=4,
                         flash=True, hooks={}),
     "serve.deepseek": dict(arch="deepseek_v2_236b", cut={"num_layers": 3},
@@ -1718,16 +2029,77 @@ SERVE = {
                            profile_batch=2, flash=False,
                            hooks={"load": deepseek_load,
                                   "after": deepseek_after}),
-    "serve.mamba2": dict(arch="mamba2_780m", cut={}, max_batch=4, prompt=256,
+    "serve.mamba2": dict(arch="mamba2_780m",
+                         cut=HALF_DEPTH["mamba2_780m"], max_batch=4,
+                         prompt=256,
                          steps=16, groups=(1, 3, 4), profile_batch=4,
-                         flash=False, hooks={"load": ssm_load,
+                         flash=False, hooks={"load": packed_load,
                                              "path": ssm_path,
                                              "after": ssm_after}),
-    "serve.zamba2": dict(arch="zamba2_2_7b", cut={}, max_batch=2,
+    "serve.zamba2": dict(arch="zamba2_2_7b",
+                         cut=HALF_DEPTH["zamba2_2_7b"], max_batch=2,
                          prompt=2048, steps=8, groups=(1, 2),
                          profile_batch=1, flash=True,
-                         hooks={"load": ssm_load, "path": ssm_path,
+                         hooks={"load": packed_load, "path": ssm_path,
                                 "after": ssm_after}),
+    # h2o-danube-1.8b whole: a 4352-token prompt past the 4096 window (the
+    # rolled prefill) and a 4088-token one whose decode wraps; the length
+    # grid holds exactly those two (min_prompt 4088).  Windowed attention
+    # takes the chunked body, as in the reference: no flash
+    "serve.danube": dict(arch="h2o_danube_1_8b", cut={}, max_batch=2,
+                         prompt=4352, prompts=(4352, 4088), min_prompt=4088,
+                         steps=16, groups=(1, 2), profile_batch=1,
+                         flash=False, hooks={"load": packed_load,
+                                             "path": window_path}),
+    # the LLaVA-NeXT backbone whole: 2880 seeded image embeddings + 192
+    # tokens = 3072 positions, flash at D 128 on 32 query / 8 KV heads
+    "serve.llava": dict(arch="llava_next_mistral_7b", cut={}, max_batch=2,
+                        prompt=192, steps=16, groups=(1, 2), profile_batch=1,
+                        flash=True, hooks={"load": packed_load,
+                                           "path": flash_path}),
+    # whisper-base whole: 1500 seeded frames, a 256-token decoder prompt
+    # (flash at D 64, causal); the encoder (1500 frames) and the cross
+    # attention take the chunked body
+    "serve.whisper": dict(arch="whisper_base", cut={}, max_batch=4,
+                          prompt=256, steps=16, groups=(1, 3, 4),
+                          profile_batch=4, flash=True,
+                          hooks={"load": packed_load, "path": encdec_path}),
+    # llama3-405b at its published widths cut to 2 layers: 12.8 GB of
+    # layers + 8.4 GB of embedding and head (126 layers do not fit a card)
+    "serve.llama3": dict(arch="llama3_405b", cut={"num_layers": 2},
+                         max_batch=2, prompt=512, steps=8, groups=(1, 2),
+                         profile_batch=2, flash=True,
+                         hooks={"load": packed_load, "path": flash_path}),
+}
+# the serve paths of h2o-danube-1.8b, LLaVA-NeXT, whisper-base and
+# llama3-405b, in the order they run
+ZOO = ("serve.danube", "serve.llava", "serve.whisper", "serve.llama3")
+# the leaves each path's engine must pack at load (and no other)
+_LM_PACKED = ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+              "layers/attn/wo", "layers/mlp/w_gate", "layers/mlp/w_up",
+              "layers/mlp/w_down", "embed/head")
+_SHARED_PACKED = tuple(
+    [f"shared/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
+    + [f"shared/mlp/{w}" for w in ("w_gate", "w_up", "w_down")])
+PACKED = {
+    "serve": _LM_PACKED, "serve.danube": _LM_PACKED,
+    "serve.llava": _LM_PACKED, "serve.llama3": _LM_PACKED,
+    # every Mamba leaf (w_in zero-padded to whole blocks), the head (a
+    # tied one as a packed copy of the table's transpose) and the
+    # hybrid's shared block
+    "serve.mamba2": ("layers/mamba/w_in", "layers/mamba/w_out",
+                     "embed/head"),
+    "serve.zamba2": ("mamba_layers/mamba/w_in", "mamba_layers/mamba/w_out",
+                     "embed/head") + _SHARED_PACKED,
+    # the encoder's and the decoder's every projection and the tied head
+    # (51865 wide: zero-padded to whole blocks)
+    "serve.whisper": tuple(
+        [f"enc_layers/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
+        + [f"enc_layers/mlp/{w}" for w in ("w_in", "w_out")]
+        + [f"dec_layers/{a}/{w}" for a in ("self_attn", "cross_attn")
+           for w in ("wq", "wk", "wv", "wo")]
+        + [f"dec_layers/mlp/{w}" for w in ("w_in", "w_out")]
+        + ["embed/head"]),
 }
 # DeepSeek-V2's packed leaves the serve path must hold: MLA's projections
 # (but wkv_a, (5120, 576), which no block layout divides: it runs the
@@ -1967,7 +2339,7 @@ def timed(fn, into: list):
 
 def phase_queue(cfg=None, device="cuda", *, n=16, path="queue",
                 extras=True):
-    """``cfg`` (default qwen1.5-4b) at full width and depth, bf16, on a
+    """``cfg`` (default qwen1.5-4b) at full width, bf16, on a
     queue engine of its own (4 slots, prompts to 256, ``max_len`` by the
     ragged rule), its grid (``prefill_row`` cells included) captured at
     load: ``n`` ragged requests through ``serve_queue`` on an eager
@@ -2235,6 +2607,23 @@ def run():
         phase_parity(dataclasses.replace(get_config(arch), num_layers=layers,
                                          dtype="float32"), 1, 256,
                      cut={"num_layers": layers})
+    # the rest of the zoo, float32, each cut on its line: h2o-danube-1.8b
+    # at full width, 2 layers, its window cut to 256 under a 384-token
+    # prompt (the prefill rolls); the LLaVA-NeXT backbone at full width,
+    # 2 layers, 64 seeded image embeddings + 64 tokens; whisper-base whole
+    # (6 + 6 layers, 1500 seeded frames, a 4-token decoder prompt); and
+    # llama3-405b's reduced config widened so every leaf packs (one fp32
+    # layer at full width, its embedding and head are ~30 GB on the host)
+    for arch, cut, prompt in (
+            ("h2o_danube_1_8b", {"num_layers": 2, "sliding_window": 256},
+             384),
+            ("llava_next_mistral_7b", {"num_layers": 2,
+                                       "num_image_tokens": 64}, 64),
+            ("whisper_base", {}, 4)):
+        phase_parity(dataclasses.replace(get_config(arch), dtype="float32",
+                                         **cut), 1, prompt, cut=cut or None)
+    phase_parity(get_config("llama3_405b").reduced(**LLAMA3_PARITY), 1, 256,
+                 cut={"reduced": True, **LLAMA3_PARITY})
     parity_designs = {d for p, v in FP32_PATHS.items()
                       if p.startswith("parity.") for d in v["designs"]}
     if parity_designs != FP32_SKINNY_DESIGNS:
@@ -2245,17 +2634,26 @@ def run():
     glm_launches, glm_load = phase_serve("serve.glm4")
     phase_queue_parity(dataclasses.replace(get_config("qwen1_5_4b"),
                                            num_layers=2, dtype="float32"))
-    queue_launches, queue_load, eng, reqs, results, stats = phase_queue()
+    queue_launches, queue_load, eng, reqs, results, stats = phase_queue(
+        dataclasses.replace(get_config("qwen1_5_4b"),
+                            **HALF_DEPTH["qwen1_5_4b"]))
     phase_queue_frontend(eng, reqs, results, stats)
     del eng
     by_path = {"paper": paper_launches, "queue": queue_launches}
     by_path["serve.olmoe"], olmoe_load = phase_serve("serve.olmoe")
     by_path["queue.olmoe"], olmoe_queue_load, eng, *_ = phase_queue(
-        get_config("olmoe_1b_7b"), n=8, path="queue.olmoe", extras=False)
+        dataclasses.replace(get_config("olmoe_1b_7b"),
+                            **HALF_DEPTH["olmoe_1b_7b"]),
+        n=8, path="queue.olmoe", extras=False)
     del eng
     by_path["serve.deepseek"], deepseek_load = phase_serve("serve.deepseek")
     by_path["serve.mamba2"], mamba2_load = phase_serve("serve.mamba2")
     by_path["serve.zamba2"], zamba2_load = phase_serve("serve.zamba2")
+    # the rest of the zoo: h2o-danube-1.8b, the LLaVA-NeXT backbone and
+    # whisper-base whole, llama3-405b at full width cut to 2 layers
+    zoo_load = {}
+    for path in ZOO:
+        by_path[path], zoo_load[path] = phase_serve(path)
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the
@@ -2313,6 +2711,8 @@ def run():
         "serve.deepseek.load": deepseek_load.get("pack_blocks", 0),
         "serve.mamba2.load": mamba2_load.get("pack_blocks", 0),
         "serve.zamba2.load": zamba2_load.get("pack_blocks", 0),
+        **{f"{p}.load": ls.get("pack_blocks", 0)
+           for p, ls in zoo_load.items()},
         "install": install_launches.get("pack_blocks", 0),
         "tall": tall_launches.get("pack_blocks", 0),
         **{p: ls.get("pack_blocks", 0) for p, ls in by_path.items()}}
@@ -2367,18 +2767,53 @@ def run():
                 if "launches" in v}
             r["fp32_design_launches_by_path"] = {
                 p: v["designs"] for p, v in FP32_PATHS.items()}
-    # the flash row also carries Zamba2's head dim (80) at its prefill,
-    # with its launches on that path
+    # the flash row also carries Zamba2's head dim (80), whisper-base's
+    # (64) and the LLaVA-NeXT backbone's 3072 positions at their
+    # prefills, each with its launches on its path
     flash = next(r for r in line if r["name"] == "flash_attention")
+    flash_paths = {(80, 2048): "serve.zamba2", (64, 256): "serve.whisper",
+                   (128, 3072): "serve.llava"}
     flash["cases"] = [
-        {**shape_of(c), "launches_path": "serve.zamba2",
-         "launches": by_path["serve.zamba2"].get("flash_attention", 0),
+        {**shape_of(c), "launches_path": flash_paths[(c["D"], c["S"])],
+         "launches": by_path[flash_paths[(c["D"], c["S"])]].get(
+             "flash_attention", 0),
          **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
                               "plain_ms", "library_ms", "bound_ms",
                               "bound_by")}}
-        for c in cases if c["kernel"] == "flash_attention" and c["D"] == 80]
-    if not flash["cases"] or not flash["cases"][0]["launches"]:
-        raise AssertionError(f"flash at D = 80: {flash['cases']}")
+        for c in cases if c["kernel"] == "flash_attention"
+        and (c["D"], c["S"]) in flash_paths]
+    if (len(flash["cases"]) != len(flash_paths)
+            or not all(c["launches"] for c in flash["cases"])):
+        raise AssertionError(f"flash at D = 80 / 64 / 128 x 3072: "
+                             f"{flash['cases']}")
+    # the skinny-A row also carries its bias + GELU cases (whisper-base's
+    # w_in), with its bias + GELU epilogue launches on serve.whisper
+    skinny = next(r for r in line if r["name"] == "tsmm_skinny_a")
+    skinny["bias_gelu"] = [
+        {**shape_of(c), "launches_path": "serve.whisper",
+         "launches": EPILOGUES["serve.whisper"].get(
+             "tsmm_skinny_a/bias_gelu", 0),
+         **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
+                              "plain_ms", "library_ms", "library_call",
+                              "bound_ms", "bound_by")}}
+        for c in cases if c["kernel"] == "tsmm_skinny_a"
+        and c["mode"] == "bias_gelu"]
+    # the skinny rows and the pack row also carry llama3-405b's head and
+    # w_down cases, each with its kernel's launches on serve.llama3 (the
+    # pack's at that path's load)
+    for r in line:
+        if r["name"] not in SKINNY and r["name"] != "pack_blocks":
+            continue
+        lp, ls = (("serve.llama3.load", zoo_load["serve.llama3"])
+                  if r["name"] == "pack_blocks"
+                  else ("serve.llama3", by_path["serve.llama3"]))
+        r["llama3"] = [
+            {**shape_of(c), "leaf": c["leaf"], "launches_path": lp,
+             "launches": ls.get(r["name"], 0),
+             **{k: c[k] for k in ("design", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}}
+            for c in cases if c["kernel"] == r["name"] and "leaf" in c]
     bad = [r["name"] for r in line if r["launches"] == 0]
     if bad:
         raise AssertionError(f"kernels with no launch on a path: {bad}")

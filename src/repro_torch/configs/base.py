@@ -3,10 +3,12 @@
 One ``ModelConfig`` dataclass covers every architecture family of the
 reference; architecture files under ``repro_torch/configs/`` export
 ``CONFIG`` (the published dims) and ``REDUCED`` (a structurally-identical
-small config for CPU tests).  Ported so far: the dense family
-(``qwen1_5_4b``, ``glm4_9b``), the MoE family (``olmoe_1b_7b``,
-``deepseek_v2_236b``), the SSM family (``mamba2_780m``) and the hybrid
-(``zamba2_2_7b``).
+small config for CPU tests).  Every family of the reference is ported:
+the dense family (``qwen1_5_4b``, ``glm4_9b``, ``llama3_405b`` and the
+sliding-window ``h2o_danube_1_8b``), the MoE family (``olmoe_1b_7b``,
+``deepseek_v2_236b``), the SSM family (``mamba2_780m``), the hybrid
+(``zamba2_2_7b``), the VLM backbone fed image embeddings
+(``llava_next_mistral_7b``) and the encoder-decoder (``whisper_base``).
 """
 
 from __future__ import annotations

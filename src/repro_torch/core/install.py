@@ -14,7 +14,9 @@ bucket grid:
 * decode: every power-of-two batch bucket (1..max_batch) x each arch's
   projection shapes;
 * prefill: every (batch bucket x length bucket) cell's token count
-  (``bb * lb``) x the same shapes.
+  (``bb * lb``) x the same shapes, and the rows a prefill cell runs
+  besides them (:func:`prefill_rows`: a VLM's image embeddings before
+  the prompt, an encoder-decoder's encoder over its frames).
 
 An Engine started afterwards on the same shapes makes registry lookups
 only.  With ``--measure`` the evaluator times the model-ranked short list
@@ -48,13 +50,15 @@ import sys
 import time
 
 from repro_torch.core import registry
-from repro_torch.core.autotuner import make_plan_grid, make_plan_set
+from repro_torch.core.autotuner import (make_plan, make_plan_grid,
+                                        make_plan_set)
 from repro_torch.core.plan import (BucketGrid, Problem, buckets_for, is_tsmm,
                                    length_buckets_for)
 
 # the configurations the port serves
 ARCHS = ("qwen1_5_4b", "glm4_9b", "olmoe_1b_7b", "deepseek_v2_236b",
-         "mamba2_780m", "zamba2_2_7b")
+         "mamba2_780m", "zamba2_2_7b", "h2o_danube_1_8b",
+         "llava_next_mistral_7b", "whisper_base", "llama3_405b")
 # serving batch buckets swept at install time: every power of two up to
 # the largest batch
 MAX_SERVE_BATCH = 128
@@ -98,16 +102,36 @@ def serving_shapes(cfg) -> set:
     return shapes
 
 
+def prefill_rows(cfg, buckets: tuple, lengths: tuple) -> list:
+    """The rows a prefill cell runs through the projections besides the
+    grid's ``bb * lb`` (which the reference's sweep plans alone): a VLM's
+    ``bb * (num_image_tokens + lb)``, the image embeddings going first,
+    and an encoder-decoder's ``bb * encoder_seq``, its encoder layers and
+    the decoder's cross K/V over the frames.  Empty without ``lengths``
+    (a decode-only sweep)."""
+    if not lengths:
+        return []
+    grid = BucketGrid(tuple(buckets), tuple(lengths))
+    rows = set()
+    if cfg.embeds_input:
+        rows |= {bb * (cfg.num_image_tokens + lb) for bb, lb in grid.cells()}
+    if cfg.is_encoder_decoder:
+        rows |= {bb * cfg.encoder_seq for bb in buckets}
+    return sorted(rows)
+
+
 def serving_problems(cfg, buckets: tuple = SERVE_BUCKETS,
                      lengths: tuple = ()) -> list[Problem]:
     """The (m, k, n) set the serving path hits for one architecture:
     every batch bucket (decode, m = bb) plus, when ``lengths`` is given,
-    every grid cell's token count (prefill, m = bb * lb)."""
+    every grid cell's token count (prefill, m = bb * lb) and the
+    :func:`prefill_rows` (a superset of the reference's set)."""
     shapes = sorted(serving_shapes(cfg))
     ms = list(buckets)
     if lengths:
         grid = BucketGrid(tuple(buckets), tuple(lengths))
-        ms = sorted(set(ms) | set(grid.token_buckets()))
+        ms = sorted(set(ms) | set(grid.token_buckets())
+                    | set(prefill_rows(cfg, buckets, lengths)))
     out = []
     for m in ms:
         for (k, n) in shapes:
@@ -130,6 +154,12 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     shapes = sorted(serving_shapes(cfg))
     if limit_shapes:
         shapes = shapes[:limit_shapes]
+    # the rows the decode buckets and the grid's token counts leave out
+    # (:func:`prefill_rows`), planned through the serving set
+    grid_rows = set(buckets) | (set(BucketGrid(
+        tuple(buckets), tuple(lengths)).token_buckets()) if lengths else set())
+    extra = [p for p in serving_problems(cfg, buckets, lengths)
+             if p.m not in grid_rows and (p.k, p.n) in shapes]
     for (k, n) in shapes:
         pset = make_plan_set(k, n, buckets, cfg.dtype, hw=hw, measure=mm,
                              persist=False, iters=iters, force=force,
@@ -143,7 +173,10 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
             # cells sharing a token count share a plan; count distinct
             n_plans += len({p.problem.m for p in pg.plans.values()
                             if p.problem.m not in buckets})
-    return n_plans
+    for p in extra:
+        make_plan(p, hw, measure=mm, persist=False, iters=iters, force=force,
+                  device=device)
+    return n_plans + len(extra)
 
 
 def precompile_arch(cfg, buckets: tuple, lengths: tuple, *, max_len: int,

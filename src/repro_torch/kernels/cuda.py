@@ -15,7 +15,9 @@ one (:func:`count`) where it launches its kernel and nowhere else.
 ``skinny_tf32x3`` (``csrc/tsmm_skinny.cu``), ``tall_wgmma`` / ``tall_f32`` /
 ``tall_tf32x3`` (``csrc/tsmm_tall.cu``), ``flash_wgmma`` / ``flash_simt``
 (``csrc/flash_attention.cu``), ``pack_tma`` / ``pack_vec``
-(``csrc/pack_blocks.cu``).  A launch made while a CUDA graph captures
+(``csrc/pack_blocks.cu``).  ``epilogue_launches`` counts the launches
+that fused an activation into their epilogue, by kernel and epilogue
+(``tsmm_skinny_a/bias_gelu``).  A launch made while a CUDA graph captures
 runs nothing: inside :func:`recording` it is counted into the recorder
 instead, and :func:`replayed` adds a recorder's counts once per replay
 of the graph (``serve/programs.py``), so counts under graphs equal the
@@ -46,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches: Counter = Counter()
 design_launches: Counter = Counter()
+epilogue_launches: Counter = Counter()
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -58,28 +61,31 @@ _recorder = threading.local()
 def reset_launches() -> None:
     launches.clear()
     design_launches.clear()
+    epilogue_launches.clear()
 
 
-def count(name: str, design: str) -> None:
-    """Count one launch of kernel ``name`` by ``design``: into the
-    calling thread's recorder while one is open, else into ``launches``
-    and ``design_launches``."""
+def count(name: str, design: str, epilogue: str | None = None) -> None:
+    """Count one launch of kernel ``name`` by ``design`` (and, when it
+    fused an activation, by ``epilogue``): into the calling thread's
+    recorder while one is open, else into ``launches``,
+    ``design_launches`` and ``epilogue_launches``."""
     rec = getattr(_recorder, "counts", None)
-    if rec is not None:
-        rec[0][name] += 1
-        rec[1][design] += 1
-        return
-    launches[name] += 1
-    design_launches[design] += 1
+    counters = rec if rec is not None else (launches, design_launches,
+                                            epilogue_launches)
+    counters[0][name] += 1
+    counters[1][design] += 1
+    if epilogue:
+        counters[2][f"{name}/{epilogue}"] += 1
 
 
 @contextlib.contextmanager
 def recording():
     """Count the calling thread's launches into a recorder, (by kernel,
-    by design), instead of the global counts: what a graph capture
-    launches has not run.  Other threads keep counting globally."""
+    by design, by epilogue), instead of the global counts: what a graph
+    capture launches has not run.  Other threads keep counting
+    globally."""
     prev = getattr(_recorder, "counts", None)
-    _recorder.counts = (Counter(), Counter())
+    _recorder.counts = (Counter(), Counter(), Counter())
     try:
         yield _recorder.counts
     finally:
@@ -88,8 +94,9 @@ def recording():
 
 def replayed(rec) -> None:
     """Add a recorder's counts once: one replay of what it recorded."""
-    launches.update(rec[0])
-    design_launches.update(rec[1])
+    for counter, counts in zip((launches, design_launches,
+                                epilogue_launches), rec):
+        counter.update(counts)
 
 
 def _nvcc() -> str:

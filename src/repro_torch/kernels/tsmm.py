@@ -328,7 +328,10 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
         plan.nt, plan.cluster, plan.stages,
         cuda.stream(x.device))
     cuda.check(rc, name)
-    cuda.count(name, f"skinny_{plan.design}")
+    fused = mode == EPILOGUE and act not in (None, "none")
+    cuda.count(name, f"skinny_{plan.design}",
+               (("bias_" if bias is not None else "") + act) if fused
+               else None)
     return out
 
 

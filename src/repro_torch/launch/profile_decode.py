@@ -81,7 +81,8 @@ def profile_steps(eng, batch: dict, *, steps: int, graphs: bool,
              else ProgramStore(eng.model, device=eng.device, capture=False))
     b, width = batch["tokens"].shape
     cell = store.static_batch(batch)
-    cell["tokens"].copy_(batch["tokens"])
+    for k, v in batch.items():          # tokens, and embeds / frames
+        cell[k].copy_(v)
     cache = store.static_cache(b, eng.max_len)
     tok = store.static_tokens(b)
     with torch.inference_mode(), serving_ctx():

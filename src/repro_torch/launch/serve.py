@@ -19,6 +19,16 @@ tiers, tenant fairness, ``--queue-limit`` backpressure,
 ``--prefill-budget`` chunked admission) on the deterministic virtual
 clock, and prints the TTFT percentiles and per-tier telemetry.
 
+Every config of the reference serves here: the dense, MoE, SSM and
+hybrid families, the sliding-window h2o-danube-1.8b (its prompts may be
+longer than the window: the cache rolls), the LLaVA-NeXT backbone (each
+group carries image embeddings before its tokens) and whisper-base (each
+group carries encoder frames), the last two with bf16 zeros as the
+reference's launcher builds them:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_base \
+        --reduced --device cpu --trace 1,3 --steps 2
+
 ``--device`` defaults to ``cuda``; pass
 ``--device cpu`` (with ``--reduced``) to run the plain PyTorch versions
 on the CPU.  Params are random, from seed 0.  After an install sweep
@@ -54,10 +64,28 @@ from repro_torch.serve.engine import Engine, resolve_device
 from repro_torch.serve.scheduler import Request
 
 
-def make_group(cfg, b: int, prompt_len: int, device) -> dict:
+def make_group(cfg, b: int, prompt_len: int, device,
+               seed=None) -> dict:
+    """A group of ``b`` prompts of ``prompt_len`` tokens, with the
+    model's other inputs as the reference's launcher builds them: a VLM's
+    ``embeds`` (b, num_image_tokens, d_model) and an encoder-decoder's
+    ``enc_frames`` (b, encoder_seq, d_model), bf16 zeros, or with
+    ``seed`` normal draws of a generator seeded with it."""
     tokens = (torch.arange(b * prompt_len, device=device)
               .reshape(b, prompt_len) % cfg.vocab_size).to(torch.int32)
-    return {"tokens": tokens}
+    out = {"tokens": tokens}
+    gen = (torch.Generator(device=device).manual_seed(seed)
+           if seed is not None else None)
+    for key, n, on in (("embeds", cfg.num_image_tokens, cfg.embeds_input),
+                       ("enc_frames", cfg.encoder_seq,
+                        cfg.is_encoder_decoder)):
+        if not on:
+            continue
+        shape = (b, n, cfg.d_model)
+        x = (torch.randn(shape, generator=gen, device=device)
+             if gen is not None else torch.zeros(shape, device=device))
+        out[key] = x.to(torch.bfloat16)
+    return out
 
 
 def parse_trace(spec: str, default_len: int) -> list:
@@ -161,7 +189,8 @@ def main(argv=None):
         total_steps = sum(b * args.steps for b, _ in trace)
         max_len = args.max_len or (2 * max_prompt + total_steps + 8)
     else:
-        max_len = args.max_len or (max_prompt + args.steps + 8)
+        image = cfg.num_image_tokens if cfg.embeds_input else 0
+        max_len = args.max_len or (image + max_prompt + args.steps + 8)
     eng = Engine(model, params, axes, max_len=max_len, max_batch=max_batch,
                  max_prompt=max_prompt, prepack=not args.no_prepack,
                  background_tune=args.background_tune, device=device)

@@ -1,15 +1,16 @@
 """Attention: chunked online-softmax attention for prefill, cache-based
-decode, the GQA block, and MLA (DeepSeek-V2) with the absorbed decode
-over the compressed KV cache.
+decode (sliding-window included), the GQA block with its cross-attention
+form, and MLA (DeepSeek-V2) with the absorbed decode over the compressed
+KV cache.
 
-The port of the reference's ``models/attention.py`` (its sliding-window
-and cross-attention paths belong to later slices).  On a CUDA device,
+The port of the reference's ``models/attention.py``.  On a CUDA device,
 full-window self-attention from position 0 with a sequence length that
 is a multiple of 256, V as wide as Q and K, and a head dim the flash
 kernel takes runs the flash kernel (``kernels/flash_attention.py``);
-everything else — the CPU, ragged (left-padded) batches, offsets, MLA's
-192-wide Q/K against its 128-wide V — runs the chunked torch body below,
-the counterpart of the reference's jnp path.
+everything else — the CPU, ragged (left-padded) batches, offsets, a
+sliding window, cross-attention (whisper's decoder over its encoder's
+1500 frames), MLA's 192-wide Q/K against its 128-wide V — runs the
+chunked torch body below, the counterpart of the reference's jnp path.
 """
 
 from __future__ import annotations
@@ -151,20 +152,25 @@ def init_gqa(gen, cfg, d_in: int = 0, d_out: int = 0):
     return pt.build()
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, kv_from=None):
     b, s, _ = x.shape
+    src = x if kv_from is None else kv_from
+    sk = src.shape[1]
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = linear(x, p["wk"], p.get("bk")).reshape(b, s, kh, hd)
-    v = linear(x, p["wv"], p.get("bv")).reshape(b, s, kh, hd)
+    k = linear(src, p["wk"], p.get("bk")).reshape(b, sk, kh, hd)
+    v = linear(src, p["wv"], p.get("bv")).reshape(b, sk, kh, hd)
     return q, k, v
 
 
 def gqa_forward(p, cfg, x, *, causal=True, pos_offset: int = 0,
-                chunk: int = 512, use_rope: bool = True, valid_from=None):
-    """Full-sequence attention (prefill).  Returns (out, (k, v))."""
+                chunk: int = 512, use_rope: bool = True, kv_from=None,
+                valid_from=None):
+    """Full-sequence attention (prefill).  Returns (out, (k, v)).
+    ``kv_from``: the cross-attention source sequence (whisper's encoder
+    output): K and V are projected from it and start at position 0."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, kv_from=kv_from)
     if use_rope:
         pos = pos_offset + torch.arange(s, device=x.device)
         cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
@@ -172,7 +178,9 @@ def gqa_forward(p, cfg, x, *, causal=True, pos_offset: int = 0,
         k = apply_rope(k, cos, sin)
     out = chunked_attention(q, k, v, causal=causal,
                             window=cfg.sliding_window, chunk=chunk,
-                            q_offset=pos_offset, valid_from=valid_from)
+                            q_offset=pos_offset,
+                            k_offset=0 if kv_from is not None else None,
+                            valid_from=valid_from)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return linear(out, p["wo"]), (k, v)
 
@@ -181,10 +189,12 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
                use_rope: bool = True, valid_from=None):
     """One token.  x: (B,1,d); ``cur_pos`` the step's position, a 0-d int
     tensor on the device, and ``slot`` its cache slot, (1,) int64 on the
-    device; caches (B,S,KH,D) are updated IN PLACE at ``slot``; slot_pos
-    (S,) absolute position per slot (already updated by the caller).
-    Nothing here reads the position on the host, so a captured step
-    replays at whatever position the cache holds."""
+    device (``cur_pos`` itself, or ``cur_pos % S`` under a sliding
+    window: the caller computes it on the device); caches (B,S,KH,D) are
+    updated IN PLACE at ``slot``; slot_pos (S,) absolute position per
+    slot (already updated by the caller).  Nothing here reads the
+    position on the host, so a captured step replays at whatever
+    position the cache holds, past a window's wrap too."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     if use_rope:
@@ -197,6 +207,18 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
     out = decode_attention(q, cache_k, cache_v, slot_pos, cur_pos,
                            window=cfg.sliding_window, valid_from=valid_from)
     return linear(out.reshape(b, 1, cfg.num_heads * cfg.head_dim), p["wo"])
+
+
+def cross_decode(p, cfg, x, cross_k, cross_v):
+    """The decoder's cross-attention step: q from x (B,1,d) against the
+    encoder's K/V (B,T,KH,D), projected once at prefill and read by every
+    step (every key valid)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
+    kpos = torch.arange(cross_k.shape[1], device=x.device)
+    out = decode_attention(q, cross_k, cross_v, kpos, cross_k.shape[1] - 1)
+    return linear(out.reshape(b, 1, h * hd), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
-"""Shared layers: norm, RoPE, embeddings, the SwiGLU MLP."""
+"""Shared layers: norms, RoPE, sinusoidal positions, embeddings, the
+SwiGLU and GELU MLPs."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -13,6 +16,17 @@ def rmsnorm(x, scale, eps: float):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def layernorm(x, scale, bias, eps: float):
+    """LayerNorm in fp32 (mean, variance, scale and shift), cast once to
+    x's dtype, as the reference's ``layers.layernorm``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
 
 
 def rope_tables(positions, dim: int, theta: float):
@@ -49,6 +63,39 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
 def swiglu(p, x):
     h = linear(x, p["w_gate"], act="silu") * linear(x, p["w_up"])
     return linear(h, p["w_down"])
+
+
+def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
+    pt = ParamTree(gen, dtype)
+    pt.dense("w_in", (d_model, d_ff), ("embed", "mlp"))
+    pt.zeros("b_in", (d_ff,), ("mlp",))
+    pt.dense("w_out", (d_ff, d_out or d_model), ("mlp", "embed"))
+    pt.zeros("b_out", (d_out or d_model,), ("embed",))
+    return pt.build()
+
+
+def gelu_mlp(p, x):
+    """w_out(gelu(x @ w_in + b_in)) + b_out: the bias and the tanh GELU
+    of the first product run in the kernel's epilogue (``linear`` passes
+    them to ``tsmm_dot``), not as a pass of their own."""
+    h = linear(x, p["w_in"], p["b_in"], act="gelu")
+    return linear(h, p["w_out"], p["b_out"])
+
+
+def sinusoidal_pos(positions, dim: int):
+    """Fixed sinusoidal position encoding (fp32, ``[sin, cos]`` halves) of
+    integer positions (any shape, on any device), as the reference's
+    whisper adaptation: its param shapes do not depend on the longest
+    sequence."""
+    half = dim // 2
+    # the rate rounded to fp32 where the reference rounds it, as a host
+    # number (a graph capture cannot copy a host tensor to the device)
+    rate = (torch.tensor(math.log(10000.0), dtype=torch.float32)
+            / max(half - 1, 1)).item()
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * rate)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_embed(gen, vocab: int, d_model: int, dtype, tie: bool):

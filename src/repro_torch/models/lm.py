@@ -1,11 +1,13 @@
 """Decoder-only LM: init, forward, KV cache, prefill and decode.
 
-The port of the reference's ``models/lm.py`` for the dense, MoE and SSM
-families: pre-norm residual blocks (RMSNorm, GQA or MLA attention, a
-SwiGLU or MoE MLP; or RMSNorm and a Mamba2 block, ``models/mamba2.py``),
-optional unstacked leading dense layers (``first_k_dense``,
-DeepSeek-V2's ``dense{i}`` subtrees) before the layer-stacked
-``layers``, tied or separate unembedding.  The reference's
+The port of the reference's ``models/lm.py`` for the dense, MoE, SSM
+and VLM families: pre-norm residual blocks (RMSNorm, GQA or MLA
+attention, a SwiGLU or MoE MLP; or RMSNorm and a Mamba2 block,
+``models/mamba2.py``), optional unstacked leading dense layers
+(``first_k_dense``, DeepSeek-V2's ``dense{i}`` subtrees) before the
+layer-stacked ``layers``, tied or separate unembedding.  A VLM
+(LLaVA-NeXT's backbone) is the dense block fed ``batch["embeds"]``, the
+image embeddings, before the token embeddings.  The reference's
 ``layer_stack`` scan is a Python loop over layers here.
 
 The decode cache is a dict of tensors that :func:`lm_prefill`,
@@ -14,11 +16,16 @@ also return): per layer a pair of slabs, ``k``/``v`` (B, S, KH, D) for
 GQA or MLA's compressed ``c`` (B, S, kv_lora_rank) and ``kr`` (B, S,
 rope_head_dim), stacked over the scanned layers under the pair's names
 and kept per dense layer under ``dense{i}_<name>`` (:func:`cache_slabs`
-lists them in layer order).  An SSM model's pair is its recurrent state
-instead, ``ssm`` (B, H, P, N) fp32 and ``conv`` (B, conv-1, C), the last
-raw inputs of the causal conv, and its cache has no ``slot_pos`` or
-``valid_from``, as in the reference: the decode step copies the new
-state into those slabs in place.  The ``pos`` entry is a 0-d int32
+lists them in layer order).  Under a sliding window (h2o-danube) the
+slabs hold ``min(max_len, window)`` slots and position p lives in slot
+``p % slots``: a prompt longer than the window keeps its last ``slots``
+positions, scattered into their slots in place, and ``slot_pos`` holds
+each slot's absolute position, which the decode mask reads.  An SSM
+model's pair is its recurrent state instead, ``ssm`` (B, H, P, N) fp32
+and ``conv`` (B, conv-1, C), the last raw inputs of the causal conv,
+and its cache has no ``slot_pos`` or ``valid_from``, as in the
+reference: the decode step copies the new state into those slabs in
+place.  The ``pos`` entry is a 0-d int32
 tensor on the cache's device, as in the reference: the decode step reads
 it on the device (RoPE, the cache write, the mask) and advances it in
 place, so a step captured in a CUDA graph decodes the step the cache is
@@ -38,15 +45,15 @@ from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 
 
 def _kind(cfg) -> str:
-    """The scanned block: ``"moe"``, ``"ssm"`` or ``"dense"``.  The
-    sliding-window cache and embedding inputs are later slices."""
-    if (cfg.family not in ("dense", "moe", "ssm") or cfg.sliding_window
-            or cfg.embeds_input):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and SSM families without a "
-            f"sliding window or embedding inputs are ported (ROADMAP.md "
-            f"Queue 1)")
-    return cfg.family
+    """The scanned block: ``"moe"``, ``"ssm"`` or ``"dense"`` (the dense
+    and VLM families share the block, as in the reference)."""
+    if cfg.family in ("moe", "ssm"):
+        return cfg.family
+    if cfg.family in ("dense", "vlm"):
+        return "dense"
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family!r} family is not a decoder-only LM "
+        f"(models/registry.py builds it from its own module)")
 
 
 def layer_params(stacked, i: int):
@@ -117,14 +124,31 @@ def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
     return x + h, kv, aux
 
 
+def _inputs_to_h(params, cfg, batch):
+    """tokens (and a VLM's image embeddings, placed first) -> the first
+    hidden states."""
+    tok = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.embeds_input:
+        return torch.cat([batch["embeds"].to(tok.dtype), tok], dim=1)
+    return tok
+
+
+def prompt_len(cfg, batch) -> int:
+    """Positions a prefill of ``batch`` fills: its tokens, and a VLM's
+    image embeddings before them."""
+    return batch["tokens"].shape[1] + (batch["embeds"].shape[1]
+                                       if cfg.embeds_input else 0)
+
+
 def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
                pos_offset: int = 0, chunk: int = 512):
     """Returns (logits, aux_loss, kvs | None), ``kvs`` a list of each
     layer's cache pair in layer order (the dense layers first), and
     ``aux_loss`` the sum of the MoE layers' (0 for a dense model).
     ``batch["pad"]`` (optional, (B,)): per-row left-pad count, masked out
-    of attention."""
-    x = embed_tokens(params["embed"], batch["tokens"])
+    of attention; ``batch["embeds"]`` (a VLM's, (B, I, d)): the image
+    embeddings before the tokens."""
+    x = _inputs_to_h(params, cfg, batch)
     valid_from = None
     if batch.get("pad") is not None:
         valid_from = pos_offset + batch["pad"].to(torch.int32)
@@ -163,11 +187,12 @@ def ssm_cache(cfg, lead: tuple, batch_size: int, device) -> dict:
 
 def init_cache(cfg, batch_size: int, max_len: int, device):
     """Zeroed decode cache: the pair of :func:`_cache_pair_names`, k/v
-    (n_scan, B, max_len, KH, D) or MLA's c (n_scan, B, max_len,
-    kv_lora_rank) and kr (n_scan, B, max_len, rope_head_dim), and per
-    leading dense layer ``dense{i}_<name>`` without the layer axis; for
-    the SSM family the recurrent state of :func:`ssm_cache` and ``pos``
-    only."""
+    (n_scan, B, slots, KH, D) or MLA's c (n_scan, B, slots,
+    kv_lora_rank) and kr (n_scan, B, slots, rope_head_dim), and per
+    leading dense layer ``dense{i}_<name>`` without the layer axis, with
+    ``slots = min(max_len, sliding_window)`` (``max_len`` without a
+    window); for the SSM family the recurrent state of :func:`ssm_cache`
+    and ``pos`` only."""
     kind = _kind(cfg)
     dt = torch_dtype(cfg.dtype)
     n_scan = cfg.num_layers - cfg.first_k_dense
@@ -178,21 +203,22 @@ def init_cache(cfg, batch_size: int, max_len: int, device):
         widths = ((cfg.kv_lora_rank,), (cfg.rope_head_dim,))
     else:
         widths = ((cfg.num_kv_heads, cfg.head_dim),) * 2
+    slots = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     cache = {
         "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "slot_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "slot_pos": torch.full((slots,), -1, dtype=torch.int32, device=device),
         # per-row admission boundary: cache positions below it are
         # left-padding or a recycled slot's dead stream
         "valid_from": torch.zeros((batch_size,), dtype=torch.int32, device=device),
     }
     names = _cache_pair_names(cfg)
     for name, w in zip(names, widths):
-        cache[name] = torch.zeros((n_scan, batch_size, max_len, *w), dtype=dt,
+        cache[name] = torch.zeros((n_scan, batch_size, slots, *w), dtype=dt,
                                   device=device)
     for i in range(cfg.first_k_dense):
         for name, w in zip(names, widths):
             cache[f"dense{i}_{name}"] = torch.zeros(
-                (batch_size, max_len, *w), dtype=dt, device=device)
+                (batch_size, slots, *w), dtype=dt, device=device)
     return cache
 
 
@@ -208,8 +234,11 @@ def cache_slabs(cfg, cache) -> list:
 
 def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
     """Run the full prompt and fill the cache (in place).  Returns
-    (last_logits, cache)."""
-    s = batch["tokens"].shape[1]
+    (last_logits, cache).  A prompt longer than a sliding window's slots
+    keeps its last ``slots`` positions, each scattered into slot
+    ``p % slots`` (the reference builds a rolled copy; the port writes
+    the cache's own slabs, so a captured cell's addresses stay valid)."""
+    s = prompt_len(cfg, batch)
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
                                 chunk=chunk)
     if _kind(cfg) == "ssm":
@@ -224,12 +253,22 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
         cache["valid_from"].copy_(pad.to(torch.int32))
     else:
         cache["valid_from"].zero_()
-    for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
-        for slab, t in zip(slabs, kv):
-            slab[:, :s] = t
-    sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
-                      device=cache["slot_pos"].device)
-    cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
+    slots = cache["slot_pos"].shape[0]
+    dev = cache["slot_pos"].device
+    if cfg.sliding_window and s > slots:
+        # the last `slots` positions, position p into slot p % slots
+        kept = torch.arange(s - slots, s, device=dev)
+        idx = kept % slots
+        for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
+            for slab, t in zip(slabs, kv):
+                slab.index_copy_(1, idx, t[:, s - slots:].to(slab.dtype))
+        cache["slot_pos"].index_copy_(0, idx, kept.to(torch.int32))
+    else:
+        for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
+            for slab, t in zip(slabs, kv):
+                slab[:, :s] = t
+        sl = torch.arange(slots, dtype=torch.int32, device=dev)
+        cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
     cache["pos"].fill_(s)
     # a copy: the (B, S, V) logits are freed, not held as the output (of
     # a captured program, where they would pin the graph's scratch)
@@ -237,11 +276,16 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
 
 
 def lm_decode_step(params, cfg, cache, tokens):
-    """tokens (B,1) -> (logits (B,1,V), cache updated in place)."""
+    """tokens (B,1) -> (logits (B,1,V), cache updated in place).  The
+    cache slot is the position, or the position modulo the slots under a
+    sliding window, computed on the device: a captured step writes the
+    right slot on every replay, past the window's wrap too."""
     if _kind(cfg) == "ssm":
         return _ssm_decode_step(params, cfg, cache, tokens)
     pos = cache["pos"]
     idx = pos.reshape(1).long()            # the cache slot, on the device
+    if cfg.sliding_window:
+        idx = idx % cache["slot_pos"].shape[0]
     x = embed_tokens(params["embed"], tokens)
     cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     vf = cache["valid_from"]
@@ -301,7 +345,11 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
         raise NotImplementedError(
             "ragged admission needs an attention cache; SSM state is "
             "order-dependent and cannot mask left-padding")
-    lb = batch["tokens"].shape[1]
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "ragged admission into a rolling sliding-window cache is not "
+            "supported (slot != absolute position)")
+    lb = prompt_len(cfg, batch)
     dev = cache["slot_pos"].device
     t0 = t_end - lb
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,

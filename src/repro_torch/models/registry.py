@@ -1,8 +1,9 @@
 """Unified model interface: one ModelDef per architecture family.
 
-The port of the reference's ``models/registry.py``; the dense, MoE and
-SSM families are ported so far (through ``models/lm.py``), and the
-hybrid (through ``models/hybrid.py``).
+The port of the reference's ``models/registry.py``, every family of it:
+the dense, MoE, SSM and VLM families through ``models/lm.py``, the
+hybrid through ``models/hybrid.py`` and the encoder-decoder through
+``models/encdec.py``.
 
     init(generator)                -> (params, logical_axes)
     forward(params, batch)         -> (logits, aux_loss)
@@ -10,7 +11,8 @@ hybrid (through ``models/hybrid.py``).
     prefill(params, batch, cache)  -> (last_logits, cache)
     decode_step(params, cache, tk) -> (logits, cache)
     prefill_row(params, batch, cache, row, t_end) -> (logits, cache),
-        or None for a family without an attention cache (SSM, hybrid)
+        or None for a family without an attention cache (SSM, hybrid),
+        with a rolling one (a sliding window) or an encoder (encdec)
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import lm as LM
 from repro_torch.models.param import MetaGenerator
@@ -37,6 +40,16 @@ class ModelDef:
 
 
 def build_model(cfg: ModelConfig) -> ModelDef:
+    if cfg.family == "encdec":
+        return ModelDef(
+            cfg=cfg,
+            init=lambda gen: ED.init_encdec(cfg, gen),
+            forward=lambda p, b: ED.encdec_forward(p, cfg, b)[:2],
+            init_cache=lambda bs, ml, device: ED.encdec_init_cache(
+                cfg, bs, ml, device),
+            prefill=lambda p, b, c: ED.encdec_prefill(p, cfg, b, c),
+            decode_step=lambda p, c, t: ED.encdec_decode_step(p, cfg, c, t),
+        )
     if cfg.family == "hybrid":
         return ModelDef(
             cfg=cfg,
@@ -47,12 +60,11 @@ def build_model(cfg: ModelConfig) -> ModelDef:
             prefill=lambda p, b, c: HY.hybrid_prefill(p, cfg, b, c),
             decode_step=lambda p, c, t: HY.hybrid_decode_step(p, cfg, c, t),
         )
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1)")
-    # the reference's rule: no ragged admission for SSM state (sliding
-    # windows, which it also withholds, the port's LM refuses altogether)
-    ragged_ok = cfg.family != "ssm"
+    if cfg.family not in ("dense", "moe", "ssm", "vlm"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    # dense / moe / ssm / vlm share the LM assembly; the reference's rule:
+    # no ragged admission for SSM state or a rolling sliding-window cache
+    ragged_ok = cfg.family != "ssm" and not cfg.sliding_window
     return ModelDef(
         cfg=cfg,
         init=lambda gen: LM.init_lm(cfg, gen),

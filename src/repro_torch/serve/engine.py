@@ -11,7 +11,10 @@ unpacked: a long prefill runs it through the planned tall-A kernel, a
 decode step through the skinny kernel with a per-call pack.
 
 A request group of any size b <= max_batch is padded to the nearest
-bucket; larger groups are split.  Prefill and decode run as the cells of
+bucket; larger groups are split.  A group carries its tokens and the
+model's other inputs, a VLM's image ``embeds`` and an encoder-decoder's
+``enc_frames`` (bf16, as the reference feeds them), padded and split
+with it.  Prefill and decode run as the cells of
 a :class:`~repro_torch.serve.programs.ProgramStore`: on a CUDA device one
 captured CUDA graph per (kind, bucket, prompt length) cell, replayed on
 the store's static buffers (each group's tokens and pad are copied into
@@ -57,7 +60,8 @@ from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
 from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import tree_map
 from repro_torch.serve.clock import StepCost, ensure_clock
-from repro_torch.serve.programs import (ProgramStore, precompile_grid,
+from repro_torch.serve.programs import (ProgramStore, input_dtypes,
+                                       precompile_grid, prompt_positions,
                                        ragged_supported)
 
 log = logging.getLogger(__name__)
@@ -407,12 +411,14 @@ class Engine:
             raise RuntimeError(f"bucket {bucket}'s cache is the slot pool of "
                                f"an open scheduler; close it first")
         width = batch["tokens"].shape[-1]
-        if width + steps > self.max_len:
-            raise ValueError(f"a {width}-token prompt and {steps} steps do "
-                             f"not fit the engine's max_len {self.max_len}")
-        batch = self._pad_group({k: (v.to(torch.int32) if k in ("tokens", "pad")
-                                     else v) for k, v in batch.items()},
-                                b, bucket)
+        filled = prompt_positions(self.model.cfg, width)
+        if filled + steps > self.max_len:
+            raise ValueError(f"a {filled}-position prompt and {steps} steps "
+                             f"do not fit the engine's max_len "
+                             f"{self.max_len}")
+        dtypes = input_dtypes(self.model.cfg)
+        batch = self._pad_group({k: v.to(dtypes.get(k, v.dtype))
+                                 for k, v in batch.items()}, b, bucket)
         store = self.programs
         cell = store.static_batch(batch)
         for k, v in batch.items():

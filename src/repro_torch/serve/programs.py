@@ -342,13 +342,38 @@ def _replay(graph, args: tuple, out, rec) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def batch_template(bucket: int, length: int, *, pad: bool) -> dict:
-    """A prefill batch's structure, as the engine feeds it: int32 tokens
-    (bucket, length) and, for ragged groups, int32 ``pad`` (bucket,)."""
-    out = {"tokens": torch.zeros((bucket, length), dtype=torch.int32)}
-    if pad:
-        out["pad"] = torch.zeros((bucket,), dtype=torch.int32)
+def input_dtypes(cfg=None) -> dict:
+    """The dtype of each input a prefill batch carries, as the reference
+    feeds them: int32 ``tokens`` and ``pad``, and for ``cfg`` bf16
+    ``embeds`` (a VLM's image embeddings) and ``enc_frames`` (an
+    encoder-decoder's frames)."""
+    out = {"tokens": torch.int32, "pad": torch.int32}
+    if cfg is not None and cfg.embeds_input:
+        out["embeds"] = torch.bfloat16
+    if cfg is not None and cfg.is_encoder_decoder:
+        out["enc_frames"] = torch.bfloat16
     return out
+
+
+def prompt_positions(cfg, length: int) -> int:
+    """Cache positions a prefill of ``length`` tokens fills: a VLM's
+    image embeddings go before its tokens."""
+    return length + (cfg.num_image_tokens if cfg.embeds_input else 0)
+
+
+def batch_template(bucket: int, length: int, *, pad: bool,
+                   cfg=None) -> dict:
+    """A prefill batch's structure, as the engine feeds it, each input in
+    its :func:`input_dtypes` type: tokens (bucket, length), for ragged
+    groups ``pad`` (bucket,), and for ``cfg`` ``embeds`` (bucket,
+    num_image_tokens, d_model) and ``enc_frames`` (bucket, encoder_seq,
+    d_model): a captured prefill cell owns static buffers for them too."""
+    shapes = {"tokens": (bucket, length), "pad": (bucket,)}
+    if cfg is not None:
+        shapes["embeds"] = (bucket, cfg.num_image_tokens, cfg.d_model)
+        shapes["enc_frames"] = (bucket, cfg.encoder_seq, cfg.d_model)
+    return {k: torch.zeros(shapes[k], dtype=dt)
+            for k, dt in input_dtypes(cfg).items() if pad or k != "pad"}
 
 
 def ragged_supported(model) -> bool:
@@ -393,7 +418,8 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
             acquire("decode", (params, cache, store.static_tokens(bb)), bb, 1)
             for lb in lengths:
                 for pad in ((False, True) if ragged else (False,)):
-                    batch = store.static_batch(batch_template(bb, lb, pad=pad))
+                    batch = store.static_batch(
+                        batch_template(bb, lb, pad=pad, cfg=model.cfg))
                     acquire("prefill", (params, batch, cache), bb, lb)
                 if ragged:
                     # the warm-up admits into row 0 at [0, lb): in range

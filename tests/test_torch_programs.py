@@ -240,6 +240,21 @@ def test_recording_counts_into_the_recorder_of_its_thread_only():
     assert cuda.launches["flash_attention"] == before + 2
 
 
+def test_fused_epilogues_are_counted_by_kernel_and_replayed():
+    before = cuda.epilogue_launches["skinny_kinner/bias_gelu"]
+    with cuda.recording() as rec:
+        cuda.count("skinny_kinner", "skinny_stream", "bias_gelu")
+        cuda.count("skinny_kinner", "skinny_stream")
+    assert rec[0] == Counter({"skinny_kinner": 2})
+    assert rec[2] == Counter({"skinny_kinner/bias_gelu": 1})
+    assert cuda.epilogue_launches["skinny_kinner/bias_gelu"] == before
+    cuda.replayed(rec)
+    cuda.replayed(rec)
+    assert cuda.epilogue_launches["skinny_kinner/bias_gelu"] == before + 2
+    cuda.reset_launches()
+    assert not cuda.epilogue_launches and not cuda.launches
+
+
 # ---------------------------------------------------------------------------
 # the grid
 # ---------------------------------------------------------------------------
