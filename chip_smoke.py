@@ -216,7 +216,33 @@ printing JSON lines:
 20. serve.llama3 — llama3-405b at its published widths cut to 2 layers
                 (12.8 GB of layers, 8.4 GB of embedding and head), groups
                 of 1 and 2 with 512-token prompts, 8 steps, flash at D
-                128.
+                128;
+21. resilience — the kernel ladder (``core/tsmm.py``) on qwen1.5-4b at
+                full width, 2 layers, float32 (the parity phase's cut), one
+                group of 2 x 64 tokens and 4 steps, each engine fresh:
+                healthy; then with ``kernels.lower.skinny`` and
+                ``kernels.lower.tall`` armed to raise (rung 2: the plain
+                versions on the card; its logits within ``F32_TOL`` of the
+                healthy run's, no kernel launched at all,
+                ``kernel.variant`` >= 1, ``health_report()`` not
+                healthy); then with ``kernels.xla.*`` armed too (rung 3:
+                ``torch.matmul``, within ``F32_TOL``, no kernel
+                launched); the breaker pinning its fallback
+                after K failures of ``tsmm_dot`` on the card; and, disarmed,
+                a fresh engine healthy again.  Logits, not tokens, are
+                compared: where a token differs, the logits it was chosen
+                from must agree within ``F32_TOL`` and the two tokens'
+                logits be within it (a near-tie);
+22. fleet     — the tuning fleet (``tuning/``, ``launch/tune_service.py``)
+                on a fleet directory of its own: an engine (qwen1.5-4b at
+                full width, 2 layers, bf16, no install, no background
+                tuner) flushes its registry misses to the miss log;
+                ``tune_service harvest``; ``work --workers 2`` on the card
+                (two fresh interpreters sharing the card), every job
+                completed exactly once; ``export`` of a find-db; a fresh
+                engine on an empty plan cache with the find-db attached
+                serves with 0 registry misses.  Prints the jobs, seconds
+                and jobs per minute.
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m and
 Zamba2-2.7B run at half their depth (``HALF_DEPTH``), so that with
@@ -224,6 +250,12 @@ the paths of h2o-danube-1.8b, LLaVA-NeXT, whisper-base and llama3-405b
 the script stays well inside its time limit (each of the four fits the
 card whole; the cut only shortens the run: about 190 s on an H100,
 every width and kernel shape as at full depth).
+Every serve and queue path (7-20) must end with a healthy engine:
+``Engine.health_report()`` with 0 degradations (no ladder demotion) and
+no armed failpoint (the ``.health`` lines; each serve line prints its
+engine's ``degradations``).  The script refuses to start with
+``REPRO_TORCH_FAILPOINTS`` set.
+
 The serve paths (7, 8, 12, 14, 15, 16, 17-20) run one table-driven phase
 (``phase_serve`` over ``SERVE``), each with its own checks as hooks.
 Every serve phase starts on the registry the install phase wrote and must
@@ -1659,6 +1691,7 @@ def phase_serve(path: str) -> tuple:
               "eager_prefill_s": want.prefill_s,
               "eager_per_token_s": want.per_token_s,
               "compile_s": got.compile_s, "bit_equal_to_eager": True,
+              "degradations": eng.degrade.total,
               **extra, "tokens[0]": toks[0].tolist()})
     launches = dict(cuda.launches)
     designs = dict(cuda.design_launches)
@@ -1696,11 +1729,24 @@ def phase_serve(path: str) -> tuple:
                                   seed=0), steps=4)
     if "after" in hooks:
         hooks["after"](path, eng, cfg, base)
+    check_healthy(path, eng)
     emit({"phase": f"{path}.seconds", "seconds": time.perf_counter() - t_phase})
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return launches, load_launches
+
+
+def check_healthy(path: str, eng) -> None:
+    """The ``.health`` line: the engine's ``health_report()`` must be
+    healthy, with 0 degradations and no armed failpoint."""
+    hr = eng.health_report()
+    emit({"phase": f"{path}.health", "healthy": hr["healthy"],
+          "degradations": hr["degradations"]["total"],
+          "by_seam": hr["degradations"]["by_seam"],
+          "failpoints": hr["failpoints"]})
+    if not hr["healthy"] or hr["failpoints"]:
+        raise AssertionError(f"{path}: the engine degraded: {hr}")
 
 
 def serve_both(eng, groups: dict, steps: int, path: str) -> tuple:
@@ -2270,6 +2316,7 @@ def phase_queue_parity(cfg, device="cuda"):
           "seconds": time.perf_counter() - t0})
     if stats.admitted != stats.completed or stats.completed != len(reqs):
         raise AssertionError(f"queue.parity: {stats.rows()}")
+    check_healthy("queue.parity", eng)
     if not max(r.admitted_at for r in results) > min(r.admitted_at
                                                      for r in results):
         raise AssertionError("queue.parity: no request joined a running "
@@ -2419,8 +2466,10 @@ def phase_queue(cfg=None, device="cuda", *, n=16, path="queue",
                        "finished_at": r.finished_at,
                        "queue_steps": r.queue_steps,
                        "tokens": r.tokens.tolist()} for r in got],
-          "launches": launches, "design_launches": designs})
+          "launches": launches, "design_launches": designs,
+          "degradations": eng.degrade.total})
     check_programs(path, eng, pre)
+    check_healthy(path, eng)
     if reg["misses"]:
         raise AssertionError(f"{path}: {reg['misses']} registry misses after "
                              f"the install sweep")
@@ -2455,6 +2504,7 @@ def phase_queue(cfg=None, device="cuda", *, n=16, path="queue",
     emit({"phase": "queue.continuous_batching",
           "rows": continuous_batching.compare(eng, reqs, repeats=1)})
     profile("queue", eng, make_group(cfg, 4, 256, device), steps=4)
+    check_healthy(path, eng)
     emit({"phase": "queue.seconds", "seconds": time.perf_counter() - t_phase})
     return launches, load_launches, eng, reqs, got, stats
 
@@ -2522,6 +2572,248 @@ def phase_queue_frontend(eng, reqs, results, stats):
     if st.rejected or not all(s.completed for s in live) or \
             len(ttft) != len(reqs):
         raise AssertionError(f"queue.frontend: {st.rows()}")
+    check_healthy("queue.frontend", eng)
+
+
+RESILIENCE_GROUP = (2, 64, 4)     # batch, prompt tokens, decode steps
+SKINNY_FAMILY = ("tsmm_skinny_a", "skinny_kinner", "skinny_ksplit")
+
+
+def ladder_logits(path: str, healthy, want, eng, group: dict,
+                  steps: int) -> tuple:
+    """``eng``'s run of ``group`` against the healthy engine's (``want``,
+    its result), by logits: with equal tokens the last logits must agree
+    within ``F32_TOL``; where a token differs, the logits both chose it
+    from (each engine served again up to that token, on its captured
+    cells) must agree within it and the two tokens' logits be within it
+    (a near-tie).  Returns (the row, the launches of ``eng``'s run)."""
+    import torch
+    from repro_torch.kernels import cuda
+    cuda.reset_launches()
+    got = eng.generate(group, steps)
+    launches = dict(cuda.launches)
+    d = steps
+    if not torch.equal(got.tokens, want.tokens):
+        diff = (got.tokens != want.tokens).any(dim=0).nonzero()
+        d = int(diff[0])
+        want, got = healthy.generate(group, d), eng.generate(group, d)
+    w, g = want.logits_last[:, -1].float().cpu(), got.logits_last[:, -1]
+    ok, err = within(g.float().cpu(), w, **F32_TOL)
+    row = {"tokens_equal": d == steps, "compared_at_step": d,
+           "max_abs_err": err, "tol": F32_TOL}
+    if d < steps:
+        wt = w.argmax(-1)
+        gt = g.float().cpu().argmax(-1)
+        gap = float((w.gather(-1, wt[:, None])
+                     - w.gather(-1, gt[:, None])).abs().max())
+        row.update(near_tie_gap=gap)
+        ok = ok and gap <= F32_TOL["atol"] + F32_TOL["rtol"] * float(
+            w.abs().max())
+    if not ok:
+        raise AssertionError(f"{path}: logits off the healthy run's: {row}")
+    return row, launches
+
+
+def phase_resilience(device="cuda"):
+    """The kernel ladder on the card (qwen1.5-4b, full width, 2 layers,
+    fp32): healthy; rung 2 (``kernels.lower.*`` raise: the plain
+    versions); rung 3 (``kernels.xla.*`` too: ``torch.matmul``); the
+    breaker pinning after K failures; disarmed, healthy again.  Each
+    engine is fresh, so its cells capture the rung it serves."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tsmm import tsmm_dot
+    from repro_torch.launch.serve import make_group
+    from repro_torch.models.registry import build_model
+    from repro_torch.resilience import degrade, failpoints
+    from repro_torch.serve.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), num_layers=2,
+                              dtype="float32")
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=device).manual_seed(0))
+    b, prompt, steps = RESILIENCE_GROUP
+    group = make_group(cfg, b, prompt, device, seed=0)
+
+    def engine():
+        return Engine(model, params, axes, max_len=prompt + steps + 8,
+                      max_batch=b, max_prompt=prompt, device=device)
+
+    healthy = engine()
+    want = healthy.generate(group, steps)
+    check_healthy("resilience.healthy", healthy)
+    for rung, sites in ((2, ("kernels.lower.skinny", "kernels.lower.tall")),
+                        (3, ("kernels.lower.skinny", "kernels.lower.tall",
+                             "kernels.xla.skinny", "kernels.xla.tall"))):
+        failpoints.configure({site: "raise" for site in sites})
+        try:
+            eng = engine()
+            row, launches = ladder_logits(f"resilience.rung{rung}", healthy,
+                                          want, eng, group, steps)
+            hr = eng.health_report()
+        finally:
+            failpoints.reset()
+        by_seam = hr["degradations"]["by_seam"]
+        row = {**row, "launches": launches, "by_seam": by_seam,
+               "healthy": hr["healthy"]}
+        emit({"phase": f"resilience.rung{rung}", "armed": sites, **row})
+        # no kernel at all: every TSMM family and the per-call pack are
+        # laddered, and a 64-token prompt takes no flash kernel
+        if (launches or hr["healthy"] or not by_seam.get("kernel.variant")
+                or (rung == 3 and not by_seam.get("kernel.xla"))):
+            raise AssertionError(f"resilience.rung{rung}: {row}")
+        del eng
+    # the breaker: K failures of one key pin its fallback
+    g = torch.Generator(device=device).manual_seed(1)
+    a = torch.randn((2048, 512), generator=g, device=device)
+    w = torch.randn((512, 16), generator=g, device=device)
+    stats = degrade.DegradeStats(breaker_threshold=2)
+    failpoints.configure({"kernels.lower.skinny": "raise",
+                          "kernels.lower.tall": "raise"})
+    try:
+        with degrade.use(stats):
+            outs = [tsmm_dot(a, w) for _ in range(4)]
+    finally:
+        failpoints.reset()
+    ok, err = within(outs[-1], a @ w, **F32_TOL)
+    br = stats.report()
+    emit({"phase": "resilience.breaker", "threshold": 2, "calls": 4,
+          "by_seam": br["by_seam"], "open": br["breaker"]["open"],
+          "max_abs_err": err})
+    if (br["by_seam"] != {"kernel.variant": 2, "kernel.pinned": 2}
+            or not br["breaker"]["open"] or not ok):
+        raise AssertionError(f"resilience.breaker: {br}")
+    again = engine()
+    row, launches = ladder_logits("resilience.reset", healthy, want, again,
+                                  group, steps)
+    check_healthy("resilience.reset", again)
+    skinny = sum(launches.get(k, 0) for k in SKINNY_FAMILY)
+    emit({"phase": "resilience", "config": cfg.name, "layers": 2,
+          "dtype": cfg.dtype, "group": RESILIENCE_GROUP, "reset": row,
+          "reset_skinny_launches": skinny,
+          "seconds": time.perf_counter() - t0})
+    if device == "cuda" and not skinny:
+        raise AssertionError("resilience.reset: no skinny-A launch")
+    del healthy, again, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+FLEET_WORK = ("--iters", "2", "--warmup", "1", "--top-k", "2", "--stable",
+              "1", "--build-k", "2", "--lease-s", "600")
+
+
+def phase_fleet(device="cuda"):
+    """The fleet on a directory of its own: an engine without install or
+    background tuner flushes its misses; ``tune_service harvest``, ``work
+    --workers 2`` on the card (each job done exactly once), ``export``;
+    a fresh engine on an empty plan cache with the find-db attached
+    serves with 0 misses."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import registry
+    from repro_torch.launch.serve import make_group
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tuning.queue import JobQueue
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(ROOT, "build"))
+    fleet = {"REPRO_TORCH_PLAN_CACHE": os.path.join(root, "plans.json"),
+             "REPRO_TORCH_MEASURE_CACHE": os.path.join(root, "meas.json"),
+             "REPRO_TORCH_MISS_LOG": os.path.join(root, "misses.json"),
+             "REPRO_TORCH_TUNE_QUEUE": os.path.join(root, "queue.json")}
+    saved = {k: os.environ.get(k) for k in (*fleet, "REPRO_TORCH_FIND_DB")}
+    os.environ.update(fleet)
+    registry.clear_memory()
+    try:
+        cfg = dataclasses.replace(get_config("qwen1_5_4b"), num_layers=2)
+        model = build_model(cfg)
+        params, axes = model.init(
+            torch.Generator(device=device).manual_seed(0))
+        group = make_group(cfg, 2, 64, device, seed=0)
+
+        def serve():
+            eng = Engine(model, params, axes, max_len=80, max_batch=2,
+                         max_prompt=64, device=device)
+            eng.generate(group, 4)
+            return eng
+
+        eng = serve()
+        misses = registry.stats()["misses"]
+        check_healthy("fleet.engine", eng)
+        del eng
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cli = [sys.executable, "-m", "repro_torch.launch.tune_service"]
+        out = subprocess.run(cli + ["harvest"], env=env, capture_output=True,
+                             text=True, timeout=300, check=True).stdout
+        harvested = json.loads(out.split("harvest: ", 1)[1].splitlines()[0])
+        t_work = time.perf_counter()
+        res = subprocess.run(cli + ["work", "--workers", "2", "--device",
+                                    device, *FLEET_WORK],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        work_s = time.perf_counter() - t_work
+        if res.returncode != 0:
+            raise AssertionError(f"fleet: work exited {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        workers = [json.loads(line[len("worker: "):])
+                   for line in res.stdout.splitlines()
+                   if line.startswith("worker: ")]
+        jobs = JobQueue().jobs()
+        credited = sorted(r[0] for w in workers for r in w["results"])
+        once = all(j.state == "done" and [e[0] for e in j.history].count(
+            "done") == 1 for j in jobs.values())
+        times = [t for j in jobs.values() for ev, _, t in j.history
+                 if ev in ("claim", "done")]
+        span = max(times) - min(times) if times else 0.0
+        fdb = os.path.join(root, "find_db.json")
+        subprocess.run(cli + ["export", "--out", fdb], env=env,
+                       capture_output=True, text=True, timeout=300,
+                       check=True)
+        # a fresh host: an empty plan cache, the find-db attached
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = os.path.join(root, "host2",
+                                                            "plans.json")
+        os.environ["REPRO_TORCH_FIND_DB"] = fdb
+        registry.clear_memory()
+        eng = serve()
+        restart = registry.stats()
+        check_healthy("fleet.restart", eng)
+        del eng, params
+        row = {"phase": "fleet", "config": cfg.name, "layers": 2,
+               "dtype": cfg.dtype, "engine_misses": misses,
+               "harvest": harvested, "jobs": len(jobs), "workers": 2,
+               "worker_reports": [{k: w[k] for k in ("worker", "done",
+                                                     "failed", "seconds")}
+                                  for w in workers],
+               "exactly_once": once and credited == sorted(jobs),
+               "work_wall_s": work_s, "span_s": span,
+               "jobs_per_min": len(jobs) * 60.0 / max(span, 1e-9),
+               "restart_registry": restart,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        if (not jobs or len(jobs) != harvested["enqueued"]
+                or not row["exactly_once"] or restart["misses"]
+                or not restart["hits"]):
+            raise AssertionError(f"fleet: {row}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        registry.clear_memory()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
 
 
 def shape_of(case: dict) -> dict:
@@ -2558,6 +2850,10 @@ KERNELS = {
 
 
 def main():
+    if os.environ.get("REPRO_TORCH_FAILPOINTS"):
+        raise SystemExit("chip_smoke: refusing to run with "
+                         "REPRO_TORCH_FAILPOINTS set: every path must run "
+                         "the kernels")
     phase_env()
     # the install phase's plan and measurement cache, inside the checkout
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -2654,6 +2950,8 @@ def run():
     zoo_load = {}
     for path in ZOO:
         by_path[path], zoo_load[path] = phase_serve(path)
+    phase_resilience()
+    phase_fleet()
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the

@@ -248,7 +248,16 @@ def main(argv=None) -> dict:
                          "(persists nothing: a graph lives in its process)")
     ap.add_argument("--device", default="cuda",
                     help="the device to plan, measure and check on")
+    ap.add_argument("--find-db", default="",
+                    help="attach a fleet find-db artifact before the sweep: "
+                         "sets REPRO_TORCH_FIND_DB so the registry overlays "
+                         "the exported plans (--check then validates "
+                         "serving coverage against it, not just the local "
+                         "cache)")
     args = ap.parse_args(argv)
+    if args.find_db:
+        from repro_torch.tuning.find_db import attach
+        attach(args.find_db)
     import torch
 
     from repro_torch.core.hw import for_device

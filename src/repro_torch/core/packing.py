@@ -62,10 +62,13 @@ class PackedTensor:
         return ops.unpack_blocks(self.blocks, self.orig_rows, self.orig_cols)
 
 
-def pack(w, b0: int, b1: int, alpha: float = 1.0) -> PackedTensor:
-    """Pack the trailing 2 dims of ``w`` into (n0, n1, b0, b1) blocks."""
+def pack(w, b0: int, b1: int, alpha: float = 1.0,
+         impl=None) -> PackedTensor:
+    """Pack the trailing 2 dims of ``w`` into (n0, n1, b0, b1) blocks
+    (``impl``: ``kernels/tsmm.py``'s choice of the pack's version)."""
     rows, cols = w.shape[-2:]
-    return PackedTensor(ops.pack_blocks(w, b0, b1, alpha), rows, cols)
+    return PackedTensor(ops.pack_blocks(w, b0, b1, alpha, impl=impl), rows,
+                        cols)
 
 
 def is_packed(x) -> bool:

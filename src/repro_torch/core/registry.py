@@ -24,8 +24,22 @@ it never reads or writes the reference's cache.
 
 The miss log counts lookups that found no plan, for the serving
 engine's background tuner (``drain_misses``) or for a persisted miss
-file (``flush_misses``).  Module-level ``get/put/flush/stats/...``
+file (``flush_misses``), which the fleet's ``harvest`` turns into tuning
+jobs (``tuning/queue.py``).  With a find-db artifact attached
+(``REPRO_TORCH_FIND_DB``, read once with the plan file, or
+``tuning/find_db.py::attach``) the first lookup for a device folds that
+device's platform section into memory under the local plans, which
+win.  Module-level ``get/put/flush/stats/...``
 delegate to one default Registry.
+
+Durability follows the resilience plane (DESIGN.md §16): memory is
+authoritative and disk is best-effort.  A torn or unreadable file reads
+as empty, a failed plan or measurement flush is deferred to the next
+one, a failed miss-log flush re-stashes its records; each is counted on
+the ambient ``resilience.degrade`` sink, and the reference's failpoint
+sites (``registry.load``, ``registry.flush.before_replace``,
+``registry.measure.before_replace``, ``registry.misses.before_replace``)
+inject them.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from pathlib import Path
 from typing import Optional
 
 from repro_torch.core.plan import Plan
+from repro_torch.resilience import degrade, failpoints
 
 log = logging.getLogger(__name__)
 
@@ -155,9 +170,11 @@ def _read_json(path: Path) -> Optional[dict]:
     if not path.exists():
         return None
     try:
+        failpoints.fp("registry.load")
         with open(path) as f:
-            return json.load(f)
-    except (OSError, json.JSONDecodeError) as e:
+            return json.loads(failpoints.corrupt("registry.load", f.read()))
+    except (OSError, json.JSONDecodeError, TypeError,
+            failpoints.InjectedFault) as e:
         # torn or unreadable: nothing mergeable; memory (and the next
         # clean flush) stays authoritative
         log.warning("registry: unreadable %s (%s); treating as empty",
@@ -201,6 +218,10 @@ class Registry:
         # problem key -> frozenset of candidate tuning keys (or None),
         # memoized across prune passes
         self._valid_tuning_keys: dict = {}
+        # the find-db artifact (``REPRO_TORCH_FIND_DB``), read when the plan
+        # file is folded in, and the platforms whose section is folded
+        self._find_db: Optional[str] = None
+        self._find_db_folded: set = set()
 
     # -- paths ----------------------------------------------------------
 
@@ -213,9 +234,29 @@ class Registry:
 
     # -- plans ----------------------------------------------------------
 
-    def _load_file(self) -> None:
-        _fold_missing(self.plan_path(), self._mem, Plan.from_json)
-        self._loaded_from = self.plan_path()
+    def _load_file(self, device=None) -> None:
+        """(lock held) Fold the on-disk plan map into memory once, and read
+        which find-db is attached; then, with one attached, overlay
+        ``device``'s platform section once for keys still missing: local
+        plans always win over the artifact."""
+        if self._loaded_from is None:
+            _fold_missing(self.plan_path(), self._mem, Plan.from_json)
+            self._loaded_from = self.plan_path()
+            self._find_db = os.environ.get("REPRO_TORCH_FIND_DB", "") or None
+        if device is None or self._find_db is None:
+            return
+        plat = platform(device)
+        if plat in self._find_db_folded:
+            return
+        self._find_db_folded.add(plat)
+        from repro_torch.tuning.find_db import read_find_db  # lazy: a cycle
+        folded = 0
+        for problem_key, plan in read_find_db(self._find_db,
+                                              platform=plat).items():
+            if self._mem.setdefault(f"{plat}/{problem_key}", plan) is plan:
+                folded += 1
+        if folded:
+            log.info("registry: %d plans folded from find-db", folded)
 
     def _merge_disk(self, protect: frozenset = frozenset()) -> None:
         """(lock held) Fold plans other processes flushed into memory.  Per
@@ -236,22 +277,27 @@ class Registry:
                                 and ours.chosen_by != "measured"):
                 self._mem[k] = theirs
 
-    def _write_file(self, protect: frozenset = frozenset()) -> None:
+    def _write_file(self, protect: frozenset = frozenset()) -> bool:
         """(lock held) One atomic merge-then-write of the plan map.  A
-        failed write is logged and the plans stay in memory: the next
-        flush retries."""
+        failed write (full disk, injected fault) is a degradation, not an
+        error: the plans stay in memory and the next flush retries.
+        Returns True when the write landed."""
         try:
             self._merge_disk(protect)
+            failpoints.fp("registry.flush.before_replace")
             _atomic_write_json(self.plan_path(),
                                {k: p.to_json() for k, p in self._mem.items()})
-        except OSError as e:
+            return True
+        except (OSError, failpoints.InjectedFault) as e:
             log.warning("registry: plan flush -> %s failed (%s); plans stay "
                         "in memory until the next flush", self.plan_path(), e)
+            degrade.record("registry.flush", key=str(self.plan_path()),
+                           fallback="deferred", error=str(e))
+            return False
 
     def get(self, problem_key: str, device) -> Optional[Plan]:
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file(device)
             plan = self._mem.get(_key(problem_key, device))
             if plan is not None:
                 self._stats["hits"] += 1
@@ -272,8 +318,7 @@ class Registry:
     def peek(self, problem_key: str, device) -> Optional[Plan]:
         """Lookup without touching the hit/miss counters or the miss log."""
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file(device)
             return self._mem.get(_key(problem_key, device))
 
     def put(self, plan: Plan, device, persist: bool = True,
@@ -282,8 +327,7 @@ class Registry:
         existing measured winner is never replaced by a model-ranked plan
         unless ``force``."""
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file(device)
             key = _key(plan.problem.key(), device)
             cur = self._mem.get(key)
             if (not force and cur is not None
@@ -301,16 +345,18 @@ class Registry:
         """Persist plans and measurements, one atomic write each — the
         bulk path for the install sweep and the engine's pre-pack."""
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file()
             self._write_file()
             if self._meas:
                 try:
                     self._write_measure_file()
-                except OSError as e:
+                except (OSError, failpoints.InjectedFault) as e:
                     log.warning("registry: measurement flush -> %s failed "
                                 "(%s); records stay in memory",
                                 self.measure_path(), e)
+                    degrade.record("registry.flush",
+                                   key=str(self.measure_path()),
+                                   fallback="deferred", error=str(e))
 
     # -- measurements ---------------------------------------------------
 
@@ -325,6 +371,7 @@ class Registry:
         _fold_missing(self.measure_path(), self._meas,
                       MeasureRecord.from_json)
         self._prune_measurements_locked(measure_cache_max())
+        failpoints.fp("registry.measure.before_replace")
         _atomic_write_json(self.measure_path(),
                            {k: r.to_json() for k, r in self._meas.items()})
 
@@ -447,8 +494,9 @@ class Registry:
             else:
                 raw[k] = {"count": r["count"], "last_seen": r["last_seen"]}
         try:
+            failpoints.fp("registry.misses.before_replace")
             _atomic_write_json(path, raw)
-        except OSError as e:
+        except (OSError, failpoints.InjectedFault) as e:
             # re-stash so the drained counts are not lost
             with self._lock:
                 for r in drained:
@@ -459,6 +507,8 @@ class Registry:
                     rec["last_seen"] = max(rec["last_seen"], r["last_seen"])
             log.warning("registry: miss-log flush -> %s failed (%s); %d "
                         "records re-stashed", path, e, len(drained))
+            degrade.record("registry.misses", key=str(path),
+                           fallback="re-stashed", error=str(e))
             return 0
         log.info("registry: flushed %d miss records -> %s", len(drained),
                  path)
@@ -470,8 +520,7 @@ class Registry:
         """The merged plan map (memory + disk, per-key provenance rules),
         as a copy."""
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file()
             self._merge_disk()
             return dict(self._mem)
 
@@ -479,14 +528,20 @@ class Registry:
         """Seed memory with ``{full_key: Plan}`` for keys not already
         held; returns how many were added."""
         with self._lock:
-            if self._loaded_from is None:
-                self._load_file()
+            self._load_file()
             n = 0
             for k, p in plans.items():
                 if k not in self._mem:
                     self._mem[k] = p
                     n += 1
             return n
+
+    def attach_find_db(self, path) -> None:
+        """Overlay the find-db artifact at ``path`` (None: none) from the
+        next lookup on, under the plans already held."""
+        with self._lock:
+            self._find_db = str(path) if path else None
+            self._find_db_folded = set()
 
     def clear_memory(self) -> None:
         """Drop the in-memory caches, counters and miss log (files
@@ -499,6 +554,8 @@ class Registry:
             self._stats["hits"] = self._stats["misses"] = 0
             self._missed = {}
             self._valid_tuning_keys = {}
+            self._find_db = None
+            self._find_db_folded = set()
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,29 @@
 ``tsmm_dot`` is the entry point applications use; it consults the plan
 registry (the paper's runtime stage) and dispatches pre-packed weights
 to the planned skinny-A kernel, TSMM-shaped plain weights to the planned
-skinny-A or tall-A kernel, plain GEMM otherwise.  The planned kernel is
-called directly: a kernel that fails raises, there is no fallback ladder
-(that is a later slice).
+skinny-A or tall-A kernel, plain GEMM otherwise.
+
+Every planned call runs down the degradation ladder of the reference
+(DESIGN.md §16, :func:`_laddered`): the planned hand-written CUDA kernel
+→ the same blocked function as its plain PyTorch version, on the same
+device → ``torch.matmul`` with a post-hoc epilogue.  A rung is left only
+for a fault a caller armed on purpose (``kernels.lower.*`` /
+``kernels.xla.*``), raised before anything reaches the device.  Every
+real error raises through: a layout the host-side launch plan or TMA
+check refuses (``kernels.tsmm.LaunchRefused``, a fault of the planner to
+fix, not to serve around on the plain version), a kernel library that
+did not build (``cuda.KernelBuildError``) and an error after an enqueue
+(``cuda.KernelLaunchError``, after which the stream may be poisoned).
+Every demotion is logged and counted on the ambient
+:class:`~repro_torch.resilience.degrade.DegradeStats`.  With nothing
+armed and no key failing, a call runs rung 1 directly: an eager step
+pays a contextvar read and two checks per call, a replay nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Optional
 
@@ -27,16 +42,62 @@ from repro_torch.core.smem_model import feasible, predict
 from repro_torch.kernels import variants
 from repro_torch.kernels.ref import act_ref
 from repro_torch.kernels.variants import KernelSpec
+from repro_torch.resilience import degrade, failpoints
+
+log = logging.getLogger(__name__)
+
 
 
 def _gemm_epilogue(a2, w, bias, act, out_dtype):
-    """Plain GEMM for shapes no plan covers, with a post-hoc epilogue."""
+    """Plain GEMM for shapes no plan covers, with a post-hoc epilogue: the
+    bottom rung of the ladder."""
     out = torch.matmul(a2, w).to(out_dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)
     if act is not None:
         out = act_ref(out.float(), act).to(out.dtype)
     return out
+
+
+def _laddered(orientation: str, key_of, planned, plain, gemm):
+    """Run one planned TSMM down the ladder: ``planned()`` (the kernel),
+    ``plain()`` (its plain PyTorch version on the same device), ``gemm()``
+    (``torch.matmul``).  Each demotion is counted on the ambient
+    DegradeStats; after K consecutive failures of a key (``key_of()``)
+    its breaker opens and the planned rung is no longer tried
+    (``kernel.pinned``).  With no failpoint armed and no key failing,
+    nothing can leave rung 1: it runs without building the key."""
+    stats = degrade.current()
+    breaker = stats.breaker
+    if breaker.idle() and not failpoints.armed():
+        return planned()
+    breaker_key = key_of()
+    if breaker.allow(breaker_key):
+        try:
+            failpoints.fp(f"kernels.lower.{orientation}")
+            out = planned()
+        except failpoints.InjectedFault as e:
+            opened = breaker.failure(breaker_key)
+            log.warning("tsmm: planned %s kernel failed for %s (%s); "
+                        "degrading to its plain version%s", orientation,
+                        breaker_key, e, " [breaker OPEN: fallback pinned]"
+                        if opened else "")
+            stats.record("kernel.variant", key=breaker_key, fallback="torch",
+                         error=str(e))
+        else:
+            breaker.success(breaker_key)
+            return out
+    else:
+        stats.record("kernel.pinned", key=breaker_key, fallback="torch")
+    try:
+        failpoints.fp(f"kernels.xla.{orientation}")
+        return plain()
+    except failpoints.InjectedFault as e:
+        log.warning("tsmm: plain %s version failed for %s (%s); degrading "
+                    "to torch.matmul", orientation, breaker_key, e)
+        stats.record("kernel.xla", key=breaker_key, fallback="gemm",
+                     error=str(e))
+        return gemm()
 
 
 def variant_choice() -> Optional[KernelSpec]:
@@ -105,9 +166,17 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
             sched = cached.schedule if cached is not None else None
         spec = _override_spec(spec, override, "skinny_a")
         sched = sched_override or sched
-        out = variants.run_skinny_a(spec, a2, b.blocks, bias, act, bk=bk,
-                                    bn=bn, packed=True, schedule=sched)
-        return out[:, : b.orig_cols].reshape(*lead, b.orig_cols)
+
+        def _packed(use_impl):
+            return variants.run_skinny_a(
+                spec, a2, b.blocks, bias, act, bk=bk, bn=bn, packed=True,
+                impl=use_impl, schedule=sched)[:, : b.orig_cols]
+
+        out = _laddered(
+            "skinny", lambda: f"skinny_a/{m}x{k}x{b.orig_cols}/{spec.key()}",
+            lambda: _packed(None), lambda: _packed("torch"),
+            lambda: _gemm_epilogue(a2, b.unpack(), bias, act, a.dtype))
+        return out.reshape(*lead, b.orig_cols)
 
     n = b.shape[-1]
     if plan is None and is_tsmm(m, k, n):
@@ -115,23 +184,37 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
     if plan is not None and plan.orientation == "skinny_a":
         spec = _override_spec(plan.kernel, override, "skinny_a")
         sched = sched_override or plan.schedule
-        out = variants.run_skinny_a(spec, a2, b, bias, act, bk=plan.bk,
-                                    bn=plan.bn, packed=False, schedule=sched)
-        return out[:, :n].reshape(*lead, n)
+
+        def _skinny(use_impl):
+            return variants.run_skinny_a(
+                spec, a2, b, bias, act, bk=plan.bk, bn=plan.bn, packed=False,
+                impl=use_impl, schedule=sched)[:, :n]
+
+        out = _laddered(
+            "skinny", lambda: f"skinny_a/{m}x{k}x{n}/{spec.key()}",
+            lambda: _skinny(None), lambda: _skinny("torch"),
+            lambda: _gemm_epilogue(a2, b, bias, act, a.dtype))
+        return out.reshape(*lead, n)
     if plan is not None and plan.orientation == "tall_a":
         # bias and activation fuse into the point's epilogue placement
         spec = _override_spec(plan.kernel, override, "tall_a")
         sched = sched_override or plan.schedule
-        if plan.prepack:
-            # the per-call pack of A (the pack kernel on the card)
-            ap = pack(a2, plan.bm, plan.bk)
-            out = variants.run_tall_a(spec, ap.blocks, b, bias, act,
-                                      bm=plan.bm, bk=plan.bk, packed=True,
-                                      schedule=sched)[:m, :n]
-        else:
-            out = variants.run_tall_a(spec, a2, b, bias, act, bm=plan.bm,
-                                      bk=plan.bk, packed=False,
-                                      schedule=sched)
+
+        def _tall(use_impl):
+            if plan.prepack:
+                # the per-call pack of A (the pack kernel on the card)
+                ap = pack(a2, plan.bm, plan.bk, impl=use_impl)
+                return variants.run_tall_a(
+                    spec, ap.blocks, b, bias, act, bm=plan.bm, bk=plan.bk,
+                    packed=True, impl=use_impl, schedule=sched)[:m, :n]
+            return variants.run_tall_a(
+                spec, a2, b, bias, act, bm=plan.bm, bk=plan.bk, packed=False,
+                impl=use_impl, schedule=sched)
+
+        out = _laddered(
+            "tall", lambda: f"tall_a/{m}x{k}x{n}/{spec.key()}",
+            lambda: _tall(None), lambda: _tall("torch"),
+            lambda: _gemm_epilogue(a2, b, bias, act, a.dtype))
         return out.reshape(*lead, n)
     return _gemm_epilogue(a2, b, bias, act, a.dtype).reshape(*lead, n)
 

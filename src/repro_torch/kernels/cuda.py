@@ -23,6 +23,12 @@ instead, and :func:`replayed` adds a recorder's counts once per replay
 of the graph (``serve/programs.py``), so counts under graphs equal the
 eager counts.  ``stream`` gives a launch its stream.
 ``csrc/hopper.cuh`` holds the helpers the Hopper designs share.
+
+Two errors are the card's, not a plan's, and no fallback absorbs them
+(``core/tsmm.py``'s ladder re-raises both): :class:`KernelBuildError`,
+a library that does not build or load, and :class:`KernelLaunchError`,
+a non-zero ``cudaGetLastError()`` after an enqueue (the stream may be
+poisoned).
 """
 
 from __future__ import annotations
@@ -56,6 +62,15 @@ build_report: dict = {}
 
 
 _recorder = threading.local()
+
+
+class KernelBuildError(RuntimeError):
+    """The kernel libraries did not build or load: every kernel is
+    missing, not one plan."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch returned a non-zero ``cudaGetLastError()``."""
 
 
 def reset_launches() -> None:
@@ -102,8 +117,8 @@ def replayed(rec) -> None:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
+        raise KernelBuildError("nvcc not found: the CUDA kernels are built "
+                               "on a machine with the CUDA toolkit")
     return path
 
 
@@ -170,11 +185,16 @@ def load() -> dict:
             else:
                 os.replace(tmp, lib)
         if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+            raise KernelBuildError("CUDA kernel build failed:\n"
+                                   + "\n".join(failed))
         build_report.update(seconds=time.perf_counter() - t0,
                             built=sorted(procs), dir=str(out), ptxas=ptxas)
-        libs = {name: ctypes.CDLL(str(out / f"lib{name}.so"))
-                for name in SOURCES}
+        try:
+            libs = {name: ctypes.CDLL(str(out / f"lib{name}.so"))
+                    for name in SOURCES}
+        except OSError as e:
+            raise KernelBuildError(f"CUDA kernel library did not load: {e}"
+                                   ) from e
         _declare(libs)
         _libs.update(libs)
         return _libs
@@ -195,7 +215,8 @@ def stream(device) -> int:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    """Raise :class:`KernelLaunchError` on a non-zero
+    ``cudaGetLastError()`` returned by a launch."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+        raise KernelLaunchError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {rc})")

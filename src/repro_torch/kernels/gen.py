@@ -97,7 +97,8 @@ def _tall_blocks(a, b, bm, bk, packed):
     return m, nm, nk, bm, bk
 
 
-def _tall_kinner(a, b, bias, *, bm, bk, act, packed, resident, revisit):
+def _tall_kinner(a, b, bias, *, bm, bk, act, packed, resident, revisit,
+                 impl=None):
     """K-inner tall-A (TPU: ``gen.py::_tall_kinner``).  ``revisit``
     accumulates into a zeroed fp32 output with the epilogue applied there
     (the caller casts); otherwise the epilogue is fused and the output is
@@ -109,11 +110,12 @@ def _tall_kinner(a, b, bias, *, bm, bk, act, packed, resident, revisit):
         out = torch.zeros((m, b.shape[1]), dtype=torch.float32,
                           device=a.device)
         return _k.launch_tall("tall_kinner", a, b, bias, act,
-                              mode=_k.ACCUM_F32, out=out)
-    return _k.launch_tall("tall_kinner", a, b, bias, act, mode=_k.EPILOGUE)
+                              mode=_k.ACCUM_F32, out=out, impl=impl)
+    return _k.launch_tall("tall_kinner", a, b, bias, act, mode=_k.EPILOGUE,
+                          impl=impl)
 
 
-def _tall_ksplit(a, b, *, bm, bk, splits, packed, resident):
+def _tall_ksplit(a, b, *, bm, bk, splits, packed, resident, impl=None):
     """K-split tall-A (TPU: ``gen.py::_tall_ksplit``): fp32 partials
     (splits, M, N); the caller reduces and applies the epilogue."""
     del resident
@@ -122,10 +124,10 @@ def _tall_ksplit(a, b, *, bm, bk, splits, packed, resident):
         raise ValueError(f"tall-A k-split: {splits} splits do not divide "
                          f"{nk} k blocks")
     return _k.launch_tall("tall_ksplit", a, b, None, None, mode=_k.RAW_F32,
-                          splits=splits)
+                          splits=splits, impl=impl)
 
 
-def _tall_kouter(a, b, *, bm, bk, packed):
+def _tall_kouter(a, b, *, bm, bk, packed, impl=None):
     """K-outer tall-A (TPU: ``gen.py::_tall_kouter``): nk launches, launch
     j adding A[:, k block j] @ B[k block j] into one fp32 (M, N)
     accumulator over every row, so each reads and writes the accumulator
@@ -135,11 +137,12 @@ def _tall_kouter(a, b, *, bm, bk, packed):
     acc = torch.zeros((m, b.shape[1]), dtype=torch.float32, device=a.device)
     for j in range(nk):
         _k.launch_tall("tall_kouter", a, b, None, None, mode=_k.ACCUM_F32,
-                       k0=j * bk, k1=(j + 1) * bk, out=acc)
+                       k0=j * bk, k1=(j + 1) * bk, out=acc, impl=impl)
     return acc
 
 
-def _skinny_kinner(x, w, bias, *, bk, bn, act, natural, resident, revisit):
+def _skinny_kinner(x, w, bias, *, bk, bn, act, natural, resident, revisit,
+                   impl=None):
     """K-inner skinny-A (TPU: ``gen.py::_skinny_kinner``).  ``natural``
     reads W in its (K, N) layout; ``revisit`` returns the raw fp32 sums
     (the caller's cast pass applies the epilogue); otherwise bias and
@@ -149,18 +152,19 @@ def _skinny_kinner(x, w, bias, *, bk, bn, act, natural, resident, revisit):
     if revisit:
         return _k.launch_skinny("skinny_kinner", x, w, None, None,
                                 natural=natural, splits=1, mode=_k.RAW_F32,
-                                bk=bk, bn=bn)[0]
+                                bk=bk, bn=bn, impl=impl)[0]
     return _k.launch_skinny("skinny_kinner", x, w, bias, act, natural=natural,
-                            splits=1, mode=_k.EPILOGUE, bk=bk, bn=bn)
+                            splits=1, mode=_k.EPILOGUE, bk=bk, bn=bn,
+                            impl=impl)
 
 
-def _skinny_ksplit(x, w, *, bk, bn, splits, natural, resident):
+def _skinny_ksplit(x, w, *, bk, bn, splits, natural, resident, impl=None):
     """K-split skinny-A (TPU: ``gen.py::_skinny_ksplit``): fp32 partials
     (splits, m, N); the caller reduces and applies the epilogue."""
     del resident
     return _k.launch_skinny("skinny_ksplit", x, w, None, None,
                             natural=natural, splits=splits, mode=_k.RAW_F32,
-                            bk=bk, bn=bn)
+                            bk=bk, bn=bn, impl=impl)
 
 
 def tall_steps(g: GenSpec, nk: int, packed: bool) -> tuple:
@@ -282,18 +286,19 @@ def launches(g: GenSpec, orientation: str, m: int, k: int, n: int, *,
 
 
 def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
-                bk: int = 0, packed: bool = False, schedule=None):
+                bk: int = 0, packed: bool = False, schedule=None, impl=None):
     """Lower grammar point ``g`` for the tall-A orientation, running the
     kernels of :func:`tall_steps`.
 
     ``a`` is natural (M, K) or packed (nm, nk, bm, bk) per ``packed``.
     Returns (M, N) for natural inputs (padding sliced off) or (nm*bm, N)
-    for packed inputs (the caller slices rows)."""
+    for packed inputs (the caller slices rows).  ``impl`` picks the
+    kernels' versions (``kernels/tsmm.py``; None: by the device)."""
     del schedule
     if g == BASELINE_POINT:
         if packed:
-            return ops.tsmm_packed(a, b, bias, act=act)
-        return ops.tsmm(a, b, bias, bm=bm, bk=bk, act=act)
+            return ops.tsmm_packed(a, b, bias, act=act, impl=impl)
+        return ops.tsmm(a, b, bias, bm=bm, bk=bk, act=act, impl=impl)
     n = b.shape[1]
     if packed:
         _, nk, bm, bk = a.shape
@@ -307,14 +312,15 @@ def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
     bias_, act_ = (biasp, act) if fused else (None, None)
     (kernel, mode, splits, _), *passes = tall_steps(g, nk, packed)
     if kernel == "tall_kouter":
-        out = _tall_kouter(ap, bp, bm=bm, bk=bk, packed=packed)
+        out = _tall_kouter(ap, bp, bm=bm, bk=bk, packed=packed, impl=impl)
     elif kernel == "tall_ksplit":
         out = _tall_ksplit(ap, bp, bm=bm, bk=bk, splits=splits,
-                           packed=packed, resident=g.bres == "resident")
+                           packed=packed, resident=g.bres == "resident",
+                           impl=impl)
     else:
         out = _tall_kinner(ap, bp, bias_, bm=bm, bk=bk, act=act_,
                            packed=packed, resident=g.bres == "resident",
-                           revisit=mode == _k.ACCUM_F32)
+                           revisit=mode == _k.ACCUM_F32, impl=impl)
     out = _post(out, passes, bias_, act_, b.dtype)
     if not fused and (bias is not None or act not in (None, "none")):
         out = _split_epilogue(out, biasp, act)
@@ -324,24 +330,26 @@ def emit_tall_a(g: GenSpec, a, b, bias=None, act=None, *, bm: int = 0,
 
 
 def emit_skinny_a(g: GenSpec, x, w, bias=None, act=None, *, bk: int = 0,
-                  bn: int = 0, packed: bool = True, schedule=None):
+                  bn: int = 0, packed: bool = True, schedule=None,
+                  impl=None):
     """Lower grammar point ``g`` for the skinny-A orientation, running the
     steps of :func:`skinny_steps`.
 
     ``w`` is the packed (nk, nn, bk, bn) weight when ``packed`` else the
     natural (K, N) layout — non-packfuse points then pack it per call;
     packfuse points read the natural layout inside the kernel.  Returns
-    (m, n_padded); the caller slices padded columns."""
+    (m, n_padded); the caller slices padded columns.  ``impl``: see
+    :func:`emit_tall_a`."""
     del schedule
     m = x.shape[0]
     nk = w.shape[0] if packed else _ceil_to(x.shape[1], bk) // bk
     steps = skinny_steps(g, nk, packed)
     if steps[0][0] == "pack_blocks":
-        w = packing.pack(w, bk, bn).blocks
+        w = packing.pack(w, bk, bn, impl=impl).blocks
         steps = steps[1:]
     (kernel, mode, splits, _), *passes = steps
     if kernel == "tsmm_skinny_a":
-        return ops.tsmm_skinny(x, w, bias, act=act)
+        return ops.tsmm_skinny(x, w, bias, act=act, impl=impl)
     natural = w.dim() == 2
     if natural:
         kp, np_ = _ceil_to(x.shape[1], bk), _ceil_to(w.shape[1], bn)
@@ -356,11 +364,11 @@ def emit_skinny_a(g: GenSpec, x, w, bias=None, act=None, *, bk: int = 0,
     if kernel == "skinny_ksplit":
         out = _skinny_ksplit(xp, wq, bk=bk, bn=bn, splits=splits,
                              natural=natural,
-                             resident=g.bres == "resident")
+                             resident=g.bres == "resident", impl=impl)
     else:
         out = _skinny_kinner(xp, wq, bias_, bk=bk, bn=bn, act=act_,
                              natural=natural, resident=g.bres == "resident",
-                             revisit=mode == _k.RAW_F32)
+                             revisit=mode == _k.RAW_F32, impl=impl)
     out = _post(out, passes, bias_, act_, x.dtype)
     if not fused and (bias is not None or act not in (None, "none")):
         out = _split_epilogue(out, biasp, act)

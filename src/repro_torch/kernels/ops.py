@@ -4,8 +4,8 @@ Responsibilities, as in the reference package's ``kernels/ops.py``:
   * pad operands to the kernels' shapes and slice the result back;
   * pick the implementation: the hand-written CUDA kernel for CUDA
     tensors, the plain PyTorch version (the same math on the same layout)
-    for CPU tensors — the choice lives in each ``kernels/tsmm.py``
-    wrapper;
+    for CPU tensors, or what ``impl`` asks for — the choice lives in each
+    ``kernels/tsmm.py`` wrapper;
   * pack/unpack as layout transforms (a CUDA tensor packs through the
     pack kernel).
 
@@ -43,11 +43,11 @@ def sublane(dtype) -> int:
         dtype, 8)
 
 
-def pack_blocks(a, bm: int, bk: int, alpha: float = 1.0):
+def pack_blocks(a, bm: int, bk: int, alpha: float = 1.0, impl=None):
     """(M, K) -> (nm, nk, bm, bk) block-major, zero-padded, alpha folded,
     bit-identical to the reference's layout: the pack kernel for a CUDA
     tensor, the plain reshape/transpose on the CPU."""
-    return _k.pack_blocks_kernel(a, bm, bk, alpha=alpha)
+    return _k.pack_blocks_kernel(a, bm, bk, alpha=alpha, impl=impl)
 
 
 def unpack_blocks(ap, m: int, k: int):
@@ -68,7 +68,7 @@ def _pad_bias(bias, npad: int):
     return F.pad(bias, (0, npad - bias.shape[0]))
 
 
-def tsmm_skinny(x, wp, bias=None, *, act=None):
+def tsmm_skinny(x, wp, bias=None, *, act=None, impl=None):
     """Skinny-A x packed-W with fused epilogue: act(X @ W + bias).
 
     X (m, K) — m is the skinny dim; Wp (nk, nn, bk, bn).  Returns
@@ -77,7 +77,7 @@ def tsmm_skinny(x, wp, bias=None, *, act=None):
     nk, nn, bk, bn = wp.shape
     n = nn * bn
     xp = pad2(x, m, nk * bk).contiguous()
-    out = _k.tsmm_skinny_a(xp, wp, _pad_bias(bias, n), act=act)
+    out = _k.tsmm_skinny_a(xp, wp, _pad_bias(bias, n), act=act, impl=impl)
     return out[:, : (bias.shape[0] if bias is not None else n)]
 
 
@@ -107,23 +107,23 @@ def pad_b_for_packed(ap, b):
 
 
 def tsmm(a, b, bias=None, *, bm: int = 512, bk: int = 512, act=None,
-         dims: tuple = (), m_split: int = 1):
+         dims: tuple = (), m_split: int = 1, impl=None):
     """Unpacked tall-A TSMM: act(A @ B + bias), fused into the kernel's
     store (padded by :func:`pad_tall`, sliced back).  ``dims``/``m_split``
     (the plan's TPU grid schedule) have no effect on the card."""
     m, n = a.shape[0], b.shape[1]
     ap, bp, bm_ = pad_tall(a, b, bm, bk)
     out = _k.tsmm_tall_a(ap, bp, _pad_bias(bias, bp.shape[1]), bm=bm_, bk=bk,
-                         act=act, dims=dims, m_split=m_split)
+                         act=act, dims=dims, m_split=m_split, impl=impl)
     return out[:m, :n]
 
 
 def tsmm_packed(ap, b, bias=None, *, act=None, dims: tuple = (),
-                m_split: int = 1):
+                m_split: int = 1, impl=None):
     """Packed tall-A TSMM: act(unpack(Ap) @ B + bias) with Ap (nm, nk, bm,
     bk); returns (nm*bm, N) (the caller slices rows)."""
     n = b.shape[1]
     bp = pad_b_for_packed(ap, b)
     out = _k.tsmm_packed_a(ap, bp, _pad_bias(bias, bp.shape[1]), act=act,
-                           dims=dims, m_split=m_split)
+                           dims=dims, m_split=m_split, impl=impl)
     return out[:, :n]

@@ -18,7 +18,13 @@ no effect on the card: a CUDA grid has no dimension semantics and already
 spreads the row tiles over every SM.
 
 A wrapper launches the kernel for a CUDA tensor and takes the plain
-version only for a tensor on the CPU; there is no fallback between them.
+version for a tensor on the CPU; there is no fallback between them.
+Only ``core/tsmm.py``'s ladder asks otherwise: ``impl="torch"`` runs the
+plain version on any device, its rung 2 once a caller has armed a fault
+on the planned rung.  A layout that the host-side launch plan
+(:func:`skinny_plan`, :func:`tall_plan`, :func:`pack_plan`) or the TMA
+check (:func:`check_tma`) refuses raises :class:`LaunchRefused`, before
+anything reaches the device.
 """
 
 from __future__ import annotations
@@ -34,6 +40,26 @@ from repro_torch.kernels.ref import act_ref, pack_ref
 
 _ACT = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+class LaunchRefused(ValueError):
+    """A launch plan or the TMA check refused the layout on the host:
+    nothing was enqueued."""
+
+
+def plain(t, impl, name: str) -> bool:
+    """Whether a wrapper runs the plain version for tensor ``t``: with
+    ``impl="torch"`` yes, with ``impl`` None by ``t``'s device (the CPU:
+    yes; the card: no, the kernel launches)."""
+    if impl == "torch":
+        return True
+    if impl is not None:
+        raise ValueError(f"{name}: unknown impl {impl!r} (None | 'torch')")
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
 
 # kernel output modes (csrc/tsmm_skinny.cu, csrc/tsmm_tall.cu): the cast
 # epilogue, raw fp32 sums one slab per k-split, and (tall only)
@@ -200,25 +226,25 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
     float32`` times every plan of both designs; the rules follow its
     measurements at the gate's and qwen1.5-4b's widths (PERF.md §6).
 
-    Raises ValueError on a layout no design takes (there is no other
+    Raises LaunchRefused on a layout no design takes (there is no other
     path): a k range off the stage (bf16 64 deep, fp32 32), packed blocks
     the tile would cut, N off the column tile (bf16 128, fp32 a multiple
     of 64)."""
     if m <= 0 or n <= 0 or splits <= 0 or kps <= 0 or kps * splits != k:
-        raise ValueError(f"skinny plan: ({m}, {k}, {n}) in {splits} splits "
-                         f"of {kps}")
+        raise LaunchRefused(f"skinny plan: ({m}, {k}, {n}) in {splits} splits "
+                            f"of {kps}")
     if splits > 1 and mode != RAW_F32:
-        raise ValueError(f"skinny plan: {splits} splits in mode {mode}")
+        raise LaunchRefused(f"skinny plan: {splits} splits in mode {mode}")
     if dtype == torch.bfloat16:
         if n % SKINNY_NT:
-            raise ValueError(f"skinny plan: N={n} is not a multiple of the "
-                             f"{SKINNY_NT}-column tile")
+            raise LaunchRefused(f"skinny plan: N={n} is not a multiple of the "
+                                f"{SKINNY_NT}-column tile")
         if kps % SKINNY_BK:
-            raise ValueError(f"skinny plan: a k range of {kps} is not a "
-                             f"multiple of the {SKINNY_BK}-deep stage")
+            raise LaunchRefused(f"skinny plan: a k range of {kps} is not a "
+                                f"multiple of the {SKINNY_BK}-deep stage")
         if not natural and (bk % SKINNY_BK or bn % SKINNY_NT):
-            raise ValueError(f"skinny plan: packed blocks ({bk}, {bn}) are "
-                             f"cut by the tile ({SKINNY_BK}, {SKINNY_NT})")
+            raise LaunchRefused(f"skinny plan: packed blocks ({bk}, {bn}) are "
+                                f"cut by the tile ({SKINNY_BK}, {SKINNY_NT})")
         if m <= SKINNY_STREAM_M:
             cluster = _cluster((n // SKINNY_NT) * splits, kps // SKINNY_BK,
                                SKINNY_MIN_RANK_STAGES, sms)
@@ -230,13 +256,13 @@ def skinny_plan(m: int, k: int, n: int, *, dtype, natural: bool, bk: int,
     if dtype != torch.float32:
         raise TypeError(f"skinny plan: dtype {dtype} not supported")
     if n % 64:
-        raise ValueError(f"skinny plan: N={n} is not a multiple of 64")
+        raise LaunchRefused(f"skinny plan: N={n} is not a multiple of 64")
     if kps % SKINNY_FBK:
-        raise ValueError(f"skinny plan: a k range of {kps} is not a "
-                         f"multiple of the {SKINNY_FBK}-deep fp32 stage")
+        raise LaunchRefused(f"skinny plan: a k range of {kps} is not a "
+                            f"multiple of the {SKINNY_FBK}-deep fp32 stage")
     if not natural and (bk % SKINNY_FBK or bn % 64):
-        raise ValueError(f"skinny plan: packed blocks ({bk}, {bn}) are cut "
-                         f"by the fp32 tiles ({SKINNY_FBK}, 64)")
+        raise LaunchRefused(f"skinny plan: packed blocks ({bk}, {bn}) are cut "
+                            f"by the fp32 tiles ({SKINNY_FBK}, 64)")
     return _fp32_skinny_plan(m, n, natural=natural, bn=bn, splits=splits,
                              kps=kps, sms=sms)
 
@@ -257,7 +283,7 @@ def skinny_smem(plan: SkinnyPlan) -> int:
 
 
 def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
-                  mode: int, bk: int = 0, bn: int = 0):
+                  mode: int, bk: int = 0, bn: int = 0, impl=None):
     """Run the skinny-A function on ``x``'s device: the CUDA kernel for a
     CUDA tensor (counted under ``name``), the plain version on the CPU.
 
@@ -270,12 +296,10 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
     :func:`check_tma`) raises.  ``tf32x3`` also gets the scratch its
     split pass writes X big and small to.
     Returns (m, N) in ``x``'s type, or (splits, m, N) fp32 for
-    ``RAW_F32``."""
-    if x.device.type == "cpu":
+    ``RAW_F32``.  ``impl``: see the module docstring."""
+    if plain(x, impl, name):
         return _torch_skinny(x, w, bias, act, natural=natural, splits=splits,
                              mode=mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in _DTYPE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported")
     if act not in _ACT:
@@ -335,14 +359,14 @@ def launch_skinny(name: str, x, w, bias, act, *, natural: bool, splits: int,
     return out
 
 
-def tsmm_skinny_a(x, wp, bias=None, *, act=None):
+def tsmm_skinny_a(x, wp, bias=None, *, act=None, impl=None):
     """C = act(X @ unpack(Wp) + bias).
 
     X (m, K) with skinny m (the decode batch, or the prefill tokens);
     Wp (nk, nn, bk, bn) packed weights with K == nk * bk; bias (nn*bn,).
     Returns (m, nn*bn) in X's type."""
     return launch_skinny("tsmm_skinny_a", x, wp, bias, act, natural=False,
-                         splits=1, mode=EPILOGUE)
+                         splits=1, mode=EPILOGUE, impl=impl)
 
 
 # the bf16 wgmma tall kernel's tile: 64 x 128 (one wgmma m64n128k16
@@ -442,25 +466,27 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
     of 80 and two of 120 measured within 1-3 % (PERF.md §6).  ``launch/tall_sweep.py --dtype float32`` times every
     design, column tile, row tile and ring depth.
 
-    Raises ValueError on a layout the design cannot take (no design takes
+    Raises LaunchRefused on a layout the design cannot take (no design takes
     another's layouts): bf16 N off the 128-column tile, a k range off the
     64-deep stage, packed blocks the tile cuts; fp32 N off a multiple of 4
     (B's rows must be 16-byte multiples for TMA), a k range off the
     32-deep stage, a natural K off a multiple of 4, packed blocks off
     (8, 32)."""
     if n <= 0 or m <= 0:
-        raise ValueError(f"tall plan: an ({m}, {n}) output")
+        raise LaunchRefused(f"tall plan: an ({m}, {n}) output")
     if kps <= 0 or splits <= 0 or (splits > 1 and mode != RAW_F32):
-        raise ValueError(f"tall plan: {splits} splits of {kps} in mode {mode}")
+        raise LaunchRefused(f"tall plan: {splits} splits of {kps} in mode "
+                            f"{mode}")
     if dtype == torch.bfloat16:
         if n % TALL_NT:
-            raise ValueError(f"tall plan: N={n} is not a multiple of 128")
+            raise LaunchRefused(f"tall plan: N={n} is not a multiple of 128")
         if packed and (pbm % TALL_BM or pbk % TALL_BK):
-            raise ValueError(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
-                             f"cut by the wgmma tile ({TALL_BM}, {TALL_BK})")
+            raise LaunchRefused(f"tall plan: packed blocks ({pbm}, {pbk}) are "
+                                f"not cut by the wgmma tile ({TALL_BM}, "
+                                f"{TALL_BK})")
         if kps % TALL_BK:
-            raise ValueError(f"tall plan: a k range of {kps} is not a multiple "
-                             f"of the {TALL_BK}-deep wgmma stage")
+            raise LaunchRefused(f"tall plan: a k range of {kps} is not a "
+                                f"multiple of the {TALL_BK}-deep wgmma stage")
         base = -(-m // TALL_BM) * (n // TALL_NT) * splits
         ktiles = kps // TALL_BK
         cluster = 1
@@ -472,17 +498,17 @@ def tall_plan(m: int, k: int, n: int, *, dtype, packed: bool, pbm: int,
     if dtype != torch.float32:
         raise TypeError(f"tall plan: dtype {dtype} not supported")
     if n % 4:
-        raise ValueError(f"tall plan: N={n} is not a multiple of 4 (B's "
-                         f"rows are TMA rows of 16-byte multiples)")
+        raise LaunchRefused(f"tall plan: N={n} is not a multiple of 4 (B's "
+                            f"rows are TMA rows of 16-byte multiples)")
     if kps % TALL_FBK:
-        raise ValueError(f"tall plan: a k range of {kps} is not a multiple "
-                         f"of the {TALL_FBK}-deep fp32 stage")
+        raise LaunchRefused(f"tall plan: a k range of {kps} is not a multiple "
+                            f"of the {TALL_FBK}-deep fp32 stage")
     if packed and (pbm % 8 or pbk % TALL_FBK):
-        raise ValueError(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
-                         f"cut by the fp32 tiles (8, {TALL_FBK})")
+        raise LaunchRefused(f"tall plan: packed blocks ({pbm}, {pbk}) are not "
+                            f"cut by the fp32 tiles (8, {TALL_FBK})")
     if not packed and k % 4:
-        raise ValueError(f"tall plan: K={k} is not a multiple of 4 (A's rows "
-                         f"are TMA rows of 16-byte multiples)")
+        raise LaunchRefused(f"tall plan: K={k} is not a multiple of 4 (A's "
+                            f"rows are TMA rows of 16-byte multiples)")
     def row_tile(nt):
         cols = -(-n // nt) * splits
         return 128 if -(-m // 128) * cols >= sms else 64
@@ -521,13 +547,14 @@ def check_tma(t, name: str, what: str) -> None:
     multiple of 16 bytes."""
     es = t.element_size()
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: {what} is not 16-byte aligned (TMA)")
+        raise LaunchRefused(f"{name}: {what} is not 16-byte aligned (TMA)")
     if t.stride(-1) != 1:
-        raise ValueError(f"{name}: the last dim of {what} must be contiguous")
+        raise LaunchRefused(f"{name}: the last dim of {what} must be "
+                            f"contiguous")
     for d in range(t.dim() - 1):
         if (t.stride(d) * es) % 16:
-            raise ValueError(f"{name}: {what} stride {t.stride(d)} of dim {d} "
-                             f"is not a multiple of 16 bytes (TMA)")
+            raise LaunchRefused(f"{name}: {what} stride {t.stride(d)} of dim "
+                                f"{d} is not a multiple of 16 bytes (TMA)")
 
 
 def _tall_dims(a) -> tuple:
@@ -577,7 +604,7 @@ def _torch_tall(a, b, bias, act, *, mode: int, splits: int, k0: int, k1: int,
 
 
 def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
-                k0: int = 0, k1=None, out=None):
+                k0: int = 0, k1=None, out=None, impl=None):
     """Run the tall-A function on ``a``'s device: the CUDA kernel for a
     CUDA tensor (counted under ``name``), the plain version on the CPU.
 
@@ -590,7 +617,7 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
     cannot take (:func:`tall_plan`, :func:`check_tma`) raises.
     ``EPILOGUE`` returns (M, N) in B's type; ``RAW_F32`` the fp32 partials
     (splits, M, N); ``ACCUM_F32`` updates and returns the fp32 (M, N)
-    ``out``."""
+    ``out``.  ``impl``: see the module docstring."""
     m, k = _tall_dims(a)
     k1 = k if k1 is None else k1
     if (b.dim() != 2 or b.shape[0] != k or not 0 <= k0 < k1 <= k
@@ -605,11 +632,9 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
                          f"output")
     if bias is not None and bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} != ({n},)")
-    if a.device.type == "cpu":
+    if plain(a, impl, name):
         return _torch_tall(a, b, bias, act, mode=mode, splits=splits, k0=k0,
                            k1=k1, out=out)
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {a.device}")
     if a.dtype not in _DTYPE:
         raise TypeError(f"{name}: dtype {a.dtype} not supported")
     if act not in _ACT:
@@ -654,7 +679,7 @@ def launch_tall(name: str, a, b, bias, act, *, mode: int, splits: int = 1,
 
 
 def tsmm_tall_a(a, b, bias=None, *, bm: int, bk: int, act=None, dims=(),
-                m_split: int = 1):
+                m_split: int = 1, impl=None):
     """C = act(A @ B + bias).  A (M, K) with M % bm == 0, K % bk == 0; B
     (K, N), N at :func:`tall_width` (bf16 a multiple of 128, fp32 of 8).
     The epilogue is fused into the kernel's store.  ``dims`` and
@@ -664,15 +689,18 @@ def tsmm_tall_a(a, b, bias=None, *, bm: int, bk: int, act=None, dims=(),
     if b.shape[0] != k or m % bm or k % bk:
         raise ValueError(f"tsmm_tall_a: A {tuple(a.shape)}, B "
                          f"{tuple(b.shape)} do not tile by ({bm}, {bk})")
-    return launch_tall("tsmm_tall_a", a, b, bias, act, mode=EPILOGUE)
+    return launch_tall("tsmm_tall_a", a, b, bias, act, mode=EPILOGUE,
+                       impl=impl)
 
 
-def tsmm_packed_a(ap, b, bias=None, *, act=None, dims=(), m_split: int = 1):
+def tsmm_packed_a(ap, b, bias=None, *, act=None, dims=(), m_split: int = 1,
+                  impl=None):
     """C = act(unpack(Ap) @ B + bias) with Ap (nm, nk, bm, bk) block-major;
     returns (nm*bm, N) in B's type.  Epilogue fused as in
     ``tsmm_tall_a``; ``dims`` and ``m_split`` have no effect."""
     del dims, m_split
-    return launch_tall("tsmm_packed_a", ap, b, bias, act, mode=EPILOGUE)
+    return launch_tall("tsmm_packed_a", ap, b, bias, act, mode=EPILOGUE,
+                       impl=impl)
 
 
 # the pack kernel's designs (csrc/pack_blocks.cu): packs whose output
@@ -778,19 +806,19 @@ def pack_plan(L: int, M: int, K: int, bm: int, bk: int, dtype, align: int,
     2048 threads), so the per-call decode pack of a (4096, 256) weight
     spreads over every SM.  Below the threshold the vec design also spares
     the host the two tensor-map encodings.  ``launch/pack_sweep.py`` times
-    every plan these rules choose from.  Raises ValueError on sizes the
+    every plan these rules choose from.  Raises LaunchRefused on sizes the
     kernel does not take, TypeError on a dtype other than float32 and
     bfloat16."""
     if dtype not in _ESIZE:
         raise TypeError(f"pack plan: dtype {dtype} not supported")
     if min(L, M, K, bm, bk) <= 0 or align <= 0:
-        raise ValueError(f"pack plan: {L} x ({M}, {K}) by ({bm}, {bk}), "
-                         f"align {align}")
+        raise LaunchRefused(f"pack plan: {L} x ({M}, {K}) by ({bm}, {bk}), "
+                            f"align {align}")
     es = _ESIZE[dtype]
     blocks = L * -(-M // bm) * -(-K // bk)
     if bm * bk >= 2 ** 31 or blocks >= 2 ** 31:
-        raise ValueError(f"pack plan: {blocks} blocks of ({bm}, {bk}) are "
-                         f"out of range")
+        raise LaunchRefused(f"pack plan: {blocks} blocks of ({bm}, {bk}) are "
+                            f"out of range")
     if blocks * bm * bk * es >= PACK_TMA_MIN_BYTES:
         plan = pack_tma_plan(L, M, K, bm, bk, es, align, sms)
         if plan is not None:
@@ -802,7 +830,7 @@ def pack_plan(L: int, M: int, K: int, bm: int, bk: int, dtype, align: int,
         rows //= 2
     grid = blocks * -(-bm // rows)
     if grid >= 2 ** 31:
-        raise ValueError(f"pack plan: a grid of {grid} CTAs")
+        raise LaunchRefused(f"pack plan: a grid of {grid} CTAs")
     return PackPlan("vec", rows, grid, PACK_VEC_THREADS, 0, box)
 
 
@@ -850,18 +878,17 @@ def launch_pack(a, out, bm: int, bk: int, alpha: float, plan: PackPlan):
     return out
 
 
-def pack_blocks_kernel(a, bm: int, bk: int, *, alpha: float = 1.0):
+def pack_blocks_kernel(a, bm: int, bk: int, *, alpha: float = 1.0,
+                       impl=None):
     """(..., M, K) -> (..., nm, nk, bm, bk) block-major, zero-padded to
     block multiples, alpha folded (fp32 multiply, cast back).
 
     A CUDA tensor launches ``csrc/pack_blocks.cu`` (which writes the
     padding itself, so M and K need not divide) by :func:`pack_plan`'s
     design; a CPU tensor takes the plain reshape/transpose,
-    ``kernels/ref.py::pack_ref``."""
-    if a.device.type == "cpu":
+    ``kernels/ref.py::pack_ref`` (``impl``: see the module docstring)."""
+    if plain(a, impl, "pack_blocks"):
         return pack_ref(a, bm, bk, alpha=alpha)
-    if a.device.type != "cuda":
-        raise ValueError(f"pack_blocks: unsupported device {a.device}")
     if a.dtype not in _DTYPE:
         raise TypeError(f"pack_blocks: dtype {a.dtype} not supported")
     if a.dim() < 2 or bm <= 0 or bk <= 0:

@@ -4,7 +4,8 @@ A :class:`KernelSpec` names one point of the ``variants.grammar`` spec
 grammar (legacy names are aliases for their grammar points);
 ``run_tall_a`` and ``run_skinny_a`` lower any valid point through
 ``kernels.gen.emit_tall_a`` / ``emit_skinny_a`` onto the CUDA tall and
-skinny kernels, or onto their plain PyTorch versions for CPU tensors.
+skinny kernels, or onto their plain PyTorch versions for CPU tensors
+(``impl="torch"``: on any device).
 ``verify_variants`` and ``verify_schedules`` are the install stage's
 ``--check`` of the grammar.
 
@@ -51,36 +52,39 @@ def applies_to(spec: KernelSpec, orientation: str) -> bool:
 
 
 def run_tall_a(spec: KernelSpec, a, b, bias=None, act=None, *, bm: int = 0,
-               bk: int = 0, packed: bool = False, schedule=None):
+               bk: int = 0, packed: bool = False, schedule=None, impl=None):
     """Dispatch a tall-A (prefill) matmul at ``spec``'s grammar point.
 
     ``a`` is natural (M, K) or pre-packed (nm, nk, bm, bk) per ``packed``
     (the caller owns the pack).  ``bias``/``act`` fuse into the point's
     epilogue placement; ``schedule`` is the plan's ScheduleSpec (None:
-    the default)."""
+    the default); ``impl`` picks the kernels' versions (None: by the
+    device; ``"torch"``: the plain versions on any device)."""
     if not applies_to(spec, "tall_a"):
         raise ValueError(f"kernel variant {spec.key()!r} has no tall_a "
                          f"implementation")
     from repro_torch.kernels import gen
     return gen.emit_tall_a(from_kernel_spec(spec), a, b, bias, act, bm=bm,
-                           bk=bk, packed=packed, schedule=schedule)
+                           bk=bk, packed=packed, schedule=schedule, impl=impl)
 
 
 def run_skinny_a(spec: KernelSpec, x, w, bias=None, act=None, *,
                  bk: int = 0, bn: int = 0, packed: bool = True,
-                 schedule=None):
+                 schedule=None, impl=None):
     """Dispatch a skinny-A (decode) matmul at ``spec``'s grammar point.
 
     ``w`` is the packed (nk, nn, bk, bn) blocks when ``packed`` else the
     natural (K, N) weight.  A pack-fusing point against an already-packed
     weight runs the baseline kernel (there is no pack left to fuse).
-    Returns (m, N padded to the block width)."""
+    ``impl``: see :func:`run_tall_a`.  Returns (m, N padded to the block
+    width)."""
     if not applies_to(spec, "skinny_a"):
         raise ValueError(f"kernel variant {spec.key()!r} has no skinny_a "
                          f"implementation")
     from repro_torch.kernels import gen
     return gen.emit_skinny_a(from_kernel_spec(spec), x, w, bias, act, bk=bk,
-                             bn=bn, packed=packed, schedule=schedule)
+                             bn=bn, packed=packed, schedule=schedule,
+                             impl=impl)
 
 
 # ---------------------------------------------------------------------------

@@ -44,12 +44,24 @@ gate, under the port's restart contract (a graph lives in its process,
 so the load captures the grid and traffic must capture nothing): the
 grid holds the scheduler's ``prefill_row`` cells too, so a queue that
 captures one fails it as well.
+
+``--find-db`` attaches a fleet find-db artifact (``REPRO_TORCH_FIND_DB``):
+the registry folds its plans in under the local ones, so a fresh host
+serves with 0 misses.  ``--health`` prints the engine's health report
+after serving and exits 1 when any ladder demotion fired (a planned
+kernel served by its plain version or by ``torch.matmul``, a deferred
+flush, an ignored find-db):
+
+    REPRO_TORCH_FAILPOINTS='kernels.lower.skinny=raise' PYTHONPATH=src \
+        python -m repro_torch.launch.serve --arch qwen1_5_4b --reduced \
+        --device cpu --trace 1 --steps 2 --health      # exits 1
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 from collections import Counter
 
@@ -170,9 +182,19 @@ def main(argv=None):
     ap.add_argument("--require-warm", action="store_true",
                     help="exit 1 if serving logged any registry miss or "
                          "captured any cell")
+    ap.add_argument("--find-db", default="",
+                    help="attach a fleet find-db artifact: sets "
+                         "REPRO_TORCH_FIND_DB so the registry overlays the "
+                         "exported plans at load")
+    ap.add_argument("--health", action="store_true",
+                    help="print the engine's health report after serving "
+                         "and exit 1 if any ladder demotion fired")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    if args.find_db:
+        from repro_torch.tuning.find_db import attach
+        attach(args.find_db)
     device = resolve_device(args.device)
     cfg = config_for(args.arch, reduced=args.reduced, override=args.override)
     model = build_model(cfg)
@@ -257,6 +279,14 @@ def main(argv=None):
         raise SystemExit(f"--require-warm: serving was not lookup-only "
                          f"({s['misses']} registry misses, {cold} cells "
                          f"acquired by traffic)")
+    if args.health:
+        hr = eng.health_report()
+        print("-- health report --")
+        print(json.dumps(hr, indent=2, default=str))
+        if not hr["healthy"]:
+            raise SystemExit(f"--health: {hr['degradations']['total']} "
+                             f"degradation(s) fired: serving ran off the "
+                             f"ladder, not the plan")
 
 
 def serve_async(eng, cfg, trace, args) -> None:

@@ -38,7 +38,18 @@ engine's start and traffic are registry lookups only.  A lookup that
 misses is served at once off the model-ranked plan; with
 ``background_tune`` the missed problems are then timed on a thread of
 their own (its own CUDA stream) and the measured winners committed to
-the registry; without it they go to the persisted miss log.
+the registry; without it (the fleet mode, DESIGN.md §15) they go to the
+persisted miss log, which the fleet's ``tune_service harvest`` turns
+into jobs.  With a fleet ``tune_queue`` attached (or
+``REPRO_TORCH_TUNE_QUEUE`` set) the background tuner skips the misses
+the fleet already owns.
+
+Every ladder demotion on the engine's paths (a planned kernel served by
+its plain version or by ``torch.matmul``, a deferred registry flush, an
+ignored find-db; DESIGN.md §16) is counted on the engine's own
+``DegradeStats``: the pack at load, every cell's capture and eager run,
+the scheduler's steps and the miss drain run under it.
+:meth:`Engine.health_report` reads it.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -59,6 +71,7 @@ from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
     buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import tree_map
+from repro_torch.resilience import degrade
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import (ProgramStore, input_dtypes,
                                        precompile_grid, prompt_positions,
@@ -172,11 +185,17 @@ class _BackgroundTuner:
     the registry (whose provenance guard keeps it over later model-ranked
     puts).  On a CUDA device the thread launches and times on a CUDA
     stream of its own: every wrapper launches on the current stream, so
-    timings on the serving stream would interleave with serving."""
+    timings on the serving stream would interleave with serving.
+
+    With a fleet tuning ``queue`` attached (DESIGN.md §15) the tuner
+    defers to the fleet: a missed key the queue already owns — pending,
+    leased by a worker, or measured — is skipped here, so a miss is
+    measured once fleet-wide."""
 
     def __init__(self, hw=None, *, device, top_k: int = 4, stable: int = 2,
-                 iters: int = 3, warmup: int = 1):
+                 iters: int = 3, warmup: int = 1, queue=None):
         self.hw = hw
+        self.queue = queue
         self.device = torch.device(device)
         self.top_k, self.stable = top_k, stable
         self.iters, self.warmup = iters, warmup
@@ -211,6 +230,17 @@ class _BackgroundTuner:
 
     def _work(self, keys: list) -> None:
         from repro_torch.core.autotuner import make_plan
+        if self.queue is not None:
+            try:
+                fleet_owned = self.queue.active_keys(device=self.device)
+            except Exception:            # an unreadable queue: tune here
+                log.exception("fleet queue unreadable; tuning locally")
+                fleet_owned = set()
+            deferred = [k for k in keys if k in fleet_owned]
+            keys = [k for k in keys if k not in fleet_owned]
+            if deferred:
+                log.info("background tuner: %d misses deferred to the "
+                         "fleet queue", len(deferred))
         ctx = (torch.cuda.stream(self.stream) if self.stream is not None
                else contextlib.nullcontext())
         with ctx, torch.inference_mode():
@@ -253,7 +283,9 @@ class Engine:
     ``ProgramStore(model, device=..., capture=False)`` set as
     ``engine.programs`` serves the same cells without graphs.  ``clock``
     (default real time) and ``step_cost`` (what a virtual clock charges)
-    time generation and the scheduler."""
+    time generation and the scheduler.  ``tune_queue``: a fleet
+    ``tuning.queue.JobQueue`` the background tuner defers to (default
+    one at ``REPRO_TORCH_TUNE_QUEUE`` when that is set)."""
 
     def __init__(self, model, params, axes, *, max_len: int,
                  max_batch: Optional[int] = None,
@@ -261,11 +293,18 @@ class Engine:
                  max_prompt: Optional[int] = None, min_prompt: int = 8,
                  prepack: bool = True, background_tune: bool = False,
                  tuner_opts: Optional[dict] = None, device="cuda",
-                 clock=None, step_cost: Optional[StepCost] = None):
+                 clock=None, step_cost: Optional[StepCost] = None,
+                 tune_queue=None):
         self.device = resolve_device(device)
         self.model = model
         self.clock = ensure_clock(clock)
         self.step_cost = step_cost or StepCost()
+        # every demotion on this engine's paths; health_report() reads it
+        self.degrade = degrade.DegradeStats()
+        if tune_queue is None and os.environ.get("REPRO_TORCH_TUNE_QUEUE"):
+            from repro_torch.tuning.queue import JobQueue
+            tune_queue = JobQueue()
+        self.tune_queue = tune_queue
         # batch buckets whose static cache an open scheduler holds
         self._pools: set = set()
         self.programs = ProgramStore(model, device=self.device)
@@ -277,6 +316,7 @@ class Engine:
             hw = evaluator.calibrated_hw(device=self.device)
             autotuner.set_default_hw(hw)
             self.tuner = _BackgroundTuner(hw, device=self.device,
+                                          queue=tune_queue,
                                           **(tuner_opts or {}))
         if buckets:
             self.buckets = tuple(sorted(buckets))
@@ -297,8 +337,9 @@ class Engine:
         params = tree_map(lambda t: t.to(self.device), params)
         self.pack_report = {}
         if prepack:
-            params, self.pack_report = pack_tree_for_serving(
-                params, axes, self.buckets)
+            with degrade.use(self.degrade):
+                params, self.pack_report = pack_tree_for_serving(
+                    params, axes, self.buckets)
             log.info("pre-packed %d weight leaves for buckets %s",
                      len(self.pack_report), self.buckets)
         self.params = params
@@ -341,10 +382,11 @@ class Engine:
         """Hand the registry misses since the last drain to the background
         tuner (serving already ran off the model-ranked plans), or, without
         one, to the persisted miss log.  A no-op when nothing missed."""
-        if self.tuner is None:
-            registry.flush_misses()
-            return
-        keys = registry.drain_misses()
+        with degrade.use(self.degrade):
+            if self.tuner is None:
+                registry.flush_misses()
+                return
+            keys = registry.drain_misses()
         if keys:
             log.info("background-tuning %d registry misses", len(keys))
             self.tuner.submit(keys)
@@ -398,9 +440,11 @@ class Engine:
         and the scheduler's ``prefill_row``) into its store; afterwards
         traffic on the grid, aligned or queued, captures nothing.
         Returns the per-cell rows."""
-        return precompile_grid(self.model, self.params, buckets=self.buckets,
-                               lengths=self.grid.length, max_len=self.max_len,
-                               store=self.programs)
+        with degrade.use(self.degrade):
+            return precompile_grid(self.model, self.params,
+                                   buckets=self.buckets,
+                                   lengths=self.grid.length,
+                                   max_len=self.max_len, store=self.programs)
 
     @torch.inference_mode()
     def _generate_bucket(self, batch: dict, steps: int) -> GenerateResult:
@@ -428,7 +472,7 @@ class Engine:
         tokens = torch.empty((bucket, steps), dtype=torch.int32,
                              device=self.device)
         compile_s = 0.0
-        with serving_ctx():
+        with serving_ctx(), degrade.use(self.degrade):
             self._sync()
             # a cold cell's capture runs inside the timed window, so
             # compile_s means what it means in the reference
@@ -534,3 +578,17 @@ class Engine:
         out = ContinuousScheduler(self, slots=slots).run(requests)
         self._drain_misses()
         return out
+
+    def health_report(self) -> dict:
+        """Whether this engine serves at full fidelity: every ladder
+        demotion since construction (zero on a healthy run — the
+        ``launch/serve.py --health`` gate), the breaker's open keys, the
+        armed failpoints and the program store's counters."""
+        from repro_torch.resilience import failpoints
+        rep = self.degrade.report()
+        return {
+            "healthy": rep["total"] == 0,
+            "degradations": rep,
+            "failpoints": failpoints.report(),
+            "programs": self.programs.stats(),
+        }

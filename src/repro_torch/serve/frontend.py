@@ -59,6 +59,7 @@ import math
 from collections import deque
 from typing import List, Optional
 
+from repro_torch.resilience import failpoints
 from repro_torch.serve.clock import StepCost
 from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
                                          StreamResult)
@@ -224,6 +225,10 @@ class AsyncEngine:
         return stream
 
     async def submit(self, req: Request) -> TokenStream:
+        try:
+            failpoints.fp("frontend.admit", clock=self.clock)
+        except failpoints.InjectedFault as e:
+            raise AdmissionError(f"transient admission failure: {e}")
         stream = self.submit_nowait(req)
         if stream.rejected:
             raise AdmissionError(
@@ -235,8 +240,9 @@ class AsyncEngine:
                            backoff_s: float = 0.01,
                            factor: float = 2.0) -> TokenStream:
         """``submit`` with bounded exponential backoff for transient
-        admission failures (queue momentarily full).  Backoff sleeps on
-        the engine clock, so virtual-clock tests stay deterministic.  Re-raises the last
+        admission failures (queue momentarily full, injected
+        ``frontend.admit`` fault).  Backoff sleeps on the engine clock, so
+        virtual-clock tests stay deterministic.  Re-raises the last
         :class:`AdmissionError` after ``retries`` re-attempts."""
         delay = backoff_s
         last: Optional[AdmissionError] = None

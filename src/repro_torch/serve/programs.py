@@ -57,7 +57,10 @@ Launch counts: a capture launches nothing, so its launches are counted
 into a recorder (``kernels/cuda.py::recording``) and added once per
 replay (``cuda.replayed``): counts under graphs equal the eager counts.
 There is no fallback: a capture or a replay that fails raises, and
-eager cells run only where the caller passes ``capture=False``.
+eager cells run only where the caller passes ``capture=False``.  A
+ladder demotion inside a cell (``core/tsmm.py``) happens on the host
+before any launch, so the cell captures the fallback rung; it is
+counted once per capture (by the warm-up) and replays add no count.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ from repro_torch.core.packing import PackedTensor
 from repro_torch.kernels import cuda
 from repro_torch.kernels.variants.grammar import GRAMMAR_VERSION
 from repro_torch.models.lm import cache_slabs
+from repro_torch.resilience import degrade
 
 # bump when what a cell captures changes shape
 PROGRAM_SCHEMA = 1
@@ -287,8 +291,10 @@ class ProgramStore:
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         # thread_local: a background tuner timing on its own thread and
-        # stream does not invalidate the capture
+        # stream does not invalidate the capture.  A ladder demotion was
+        # counted by the warm-up: the capture's pass counts none
         with cuda.recording() as rec, serving_ctx(), \
+                degrade.use(degrade.current().capture()), \
                 torch.cuda.graph(graph, pool=self.pool,
                                  capture_error_mode="thread_local"):
             out = fn(*args)

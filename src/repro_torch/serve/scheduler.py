@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.linear import serving_ctx
+from repro_torch.resilience import degrade
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import row_args
 
@@ -333,6 +334,10 @@ class ContinuousScheduler:
         self.free = list(range(B))
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(serving_ctx())
+        # ladder demotions on this serving path count on the engine's
+        # DegradeStats (health_report)
+        self._stack.enter_context(
+            degrade.use(getattr(eng, "degrade", None) or degrade.GLOBAL))
         self._opened = True
 
     def close(self) -> SchedulerStats:

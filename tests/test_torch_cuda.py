@@ -1288,3 +1288,44 @@ def test_pack_once_timing_leaves_the_pack_out(dev):
     once = measure_plan(plan, dev, reg=reg, pack_once=True)
     per_call = measure_plan(plan, dev, reg=reg)
     assert once.seconds < per_call.seconds
+
+
+# the kernel ladder (core/tsmm.py) on the card: rung 2 is the plain
+# version on the same CUDA tensors, and no kernel launches for it
+LADDER_RUNG2 = {"kernels.lower.skinny": "raise", "kernels.lower.tall": "raise"}
+
+
+@pytest.mark.parametrize("m,k,n,layout", [
+    (2048, 512, 16, "natural"),          # the planned tall-A path
+    (2048, 512, 16, "packed_w"),         # skinny-A on a PackedTensor
+    (2, 2560, 6912, "packed_w"),         # a decode step's projection
+])
+def test_ladder_rung2_on_the_card(dev, m, k, n, layout):
+    from repro_torch.core import packing, registry
+    from repro_torch.core.tsmm import tsmm_dot
+    from repro_torch.resilience import degrade, failpoints
+    # each case plans on an empty registry (a packed weight would
+    # otherwise peek the natural case's tall plan for the same problem)
+    registry.clear_memory()
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    a = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    b = packing.pack(w, 128, 128) if layout == "packed_w" else w
+    before = sum(cuda.launches.values())
+    healthy = tsmm_dot(a, b)
+    assert sum(cuda.launches.values()) > before      # rung 1: the kernel
+    stats = degrade.DegradeStats()
+    failpoints.reset()
+    failpoints.configure(LADDER_RUNG2)
+    try:
+        before = sum(cuda.launches.values())
+        with degrade.use(stats):
+            degraded = tsmm_dot(a, b)
+        torch.cuda.synchronize()
+        launched = sum(cuda.launches.values()) - before
+    finally:
+        failpoints.reset()
+    assert launched == 0
+    assert stats.counts == {"kernel.variant": 1}
+    _close(degraded, healthy, torch.float32)
+    _close(degraded, a @ w, torch.float32)

@@ -75,7 +75,7 @@ class _Spy:
         real_pack = K.pack_blocks_kernel
 
         def tall(name, a, b, bias, act, *, mode, splits=1, k0=0, k1=None,
-                 out=None):
+                 out=None, impl=None):
             m, k = K._tall_dims(a)
             kk = (k if k1 is None else k1) - k0
             packed = a.dim() == 4
@@ -86,10 +86,10 @@ class _Spy:
             self.launches[("tsmm_tall", mode, splits, kk // splits, tp,
                            (m, k, b.shape[1]))] += 1
             return real_tall(name, a, b, bias, act, mode=mode, splits=splits,
-                             k0=k0, k1=k1, out=out)
+                             k0=k0, k1=k1, out=out, impl=impl)
 
         def skinny(name, x, w, bias, act, *, natural, splits, mode, bk=0,
-                   bn=0):
+                   bn=0, impl=None):
             m, k = x.shape
             if not natural:
                 _, nn, bk, bn = w.shape
@@ -102,14 +102,15 @@ class _Spy:
             self.launches[("tsmm_skinny", mode, splits, k // splits, sp,
                            (m, k, n))] += 1
             return real_skinny(name, x, w, bias, act, natural=natural,
-                               splits=splits, mode=mode, bk=bk, bn=bn)
+                               splits=splits, mode=mode, bk=bk, bn=bn,
+                               impl=impl)
 
-        def pack(a, bm, bk, *, alpha=1.0):
+        def pack(a, bm, bk, *, alpha=1.0, impl=None):
             pp = K.pack_plan(1, a.shape[-2], a.shape[-1], bm, bk, a.dtype,
                              16, 132)
             self.launches[("pack_blocks", pp,
                            (1, a.shape[-2], a.shape[-1], bm, bk))] += 1
-            return real_pack(a, bm, bk, alpha=alpha)
+            return real_pack(a, bm, bk, alpha=alpha, impl=impl)
 
         monkeypatch.setattr(K, "launch_tall", tall)
         monkeypatch.setattr(K, "launch_skinny", skinny)
