@@ -242,7 +242,27 @@ printing JSON lines:
                 completed exactly once; ``export`` of a find-db; a fresh
                 engine on an empty plan cache with the find-db attached
                 serves with 0 registry misses.  Prints the jobs, seconds
-                and jobs per minute.
+                and jobs per minute;
+23. train     — training (``train/``, ``optim/``, ``ckpt/``,
+                ``launch/train.py``), which runs no hand-written kernel:
+                train.parity (qwen1.5-4b at full width, 2 layers, fp32,
+                1 x 256 tokens, where the flash gate would open at
+                inference: two train steps from one seeded init on the
+                card and on the CPU; the loss, ``grad_norm`` and every
+                param leaf within ``F32_TOL``, both moments (the
+                gradients) within ``F32_TOL`` scaled to each leaf, every
+                gradient finite and nonzero, 0 launches of any kernel);
+                train.run (full width cut to 4 layers, bf16 compute on
+                fp32 masters, remat, 4 x 1024 tokens, 6 steps through
+                ``train.loop.run``: step seconds against 6 N T / 989
+                TFLOP/s, tokens per second, peak memory, the checkpoint's
+                bytes and the seconds its save held the loop; finite
+                losses, 0 launches); train.resume (a reduced, widened
+                qwen: a simulated failure at step 3 of 6, the resumed run
+                runs only the rest and ends within 2e-2 of a clean run's
+                loss); train.cli (``python -m repro_torch.launch.train
+                --reduced --steps 3`` on the card, its summary line).
+                Prints the phase's seconds.
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m and
 Zamba2-2.7B run at half their depth (``HALF_DEPTH``), so that with
@@ -2816,6 +2836,331 @@ def phase_fleet(device="cuda"):
 
 
 
+# the train phase: card vs CPU (qwen1.5-4b at full width, 2 layers, fp32,
+# 1 x 256 tokens: the flash gate's shapes), the loop at full width (4
+# layers, bf16, remat, 4 x 1024 tokens), resume and the launcher
+TRAIN_PARITY = {"num_layers": 2, "dtype": "float32"}
+TRAIN_RUN = {"num_layers": 4}
+TRAIN_RUN_SHAPE = (4, 1024, 6)          # batch, tokens, steps
+# resume on qwen1.5-4b's reduced config widened to a 128-wide head (vocab
+# 512): the three runs write three checkpoints, which at full width would
+# be 11 GB each
+TRAIN_RESUME = {"d_model": 1024, "num_heads": 8, "num_kv_heads": 8,
+                "head_dim": 128, "d_ff": 2048}
+TRAIN_RESUME_SHAPE = (4, 256, 6, 3)     # batch, tokens, steps, fail_at
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_parity(device="cuda"):
+    """Two train steps from one seeded init on the card and on the CPU.
+    Each step: the loss and ``grad_norm`` within ``F32_TOL``; every
+    param leaf within ``F32_TOL``; both moments, which carry the
+    gradients (m = 0.1 x the clipped gradient after step 1), within
+    ``F32_TOL`` scaled to the leaf (atol x max|CPU leaf| + rtol x |CPU|);
+    every gradient finite and nonzero; no hand-written kernel launched."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_sub = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), **TRAIN_PARITY)
+    model = build_model(cfg)
+    ocfg = OptConfig()
+    # one seeded init (on the card: the host's generator is ~10x slower),
+    # its params copied to the CPU
+    gpu = init_train_state(model, ocfg, generator=torch.Generator(
+        device=device).manual_seed(0))
+    cpu = init_train_state(model, ocfg, params=tree_map(
+        lambda t: t.to("cpu"), gpu["params"]))
+    names = ["/".join(p) for p in _paths(cpu["params"])]
+    data = SyntheticData(cfg, ShapeSpec("train.parity", 256, 1, "train"),
+                         seed=0, device="cpu")
+    step = make_train_step(model, ocfg)
+    rows = []
+    for i in range(2):
+        batch = data.batch(i)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        gpu, mg = step(gpu, {k: v.to(device) for k, v in batch.items()})
+        float(mg["loss"])
+        gpu_s = time.perf_counter() - t0
+        launches = sum(cuda.launches.values())
+        t0 = time.perf_counter()
+        cpu, mc = step(cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        worst, ok = {}, launches == 0
+        for what in ("loss", "grad_norm"):
+            good, err = within(mg[what].cpu(), mc[what], **F32_TOL)
+            worst[what] = err
+            ok = ok and good
+        for key, tree, scaled in (("params", lambda s: s["params"], False),
+                                  ("m", lambda s: s["opt"]["m"], True),
+                                  ("v", lambda s: s["opt"]["v"], True)):
+            errs = {}
+            for name, a, b in zip(names, tree_leaves(tree(gpu)),
+                                  tree_leaves(tree(cpu))):
+                b = b.to(device)        # compared on the card: ~1 G values
+                atol = F32_TOL["atol"] * (float(b.abs().max()) if scaled
+                                          else 1.0)
+                good, err = within(a, b, rtol=F32_TOL["rtol"], atol=atol)
+                errs[name] = err / (float(b.abs().max()) if scaled else 1.0)
+                ok = ok and good and bool(torch.isfinite(a).all())
+                if key == "m" and not float(a.abs().max()) > 0:
+                    raise AssertionError(f"train.parity: step {i}: the "
+                                         f"gradient of {name} is zero")
+            worst[key] = errs
+        rows.append({"step": i, "loss": float(mg["loss"]),
+                     "loss_cpu": float(mc["loss"]),
+                     "grad_norm": float(mg["grad_norm"]),
+                     "grad_norm_cpu": float(mc["grad_norm"]),
+                     "launches": launches, "gpu_s": gpu_s, "cpu_s": cpu_s,
+                     "worst": worst, "ok": ok})
+        if not ok:
+            raise AssertionError(f"train.parity: {rows[-1]}")
+    emit({"phase": "train.parity", "config": cfg.name,
+          "d_model": cfg.d_model, "heads": cfg.num_heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "cut": TRAIN_PARITY, "batch": 1,
+          "tokens": 256, "remat": cfg.remat, "steps": rows,
+          "tol": F32_TOL, "tol_rule": "params: F32_TOL; m, v (the "
+          "gradients): atol x max|CPU leaf| + rtol x |CPU|, printed as "
+          "max|err| / max|CPU leaf|; loss, grad_norm: F32_TOL",
+          "hand_written_launches": sum(r["launches"] for r in rows),
+          "seconds": time.perf_counter() - t_sub})
+
+
+def _paths(tree, path=()):
+    """Each leaf's key path, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    return [path]
+
+
+def train_run(device="cuda"):
+    """qwen1.5-4b at full width cut to ``TRAIN_RUN``'s depth, bf16 compute
+    on fp32 masters, remat on, through ``train.loop.run`` on the card:
+    step seconds against the tensor-core bound, peak memory, the
+    checkpoint's bytes and seconds; finite losses; no hand-written kernel
+    launched."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.registry import build_model, param_count
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import LoopConfig, run
+
+    t_sub = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), **TRAIN_RUN)
+    model = build_model(cfg)
+    b, s, steps = TRAIN_RUN_SHAPE
+    ck = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    try:
+        before = (torch.cuda.memory_allocated() if device == "cuda"
+                  else None)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        report = run(model, ShapeSpec("train.run", s, b, "train"),
+                     LoopConfig(total_steps=steps, ckpt_every=steps,
+                                log_every=steps, ckpt_dir=ck),
+                     OptConfig(), device=device)
+        wall = time.perf_counter() - t0
+        launches = sum(cuda.launches.values())
+        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
+                else None)
+        ck_bytes = _dir_bytes(ck)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    n = param_count(model)
+    step_s = statistics.median(report.step_times[1:])
+    prof = profile_train_step(model, ShapeSpec("train.run", s, b, "train"),
+                              device)
+    bound_s = 6 * n * b * s / PEAK_BF16_FLOPS
+    row = {"phase": "train.run", "config": cfg.name, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "cut": TRAIN_RUN, "dtype": cfg.dtype,
+           "masters": "float32", "remat": cfg.remat, "params": n,
+           "batch": b, "tokens": s, "steps": report.steps_run,
+           "losses": report.losses, "step_times": report.step_times,
+           "step_s": step_s, "tokens_per_s": b * s / step_s,
+           "bound_s": bound_s, "bound_rule": "6 x params x tokens / 989 "
+           "TFLOP/s (bf16 dense peak)", "step_over_bound": step_s / bound_s,
+           "peak_bytes": peak, "allocated_before_bytes": before,
+           "ckpt_bytes": ck_bytes,
+           "save_s": report.save_s, "wall_s": wall,
+           "hand_written_launches": launches,
+           "stragglers": report.straggler_steps,
+           "profile": {**prof, "device_share_of_step_s":
+                       prof["device_ms"] / 1e3 / step_s}}
+    row["seconds"] = time.perf_counter() - t_sub
+    emit(row)
+    if (report.steps_run != steps or launches
+            or not all(math.isfinite(x) for x in report.losses)):
+        raise AssertionError(f"train.run: {row}")
+
+
+# cuBLAS / CUTLASS GEMM kernels, by name
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_train_step(model, shape, device="cuda") -> dict:
+    """One train step of ``model`` at ``shape`` under ``torch.profiler``,
+    after a warm step, from a fresh seeded state: the device ms of its
+    kernels by family: the GEMMs (forward and backward, by kernel name),
+    AdamW (the kernels inside ``optim.adamw.UPDATE_RANGE``) and the rest
+    (norms, RoPE, the chunked attention's masked softmax, the fp32
+    cross-entropy over the vocabulary, the casts, the gradients' adds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.launch.profile_decode import range_device_ms
+    from repro_torch.optim.adamw import UPDATE_RANGE, OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    ocfg = OptConfig()
+    state = init_train_state(model, ocfg, generator=torch.Generator(
+        device=device).manual_seed(1))
+    data = SyntheticData(model.cfg, shape, device=device)
+    step = make_train_step(model, ocfg)
+    state, m = step(state, data.batch(0))
+    float(m["loss"])
+    batch = data.batch(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+               and e.key != UPDATE_RANGE]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key.lower() for k in GEMM_KERNELS)) / 1e3
+    adamw = range_device_ms(prof, UPDATE_RANGE)
+    return {"device_ms": total, "gemm_ms": gemm, "adamw_ms": adamw,
+            "other_ms": total - gemm - adamw,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def train_resume(device="cuda"):
+    """The reference's resume test on the card: a run that fails in its
+    middle, then resumes (only the rest of the steps run) and ends within
+    2e-2 of a clean run's final loss."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import (LoopConfig, SimulatedFailure, run)
+
+    t_sub = time.perf_counter()
+    cfg = get_config("qwen1_5_4b").reduced(**TRAIN_RESUME)
+    model = build_model(cfg)
+    b, s, steps, fail_at = TRAIN_RESUME_SHAPE
+    shape = ShapeSpec("train.resume", s, b, "train")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=steps)
+    ck = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(ROOT, "build"))
+    try:
+        lcfg = LoopConfig(total_steps=steps, ckpt_every=fail_at,
+                          log_every=steps, ckpt_dir=os.path.join(ck, "a"))
+        try:
+            run(model, shape, lcfg, ocfg, device=device, fail_at=fail_at)
+            raise AssertionError("train.resume: no simulated failure")
+        except SimulatedFailure:
+            pass
+        resumed = run(model, shape, lcfg, ocfg, device=device)
+        clean = run(model, shape, dataclasses.replace(
+            lcfg, ckpt_dir=os.path.join(ck, "b")), ocfg, device=device)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    gap = abs(clean.losses[-1] - resumed.losses[-1])
+    row = {"phase": "train.resume", "config": cfg.name,
+           "cut": {"reduced": True, **TRAIN_RESUME}, "dtype": cfg.dtype,
+           "batch": b, "tokens": s, "steps": steps, "fail_at": fail_at,
+           "resumed_from": resumed.resumed_from,
+           "steps_run": resumed.steps_run, "losses_resumed": resumed.losses,
+           "losses_clean": clean.losses, "final_gap": gap, "tol": 2e-2,
+           "seconds": time.perf_counter() - t_sub}
+    emit(row)
+    if (resumed.resumed_from != fail_at
+            or resumed.steps_run != steps - fail_at or not gap < 2e-2
+            or not torch.isfinite(torch.tensor(clean.losses)).all()):
+        raise AssertionError(f"train.resume: {row}")
+
+
+def start_train_cli(device="cuda"):
+    """``python -m repro_torch.launch.train --reduced --steps 3`` on the
+    card, in a process of its own, started in the background (it runs
+    beside train.parity's CPU half); :func:`finish_train_cli` reads it."""
+    ck = tempfile.mkdtemp(prefix="cli-", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "3", "--device", device, "--ckpt-dir", ck],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, ck, time.perf_counter()
+
+
+def finish_train_cli(cli):
+    """Wait for the launcher; its summary line echoed."""
+    proc, ck, t0 = cli
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(ck, ignore_errors=True)
+    lines = out.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    emit({"phase": "train.cli", "rc": proc.returncode, "summary": summary,
+          "wall_s_beside_parity": time.perf_counter() - t0})
+    if proc.returncode != 0 or not summary.startswith("ran 3 steps; loss "):
+        raise AssertionError(f"train.cli: exited {proc.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+
+
+def _free(device):
+    import gc
+
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_train(device="cuda"):
+    """Training on the card (``train/``, ``optim/``, ``ckpt/``,
+    ``launch/train.py``): card vs CPU with the launcher's process beside
+    it, the loop at full width, resume.  The serve phases' engines are
+    freed first, so the peak memory is the phase's own."""
+    t0 = time.perf_counter()
+    _free(device)
+    cli = start_train_cli(device)
+    try:
+        train_parity(device)
+    except BaseException:
+        cli[0].kill()
+        cli[0].wait()
+        shutil.rmtree(cli[1], ignore_errors=True)
+        raise
+    finish_train_cli(cli)
+    for sub in (train_run, train_resume):
+        _free(device)
+        sub(device)
+    emit({"phase": "train", "seconds": time.perf_counter() - t0})
+
+
 def shape_of(case: dict) -> dict:
     """The shape fields of a kernels case, and its mode."""
     return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "B",
@@ -2952,6 +3297,7 @@ def run():
         by_path[path], zoo_load[path] = phase_serve(path)
     phase_resilience()
     phase_fleet()
+    phase_train()
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the

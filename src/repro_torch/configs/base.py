@@ -9,6 +9,9 @@ sliding-window ``h2o_danube_1_8b``), the MoE family (``olmoe_1b_7b``,
 ``deepseek_v2_236b``), the SSM family (``mamba2_780m``), the hybrid
 (``zamba2_2_7b``), the VLM backbone fed image embeddings
 (``llava_next_mistral_7b``) and the encoder-decoder (``whisper_base``).
+``ShapeSpec`` is the reference's input shape (a training batch is
+``global_batch`` x ``seq_len``); its ``SHAPES`` table and cells belong to
+the dry-run, which is not ported.
 """
 
 from __future__ import annotations
@@ -147,6 +150,19 @@ class ModelConfig:
             small.update(num_image_tokens=8)
         small.update(overrides)
         return replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ is a multiple of 256, V as wide as Q and K, and a head dim the flash
 kernel takes runs the flash kernel (``kernels/flash_attention.py``);
 everything else — the CPU, ragged (left-padded) batches, offsets, a
 sliding window, cross-attention (whisper's decoder over its encoder's
-1500 frames), MLA's 192-wide Q/K against its 128-wide V — runs the
-chunked torch body below, the counterpart of the reference's jnp path.
+1500 frames), MLA's 192-wide Q/K against its 128-wide V, and any call
+autograd records (a training step: the kernel has no backward) — runs
+the chunked torch body below, the counterpart of the reference's jnp
+path.
 """
 
 from __future__ import annotations
@@ -51,11 +53,24 @@ def flash_eligible(q, k, v, *, window: int, q_offset, k_offset,
     """Whether the flash kernel takes this call: full-window
     self-attention on the card from position 0 (host-int offsets), no
     per-row pad mask, a sequence length that is a multiple of 256, V as
-    wide as Q and K, and a head dim in ``HEAD_DIMS``.  A predicate of
-    shapes, dtype and offsets only."""
+    wide as Q and K, a head dim in ``HEAD_DIMS``, and autograd not
+    recording through q, k or v.  A predicate of shapes, dtype, offsets
+    and the grad mode only.
+
+    The kernel writes a fresh tensor through raw pointers: its output has
+    no ``grad_fn``, and it has no backward (nor has the reference's Pallas
+    kernel).  A training step through it would drop every gradient that
+    flows through attention into ``wq`` / ``wk`` / ``wv`` without an
+    error, so a call that autograd records takes the chunked body, as
+    ``core/linear.py`` keeps the TSMM kernels to ``serving_ctx``.
+    Serving runs under ``torch.inference_mode()``, where no tensor
+    requires grad, and keeps every flash launch."""
     # the offsets are compared only when they are host ints: a 0-d device
     # offset (a captured ``prefill_row``) never reaches ``bool()``, which
     # would sync the host (and fail inside a capture)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return False
     return (valid_from is None and q.is_cuda and window == 0
             and isinstance(q_offset, int) and isinstance(k_offset, int)
             and q_offset == 0 and k_offset == 0

@@ -8,7 +8,10 @@ learned decoder embeddings, ``layers.sinusoidal_pos``).  Pre-LayerNorm
 blocks: the encoder's bidirectional self-attention and GELU MLP; the
 decoder's causal self-attention, cross-attention over the encoder output
 and GELU MLP; LayerNorms after both stacks; a tied head.  The
-reference's ``jax.lax.scan`` over layers is a Python loop here.
+reference's ``jax.lax.scan`` over layers is a Python loop here; under
+training with ``cfg.remat`` each encoder and decoder layer's body is
+recomputed in the backward (``layers.remat``), as the reference
+checkpoints both scan bodies.
 
 The cross-attention K/V are projected from the encoder output ONCE per
 utterance, at prefill, and every decode step reads them: the model's own
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (embed_tokens, gelu_mlp, init_embed,
-                                       init_gelu_mlp, layernorm,
+                                       init_gelu_mlp, layernorm, remat,
                                        sinusoidal_pos, unembed)
 from repro_torch.models.lm import layer_params
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
@@ -95,13 +98,18 @@ def encode(params, cfg, frames):
     x = frames.to(dt) + sinusoidal_pos(pos, cfg.d_model)[None].to(dt)
     stack = params["enc_layers"]
     for i in range(_n_layers(stack)):
-        lp = layer_params(stack, i)
-        h, _ = A.gqa_forward(lp["attn"], cfg,
-                             _apply_ln(lp, "ln1", x, cfg.norm_eps),
-                             causal=False, use_rope=False, chunk=min(512, t))
-        x = x + h
-        x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln2", x, cfg.norm_eps))
+        x = remat(cfg, _enc_layer_fwd, layer_params(stack, i), cfg, x)
     return _apply_ln(params, "enc_norm", x, cfg.norm_eps)
+
+
+def _enc_layer_fwd(lp, cfg, x):
+    """One encoder layer: bidirectional self-attention, GELU MLP."""
+    h, _ = A.gqa_forward(lp["attn"], cfg,
+                         _apply_ln(lp, "ln1", x, cfg.norm_eps),
+                         causal=False, use_rope=False,
+                         chunk=min(512, x.shape[1]))
+    x = x + h
+    return x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln2", x, cfg.norm_eps))
 
 
 def _dec_layer_fwd(lp, cfg, x, enc_out, *, chunk=512):
@@ -132,8 +140,8 @@ def encdec_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
     kvs = []
     stack = params["dec_layers"]
     for i in range(_n_layers(stack)):
-        x, kv = _dec_layer_fwd(layer_params(stack, i), cfg, x, enc_out,
-                               chunk=chunk)
+        x, kv = remat(cfg, _dec_layer_fwd, layer_params(stack, i), cfg, x,
+                      enc_out, chunk=chunk)
         if collect_cache:
             kvs.append(kv)
     x = _apply_ln(params, "dec_norm", x, cfg.norm_eps)

@@ -6,7 +6,10 @@ the concatenation of the current hidden state with the original
 embeddings (width 2 * d_model), and its weights are exactly shared
 across its applications (no per-application LoRA deltas), as in the
 reference.  At decode its projections are packed once and hit
-``num_layers / attn_every`` times per token.
+``num_layers / attn_every`` times per token.  Under training with
+``cfg.remat`` each Mamba layer's body is recomputed in the backward
+(``layers.remat``), as the reference checkpoints its Mamba scan body;
+the shared block is not.
 
 One divergence in layout, not in the function: the reference stacks the
 Mamba layers as (groups, per_group, ...) for its nested scan; the port
@@ -27,9 +30,9 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
-                                       rmsnorm, swiglu, unembed)
+                                       remat, rmsnorm, swiglu, unembed)
 from repro_torch.models.lm import (layer_params, mamba_decode_into,
-                                   ssm_cache)
+                                   mamba_fwd, ssm_cache)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 
 
@@ -101,9 +104,9 @@ def hybrid_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
     states, kvs = [], []
     for group in _groups(params, cfg):
         for lp in group:
-            h, state = M.mamba2_forward(lp["mamba"], cfg,
-                                        rmsnorm(x, lp["ln1"], cfg.norm_eps))
-            x = x + h
+            # the Mamba body (its SSD scan) is rematerialized under
+            # training, as the reference's; the shared block is not
+            x, state = remat(cfg, mamba_fwd, lp, cfg, x)
             if collect_cache:
                 states.append(state)
         x, kv = _shared_fwd(params["shared"], cfg, x, x0, chunk=chunk)

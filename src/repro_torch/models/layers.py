@@ -1,14 +1,38 @@
 """Shared layers: norms, RoPE, sinusoidal positions, embeddings, the
-SwiGLU and GELU MLPs."""
+SwiGLU and GELU MLPs, and the remat of a layer body."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.linear import linear
 from repro_torch.models.param import ParamTree
+
+
+def _requires_grad(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    if isinstance(obj, dict):
+        return any(map(_requires_grad, obj.values()))
+    if isinstance(obj, (list, tuple)):
+        return any(map(_requires_grad, obj))
+    return False
+
+
+def remat(cfg, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; when ``cfg.remat`` is set and autograd
+    records through an argument (a tensor, or a dict of them), through
+    ``torch.utils.checkpoint``: the backward recomputes ``fn``'s
+    activations instead of keeping them, as the reference's
+    ``jax.checkpoint`` of a layer body.  The forward's numbers are the
+    same either way."""
+    if cfg.remat and torch.is_grad_enabled() and _requires_grad(args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def rmsnorm(x, scale, eps: float):

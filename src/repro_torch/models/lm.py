@@ -8,7 +8,10 @@ attention, a SwiGLU or MoE MLP; or RMSNorm and a Mamba2 block,
 layer-stacked ``layers``, tied or separate unembedding.  A VLM
 (LLaVA-NeXT's backbone) is the dense block fed ``batch["embeds"]``, the
 image embeddings, before the token embeddings.  The reference's
-``layer_stack`` scan is a Python loop over layers here.
+``layer_stack`` scan is a Python loop over layers here, and its
+``jax.checkpoint`` of the scanned body is ``layers.remat``: under
+training with ``cfg.remat`` each scanned layer (an SSM layer's SSD scan
+included) is recomputed in the backward.
 
 The decode cache is a dict of tensors that :func:`lm_prefill`,
 :func:`lm_decode_step` and :func:`lm_prefill_row` update IN PLACE (and
@@ -40,7 +43,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
-                                       rmsnorm, swiglu, unembed)
+                                       remat, rmsnorm, swiglu, unembed)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 
 
@@ -109,13 +112,20 @@ def _mlp(p, cfg, x, kind: str):
     return swiglu(p["mlp"], x), None
 
 
+def mamba_fwd(p, cfg, x):
+    """One Mamba2 layer's residual block over a sequence (``p``: ln1 and
+    mamba).  Returns (x, its final (ssm, conv) state)."""
+    h, state = M.mamba2_forward(p["mamba"], cfg,
+                                rmsnorm(x, p["ln1"], cfg.norm_eps))
+    return x + h, state
+
+
 def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
                valid_from=None):
     """Returns (x, the layer's cache pair, aux or None)."""
-    hin = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
-        h, state = M.mamba2_forward(p["mamba"], cfg, hin)
-        return x + h, state, None
+        return (*mamba_fwd(p, cfg, x), None)
+    hin = rmsnorm(x, p["ln1"], cfg.norm_eps)
     attn = A.mla_forward if cfg.use_mla else A.gqa_forward
     h, kv = attn(p["attn"], cfg, hin, pos_offset=pos_offset, chunk=chunk,
                  valid_from=valid_from)
@@ -154,9 +164,14 @@ def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
         valid_from = pos_offset + batch["pad"].to(torch.int32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
-    for p, kind in _layers(params, cfg):
-        x, kv, aux = _layer_fwd(p, cfg, x, kind, pos_offset=pos_offset,
-                                chunk=chunk, valid_from=valid_from)
+    kw = dict(pos_offset=pos_offset, chunk=chunk, valid_from=valid_from)
+    for i, (p, kind) in enumerate(_layers(params, cfg)):
+        # the scanned layers' bodies are rematerialized under training, as
+        # the reference's ``layer_stack``; the leading dense layers are not
+        if i < cfg.first_k_dense:
+            x, kv, aux = _layer_fwd(p, cfg, x, kind, **kw)
+        else:
+            x, kv, aux = remat(cfg, _layer_fwd, p, cfg, x, kind, **kw)
         if aux is not None:
             aux_total = aux_total + aux
         if collect_cache:

@@ -125,6 +125,30 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in jax's order: dict keys
+    sorted at every level (the reference's ``jax.tree.leaves``, the
+    optimizer's and a checkpoint's leaf order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(like, flat: list):
+    """A nested-dict tree shaped as ``like`` holding ``flat``, in
+    :func:`tree_leaves` order."""
+    it = iter(flat)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return fill(like)
+
+
 def _to_torch(a: np.ndarray, device):
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:        # e.g. a view of a jax array

@@ -1329,3 +1329,46 @@ def test_ladder_rung2_on_the_card(dev, m, k, n, layout):
     assert stats.counts == {"kernel.variant": 1}
     _close(degraded, healthy, torch.float32)
     _close(degraded, a @ w, torch.float32)
+
+
+def test_train_step_on_the_card_matches_the_cpu_without_kernels(dev):
+    """One fp32 train step of a 2-layer qwen whose attention the flash
+    kernel would take at inference (head dim 128, 256 tokens): card
+    against CPU from the same params and batch.  No hand-written kernel
+    launches (flash has no backward; the TSMM kernels serve only), and
+    every gradient (through the first moment, 0.1 x the clipped
+    gradient) is finite, nonzero and within 1e-4 of the leaf's largest
+    value + 1e-4 relative of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config("qwen1_5_4b").reduced(
+        d_model=512, num_heads=4, num_kv_heads=4, head_dim=128, d_ff=1024,
+        vocab_size=1024, dtype="float32")
+    model = build_model(cfg)
+    ocfg = OptConfig()
+    state = init_train_state(model, ocfg,
+                             generator=torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(dev), state)
+    data = SyntheticData(cfg, ShapeSpec("t", 256, 1, "train"), seed=1,
+                         device="cpu")
+    batch = data.batch(0)
+    step = make_train_step(model, ocfg)
+    state, m_cpu = step(state, batch)
+    cuda.reset_launches()
+    gpu, m_gpu = step(gpu, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert sum(cuda.launches.values()) == 0, dict(cuda.launches)
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= 1e-4
+    for a, b in zip(tree_leaves(gpu["opt"]["m"]),
+                    tree_leaves(state["opt"]["m"])):
+        a = a.cpu()
+        assert bool(torch.isfinite(a).all()) and bool(a.abs().max() > 0)
+        bound = 1e-4 * float(b.abs().max()) + 1e-4 * b.abs()
+        assert bool(((a - b).abs() <= bound).all())
