@@ -262,7 +262,38 @@ printing JSON lines:
                 runs only the rest and ends within 2e-2 of a clean run's
                 loss); train.cli (``python -m repro_torch.launch.train
                 --reduced --steps 3`` on the card, its summary line).
-                Prints the phase's seconds.
+                Prints the phase's seconds;
+24. tp        — tensor-parallel serving and the distributed TSMM
+                (``sharding/``, ``launch/mesh.py``, ``Engine(mesh=)``):
+                ``install --mesh model=2`` for qwen1.5-4b (buckets 1, 2,
+                4; prompts to 256: the five per-shard problems); two
+                ranks (``python -m torch.distributed.run``, this script
+                with ``--tp-worker``) share the card over gloo and serve
+                qwen1.5-4b at full width cut to 4 layers, bf16, lookup
+                only: groups of 1 and 4 x 256 tokens, 16 decode steps,
+                then a 5-request queue (the ``tp`` main path: counts
+                zeroed just before, read just after; every bf16 skinny
+                launch on ``skinny_wgmma`` / ``skinny_stream``, flash
+                launched, a healthy engine, gloo cells eager and a
+                capture refused); one decode call's collectives equal to
+                the contract from the shapes (2 all-reduces a layer, the
+                lookup's, one logits all-gather, with their bytes); rank
+                0's logits within ``TP_LOGITS_TOL`` of a one-rank engine
+                on the same weights; ``distributed_tsmm`` at the paper's
+                A (25600 x 25600 fp32, 12800 rows a rank, packed once,
+                N 4 and 240) within 1e-2 + 1e-2·|ref| of the one-rank
+                planned row with 0 collectives and a tall launch, and
+                ``conventional_ksplit`` with exactly 1 all-reduce;
+                ``overlapped_ring_tsmm`` at 4096 x 4096 x 64 within the
+                K-scaled fp32 tolerance of ``torch.matmul``, its 2 sends
+                staged
+                through the host (gloo's send / recv take host memory;
+                named on the ``tp`` line); then in this process NCCL at
+                world size 1: the TP engine's
+                grid captured with its collectives, every cell bit-equal
+                to its eager run, a graphed group equal to an eager one.
+                ``python3 chip_smoke.py --phase tp`` runs env, build and
+                this phase alone.
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m and
 Zamba2-2.7B run at half their depth (``HALF_DEPTH``), so that with
@@ -297,7 +328,7 @@ launch calls and kernels per step (``launch/profile_decode.py``).
 
 Each path (install, paper, serve, serve.glm4, queue, serve.olmoe,
 queue.olmoe, serve.deepseek, serve.mamba2, serve.zamba2, serve.danube,
-serve.llava, serve.whisper, serve.llama3) zeroes the
+serve.llava, serve.whisper, serve.llama3, tp) zeroes the
 launch counts
 just before it (on the serve paths: before the graphed groups; on the
 queue path: before the graphed queue) and reads them just after; every kernel of the path must have
@@ -316,7 +347,9 @@ D = 80, D = 64 and 3072-position cases with their launches on
 serve.zamba2, serve.whisper and serve.llava; the skinny-A row its bias
 + GELU cases with its bias + GELU epilogue launches on serve.whisper;
 the skinny rows and the pack row llama3-405b's head and w_down cases
-with their launches on serve.llama3; each tall row the paper's planned rows it ran and the fp32
+with their launches on serve.llama3; every row each tp rank's launches
+on the tp path (``tp.rank0``, ``tp.rank1``), at its load (the pack's)
+and in ``distributed_tsmm`` at N = 4 and 240 (the tall rows'); each tall row the paper's planned rows it ran and the fp32
 rows at N = 4, 32, 128, 240 (``f32`` or ``tf32x3``: ms, device_ms, the
 bound at the design's rate beside the FMA bound, torch.matmul), each
 skinny row its ``fp32_skinny`` cases and its fp32 launches on the
@@ -725,8 +758,10 @@ def phase_kernels(timer):
     # (4 x 256 tokens, 16 MHA heads), all at D 128, Zamba2-2.7B's shared
     # block (1 x 2048 tokens, 32 MHA heads of 80), whisper-base's decoder
     # (4 x 256 tokens, 8 MHA heads of 64) and LLaVA-NeXT's backbone (1 x
-    # 3072 positions, 32 query heads on 8 KV heads of 128)
-    for b, s, h, kh, d in ((4, 256, 20, 20, 128), (1, 2048, 32, 2, 128),
+    # 3072 positions, 32 query heads on 8 KV heads of 128), and one rank's
+    # 10 heads of qwen1.5-4b at model=2 (the tp path's prefill)
+    for b, s, h, kh, d in ((4, 256, 20, 20, 128), (4, 256, 10, 10, 128),
+                           (1, 2048, 32, 2, 128),
                            (2, 2048, 32, 2, 128), (4, 256, 16, 16, 128),
                            (1, 2048, 32, 32, 80), (4, 256, 8, 8, 64),
                            (1, 3072, 32, 8, 128)):
@@ -3161,10 +3196,667 @@ def phase_train(device="cuda"):
     emit({"phase": "train", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor-parallel serving and the distributed TSMM
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 4                     # qwen1.5-4b at its published widths
+TP_BUCKETS = (1, 4)
+TP_PROMPT = 256
+TP_STEPS = 16
+TP_QUEUE = ((200, 8), (256, 6), (64, 10), (130, 4), (256, 5))
+TP_MAX_LEN = 2 * TP_PROMPT + sum(m for _, m in TP_QUEUE) + 8
+# rank 0's bf16 logits against the one-rank engine's on the same weights,
+# every row of each group's first decode step.  Tensor parallelism rounds
+# each rank's partial output of wo and w_down (and the looked-up
+# embeddings) to bf16 before the sum, where one rank rounds the whole sum
+# once.  On the card (NVIDIA H100 80GB HBM3, 700.00 W) the sound run's
+# largest |delta| is 0.0625 (2 bf16 ulps of logits up to 4.94), the planted
+# control's (``tp_planted``: layer 0's w_down all-reduce skipped) 5.42
+# (PERF.md §6).  The bound sits between, 4x the one and 1/21 of the
+# other, with no term relative to the logit, so no per-logit error of a
+# few per cent passes
+TP_LOGITS_TOL = dict(rtol=0.0, atol=0.25)
+TP_PAPER_N = (4, 240)
+TP_PAPER_MK = 25600               # the paper's A: M = K = 25600, fp32
+# the paper tolerance of the distributed rows against the one-rank
+# planned row (fp32, K = 25600)
+TP_PAPER_TOL = dict(rtol=1e-2, atol=1e-2)
+# the ring (``overlapped_ring_tsmm``): A (M, K) k-sharded, B (K, N),
+# unit-scale normal draws: its two halves' fp32 sums against one
+# ``torch.matmul`` differ with the terms' size, not the result's, so the
+# paper tools' K-scaled fp32 tolerance holds them
+# (``launch/prepack_vs_conventional.py::f32_tol``)
+TP_RING = (4096, 4096, 64)
+# qwen1.5-4b's skinny-A leaves as a rank holds them at model=2 (the five
+# per-shard problems of ``sharded_serving_shapes``): wq / wk / wv (K 2560,
+# N 1280, with the qkv bias), wo (1280, 2560), w_gate (SiLU in the
+# epilogue) / w_up (2560, 3456), w_down (3456, 2560), each stacked over
+# the layers, and the vocab-split head (2560, 75968: no multiple of 128
+# divides it, so each rank's piece is zero-padded to whole column
+# blocks); each at decode rows 1 and 4 and a 4 x 256-token prefill
+TP_SHARD_LEAVES = {"wq": (2560, 1280, True, None),
+                   "wo": (1280, 2560, False, None),
+                   "w_gate": (2560, 3456, False, "silu"),
+                   "w_up": (2560, 3456, False, None),
+                   "w_down": (3456, 2560, False, None),
+                   "head": (2560, 75968, False, None)}
+TP_SHARD_M = (1, 4, 1024)
+
+
+def tp_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen1_5_4b"), num_layers=TP_LAYERS)
+
+
+def tp_contract(cfg, rows: int, tp: int, itemsize: int) -> dict:
+    """One decode call's collectives on a rank, from the shapes: per layer
+    an all-reduce of the (rows, 1, d_model) output of ``wo`` and one of
+    ``w_down``, one of the looked-up embeddings, one all-gather of the
+    (rows, 1, vocab) logits; the reference's ring multipliers."""
+    act = rows * cfg.d_model * itemsize
+    n_ar = 2 * cfg.num_layers + 1
+    logits = rows * cfg.vocab_size * itemsize
+    f_ar = 2 * (tp - 1) / tp if tp > 1 else 0.0
+    f_ag = (tp - 1) / tp if tp > 1 else 0.0
+    return {"all-reduce": {"count": n_ar, "bytes_moved": n_ar * act * f_ar,
+                           "tensor_bytes": float(n_ar * act)},
+            "all-gather": {"count": 1, "bytes_moved": logits * f_ag,
+                           "tensor_bytes": float(logits)}}
+
+
+def tp_group_tokens(cfg, b: int, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(100 + b)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, TP_PROMPT),
+                                    generator=g, dtype=torch.int32)
+            .to(device)}
+
+
+def tp_queue(cfg):
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(5)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=m, rid=i)
+            for i, (n, m) in enumerate(TP_QUEUE)]
+
+
+def tp_serve(mesh, res: dict):
+    """The TP engine on ``mesh``: load, the groups and the queue (the
+    main path, counted), then the comparison with a one-rank engine on
+    rank 0.  Fills ``res``."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import torch_dtype
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+    from repro_torch.sharding import comm
+
+    cfg = tp_cfg()
+    model = build_model(cfg)
+    params, axes = model.init(torch.Generator(device=mesh.device)
+                              .manual_seed(0))
+    dev = mesh.device
+    registry.reset_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    eng = Engine(model, params, axes, max_len=TP_MAX_LEN, buckets=TP_BUCKETS,
+                 max_prompt=TP_PROMPT, device=dev.type, mesh=mesh)
+    _sync(dev)
+    res["load"] = {"seconds": time.perf_counter() - t0,
+                   "launches": dict(cuda.launches),
+                   "designs": dict(cuda.design_launches),
+                   "packed_leaves": len(eng.pack_report),
+                   "head_blocks": eng.pack_report.get("embed/head")}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    try:
+        ProgramStore(model, device=mesh.device, mesh=mesh, capture=True)
+        res["capture_refused"] = False
+    except RuntimeError as e:
+        res["capture_refused"] = str(e)
+    # the main path: counts zeroed just before, read just after
+    cuda.reset_launches()
+    comm.reset()
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    groups = {}
+    for b in TP_BUCKETS:
+        r = eng.generate(tp_group_tokens(cfg, b, mesh.device), TP_STEPS)
+        groups[b] = {"prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
+                     "buckets": list(r.buckets),
+                     "tokens0": r.tokens[0].tolist(),
+                     "collectives": eng.collectives("decode", b),
+                     "contract": tp_contract(cfg, b, 2, itemsize)}
+    t0 = time.perf_counter()
+    results, stats = eng.serve_queue(tp_queue(cfg))
+    _sync(dev)
+    res["queue"] = {"seconds": time.perf_counter() - t0,
+                    "admitted": stats.admitted, "steps": stats.steps,
+                    "generated": stats.generated_tokens,
+                    "tokens": [r.tokens.tolist() for r in results]}
+    res["launches"] = dict(cuda.launches)
+    res["designs"] = dict(cuda.design_launches)
+    res["comm"] = collective_bytes(comm.records)
+    res["staged"] = sorted(set(staged_ops(comm.records)))
+    res["groups"] = groups
+    res["misses"] = registry.stats()["misses"]
+    hr = eng.health_report()
+    res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    # rank 0's logits against a one-rank engine with the same weights:
+    # the first decode step of each group (its input, the prefill's
+    # argmax, must agree first); both engines eager
+    cmp = {}
+    firsts = {b: eng.generate(tp_group_tokens(cfg, b, mesh.device), 1)
+              for b in TP_BUCKETS}
+    planted = tp_planted(eng, cfg, mesh)
+    if mesh.rank == 0:
+        one = Engine(model, params, axes, max_len=TP_MAX_LEN,
+                     buckets=TP_BUCKETS, max_prompt=TP_PROMPT,
+                     device=dev.type)
+        one.programs = ProgramStore(model, device=mesh.device, capture=False)
+        for b in TP_BUCKETS:
+            want = one.generate(tp_group_tokens(cfg, b, mesh.device), 1)
+            timed = one.generate(tp_group_tokens(cfg, b, mesh.device),
+                                 TP_STEPS)
+            agree = sum(x == y for x, y in zip(groups[b]["tokens0"],
+                                              timed.tokens[0].tolist()))
+            cmp[b] = {"rows": b, "ref_absmax": float(
+                          want.logits_last.float().abs().max()),
+                      **tp_logits_vs(firsts[b], want),
+                      "planted": tp_logits_vs(planted[b], want),
+                      "one_rank_per_token_s": timed.per_token_s,
+                      "one_rank_prefill_s": timed.prefill_s,
+                      "row0_tokens_agree": agree, "steps": TP_STEPS}
+        del one
+    res["compare"] = cmp
+    del eng, params
+
+
+def tp_logits_vs(got, want) -> dict:
+    """The first decode step of a group against the one-rank engine's:
+    how many rows took the same first token (the step's input), and all
+    rows' logits under ``TP_LOGITS_TOL``."""
+    ok, err = within(got.logits_last, want.logits_last, **TP_LOGITS_TOL)
+    return {"first_tokens_equal": int((got.tokens[:, 0]
+                                       == want.tokens[:, 0]).sum()),
+            "max_abs_err": err, "within": ok}
+
+
+def tp_planted(eng, cfg, mesh) -> dict:
+    """The control of the logits bound: each group's first decode step
+    with a planted fault, layer 0's ``w_down`` partial sums left unsummed
+    (its all-reduce skipped on every rank alike, so the ranks stay in
+    step).  The cells run eager under gloo, so the patched site is the
+    one they call."""
+    from repro_torch.models import lm
+    sound = lm.tp_sum
+    calls = [0]
+
+    def skip_layer0_mlp(x, axis, dim):
+        if axis == "mlp":
+            calls[0] += 1
+            if (calls[0] - 1) % cfg.num_layers == 0:
+                return x
+        return sound(x, axis, dim)
+
+    lm.tp_sum = skip_layer0_mlp
+    try:
+        out = {b: eng.generate(tp_group_tokens(cfg, b, mesh.device), 1)
+               for b in TP_BUCKETS}
+    finally:
+        lm.tp_sum = sound
+    if not calls[0]:
+        raise AssertionError("tp: the planted fault's site was never called")
+    return out
+
+
+def tp_paper(mesh, res: dict):
+    """``distributed_tsmm`` at the paper's A (25600 x 25600 fp32), 12800
+    rows a rank, packed once, and ``conventional_ksplit`` at the same
+    shape, against the one-rank planned row."""
+    import torch
+    from repro_torch.core.autotuner import make_plan
+    from repro_torch.core.hw import for_device
+    from repro_torch.core.packing import pack
+    from repro_torch.core.plan import Problem
+    from repro_torch.core.tsmm import (conventional_ksplit, distributed_tsmm,
+                                       overlapped_ring_tsmm)
+    from repro_torch.kernels import cuda, variants
+    from repro_torch.sharding import comm
+
+    dev = mesh.device
+    g = mesh.group("model")
+    n_ranks = comm.group_size(g)
+    r = mesh.coords["model"]
+    m = k = TP_PAPER_MK
+    rows = slice(r * m // n_ranks, (r + 1) * m // n_ranks)
+    hw = dataclasses.replace(for_device(dev), pack_once=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = torch.randn((m, k), generator=gen, device=dev)
+    out = []
+    for n in TP_PAPER_N:
+        b = torch.randn((k, n), generator=gen, device=dev)
+        plan = make_plan(Problem(m // n_ranks, k, n, "float32", n_ranks), hw,
+                         persist=False, device=dev)
+        a_rows = a[rows].contiguous()
+        ap = pack(a_rows, plan.bm, plan.bk) if plan.prepack else a_rows
+        cuda.reset_launches()
+        with comm.recording() as rec:
+            got = distributed_tsmm(ap, b, g, plan=plan)
+        _sync(dev)
+        launches, designs = dict(cuda.launches), dict(cuda.design_launches)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            distributed_tsmm(ap, b, g, plan=plan)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        del ap, a_rows
+        plan1 = make_plan(Problem(m, k, n, "float32"), hw, persist=False,
+                          device=dev)
+        a1 = pack(a, plan1.bm, plan1.bk).blocks if plan1.prepack else a
+        want = variants.run_tall_a(plan1.kernel, a1, b, bm=plan1.bm,
+                                   bk=plan1.bk, packed=plan1.prepack,
+                                   schedule=plan1.schedule)[:m, :n]
+        del a1
+        ok, err = within(got, want[rows], **TP_PAPER_TOL)
+        cols = rows
+        a_cols = a[:, cols].contiguous()
+        with comm.recording() as rec_ks:
+            ks = conventional_ksplit(a_cols, b[cols].contiguous(), g)
+        ok_ks, err_ks = within(ks, want, **TP_PAPER_TOL)
+        del a_cols, want, ks
+        out.append({
+            "n": n, "rows_a_rank": m // n_ranks, "K": k,
+            "plan": {"bm": plan.bm, "bk": plan.bk, "prepack": plan.prepack,
+                     "kernel": plan.kernel.key()},
+            "launches": launches, "designs": designs,
+            "wall_ms_two_ranks_one_card": ms,
+            "collectives": [x["op"] for x in rec], "max_abs_err": err,
+            "within": ok, "one_rank_plan": {"bm": plan1.bm, "bk": plan1.bk,
+                                            "prepack": plan1.prepack,
+                                            "kernel": plan1.kernel.key()},
+            "ksplit": {"collectives": [x["op"] for x in rec_ks],
+                       "bytes": [x["bytes"] for x in rec_ks],
+                       "max_abs_err": err_ks, "within": ok_ks}})
+    del a
+    res["paper"] = out
+    # the ring moves A's and B's k pieces along the ranks: gloo's send /
+    # recv take host memory, so ``comm`` stages them, named in the record
+    m2, k2, n2 = TP_RING
+    a2 = torch.randn((m2, k2), generator=gen, device=dev)
+    b2 = torch.randn((k2, n2), generator=gen, device=dev)
+    cols = slice(r * k2 // n_ranks, (r + 1) * k2 // n_ranks)
+    with comm.recording() as rec:
+        ring = overlapped_ring_tsmm(a2[:, cols].contiguous(),
+                                    b2[cols].contiguous(), g)
+    from repro_torch.launch.prepack_vs_conventional import f32_tol
+    tol = f32_tol(k2)
+    ok, err = within(ring, torch.matmul(a2, b2), rtol=tol, atol=tol)
+    res["ring"] = {"shape": TP_RING, "ops": [x["op"] for x in rec],
+                   "staged": [x["staged"] for x in rec],
+                   "max_abs_err": err, "tol": tol, "within": ok}
+
+
+def tp_shard_cases() -> list:
+    """The kernels of the tp path at the per-shard shapes the ranks give
+    them.  Each leaf of ``TP_SHARD_LEAVES`` is packed as a rank packs its
+    piece (``prepack_for`` keyed by the shard count: the plans ``install
+    --mesh`` wrote), the pack bit-equal to ``pack_ref``; then ``tsmm_dot``
+    on layer 0's packed piece at ``TP_SHARD_M`` rows (the stamped variant
+    at decode, the registry's at the prefill) against the same call on
+    the ladder's plain rung: the same variant's plain version, the
+    planned rung refused by a failpoint, with no kernel launched."""
+    import logging
+
+    import torch
+    from repro_torch.core import registry
+    from repro_torch.core.evaluator import Timer
+    from repro_torch.core.packing import pack
+    from repro_torch.core.tsmm import prepack_for, tsmm_dot
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.resilience import degrade, failpoints
+
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(27)
+    bf = torch.bfloat16
+    misses = registry.stats()["misses"]
+    out = []
+    for leaf, (k, n, has_bias, act) in TP_SHARD_LEAVES.items():
+        head = leaf == "head"
+        w = (torch.randn((k, n) if head else (TP_LAYERS, k, n), generator=g,
+                         device="cuda") / k ** 0.5).to(bf)
+        with Designs() as d:
+            pk = prepack_for(TP_BUCKETS, w, pad=head, num_shards=2)
+        if pk is None:
+            raise AssertionError(f"tp {leaf} {(k, n)}: stays unpacked")
+        bk, bn = pk.blocks.shape[-2:]
+        if not torch.equal(pk.blocks, ref.pack_ref(w, bk, bn)):
+            raise AssertionError(f"pack_blocks tp {leaf} {(k, n)} by "
+                                 f"({bk}, {bn}): not bit-equal to pack_ref")
+        pad_cols = pk.blocks.shape[-3] * bn
+        bound_ms, bound_by = bound(w.numel() * 2 + pk.blocks.numel() * 2, 0)
+        out.append({"kernel": "pack_blocks", "mode": f"tp_{leaf}",
+                    "tp_leaf": leaf, "design": design_of(d.ran),
+                    "L": 1 if head else TP_LAYERS, "M": k, "K": n,
+                    "bm": bk, "bk": bn, "padded_cols": pad_cols,
+                    "max_abs_err": 0.0, "tol": "bit-equal",
+                    "ms": timer(lambda: pack(w, bk, bn), iters=3),
+                    "device_ms": timer(lambda: pack(w, bk, bn), iters=3,
+                                       device=True),
+                    "plain_ms": timer(lambda: ref.pack_ref(w, bk, bn),
+                                      iters=3),
+                    # no one PyTorch call pads and re-tiles
+                    "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        w0, pk0 = (w, pk) if head else (w[0], pk[0])
+        bias = ((0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
+                if has_bias else None)
+        for m in TP_SHARD_M:
+            x = torch.randn((m, k), generator=g, device="cuda").to(bf)
+
+            def kern():
+                return tsmm_dot(x, pk0, bias=bias, act=act)
+
+            def plain():
+                failpoints.configure({"kernels.lower.skinny": "raise"})
+                logging.disable(logging.WARNING)
+                try:
+                    with degrade.use(degrade.DegradeStats()):
+                        return tsmm_dot(x, pk0, bias=bias, act=act)
+                finally:
+                    logging.disable(logging.NOTSET)
+                    failpoints.reset()
+
+            before = dict(cuda.launches)
+            with Designs() as d:
+                got = kern()
+            ran = {kk: v - before.get(kk, 0) for kk, v in cuda.launches.items()
+                   if v != before.get(kk, 0)}
+            before = dict(cuda.launches)
+            want = plain()
+            torch.cuda.synchronize()
+            if dict(cuda.launches) != before or len(ran) != 1:
+                raise AssertionError(f"tp {leaf} m={m}: the kernel call "
+                                     f"launched {ran}, the plain rung "
+                                     f"launched a kernel too")
+            name = next(iter(ran))
+            if design_of(d.ran) not in ("wgmma", "stream"):
+                raise AssertionError(f"tp {leaf} m={m}: {name} ran {d.ran}, "
+                                     f"not the wgmma or stream design")
+            ok, err = within(got, want, **BF16_TOL)
+            if not ok:
+                raise AssertionError(f"{name} tp {leaf} m={m} K={k} N={n}: "
+                                     f"max |err| {err} outside {BF16_TOL}")
+            moved = (2 * (m * k + k * n + (n if has_bias else 0))
+                     + got.numel() * got.element_size())
+            bound_ms, bound_by = bound(moved, 2 * m * k * n)
+            iters = 2 if m * n > 4 * 151936 else 5
+            del got, want
+            out.append({"kernel": name, "mode": "tp", "tp_leaf": leaf,
+                        "design": design_of(d.ran), "m": m, "K": k, "N": n,
+                        "bk": bk, "bn": bn, "bias": has_bias, "act": act,
+                        "max_abs_err": err, "tol": BF16_TOL,
+                        "ms": timer(kern, iters=iters),
+                        "device_ms": timer(kern, iters=iters, device=True),
+                        "plain_ms": timer(plain, iters=iters),
+                        "library_ms": timer(lambda: torch.matmul(x, w0),
+                                            iters=iters),
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+            del x
+        del w, pk, w0, pk0
+        torch.cuda.empty_cache()
+    misses = registry.stats()["misses"] - misses
+    for c in out:
+        emit({"phase": "tp.kernels", **c})
+    if misses:
+        raise AssertionError(f"tp.kernels: {misses} registry misses after "
+                             f"install --mesh")
+    return out
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_worker(out_dir: str, device: str = "cuda") -> None:
+    """One rank of the tp phase (``torch.distributed.run``): two ranks on
+    the one card, over gloo."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2,), ("model",), device=device)
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    try:
+        tp_serve(mesh, res)
+        _free(mesh.device.type)
+        tp_paper(mesh, res)
+    finally:
+        with open(os.path.join(out_dir, f"tp_rank{mesh.rank}.json"),
+                  "w") as f:
+            json.dump(res, f, default=str)
+        mesh.close()
+
+
+def tp_nccl(out_dir: str) -> dict:
+    """The TP engine at model=1 under NCCL in this process: its grid
+    captured as CUDA graphs with the collectives inside, every cell
+    bit-equal to its eager run, a graphed group equal to an eager one."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore, check_cells
+
+    mesh = make_mesh((1,), ("model",), device="cuda", rank=0, world_size=1,
+                     init_file=os.path.join(out_dir, "nccl_store"))
+    try:
+        if mesh.backend != "nccl":
+            raise AssertionError(f"tp.nccl: backend {mesh.backend}")
+        cfg = tp_cfg()
+        model = build_model(cfg)
+        params, axes = model.init(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        eng = Engine(model, params, axes, max_len=TP_MAX_LEN,
+                     buckets=TP_BUCKETS, max_prompt=TP_PROMPT, device="cuda",
+                     mesh=mesh)
+        del params
+        t0 = time.perf_counter()
+        eng.precompile()
+        capture_s = time.perf_counter() - t0
+        checks = check_cells(eng.programs)
+        group = tp_group_tokens(cfg, 4, "cuda")
+        graphed = eng.generate(group, 4)
+        store = eng.programs
+        st = store.stats()
+        eng.programs = ProgramStore(model, device="cuda", mesh=mesh,
+                                    opts=eng.opts, capture=False,
+                                    cache_init=eng._local_cache)
+        eager = eng.generate(group, 4)
+        dec = [p for p in store.programs()
+               if p.kind == "decode" and p.bucket == 1]
+        out = {"backend": mesh.backend, "graphed": st["graphed"],
+               "cells": st["programs"], "captured": st["captured"],
+               "capture_s": capture_s,
+               "cells_bit_equal": sum(c["equal"] for c in checks),
+               "cells_checked": len(checks),
+               "group_tokens_equal": bool(torch.equal(graphed.tokens,
+                                                      eager.tokens)),
+               "group_logits_equal": bool(torch.equal(graphed.logits_last,
+                                                      eager.logits_last)),
+               "decode_collectives": store.collectives(dec[0])
+               if dec else None,
+               "contract": tp_contract(cfg, 1, 1, 2)}
+        del eng, store
+        return out
+    finally:
+        mesh.close()
+
+
+def tp_checks(ranks: list) -> list:
+    """What the two ranks' results break of the tp phase's contract."""
+    bad = []
+    for res in ranks:
+        rk = res["rank"]
+        if res["backend"] != "gloo" or res["graphed"] is not False:
+            bad.append(f"rank {rk}: backend {res['backend']}, graphed "
+                       f"{res['graphed']}")
+        if not res["capture_refused"]:
+            bad.append(f"rank {rk}: a gloo store accepted capture")
+        if res["misses"] or not res["healthy"]:
+            bad.append(f"rank {rk}: {res['misses']} misses, healthy "
+                       f"{res['healthy']}")
+        designs = res["designs"]
+        if not any(designs.get(d) for d in ("skinny_wgmma", "skinny_stream")):
+            bad.append(f"rank {rk}: no skinny launch: {designs}")
+        off = {d for d in designs if d.startswith("skinny_")
+               and d not in ("skinny_wgmma", "skinny_stream")}
+        if off or not res["launches"].get("flash_attention"):
+            bad.append(f"rank {rk}: skinny designs {sorted(off)} or no "
+                       f"flash on the path: {designs}")
+        for b, g in res["groups"].items():
+            if g["collectives"] != g["contract"]:
+                bad.append(f"rank {rk} b={b}: collectives {g['collectives']}"
+                           f" != contract {g['contract']}")
+        if res["queue"]["admitted"] != len(TP_QUEUE):
+            bad.append(f"rank {rk}: queue admitted {res['queue']}")
+        for p in res["paper"]:
+            if p["collectives"] or not p["within"]:
+                bad.append(f"rank {rk} N={p['n']}: distributed_tsmm "
+                           f"collectives {p['collectives']}, within "
+                           f"{p['within']} ({p['max_abs_err']})")
+            if not any(p["launches"].get(t) for t in TALL):
+                bad.append(f"rank {rk} N={p['n']}: no tall launch "
+                           f"{p['launches']}")
+            if p["ksplit"]["collectives"] != ["all-reduce"] or \
+                    not p["ksplit"]["within"]:
+                bad.append(f"rank {rk} N={p['n']}: k-split {p['ksplit']}")
+        ring = res["ring"]
+        if (ring["ops"] != ["collective-permute"] * 2 or not all(
+                ring["staged"]) or not ring["within"]):
+            bad.append(f"rank {rk}: the ring {ring}")
+    if ranks[0]["queue"]["tokens"] != ranks[1]["queue"]["tokens"]:
+        bad.append("the ranks' queue tokens differ")
+    if not ranks[0]["compare"]:
+        bad.append("rank 0 compared nothing with the one-rank engine")
+    for b, c in ranks[0]["compare"].items():
+        if (c["first_tokens_equal"] != c["rows"] or not c["within"]
+                or c["row0_tokens_agree"] != c["steps"]):
+            bad.append(f"b={b}: rank 0 vs the one-rank engine {c}")
+        if c["planted"]["within"]:
+            bad.append(f"b={b}: the planted fault passed the logits bound "
+                       f"{c['planted']}")
+    return bad
+
+
+def phase_tp():
+    """Tensor-parallel serving and the distributed TSMM on the card: the
+    install sweep with ``--mesh model=2``; two ranks (``torch.distributed.
+    run``) sharing the card over gloo serve qwen1.5-4b (full width, 4
+    layers, bf16) lookup-only, with rank 0's logits against a one-rank
+    engine and one decode call's collectives against the contract; the
+    distributed TSMM and the conventional k-split at the paper's A; then
+    NCCL at world size 1 in this process with the cells captured.
+    Returns each rank's launches on the main path (and at load)."""
+    import signal
+
+    import torch
+    from repro_torch.core import install
+    t_phase = time.perf_counter()
+    _free("cuda")
+    t0 = time.perf_counter()
+    inst = install.main(["--archs", "qwen1_5_4b", "--override",
+                         f"num_layers={TP_LAYERS}", "--max-batch",
+                         str(max(TP_BUCKETS)), "--max-prompt",
+                         str(TP_PROMPT), "--mesh", "model=2"])
+    emit({"phase": "tp.install", "seconds": time.perf_counter() - t0,
+          "plans": inst["plans"]})
+    t0 = time.perf_counter()
+    shard_cases = tp_shard_cases()
+    emit({"phase": "tp.kernels.seconds", "seconds": time.perf_counter() - t0})
+    _free("cuda")
+    out_dir = tempfile.mkdtemp(prefix="tp-", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", os.path.abspath(__file__), "--tp-worker",
+         out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out_dir, f"tp_rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    if proc.returncode != 0:
+        raise AssertionError(f"tp: the ranks exited {proc.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-6000:]}")
+    bad = tp_checks(ranks)
+    held = {c["kernel"] for c in shard_cases}
+    for res in ranks:
+        unheld = sorted(k for k in SKINNY
+                        if res["launches"].get(k) and k not in held)
+        if unheld:
+            bad.append(f"rank {res['rank']}: {unheld} launched at shapes "
+                       f"tp.kernels did not hold against the plain version")
+    for res in ranks:
+        emit({"phase": "tp.rank", **{k: res[k] for k in (
+            "rank", "backend", "device", "load", "graphed", "launches",
+            "designs", "comm", "staged", "misses", "healthy", "queue",
+            "paper", "ring")}, "groups": res["groups"]})
+    r0 = ranks[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    emit({"phase": "tp", "nvidia_smi": smi, "ranks": 2,
+          "backend": r0["backend"],
+          "note": "two ranks share one card over gloo: correctness and the "
+                  "kernels at per-shard shapes, not a speed",
+          "staged_ops": sorted({s for r in ranks for s in r["staged"]}
+                               | {"collective-permute (ring: gloo send / "
+                                  "recv on CUDA memory)"
+                                  for r in ranks if any(r["ring"]["staged"])}),
+          "logits_tol": TP_LOGITS_TOL, "compare": r0["compare"],
+          "per_token_s_two_ranks_one_card": {
+              b: g["per_token_s"] for b, g in r0["groups"].items()},
+          "decode_collectives": {b: g["collectives"]
+                                 for b, g in r0["groups"].items()},
+          "misses": [r["misses"] for r in ranks],
+          "workers_s": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError("tp: " + "; ".join(bad))
+    nccl = tp_nccl(out_dir)
+    emit({"phase": "tp.nccl", **nccl})
+    if not (nccl["graphed"] and nccl["cells_bit_equal"] == nccl["cells_checked"]
+            and nccl["cells_checked"] and nccl["group_tokens_equal"]
+            and nccl["group_logits_equal"]
+            and nccl["decode_collectives"] == nccl["contract"]):
+        raise AssertionError(f"tp.nccl: {nccl}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_phase})
+    return {f"tp.rank{r['rank']}": r["launches"] for r in ranks}, \
+        {f"tp.rank{r['rank']}.load": r["load"]["launches"] for r in ranks}, \
+        {f"tp.rank{r['rank']}.paper.n{p['n']}": p["launches"]
+         for r in ranks for p in r["paper"]}, shard_cases
+
+
 def shape_of(case: dict) -> dict:
     """The shape fields of a kernels case, and its mode."""
-    return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "B",
-                                    "S", "H", "KH", "D") if k in case},
+    return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "bn",
+                                    "padded_cols", "B", "S", "H", "KH", "D")
+               if k in case},
             "mode": case["mode"]}
 
 
@@ -3209,7 +3901,11 @@ def main():
                       ("REPRO_TORCH_MISS_LOG", "misses.json")):
         os.environ[var] = os.path.join(cache, name)
     try:
-        run()
+        if sys.argv[1:] == ["--phase", "tp"]:
+            phase_build()         # the ranks load the built kernels
+            phase_tp()
+        else:
+            run()
     finally:
         shutil.rmtree(cache, ignore_errors=True)
 
@@ -3298,6 +3994,12 @@ def run():
     phase_resilience()
     phase_fleet()
     phase_train()
+    tp_launches, tp_load, tp_paper_launches, tp_cases = phase_tp()
+    by_path.update(tp_launches)
+    by_path.update(tp_paper_launches)
+    for c in tp_cases:
+        worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0),
+                                 c["max_abs_err"])
 
     # each row: its case at the shape of the serve path that runs it, and
     # the launches of that path; a kernel the measured plans keep off the
@@ -3357,6 +4059,7 @@ def run():
         "serve.zamba2.load": zamba2_load.get("pack_blocks", 0),
         **{f"{p}.load": ls.get("pack_blocks", 0)
            for p, ls in zoo_load.items()},
+        **{p: ls.get("pack_blocks", 0) for p, ls in tp_load.items()},
         "install": install_launches.get("pack_blocks", 0),
         "tall": tall_launches.get("pack_blocks", 0),
         **{p: ls.get("pack_blocks", 0) for p, ls in by_path.items()}}
@@ -3458,6 +4161,21 @@ def run():
                                   "device_ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")}}
             for c in cases if c["kernel"] == r["name"] and "leaf" in c]
+    # the skinny rows and the pack row also carry the tp path's per-shard
+    # cases, each with its kernel's launches on each rank's main path (the
+    # pack's at each rank's load)
+    for r in line:
+        if r["name"] not in SKINNY and r["name"] != "pack_blocks":
+            continue
+        paths = (tp_load if r["name"] == "pack_blocks" else tp_launches)
+        r["tp"] = [
+            {**shape_of(c), "leaf": c["tp_leaf"],
+             "launches_by_path": {p: ls.get(r["name"], 0)
+                                  for p, ls in paths.items()},
+             **{k: c[k] for k in ("design", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}}
+            for c in tp_cases if c["kernel"] == r["name"]]
     bad = [r["name"] for r in line if r["launches"] == 0]
     if bad:
         raise AssertionError(f"kernels with no launch on a path: {bad}")
@@ -3468,4 +4186,7 @@ def run():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -16,7 +16,7 @@ are viewed back to ``torch.bfloat16`` on restore.  A save snapshots every
 leaf to host memory before it returns; the write runs on a thread, one
 at a time.  This process writes everything (``proc_000``); the
 reference's per-host shards and restore onto target shardings wait for
-the sharding slice.
+training's sharding slice (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -263,20 +263,23 @@ def make_plan(problem: Problem, hw: Optional[HwSpec] = None, *,
 
 
 def plan_for_matmul(m: int, k: int, n: int, dtype: str = "bfloat16",
-                    **kw) -> Optional[Plan]:
-    """None if the shape is not tall-and-skinny (caller uses plain GEMM)."""
+                    num_shards: int = 1, **kw) -> Optional[Plan]:
+    """None if the shape is not tall-and-skinny (caller uses plain GEMM).
+    ``num_shards`` keys a per-shard problem (the tall dim split over that
+    many ranks)."""
     if not is_tsmm(m, k, n):
         return None
-    return make_plan(Problem(m, k, n, dtype), **kw)
+    return make_plan(Problem(m, k, n, dtype, num_shards), **kw)
 
 
 def make_plan_set(k: int, n: int, buckets: tuple, dtype: str = "bfloat16",
                   hw: Optional[HwSpec] = None, *,
                   measure: Optional[str] = None, persist: bool = True,
                   iters: int = 5, force: bool = False,
-                  device="cuda") -> PlanSet:
+                  device="cuda", num_shards: int = 1) -> PlanSet:
     """Per-bucket plans for one (k, n) weight shape; buckets whose
-    (m, k, n) is not TSMM-shaped are absent.  With ``persist`` the set is
+    (m, k, n) is not TSMM-shaped are absent.  ``num_shards`` keys the
+    problems of a weight's per-shard (k, n) on a mesh.  With ``persist`` the set is
     written back in ONE registry write, and only if a lookup missed (a
     warm, all-hit call never rewrites the cache file)."""
     misses_before = registry.stats()["misses"]
@@ -284,9 +287,9 @@ def make_plan_set(k: int, n: int, buckets: tuple, dtype: str = "bfloat16",
     for m in buckets:
         if not is_tsmm(m, k, n):
             continue
-        plans[m] = make_plan(Problem(m, k, n, dtype), hw, measure=measure,
-                             persist=False, iters=iters, force=force,
-                             device=device)
+        plans[m] = make_plan(Problem(m, k, n, dtype, num_shards), hw,
+                             measure=measure, persist=False, iters=iters,
+                             force=force, device=device)
     # force-mode re-tunes bypass the lookup, so the miss counter cannot
     # be their write trigger
     tuned = (force and plans) or registry.stats()["misses"] > misses_before

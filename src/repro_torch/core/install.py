@@ -4,7 +4,7 @@ card.
     PYTHONPATH=src python -m repro_torch.core.install [--measure]
         [--calibrate] [--check] [--archs a,b] [--iters N] [--shapes N]
         [--max-batch N] [--max-prompt S] [--reduced] [--override k=v,...]
-        [--precompile] [--device cuda|cpu]
+        [--mesh data=2,model=2] [--precompile] [--device cuda|cpu]
 
 The port of the reference package's ``core/install.py``.  It fills the
 persistent plan registry with execution plans for every TSMM-shaped
@@ -39,8 +39,11 @@ this persists nothing: a CUDA graph cannot outlive its process, so a
 serving process captures its own grid at load (``launch/serve.py
 --precompile``).  On the CPU the cells are eager and the check trivial.
 
-The reference's ``--mesh`` and ``--find-db`` belong to later slices
-(sharding, the tuning fleet).
+With ``--mesh`` (``data=2,model=2``) every packable leaf's per-shard
+problems under that mesh are swept too, keyed by their shard count
+(:func:`sharded_serving_shapes`), so a tensor-parallel engine's start is
+lookup-only as well.  The mesh is a description of names and sizes: the
+install host needs no processes and no more than one device.
 """
 
 from __future__ import annotations
@@ -102,6 +105,38 @@ def serving_shapes(cfg) -> set:
     return shapes
 
 
+def sharded_serving_shapes(cfg, mesh, opts=None) -> set:
+    """Per-shard (k_shard, n_shard, num_shards) of every packable weight
+    leaf of the arch under ``mesh``: the problem keys a sharded engine's
+    pre-pack looks up (the same walk, ``serve/engine.py::iter_packable``,
+    over the model's ``meta`` shapes: nothing is allocated).  A tied model
+    also packs its head (``serve/engine.py::tied_head``)."""
+    from repro_torch.models.param import MetaGenerator
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import iter_packable, tied_head
+
+    shapes, axes = tied_head(*build_model(cfg).init(MetaGenerator()))
+    out = set()
+    for _path, _leaf, (rows, cols, rs, cs) in iter_packable(
+            shapes, axes, mesh, opts):
+        if rows % rs or cols % cs:
+            continue                # prepack_for refuses these outright
+        out.add((rows // rs, cols // cs, rs * cs))
+    return out
+
+
+def parse_mesh(spec: str):
+    """``data=4,model=2`` -> a ``sharding/rules.py::Mesh`` of those axis
+    names and sizes: the sharding divisors need nothing else, so the
+    sweep runs on any host for any target mesh."""
+    from repro_torch.sharding.rules import Mesh
+    axes = []
+    for part in spec.split(","):
+        name, size = part.split("=")
+        axes.append((name.strip(), int(size)))
+    return Mesh(tuple(axes))
+
+
 def prefill_rows(cfg, buckets: tuple, lengths: tuple) -> list:
     """The rows a prefill cell runs through the projections besides the
     grid's ``bb * lb`` (which the reference's sweep plans alone): a VLM's
@@ -141,16 +176,22 @@ def serving_problems(cfg, buckets: tuple = SERVE_BUCKETS,
 
 
 def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
-                 measure: bool = False, hw=None, iters: int = 5,
-                 limit_shapes: int = 0, force: bool = False,
+                 mesh=None, opts=None, measure: bool = False, hw=None,
+                 iters: int = 5, limit_shapes: int = 0, force: bool = False,
                  device="cuda") -> int:
     """Sweep one arch's serving shapes over the bucket grid on ``device``.
-    Plans land in the in-memory registry; the caller flushes once.
-    ``hw``/``force`` drive the calibrated re-rank pass; ``limit_shapes``
-    caps the (k, n) shapes per arch.  Returns the number of distinct
-    plans."""
+    Plans land in the in-memory registry; the caller flushes once.  With
+    ``mesh`` the per-shard shapes of every packable leaf are swept too
+    (keyed by their shard count), so a sharded engine's start is also
+    lookup-only.  ``hw``/``force`` drive the calibrated re-rank pass;
+    ``limit_shapes`` caps the (k, n) shapes per arch.  Returns the number
+    of distinct plans."""
     n_plans = 0
     mm = "wallclock" if measure else None
+    shard_shapes = set()
+    if mesh is not None:
+        shard_shapes = {s for s in sharded_serving_shapes(cfg, mesh, opts)
+                        if s[2] > 1}
     shapes = sorted(serving_shapes(cfg))
     if limit_shapes:
         shapes = shapes[:limit_shapes]
@@ -176,6 +217,11 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     for p in extra:
         make_plan(p, hw, measure=mm, persist=False, iters=iters, force=force,
                   device=device)
+    for (ks, ns, s) in sorted(shard_shapes):
+        pset = make_plan_set(ks, ns, buckets, cfg.dtype, hw=hw, measure=mm,
+                             persist=False, iters=iters, force=force,
+                             device=device, num_shards=s)
+        n_plans += len(pset.plans)
     return n_plans + len(extra)
 
 
@@ -242,6 +288,11 @@ def main(argv=None) -> dict:
                     help="comma-separated int config overrides, as the "
                          "serving launcher's (with --reduced applied with "
                          "reduced(), else to the published config)")
+    ap.add_argument("--mesh", default="",
+                    help="target mesh axis sizes, e.g. data=2,model=2: also "
+                         "sweeps every packable leaf's per-shard shapes so a "
+                         "sharded engine's start is lookup-only (the sweep "
+                         "needs no processes)")
     ap.add_argument("--precompile", action="store_true",
                     help="also capture each model's serving grid as CUDA "
                          "graphs and check every cell against its eager run "
@@ -268,6 +319,7 @@ def main(argv=None) -> dict:
              or list(ARCHS))
     buckets = buckets_for(args.max_batch)
     lengths = length_buckets_for(args.max_prompt) if args.max_prompt else ()
+    mesh = parse_mesh(args.mesh) if args.mesh else None
 
     def cfg_of(arch):
         return config_for(arch, reduced=args.reduced, override=args.override)
@@ -279,7 +331,7 @@ def main(argv=None) -> dict:
     n_plans, seconds = 0, {}
     for arch in archs:
         ta = time.time()
-        n = install_arch(cfg_of(arch), buckets, lengths,
+        n = install_arch(cfg_of(arch), buckets, lengths, mesh=mesh,
                          measure=args.measure and not args.check,
                          iters=args.iters, limit_shapes=args.shapes,
                          device=device)
@@ -349,8 +401,8 @@ def main(argv=None) -> dict:
                   f"mxu_eff=x{hw_cal.mxu_efficiency:.3g} "
                   f"grid_overhead={hw_cal.grid_overhead_s:.3g}s")
             for arch in archs:
-                install_arch(cfg_of(arch), buckets, lengths, hw=hw_cal,
-                             force=True, limit_shapes=args.shapes,
+                install_arch(cfg_of(arch), buckets, lengths, mesh=mesh,
+                             hw=hw_cal, force=True, limit_shapes=args.shapes,
                              device=device)
             registry.flush()
             print("re-ranked sweep under the calibrated model "

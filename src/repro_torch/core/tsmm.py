@@ -32,8 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.autotuner import (default_hw, make_plan_set,
-                                        plan_for_matmul)
+from repro_torch.core.autotuner import (default_hw, make_plan,
+                                        make_plan_set, plan_for_matmul)
 from repro_torch.core.hw import HwSpec, dtype_name
 from repro_torch.core.packing import PackedTensor, is_packed, pack
 from repro_torch.core.plan import (Plan, Problem, ScheduleSpec, is_tsmm,
@@ -220,13 +220,13 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
 
 
 def _layout(buckets: tuple, ks: int, ns: int, dt: str, hw: HwSpec,
-            device, pad: bool = False) -> tuple:
+            device, pad: bool = False, num_shards: int = 1) -> tuple:
     """(the per-bucket PlanSet, the (bk, bn) blocks or None) of a (ks, ns)
     weight packed for ``buckets`` (``pad``: see :func:`prepack_for`)."""
     pset = make_plan_set(ks, ns, buckets, dt, hw=hw, persist=False,
-                         device=device)
+                         device=device, num_shards=num_shards)
     problems = [pset.plans[m].problem if m in pset.plans
-                else Problem(m, ks, ns, dt) for m in buckets]
+                else Problem(m, ks, ns, dt, num_shards) for m in buckets]
     caps = (max((pl.bk for pl in pset.plans.values()), default=None),
             max((pl.bn for pl in pset.plans.values()), default=None))
     return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps, pad=pad)
@@ -244,7 +244,8 @@ def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
 
 
 def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
-                pad: bool = False) -> Optional[PackedTensor]:
+                pad: bool = False, num_shards: int = 1,
+                shard_divisors: tuple = (1, 1)) -> Optional[PackedTensor]:
     """Plan and pack a weight for decode-time reuse.
 
     ``m_skinny`` is one serving batch size or a tuple of batch buckets:
@@ -255,12 +256,25 @@ def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
     weight.  With ``pad`` a block width need not divide N: the weight is
     zero-padded to whole blocks (the kernel's output columns past N are
     sliced off), for weights whose width no multiple of 128 divides.
+
+    On a mesh, ``shard_divisors`` = (row_shards, col_shards) the weight
+    is split over: the blocks must divide the per-shard dims, so packing
+    commutes with sharding.  A rank packing its own piece passes the
+    piece with (1, 1).  ``num_shards`` keys the tuned problems, so a
+    sharded engine looks up what an ``install --mesh`` sweep wrote.
     Returns None when no conforming block exists."""
     device = w.device
     hw = hw or default_hw(device)
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
-    pset, chosen = _layout(buckets, int(w.shape[-2]), int(w.shape[-1]),
-                           dtype_name(w.dtype), hw, device, pad)
+    rs, cs = shard_divisors
+    k, n = int(w.shape[-2]), int(w.shape[-1])
+    if k % rs or n % cs:
+        return None
+    if pad and (rs, cs) != (1, 1):
+        raise ValueError("a padded pack of a sharded weight pads each "
+                         "shard: pack each rank's piece with (1, 1)")
+    pset, chosen = _layout(buckets, k // rs, n // cs, dtype_name(w.dtype),
+                           hw, device, pad, num_shards)
     if chosen is None:
         return None
     pk = pack(w, *chosen)
@@ -318,3 +332,75 @@ def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
             if best_score is None or score < best_score:
                 best, best_score = (bk, bn), score
     return best
+
+
+# ---------------------------------------------------------------------------
+# Distributed TSMM: the paper's multi-thread optimizer at mesh scale
+# ---------------------------------------------------------------------------
+
+
+def distributed_tsmm(a, b, group, *, plan: Optional[Plan] = None):
+    """Tall-A TSMM with the tall dim split over ``group``; B replicated.
+
+    ``a`` is this rank's rows of A, (M / n, K), natural or a
+    ``PackedTensor`` packed once at the plan's (bm, bk) (the paper's
+    pre-pack); ``b`` the whole (K, N) skinny operand.  Each rank runs the
+    planned tall-A kernel on its own rows (``plan``: default the
+    registry's plan of ``Problem(M / n, K, N, dtype, n)``; a natural ``a``
+    is packed per call where the plan packs) and keeps its rows of C:
+    zero collectives, the paper's GEBB_t property."""
+    from repro_torch.sharding import comm
+    shards = comm.group_size(group)
+    m, k = a.shape[-2], a.shape[-1]
+    n = b.shape[1]
+    if plan is None:
+        plan = make_plan(Problem(m, k, n, dtype_name(a.dtype), shards),
+                         device=a.device)
+    if is_packed(a):
+        if a.blocks.shape[-2:] != (plan.bm, plan.bk):
+            raise ValueError(f"A is packed at {tuple(a.blocks.shape[-2:])}, "
+                             f"the plan wants ({plan.bm}, {plan.bk})")
+        blocks, packed = a.blocks, True
+    elif plan.prepack:
+        blocks, packed = pack(a, plan.bm, plan.bk).blocks, True
+    else:
+        blocks, packed = a, False
+    out = variants.run_tall_a(plan.kernel, blocks, b, bm=plan.bm, bk=plan.bk,
+                              packed=packed, schedule=plan.schedule)
+    return out[:m, :n]
+
+
+def conventional_ksplit(a, b, group):
+    """The conventional library decomposition the paper beats: the
+    contraction dim split over ``group`` (``a`` this rank's (M, K / n)
+    columns, ``b`` its (K / n, N) rows), the fp32 partial product
+    (``torch.matmul``, as the reference's ``jnp.dot`` runs outside
+    Pallas) summed by one all-reduce, then one cast.  Every rank returns
+    the whole (M, N)."""
+    from repro_torch.sharding import comm
+    part = torch.matmul(a.float(), b.float())
+    return comm.all_reduce(part, group).to(a.dtype)
+
+
+def overlapped_ring_tsmm(a, b, group):
+    """Ring-pipelined TSMM for an A that arrives k-sharded (``a`` this
+    rank's (M, K / n) columns, ``b`` its (K / n, N) rows) when the
+    no-n-split output layout is still wanted: each step multiplies the
+    resident pair (fp32 accumulation) while the pair moves one rank
+    along the ring (``isend`` / ``irecv``), instead of a blocking
+    all-gather.  n - 1 shifts of each operand; every rank returns the
+    whole (M, N)."""
+    from repro_torch.sharding import comm
+    shards = comm.group_size(group)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    a_cur, b_cur = a, b
+    for step in range(shards):
+        nxt = None
+        if step < shards - 1:
+            nxt = (comm.ring_shift(a_cur, group, wait=False),
+                   comm.ring_shift(b_cur, group, wait=False))
+        acc += torch.matmul(a_cur.float(), b_cur.float())
+        if nxt is not None:
+            a_cur, b_cur = nxt[0](), nxt[1]()
+    return acc.to(a.dtype)

@@ -7,7 +7,8 @@ batches it would have seen: the property the fault-tolerant loop's
 resume relies on (``train/loop.py``).  Every batch is made with numpy on
 the host, bit-equal to the reference's, and moved to the device once.
 The reference's per-device sharded build (a mesh and a batch spec)
-waits for the sharding slice.
+waits for training's sharding slice (ROADMAP.md Queue 1
+item 4).
 """
 
 from __future__ import annotations

@@ -45,6 +45,17 @@ so the load captures the grid and traffic must capture nothing): the
 grid holds the scheduler's ``prefill_row`` cells too, so a queue that
 captures one fails it as well.
 
+``--mesh model=2`` (or ``data=2,model=2``) serves tensor-parallel, one
+rank a process, launched by torchrun; each rank takes the card
+``cuda:{local_rank % device_count}`` (gloo where ranks share a card,
+``launch/mesh.py``), every rank builds the same seeded params and keeps
+its pieces, and rank 0 prints, the collectives of one decode call
+among its lines:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen1_5_4b \
+        --reduced --device cpu --mesh model=2 --trace 1,3 --steps 2
+
 ``--find-db`` attaches a fleet find-db artifact (``REPRO_TORCH_FIND_DB``):
 the registry folds its plans in under the local ones, so a fresh host
 serves with 0 misses.  ``--health`` prints the engine's health report
@@ -60,9 +71,12 @@ flush, an ignored find-db):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
+import os
+import sys
 from collections import Counter
 
 import numpy as np
@@ -189,13 +203,36 @@ def main(argv=None):
     ap.add_argument("--health", action="store_true",
                     help="print the engine's health report after serving "
                          "and exit 1 if any ladder demotion fired")
+    ap.add_argument("--mesh", default="",
+                    help="serve tensor-parallel on this mesh, e.g. model=2 "
+                         "or data=2,model=2 (launch one process a rank "
+                         "with torchrun)")
     args = ap.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO)
+    mesh = None
+    if args.mesh:
+        from repro_torch.core.install import parse_mesh
+        from repro_torch.launch.mesh import make_mesh
+        desc = parse_mesh(args.mesh)
+        mesh = make_mesh(tuple(desc.shape.values()), desc.axis_names,
+                         device=args.device)
+    with (open(os.devnull, "w") if mesh is not None and mesh.rank
+          else contextlib.nullcontext(sys.stdout)) as out, \
+            contextlib.redirect_stdout(out):
+        try:
+            _serve(args, mesh)
+        finally:
+            if mesh is not None:
+                mesh.close()
+
+
+def _serve(args, mesh) -> None:
+    logging.basicConfig(level=logging.INFO if mesh is None or not mesh.rank
+                        else logging.WARNING)
     if args.find_db:
         from repro_torch.tuning.find_db import attach
         attach(args.find_db)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = config_for(args.arch, reduced=args.reduced, override=args.override)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -215,8 +252,12 @@ def main(argv=None):
         max_len = args.max_len or (image + max_prompt + args.steps + 8)
     eng = Engine(model, params, axes, max_len=max_len, max_batch=max_batch,
                  max_prompt=max_prompt, prepack=not args.no_prepack,
-                 background_tune=args.background_tune, device=device)
+                 background_tune=args.background_tune, device=device,
+                 mesh=mesh)
     del params
+    if mesh is not None:
+        print(f"mesh {dict(mesh.shape)} backend={mesh.backend} "
+              f"graphed={eng.programs.stats()['graphed']}")
     print(f"buckets={eng.buckets} length_buckets={eng.grid.length} "
           f"packed_leaves={len(eng.pack_report)} "
           f"param_count={param_count(model)} "
@@ -266,6 +307,9 @@ def main(argv=None):
         eng.tuner.join()
         print(f"background tuner: {len(eng.tuner.committed)} measured plans "
               f"committed")
+    if mesh is not None:
+        print("collectives of one decode call: "
+              + json.dumps(eng.collectives("decode")))
     vr = eng.variant_report()
     if vr:
         counts = Counter(vr.values())

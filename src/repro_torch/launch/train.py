@@ -6,8 +6,8 @@
 Runs ``train/loop.py`` on the card (``--device cuda``, the default; the
 loop raises where there is none) or, asked, on the CPU.  The run resumes
 from the latest checkpoint in ``--ckpt-dir`` when there is one.  The
-reference's ``--tp`` / ``--mesh`` wait for the sharding slice.  Prints
-the reference's summary line.
+reference's ``--tp`` / ``--mesh`` wait for training's sharding slice.
+Prints the reference's summary line.
 """
 
 from __future__ import annotations

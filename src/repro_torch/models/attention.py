@@ -23,6 +23,7 @@ from repro_torch.core.linear import linear
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
 from repro_torch.models.param import ParamTree
+from repro_torch.sharding.context import shard_act, tp_sum
 
 NEG_INF = -1e30
 
@@ -168,10 +169,13 @@ def init_gqa(gen, cfg, d_in: int = 0, d_out: int = 0):
 
 
 def _qkv(p, cfg, x, kv_from=None):
+    """q, k, v of x (k, v of ``kv_from`` when given), with the head counts
+    read off the weights: a tensor-parallel rank holds its heads only."""
     b, s, _ = x.shape
     src = x if kv_from is None else kv_from
     sk = src.shape[1]
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(src, p["wk"], p.get("bk")).reshape(b, sk, kh, hd)
     v = linear(src, p["wv"], p.get("bv")).reshape(b, sk, kh, hd)
@@ -191,13 +195,22 @@ def gqa_forward(p, cfg, x, *, causal=True, pos_offset: int = 0,
         cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shard_act(q, "batch", "seq", "heads", None)
+    k = shard_act(k, "batch", "seq", "kvheads", None)
+    v = shard_act(v, "batch", "seq", "kvheads", None)
     out = chunked_attention(q, k, v, causal=causal,
                             window=cfg.sliding_window, chunk=chunk,
                             q_offset=pos_offset,
                             k_offset=0 if kv_from is not None else None,
                             valid_from=valid_from)
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return linear(out, p["wo"]), (k, v)
+    out = out.reshape(b, s, q.shape[2] * cfg.head_dim)
+    return _out_proj(p, cfg, out), (k, v)
+
+
+def _out_proj(p, cfg, out):
+    """``wo``, row-parallel over the heads: its partial sums are summed
+    over the TP group where the heads are split."""
+    return tp_sum(linear(out, p["wo"]), "qheads", cfg.num_heads * cfg.head_dim)
 
 
 def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
@@ -221,7 +234,7 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
     cache_v.index_copy_(1, slot, v)
     out = decode_attention(q, cache_k, cache_v, slot_pos, cur_pos,
                            window=cfg.sliding_window, valid_from=valid_from)
-    return linear(out.reshape(b, 1, cfg.num_heads * cfg.head_dim), p["wo"])
+    return _out_proj(p, cfg, out.reshape(b, 1, q.shape[2] * cfg.head_dim))
 
 
 def cross_decode(p, cfg, x, cross_k, cross_v):

@@ -10,6 +10,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.linear import linear
 from repro_torch.models.param import ParamTree
+from repro_torch.sharding.context import shard_act, tp_rank, tp_split, tp_sum
 
 
 def _requires_grad(obj) -> bool:
@@ -86,6 +87,7 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
 
 def swiglu(p, x):
     h = linear(x, p["w_gate"], act="silu") * linear(x, p["w_up"])
+    h = shard_act(h, "batch", "seq", "mlp")
     return linear(h, p["w_down"])
 
 
@@ -130,8 +132,18 @@ def init_embed(gen, vocab: int, d_model: int, dtype, tie: bool):
     return pt.build()
 
 
-def embed_tokens(p, tokens):
-    return p["tok"][tokens]
+def embed_tokens(p, tokens, vocab: int = 0):
+    """The token table's rows of ``tokens``.  Where the table is split
+    over the TP group along the vocabulary (``vocab``, its full size),
+    each rank looks up the ids in its range, zeroes the rest, and the
+    pieces are summed over the group."""
+    if not (vocab and tp_split("vocab", vocab)):
+        return shard_act(p["tok"][tokens], "batch", "seq", "embed")
+    rows = p["tok"].shape[0]
+    ids = tokens - tp_rank() * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = p["tok"][ids.clamp(0, rows - 1)] * mine[..., None].to(p["tok"].dtype)
+    return shard_act(tp_sum(x, "vocab", vocab), "batch", "seq", "embed")
 
 
 def unembed(p, x, tie: bool):
@@ -140,4 +152,4 @@ def unembed(p, x, tie: bool):
     of its own (``serve/engine.py::tied_head``): the transposed view
     would be padded and packed on every call."""
     w = p["tok"].T if tie and "head" not in p else p["head"]
-    return linear(x, w)
+    return shard_act(linear(x, w), "batch", "seq", "vocab")

@@ -45,6 +45,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
                                        remat, rmsnorm, swiglu, unembed)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
+from repro_torch.sharding.context import shard_act, tp_gather, tp_sum
 
 
 def _kind(cfg) -> str:
@@ -106,10 +107,19 @@ def _layers(params, cfg):
 
 
 def _mlp(p, cfg, x, kind: str):
-    """The MLP of a block and its aux loss (None for a dense MLP)."""
+    """The MLP of a block and its aux loss (None for a dense MLP).  A
+    dense MLP's ``w_down`` is row-parallel over ``mlp``: its partial sums
+    are summed over the TP group where ``mlp`` is split."""
     if kind == "moe":
         return MOE.moe_apply(p["mlp"], cfg, x)
-    return swiglu(p["mlp"], x), None
+    return tp_sum(swiglu(p["mlp"], x), "mlp", cfg.d_ff), None
+
+
+def _logits(params, cfg, x, gather: bool = True):
+    """The unembedding; a vocab-sharded head's logits gathered to full
+    width over the TP group (unless ``gather`` is False)."""
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    return tp_gather(logits, "vocab", cfg.vocab_size) if gather else logits
 
 
 def mamba_fwd(p, cfg, x):
@@ -137,10 +147,10 @@ def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
 def _inputs_to_h(params, cfg, batch):
     """tokens (and a VLM's image embeddings, placed first) -> the first
     hidden states."""
-    tok = embed_tokens(params["embed"], batch["tokens"])
+    tok = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size)
     if cfg.embeds_input:
-        return torch.cat([batch["embeds"].to(tok.dtype), tok], dim=1)
-    return tok
+        tok = torch.cat([batch["embeds"].to(tok.dtype), tok], dim=1)
+    return shard_act(tok, "batch", "seq", "embed")
 
 
 def prompt_len(cfg, batch) -> int:
@@ -151,10 +161,12 @@ def prompt_len(cfg, batch) -> int:
 
 
 def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
-               pos_offset: int = 0, chunk: int = 512):
+               pos_offset: int = 0, chunk: int = 512, gather: bool = True):
     """Returns (logits, aux_loss, kvs | None), ``kvs`` a list of each
     layer's cache pair in layer order (the dense layers first), and
-    ``aux_loss`` the sum of the MoE layers' (0 for a dense model).
+    ``aux_loss`` the sum of the MoE layers' (0 for a dense model).  On a
+    tensor-parallel mesh the logits are this rank's vocab piece unless
+    ``gather`` (the default) gathers them.
     ``batch["pad"]`` (optional, (B,)): per-row left-pad count, masked out
     of attention; ``batch["embeds"]`` (a VLM's, (B, I, d)): the image
     embeddings before the tokens."""
@@ -177,7 +189,7 @@ def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
         if collect_cache:
             kvs.append(kv)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = _logits(params, cfg, x, gather)
     return logits, aux_total, kvs if collect_cache else None
 
 
@@ -255,14 +267,18 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
     the cache's own slabs, so a captured cell's addresses stay valid)."""
     s = prompt_len(cfg, batch)
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
-                                chunk=chunk)
+                                chunk=chunk, gather=False)
+    # a copy: the (B, S, V) logits are freed, not held as the output (of
+    # a captured program, where they would pin the graph's scratch); on a
+    # tensor-parallel mesh only the last position is gathered
+    last = tp_gather(logits[:, -1:].clone(), "vocab", cfg.vocab_size)
     if _kind(cfg) == "ssm":
         # the final state of each layer replaces the slab's
         for slabs, state in zip(cache_slabs(cfg, cache), kvs):
             for slab, t in zip(slabs, state):
                 slab.copy_(t)
         cache["pos"].fill_(s)
-        return logits[:, -1:].clone(), cache
+        return last, cache
     pad = batch.get("pad")
     if pad is not None:
         cache["valid_from"].copy_(pad.to(torch.int32))
@@ -285,9 +301,7 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
         sl = torch.arange(slots, dtype=torch.int32, device=dev)
         cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
     cache["pos"].fill_(s)
-    # a copy: the (B, S, V) logits are freed, not held as the output (of
-    # a captured program, where they would pin the graph's scratch)
-    return logits[:, -1:].clone(), cache
+    return last, cache
 
 
 def lm_decode_step(params, cfg, cache, tokens):
@@ -301,7 +315,7 @@ def lm_decode_step(params, cfg, cache, tokens):
     idx = pos.reshape(1).long()            # the cache slot, on the device
     if cfg.sliding_window:
         idx = idx % cache["slot_pos"].shape[0]
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size)
     cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     vf = cache["valid_from"]
     for (p, kind), (ca, cb) in zip(_layers(params, cfg),
@@ -316,7 +330,7 @@ def lm_decode_step(params, cfg, cache, tokens):
         x = x + h
         x = x + _mlp(p, cfg, rmsnorm(x, p["ln2"], cfg.norm_eps), kind)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = _logits(params, cfg, x)
     pos.add_(1)
     return logits, cache
 
@@ -368,7 +382,7 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     dev = cache["slot_pos"].device
     t0 = t_end - lb
     logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
-                                pos_offset=t0)
+                                pos_offset=t0, gather=False)
     idx = t0 + torch.arange(lb, device=dev)              # int64 slots
     row = torch.as_tensor(row, device=dev).reshape(1).long()
     b, s = cache["valid_from"].shape[0], cache["slot_pos"].shape[0]
@@ -383,4 +397,4 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     cache["valid_from"].index_copy_(0, row, vf.to(torch.int32))
     cache["slot_pos"].index_copy_(0, idx, idx.to(torch.int32))
     # a copy: the (1, lb, V) logits are scratch of a captured cell
-    return logits[:, -1:].clone(), cache
+    return tp_gather(logits[:, -1:].clone(), "vocab", cfg.vocab_size), cache

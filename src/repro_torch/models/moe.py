@@ -8,8 +8,9 @@ the reference they are plain batched products (``torch.bmm``), outside
 the planned TSMM kernels, and the shared experts are plain matmuls.
 
 One dispatch group (``g = 1``): the reference's ``_dp_groups`` splits
-the tokens per data-parallel shard, which is sharding (ROADMAP.md Queue
-1 item 7); off a mesh it is 1 there too.
+the tokens per data-parallel shard, which is MoE under a mesh (ROADMAP.md
+Queue 1 item 4, after tensor-parallel serving); off a mesh it is 1 there
+too.
 
 Every shape depends only on the token count (``cap`` is computed from
 it), and nothing reads a value on the host, so a call is capturable in

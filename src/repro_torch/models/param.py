@@ -160,12 +160,28 @@ def _to_torch(a: np.ndarray, device):
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, device):
+def params_from_numpy(tree, device, *, mesh=None, axes=None, opts=None):
     """Carry the reference's parameters (nested dicts of numpy arrays,
     layer-stacked) into the port bit-exact in value, on ``device``.  The
     layout is unchanged but for the hybrid's Mamba stack, whose leaves the
     reference stacks as (groups, per_group, ...) and the port as
-    (num_layers, ...) (``models/hybrid.py``): they are reshaped."""
+    (num_layers, ...) (``models/hybrid.py``): they are reshaped.
+
+    The sharded form (``mesh``: a ``launch/mesh.py::ProcessMesh``, with
+    the tree's logical ``axes`` and the ``ShardingOptions``) carries only
+    the calling rank's pieces (``sharding/rules.py::param_pspecs``, cut by
+    ``local_shard`` before anything is copied)."""
+    if mesh is not None:
+        from repro_torch.sharding.rules import (ShardingOptions, local_shard,
+                                                param_pspecs)
+        specs = param_pspecs(axes, tree, mesh, opts or ShardingOptions())
+
+        def cut(t, spec):
+            if isinstance(t, dict):
+                return {k: cut(t[k], spec[k]) for k in t}
+            return local_shard(np.asarray(t), spec, mesh, mesh.coords)
+
+        tree = cut(tree, specs)
     out = tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
     if isinstance(out, dict) and "mamba_layers" in out:
         out["mamba_layers"] = tree_map(

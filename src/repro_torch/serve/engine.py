@@ -44,6 +44,22 @@ into jobs.  With a fleet ``tune_queue`` attached (or
 ``REPRO_TORCH_TUNE_QUEUE`` set) the background tuner skips the misses
 the fleet already owns.
 
+With a ``mesh`` (a ``launch/mesh.py::ProcessMesh``) and its
+``ShardingOptions`` the engine serves tensor-parallel, one rank of the
+mesh per process: it holds only its rank's pieces of the weights (cut by
+``sharding/rules.py::param_pspecs``, then each piece packed on its own
+rank, the padded head per shard) and of each bucket's cache (by
+``cache_pspecs``), and reads its local head counts off its pieces.  The
+collectives are explicit (``sharding/context.py``): an all-reduce after
+the row-parallel ``wo`` and ``w_down`` and after the vocab-sharded token
+lookup, an all-gather of the vocab-sharded logits to full width for the
+host's argmax.  Where the mesh has a ``data`` axis that ``batch_pspec``
+splits a bucket over, each data line serves its rows
+(:meth:`Engine.rows_of`) and the tokens are gathered at the end.  Only
+the dense family serves tensor-parallel so far; the engine raises for
+any other, for FSDP, 2D tensor parallelism, sequence parallelism and for
+a cache the rules shard along its sequence.
+
 Every ladder demotion on the engine's paths (a planned kernel served by
 its plain version or by ``torch.matmul``, a deferred registry flush, an
 ignored find-db; DESIGN.md §16) is counted on the engine's own
@@ -70,8 +86,13 @@ from repro_torch.core.packing import PackedTensor
 from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
     buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import MetaGenerator, tree_map
 from repro_torch.resilience import degrade
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import (ShardingOptions, axis_size,
+                                        batch_pspec, cache_axes_for,
+                                        cache_pspecs, local_shape,
+                                        local_shard, param_pspecs, pspec_for)
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import (ProgramStore, input_dtypes,
                                        precompile_grid, prompt_positions,
@@ -91,6 +112,44 @@ MIN_ROWS, MIN_COLS = 512, 512
 PAD_COLS = {"w_in", "head"}
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """A tensor-parallel engine's device: its rank's (``mesh.device``),
+    which must be of the requested type."""
+    want = torch.device(device)
+    if want.type != mesh.device.type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device}, not "
+                         f"{want}")
+    return mesh.device
+
+
+def _check_tp(cfg, mesh, opts: ShardingOptions) -> None:
+    """Refuse what tensor-parallel serving does not run yet, and a mesh
+    whose backend cannot run the collectives on the rank's tensors."""
+    if not hasattr(mesh, "group"):
+        raise TypeError("a tensor-parallel engine runs on a process mesh "
+                        "(launch/mesh.py::make_mesh); a mesh description "
+                        "has no ranks")
+    if mesh.backend == "nccl" and mesh.device.type != "cuda":
+        raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
+                           f"{mesh.device}")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: tensor-parallel serving "
+                                  f"runs the dense family only, not "
+                                  f"{cfg.family!r}")
+    if opts.fsdp or opts.serve_2d_tp or opts.sequence_parallel:
+        raise NotImplementedError("tensor-parallel serving with FSDP, 2D "
+                                  "tensor parallelism or sequence "
+                                  "parallelism is not ported")
+    tp = axis_size(mesh, opts.tp_axis) if opts.tp_axis in mesh.shape else 1
+    for ax, heads in (("qheads", cfg.num_heads), ("kvheads",
+                                                  cfg.num_kv_heads)):
+        split = pspec_for((ax,), (heads * cfg.head_dim,), mesh,
+                          opts)[0] == opts.tp_axis
+        if split and heads % tp:
+            raise ValueError(f"{cfg.name}: {heads} {ax} do not split into "
+                             f"whole heads over {tp} ranks")
+
+
 def resolve_device(device) -> torch.device:
     """The serving device: CUDA unless the caller asks for the CPU.  A CUDA
     request without a GPU raises; nothing carries on on the CPU."""
@@ -101,9 +160,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def packable_divisors(path, axes_leaf, leaf):
-    """(rows, cols, row_shards, col_shards) when the leaf is packed, else
-    None (single device: the shard counts are 1)."""
+def packable_divisors(path, axes_leaf, leaf, mesh=None,
+                      opts: Optional[ShardingOptions] = None):
+    """The single source of truth for "is this leaf packed, and how is it
+    sharded": (rows, cols, row_shards, col_shards) of the full leaf, else
+    None.  Shared by the serving pre-pack and the install sweep's shape
+    walk, so the problem keys both sides produce match by construction."""
     name = path[-1]
     if name not in PACKABLE or leaf.ndim < 2 or leaf.ndim > 3:
         return None
@@ -112,17 +174,25 @@ def packable_divisors(path, axes_leaf, leaf):
     rows, cols = leaf.shape[-2:]
     if rows < MIN_ROWS or cols < MIN_COLS:
         return None
-    return rows, cols, 1, 1
+    rs = cs = 1
+    if mesh is not None:
+        spec = pspec_for(axes_leaf, tuple(leaf.shape), mesh,
+                         opts or ShardingOptions())
+        rs = axis_size(mesh, spec[-2]) if spec[-2] else 1
+        cs = axis_size(mesh, spec[-1]) if spec[-1] else 1
+    return rows, cols, rs, cs
 
 
-def iter_packable(params, axes):
-    """Yield (path, leaf, (rows, cols, rs, cs)) for every packable leaf."""
+def iter_packable(params, axes, mesh=None,
+                  opts: Optional[ShardingOptions] = None):
+    """Yield (path, leaf, (rows, cols, rs, cs)) for every packable leaf
+    (tensors or ``meta`` shapes)."""
     def walk(p, a, path):
         if isinstance(p, dict):
             for k in p:
                 yield from walk(p[k], a[k], path + (k,))
             return
-        d = packable_divisors(path, a, p)
+        d = packable_divisors(path, a, p, mesh, opts)
         if d is not None:
             yield path, p, d
 
@@ -143,31 +213,42 @@ def tied_head(params, axes) -> tuple:
     return params, axes
 
 
-def pack_tree_for_serving(params, axes, batch_m):
+def pack_tree_for_serving(params, axes, batch_m, mesh=None,
+                          opts: Optional[ShardingOptions] = None, *,
+                          shapes=None):
     """Replace packable weight leaves with planned PackedTensors (a tied
     head first becomes a leaf of its own: :func:`tied_head`).
 
     ``batch_m``: the serving batch size, or a tuple of batch buckets (the
-    chosen blocks conform to every bucket).  Returns (packed_params,
+    chosen blocks conform to every bucket).  On a ``mesh`` ``params`` are
+    the rank's pieces and ``shapes`` the full tree (``meta`` tensors):
+    each rank packs its own piece, padded per shard where it pads, its
+    problems keyed by the leaf's shard count.  Returns (packed_params,
     report: {path: blocks_shape}).  A tied head that does not pack is
     dropped again (``unembed`` reads ``tok.T``)."""
     report = {}
     given = params
+    if shapes is not None:
+        shapes = tied_head(shapes, axes)[0]
     params, axes = tied_head(params, axes)
+    if shapes is None:
+        shapes = params
 
-    def walk(p, a, path):
+    def walk(p, a, full, path):
         if isinstance(p, dict):
-            return {k: walk(p[k], a[k], path + (k,)) for k in p}
-        if packable_divisors(path, a, p) is None:
+            return {k: walk(p[k], a[k], full[k], path + (k,)) for k in p}
+        d = packable_divisors(path, a, full, mesh, opts)
+        if d is None:
             return p
-        pk = prepack_for(batch_m, p, pad=path[-1] in PAD_COLS)
+        pk = prepack_for(batch_m, p, pad=path[-1] in PAD_COLS,
+                         num_shards=d[2] * d[3])
         if pk is None:
             return p
         report["/".join(path)] = tuple(pk.blocks.shape)
         return pk
 
     misses_before = registry.stats()["misses"]
-    packed = walk(params, axes, ())
+    packed = walk(params, axes, shapes, ())
     if params is not given and "embed/head" not in report:
         del packed["embed"]["head"]
     if registry.stats()["misses"] > misses_before:
@@ -285,7 +366,10 @@ class Engine:
     (default real time) and ``step_cost`` (what a virtual clock charges)
     time generation and the scheduler.  ``tune_queue``: a fleet
     ``tuning.queue.JobQueue`` the background tuner defers to (default
-    one at ``REPRO_TORCH_TUNE_QUEUE`` when that is set)."""
+    one at ``REPRO_TORCH_TUNE_QUEUE`` when that is set).  ``mesh`` /
+    ``opts``: serve tensor-parallel on a ``launch/mesh.py::ProcessMesh``
+    (the module doc); ``params`` may be the full tree or the rank's
+    pieces, and ``device`` must be of the mesh's device type."""
 
     def __init__(self, model, params, axes, *, max_len: int,
                  max_batch: Optional[int] = None,
@@ -294,8 +378,15 @@ class Engine:
                  prepack: bool = True, background_tune: bool = False,
                  tuner_opts: Optional[dict] = None, device="cuda",
                  clock=None, step_cost: Optional[StepCost] = None,
-                 tune_queue=None):
-        self.device = resolve_device(device)
+                 tune_queue=None, mesh=None,
+                 opts: Optional[ShardingOptions] = None):
+        self.mesh = mesh
+        self.opts = opts or ShardingOptions()
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = _mesh_device(mesh, device)
+            _check_tp(model.cfg, mesh, self.opts)
         self.model = model
         self.clock = ensure_clock(clock)
         self.step_cost = step_cost or StepCost()
@@ -307,7 +398,9 @@ class Engine:
         self.tune_queue = tune_queue
         # batch buckets whose static cache an open scheduler holds
         self._pools: set = set()
-        self.programs = ProgramStore(model, device=self.device)
+        self.programs = ProgramStore(
+            model, device=self.device, mesh=mesh, opts=self.opts,
+            cache_init=self._local_cache if mesh is not None else None)
         self.tuner: Optional[_BackgroundTuner] = None
         if background_tune:
             # misses rank against the measurement-calibrated model, and the
@@ -334,12 +427,19 @@ class Engine:
         if self.device.type == "cuda":
             from repro_torch.kernels import cuda
             cuda.load()              # build the kernels outside any timing
+        shapes = None
+        if mesh is not None:
+            for bucket in self.buckets:
+                self._check_cache_layout(bucket)
+            shapes = model.init(MetaGenerator())[0]
+            params = self._local_params(params, axes, shapes)
         params = tree_map(lambda t: t.to(self.device), params)
         self.pack_report = {}
         if prepack:
             with degrade.use(self.degrade):
                 params, self.pack_report = pack_tree_for_serving(
-                    params, axes, self.buckets)
+                    params, axes, self.buckets, mesh, self.opts,
+                    shapes=shapes)
             log.info("pre-packed %d weight leaves for buckets %s",
                      len(self.pack_report), self.buckets)
         self.params = params
@@ -348,6 +448,72 @@ class Engine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- tensor-parallel placement --------------------------------------
+
+    def _local_params(self, params, axes, shapes):
+        """This rank's pieces of ``params`` under ``param_pspecs``: a leaf
+        of the full shape is cut (``local_shard``), a leaf already of the
+        piece's shape is kept, anything else raises."""
+        specs = param_pspecs(axes, shapes, self.mesh, self.opts)
+
+        def cut(p, full, spec, path):
+            if isinstance(p, dict):
+                return {k: cut(p[k], full[k], spec[k], path + (k,))
+                        for k in p}
+            fs = tuple(full.shape)
+            ls = local_shape(fs, spec, self.mesh)
+            if tuple(p.shape) == ls:
+                return p
+            if tuple(p.shape) == fs:
+                return local_shard(p, spec, self.mesh, self.mesh.coords)
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(p.shape)} is "
+                             f"neither the full {fs} nor this rank's piece "
+                             f"{ls} under {spec}")
+
+        return cut(params, shapes, specs, ())
+
+    def _check_cache_layout(self, bucket: int) -> None:
+        """Raise where ``cache_pspecs`` splits a cache of ``bucket`` along
+        its sequence (the rules' long-context fallback): the port has no
+        sequence-parallel decode yet."""
+        cfg = self.model.cfg
+        full = self.model.init_cache(bucket, self.max_len, "meta")
+        for key, spec in cache_pspecs(cfg, full, self.mesh,
+                                      self.opts).items():
+            names = cache_axes_for(cfg, key, full[key].ndim)
+            if any(n == "cache_seq" and e is not None
+                   for n, e in zip(names, spec)):
+                raise NotImplementedError(
+                    f"the rules split the {key!r} cache of bucket {bucket} "
+                    f"along its sequence ({spec}); sequence-parallel decode "
+                    f"is not ported: serve buckets the data axes divide")
+
+    def _local_cache(self, rows: int, max_len: int, device) -> dict:
+        """A static cache of ``rows`` rows holding this rank's KV heads."""
+        from repro_torch.models import lm as LM
+        cfg = self.model.cfg
+        kh = cfg.num_kv_heads
+        if pspec_for(("kvheads",), (kh * cfg.head_dim,), self.mesh,
+                     self.opts)[0] == self.opts.tp_axis:
+            kh //= axis_size(self.mesh, self.opts.tp_axis)
+        return LM.init_cache(dataclasses.replace(cfg, num_kv_heads=kh),
+                             rows, max_len, device)
+
+    def rows_of(self, bucket: int) -> tuple:
+        """(rows, first row, data group) of ``bucket`` on this rank: where
+        ``batch_pspec`` splits the batch over a data axis, each data line
+        serves its rows and the group is that axis's; otherwise every rank
+        serves the whole bucket (group None)."""
+        entry = (None if self.mesh is None
+                 else batch_pspec(bucket, self.mesh, self.opts)[0])
+        if entry is None:
+            return bucket, 0, None
+        if isinstance(entry, tuple):
+            raise NotImplementedError(f"a batch split over several data "
+                                      f"axes ({entry})")
+        rows = bucket // self.mesh.shape[entry]
+        return rows, self.mesh.coords[entry] * rows, self.mesh.group(entry)
 
     def _stamp_report(self, field: int) -> dict:
         """``m{bucket}_k{k}_n{n}`` -> field ``field`` of each packed
@@ -441,10 +607,11 @@ class Engine:
         traffic on the grid, aligned or queued, captures nothing.
         Returns the per-cell rows."""
         with degrade.use(self.degrade):
-            return precompile_grid(self.model, self.params,
-                                   buckets=self.buckets,
-                                   lengths=self.grid.length,
-                                   max_len=self.max_len, store=self.programs)
+            return precompile_grid(
+                self.model, self.params, buckets=self.buckets,
+                lengths=self.grid.length, max_len=self.max_len,
+                store=self.programs,
+                rows_of=self.rows_of if self.mesh is not None else None)
 
     @torch.inference_mode()
     def _generate_bucket(self, batch: dict, steps: int) -> GenerateResult:
@@ -463,13 +630,18 @@ class Engine:
         dtypes = input_dtypes(self.model.cfg)
         batch = self._pad_group({k: v.to(dtypes.get(k, v.dtype))
                                  for k, v in batch.items()}, b, bucket)
+        rows, row0, data = self.rows_of(bucket)
+        if data is not None:             # this data line's rows
+            batch = {k: (v[row0:row0 + rows]
+                         if v.ndim and v.shape[0] == bucket else v)
+                     for k, v in batch.items()}
         store = self.programs
         cell = store.static_batch(batch)
         for k, v in batch.items():
             cell[k].copy_(v)
-        cache = store.static_cache(bucket, self.max_len)
-        tok = store.static_tokens(bucket)
-        tokens = torch.empty((bucket, steps), dtype=torch.int32,
+        cache = store.static_cache(rows, self.max_len)
+        tok = store.static_tokens(rows)
+        tokens = torch.empty((rows, steps), dtype=torch.int32,
                              device=self.device)
         compile_s = 0.0
         with serving_ctx(), degrade.use(self.degrade):
@@ -510,6 +682,9 @@ class Engine:
                 tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
             self._sync()
             t2 = clock.now()
+        if data is not None:             # every data line's rows
+            tokens = comm.all_gather(tokens, data, dim=0)
+            logits = comm.all_gather(logits, data, dim=0)
         # a copy: the cell's output buffer is rewritten by its next replay
         logits_last = logits[:b].clone()
         self._drain_misses()
@@ -578,6 +753,16 @@ class Engine:
         out = ContinuousScheduler(self, slots=slots).run(requests)
         self._drain_misses()
         return out
+
+    def collectives(self, kind: str = "decode", bucket: Optional[int] = None
+                    ) -> dict:
+        """The collectives of one call of the held ``kind`` cell (of
+        ``bucket``; default the first held), per rank
+        (``ProgramStore.collectives``)."""
+        for prog in self.programs.programs():
+            if prog.kind == kind and bucket in (None, prog.bucket):
+                return self.programs.collectives(prog)
+        raise KeyError(f"no held {kind} cell of bucket {bucket}")
 
     def health_report(self) -> dict:
         """Whether this engine serves at full fidelity: every ladder

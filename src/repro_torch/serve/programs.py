@@ -53,6 +53,19 @@ engine's own store at load (:func:`precompile_grid`; ``install
 --precompile``, ``launch/serve.py --precompile``): after that step,
 traffic captures nothing.  Nothing is persisted.
 
+**Mesh mode.**  A store of a tensor-parallel engine (``mesh``, a
+``launch/mesh.py::ProcessMesh``, and its ``ShardingOptions``) runs every
+cell inside the mesh's sharding context, so the model's explicit
+collectives (``sharding/context.py``) run in it, and
+:func:`mesh_signature` goes into every key.  Its static caches are the
+rank's pieces (``cache_init``).  Under NCCL the cells are captured, the
+collectives in the graph; gloo's collectives cannot be captured, so a
+gloo store runs its cells eagerly and reports ``graphed: false``, and
+asking it to capture raises.  Each cell keeps the collective record of
+one call (its capture, or its last eager call; ``sharding/comm.py``),
+which :meth:`ProgramStore.collectives` turns into the reference's
+per-op accounting.
+
 Launch counts: a capture launches nothing, so its launches are counted
 into a recorder (``kernels/cuda.py::recording``) and added once per
 replay (``cuda.replayed``): counts under graphs equal the eager counts.
@@ -79,6 +92,8 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.variants.grammar import GRAMMAR_VERSION
 from repro_torch.models.lm import cache_slabs
 from repro_torch.resilience import degrade
+from repro_torch.sharding import comm
+from repro_torch.sharding.context import sharding_ctx
 
 # bump when what a cell captures changes shape
 PROGRAM_SCHEMA = 1
@@ -107,6 +122,15 @@ def config_fingerprint(cfg, device: torch.device) -> str:
             else device.type)
     return (f"{cfg!r}|grammar={GRAMMAR_VERSION}|torch={torch.__version__}"
             f"|device={name}")
+
+
+def mesh_signature(mesh, opts) -> str:
+    """Key component for the mesh: axis names and sizes, the backend (a
+    mesh description has none) and every ShardingOptions knob."""
+    if mesh is None:
+        return "unsharded"
+    axes = ",".join(f"{k}={v}" for k, v in dict(mesh.shape).items())
+    return f"{axes}|{getattr(mesh, 'backend', 'abstract')}|{opts!r}"
 
 
 def _describe(x) -> str:
@@ -153,25 +177,40 @@ class Program:
     launches: dict = dataclasses.field(default_factory=dict)
     pool_bytes: int = 0
     args: tuple = dataclasses.field(default=(), repr=False)
+    # the collectives of one call: recorded at capture, or by the last
+    # eager call
+    comm: list = dataclasses.field(default_factory=list, repr=False)
 
 
 class ProgramStore:
     """Serving cells of one model on one device.
 
-    ``capture`` defaults to True on a CUDA device; on the CPU cells run
-    eagerly (the CPU has no graphs) and ``capture=True`` raises."""
+    ``capture`` defaults to True on a CUDA device (off a gloo mesh); on
+    the CPU cells run eagerly (the CPU has no graphs) and ``capture=True``
+    raises, as it does on a gloo mesh.  ``mesh`` / ``opts``: a
+    tensor-parallel engine's process mesh and options (the module's "Mesh
+    mode"); ``cache_init(rows, max_len, device)`` builds a static cache
+    (default the model's ``init_cache``)."""
 
-    def __init__(self, model, *, device, capture: Optional[bool] = None):
+    def __init__(self, model, *, device, capture: Optional[bool] = None,
+                 mesh=None, opts=None, cache_init: Optional[Callable] = None):
         self.model = model
         self.device = torch.device(device)
+        self.mesh, self.opts = mesh, opts
+        gloo = mesh is not None and getattr(mesh, "backend", None) == "gloo"
         if capture is None:
-            capture = self.device.type == "cuda"
+            capture = self.device.type == "cuda" and not gloo
         if capture and (self.device.type != "cuda"
                         or not torch.cuda.is_available()):
             raise RuntimeError(f"CUDA graphs need a CUDA device, not "
                                f"{self.device}; pass capture=False to run "
                                f"the cells eagerly")
+        if capture and gloo:
+            raise RuntimeError("gloo's collectives cannot be captured in a "
+                               "CUDA graph: a gloo mesh's cells run eagerly "
+                               "(capture=False); capture needs NCCL")
         self.capture = capture
+        self._cache_init = cache_init or model.init_cache
         self._fns = {"prefill": model.prefill, "decode": model.decode_step,
                      "prefill_row": model.prefill_row}
         self._fingerprint = config_fingerprint(model.cfg, self.device)
@@ -188,6 +227,7 @@ class ProgramStore:
             raise ValueError(f"unknown program kind {kind!r}")
         h = hashlib.sha256(self._fingerprint.encode())
         h.update(f"|{PROGRAM_SCHEMA}|{kind}".encode())
+        h.update(mesh_signature(self.mesh, self.opts).encode())
         for a in args:
             h.update(tree_digest(a).encode())
         return f"{kind}_b{bucket}_t{tokens}_{h.hexdigest()[:16]}"
@@ -203,8 +243,8 @@ class ProgramStore:
         addresses."""
         key = ("cache", bucket, max_len)
         if key not in self._buffers:
-            self._buffers[key] = self.model.init_cache(bucket, max_len,
-                                                       self.device)
+            self._buffers[key] = self._cache_init(bucket, max_len,
+                                                  self.device)
         return self._buffers[key]
 
     @torch.inference_mode(False)
@@ -251,11 +291,12 @@ class ProgramStore:
                                        compile_s=0.0)
         t0 = time.perf_counter()
         fn = self._fns[kind]
+        rec: list = []
         if self.capture:
-            run, launches, pool_bytes = self._capture(kind, fn, args)
+            run, launches, pool_bytes = self._capture(kind, fn, args, rec)
             source = "captured"
         else:
-            run, launches, pool_bytes = _eager(fn), {}, 0
+            run, launches, pool_bytes = self._eager(fn, rec), {}, 0
             source = "eager"
         dt = time.perf_counter() - t0
         self._stats[source] += 1
@@ -264,12 +305,32 @@ class ProgramStore:
         prog = Program(kind=kind, key=key, fn=run, cold=True, source=source,
                        compile_s=dt, bucket=bucket, tokens=tokens,
                        launches=launches, pool_bytes=pool_bytes,
-                       args=tuple(args))
+                       args=tuple(args), comm=rec)
         self._programs[key] = prog
         return prog
 
+    def context(self):
+        """The mesh's sharding context (a no-op off a mesh)."""
+        return sharding_ctx(self.mesh, self.opts)
+
+    def _eager(self, fn, rec: list) -> Callable:
+        if self.mesh is None:
+            def run(*args):
+                with torch.inference_mode(), serving_ctx():
+                    return fn(*args)
+            return run
+
+        def run_on_mesh(*args):
+            with torch.inference_mode(), serving_ctx(), self.context(), \
+                    comm.recording() as calls:
+                out = fn(*args)
+            rec[:] = calls
+            comm.replayed(calls)
+            return out
+        return run_on_mesh
+
     @torch.inference_mode()
-    def _capture(self, kind: str, fn, args) -> tuple:
+    def _capture(self, kind: str, fn, args, comm_rec: list) -> tuple:
         dev = self.device
         main = torch.cuda.current_stream(dev)
         # a decode step advances the cache's position (and an SSM's state)
@@ -278,7 +339,7 @@ class ProgramStore:
         state = recurrent_state(args[1]) if kind == "decode" else {}
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
-        with torch.cuda.stream(side), serving_ctx():
+        with torch.cuda.stream(side), serving_ctx(), self.context():
             fn(*args)
         main.wait_stream(side)
         restore(args[1], state)
@@ -293,20 +354,35 @@ class ProgramStore:
         # thread_local: a background tuner timing on its own thread and
         # stream does not invalidate the capture.  A ladder demotion was
         # counted by the warm-up: the capture's pass counts none
-        with cuda.recording() as rec, serving_ctx(), \
+        with cuda.recording() as rec, serving_ctx(), self.context(), \
+                comm.recording() as calls, \
                 degrade.use(degrade.current().capture()), \
                 torch.cuda.graph(graph, pool=self.pool,
                                  capture_error_mode="thread_local"):
             out = fn(*args)
+        comm_rec[:] = calls
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        return _replay(graph, tuple(args), out, rec), dict(rec[0]), pool_bytes
+        return (_replay(graph, tuple(args), out, rec, comm_rec),
+                dict(rec[0]), pool_bytes)
 
     # -- telemetry -------------------------------------------------------
 
     def stats(self) -> dict:
         out = dict(self._stats)
         out["programs"] = len(self._programs)
+        out["graphed"] = bool(self.capture)
         return out
+
+    def collectives(self, prog: Program) -> dict:
+        """Per-rank collective accounting of one call of ``prog`` (the
+        reference's ``{op: {count, bytes_moved, tensor_bytes}}``): what
+        its capture recorded, or its last eager call."""
+        from repro_torch.analysis.collectives import collective_bytes
+        if (prog.source != "captured" and not prog.comm
+                and self.mesh is not None):
+            raise ValueError(f"eager cell {prog.key} has not run yet: its "
+                             f"collectives are recorded by a call")
+        return collective_bytes(prog.comm)
 
     def report(self) -> list:
         """Per-cell rows (kind, bucket, tokens, key, source, acquire
@@ -323,14 +399,7 @@ class ProgramStore:
         return list(self._programs.values())
 
 
-def _eager(fn) -> Callable:
-    def run(*args):
-        with torch.inference_mode(), serving_ctx():
-            return fn(*args)
-    return run
-
-
-def _replay(graph, args: tuple, out, rec) -> Callable:
+def _replay(graph, args: tuple, out, rec, comm_rec=()) -> Callable:
     def replay(*call):
         if len(call) != len(args) or any(a is not b
                                          for a, b in zip(call, args)):
@@ -339,6 +408,8 @@ def _replay(graph, args: tuple, out, rec) -> Callable:
                              "static_batch / static_cache / static_tokens)")
         graph.replay()
         cuda.replayed(rec)
+        if comm_rec:
+            comm.replayed(comm_rec)
         return out
     return replay
 
@@ -398,7 +469,8 @@ def row_args(store: ProgramStore, params, cache, length: int) -> tuple:
 
 
 def precompile_grid(model, params, *, buckets, lengths, max_len: int,
-                    store: ProgramStore) -> list:
+                    store: ProgramStore, rows_of: Optional[Callable] = None
+                    ) -> list:
     """Acquire every cell a same-shaped engine serves into ``store``: per
     batch bucket one decode step; per (bucket x length) a prefill without
     and (ragged families) with per-row pad masking, and (ragged families)
@@ -407,7 +479,9 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
 
     ``params`` is the engine's packed param tree (the reference takes the
     logical axes and builds an abstract tree: a graph captures real
-    addresses).  Returns the per-cell rows."""
+    addresses).  ``rows_of(bucket)``: the rows a rank of a data-sharded
+    engine holds of a bucket (``Engine.rows_of``; default all).  Returns
+    the per-cell rows."""
     ragged = ragged_supported(model)
     rows = []
 
@@ -420,12 +494,13 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
 
     with torch.inference_mode():
         for bb in buckets:
-            cache = store.static_cache(bb, max_len)
-            acquire("decode", (params, cache, store.static_tokens(bb)), bb, 1)
+            n = rows_of(bb)[0] if rows_of is not None else bb
+            cache = store.static_cache(n, max_len)
+            acquire("decode", (params, cache, store.static_tokens(n)), bb, 1)
             for lb in lengths:
                 for pad in ((False, True) if ragged else (False,)):
                     batch = store.static_batch(
-                        batch_template(bb, lb, pad=pad, cfg=model.cfg))
+                        batch_template(n, lb, pad=pad, cfg=model.cfg))
                     acquire("prefill", (params, batch, cache), bb, lb)
                 if ragged:
                     # the warm-up admits into row 0 at [0, lb): in range
@@ -472,7 +547,7 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
     def randint(lo, hi, shape=()):
         return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
 
-    with torch.inference_mode(), serving_ctx():
+    with torch.inference_mode(), serving_ctx(), store.context():
         for prog in store.programs():
             args = prog.args
             fn = store._fns[prog.kind]

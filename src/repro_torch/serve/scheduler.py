@@ -36,7 +36,15 @@ on a virtual clock each operation charges its
 :class:`~repro_torch.serve.clock.StepCost` instead.
 
 Each admission and each step reads the host once: the new tokens, for
-the stop checks (the reference makes the same reads).  While a
+the stop checks (the reference makes the same reads).
+
+On a tensor-parallel engine the scheduler runs inside the mesh's
+sharding context (``sharding_ctx(eng.mesh, eng.opts)``), as the
+reference's does, on every rank with the same host logic.  Where the
+data axes split the pool's rows (``Engine.rows_of``), a data line holds
+and admits its own rows only: an admission's first token is summed over
+the data group (the other lines contribute zero) and each step's tokens
+are gathered over it, so every rank sees every row's tokens.  While a
 scheduler is open its pool's bucket is claimed: ``Engine.generate`` on
 that bucket would overwrite the pool's buffers, so it raises.
 """
@@ -57,6 +65,8 @@ from repro_torch.core.linear import serving_ctx
 from repro_torch.resilience import degrade
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import row_args
+from repro_torch.sharding import comm
+from repro_torch.sharding.context import sharding_ctx
 
 log = logging.getLogger(__name__)
 
@@ -286,6 +296,8 @@ class ContinuousScheduler:
         # snap to a batch bucket: the pool replays that bucket's decode
         # cell, planned by the install sweep, on its static cache
         self.slots = engine.bucket_of(min(want, engine.max_batch))
+        # the rows this rank holds of the pool (all but on a data split)
+        self.rows, self.row0, self.data = engine.rows_of(self.slots)
         self.stats: Optional[SchedulerStats] = None
         self.active: dict = {}
         self.free: list = []
@@ -321,11 +333,11 @@ class ContinuousScheduler:
         self._t_open = self.clock.now()
         # what the reference gets from a fresh cache, in place: the clock,
         # idle rows attending to nothing, no slot holding a position
-        self.cache = store.static_cache(B, eng.max_len)
+        self.cache = store.static_cache(self.rows, eng.max_len)
         self.cache["pos"].fill_(self.T)
         self.cache["valid_from"].fill_(eng.max_len)
         self.cache["slot_pos"].fill_(-1)
-        self.tok = store.static_tokens(B)    # next token fed per row
+        self.tok = store.static_tokens(self.rows)  # next token fed per row
         self.tok.zero_()
         # cells acquired this open(), per (kind, length bucket): acquire
         # once, charge compile once per store
@@ -334,6 +346,8 @@ class ContinuousScheduler:
         self.free = list(range(B))
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(serving_ctx())
+        self._stack.enter_context(sharding_ctx(getattr(eng, "mesh", None),
+                                               getattr(eng, "opts", None)))
         # ladder demotions on this serving path count on the engine's
         # DegradeStats (health_report)
         self._stack.enter_context(
@@ -417,25 +431,28 @@ class ContinuousScheduler:
         if toks is None or lb is None:
             toks, lb = self.prepare(req)
         row = self.free.pop()
+        local = row - self.row0          # the row in this rank's pool
+        mine = 0 <= local < self.rows
         p = toks.shape[0]
-        padded = np.zeros((1, lb), np.int32)
-        padded[0, lb - p:] = toks
-        args = row_args(eng.programs, eng.params, self.cache, lb)
-        batch = args[1]
-        batch["tokens"].copy_(torch.from_numpy(padded))
-        batch["pad"].fill_(lb - p)
-        args[3].fill_(row)
-        args[4].fill_(self.T)
-        tc0 = clock.now()
-        prog, cold = self._acquire(("prefill_row", lb), "prefill_row", args,
-                                   lb)
-        logits, _ = prog.fn(*args)
-        self.tok[row].copy_(logits[0, -1].argmax(dim=-1, keepdim=True))
-        if cold:
-            self._charge_cold(tc0)
+        if mine:
+            padded = np.zeros((1, lb), np.int32)
+            padded[0, lb - p:] = toks
+            args = row_args(eng.programs, eng.params, self.cache, lb)
+            batch = args[1]
+            batch["tokens"].copy_(torch.from_numpy(padded))
+            batch["pad"].fill_(lb - p)
+            args[3].fill_(local)
+            args[4].fill_(self.T)
+            tc0 = clock.now()
+            prog, cold = self._acquire(("prefill_row", lb), "prefill_row",
+                                       args, lb)
+            logits, _ = prog.fn(*args)
+            self.tok[local].copy_(logits[0, -1].argmax(dim=-1, keepdim=True))
+            if cold:
+                self._charge_cold(tc0)
         if clock.virtual:
             clock.advance(self.step_cost.prefill_s(lb))
-        first = int(self.tok[row, 0])        # the admission's host read
+        first = self._first_token(local, mine)   # the admission's host read
         t_tok = clock.now()
         st = {"tag": tag, "req": req, "row": row, "lb": lb,
               "prompt_len": int(p), "emitted": [first],
@@ -480,7 +497,10 @@ class ContinuousScheduler:
         self.T += 1                      # the cell advanced cache["pos"]
         stats.steps += 1
         stats.slot_steps_active += len(self.active)
-        nxt = self.tok[:, 0].tolist()    # the step's host read
+        nxt = self.tok[:, 0]
+        if self.data is not None:        # every data line's rows
+            nxt = comm.all_gather(nxt, self.data, dim=0)
+        nxt = nxt.tolist()               # the step's host read
         t_tok = clock.now()
         emitted, finished = [], []
         for row in list(self.active):
@@ -492,6 +512,17 @@ class ContinuousScheduler:
             if self._finished(st):
                 finished.append((st["tag"], self._retire(st)))
         return emitted, finished
+
+    def _first_token(self, local: int, mine: bool) -> int:
+        """An admission's first token: this rank's, or, on a data split,
+        the owning line's (summed over the data group, the others adding
+        zero)."""
+        if self.data is None:
+            return int(self.tok[local, 0])
+        t = (self.tok[local].clone() if mine
+             else torch.zeros((1,), dtype=self.tok.dtype,
+                              device=self.tok.device))
+        return int(comm.all_reduce(t, self.data)[0])
 
     def cancel(self, st):
         """Retire one RUNNING stream early (cooperative cancel / deadline

@@ -14,8 +14,8 @@ The loss is read with one host sync a step (the reference's
 ``float(metrics["loss"])``), so a step's wall time is its device time
 and the watchdog sees it.  The loop runs on ``device``, the card by
 default, and raises where there is none.  The reference's mesh, its
-sharding options and its elastic mesh rebuild wait for the sharding
-slice.
+sharding options and its elastic mesh rebuild wait for training's
+sharding slice (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ accumulator and the optimizer, as the reference does.  No hand-written
 kernel runs here: ``core/linear.py`` keeps the TSMM kernels to serving,
 and ``models/attention.py::flash_eligible`` keeps flash off any call
 autograd records.  The reference's pin of the compute copy to the
-masters' sharding waits for the sharding slice.
+masters' sharding waits for training's sharding slice (ROADMAP.md Queue 1
+item 4).
 """
 
 from __future__ import annotations
