@@ -194,7 +194,8 @@ printing JSON lines:
                 launch flash at D 80.  Both SSM paths also print the
                 eager profile of one prefill (the ``ssm_conv``,
                 ``ssm_scan`` and ``ssm_state`` families);
-17. serve.danube — h2o-danube-1.8b whole (24 layers, window 4096), bf16,
+17. serve.danube — h2o-danube-1.8b at full width, 12 of its 24 layers
+                (window 4096), bf16,
                 ``Engine(max_batch=2)`` whose length grid holds exactly
                 its two prompts: groups of 1 and 2 at 4352 tokens (the
                 prefill rolls past the window) and at 4088 (the graphed
@@ -293,13 +294,38 @@ printing JSON lines:
                 grid captured with its collectives, every cell bit-equal
                 to its eager run, a graphed group equal to an eager one.
                 ``python3 chip_smoke.py --phase tp`` runs env, build and
-                this phase alone.
+                this phase alone;
+25. train.dist — sharded training (``train/`` on a process mesh,
+                ``sharding/comm.py``'s collectives with gradients,
+                ``launch/specs.py``), which runs no hand-written kernel:
+                two ranks (this script with ``--train-dist-worker``) share
+                the card over gloo and train qwen1.5-4b at full width cut
+                to 2 layers, bf16 on fp32 masters, remat, a global batch
+                of 4 x 512 tokens, 3 steps on each of ``data=2``,
+                ``data=2`` with FSDP and ``model=2``; each rank holds the
+                one-rank step from the same seeded params and batch, and
+                its pieces must hold within ``TRAIN_DIST_TOL``: the step-0
+                loss and ``grad_norm``, the params, m and v after the
+                first update; each step's collectives equal to the
+                contract from the shapes, none staged; 0 hand-written
+                launches; a planted control (*f*'s backward all-reduce
+                skipped at ``model=2``) must land outside the bound; a
+                checkpoint saved at ``data=2`` with FSDP (a failure after
+                step 2 of 4, reduced qwen at d 1024) restores at
+                ``model=2`` and on one rank, both continuing within the
+                loss bound of an uninterrupted one-rank run; then in this
+                process NCCL at world size 1: one train step on a
+                ``model=1`` process mesh against the one-rank step, its
+                collectives the contract.  Prints per rank each mesh's
+                peak memory, ``step_s`` and collective bytes (two ranks
+                on one card: no speed).  ``python3 chip_smoke.py --phase
+                train.dist`` runs this phase alone.
 
-The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m and
-Zamba2-2.7B run at half their depth (``HALF_DEPTH``), so that with
-the paths of h2o-danube-1.8b, LLaVA-NeXT, whisper-base and llama3-405b
-the script stays well inside its time limit (each of the four fits the
-card whole; the cut only shortens the run: about 190 s on an H100,
+The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m,
+Zamba2-2.7B and h2o-danube-1.8b run at half their depth
+(``HALF_DEPTH``), so that with the paths of LLaVA-NeXT, whisper-base
+and llama3-405b, tp and train.dist the script stays inside its time
+limit (each model fits the card whole; the cut only shortens the run,
 every width and kernel shape as at full depth).
 Every serve and queue path (7-20) must end with a healthy engine:
 ``Engine.health_report()`` with 0 degradations (no ladder demotion) and
@@ -2103,7 +2129,8 @@ def encdec_path(path, eng, cfg, launches):
 HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 20},
                  "olmoe_1b_7b": {"num_layers": 8},
                  "mamba2_780m": {"num_layers": 24},
-                 "zamba2_2_7b": {"num_layers": 24}}
+                 "zamba2_2_7b": {"num_layers": 24},
+                 "h2o_danube_1_8b": {"num_layers": 12}}
 
 
 # the serve paths: (arch, cut of the published config, max batch, prompt,
@@ -2143,11 +2170,12 @@ SERVE = {
                          profile_batch=1, flash=True,
                          hooks={"load": packed_load, "path": ssm_path,
                                 "after": ssm_after}),
-    # h2o-danube-1.8b whole: a 4352-token prompt past the 4096 window (the
-    # rolled prefill) and a 4088-token one whose decode wraps; the length
-    # grid holds exactly those two (min_prompt 4088).  Windowed attention
-    # takes the chunked body, as in the reference: no flash
-    "serve.danube": dict(arch="h2o_danube_1_8b", cut={}, max_batch=2,
+    # h2o-danube-1.8b at half depth: a 4352-token prompt past the 4096
+    # window (the rolled prefill) and a 4088-token one whose decode wraps;
+    # the length grid holds exactly those two (min_prompt 4088).  Windowed
+    # attention takes the chunked body, as in the reference: no flash
+    "serve.danube": dict(arch="h2o_danube_1_8b",
+                         cut=HALF_DEPTH["h2o_danube_1_8b"], max_batch=2,
                          prompt=4352, prompts=(4352, 4088), min_prompt=4088,
                          steps=16, groups=(1, 2), profile_batch=1,
                          flash=False, hooks={"load": packed_load,
@@ -3852,6 +3880,510 @@ def phase_tp():
          for r in ranks for p in r["paper"]}, shard_cases
 
 
+# ---------------------------------------------------------------------------
+# train.dist: sharded training on torch.distributed
+# ---------------------------------------------------------------------------
+
+# qwen1.5-4b at its published widths cut to 2 layers, bf16 on fp32
+# masters, remat, a global batch of 4 x 512 tokens, 3 steps on each mesh
+TRAIN_DIST_CUT = {"num_layers": 2}
+TRAIN_DIST_SHAPE = (4, 512, 3)          # global batch, tokens, steps
+# mesh -> (data, model, fsdp); two ranks share the one card over gloo
+TRAIN_DIST_MESHES = {"dp": (2, 1, False), "fsdp": (2, 1, True),
+                     "tp": (1, 2, False)}
+# the tests' optimizer (tests/test_torch_dist_train.py): a full-size first
+# update, eps 1e-3 keeping it a smooth function of the gradient
+TRAIN_DIST_OPT = dict(lr=1e-3, warmup_steps=1, decay_steps=10, eps=1e-3)
+# each mesh against the one-rank step on the card from the same params
+# and batches (bf16 compute: the ranks round partial sums, TP's
+# activations and DP's gradients, to bf16 before they are summed), set
+# before the first card run (PERF.md, PR 28): the step-0 loss and
+# grad_norm within these relative bounds; each piece of m and v (the
+# gradient and its square) after the first update within tol x
+# max|one-rank leaf| + tol x |one-rank|; each piece of the params within
+# tol x lr (both start from the same masters: they differ by lr times
+# the difference of the updates, each at most 1 in size at the first
+# step)
+TRAIN_DIST_TOL = {"loss": 1e-2, "grad_norm": 5e-2, "params": 1.0,
+                  "m": 1e-1, "v": 2e-1}
+# the checkpoint across meshes, on the reduced qwen at d 1024
+# (``TRAIN_RESUME``; bf16): global batch, tokens, steps, the failure
+TRAIN_DIST_RESUME_SHAPE = (4, 256, 4, 2)
+
+
+def train_dist_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen1_5_4b"), **TRAIN_DIST_CUT)
+
+
+def train_dist_contract(cfg, data: int, model: int, fsdp: bool,
+                        rows: int, seq: int) -> dict:
+    """One step's collectives on a rank (one micro-slice), from the shapes:
+    TP over ``model`` (a group of one included): all-reduces of the (rows,
+    seq, d_model) activations after the lookup, ``wo`` and ``w_down`` (1 +
+    2 a layer), remat's recompute of ``wo``'s (1 a layer: the recompute
+    stops at a layer's last saved tensor), *f*'s backward at q/k/v,
+    w_gate/w_up (2 a layer) and the head (1), and one all-gather of the
+    (rows, seq, vocab) logits; where ``data`` > 1, an all-reduce of the
+    loss's sum and count (8 B), each FSDP leaf's shard all-gathered and its
+    gradient reduce-scattered, every other leaf's gradient all-reduced (in
+    the compute dtype: bf16, fp32 for 1-D leaves); the global norm's 4 B
+    over the world."""
+    from repro_torch.analysis.collectives import collective_bytes
+    from repro_torch.models.param import (MetaGenerator, torch_dtype,
+                                          tree_leaves)
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import (Mesh, ShardingOptions,
+                                            local_shape, param_pspecs,
+                                            spec_leaves)
+    mesh = Mesh.of((data, model), ("data", "model"))
+    params, axes = build_model(cfg).init(MetaGenerator())
+    specs = spec_leaves(param_pspecs(axes, params, mesh,
+                                     ShardingOptions(fsdp=fsdp)))
+    item = torch_dtype(cfg.dtype).itemsize
+    act = rows * seq * cfg.d_model * item
+    L = cfg.num_layers
+    rec = []
+    leaves = []
+    for t, sp in zip(tree_leaves(params), specs):
+        size = math.prod(local_shape(tuple(t.shape), sp, mesh))
+        leaves.append((size * (item if t.ndim >= 2 else 4),
+                       fsdp and data > 1 and "data" in sp))
+    rec += [("all-gather", b * data, data) for b, f in leaves if f]
+    rec += [("all-reduce", act, model)] * (1 + 2 * L + L + 2 * L + 1)
+    rec.append(("all-gather", rows * seq * cfg.vocab_size * item, model))
+    if data > 1:
+        rec.append(("all-reduce", 8, data))
+        rec += [("reduce-scatter" if f else "all-reduce", b, data)
+                for b, f in leaves]
+    rec.append(("all-reduce", 4, data * model))
+    return collective_bytes([{"op": o, "bytes": b, "group_size": n}
+                             for o, b, n in rec])
+
+
+def _train_dist_trees(state) -> dict:
+    from repro_torch.models.param import tree_leaves
+    return {"params": tree_leaves(state["params"]),
+            "m": tree_leaves(state["opt"]["m"]),
+            "v": tree_leaves(state["opt"]["v"])}
+
+
+def _train_dist_compare(state, want: dict, specs: list, mesh,
+                        keys=("params", "m", "v")) -> dict:
+    """This rank's pieces of ``state`` against its pieces of the one-rank
+    snapshot ``want`` (pinned on the host; a leaf at a time on the card):
+    per tree, the worst |err| / bound and whether every element is within
+    ``TRAIN_DIST_TOL``."""
+    import torch
+    from repro_torch.sharding.rules import local_shard
+    t0 = time.perf_counter()
+    got = _train_dist_trees(state)
+    out = {}
+    for key in keys:
+        tol, worst, ok = TRAIN_DIST_TOL[key], 0.0, True
+        for a, w, sp in zip(got[key], want[key], specs):
+            w = local_shard(w.to(a.device), sp, mesh, mesh.coords)
+            err = (a.float() - w).abs()
+            if key == "params":
+                bound = torch.full_like(w, tol * TRAIN_DIST_OPT["lr"])
+            else:
+                bound = tol * float(w.abs().max()) + tol * w.abs()
+            worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+            ok = (ok and bool(torch.all(err <= bound))
+                  and bool(torch.all(a.isfinite())))
+            del w, err, bound
+        out[key] = {"worst_err_over_bound": worst, "within": ok}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _train_dist_params(model, device):
+    """The phase's seeded params (bf16, full), drawn anew where needed:
+    the same draw on every rank and in every call."""
+    import torch
+    return model.init(torch.Generator(device=device).manual_seed(0))[0]
+
+
+def _train_dist_reference(cfg, model, ocfg, shape, device) -> dict:
+    """The one-rank train step on the card: its loss and grad_norm, and
+    the state after the update, kept on the host."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.train.step import init_train_state, make_train_step
+    state = init_train_state(model, ocfg,
+                             params=_train_dist_params(model, device))
+    batch = SyntheticData(cfg, shape, seed=0, device=device).batch(0)
+    state, met = make_train_step(model, ocfg)(state, batch)
+    pin = device.type == "cuda"
+    return {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "snapshot": {k: [torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=pin).copy_(t)
+                             for t in v]
+                         for k, v in _train_dist_trees(state).items()}}
+
+
+def _train_dist_mesh(name, mesh, cfg, model, ocfg, shape, ref, res) -> None:
+    """One mesh's run: 3 steps timed with their collectives, the first
+    update compared with the one-rank snapshot."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.specs import train_state_specs
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.context import sharding_ctx
+    from repro_torch.sharding.rules import (ShardingOptions, local_params,
+                                            spec_leaves)
+    from repro_torch.train import loop
+    from repro_torch.train.step import init_train_state, make_train_step
+    t_mesh = time.perf_counter()
+    d, m, fsdp = TRAIN_DIST_MESHES[name]
+    opts = ShardingOptions(fsdp=fsdp)
+    full, specs, _ = train_state_specs(model, ocfg, mesh, opts)
+    state = init_train_state(model, ocfg, params=local_params(
+        _train_dist_params(model, mesh.device), specs["params"],
+        full["params"], mesh))
+    data = SyntheticData(cfg, shape, seed=0, device=mesh.device, mesh=mesh,
+                         batch_spec=loop._batch_spec(mesh, opts))
+    step = make_train_step(model, ocfg)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launches()
+    rows, compare = [], None
+    with sharding_ctx(mesh, opts):
+        for i in range(TRAIN_DIST_SHAPE[2]):
+            batch = data.batch(i)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with comm.recording() as rec:
+                state, met = step(state, batch)
+                loss = float(met["loss"])
+            dt = time.perf_counter() - t0
+            rows.append({"step": i, "loss": loss,
+                         "grad_norm": float(met["grad_norm"]), "step_s": dt,
+                         "collectives": collective_bytes(rec),
+                         "staged": staged_ops(rec),
+                         "contract": train_dist_contract(
+                             cfg, d, m, fsdp, int(batch["tokens"].shape[0]),
+                             shape.seq_len)})
+            if i == 0:
+                compare = _train_dist_compare(
+                    state, ref["snapshot"], spec_leaves(specs["params"]),
+                    mesh)
+    launches = sum(cuda.launches.values())
+    res["meshes"][name] = {
+        "mesh": dict(mesh.shape), "fsdp": fsdp, "steps": rows,
+        "compare": compare, "hand_written_launches": launches,
+        "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                       if dev.type == "cuda" else None),
+        "seconds": time.perf_counter() - t_mesh}
+    del state
+
+
+def _train_dist_planted(mesh, cfg, model, ocfg, shape, ref) -> dict:
+    """The control: one TP step with *f*'s backward all-reduce skipped
+    (``comm._Copy``'s gradient passed through unreduced), its m against
+    the one-rank snapshot's."""
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.launch.specs import train_state_specs
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.context import sharding_ctx
+    from repro_torch.sharding.rules import (ShardingOptions, local_params,
+                                            spec_leaves)
+    from repro_torch.train import loop
+    from repro_torch.train.step import init_train_state, make_train_step
+    opts = ShardingOptions()
+    full, specs, _ = train_state_specs(model, ocfg, mesh, opts)
+    state = init_train_state(model, ocfg, params=local_params(
+        _train_dist_params(model, mesh.device), specs["params"],
+        full["params"], mesh))
+    data = SyntheticData(cfg, shape, seed=0, device=mesh.device, mesh=mesh,
+                         batch_spec=loop._batch_spec(mesh, opts))
+    sound, calls = comm._Copy.backward, [0]
+
+    def unreduced(ctx, g):
+        calls[0] += 1
+        return g, None
+
+    comm._Copy.backward = staticmethod(unreduced)
+    try:
+        with sharding_ctx(mesh, opts):
+            state, met = make_train_step(model, ocfg)(state, data.batch(0))
+    finally:
+        comm._Copy.backward = staticmethod(sound)
+    out = _train_dist_compare(state, ref["snapshot"],
+                              spec_leaves(specs["params"]), mesh, keys=("m",))
+    return {"f_backward_calls": calls[0], "loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]), **out["m"]}
+
+
+def _train_dist_resume(out_dir, device, res) -> None:
+    """A checkpoint saved at data=2 with FSDP (the run fails after step
+    2 of 4) restores at model=2 and, on rank 0 alone, on one rank; both
+    continue, against an uninterrupted one-rank run's losses."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.sharding.rules import ShardingOptions
+    from repro_torch.train.loop import LoopConfig, SimulatedFailure, run
+    import torch
+    cfg = get_config("qwen1_5_4b").reduced(**TRAIN_RESUME)
+    model = build_model(cfg)
+    b, s, total, fail_at = TRAIN_DIST_RESUME_SHAPE
+    shape = ShapeSpec("train.dist.resume", s, b, "train")
+    ocfg = OptConfig(**TRAIN_DIST_OPT)
+    params = model.init(torch.Generator(device=device).manual_seed(1))[0]
+    rank = int(os.environ.get("RANK", 0))
+    t0 = time.perf_counter()
+
+    def lcfg(name):
+        return LoopConfig(total_steps=total, ckpt_every=fail_at,
+                          log_every=total, ckpt_dir=os.path.join(out_dir,
+                                                                 name))
+
+    out = {"config": cfg.name, "dtype": cfg.dtype, "batch": b, "tokens": s,
+           "steps": total, "fail_at": fail_at}
+    if rank == 0:
+        out["whole"] = run(model, shape, lcfg("whole"), ocfg, device=device,
+                           params=params).losses
+    mesh = make_mesh((2, 1), ("data", "model"), device=device,
+                     verbose=False)
+    try:
+        run(model, shape, lcfg("a"), ocfg, device=device, params=params,
+            mesh=mesh, opts=ShardingOptions(fsdp=True), fail_at=fail_at)
+        out["failed"] = None
+    except SimulatedFailure as e:
+        out["failed"] = e.args[0]
+    if rank == 0:
+        shutil.copytree(os.path.join(out_dir, "a"),
+                        os.path.join(out_dir, "b"))
+    mesh = make_mesh((1, 2), ("data", "model"), device=device,
+                     verbose=False)
+    rep = run(model, shape, lcfg("a"), ocfg, device=device, params=params,
+              mesh=mesh)
+    out["model2"] = {"resumed_from": rep.resumed_from, "losses": rep.losses}
+    if rank == 0:
+        rep = run(model, shape, lcfg("b"), ocfg, device=device,
+                  params=params)
+        out["one_rank"] = {"resumed_from": rep.resumed_from,
+                           "losses": rep.losses}
+    out["seconds"] = time.perf_counter() - t0
+    res["resume"] = out
+
+
+def train_dist_worker(out_dir: str) -> None:
+    """One rank of the train.dist phase (``torch.distributed.run``): two
+    ranks on the one card over gloo."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.configs.base import ShapeSpec
+    job = json.load(open(os.path.join(out_dir, "job.json")))
+    device = job["device"]
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2, 1), ("data", "model"), device=device)
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device), "meshes": {}}
+    try:
+        cfg = train_dist_cfg()
+        model = build_model(cfg)
+        ocfg = OptConfig(**TRAIN_DIST_OPT)
+        b, s, _ = TRAIN_DIST_SHAPE
+        shape = ShapeSpec("train.dist", s, b, "train")
+        # every rank holds the one-rank step's state after its update (on
+        # the host), to compare its own pieces with
+        t0 = time.perf_counter()
+        ref = _train_dist_reference(cfg, model, ocfg, shape, mesh.device)
+        res["reference"] = {k: ref[k] for k in ("loss", "grad_norm")}
+        res["reference"]["seconds"] = time.perf_counter() - t0
+        _free(mesh.device.type)
+        for name, (d, m, _) in TRAIN_DIST_MESHES.items():
+            _train_dist_mesh(name, make_mesh((d, m), ("data", "model"),
+                                             device=device, verbose=False),
+                             cfg, model, ocfg, shape, ref, res)
+            _free(mesh.device.type)
+        res["planted"] = _train_dist_planted(
+            make_mesh((1, 2), ("data", "model"), device=device,
+                      verbose=False), cfg, model, ocfg, shape, ref)
+        del ref
+        _free(mesh.device.type)
+        _train_dist_resume(out_dir, device, res)
+    finally:
+        with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(res, f, default=str)
+        mesh.close()
+
+
+def train_dist_nccl(out_dir: str) -> dict:
+    """One train step on a ``model=1`` process mesh under NCCL in this
+    process (world size 1), against the one-rank step from the same
+    params and batch."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.context import sharding_ctx
+    from repro_torch.sharding.rules import ShardingOptions
+    from repro_torch.train.step import init_train_state, make_train_step
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda", rank=0,
+                     world_size=1, init_file=os.path.join(out_dir,
+                                                          "nccl_store"))
+    try:
+        cfg = train_dist_cfg()
+        model = build_model(cfg)
+        ocfg = OptConfig(**TRAIN_DIST_OPT)
+        b, s, _ = TRAIN_DIST_SHAPE
+        batch = SyntheticData(cfg, ShapeSpec("train.dist.nccl", s, b,
+                                             "train"), seed=0,
+                              device="cuda").batch(0)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))[0]
+        one = make_train_step(model, ocfg)(
+            init_train_state(model, ocfg, params=params), batch)[1]
+        one = {k: float(one[k]) for k in ("loss", "grad_norm")}
+        _free("cuda")
+        state = init_train_state(model, ocfg, params=params)
+        del params
+        with sharding_ctx(mesh, ShardingOptions()), comm.recording() as rec:
+            met = make_train_step(model, ocfg)(state, batch)[1]
+        del state
+        got = {k: float(met[k]) for k in ("loss", "grad_norm")}
+        return {"backend": mesh.backend, "one_rank": one, "mesh": got,
+                "within": all(abs(got[k] - one[k]) <= TRAIN_DIST_TOL[k]
+                              * abs(one[k]) for k in got),
+                "collectives": collective_bytes(rec),
+                "contract": train_dist_contract(cfg, 1, 1, False, b, s)}
+    finally:
+        mesh.close()
+
+
+def train_dist_checks(ranks: list) -> list:
+    """What the two ranks' results break of the phase's contract."""
+    bad = []
+    for res in ranks:
+        rk = res.get("rank")
+        if res.get("backend") != "gloo":
+            bad.append(f"rank {rk}: backend {res.get('backend')}")
+        ref = res["reference"]
+        for name, r in res["meshes"].items():
+            s0 = r["steps"][0]
+            for key in ("loss", "grad_norm"):
+                want = ref[key]
+                if not abs(s0[key] - want) <= TRAIN_DIST_TOL[key] * abs(want):
+                    bad.append(f"rank {rk} {name}: step-0 {key} {s0[key]} "
+                               f"vs {want}")
+            if not all(c["within"] for k, c in r["compare"].items()
+                       if k != "seconds"):
+                bad.append(f"rank {rk} {name}: leaves {r['compare']}")
+            for st in r["steps"]:
+                if st["collectives"] != st["contract"] or st["staged"]:
+                    bad.append(f"rank {rk} {name} step {st['step']}: "
+                               f"collectives {st['collectives']} != "
+                               f"{st['contract']}, staged {st['staged']}")
+            if r["hand_written_launches"]:
+                bad.append(f"rank {rk} {name}: {r['hand_written_launches']} "
+                           f"hand-written kernel launches")
+        pl = res["planted"]
+        if not pl["f_backward_calls"] or pl["within"]:
+            bad.append(f"rank {rk}: the planted fault {pl}")
+        rs = res["resume"]
+        want = ranks[0]["resume"]["whole"][rs["fail_at"]:]
+        runs = [rs["model2"]] + ([rs["one_rank"]] if "one_rank" in rs
+                                 else [])
+        if rs["failed"] != rs["fail_at"]:
+            bad.append(f"rank {rk}: resume: failed at {rs['failed']}")
+        for r in runs:
+            if r["resumed_from"] != rs["fail_at"] or len(r["losses"]) != \
+                    len(want) or not all(
+                        abs(a - w) <= TRAIN_DIST_TOL["loss"] * abs(w)
+                        for a, w in zip(r["losses"], want)):
+                bad.append(f"rank {rk}: resume {r} vs {want}")
+    return bad
+
+
+def phase_train_dist(device="cuda"):
+    """Sharded training on the card: two ranks (``torch.distributed.run``)
+    sharing it over gloo train qwen1.5-4b (full width, 2 layers, bf16) on
+    data=2, data=2 with FSDP and model=2, each against the one-rank step;
+    the planted *f* fault; the checkpoint across meshes; then NCCL at
+    world size 1 in this process."""
+    import signal
+    t_phase = time.perf_counter()
+    _free(device)
+    out_dir = tempfile.mkdtemp(prefix="train-dist-",
+                               dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(out_dir, "job.json"), "w") as f:
+        json.dump({"device": device}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", os.path.abspath(__file__),
+         "--train-dist-worker", out_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    if proc.returncode != 0:
+        raise AssertionError(f"train.dist: the ranks exited "
+                             f"{proc.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-6000:]}")
+    workers_s = time.perf_counter() - t_phase
+    bad = train_dist_checks(ranks)
+    for res in ranks:
+        emit({"phase": "train.dist.rank", "rank": res["rank"],
+              "device": res["device"], "reference": res["reference"],
+              "meshes": {n: {"mesh": r["mesh"], "fsdp": r["fsdp"],
+                             "peak_bytes": r["peak_bytes"],
+                             "step_s": [s["step_s"] for s in r["steps"]],
+                             "losses": [s["loss"] for s in r["steps"]],
+                             "grad_norm_step0": r["steps"][0]["grad_norm"],
+                             "collectives": r["steps"][-1]["collectives"],
+                             "compare": r["compare"],
+                             "seconds": r["seconds"],
+                             "hand_written_launches":
+                                 r["hand_written_launches"]}
+                         for n, r in res["meshes"].items()},
+              "planted": res["planted"], "resume": res["resume"]})
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+           if device == "cuda" else None)
+    cfg = train_dist_cfg()
+    emit({"phase": "train.dist", "nvidia_smi": smi, "ranks": 2,
+          "backend": ranks[0]["backend"], "config": cfg.name,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "cut": TRAIN_DIST_CUT, "dtype": cfg.dtype, "remat": cfg.remat,
+          "shape": TRAIN_DIST_SHAPE, "tol": TRAIN_DIST_TOL,
+          "note": "two ranks share one card over gloo: correctness and the "
+                  "collectives, not a speed",
+          "workers_s": workers_s})
+    if bad:
+        raise AssertionError("train.dist: " + "; ".join(bad))
+    if device == "cuda":
+        nccl = train_dist_nccl(out_dir)
+        emit({"phase": "train.dist.nccl", **nccl})
+        if not (nccl["backend"] == "nccl" and nccl["within"]
+                and nccl["collectives"] == nccl["contract"]):
+            raise AssertionError(f"train.dist.nccl: {nccl}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _free(device)
+    emit({"phase": "train.dist", "seconds": time.perf_counter() - t_phase})
+
+
 def shape_of(case: dict) -> dict:
     """The shape fields of a kernels case, and its mode."""
     return {**{k: case[k] for k in ("L", "m", "M", "K", "N", "bm", "bk", "bn",
@@ -3904,6 +4436,8 @@ def main():
         if sys.argv[1:] == ["--phase", "tp"]:
             phase_build()         # the ranks load the built kernels
             phase_tp()
+        elif sys.argv[1:] == ["--phase", "train.dist"]:
+            phase_train_dist()    # no hand-written kernel on the path
         else:
             run()
     finally:
@@ -3995,6 +4529,7 @@ def run():
     phase_fleet()
     phase_train()
     tp_launches, tp_load, tp_paper_launches, tp_cases = phase_tp()
+    phase_train_dist()
     by_path.update(tp_launches)
     by_path.update(tp_paper_launches)
     for c in tp_cases:
@@ -4188,5 +4723,7 @@ def run():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--train-dist-worker"]:
+        train_dist_worker(sys.argv[2])
     else:
         main()

@@ -14,9 +14,18 @@ bf16 leaves are stored as a ``uint8`` view with the dtype string
 ``"bfloat16"``, as the reference writes them (npz holds no bf16), and
 are viewed back to ``torch.bfloat16`` on restore.  A save snapshots every
 leaf to host memory before it returns; the write runs on a thread, one
-at a time.  This process writes everything (``proc_000``); the
-reference's per-host shards and restore onto target shardings wait for
-training's sharding slice (ROADMAP.md Queue 1 item 4).
+at a time.
+
+On a process mesh (``mesh`` and the tree's partition ``specs``) every
+rank takes part in gathering each leaf to its full size and rank 0
+alone snapshots and writes ``proc_000`` (the reference writes each
+host's addressable shards; full leaves keep one layout, which either
+package restores).  A restore cuts each full leaf onto the *target*
+mesh (``rules.local_shard``), whatever mesh wrote it: a checkpoint from
+``data=2`` with FSDP restores at ``model=2`` or on one rank.
+:meth:`CheckpointManager.restore_latest` reads the step on rank 0 after
+its write in flight is committed and broadcasts it, so every rank waits
+for the commit and restores the same step.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.param import tree_leaves, tree_unflatten
+from repro_torch.sharding.rules import local_shard, spec_leaves
 
 
 def _to_host(t) -> tuple:
@@ -49,7 +59,8 @@ def _to_host(t) -> tuple:
     return a, str(a.dtype)
 
 
-def _from_host(arr: np.ndarray, dtype: str, shape, device):
+def _from_host(arr: np.ndarray, dtype: str, shape):
+    """The host tensor of a stored leaf of the full ``shape``."""
     t = torch.from_numpy(np.asarray(arr, order="C"))
     if arr.dtype == np.uint8 and dtype != "uint8":
         if dtype != "bfloat16":
@@ -60,7 +71,7 @@ def _from_host(arr: np.ndarray, dtype: str, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)}, "
                          f"the target's is {tuple(shape)}")
-    return t.to(device)
+    return t
 
 
 class CheckpointManager:
@@ -73,14 +84,31 @@ class CheckpointManager:
         self._error: Optional[Exception] = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree, block: bool = False):
-        """Snapshot to host memory synchronously, write to disk async."""
+    def save(self, step: int, tree, block: bool = False, specs=None,
+             mesh=None):
+        """Snapshot to host memory synchronously, write to disk async.  On
+        a process ``mesh`` ``tree`` holds this rank's pieces under
+        ``specs``: every rank must call, and rank 0 writes the full
+        leaves."""
         self.wait()  # one in-flight save at a time
+        leaves = tree_leaves(tree)
         host, dtypes = [], []
-        for x in tree_leaves(tree):
-            a, dt = _to_host(x)
-            host.append(a)
-            dtypes.append(dt)
+        if mesh is not None:
+            from repro_torch.sharding.comm import gather_full
+            for x, sp in zip(leaves, spec_leaves(specs)):
+                full = gather_full(x, sp, mesh)
+                if mesh.rank == 0:
+                    a, dt = _to_host(full)
+                    host.append(a)
+                    dtypes.append(dt)
+                del full
+            if mesh.rank != 0:
+                return
+        else:
+            for x in leaves:
+                a, dt = _to_host(x)
+                host.append(a)
+                dtypes.append(dt)
         meta = {
             "step": int(step),
             "n_leaves": len(host),
@@ -150,10 +178,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return max(steps) if steps else None
 
-    def restore(self, step: int, target_tree, device="cpu"):
+    def restore(self, step: int, target_tree, device="cpu", specs=None,
+                mesh=None):
         """Rebuild the tree: ``target_tree`` gives the structure and each
-        leaf's shape (its values are not read: tensors on any device,
-        ``meta`` ones included); the leaves land on ``device``."""
+        leaf's full shape (its values are not read: tensors on any device,
+        ``meta`` ones included); the leaves land on ``device``.  With a
+        process ``mesh`` each leaf is cut to this rank's piece under
+        ``specs`` (the target's partition specs).  On a mesh, restore a
+        step every rank knows to be committed (:meth:`restore_latest`)."""
         self.wait()
         d = self.dir / f"step_{step:012d}"
         with open(d / "meta.json") as f:
@@ -167,12 +199,29 @@ class CheckpointManager:
         if len(refs) != meta["n_leaves"]:
             raise ValueError(f"{d}: {meta['n_leaves']} leaves, the target "
                              f"has {len(refs)}")
-        return tree_unflatten(target_tree, [
-            _from_host(data[i], meta["dtypes"][i], ref.shape, device)
-            for i, ref in enumerate(refs)])
+        sps = (spec_leaves(specs) if mesh is not None
+               else [None] * len(refs))
+        out = []
+        for i, (ref, sp) in enumerate(zip(refs, sps)):
+            t = _from_host(data.pop(i), meta["dtypes"][i], ref.shape)
+            if sp is not None:
+                t = local_shard(t, sp, mesh, mesh.coords)
+            out.append(t.to(device))
+        return tree_unflatten(target_tree, out)
 
-    def restore_latest(self, target_tree, device="cpu"):
+    def restore_latest(self, target_tree, device="cpu", specs=None,
+                       mesh=None):
+        """(step, tree) of the latest committed step, or (None, None).  On
+        a process ``mesh`` rank 0 reads the step once its own write is
+        committed and broadcasts it (``sharding/comm.py::broadcast``)."""
+        self.wait()
         step = self.latest_step()
+        if mesh is not None:
+            from repro_torch.sharding import comm
+            t = torch.tensor([-1 if step is None else step],
+                             dtype=torch.int64, device=mesh.device)
+            step = int(comm.broadcast(t, 0, None)[0])
+            step = None if step < 0 else step
         if step is None:
             return None, None
-        return step, self.restore(step, target_tree, device)
+        return step, self.restore(step, target_tree, device, specs, mesh)

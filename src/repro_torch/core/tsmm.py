@@ -244,8 +244,8 @@ def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
 
 
 def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
-                pad: bool = False, num_shards: int = 1,
-                shard_divisors: tuple = (1, 1)) -> Optional[PackedTensor]:
+                pad: bool = False,
+                num_shards: int = 1) -> Optional[PackedTensor]:
     """Plan and pack a weight for decode-time reuse.
 
     ``m_skinny`` is one serving batch size or a tuple of batch buckets:
@@ -257,24 +257,16 @@ def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
     zero-padded to whole blocks (the kernel's output columns past N are
     sliced off), for weights whose width no multiple of 128 divides.
 
-    On a mesh, ``shard_divisors`` = (row_shards, col_shards) the weight
-    is split over: the blocks must divide the per-shard dims, so packing
-    commutes with sharding.  A rank packing its own piece passes the
-    piece with (1, 1).  ``num_shards`` keys the tuned problems, so a
-    sharded engine looks up what an ``install --mesh`` sweep wrote.
-    Returns None when no conforming block exists."""
+    On a mesh each rank packs its own piece of the weight; ``num_shards``
+    keys the tuned problems, so a sharded engine looks up what an
+    ``install --mesh`` sweep wrote.  Returns None when no conforming
+    block exists."""
     device = w.device
     hw = hw or default_hw(device)
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
-    rs, cs = shard_divisors
     k, n = int(w.shape[-2]), int(w.shape[-1])
-    if k % rs or n % cs:
-        return None
-    if pad and (rs, cs) != (1, 1):
-        raise ValueError("a padded pack of a sharded weight pads each "
-                         "shard: pack each rank's piece with (1, 1)")
-    pset, chosen = _layout(buckets, k // rs, n // cs, dtype_name(w.dtype),
-                           hw, device, pad, num_shards)
+    pset, chosen = _layout(buckets, k, n, dtype_name(w.dtype), hw, device,
+                           pad, num_shards)
     if chosen is None:
         return None
     pk = pack(w, *chosen)

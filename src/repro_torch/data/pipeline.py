@@ -6,19 +6,22 @@ with no state to checkpoint, so a restarted job regenerates exactly the
 batches it would have seen: the property the fault-tolerant loop's
 resume relies on (``train/loop.py``).  Every batch is made with numpy on
 the host, bit-equal to the reference's, and moved to the device once.
-The reference's per-device sharded build (a mesh and a batch spec)
-waits for training's sharding slice (ROADMAP.md Queue 1
-item 4).
+On a process mesh (``mesh``, ``batch_spec``: the batch dim's spec, the
+data axis in ``train/loop.py::_batch_spec``) each rank builds only its
+own rows, as the reference's per-device callback does: the same rows,
+bit-equal, as the one-rank batch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.sharding.rules import P, shard_index
 
 
 def _splitmix(x: np.ndarray) -> np.ndarray:
@@ -66,16 +69,32 @@ class SyntheticData:
     VLM's sequence starts with its ``num_image_tokens`` image positions,
     whose labels are -100, and only the rest are tokens), int32; a VLM's
     ``embeds`` (b, num_image_tokens, d_model) and an encoder-decoder's
-    ``enc_frames`` (b, encoder_seq, d_model), fp32."""
+    ``enc_frames`` (b, encoder_seq, d_model), fp32.  With a process
+    ``mesh``, b is this rank's rows under ``batch_spec``."""
     cfg: ModelConfig
     shape: ShapeSpec
     seed: int = 17
     device: str = "cuda"
+    mesh: Optional[object] = None
+    batch_spec: P = P(None)
+
+    def rows(self) -> np.ndarray:
+        """The global batch rows this rank builds."""
+        b = self.shape.global_batch
+        entry = self.batch_spec[0] if self.mesh is not None else None
+        i, n = shard_index(entry, self.mesh, getattr(self.mesh, "coords",
+                                                     None))
+        if b % n:
+            raise ValueError(f"a global batch of {b} does not split over "
+                             f"{entry} ({n} ranks)")
+        w = b // n
+        return np.arange(i * w, (i + 1) * w)
 
     def batch(self, step: int) -> dict:
         cfg, sp = self.cfg, self.shape
-        b, s = sp.global_batch, sp.seq_len
-        rows = np.arange(b)
+        s = sp.seq_len
+        rows = self.rows()
+        b = len(rows)
         n_img = cfg.num_image_tokens if cfg.embeds_input else 0
         toks = synth_tokens(self.seed, step, rows, s - n_img + 1,
                             cfg.vocab_size)

@@ -23,7 +23,7 @@ from repro_torch.core.linear import linear
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import shard_act, tp_sum
+from repro_torch.sharding.context import shard_act, tp_copy, tp_sum
 
 NEG_INF = -1e30
 
@@ -170,11 +170,15 @@ def init_gqa(gen, cfg, d_in: int = 0, d_out: int = 0):
 
 def _qkv(p, cfg, x, kv_from=None):
     """q, k, v of x (k, v of ``kv_from`` when given), with the head counts
-    read off the weights: a tensor-parallel rank holds its heads only."""
+    read off the weights: a tensor-parallel rank holds its heads only.
+    Each input of the column-parallel projections passes ``tp_copy`` once
+    (self-attention's q, k and v share it)."""
     b, s, _ = x.shape
-    src = x if kv_from is None else kv_from
-    sk = src.shape[1]
     hd = cfg.head_dim
+    x = tp_copy(x, "qheads", cfg.num_heads * hd)
+    src = x if kv_from is None else tp_copy(kv_from, "kvheads",
+                                            cfg.num_kv_heads * hd)
+    sk = src.shape[1]
     h, kh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(src, p["wk"], p.get("bk")).reshape(b, sk, kh, hd)

@@ -3,6 +3,8 @@ SwiGLU and GELU MLPs, and the remat of a layer body."""
 
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
 
 import torch
@@ -10,7 +12,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.linear import linear
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import shard_act, tp_rank, tp_split, tp_sum
+from repro_torch.sharding.context import (shard_act, tp_copy, tp_rank,
+                                          tp_split, tp_sum)
 
 
 def _requires_grad(obj) -> bool:
@@ -29,10 +32,21 @@ def remat(cfg, fn, *args, **kwargs):
     ``torch.utils.checkpoint``: the backward recomputes ``fn``'s
     activations instead of keeping them, as the reference's
     ``jax.checkpoint`` of a layer body.  The forward's numbers are the
-    same either way."""
+    same either way.  The forward and its recompute run in a copy of the
+    caller's context: on a CUDA tensor autograd recomputes on a device
+    thread of its own, where the sharding context
+    (``sharding/context.py``) and the collective recorder would be
+    unset, and a tensor-parallel layer would recompute without its
+    collectives."""
     if cfg.remat and torch.is_grad_enabled() and _requires_grad(args):
+        ctx = contextvars.copy_context()
+
+        @functools.wraps(fn)
+        def in_ctx(*a, **k):
+            return ctx.run(fn, *a, **k)
+
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, **kwargs)
+            in_ctx, *args, use_reentrant=False, **kwargs)
     return fn(*args, **kwargs)
 
 
@@ -85,7 +99,12 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
     return pt.build()
 
 
-def swiglu(p, x):
+def swiglu(p, x, d_ff: int = 0):
+    """w_down(silu(x @ w_gate) * (x @ w_up)).  ``d_ff``: the full hidden
+    width, where ``w_gate`` / ``w_up`` may be column-parallel over ``mlp``
+    (their input then passes ``tp_copy``)."""
+    if d_ff:
+        x = tp_copy(x, "mlp", d_ff)
     h = linear(x, p["w_gate"], act="silu") * linear(x, p["w_up"])
     h = shard_act(h, "batch", "seq", "mlp")
     return linear(h, p["w_down"])
@@ -146,10 +165,14 @@ def embed_tokens(p, tokens, vocab: int = 0):
     return shard_act(tp_sum(x, "vocab", vocab), "batch", "seq", "embed")
 
 
-def unembed(p, x, tie: bool):
+def unembed(p, x, tie: bool, vocab: int = 0):
     """Logits in the compute dtype, as in the reference.  A tied model
     reads ``tok.T``, unless the serving engine gave it a packed ``head``
     of its own (``serve/engine.py::tied_head``): the transposed view
-    would be padded and packed on every call."""
+    would be padded and packed on every call.  ``vocab``: the full
+    vocabulary, where the head may be column-parallel over it (its input
+    then passes ``tp_copy``)."""
+    if vocab:
+        x = tp_copy(x, "vocab", vocab)
     w = p["tok"].T if tie and "head" not in p else p["head"]
     return shard_act(linear(x, w), "batch", "seq", "vocab")

@@ -112,13 +112,13 @@ def _mlp(p, cfg, x, kind: str):
     are summed over the TP group where ``mlp`` is split."""
     if kind == "moe":
         return MOE.moe_apply(p["mlp"], cfg, x)
-    return tp_sum(swiglu(p["mlp"], x), "mlp", cfg.d_ff), None
+    return tp_sum(swiglu(p["mlp"], x, cfg.d_ff), "mlp", cfg.d_ff), None
 
 
 def _logits(params, cfg, x, gather: bool = True):
     """The unembedding; a vocab-sharded head's logits gathered to full
     width over the TP group (unless ``gather`` is False)."""
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab_size)
     return tp_gather(logits, "vocab", cfg.vocab_size) if gather else logits
 
 

@@ -11,6 +11,12 @@ compress, global norm, clip scale, schedule, bias corrections, then per
 leaf the fp32 moments, the step and decoupled weight decay, each result
 cast back to its leaf's dtype.
 
+On a process mesh each rank holds its pieces of the params, the
+gradients and the state (``train/step.py``): every update but the norm
+is elementwise, and :func:`global_norm` sums each leaf's squares once
+over the ranks that split it (``replicas``), so every rank clips by the
+global norm, the reference's.
+
 The count, the learning rate and the norm stay 0-d tensors on the
 params' device, so a step reads nothing back to the host.  The update
 runs leaf by leaf under ``torch.no_grad()`` and writes the params and
@@ -80,19 +86,31 @@ def init_opt_state(cfg: OptConfig, params):
     return state
 
 
-def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in fp32 (0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, replicas=None):
+    """sqrt of the sum of squares of every leaf, in fp32 (0-d tensor).
+
+    ``replicas`` (sharded: one count per leaf, in ``tree_leaves`` order):
+    each leaf is this rank's piece, held alike by that many ranks of the
+    world; each piece's squares are divided by its count and the sum
+    all-reduced over the world, so every piece counts once."""
+    leaves = tree_leaves(tree)
+    if replicas is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    from repro_torch.sharding import comm
+    total = sum(torch.sum(torch.square(x.float())) / r
+                for x, r in zip(leaves, replicas))
+    return torch.sqrt(comm.all_reduce(total.reshape(1), None)[0])
 
 
 @torch.no_grad()
 @record_function(UPDATE_RANGE)
-def apply_updates(cfg: OptConfig, params, grads, state):
+def apply_updates(cfg: OptConfig, params, grads, state, replicas=None):
     """One AdamW step.  ``params``: fp32 masters; ``grads``: a tree of the
-    same structure (fp32 or bf16).  The params and the state's tensors
-    are updated in place.  Returns (params, state, stats), ``stats``
-    ``{"grad_norm", "lr"}`` as 0-d tensors."""
+    same structure (fp32 or bf16), reduced over the data group where
+    sharded.  The params and the state's tensors are updated in place.
+    ``replicas``: :func:`global_norm`'s, on a mesh.  Returns (params,
+    state, stats), ``stats`` ``{"grad_norm", "lr"}`` as 0-d tensors."""
     count = state["count"] + 1
     gl = tree_leaves(grads)
 
@@ -107,7 +125,7 @@ def apply_updates(cfg: OptConfig, params, grads, state):
         else:
             gl = [g.to(torch.bfloat16) for g in gl]
 
-    gnorm = global_norm(gl)
+    gnorm = global_norm(gl, replicas)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, count)

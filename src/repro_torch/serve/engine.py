@@ -89,10 +89,11 @@ from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import MetaGenerator, tree_map
 from repro_torch.resilience import degrade
 from repro_torch.sharding import comm
+from repro_torch.sharding.context import check_dense_mesh
 from repro_torch.sharding.rules import (ShardingOptions, axis_size,
                                         batch_pspec, cache_axes_for,
-                                        cache_pspecs, local_shape,
-                                        local_shard, param_pspecs, pspec_for)
+                                        cache_pspecs, local_params,
+                                        param_pspecs, pspec_for)
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import (ProgramStore, input_dtypes,
                                        precompile_grid, prompt_positions,
@@ -125,29 +126,10 @@ def _mesh_device(mesh, device) -> torch.device:
 def _check_tp(cfg, mesh, opts: ShardingOptions) -> None:
     """Refuse what tensor-parallel serving does not run yet, and a mesh
     whose backend cannot run the collectives on the rank's tensors."""
-    if not hasattr(mesh, "group"):
-        raise TypeError("a tensor-parallel engine runs on a process mesh "
-                        "(launch/mesh.py::make_mesh); a mesh description "
-                        "has no ranks")
-    if mesh.backend == "nccl" and mesh.device.type != "cuda":
-        raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
-                           f"{mesh.device}")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: tensor-parallel serving "
-                                  f"runs the dense family only, not "
-                                  f"{cfg.family!r}")
-    if opts.fsdp or opts.serve_2d_tp or opts.sequence_parallel:
-        raise NotImplementedError("tensor-parallel serving with FSDP, 2D "
-                                  "tensor parallelism or sequence "
-                                  "parallelism is not ported")
-    tp = axis_size(mesh, opts.tp_axis) if opts.tp_axis in mesh.shape else 1
-    for ax, heads in (("qheads", cfg.num_heads), ("kvheads",
-                                                  cfg.num_kv_heads)):
-        split = pspec_for((ax,), (heads * cfg.head_dim,), mesh,
-                          opts)[0] == opts.tp_axis
-        if split and heads % tp:
-            raise ValueError(f"{cfg.name}: {heads} {ax} do not split into "
-                             f"whole heads over {tp} ranks")
+    check_dense_mesh(cfg, mesh, opts, "tensor-parallel serving")
+    if opts.fsdp:
+        raise NotImplementedError("tensor-parallel serving with FSDP is "
+                                  "not ported")
 
 
 def resolve_device(device) -> torch.device:
@@ -452,26 +434,11 @@ class Engine:
     # -- tensor-parallel placement --------------------------------------
 
     def _local_params(self, params, axes, shapes):
-        """This rank's pieces of ``params`` under ``param_pspecs``: a leaf
-        of the full shape is cut (``local_shard``), a leaf already of the
-        piece's shape is kept, anything else raises."""
-        specs = param_pspecs(axes, shapes, self.mesh, self.opts)
-
-        def cut(p, full, spec, path):
-            if isinstance(p, dict):
-                return {k: cut(p[k], full[k], spec[k], path + (k,))
-                        for k in p}
-            fs = tuple(full.shape)
-            ls = local_shape(fs, spec, self.mesh)
-            if tuple(p.shape) == ls:
-                return p
-            if tuple(p.shape) == fs:
-                return local_shard(p, spec, self.mesh, self.mesh.coords)
-            raise ValueError(f"{'/'.join(path)}: shape {tuple(p.shape)} is "
-                             f"neither the full {fs} nor this rank's piece "
-                             f"{ls} under {spec}")
-
-        return cut(params, shapes, specs, ())
+        """This rank's pieces of ``params`` under ``param_pspecs``
+        (``rules.local_params``)."""
+        return local_params(params, param_pspecs(axes, shapes, self.mesh,
+                                                 self.opts), shapes,
+                            self.mesh)
 
     def _check_cache_layout(self, bucket: int) -> None:
         """Raise where ``cache_pspecs`` splits a cache of ``bucket`` along

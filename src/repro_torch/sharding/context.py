@@ -11,9 +11,14 @@ rank-local, so :func:`shard_act` returns its input, and the collectives
 of tensor parallelism run explicitly at their sites: :func:`tp_sum`
 after a row-parallel projection (``wo``, ``w_down``) and after the
 vocab-sharded token lookup, :func:`tp_gather` of the vocab-sharded
-logits.  With no context set (unit tests, single-device serving) or on a
-mesh description without process groups (the install sweep's), every one
-of them is a no-op.
+logits.  Where autograd records (training), those two run their
+``sharding/comm.py`` forms with gradients, and :func:`tp_copy` (the
+identity, its gradient all-reduced) stands at the input of each
+column-parallel group: q/k/v, ``w_gate``/``w_up``, the head.  Under
+``torch.inference_mode`` (serving) :func:`tp_copy` is the identity and
+the others the plain collectives.  With no context set (unit tests,
+single-device serving) or on a mesh description without process groups
+(the install sweep's), every one of them is a no-op.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import contextlib
 import contextvars
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.sharding.rules import (P, ShardingOptions, axis_size,
                                         pspec_for)
@@ -149,26 +156,80 @@ def tp_split(axis: str, dim: int) -> bool:
                      ctx.opts)[0] == ctx.opts.tp_axis
 
 
+def _records(x) -> bool:
+    """Whether autograd records through ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def tp_copy(x, axis: str, dim: int):
+    """The input of a column-parallel group whose output dim (logical
+    ``axis``, full size ``dim``) is split over the TP group: ``x`` itself
+    forward, and where autograd records, its gradient (each rank's
+    partial, from its columns) all-reduced backward (Megatron's *f*)."""
+    if not (tp_split(axis, dim) and _records(x)):
+        return x
+    from repro_torch.sharding import comm
+    return comm.tp_copy(x, tp_group())
+
+
 def tp_sum(x, axis: str, dim: int):
     """The partial sums of a row-parallel product whose contraction dim
     (logical ``axis``, full size ``dim``) is split over the TP group,
-    summed in place (``wo`` over the heads, ``w_down`` over ``mlp``, the
-    vocab-sharded token lookup); ``x`` itself where the dim is whole."""
+    summed (``wo`` over the heads, ``w_down`` over ``mlp``, the
+    vocab-sharded token lookup): in place under serving, with the
+    gradient passed through where autograd records (*g*); ``x`` itself
+    where the dim is whole."""
     if not tp_split(axis, dim):
         return x
     from repro_torch.sharding import comm
+    if _records(x):
+        return comm.tp_sum(x, tp_group())
     return comm.all_reduce(x, tp_group())
 
 
 def tp_gather(x, axis: str, dim: int):
     """A tensor whose last dim is this rank's piece of a split dim
     (logical ``axis``, full size ``dim``: the vocab-sharded logits)
-    gathered to full width over the TP group; ``x`` itself where the dim
+    gathered to full width over the TP group (where autograd records, the
+    gradient of the rank's piece flows back); ``x`` itself where the dim
     is whole."""
     if not tp_split(axis, dim):
         return x
     from repro_torch.sharding import comm
+    if _records(x):
+        return comm.tp_gather(x, tp_group(), dim=-1)
     return comm.all_gather(x, tp_group(), dim=-1)
+
+
+def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str) -> dict:
+    """Refuse, for ``what`` (serving or training), a mesh description with
+    no ranks, a backend that cannot run the collectives on the rank's
+    tensors, a family other than the dense one, 2D tensor parallelism or
+    sequence parallelism, and heads the TP axis would split unevenly.
+    Returns which head dims the rules split ({"qheads": bool,
+    "kvheads": bool})."""
+    if not hasattr(mesh, "group"):
+        raise TypeError(f"{what} runs on a process mesh (launch/mesh.py::"
+                        f"make_mesh); a mesh description has no ranks")
+    if mesh.backend == "nccl" and mesh.device.type != "cuda":
+        raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
+                           f"{mesh.device}")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
+                                  f"family only, not {cfg.family!r}")
+    if opts.serve_2d_tp or opts.sequence_parallel:
+        raise NotImplementedError(f"{what} with 2D tensor parallelism or "
+                                  f"sequence parallelism is not ported")
+    tp = axis_size(mesh, opts.tp_axis) if opts.tp_axis in mesh.shape else 1
+    split = {}
+    for ax, heads in (("qheads", cfg.num_heads), ("kvheads",
+                                                  cfg.num_kv_heads)):
+        split[ax] = pspec_for((ax,), (heads * cfg.head_dim,), mesh,
+                              opts)[0] == opts.tp_axis
+        if split[ax] and heads % tp:
+            raise ValueError(f"{cfg.name}: {heads} {ax} do not split into "
+                             f"whole heads over {tp} ranks")
+    return split
 
 
 def tp_rank() -> int:

@@ -159,6 +159,15 @@ def _packed_pspec(axes: tuple, leaf, mesh, opts: ShardingOptions) -> P:
     return P(*assign)
 
 
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (nested dicts of :class:`P`) in the order
+    of ``models/param.py::tree_leaves`` (dict keys sorted at every level;
+    a spec is a tuple, which ``tree_leaves`` would walk into)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [specs]
+
+
 def param_pspecs(axes_tree, shapes_tree, mesh, opts: ShardingOptions):
     """The spec tree of a params tree (tensors, ``meta`` tensors or
     PackedTensor leaves); ``axes_tree`` leads the walk."""
@@ -303,3 +312,22 @@ def local_shard(tensor, spec, mesh, coords: dict):
         import torch
         return piece.clone(memory_format=torch.contiguous_format)
     return piece.copy()
+
+
+def local_params(params, specs, full, mesh, path: tuple = ()):
+    """This rank's pieces of a params tree under its spec tree: a leaf of
+    its full shape (``full``'s, any device, ``meta`` included) is cut
+    (:func:`local_shard`), a leaf already of the piece's shape is kept,
+    anything else raises."""
+    if isinstance(params, dict):
+        return {k: local_params(params[k], specs[k], full[k], mesh,
+                                path + (k,)) for k in params}
+    fs = tuple(full.shape)
+    ls = local_shape(fs, specs, mesh)
+    if tuple(params.shape) == ls:
+        return params
+    if tuple(params.shape) == fs:
+        return local_shard(params, specs, mesh, mesh.coords)
+    raise ValueError(f"{'/'.join(path)}: shape {tuple(params.shape)} is "
+                     f"neither the full {fs} nor this rank's piece {ls} "
+                     f"under {specs}")
