@@ -129,7 +129,7 @@ printing JSON lines:
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
                 greedy steps;
-8. serve.glm4 — GLM-4-9B at full width and full depth (40 layers), bf16,
+8. serve.glm4 — GLM-4-9B at full width, 20 of its 40 layers, bf16,
                 seeded random weights, ``Engine(max_batch=2)``: groups of 1
                 and 2 with 2048-token prompts and 8 greedy steps; its
                 unpacked wk/wv run the tall-A kernel at prefill;
@@ -160,14 +160,14 @@ printing JSON lines:
                 Poisson trace of the 16 requests at half the request rate
                 the queue sustained: TTFT and queue delay percentiles,
                 every stream completed, none rejected;
-12. serve.olmoe — OLMoE-1B-7B at its published dims, 8 of its 16 layers (64
+12. serve.olmoe — OLMoE-1B-7B at its published dims, 4 of its 16 layers (64
                 experts, top-8), bf16, seeded random weights,
                 ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
                 256-token prompts and 16 greedy steps; prints
                 ``param_count`` / ``active_param_count`` and the profile
                 of a bucket-4 step with the ``moe_experts`` and
                 ``moe_dispatch`` families;
-13. queue.olmoe — OLMoE-1B-7B (8 layers) on a queue engine of its own (4
+13. queue.olmoe — OLMoE-1B-7B (4 layers) on a queue engine of its own (4
                 slots): 8 ragged requests through ``serve_queue`` eagerly
                 and then graphed: tokens bit-equal, 0 cells captured by
                 traffic, 0 misses;
@@ -180,13 +180,13 @@ printing JSON lines:
                 apart at the 2 x 512 group beside its bound and SDPA, and
                 held to SDPA), its decode the absorbed form over the
                 compressed cache;
-15. serve.mamba2 — Mamba2-780m at full width, 24 of its 48 layers, bf16,
+15. serve.mamba2 — Mamba2-780m at full width, 12 of its 48 layers, bf16,
                 ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
                 256-token prompts and 16 steps; every Mamba leaf, and the
                 tied head as a packed copy of the table's transpose, packed
                 at load; no pack launch and no flash launch on the path;
-16. serve.zamba2 — Zamba2-2.7B at full width, 24 of its 54 Mamba2
-                layers (the shared attention + MLP block applied 4
+16. serve.zamba2 — Zamba2-2.7B at full width, 12 of its 54 Mamba2
+                layers (the shared attention + MLP block applied 2
                 times), bf16,
                 ``Engine(max_batch=2)``: groups of 1 and 2 with 2048-token
                 prompts and 8 steps; every leaf packed at load, no pack
@@ -202,7 +202,8 @@ printing JSON lines:
                 decode crosses slot 4095 -> 0 at position 4096, checked
                 on each bucket's cache), 16 steps; windowed attention
                 takes the chunked body: flash must not launch;
-18. serve.llava — the LLaVA-NeXT Mistral-7B backbone whole (32 layers),
+18. serve.llava — the LLaVA-NeXT Mistral-7B backbone at full width, 16
+                of its 32 layers,
                 groups of 1 and 2 with 2880 seeded image embeddings and
                 192 tokens (3072 positions: flash at D 128 on 32 query /
                 8 KV heads), 16 steps;
@@ -295,7 +296,36 @@ printing JSON lines:
                 to its eager run, a graphed group equal to an eager one.
                 ``python3 chip_smoke.py --phase tp`` runs env, build and
                 this phase alone;
-25. train.dist — sharded training (``train/`` on a process mesh,
+25. tp2d      — 2D weight-stationary tensor parallelism and FSDP serving
+                (``ShardingOptions(fsdp=True, serve_2d_tp=True)`` and
+                ``ShardingOptions(fsdp=True)`` through ``Engine(mesh=,
+                opts=)``): ``install_arch(mesh=, opts=)`` for both modes
+                at ``data=2,model=2``; each per-rank skinny leaf (the 2D
+                pieces at K/2 and m 1, 4, FSDP's gathered weights at m 1,
+                2) and each pack held against its plain version; four
+                ranks (this script with ``--tp2d-worker``) share the card
+                over gloo and serve qwen1.5-4b at full width cut to 2
+                layers, bf16, seeded QKV biases and norm scales, lookup
+                only, in each mode: groups of 1, 2 and 4 x 256 tokens
+                (bucket 1 puts the cache's sequence on ``data``, 2 and 4
+                its rows), 4 decode steps, then a 3-request queue (the
+                ``tp2d`` main path: counts zeroed just before, read just
+                after); each decode call's collectives equal to the
+                contract from the shapes (``tp2d_contract``), the 2D
+                decode moving fewer bytes than FSDP's at every bucket,
+                each rank holding only its pieces, 0 misses, a healthy
+                engine, skinny and flash launches; rank 0's logits
+                within ``TP2D_LOGITS_TOL`` of a one-rank engine on the
+                same weights in both modes, and a planted fault (layer
+                0's ``w_gate`` sum over ``data`` skipped) at least
+                ``TP2D_PLANTED`` x outside it; then in this process NCCL
+                at world size 1 (``data=1,model=1``, 2D): the grid
+                captured with the k-split sums, the gathers and the TP
+                sums inside, every cell bit-equal to its eager run, a
+                graphed group equal to an eager one, the decode call's
+                collectives the contract.  ``python3 chip_smoke.py
+                --phase tp2d`` runs env, build and this phase alone;
+26. train.dist — sharded training (``train/`` on a process mesh,
                 ``sharding/comm.py``'s collectives with gradients,
                 ``launch/specs.py``), which runs no hand-written kernel:
                 two ranks (this script with ``--train-dist-worker``) share
@@ -322,11 +352,12 @@ printing JSON lines:
                 train.dist`` runs this phase alone.
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m,
-Zamba2-2.7B and h2o-danube-1.8b run at half their depth
-(``HALF_DEPTH``), so that with the paths of LLaVA-NeXT, whisper-base
-and llama3-405b, tp and train.dist the script stays inside its time
-limit (each model fits the card whole; the cut only shortens the run,
-every width and kernel shape as at full depth).
+Zamba2-2.7B, h2o-danube-1.8b, GLM-4-9B and the LLaVA-NeXT backbone run
+cut in depth (``HALF_DEPTH``: half, a quarter for OLMoE, Mamba2 and
+Zamba2), so that with the paths of
+whisper-base and llama3-405b, tp, tp2d and train.dist the script stays
+inside its time limit (each model fits the card whole; the cut only
+shortens the run, every width and kernel shape as at full depth).
 Every serve and queue path (7-20) must end with a healthy engine:
 ``Engine.health_report()`` with 0 degradations (no ladder demotion) and
 no armed failpoint (the ``.health`` lines; each serve line prints its
@@ -1202,7 +1233,7 @@ def tall_cases(timer, g, worst):
 # serve.deepseek path checks it)
 PACK_SHAPES = {"prefill": (1, 2048, 4096, 256, 128),
                "decode": (1, 4096, 256, 256, 128),
-               "load": (40, 4096, 13696, 128, 128),
+               "load": (20, 4096, 13696, 128, 128),
                "load.deepseek": (2, 16384, 5120, 16384, 128)}
 
 
@@ -1569,7 +1600,8 @@ def set_pack_shapes():
     from repro_torch.core.plan import Problem
     from repro_torch.core.tsmm import prepack_blocks
     for case, (L, k, n), what in (
-            ("load", (40, 4096, 13696), "GLM-4-9B's w_gate"),
+            ("load", (HALF_DEPTH["glm4_9b"]["num_layers"], 4096, 13696),
+             "GLM-4-9B's w_gate"),
             ("load.deepseek", (2, 16384, 5120), "DeepSeek-V2's wo")):
         blocks = prepack_blocks((1, 2), k, n, "bfloat16", device="cuda")
         if blocks is None:
@@ -2123,14 +2155,19 @@ def encdec_path(path, eng, cfg, launches):
     return extra, set()
 
 
-# four models' serve and queue paths at half their depth, so the script
-# ends well inside its time limit with the ZOO paths (each model fits
-# the card whole; Zamba2 keeps whole groups of 6 Mamba layers)
+# seven models' serve and queue paths cut in depth (qwen1.5-4b, GLM-4-9B,
+# h2o-danube-1.8b and the LLaVA-NeXT backbone to half, OLMoE-1B-7B,
+# Mamba2-780m and Zamba2-2.7B to a quarter since PR 29), so the script
+# ends well inside its time limit with the ZOO paths, tp, tp2d and
+# train.dist (each model fits the card whole; Zamba2 keeps whole groups of
+# 6 Mamba layers)
 HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 20},
-                 "olmoe_1b_7b": {"num_layers": 8},
-                 "mamba2_780m": {"num_layers": 24},
-                 "zamba2_2_7b": {"num_layers": 24},
-                 "h2o_danube_1_8b": {"num_layers": 12}}
+              "glm4_9b": {"num_layers": 20},
+              "olmoe_1b_7b": {"num_layers": 4},
+              "mamba2_780m": {"num_layers": 12},
+              "zamba2_2_7b": {"num_layers": 12},
+              "h2o_danube_1_8b": {"num_layers": 12},
+              "llava_next_mistral_7b": {"num_layers": 16}}
 
 
 # the serve paths: (arch, cut of the published config, max batch, prompt,
@@ -2144,7 +2181,8 @@ SERVE = {
                   max_batch=4, prompt=256,
                   steps=16, groups=(1, 3, 4), profile_batch=4, flash=True,
                   hooks={"load": packed_load}),
-    "serve.glm4": dict(arch="glm4_9b", cut={}, max_batch=2, prompt=2048,
+    "serve.glm4": dict(arch="glm4_9b", cut=HALF_DEPTH["glm4_9b"],
+                       max_batch=2, prompt=2048,
                        steps=8, groups=(1, 2), profile_batch=1, flash=True,
                        hooks={"load": glm_load, "group": glm_group,
                               "path": glm_path}),
@@ -2180,9 +2218,11 @@ SERVE = {
                          steps=16, groups=(1, 2), profile_batch=1,
                          flash=False, hooks={"load": packed_load,
                                              "path": window_path}),
-    # the LLaVA-NeXT backbone whole: 2880 seeded image embeddings + 192
-    # tokens = 3072 positions, flash at D 128 on 32 query / 8 KV heads
-    "serve.llava": dict(arch="llava_next_mistral_7b", cut={}, max_batch=2,
+    # the LLaVA-NeXT backbone at half depth: 2880 seeded image embeddings
+    # + 192 tokens = 3072 positions, flash at D 128 on 32 query / 8 KV
+    # heads
+    "serve.llava": dict(arch="llava_next_mistral_7b",
+                        cut=HALF_DEPTH["llava_next_mistral_7b"], max_batch=2,
                         prompt=192, steps=16, groups=(1, 2), profile_batch=1,
                         flash=True, hooks={"load": packed_load,
                                            "path": flash_path}),
@@ -3705,7 +3745,8 @@ def tp_nccl(out_dir: str) -> dict:
         st = store.stats()
         eng.programs = ProgramStore(model, device="cuda", mesh=mesh,
                                     opts=eng.opts, capture=False,
-                                    cache_init=eng._local_cache)
+                                    cache_init=eng._local_cache,
+                                    layout_of=eng.cache_layout)
         eager = eng.generate(group, 4)
         dec = [p for p in store.programs()
                if p.kind == "decode" and p.bucket == 1]
@@ -3878,6 +3919,758 @@ def phase_tp():
         {f"tp.rank{r['rank']}.load": r["load"]["launches"] for r in ranks}, \
         {f"tp.rank{r['rank']}.paper.n{p['n']}": p["launches"]
          for r in ranks for p in r["paper"]}, shard_cases
+
+
+# ---------------------------------------------------------------------------
+# tp2d: 2D weight-stationary tensor parallelism and FSDP serving
+# ---------------------------------------------------------------------------
+
+TP2D_LAYERS = 2                   # qwen1.5-4b at its published widths
+# bucket 1: the rules put the cache's sequence on ``data``; 2 and 4 its
+# rows
+TP2D_BUCKETS = (1, 2, 4)
+TP2D_PROMPT = 256
+TP2D_MAX_LEN = 512
+TP2D_STEPS = 4
+TP2D_QUEUE = ((200, 4), (256, 3), (64, 5))
+TP2D_MODES = {"tp2d": dict(fsdp=True, serve_2d_tp=True),
+              "fsdp": dict(fsdp=True)}
+# rank 0's bf16 logits against the one-rank engine's on the same weights,
+# both modes: each group's prefill logits (every row), and its first decode
+# step's logits on every row whose decode input (the prefill's argmax)
+# agrees with the one-rank engine's: where bf16 rounds two top logits
+# within the bound of each other the argmax may differ, and the prefill
+# logits hold that row (the first card run met one such row at bucket 4,
+# in both modes alike).  Set before the first card run (PERF.md, PR 29's
+# prediction): 2D tensor parallelism
+# rounds each k-split partial (wq, wk, wv, w_gate, w_up, the head) to bf16
+# before the data group's sum, on top of the TP sums PR 27 bounded at
+# 0.25 (its sound run 0.0625), so the same absolute bound, with no term
+# relative to the logit; the planted fault (layer 0's w_gate sum over
+# the data group skipped) must land at least TP2D_PLANTED x outside it
+TP2D_LOGITS_TOL = dict(rtol=0.0, atol=0.25)
+TP2D_PLANTED = 10.0
+# qwen1.5-4b's packed leaves, (rows, cols, the dim FSDP puts on ``data``):
+# a rank's 2D piece is (rows/2, cols/2); FSDP gathers its piece over
+# ``data`` into (rows, cols/2) (wq, w_gate, the head) or (rows/2, cols)
+# (wo, w_down: their rows on ``model``)
+TP2D_LEAVES = {"wq": (2560, 2560, "rows", True, None),
+               "wo": (2560, 2560, "cols", False, None),
+               "w_gate": (2560, 6912, "rows", False, "silu"),
+               "w_down": (6912, 2560, "cols", False, None),
+               "head": (2560, 151936, "rows", False, None)}
+# 2D: every rank computes the bucket (decode 1 and 4 rows, the 4 x 256
+# prefill); FSDP: a data line's rows (decode at buckets 1 and 4, its 2 x
+# 256 prefill rows of bucket 4)
+TP2D_SHARD_M = (1, 4, 4 * TP2D_PROMPT)
+TP2D_FSDP_M = (1, 2, 2 * TP2D_PROMPT)
+
+
+def tp2d_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen1_5_4b"),
+                               num_layers=TP2D_LAYERS)
+
+
+def tp2d_params(model, device):
+    """Seeded params with the QKV biases and the norm scales seeded away
+    from their init (zeros, ones): a bias added once per data rank, or a
+    norm piece gathered out of order, would show."""
+    import torch
+    params, axes = model.init(torch.Generator(device=device).manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(29)
+    att = params["layers"]["attn"]
+    for k in ("bq", "bk", "bv"):
+        att[k] = (0.1 * torch.randn(att[k].shape, generator=g,
+                                    device=device)).to(att[k].dtype)
+    for t in (params["layers"]["ln1"], params["layers"]["ln2"],
+              params["final_norm"]):
+        t.copy_(1 + 0.1 * torch.randn(t.shape, generator=g, device=device))
+    return params, axes
+
+
+def tp2d_tokens(cfg, b: int, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(200 + b)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, TP2D_PROMPT),
+                                    generator=g, dtype=torch.int32)
+            .to(device)}
+
+
+def tp2d_queue(cfg):
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(29)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=m, rid=i)
+            for i, (n, m) in enumerate(TP2D_QUEUE)]
+
+
+def _ring(op: str, n: int) -> float:
+    if n <= 1:
+        return 0.0
+    return 2 * (n - 1) / n if op == "all-reduce" else (n - 1) / n
+
+
+def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
+                  model: int, itemsize: int) -> dict:
+    """One decode call's collectives on a rank, from the shapes and the
+    rank's packed block shapes (``packed``: the engine's pack report), as
+    ``(op, group, tensor bytes)`` summed into the reference's accounting.
+
+    Both modes: each norm's scale gathered over ``data`` (2 a layer and
+    the final one), the looked-up embedding's columns gathered over
+    ``data`` after the lookup's sum over ``model``, the logits gathered
+    over ``model``; where the data axis cannot split the bucket (and has
+    more than one rank) the cache's sequence lies on ``data``, and each
+    layer's attention gathers its fp32 (max, sum, weighted V) over it.
+    2D: every rank computes the bucket; a sum over ``data`` of each
+    k-split product (wq, wk, wv, w_gate, w_up, the head); wo and w_down
+    summed over ``model``, their columns gathered over ``data``; with the
+    cache's rows on ``data`` the attention output gathered over it.
+    FSDP: a data line computes its rows (all of a bucket it cannot
+    split); the ids gathered over ``data`` before the lookup; every packed
+    weight gathered over ``data`` before its product; wo and w_down summed
+    over ``model``."""
+    d, q = cfg.d_model, cfg.num_heads * cfg.head_dim
+    kv, f, v, L = (cfg.num_kv_heads * cfg.head_dim, cfg.d_ff,
+                   cfg.vocab_size, cfg.num_layers)
+    e = itemsize
+    split = data > 1 and bucket % data == 0
+    seq = data > 1 and not split
+    rows = bucket // data if mode == "fsdp" and split else bucket
+    partials = (data * rows * (cfg.num_heads // model)
+                * (cfg.head_dim + 2) * 4)
+    ops = []                                   # (op, group size, bytes)
+
+    def ar(n, b):
+        ops.append(("all-reduce", n, b))
+
+    def ag(n, b):
+        ops.append(("all-gather", n, b))
+
+    if mode == "tp2d":
+        ar(model, rows * d // data * e)
+        ag(data, rows * d * e)
+        for _ in range(L):
+            ag(data, d * e)                                  # ln1
+            for w in (q, kv, kv):
+                ar(data, rows * w // model * e)              # wq, wk, wv
+            if seq:
+                ag(data, partials)
+            elif split:
+                ag(data, rows * q // model * e)              # attn output
+            ar(model, rows * d // data * e)                  # wo
+            ag(data, rows * d * e)
+            ag(data, d * e)                                  # ln2
+            ar(data, rows * f // model * e)                  # w_gate
+            ar(data, rows * f // model * e)                  # w_up
+            ar(model, rows * d // data * e)                  # w_down
+            ag(data, rows * d * e)
+        ag(data, d * e)                                      # final norm
+        ar(data, rows * v // model * e)                      # the head
+        ag(model, rows * v * e)                              # the logits
+    else:
+        def blocks(leaf):
+            n = 1
+            for s in packed[leaf][-4:]:
+                n *= s
+            return n * data * e
+        ag(data, data * rows * 4)                            # the ids
+        ar(model, data * rows * d // data * e)
+        ag(data, data * rows * d * e)
+        for _ in range(L):
+            ag(data, d * e)
+            for w in ("wq", "wk", "wv"):
+                ag(data, blocks("layers/attn/" + w))
+            if seq:
+                ag(data, partials)
+            ag(data, blocks("layers/attn/wo"))
+            ar(model, rows * d * e)
+            ag(data, d * e)
+            for w in ("w_gate", "w_up", "w_down"):
+                ag(data, blocks("layers/mlp/" + w))
+            ar(model, rows * d * e)
+        ag(data, d * e)
+        ag(data, blocks("embed/head"))
+        ag(model, rows * v * e)
+    out = {}
+    for op, n, b in ops:
+        acc = out.setdefault(op, {"count": 0, "bytes_moved": 0.0,
+                                  "tensor_bytes": 0.0})
+        acc["count"] += 1
+        acc["bytes_moved"] += b * _ring(op, n)
+        acc["tensor_bytes"] += b
+    return out
+
+
+def tp2d_shard_cases() -> list:
+    """The kernels of the tp2d path at the per-rank shapes its ranks give
+    them.  Each leaf of ``TP2D_LEAVES`` is packed as a rank packs it in
+    each mode (``prepack_for`` with the engine's problems, the plans
+    ``install_arch(mesh=, opts=)`` wrote), each pack bit-equal to
+    ``pack_ref``; then ``tsmm_dot`` on layer 0's piece: 2D, the rank's
+    (K/2, N/2) piece at ``TP2D_SHARD_M`` rows with no epilogue (a k-split
+    product's bias and activation run after the data group's sum); FSDP,
+    the two data ranks' pieces gathered as the all-gather concatenates
+    them, at ``TP2D_FSDP_M`` rows with the leaf's epilogue; each against
+    the same call on the ladder's plain rung (the planned rung refused by
+    a failpoint, no kernel launched)."""
+    import logging
+
+    import torch
+    from repro_torch.core import registry
+    from repro_torch.core.evaluator import Timer
+    from repro_torch.core.packing import pack
+    from repro_torch.core.tsmm import prepack_for, tsmm_dot
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.resilience import degrade, failpoints
+
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(29)
+    bf = torch.bfloat16
+    misses = registry.stats()["misses"]
+    out = []
+
+    def held(leaf, mode, x, pk, w, bias, act):
+        def kern():
+            return tsmm_dot(x, pk, bias=bias, act=act)
+
+        def plain():
+            failpoints.configure({"kernels.lower.skinny": "raise"})
+            logging.disable(logging.WARNING)
+            try:
+                with degrade.use(degrade.DegradeStats()):
+                    return tsmm_dot(x, pk, bias=bias, act=act)
+            finally:
+                logging.disable(logging.NOTSET)
+                failpoints.reset()
+
+        m, k = x.shape
+        n = pk.orig_cols
+        before = dict(cuda.launches)
+        with Designs() as d:
+            got = kern()
+        ran = {kk: c - before.get(kk, 0) for kk, c in cuda.launches.items()
+               if c != before.get(kk, 0)}
+        before = dict(cuda.launches)
+        want = plain()
+        torch.cuda.synchronize()
+        if dict(cuda.launches) != before or len(ran) != 1:
+            raise AssertionError(f"tp2d {mode} {leaf} m={m}: the kernel "
+                                 f"call launched {ran}, or the plain rung "
+                                 f"launched one")
+        name = next(iter(ran))
+        if design_of(d.ran) not in ("wgmma", "stream"):
+            raise AssertionError(f"tp2d {mode} {leaf} m={m}: {name} ran "
+                                 f"{d.ran}")
+        ok, err = within(got, want, **BF16_TOL)
+        if not ok:
+            raise AssertionError(f"{name} tp2d {mode} {leaf} m={m} K={k} "
+                                 f"N={n}: max |err| {err} outside {BF16_TOL}")
+        moved = (2 * (m * k + k * n + (n if bias is not None else 0))
+                 + got.numel() * got.element_size())
+        bound_ms, bound_by = bound(moved, 2 * m * k * n)
+        del got, want
+        return {"kernel": name, "mode": f"tp2d.{mode}", "tp_leaf": leaf,
+                "design": design_of(d.ran), "m": m, "K": k, "N": n,
+                "bk": pk.blocks.shape[-2], "bn": pk.blocks.shape[-1],
+                "bias": bias is not None, "act": act, "max_abs_err": err,
+                "tol": BF16_TOL, "ms": timer(kern, iters=3),
+                "device_ms": timer(kern, iters=3, device=True),
+                "plain_ms": timer(plain, iters=3),
+                "library_ms": timer(lambda: torch.matmul(x, w), iters=3),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def packed(leaf, mode, w, pk):
+        bk, bn = pk.blocks.shape[-2:]
+        if not torch.equal(pk.blocks, ref.pack_ref(w, bk, bn)):
+            raise AssertionError(f"pack_blocks tp2d {mode} {leaf} "
+                                 f"{tuple(w.shape)} by ({bk}, {bn}): not "
+                                 f"bit-equal to pack_ref")
+        bound_ms, bound_by = bound(w.numel() * 2 + pk.blocks.numel() * 2, 0)
+        return {"kernel": "pack_blocks", "mode": f"tp2d.{mode}_{leaf}",
+                "tp_leaf": leaf, "design": "", "M": w.shape[-2],
+                "K": w.shape[-1], "bm": bk, "bk": bn,
+                "padded_cols": pk.blocks.shape[-3] * bn, "max_abs_err": 0.0,
+                "tol": "bit-equal",
+                "ms": timer(lambda: pack(w, bk, bn), iters=3),
+                "device_ms": timer(lambda: pack(w, bk, bn), iters=3,
+                                   device=True),
+                "plain_ms": timer(lambda: ref.pack_ref(w, bk, bn), iters=3),
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    for leaf, (rows, cols, on_data, has_bias, act) in TP2D_LEAVES.items():
+        head = leaf == "head"
+        # the rank's 2D piece: (rows/2, cols/2)
+        w = (torch.randn((rows // 2, cols // 2), generator=g, device="cuda")
+             / rows ** 0.5).to(bf)
+        with Designs() as d:
+            pk = prepack_for(TP2D_BUCKETS, w, pad=head, num_shards=4)
+        if pk is None:
+            raise AssertionError(f"tp2d {leaf}: the 2D piece stays unpacked")
+        out.append({**packed(leaf, "2d", w, pk), "design": design_of(d.ran)})
+        for m in TP2D_SHARD_M:
+            x = torch.randn((m, rows // 2), generator=g, device="cuda").to(bf)
+            # a k-split leaf's product runs without its epilogue
+            ep = on_data != "rows"
+            out.append(held(leaf, "2d", x, pk, w,
+                            None, act if ep else None))
+            del x
+        del w, pk
+        # FSDP: the gathered (rows, cols/2) or (rows/2, cols), cut in two
+        # along the data axis's dim, each half packed as its rank packs it
+        shape = (rows, cols // 2) if on_data == "rows" else (rows // 2, cols)
+        dim = 0 if on_data == "rows" else 1
+        full = (torch.randn(shape, generator=g, device="cuda")
+                / shape[0] ** 0.5).to(bf)
+        halves = [t.contiguous() for t in full.chunk(2, dim=dim)]
+        with Designs() as d:
+            pks = [prepack_for(TP2D_FSDP_M[:2], t, pad=head, num_shards=2,
+                               plan_shape=shape) for t in halves]
+        out.append({**packed(leaf, "fsdp", halves[0], pks[0]),
+                    "design": design_of(d.ran)})
+        blocks = torch.cat([p.blocks for p in pks], dim=-4 if dim == 0 else -3)
+        gathered = dataclasses.replace(pks[0], blocks=blocks,
+                                       orig_rows=shape[0],
+                                       orig_cols=(pks[0].orig_cols if dim == 0
+                                                  else shape[1]))
+        bias = ((0.1 * torch.randn((shape[1],), generator=g, device="cuda"))
+                .to(bf) if has_bias else None)
+        for m in TP2D_FSDP_M:
+            x = torch.randn((m, shape[0]), generator=g, device="cuda").to(bf)
+            out.append(held(leaf, "fsdp", x, gathered, full, bias, act))
+            del x
+        del full, halves, pks, gathered, blocks
+        torch.cuda.empty_cache()
+    misses = registry.stats()["misses"] - misses
+    for c in out:
+        emit({"phase": "tp2d.kernels", **c})
+    if misses:
+        raise AssertionError(f"tp2d.kernels: {misses} registry misses after "
+                             f"install_arch(mesh=, opts=)")
+    return out
+
+
+def tp2d_planted(eng, cfg, device) -> dict:
+    """The control of the logits bound: each group's prefill and first
+    decode step with layer 0's ``w_gate`` partial products left unsummed
+    over the data group (every rank skips the same sum, so the ranks stay
+    in step).  A forward runs 5 k-split sums a layer and the head's."""
+    from repro_torch.core import tsmm
+    sound = tsmm._data_sum
+    calls = [0]
+    per_forward = 5 * cfg.num_layers + 1
+
+    def skip_layer0_gate(part, group):
+        i = calls[0]
+        calls[0] += 1
+        return part if i % per_forward == 3 else sound(part, group)
+
+    tsmm._data_sum = skip_layer0_gate
+    try:
+        out = {b: (eng.generate(tp2d_tokens(cfg, b, device), 0),
+                   eng.generate(tp2d_tokens(cfg, b, device), 1))
+               for b in TP2D_BUCKETS}
+    finally:
+        tsmm._data_sum = sound
+    if calls[0] != 3 * per_forward * len(TP2D_BUCKETS):
+        raise AssertionError(f"tp2d: the planted site ran {calls[0]} times")
+    return out
+
+
+def tp2d_serve(mesh, mode: str, model, cfg, params, axes) -> tuple:
+    """One mode's engine on ``mesh``: load, the groups and the queue (the
+    main path, counted), each group's first decode step, and (2D) the
+    planted fault.  Returns (the rank's results, the first steps, the
+    planted steps)."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import torch_dtype
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import ShardingOptions
+
+    dev = mesh.device
+    opts = ShardingOptions(**TP2D_MODES[mode])
+    res = {}
+    registry.reset_stats()
+    cuda.reset_launches()
+    _free(dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = Engine(model, params, axes, max_len=TP2D_MAX_LEN,
+                 buckets=TP2D_BUCKETS, max_prompt=TP2D_PROMPT,
+                 device=dev.type, mesh=mesh, opts=opts)
+    _sync(dev)
+    p = eng.params
+    res["load"] = {"seconds": time.perf_counter() - t0,
+                   "launches": dict(cuda.launches),
+                   "designs": dict(cuda.design_launches),
+                   "packed": {k: list(v) for k, v in eng.pack_report.items()}}
+    res["pieces"] = {"wq": list(p["layers"]["attn"]["wq"].shape),
+                     "tok": list(p["embed"]["tok"].shape),
+                     "ln1": list(p["layers"]["ln1"].shape)}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in TP2D_BUCKETS}
+    # the main path: counts zeroed just before, read just after
+    cuda.reset_launches()
+    comm.reset()
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    groups = {}
+    for b in TP2D_BUCKETS:
+        r = eng.generate(tp2d_tokens(cfg, b, dev), TP2D_STEPS)
+        groups[b] = {"prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
+                     "buckets": list(r.buckets),
+                     "tokens0": r.tokens[0].tolist(),
+                     "collectives": eng.collectives("decode", b),
+                     "contract": tp2d_contract(cfg, mode, b, eng.pack_report,
+                                               2, 2, itemsize)}
+    t0 = time.perf_counter()
+    results, stats = eng.serve_queue(tp2d_queue(cfg))
+    _sync(dev)
+    res["queue"] = {"seconds": time.perf_counter() - t0,
+                    "admitted": stats.admitted, "steps": stats.steps,
+                    "generated": stats.generated_tokens,
+                    "tokens": [q.tokens.tolist() for q in results]}
+    res["launches"] = dict(cuda.launches)
+    res["designs"] = dict(cuda.design_launches)
+    res["comm"] = collective_bytes(comm.records)
+    res["staged"] = sorted(set(staged_ops(comm.records)))
+    res["groups"] = groups
+    res["misses"] = registry.stats()["misses"]
+    hr = eng.health_report()
+    res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    firsts = {b: (eng.generate(tp2d_tokens(cfg, b, dev), 0),
+                  eng.generate(tp2d_tokens(cfg, b, dev), 1))
+              for b in TP2D_BUCKETS}
+    planted = tp2d_planted(eng, cfg, dev) if mode == "tp2d" else None
+    del eng, p
+    return res, firsts, planted
+
+
+def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
+    """One rank of the tp2d phase (``torch.distributed.run``): four ranks
+    on the one card as ``data=2,model=2``, over gloo.  Rank 0 then holds
+    each mode's first decode steps against a one-rank engine on the same
+    weights."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    try:
+        cfg = tp2d_cfg()
+        model = build_model(cfg)
+        params, axes = tp2d_params(model, mesh.device)
+        firsts, planted = {}, None
+        for mode in TP2D_MODES:
+            res[mode], firsts[mode], p = tp2d_serve(mesh, mode, model, cfg,
+                                                   params, axes)
+            planted = planted or p
+        cmp = {}
+        if mesh.rank == 0:
+            one = Engine(model, params, axes, max_len=TP2D_MAX_LEN,
+                         buckets=TP2D_BUCKETS, max_prompt=TP2D_PROMPT,
+                         device=mesh.device.type)
+            one.programs = ProgramStore(model, device=mesh.device,
+                                        capture=False)
+            for b in TP2D_BUCKETS:
+                pre = one.generate(tp2d_tokens(cfg, b, mesh.device), 0)
+                want = one.generate(tp2d_tokens(cfg, b, mesh.device), 1)
+                timed = one.generate(tp2d_tokens(cfg, b, mesh.device),
+                                     TP2D_STEPS)
+                row = {"rows": b, "ref_absmax": float(
+                           want.logits_last.float().abs().max()),
+                       "planted": tp2d_logits_vs(pre, want, *planted[b],
+                                                 every_row=True),
+                       "one_rank_per_token_s": timed.per_token_s,
+                       "one_rank_prefill_s": timed.prefill_s,
+                       "steps": TP2D_STEPS}
+                for mode in TP2D_MODES:
+                    agree = sum(x == y for x, y in zip(
+                        res[mode]["groups"][b]["tokens0"],
+                        timed.tokens[0].tolist()))
+                    row[mode] = {**tp2d_logits_vs(pre, want,
+                                                  *firsts[mode][b]),
+                                 "row0_tokens_agree": agree}
+                cmp[b] = row
+            del one
+        res["compare"] = cmp
+        del params
+    finally:
+        with open(os.path.join(out_dir, f"tp2d_rank{mesh.rank}.json"),
+                  "w") as f:
+            json.dump(res, f, default=str)
+        mesh.close()
+
+
+def tp2d_logits_vs(pre, want, got_pre, got, *, every_row=False) -> dict:
+    """A group's prefill logits (every row) and first decode step's
+    logits (the rows whose decode input agrees; ``every_row``: all of
+    them, for the planted control) against the one-rank engine's
+    (``pre``, ``want``), under ``TP2D_LOGITS_TOL``."""
+    import torch
+    ok_pre, err_pre = within(got_pre.logits_last, pre.logits_last,
+                             **TP2D_LOGITS_TOL)
+    same = got.tokens[:, 0] == want.tokens[:, 0]
+    if every_row:
+        same = torch.ones_like(same)
+    ok, err = (within(got.logits_last[same], want.logits_last[same],
+                      **TP2D_LOGITS_TOL) if bool(same.any())
+               else (True, 0.0))
+    return {"first_tokens_equal": int(same.sum()),
+            "prefill_max_abs_err": err_pre, "max_abs_err": err,
+            "within": ok and ok_pre,
+            "worst": max(err_pre, err)}
+
+
+def tp2d_nccl(out_dir: str) -> dict:
+    """The 2D engine at ``data=1,model=1`` under NCCL in this process:
+    its grid captured as CUDA graphs with the k-split sums, the gathers
+    and the TP sums inside (group size 1), every cell bit-equal to its
+    eager run, a graphed group equal to an eager one."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore, check_cells
+    from repro_torch.sharding.rules import ShardingOptions
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda", rank=0,
+                     world_size=1,
+                     init_file=os.path.join(out_dir, "nccl_store"))
+    try:
+        if mesh.backend != "nccl":
+            raise AssertionError(f"tp2d.nccl: backend {mesh.backend}")
+        cfg = tp2d_cfg()
+        model = build_model(cfg)
+        params, axes = tp2d_params(model, "cuda")
+        eng = Engine(model, params, axes, max_len=TP2D_MAX_LEN,
+                     buckets=TP2D_BUCKETS, max_prompt=TP2D_PROMPT,
+                     device="cuda", mesh=mesh,
+                     opts=ShardingOptions(**TP2D_MODES["tp2d"]))
+        del params
+        t0 = time.perf_counter()
+        eng.precompile()
+        capture_s = time.perf_counter() - t0
+        checks = check_cells(eng.programs)
+        group = tp2d_tokens(cfg, 4, "cuda")
+        graphed = eng.generate(group, 4)
+        store = eng.programs
+        st = store.stats()
+        eng.programs = ProgramStore(model, device="cuda", mesh=mesh,
+                                    opts=eng.opts, capture=False,
+                                    cache_init=eng._local_cache,
+                                    layout_of=eng.cache_layout)
+        eager = eng.generate(group, 4)
+        dec = [p for p in store.programs()
+               if p.kind == "decode" and p.bucket == 4]
+        out = {"backend": mesh.backend, "graphed": st["graphed"],
+               "cells": st["programs"], "captured": st["captured"],
+               "capture_s": capture_s,
+               "cells_bit_equal": sum(c["equal"] for c in checks),
+               "cells_checked": len(checks),
+               "group_tokens_equal": bool(torch.equal(graphed.tokens,
+                                                      eager.tokens)),
+               "group_logits_equal": bool(torch.equal(graphed.logits_last,
+                                                      eager.logits_last)),
+               "decode_collectives": store.collectives(dec[0])
+               if dec else None,
+               "contract": tp2d_contract(cfg, "tp2d", 4, eng.pack_report,
+                                         1, 1, 2)}
+        del eng, store
+        return out
+    finally:
+        mesh.close()
+
+
+def tp2d_checks(ranks: list) -> list:
+    """What the four ranks' results break of the tp2d phase's contract."""
+    from repro_torch.analysis.collectives import bytes_moved
+    bad = []
+    cfg = tp2d_cfg()
+    for res in ranks:
+        rk = res["rank"]
+        if res["backend"] != "gloo":
+            bad.append(f"rank {rk}: backend {res['backend']}")
+        for mode in TP2D_MODES:
+            r = res[mode]
+            if r["graphed"] is not False:
+                bad.append(f"rank {rk} {mode}: graphed {r['graphed']}")
+            if r["misses"] or not r["healthy"]:
+                bad.append(f"rank {rk} {mode}: {r['misses']} misses, "
+                           f"healthy {r['healthy']}")
+            want = {"wq": [TP2D_LAYERS, cfg.d_model // 2,
+                           cfg.num_heads * cfg.head_dim // 2],
+                    "tok": [cfg.vocab_size // 2, cfg.d_model // 2],
+                    "ln1": [TP2D_LAYERS, cfg.d_model // 2]}
+            if r["pieces"] != want:
+                bad.append(f"rank {rk} {mode}: pieces {r['pieces']}, "
+                           f"want {want}")
+            designs = r["designs"]
+            if not any(designs.get(x) for x in ("skinny_wgmma",
+                                                "skinny_stream")):
+                bad.append(f"rank {rk} {mode}: no skinny launch {designs}")
+            if not r["launches"].get("flash_attention"):
+                bad.append(f"rank {rk} {mode}: no flash on the path")
+            if r["staged"]:
+                bad.append(f"rank {rk} {mode}: staged {r['staged']}")
+            for b, g in r["groups"].items():
+                if g["collectives"] != g["contract"]:
+                    bad.append(f"rank {rk} {mode} b={b}: collectives "
+                               f"{g['collectives']} != contract "
+                               f"{g['contract']}")
+            if r["queue"]["admitted"] != len(TP2D_QUEUE):
+                bad.append(f"rank {rk} {mode}: queue {r['queue']}")
+        for b in res["tp2d"]["groups"]:
+            two = bytes_moved(res["tp2d"]["groups"][b]["collectives"])
+            fsdp = bytes_moved(res["fsdp"]["groups"][b]["collectives"])
+            if not 0 < two < fsdp:
+                bad.append(f"rank {rk} b={b}: 2D moves {two} bytes, FSDP "
+                           f"{fsdp}")
+    for mode in TP2D_MODES:
+        if any(r[mode]["queue"]["tokens"] != ranks[0][mode]["queue"]["tokens"]
+               for r in ranks):
+            bad.append(f"{mode}: the ranks' queue tokens differ")
+    cmp = ranks[0]["compare"]
+    if not cmp:
+        bad.append("rank 0 compared nothing with the one-rank engine")
+    atol = TP2D_LOGITS_TOL["atol"]
+    for b, c in cmp.items():
+        for mode in TP2D_MODES:
+            m = c[mode]
+            if not m["within"] or not m["first_tokens_equal"]:
+                bad.append(f"b={b} {mode}: rank 0 vs the one-rank engine "
+                           f"{m}")
+        if c["planted"]["worst"] < TP2D_PLANTED * atol:
+            bad.append(f"b={b}: the planted fault is not {TP2D_PLANTED}x "
+                       f"outside the bound: {c['planted']}")
+    return bad
+
+
+def phase_tp2d():
+    """2D weight-stationary tensor parallelism and FSDP serving on the
+    card: ``install_arch(mesh=, opts=)`` for both modes; the per-rank
+    kernels against their plain versions; four ranks
+    (``torch.distributed.run``) sharing the card as ``data=2,model=2``
+    over gloo serve qwen1.5-4b (full width, 2 layers, bf16, seeded
+    biases and norms) under ``fsdp=True, serve_2d_tp=True`` and under
+    ``fsdp=True``, lookup-only, with rank 0's logits against a one-rank
+    engine, a planted fault, each decode call's collectives against the
+    contract and the 2D decode moving fewer bytes than FSDP's; then NCCL
+    at world size 1 with the 2D cells captured.  Returns each rank's
+    launches on the main path and at load, and the kernel cases."""
+    import signal
+
+    import torch
+    from repro_torch.analysis.collectives import bytes_moved
+    from repro_torch.core import install, registry
+    from repro_torch.sharding.rules import ShardingOptions
+    t_phase = time.perf_counter()
+    _free("cuda")
+    t0 = time.perf_counter()
+    cfg = tp2d_cfg()
+    desc = install.parse_mesh("data=2,model=2")
+    plans = {mode: install.install_arch(
+        cfg, TP2D_BUCKETS, mesh=desc, opts=ShardingOptions(**o),
+        device="cuda") for mode, o in TP2D_MODES.items()}
+    registry.flush()
+    emit({"phase": "tp2d.install", "seconds": time.perf_counter() - t0,
+          "plans": plans})
+    t0 = time.perf_counter()
+    shard_cases = tp2d_shard_cases()
+    emit({"phase": "tp2d.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
+    _free("cuda")
+    out_dir = tempfile.mkdtemp(prefix="tp2d-", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", os.path.abspath(__file__),
+         "--tp2d-worker", out_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    ranks = []
+    for r in range(4):
+        path = os.path.join(out_dir, f"tp2d_rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    if proc.returncode != 0:
+        raise AssertionError(f"tp2d: the ranks exited {proc.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-6000:]}")
+    bad = tp2d_checks(ranks)
+    held = {c["kernel"] for c in shard_cases}
+    for res in ranks:
+        for mode in TP2D_MODES:
+            unheld = sorted(k for k in SKINNY
+                            if res[mode]["launches"].get(k)
+                            and k not in held)
+            if unheld:
+                bad.append(f"rank {res['rank']} {mode}: {unheld} launched "
+                           f"at shapes tp2d.kernels did not hold")
+    for res in ranks:
+        for mode in TP2D_MODES:
+            r = res[mode]
+            emit({"phase": "tp2d.rank", "rank": res["rank"], "mode": mode,
+                  **{k: r[k] for k in ("load", "graphed", "launches",
+                                       "designs", "comm", "staged", "misses",
+                                       "healthy", "queue", "peak_bytes",
+                                       "layouts", "pieces")},
+                  "groups": r["groups"]})
+    r0 = ranks[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    emit({"phase": "tp2d", "nvidia_smi": smi, "ranks": 4,
+          "mesh": "data=2,model=2", "backend": r0.get("backend"),
+          "note": "four ranks share one card over gloo (every collective "
+                  "copied through the host): correctness, the collectives "
+                  "and the kernels at per-rank shapes, not a speed",
+          "logits_tol": TP2D_LOGITS_TOL, "compare": r0.get("compare"),
+          "decode_bytes_moved": {
+              mode: {b: bytes_moved(g["collectives"])
+                     for b, g in r0[mode]["groups"].items()}
+              for mode in TP2D_MODES} if r0 else None,
+          "per_token_s_four_ranks_one_card": {
+              mode: {b: g["per_token_s"]
+                     for b, g in r0[mode]["groups"].items()}
+              for mode in TP2D_MODES} if r0 else None,
+          "peak_bytes": {mode: [r[mode]["peak_bytes"] for r in ranks]
+                         for mode in TP2D_MODES} if r0 else None,
+          "workers_s": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError("tp2d: " + "; ".join(bad))
+    nccl = tp2d_nccl(out_dir)
+    emit({"phase": "tp2d.nccl", **nccl})
+    if not (nccl["graphed"] and nccl["cells_bit_equal"] == nccl["cells_checked"]
+            and nccl["cells_checked"] and nccl["group_tokens_equal"]
+            and nccl["group_logits_equal"]
+            and nccl["decode_collectives"] == nccl["contract"]):
+        raise AssertionError(f"tp2d.nccl: {nccl}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "tp2d", "seconds": time.perf_counter() - t_phase})
+    launches = {f"tp2d.rank{r['rank']}.{mode}": r[mode]["launches"]
+                for r in ranks for mode in TP2D_MODES}
+    load = {f"tp2d.rank{r['rank']}.{mode}.load": r[mode]["load"]["launches"]
+            for r in ranks for mode in TP2D_MODES}
+    return launches, load, shard_cases
 
 
 # ---------------------------------------------------------------------------
@@ -4436,6 +5229,9 @@ def main():
         if sys.argv[1:] == ["--phase", "tp"]:
             phase_build()         # the ranks load the built kernels
             phase_tp()
+        elif sys.argv[1:] == ["--phase", "tp2d"]:
+            phase_build()
+            phase_tp2d()
         elif sys.argv[1:] == ["--phase", "train.dist"]:
             phase_train_dist()    # no hand-written kernel on the path
         else:
@@ -4529,10 +5325,12 @@ def run():
     phase_fleet()
     phase_train()
     tp_launches, tp_load, tp_paper_launches, tp_cases = phase_tp()
+    tp2d_launches, tp2d_load, tp2d_cases = phase_tp2d()
     phase_train_dist()
     by_path.update(tp_launches)
     by_path.update(tp_paper_launches)
-    for c in tp_cases:
+    by_path.update(tp2d_launches)
+    for c in tp_cases + tp2d_cases:
         worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0),
                                  c["max_abs_err"])
 
@@ -4595,6 +5393,7 @@ def run():
         **{f"{p}.load": ls.get("pack_blocks", 0)
            for p, ls in zoo_load.items()},
         **{p: ls.get("pack_blocks", 0) for p, ls in tp_load.items()},
+        **{p: ls.get("pack_blocks", 0) for p, ls in tp2d_load.items()},
         "install": install_launches.get("pack_blocks", 0),
         "tall": tall_launches.get("pack_blocks", 0),
         **{p: ls.get("pack_blocks", 0) for p, ls in by_path.items()}}
@@ -4711,6 +5510,17 @@ def run():
                                   "device_ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")}}
             for c in tp_cases if c["kernel"] == r["name"]]
+        # and the tp2d path's per-rank cases (2D pieces and FSDP's gathered
+        # weights), with the launches on each rank's path in each mode
+        paths = (tp2d_load if r["name"] == "pack_blocks" else tp2d_launches)
+        r["tp2d"] = [
+            {**shape_of(c), "leaf": c["tp_leaf"],
+             "launches_by_path": {p: ls.get(r["name"], 0)
+                                  for p, ls in paths.items()},
+             **{k: c[k] for k in ("design", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}}
+            for c in tp2d_cases if c["kernel"] == r["name"]]
     bad = [r["name"] for r in line if r["launches"] == 0]
     if bad:
         raise AssertionError(f"kernels with no launch on a path: {bad}")
@@ -4723,6 +5533,8 @@ def run():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--tp2d-worker"]:
+        tp2d_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--train-dist-worker"]:
         train_dist_worker(sys.argv[2])
     else:

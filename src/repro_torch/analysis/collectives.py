@@ -43,3 +43,10 @@ def staged_ops(record: list) -> list:
     """The ops of a record that ``sharding/comm.py`` staged through host
     memory, in order."""
     return [r["op"] for r in record if r.get("staged")]
+
+
+def bytes_moved(acc: dict) -> float:
+    """The ring bytes a rank moves in one call, over every op of its
+    :func:`collective_bytes` accounting (one decode call's, to compare
+    two sharding layouts)."""
+    return sum(op["bytes_moved"] for op in acc.values())

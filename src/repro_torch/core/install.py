@@ -105,23 +105,42 @@ def serving_shapes(cfg) -> set:
     return shapes
 
 
-def sharded_serving_shapes(cfg, mesh, opts=None) -> set:
+def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None) -> set:
     """Per-shard (k_shard, n_shard, num_shards) of every packable weight
-    leaf of the arch under ``mesh``: the problem keys a sharded engine's
-    pre-pack looks up (the same walk, ``serve/engine.py::iter_packable``,
-    over the model's ``meta`` shapes: nothing is allocated).  A tied model
-    also packs its head (``serve/engine.py::tied_head``)."""
+    leaf of the arch under ``mesh``: the pieces a rank packs (the same
+    walk, ``serve/engine.py::iter_packable``, over the model's ``meta``
+    shapes: nothing is allocated).  A tied model also packs its head
+    (``serve/engine.py::tied_head``).
+
+    With ``buckets``, the (m, k, n, num_shards) problems a sharded
+    engine's pre-pack plans and looks up at them
+    (``serve/engine.py::shard_problem``): the piece at every bucket,
+    except where FSDP (not 2D tensor parallelism) gathers a piece over
+    the data axis first, at the rank's compute rows.  Under
+    ``ShardingOptions(fsdp=True, serve_2d_tp=True)`` on ``data=2,
+    model=2`` a (K, N) leaf with rows on ``data`` gives (bucket, K/2,
+    N/2, 4); under ``fsdp=True`` alone (bucket/2, K, N/2, 2)."""
     from repro_torch.models.param import MetaGenerator
     from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import iter_packable, tied_head
+    from repro_torch.serve.engine import (iter_packable, shard_problem,
+                                          tied_head)
+    from repro_torch.sharding.rules import ShardingOptions
 
     shapes, axes = tied_head(*build_model(cfg).init(MetaGenerator()))
     out = set()
-    for _path, _leaf, (rows, cols, rs, cs) in iter_packable(
+    for path, leaf, (rows, cols, rs, cs) in iter_packable(
             shapes, axes, mesh, opts):
         if rows % rs or cols % cs:
             continue                # prepack_for refuses these outright
-        out.add((rows // rs, cols // cs, rs * cs))
+        if buckets is None:
+            out.add((rows // rs, cols // cs, rs * cs))
+            continue
+        a = axes
+        for key in path:
+            a = a[key]
+        ms, k, n, s, _ = shard_problem(a, tuple(leaf.shape), tuple(buckets),
+                                       mesh, opts or ShardingOptions())
+        out |= {(m, k, n, s) for m in ms}
     return out
 
 
@@ -188,11 +207,13 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     of distinct plans."""
     n_plans = 0
     mm = "wallclock" if measure else None
-    shard_shapes = set()
-    if mesh is not None:
-        shard_shapes = {s for s in sharded_serving_shapes(cfg, mesh, opts)
-                        if s[2] > 1}
     shapes = sorted(serving_shapes(cfg))
+    shard_rows: dict = {}
+    if mesh is not None:
+        for (m, ks, ns, s) in sharded_serving_shapes(cfg, mesh, opts,
+                                                     buckets):
+            if s > 1 or (ks, ns) not in shapes:
+                shard_rows.setdefault((ks, ns, s), set()).add(m)
     if limit_shapes:
         shapes = shapes[:limit_shapes]
     # the rows the decode buckets and the grid's token counts leave out
@@ -217,10 +238,10 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     for p in extra:
         make_plan(p, hw, measure=mm, persist=False, iters=iters, force=force,
                   device=device)
-    for (ks, ns, s) in sorted(shard_shapes):
-        pset = make_plan_set(ks, ns, buckets, cfg.dtype, hw=hw, measure=mm,
-                             persist=False, iters=iters, force=force,
-                             device=device, num_shards=s)
+    for (ks, ns, s), ms in sorted(shard_rows.items()):
+        pset = make_plan_set(ks, ns, tuple(sorted(ms)), cfg.dtype, hw=hw,
+                             measure=mm, persist=False, iters=iters,
+                             force=force, device=device, num_shards=s)
         n_plans += len(pset.plans)
     return n_plans + len(extra)
 

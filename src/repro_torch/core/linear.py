@@ -25,6 +25,7 @@ from repro_torch.core.packing import is_packed
 from repro_torch.core.plan import is_tsmm
 from repro_torch.core.tsmm import tsmm_dot
 from repro_torch.kernels.ref import act_ref
+from repro_torch.sharding.context import dp_group, fsdp_split
 
 _SERVING = threading.local()
 
@@ -49,6 +50,10 @@ def linear(x, w, b=None, act: Optional[str] = None):
     """act(x @ w + b).  ``w``: (k, n) tensor or PackedTensor."""
     if is_packed(w):
         return tsmm_dot(x, w, bias=b, act=act)
+    if w.ndim == 2 and x.shape[-1] != w.shape[0] and fsdp_split(x.shape[-1]):
+        # an unpacked FSDP piece of the rows, gathered before use
+        from repro_torch.sharding import comm
+        w = comm.all_gather(w, dp_group(), dim=0)
     if (in_serving_ctx() and w.ndim == 2
             and is_tsmm(math.prod(x.shape[:-1]), *w.shape)):
         return tsmm_dot(x, w, bias=b, act=act)

@@ -25,12 +25,18 @@ class PackedTensor:
     ``kernel_specs`` is the serving-replay stamp: sorted ``(batch_bucket,
     KernelSpec, ScheduleSpec)`` entries recording the variant the
     autotuner chose per bucket when the weight was packed
-    (``core.tsmm.prepack_for``).  Empty for manually packed tensors."""
+    (``core.tsmm.prepack_for``).  Empty for manually packed tensors.
+
+    ``spec`` is the (row, col) entries of the partition spec of the
+    weight this is a rank's piece of, where a sharded serving engine
+    packed it (``serve/engine.py``); ``core.tsmm.tsmm_dot`` reads from it
+    which dim the data axis splits.  Empty off a mesh."""
 
     blocks: object
     orig_rows: int
     orig_cols: int
     kernel_specs: tuple = ()
+    spec: tuple = ()
 
     @property
     def lead_shape(self):

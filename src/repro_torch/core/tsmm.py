@@ -43,6 +43,8 @@ from repro_torch.kernels import variants
 from repro_torch.kernels.ref import act_ref
 from repro_torch.kernels.variants import KernelSpec
 from repro_torch.resilience import degrade, failpoints
+from repro_torch.sharding.context import (data_split_of, dp_group, dp_rank,
+                                          dp_size, kblocks_split, serve_2d)
 
 log = logging.getLogger(__name__)
 
@@ -100,6 +102,63 @@ def _laddered(orientation: str, key_of, planned, plain, gemm):
         return gemm()
 
 
+def _epilogue(out, bias, act, dtype):
+    """The kernels' epilogue on an fp32 or compute-dtype product: bias in
+    fp32, then the activation, then one cast (``kernels/tsmm.py:58-68``
+    of the reference)."""
+    out = out.float()
+    if bias is not None:
+        out = out + bias.float()
+    return act_ref(out, act).to(dtype)
+
+
+def _data_sum(part, group):
+    """The data group's partial products of a k-split summed: the one
+    collective of a 2D tensor-parallel product."""
+    from repro_torch.sharding import comm
+    return comm.all_reduce(part, group)
+
+
+def _ksplit_dot(a2, b: PackedTensor, bias, act, plan):
+    """2D tensor parallelism's packed product: ``b`` is this rank's row
+    piece (its K slice) of a weight whose rows lie on the data axis.  The
+    rank multiplies its K slice of the activation panel by it (the
+    planned kernel, no bias, no activation), the partial (m, n) outputs
+    are summed over the data group, and the epilogue runs once on the
+    sum: a bias added, or SiLU applied, per partial sum would be wrong."""
+    kp = b.orig_rows
+    r = dp_rank()
+    part = tsmm_dot(a2[:, r * kp:(r + 1) * kp].contiguous(),
+                    dataclasses.replace(b, spec=()), plan=plan)
+    return _epilogue(_data_sum(part, dp_group()), bias, act, a2.dtype)
+
+
+def _gathered(b: PackedTensor, split: str) -> tuple:
+    """FSDP's weight before use: a rank's packed piece gathered over the
+    data group along the block-count dim the data axis split (rows: nk,
+    cols: nn).  Returns (the gathered PackedTensor, None or a function
+    that drops each piece's zero-padded columns from an output)."""
+    from repro_torch.sharding import comm
+    group, n = dp_group(), dp_size()
+    if split == "rows":
+        blocks = comm.all_gather(b.blocks, group, dim=-4)
+        return dataclasses.replace(b, blocks=blocks,
+                                   orig_rows=b.orig_rows * n, spec=()), None
+    blocks = comm.all_gather(b.blocks, group, dim=-3)
+    width = b.blocks.shape[-3] * b.blocks.shape[-1]
+    if width == b.orig_cols:
+        return dataclasses.replace(b, blocks=blocks,
+                                   orig_cols=b.orig_cols * n, spec=()), None
+    oc = b.orig_cols
+
+    def keep(out):
+        return out.reshape(out.shape[0], n, width)[:, :, :oc].reshape(
+            out.shape[0], n * oc)
+
+    return dataclasses.replace(b, blocks=blocks, orig_cols=width * n,
+                               spec=()), keep
+
+
 def variant_choice() -> Optional[KernelSpec]:
     """``REPRO_TSMM_VARIANT`` override — force a named kernel variant on
     every planned TSMM (syntax ``name`` or ``name:key=val,...``; an
@@ -150,6 +209,17 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
     a2 = a.reshape(m, k)
 
     if is_packed(b):
+        split = data_split_of(b.spec)
+        if split == "rows" and kblocks_split(k):
+            return _ksplit_dot(a2, b, bias, act, plan).reshape(
+                *lead, b.orig_cols)
+        if split is not None and not serve_2d():
+            # FSDP: the weight gathered over the data group before use
+            b, keep = _gathered(b, split)
+            out = tsmm_dot(a2, b, bias=bias, act=act, plan=plan)
+            if keep is not None:
+                out = keep(out)
+            return out.reshape(*lead, out.shape[-1])
         nk, _, bk, bn = b.blocks.shape[-4:]
         spec = plan.kernel if plan is not None else None
         sched = plan.schedule if plan is not None else None
@@ -220,16 +290,20 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
 
 
 def _layout(buckets: tuple, ks: int, ns: int, dt: str, hw: HwSpec,
-            device, pad: bool = False, num_shards: int = 1) -> tuple:
+            device, pad: bool = False, num_shards: int = 1,
+            piece: Optional[tuple] = None) -> tuple:
     """(the per-bucket PlanSet, the (bk, bn) blocks or None) of a (ks, ns)
-    weight packed for ``buckets`` (``pad``: see :func:`prepack_for`)."""
+    weight packed for ``buckets`` (``pad``: see :func:`prepack_for`);
+    ``piece``: the (rows, cols) the blocks must divide, where the weight
+    packed is a piece of the (ks, ns) one the kernel multiplies."""
     pset = make_plan_set(ks, ns, buckets, dt, hw=hw, persist=False,
                          device=device, num_shards=num_shards)
     problems = [pset.plans[m].problem if m in pset.plans
                 else Problem(m, ks, ns, dt, num_shards) for m in buckets]
     caps = (max((pl.bk for pl in pset.plans.values()), default=None),
             max((pl.bn for pl in pset.plans.values()), default=None))
-    return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps, pad=pad)
+    return pset, _conforming_blocks(problems, ks, ns, hw, caps=caps, pad=pad,
+                                    piece=piece)
 
 
 def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
@@ -244,8 +318,9 @@ def prepack_blocks(m_skinny, ks: int, ns: int, dtype: str = "bfloat16", *,
 
 
 def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
-                pad: bool = False,
-                num_shards: int = 1) -> Optional[PackedTensor]:
+                pad: bool = False, num_shards: int = 1,
+                plan_shape: Optional[tuple] = None,
+                spec: tuple = ()) -> Optional[PackedTensor]:
     """Plan and pack a weight for decode-time reuse.
 
     ``m_skinny`` is one serving batch size or a tuple of batch buckets:
@@ -259,17 +334,23 @@ def prepack_for(m_skinny, w, *, hw: Optional[HwSpec] = None,
 
     On a mesh each rank packs its own piece of the weight; ``num_shards``
     keys the tuned problems, so a sharded engine looks up what an
-    ``install --mesh`` sweep wrote.  Returns None when no conforming
-    block exists."""
+    ``install --mesh`` sweep wrote.  ``plan_shape``: the (K, N) the
+    kernel multiplies where it is not the piece's (an FSDP piece is
+    gathered over the data group first): the problems are planned and
+    stamped at it, and the blocks divide the piece.  ``spec``: the
+    piece's (row, col) spec entries (:class:`PackedTensor`).  Returns
+    None when no conforming block exists."""
     device = w.device
     hw = hw or default_hw(device)
     buckets = (m_skinny,) if isinstance(m_skinny, int) else tuple(m_skinny)
     k, n = int(w.shape[-2]), int(w.shape[-1])
-    pset, chosen = _layout(buckets, k, n, dtype_name(w.dtype), hw, device,
-                           pad, num_shards)
+    pk_, pn_ = plan_shape or (k, n)
+    pset, chosen = _layout(buckets, pk_, pn_, dtype_name(w.dtype), hw,
+                           device, pad, num_shards, piece=(k, n))
     if chosen is None:
         return None
     pk = pack(w, *chosen)
+    pk.spec = tuple(spec)
     pk.kernel_specs = tuple(sorted(
         ((m, *_stamp_spec_for_blocks(pset.plans[m], *chosen, hw=hw))
          for m in pset.plans), key=lambda e: e[0]))
@@ -300,13 +381,15 @@ def _stamp_spec_for_blocks(plan: Plan, bk: int, bn: int, *,
 
 
 def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
-                       caps: tuple = (None, None),
-                       pad: bool = False) -> Optional[tuple]:
+                       caps: tuple = (None, None), pad: bool = False,
+                       piece: Optional[tuple] = None) -> Optional[tuple]:
     """Best (bk, bn) conforming for EVERY problem: multiples of 128 that
-    divide the weight's dims within the tuned ``caps`` (with ``pad``,
-    where no width divides N, any width up to N rounded up to 128: N is
+    divide the weight's dims (the ``piece`` packed, where it is a piece
+    of the (ks, ns) one) within the tuned ``caps`` (with ``pad``, where
+    no width divides N, any width up to N rounded up to 128: N is
     zero-padded), feasible for all buckets, minimal predicted time summed
     across buckets."""
+    ks, ns = piece or (ks, ns)
     cap_bk = min(ks, caps[0]) if caps[0] else ks
     cap_bn = min(ns, caps[1]) if caps[1] else ns
     bks = [d for d in range(128, max(cap_bk, 128) + 1, 128) if ks % d == 0]

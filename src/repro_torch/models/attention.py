@@ -23,7 +23,9 @@ from repro_torch.core.linear import linear
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import shard_act, tp_copy, tp_sum
+from repro_torch.sharding.context import (axis_group, cache_layout,
+                                          dp_gather_cols, dp_weight_cols,
+                                          shard_act, tp_copy, tp_sum)
 
 NEG_INF = -1e30
 
@@ -153,6 +155,81 @@ def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_partial(q, k_cache, v_cache, k_pos, cur_pos, *, window: int = 0,
+                   valid_from=None) -> tuple:
+    """One piece of a cache split along its sequence: the step's scores
+    over the piece's slots (``k_pos`` their absolute positions, -1 =
+    empty; the rest as :func:`decode_attention`) reduced to fp32
+    ``(m, l, acc)``: the largest kept score (B, KH, G), the sum of
+    ``exp(s - m)`` and the ``exp(s - m)``-weighted sum of V (B, KH, G,
+    Dv).  A piece with no kept slot (early in a decode, or masked)
+    returns ``m = -inf``, ``l = 0`` and ``acc = 0`` exactly."""
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
+    qg = q.reshape(b, kh, h // kh, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * d ** -0.5
+    valid = (k_pos >= 0) & (k_pos <= cur_pos)
+    if window:
+        valid &= cur_pos - k_pos < window
+    if valid_from is not None:
+        keep = valid[None, :] & (k_pos[None, :] >= valid_from[:, None])
+    else:
+        keep = valid[None, :]
+    s = s.masked_fill(~keep[:, None, None], float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bhgk,bkhd->bhgd", p,
+                                          v_cache.float())
+
+
+def combine_partials(m, l, acc):
+    """The softmax-weighted V of the whole sequence from its pieces'
+    :func:`decode_partial` results stacked on a leading piece dim: the
+    log-sum-exp combine.  A piece whose ``m`` is ``-inf`` weighs exactly
+    zero (never ``exp(-inf - -inf)``); the result is fp32 (B, KH, G,
+    Dv)."""
+    top = m.amax(dim=0)
+    w = torch.where(torch.isinf(m), 0.0,
+                    torch.exp(m - torch.where(torch.isinf(top), 0.0, top)))
+    den = (w * l).sum(dim=0)
+    num = (w[..., None] * acc).sum(dim=0)
+    return num / torch.clamp_min(den, 1e-30)[..., None]
+
+
+def split_decode_attention(q, k_cache, v_cache, k_pos, cur_pos, axis: str,
+                           *, window: int = 0, valid_from=None):
+    """:func:`decode_attention` over a cache whose slots are split over
+    ``axis``: this rank's piece (``k_pos`` its slots' positions) reduced
+    to ``(m, l, acc)``, the pieces gathered over the axis's group in one
+    all-gather and combined (:func:`combine_partials`).  Nothing reads
+    the position on the host."""
+    from repro_torch.sharding import comm
+    b, _, h, d = q.shape
+    m, l, acc = decode_partial(q, k_cache, v_cache, k_pos, cur_pos,
+                               window=window, valid_from=valid_from)
+    mine = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    every = comm.all_gather(mine[None], axis_group(axis)[0], dim=0)
+    out = combine_partials(every[..., 0], every[..., 1], every[..., 2:])
+    return out.reshape(b, 1, h, acc.shape[-1]).to(q.dtype)
+
+
+def write_slot(slab, slot, t, seq=None):
+    """Write the step's K or V ``t`` (B, 1, ...) into slot ``slot`` ((1,)
+    on the device) of ``slab`` (B, S, ...) in place; where the slots are
+    split over ``seq``, only on the rank that holds the slot (the others
+    write back what they hold), without reading the host."""
+    if seq is None:
+        slab.index_copy_(1, slot, t)
+        return
+    _, j, _ = axis_group(seq)
+    n = slab.shape[1]
+    local = slot - j * n
+    own = ((local >= 0) & (local < n)).reshape(1, 1, *([1] * (t.ndim - 2)))
+    at = local.clamp(0, n - 1)
+    slab.index_copy_(1, at, torch.where(own, t.to(slab.dtype),
+                                        slab.index_select(1, at)))
+
+
 def init_gqa(gen, cfg, d_in: int = 0, d_out: int = 0):
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     d_in = d_in or d
@@ -213,8 +290,14 @@ def gqa_forward(p, cfg, x, *, causal=True, pos_offset: int = 0,
 
 def _out_proj(p, cfg, out):
     """``wo``, row-parallel over the heads: its partial sums are summed
-    over the TP group where the heads are split."""
-    return tp_sum(linear(out, p["wo"]), "qheads", cfg.num_heads * cfg.head_dim)
+    over the TP group where the heads are split.  Under 2D tensor
+    parallelism (its columns on the data axis) each rank computes its
+    columns, gathered over the data group after the sum; under FSDP an
+    unpacked piece is gathered before use (a packed one in
+    ``tsmm_dot``)."""
+    y = linear(out, dp_weight_cols(p["wo"], cfg.d_model))
+    y = tp_sum(y, "qheads", cfg.num_heads * cfg.head_dim)
+    return dp_gather_cols(y, cfg.d_model)
 
 
 def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
@@ -226,7 +309,16 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
     updated IN PLACE at ``slot``; slot_pos (S,) absolute position per
     slot (already updated by the caller).  Nothing here reads the
     position on the host, so a captured step replays at whatever
-    position the cache holds, past a window's wrap too."""
+    position the cache holds, past a window's wrap too.
+
+    Under the ambient cell's ``CacheLayout`` (a sharded serving engine):
+    where every rank computes the whole bucket but holds a piece of the
+    cache's rows (2D tensor parallelism), the rank writes and attends
+    over its rows and the attention output is gathered over the rows'
+    group before ``wo``; where the cache's slots are split (``slot_pos``
+    stays whole), the step's K/V lands on the rank that holds the slot
+    and the softmax is combined over the slots' group
+    (:func:`split_decode_attention`)."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     if use_rope:
@@ -234,10 +326,28 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
                                cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    cache_k.index_copy_(1, slot, k)
-    cache_v.index_copy_(1, slot, v)
-    out = decode_attention(q, cache_k, cache_v, slot_pos, cur_pos,
-                           window=cfg.sliding_window, valid_from=valid_from)
+    lay = cache_layout()
+    seq = lay.seq if lay is not None else None
+    gathered = lay is not None and lay.gathered
+    if gathered:                         # this rank's rows of the bucket
+        _, i, _ = axis_group(lay.rows)
+        rows = cache_k.shape[0]
+        q, k, v = (t[i * rows:(i + 1) * rows] for t in (q, k, v))
+    write_slot(cache_k, slot, k, seq)
+    write_slot(cache_v, slot, v, seq)
+    if seq is not None:
+        _, j, _ = axis_group(seq)
+        n = cache_k.shape[1]
+        out = split_decode_attention(
+            q, cache_k, cache_v, slot_pos[j * n:(j + 1) * n], cur_pos, seq,
+            window=cfg.sliding_window, valid_from=valid_from)
+    else:
+        out = decode_attention(q, cache_k, cache_v, slot_pos, cur_pos,
+                               window=cfg.sliding_window,
+                               valid_from=valid_from)
+    if gathered:
+        from repro_torch.sharding import comm
+        out = comm.all_gather(out, axis_group(lay.rows)[0], dim=0)
     return _out_proj(p, cfg, out.reshape(b, 1, q.shape[2] * cfg.head_dim))
 
 

@@ -12,8 +12,10 @@ import torch.utils.checkpoint
 
 from repro_torch.core.linear import linear
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import (shard_act, tp_copy, tp_rank,
-                                          tp_split, tp_sum)
+from repro_torch.sharding.context import (dp_full, dp_group, dp_rank,
+                                          dp_weight_cols, fsdp_split,
+                                          serve_2d, shard_act, tp_copy,
+                                          tp_rank, tp_split, tp_sum)
 
 
 def _requires_grad(obj) -> bool:
@@ -51,6 +53,9 @@ def remat(cfg, fn, *args, **kwargs):
 
 
 def rmsnorm(x, scale, eps: float):
+    """RMSNorm in fp32, cast once.  A serving rank's FSDP piece of the
+    scale is gathered over the data group first (``dp_full``)."""
+    scale = dp_full(scale, x.shape[-1])
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
@@ -99,15 +104,18 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
     return pt.build()
 
 
-def swiglu(p, x, d_ff: int = 0):
+def swiglu(p, x, d_ff: int = 0, d_model: int = 0):
     """w_down(silu(x @ w_gate) * (x @ w_up)).  ``d_ff``: the full hidden
     width, where ``w_gate`` / ``w_up`` may be column-parallel over ``mlp``
-    (their input then passes ``tp_copy``)."""
+    (their input then passes ``tp_copy``).  ``d_model``: the full output
+    width, where a serving rank's ``w_down`` may hold an FSDP piece of
+    its columns (``dp_weight_cols``)."""
     if d_ff:
         x = tp_copy(x, "mlp", d_ff)
     h = linear(x, p["w_gate"], act="silu") * linear(x, p["w_up"])
     h = shard_act(h, "batch", "seq", "mlp")
-    return linear(h, p["w_down"])
+    w_down = dp_weight_cols(p["w_down"], d_model) if d_model else p["w_down"]
+    return linear(h, w_down)
 
 
 def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
@@ -151,18 +159,38 @@ def init_embed(gen, vocab: int, d_model: int, dtype, tie: bool):
     return pt.build()
 
 
-def embed_tokens(p, tokens, vocab: int = 0):
+def embed_tokens(p, tokens, vocab: int = 0, d_model: int = 0):
     """The token table's rows of ``tokens``.  Where the table is split
     over the TP group along the vocabulary (``vocab``, its full size),
     each rank looks up the ids in its range, zeroes the rest, and the
-    pieces are summed over the group."""
-    if not (vocab and tp_split("vocab", vocab)):
+    pieces are summed over the group.  Where a serving rank holds an
+    FSDP piece of the embedding dim (``d_model``, its full size), it
+    looks up its columns and they are gathered over the data group;
+    under FSDP, where each data rank computes rows of its own, the ids
+    are gathered first and each rank keeps its rows of the result."""
+    split_v = bool(vocab) and tp_split("vocab", vocab)
+    split_d = bool(d_model) and fsdp_split(d_model)
+    if not (split_v or split_d):
         return shard_act(p["tok"][tokens], "batch", "seq", "embed")
-    rows = p["tok"].shape[0]
-    ids = tokens - tp_rank() * rows
-    mine = (ids >= 0) & (ids < rows)
-    x = p["tok"][ids.clamp(0, rows - 1)] * mine[..., None].to(p["tok"].dtype)
-    return shard_act(tp_sum(x, "vocab", vocab), "batch", "seq", "embed")
+    from repro_torch.sharding import comm
+    own = tokens.shape[0]
+    mine_only = split_d and not serve_2d()
+    if mine_only:
+        tokens = comm.all_gather(tokens, dp_group(), dim=0)
+    if split_v:
+        rows = p["tok"].shape[0]
+        ids = tokens - tp_rank() * rows
+        mine = (ids >= 0) & (ids < rows)
+        x = p["tok"][ids.clamp(0, rows - 1)] * mine[..., None].to(
+            p["tok"].dtype)
+        x = tp_sum(x, "vocab", vocab)
+    else:
+        x = p["tok"][tokens]
+    if split_d:
+        x = comm.all_gather(x, dp_group(), dim=-1)
+    if mine_only:
+        x = x[dp_rank() * own:(dp_rank() + 1) * own]
+    return shard_act(x, "batch", "seq", "embed")
 
 
 def unembed(p, x, tie: bool, vocab: int = 0):

@@ -45,7 +45,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
                                        remat, rmsnorm, swiglu, unembed)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
-from repro_torch.sharding.context import shard_act, tp_gather, tp_sum
+from repro_torch.sharding.context import (axis_group, cache_layout,
+                                          dp_gather_cols, shard_act,
+                                          tp_gather, tp_sum)
 
 
 def _kind(cfg) -> str:
@@ -109,10 +111,13 @@ def _layers(params, cfg):
 def _mlp(p, cfg, x, kind: str):
     """The MLP of a block and its aux loss (None for a dense MLP).  A
     dense MLP's ``w_down`` is row-parallel over ``mlp``: its partial sums
-    are summed over the TP group where ``mlp`` is split."""
+    are summed over the TP group where ``mlp`` is split, and under 2D
+    tensor parallelism (its columns on the data axis) the rank's columns
+    are then gathered over the data group."""
     if kind == "moe":
         return MOE.moe_apply(p["mlp"], cfg, x)
-    return tp_sum(swiglu(p["mlp"], x, cfg.d_ff), "mlp", cfg.d_ff), None
+    h = tp_sum(swiglu(p["mlp"], x, cfg.d_ff, cfg.d_model), "mlp", cfg.d_ff)
+    return dp_gather_cols(h, cfg.d_model), None
 
 
 def _logits(params, cfg, x, gather: bool = True):
@@ -147,7 +152,8 @@ def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
 def _inputs_to_h(params, cfg, batch):
     """tokens (and a VLM's image embeddings, placed first) -> the first
     hidden states."""
-    tok = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size)
+    tok = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size,
+                       cfg.d_model)
     if cfg.embeds_input:
         tok = torch.cat([batch["embeds"].to(tok.dtype), tok], dim=1)
     return shard_act(tok, "batch", "seq", "embed")
@@ -279,29 +285,49 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
                 slab.copy_(t)
         cache["pos"].fill_(s)
         return last, cache
-    pad = batch.get("pad")
-    if pad is not None:
-        cache["valid_from"].copy_(pad.to(torch.int32))
-    else:
-        cache["valid_from"].zero_()
+    _write_prompt(cfg, cache, kvs, batch.get("pad"), s, cache_layout())
+    return last, cache
+
+
+def _write_prompt(cfg, cache, kvs, pad, s: int, lay):
+    """:func:`lm_prefill`'s cache write, in place: each layer's K/V of
+    the prompt's ``s`` positions, ``valid_from`` and ``slot_pos``.  A
+    prompt longer than a sliding window's slots keeps its last ``slots``
+    positions, position p in slot ``p % slots``.  Where the rank holds a
+    piece of the cache (``lay``, the cell's ``CacheLayout``), it writes
+    its rows of the computed bucket (2D tensor parallelism) or the slots
+    of its piece of the sequence; ``slot_pos`` stays whole, every slot's
+    position recorded on every rank."""
     slots = cache["slot_pos"].shape[0]
     dev = cache["slot_pos"].device
-    if cfg.sliding_window and s > slots:
-        # the last `slots` positions, position p into slot p % slots
-        kept = torch.arange(s - slots, s, device=dev)
-        idx = kept % slots
-        for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
-            for slab, t in zip(slabs, kv):
-                slab.index_copy_(1, idx, t[:, s - slots:].to(slab.dtype))
-        cache["slot_pos"].index_copy_(0, idx, kept.to(torch.int32))
+    rows = cache["valid_from"].shape[0]
+    seq = lay.seq if lay is not None else None
+    r0 = (axis_group(lay.rows)[1] * rows
+          if lay is not None and lay.gathered else 0)
+    if pad is not None:
+        cache["valid_from"].copy_(pad[r0:r0 + rows].to(torch.int32))
     else:
-        for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
-            for slab, t in zip(slabs, kv):
-                slab[:, :s] = t
-        sl = torch.arange(slots, dtype=torch.int32, device=dev)
+        cache["valid_from"].zero_()
+    first = s - slots if cfg.sliding_window and s > slots else 0
+    for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
+        for slab, t in zip(slabs, kv):
+            t = t[r0:r0 + rows]
+            n = slab.shape[1]
+            a = axis_group(seq)[1] * n if seq is not None else 0
+            if first:
+                # slots a..a+n hold the kept positions p = c (mod slots)
+                c = a + torch.arange(n, device=dev)
+                slab.copy_(t.index_select(1, first + (c - first) % slots)
+                           .to(slab.dtype))
+            else:
+                m = max(0, min(s - a, n))
+                slab[:, :m] = t[:, a:a + m]
+    sl = torch.arange(slots, dtype=torch.int32, device=dev)
+    if first:
+        cache["slot_pos"].copy_(first + (sl - first) % slots)
+    else:
         cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
     cache["pos"].fill_(s)
-    return last, cache
 
 
 def lm_decode_step(params, cfg, cache, tokens):
@@ -315,7 +341,7 @@ def lm_decode_step(params, cfg, cache, tokens):
     idx = pos.reshape(1).long()            # the cache slot, on the device
     if cfg.sliding_window:
         idx = idx % cache["slot_pos"].shape[0]
-    x = embed_tokens(params["embed"], tokens, cfg.vocab_size)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size, cfg.d_model)
     cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     vf = cache["valid_from"]
     for (p, kind), (ca, cb) in zip(_layers(params, cfg),
@@ -357,6 +383,50 @@ def _ssm_decode_step(params, cfg, cache, tokens):
     return logits, cache
 
 
+def _write_row(cfg, cache, kvs, row, idx, vf, t0, lb: int, lay):
+    """:func:`lm_prefill_row`'s write of one request's K/V at slots
+    ``idx`` (``[t0, t0 + lb)``) into row ``row`` and of its
+    ``valid_from``, with device indices only.  Where the rank holds a
+    piece of the cache (``lay``), ``row`` is the pool's row, written
+    only by the rank whose piece of the rows holds it, and where the
+    slots are split, only the slots of the rank's piece: every rank runs
+    the admission (its collectives need the whole group) and the others
+    write back what they hold."""
+    b = cache["valid_from"].shape[0]
+    mine, at = None, row
+    if lay is not None and lay.rows is not None:
+        local = row - axis_group(lay.rows)[1] * b
+        mine = (local >= 0) & (local < b)
+        at = local.clamp(0, b - 1)
+    seq = lay.seq if lay is not None else None
+    for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
+        for slab, t in zip(slabs, kv):
+            src = t[0].to(slab.dtype)                      # (lb, ...)
+            n = slab.shape[1]
+            if seq is not None:
+                # the whole row of the rank's slots, rewritten
+                c = axis_group(seq)[1] * n + torch.arange(n, device=row.device)
+                keep = (c >= t0) & (c < t0 + lb)
+                if mine is not None:
+                    keep = keep & mine
+                new = src.index_select(0, (c - t0).clamp(0, lb - 1))
+                old = slab.index_select(0, at)[0]
+                keep = keep.reshape((-1,) + (1,) * (src.ndim - 1))
+                slab.index_copy_(0, at, torch.where(keep, new, old)[None])
+                continue
+            # this row's slots of the flattened (B * slots) axis
+            flat = slab.view(b * n, *slab.shape[2:])
+            cells = at * n + idx
+            if mine is not None:
+                src = torch.where(mine.reshape((1,) * src.ndim), src,
+                                  flat.index_select(0, cells))
+            flat.index_copy_(0, cells, src)
+    vf = vf.to(torch.int32)
+    if mine is not None:
+        vf = torch.where(mine, vf, cache["valid_from"].index_select(0, at))
+    cache["valid_from"].index_copy_(0, at, vf)
+
+
 def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     """Ragged admission: prefill ONE request (leading dim 1, prompt
     left-padded to a length bucket ``lb``, ``batch["pad"]`` its pad count)
@@ -385,16 +455,9 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
                                 pos_offset=t0, gather=False)
     idx = t0 + torch.arange(lb, device=dev)              # int64 slots
     row = torch.as_tensor(row, device=dev).reshape(1).long()
-    b, s = cache["valid_from"].shape[0], cache["slot_pos"].shape[0]
-    # this row's slots of the flattened (B * max_len) axis
-    flat = row * s + idx
-    for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
-        for slab, t in zip(slabs, kv):
-            slab.view(b * s, *slab.shape[2:]).index_copy_(
-                0, flat, t[0].to(slab.dtype))
     pad = batch.get("pad")
     vf = idx[:1] + (pad[:1].to(idx.dtype) if pad is not None else 0)
-    cache["valid_from"].index_copy_(0, row, vf.to(torch.int32))
+    _write_row(cfg, cache, kvs, row, idx, vf, t0, lb, cache_layout())
     cache["slot_pos"].index_copy_(0, idx, idx.to(torch.int32))
     # a copy: the (1, lb, V) logits are scratch of a captured cell
     return tp_gather(logits[:, -1:].clone(), "vocab", cfg.vocab_size), cache

@@ -55,10 +55,23 @@ the row-parallel ``wo`` and ``w_down`` and after the vocab-sharded token
 lookup, an all-gather of the vocab-sharded logits to full width for the
 host's argmax.  Where the mesh has a ``data`` axis that ``batch_pspec``
 splits a bucket over, each data line serves its rows
-(:meth:`Engine.rows_of`) and the tokens are gathered at the end.  Only
-the dense family serves tensor-parallel so far; the engine raises for
-any other, for FSDP, 2D tensor parallelism, sequence parallelism and for
-a cache the rules shard along its sequence.
+(:meth:`Engine.rows_of`) and the tokens are gathered at the end.
+
+With ``ShardingOptions(fsdp=True)`` each rank holds its FSDP piece of
+every ``embed`` dim too (rows on ``data``, columns on ``model``), and a
+packed weight is gathered over the data group before each product
+(``core/tsmm.py::tsmm_dot``).  With ``fsdp=True, serve_2d_tp=True`` (2D
+weight-stationary tensor parallelism) the weights never move: every
+rank computes the whole bucket, a weight whose rows lie on ``data`` is
+contracted over its K slice and the skinny outputs summed over the data
+group, a weight whose columns lie on ``data`` gives the rank its
+columns, gathered after the TP sum, and each rank's cache holds its
+data line's rows.  A cache the rules split along its sequence (a bucket
+the data axis cannot split) holds the rank's slots, and the decode
+softmax is combined over the slots' group.  The cells run inside their
+bucket's :meth:`Engine.cache_layout`.  Only the dense family serves
+tensor-parallel so far; the engine raises for any other and for
+sequence parallelism.
 
 Every ladder demotion on the engine's paths (a planned kernel served by
 its plain version or by ``torch.matmul``, a deferred registry flush, an
@@ -89,11 +102,11 @@ from repro_torch.core.tsmm import prepack_for
 from repro_torch.models.param import MetaGenerator, tree_map
 from repro_torch.resilience import degrade
 from repro_torch.sharding import comm
-from repro_torch.sharding.context import check_dense_mesh
+from repro_torch.sharding.context import CacheLayout, check_dense_mesh
 from repro_torch.sharding.rules import (ShardingOptions, axis_size,
                                         batch_pspec, cache_axes_for,
                                         cache_pspecs, local_params,
-                                        param_pspecs, pspec_for)
+                                        local_shape, param_pspecs, pspec_for)
 from repro_torch.serve.clock import StepCost, ensure_clock
 from repro_torch.serve.programs import (ProgramStore, input_dtypes,
                                        precompile_grid, prompt_positions,
@@ -126,10 +139,47 @@ def _mesh_device(mesh, device) -> torch.device:
 def _check_tp(cfg, mesh, opts: ShardingOptions) -> None:
     """Refuse what tensor-parallel serving does not run yet, and a mesh
     whose backend cannot run the collectives on the rank's tensors."""
-    check_dense_mesh(cfg, mesh, opts, "tensor-parallel serving")
-    if opts.fsdp:
-        raise NotImplementedError("tensor-parallel serving with FSDP is "
-                                  "not ported")
+    check_dense_mesh(cfg, mesh, opts, "tensor-parallel serving",
+                     serving=True)
+
+
+def compute_rows(bucket: int, mesh, opts: ShardingOptions) -> int:
+    """The rows of ``bucket`` a rank computes: the whole bucket off a
+    mesh and under 2D tensor parallelism (compute replicated over data),
+    else its data line's piece where ``batch_pspec`` splits the batch."""
+    if mesh is None or opts.serve_2d_tp:
+        return bucket
+    entry = batch_pspec(bucket, mesh, opts)[0]
+    return bucket if entry is None else bucket // axis_size(mesh, entry)
+
+
+def shard_problem(axes_leaf, shape: tuple, buckets: tuple, mesh,
+                  opts: ShardingOptions) -> tuple:
+    """(rows, k, n, num_shards, spec) of a packable leaf of full
+    ``shape`` on a rank: the kernel's rows per bucket, the (k, n) it
+    multiplies, the shard count that keys its plans, and the (row, col)
+    entries of its spec.  A rank multiplies its piece (k and n divided
+    by the axes on them) at every bucket, except under FSDP (not 2D
+    tensor parallelism), where a piece the data axis splits is gathered
+    over it first and the kernel runs the rank's compute rows
+    (:func:`compute_rows`).  Shared by the pre-pack and the install
+    sweep (``core/install.py::sharded_serving_shapes``), so their
+    problem keys match."""
+    spec = pspec_for(axes_leaf, tuple(shape), mesh, opts)
+    re, ce = spec[-2], spec[-1]
+    rs = axis_size(mesh, re) if re else 1
+    cs = axis_size(mesh, ce) if ce else 1
+    k, n = shape[-2] // rs, shape[-1] // cs
+    rows, shards = tuple(buckets), rs * cs
+    data = next((a for a in opts.dp_axes if a in mesh.shape), None)
+    if opts.fsdp and not opts.serve_2d_tp and data in (re, ce):
+        rows = tuple(sorted({compute_rows(b, mesh, opts) for b in buckets}))
+        shards //= mesh.shape[data]
+        if re == data:
+            k = shape[-2]
+        else:
+            n = shape[-1]
+    return rows, k, n, shards, (re, ce)
 
 
 def resolve_device(device) -> torch.device:
@@ -222,8 +272,15 @@ def pack_tree_for_serving(params, axes, batch_m, mesh=None,
         d = packable_divisors(path, a, full, mesh, opts)
         if d is None:
             return p
-        pk = prepack_for(batch_m, p, pad=path[-1] in PAD_COLS,
-                         num_shards=d[2] * d[3])
+        pad = path[-1] in PAD_COLS
+        if mesh is None:
+            pk = prepack_for(batch_m, p, pad=pad)
+        else:
+            buckets = (batch_m,) if isinstance(batch_m, int) else batch_m
+            rows, k, n, shards, spec = shard_problem(
+                a, tuple(full.shape), buckets, mesh, opts or ShardingOptions())
+            pk = prepack_for(rows, p, pad=pad, num_shards=shards,
+                             plan_shape=(k, n), spec=spec)
         if pk is None:
             return p
         report["/".join(path)] = tuple(pk.blocks.shape)
@@ -382,7 +439,8 @@ class Engine:
         self._pools: set = set()
         self.programs = ProgramStore(
             model, device=self.device, mesh=mesh, opts=self.opts,
-            cache_init=self._local_cache if mesh is not None else None)
+            cache_init=self._local_cache if mesh is not None else None,
+            layout_of=self.cache_layout if mesh is not None else None)
         self.tuner: Optional[_BackgroundTuner] = None
         if background_tune:
             # misses rank against the measurement-calibrated model, and the
@@ -412,7 +470,7 @@ class Engine:
         shapes = None
         if mesh is not None:
             for bucket in self.buckets:
-                self._check_cache_layout(bucket)
+                self.cache_layout(bucket)    # raises for a layout not served
             shapes = model.init(MetaGenerator())[0]
             params = self._local_params(params, axes, shapes)
         params = tree_map(lambda t: t.to(self.device), params)
@@ -440,39 +498,66 @@ class Engine:
                                                  self.opts), shapes,
                             self.mesh)
 
-    def _check_cache_layout(self, bucket: int) -> None:
-        """Raise where ``cache_pspecs`` splits a cache of ``bucket`` along
-        its sequence (the rules' long-context fallback): the port has no
-        sequence-parallel decode yet."""
-        cfg = self.model.cfg
-        full = self.model.init_cache(bucket, self.max_len, "meta")
-        for key, spec in cache_pspecs(cfg, full, self.mesh,
-                                      self.opts).items():
-            names = cache_axes_for(cfg, key, full[key].ndim)
-            if any(n == "cache_seq" and e is not None
-                   for n, e in zip(names, spec)):
-                raise NotImplementedError(
-                    f"the rules split the {key!r} cache of bucket {bucket} "
-                    f"along its sequence ({spec}); sequence-parallel decode "
-                    f"is not ported: serve buckets the data axes divide")
+    def _cache_specs(self, bucket: int, max_len: int) -> tuple:
+        """(the full ``meta`` cache of ``bucket``, its ``cache_pspecs``)."""
+        full = self.model.init_cache(bucket, max_len, "meta")
+        return full, cache_pspecs(self.model.cfg, full, self.mesh, self.opts)
 
-    def _local_cache(self, rows: int, max_len: int, device) -> dict:
-        """A static cache of ``rows`` rows holding this rank's KV heads."""
-        from repro_torch.models import lm as LM
+    def cache_layout(self, bucket: int) -> Optional[CacheLayout]:
+        """Where ``cache_pspecs`` puts a cache of ``bucket``
+        (``sharding/context.py::CacheLayout``): the axis of its rows,
+        whether every rank computes the whole bucket over a piece of
+        them (2D tensor parallelism), and the axis of its slots; None
+        where the cache is whole.  Raises for what the port does not
+        serve: an axis tuple, and slots on the TP axis (the rules put
+        them there only for KV heads the TP axis cannot split, which
+        ``check_dense_mesh`` refuses already)."""
         cfg = self.model.cfg
-        kh = cfg.num_kv_heads
-        if pspec_for(("kvheads",), (kh * cfg.head_dim,), self.mesh,
-                     self.opts)[0] == self.opts.tp_axis:
-            kh //= axis_size(self.mesh, self.opts.tp_axis)
-        return LM.init_cache(dataclasses.replace(cfg, num_kv_heads=kh),
-                             rows, max_len, device)
+        full, specs = self._cache_specs(bucket, self.max_len)
+        names = cache_axes_for(cfg, "k", full["k"].ndim)
+        spec = dict(zip(names, specs["k"]))
+        rows, seq = spec["cache_batch"], spec["cache_seq"]
+        for e in (rows, seq):
+            if isinstance(e, tuple):
+                raise NotImplementedError(f"a cache split over several "
+                                          f"axes ({e})")
+        if seq is not None and seq == self.opts.tp_axis:
+            raise NotImplementedError(
+                f"the rules split the cache of bucket {bucket} along its "
+                f"sequence over {seq!r}: a decode over the TP axis's pieces "
+                f"of the sequence is not ported")
+        if rows is None and seq is None:
+            return None
+        return CacheLayout(rows=rows, seq=seq,
+                           gathered=rows is not None and compute_rows(
+                               bucket, self.mesh, self.opts) == bucket)
+
+    def _local_cache(self, bucket: int, max_len: int, device) -> dict:
+        """This rank's piece of the static cache of ``bucket`` under
+        ``cache_pspecs``: its rows, its KV heads and its slots, with
+        ``valid_from`` for its rows and ``slot_pos`` whole (the rules
+        replicate it), zeroed (``slot_pos`` -1)."""
+        full, specs = self._cache_specs(bucket, max_len)
+        lay = self.cache_layout(bucket)
+        rows = bucket // (axis_size(self.mesh, lay.rows)
+                          if lay is not None and lay.rows else 1)
+        out = {}
+        for key, t in full.items():
+            shape = local_shape(tuple(t.shape), specs[key], self.mesh)
+            if key == "valid_from":
+                shape = (rows,)
+            out[key] = torch.full(shape, -1 if key == "slot_pos" else 0,
+                                  dtype=t.dtype, device=device)
+        return out
 
     def rows_of(self, bucket: int) -> tuple:
         """(rows, first row, data group) of ``bucket`` on this rank: where
         ``batch_pspec`` splits the batch over a data axis, each data line
-        serves its rows and the group is that axis's; otherwise every rank
-        serves the whole bucket (group None)."""
-        entry = (None if self.mesh is None
+        serves its rows and the group is that axis's; otherwise (and
+        under 2D tensor parallelism, where compute is replicated over the
+        data axis and only the cache's rows are split) every rank serves
+        the whole bucket (group None)."""
+        entry = (None if self.mesh is None or self.opts.serve_2d_tp
                  else batch_pspec(bucket, self.mesh, self.opts)[0])
         if entry is None:
             return bucket, 0, None
@@ -606,7 +691,7 @@ class Engine:
         cell = store.static_batch(batch)
         for k, v in batch.items():
             cell[k].copy_(v)
-        cache = store.static_cache(rows, self.max_len)
+        cache = store.static_cache(bucket, self.max_len)
         tok = store.static_tokens(rows)
         tokens = torch.empty((rows, steps), dtype=torch.int32,
                              device=self.device)

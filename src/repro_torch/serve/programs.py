@@ -189,14 +189,18 @@ class ProgramStore:
     the CPU cells run eagerly (the CPU has no graphs) and ``capture=True``
     raises, as it does on a gloo mesh.  ``mesh`` / ``opts``: a
     tensor-parallel engine's process mesh and options (the module's "Mesh
-    mode"); ``cache_init(rows, max_len, device)`` builds a static cache
-    (default the model's ``init_cache``)."""
+    mode"); ``cache_init(bucket, max_len, device)`` builds a static
+    cache (default the model's ``init_cache``; a sharded engine's builds
+    the rank's piece of it), and ``layout_of(bucket)`` gives the
+    ``CacheLayout`` a bucket's cells run in (``Engine.cache_layout``)."""
 
     def __init__(self, model, *, device, capture: Optional[bool] = None,
-                 mesh=None, opts=None, cache_init: Optional[Callable] = None):
+                 mesh=None, opts=None, cache_init: Optional[Callable] = None,
+                 layout_of: Optional[Callable] = None):
         self.model = model
         self.device = torch.device(device)
         self.mesh, self.opts = mesh, opts
+        self._layout_of = layout_of
         gloo = mesh is not None and getattr(mesh, "backend", None) == "gloo"
         if capture is None:
             capture = self.device.type == "cuda" and not gloo
@@ -293,10 +297,11 @@ class ProgramStore:
         fn = self._fns[kind]
         rec: list = []
         if self.capture:
-            run, launches, pool_bytes = self._capture(kind, fn, args, rec)
+            run, launches, pool_bytes = self._capture(kind, fn, args, rec,
+                                                      bucket)
             source = "captured"
         else:
-            run, launches, pool_bytes = self._eager(fn, rec), {}, 0
+            run, launches, pool_bytes = self._eager(fn, rec, bucket), {}, 0
             source = "eager"
         dt = time.perf_counter() - t0
         self._stats[source] += 1
@@ -309,11 +314,14 @@ class ProgramStore:
         self._programs[key] = prog
         return prog
 
-    def context(self):
-        """The mesh's sharding context (a no-op off a mesh)."""
-        return sharding_ctx(self.mesh, self.opts)
+    def context(self, bucket: Optional[int] = None):
+        """The mesh's sharding context, with ``bucket``'s cache layout (a
+        no-op off a mesh)."""
+        layout = (self._layout_of(bucket) if self._layout_of is not None
+                  and bucket is not None else None)
+        return sharding_ctx(self.mesh, self.opts, layout)
 
-    def _eager(self, fn, rec: list) -> Callable:
+    def _eager(self, fn, rec: list, bucket: int) -> Callable:
         if self.mesh is None:
             def run(*args):
                 with torch.inference_mode(), serving_ctx():
@@ -321,8 +329,8 @@ class ProgramStore:
             return run
 
         def run_on_mesh(*args):
-            with torch.inference_mode(), serving_ctx(), self.context(), \
-                    comm.recording() as calls:
+            with torch.inference_mode(), serving_ctx(), \
+                    self.context(bucket), comm.recording() as calls:
                 out = fn(*args)
             rec[:] = calls
             comm.replayed(calls)
@@ -330,7 +338,8 @@ class ProgramStore:
         return run_on_mesh
 
     @torch.inference_mode()
-    def _capture(self, kind: str, fn, args, comm_rec: list) -> tuple:
+    def _capture(self, kind: str, fn, args, comm_rec: list,
+                 bucket: int) -> tuple:
         dev = self.device
         main = torch.cuda.current_stream(dev)
         # a decode step advances the cache's position (and an SSM's state)
@@ -339,7 +348,7 @@ class ProgramStore:
         state = recurrent_state(args[1]) if kind == "decode" else {}
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
-        with torch.cuda.stream(side), serving_ctx(), self.context():
+        with torch.cuda.stream(side), serving_ctx(), self.context(bucket):
             fn(*args)
         main.wait_stream(side)
         restore(args[1], state)
@@ -354,7 +363,7 @@ class ProgramStore:
         # thread_local: a background tuner timing on its own thread and
         # stream does not invalidate the capture.  A ladder demotion was
         # counted by the warm-up: the capture's pass counts none
-        with cuda.recording() as rec, serving_ctx(), self.context(), \
+        with cuda.recording() as rec, serving_ctx(), self.context(bucket), \
                 comm.recording() as calls, \
                 degrade.use(degrade.current().capture()), \
                 torch.cuda.graph(graph, pool=self.pool,
@@ -480,8 +489,9 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
     ``params`` is the engine's packed param tree (the reference takes the
     logical axes and builds an abstract tree: a graph captures real
     addresses).  ``rows_of(bucket)``: the rows a rank of a data-sharded
-    engine holds of a bucket (``Engine.rows_of``; default all).  Returns
-    the per-cell rows."""
+    engine computes of a bucket (``Engine.rows_of``; default all); its
+    static cache is the store's piece of the bucket's.  Returns the
+    per-cell rows."""
     ragged = ragged_supported(model)
     rows = []
 
@@ -495,7 +505,7 @@ def precompile_grid(model, params, *, buckets, lengths, max_len: int,
     with torch.inference_mode():
         for bb in buckets:
             n = rows_of(bb)[0] if rows_of is not None else bb
-            cache = store.static_cache(n, max_len)
+            cache = store.static_cache(bb, max_len)
             acquire("decode", (params, cache, store.static_tokens(n)), bb, 1)
             for lb in lengths:
                 for pad in ((False, True) if ragged else (False,)):
@@ -541,56 +551,62 @@ def check_cells(store: ProgramStore, *, seed: int = 0) -> list:
     ``max_abs_err``."""
     g = torch.Generator().manual_seed(seed)
     cfg = store.model.cfg
-    vocab = cfg.vocab_size
     rows = []
 
     def randint(lo, hi, shape=()):
         return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
 
-    with torch.inference_mode(), serving_ctx(), store.context():
+    with torch.inference_mode(), serving_ctx():
         for prog in store.programs():
-            args = prog.args
-            fn = store._fns[prog.kind]
-            if prog.kind in ("prefill", "prefill_row"):
-                batch = args[1]
-                toks = batch["tokens"]
-                toks.copy_(randint(0, vocab, tuple(toks.shape)))
-                if "pad" in batch:
-                    batch["pad"].copy_(randint(0, toks.shape[1],
-                                               tuple(batch["pad"].shape)))
-            written = True
-            if prog.kind == "prefill":
-                want = fn(*args)[0].clone()
-                got = prog.fn(*args)[0].clone()
-            elif prog.kind == "prefill_row":
-                cache = args[2]
-                lb = args[1]["tokens"].shape[1]
-                bucket = cache["valid_from"].shape[0]
-                max_len = cache["slot_pos"].shape[0]
-                row = int(randint(0, bucket))
-                t_end = int(randint(lb, max_len + 1))
-                t0 = t_end - lb
-                args[3].fill_(row)
-                args[4].fill_(t_end)
-                want = fn(*args)[0].clone()
-                want_row = _row_state(cfg, cache, row, t0, t_end)
-                for v in _row_views(cfg, cache, row, t0, t_end):
-                    v.zero_()
-                cache["valid_from"][row] = -1
-                cache["slot_pos"][t0:t_end] = -1
-                got = prog.fn(*args)[0].clone()
-                written = all(torch.equal(a, b) for a, b in zip(
-                    _row_state(cfg, cache, row, t0, t_end), want_row))
-            else:
-                cache, tok = args[1], args[2]
-                tok.copy_(randint(0, vocab, tuple(tok.shape)))
-                state = recurrent_state(cache)
-                want = fn(*args)[0].clone()
-                restore(cache, state)
-                got = prog.fn(*args)[0].clone()
-                restore(cache, state)
-            rows.append({"key": prog.key, "kind": prog.kind,
-                         "equal": bool(torch.equal(got, want)) and written,
-                         "max_abs_err": float((got.float() - want.float())
-                                              .abs().max())})
+            with store.context(prog.bucket):
+                rows.append(_check_cell(store, prog, cfg, randint))
     return rows
+
+
+def _check_cell(store: ProgramStore, prog, cfg, randint) -> dict:
+    """:func:`check_cells` of one cell, in its context."""
+    vocab = cfg.vocab_size
+    args = prog.args
+    fn = store._fns[prog.kind]
+    if prog.kind in ("prefill", "prefill_row"):
+        batch = args[1]
+        toks = batch["tokens"]
+        toks.copy_(randint(0, vocab, tuple(toks.shape)))
+        if "pad" in batch:
+            batch["pad"].copy_(randint(0, toks.shape[1],
+                                       tuple(batch["pad"].shape)))
+    written = True
+    if prog.kind == "prefill":
+        want = fn(*args)[0].clone()
+        got = prog.fn(*args)[0].clone()
+    elif prog.kind == "prefill_row":
+        cache = args[2]
+        lb = args[1]["tokens"].shape[1]
+        bucket = cache["valid_from"].shape[0]
+        max_len = cache["slot_pos"].shape[0]
+        row = int(randint(0, bucket))
+        t_end = int(randint(lb, max_len + 1))
+        t0 = t_end - lb
+        args[3].fill_(row)
+        args[4].fill_(t_end)
+        want = fn(*args)[0].clone()
+        want_row = _row_state(cfg, cache, row, t0, t_end)
+        for v in _row_views(cfg, cache, row, t0, t_end):
+            v.zero_()
+        cache["valid_from"][row] = -1
+        cache["slot_pos"][t0:t_end] = -1
+        got = prog.fn(*args)[0].clone()
+        written = all(torch.equal(a, b) for a, b in zip(
+            _row_state(cfg, cache, row, t0, t_end), want_row))
+    else:
+        cache, tok = args[1], args[2]
+        tok.copy_(randint(0, vocab, tuple(tok.shape)))
+        state = recurrent_state(cache)
+        want = fn(*args)[0].clone()
+        restore(cache, state)
+        got = prog.fn(*args)[0].clone()
+        restore(cache, state)
+    return {"key": prog.key, "kind": prog.kind,
+            "equal": bool(torch.equal(got, want)) and written,
+            "max_abs_err": float((got.float() - want.float())
+                                 .abs().max())}

@@ -40,11 +40,16 @@ the stop checks (the reference makes the same reads).
 
 On a tensor-parallel engine the scheduler runs inside the mesh's
 sharding context (``sharding_ctx(eng.mesh, eng.opts)``), as the
-reference's does, on every rank with the same host logic.  Where the
-data axes split the pool's rows (``Engine.rows_of``), a data line holds
-and admits its own rows only: an admission's first token is summed over
-the data group (the other lines contribute zero) and each step's tokens
-are gathered over it, so every rank sees every row's tokens.  While a
+reference's does, on every rank with the same host logic.  Every rank
+runs every admission (a sharded cell's collectives, FSDP's gathers and
+2D tensor parallelism's sums, need the whole group), with the pool's
+row: the cell writes the cache row on the rank whose piece holds it
+(``models/lm.py::lm_prefill_row``), and every rank reads the request's
+first token from its own logits.  Where the data axes split the pool's
+compute rows (``Engine.rows_of``; not under 2D tensor parallelism,
+where every rank computes every row), a data line feeds its own rows
+and each step's tokens are gathered over the data group, so every rank
+sees every row's tokens.  While a
 scheduler is open its pool's bucket is claimed: ``Engine.generate`` on
 that bucket would overwrite the pool's buffers, so it raises.
 """
@@ -333,7 +338,7 @@ class ContinuousScheduler:
         self._t_open = self.clock.now()
         # what the reference gets from a fresh cache, in place: the clock,
         # idle rows attending to nothing, no slot holding a position
-        self.cache = store.static_cache(self.rows, eng.max_len)
+        self.cache = store.static_cache(B, eng.max_len)
         self.cache["pos"].fill_(self.T)
         self.cache["valid_from"].fill_(eng.max_len)
         self.cache["slot_pos"].fill_(-1)
@@ -431,28 +436,31 @@ class ContinuousScheduler:
         if toks is None or lb is None:
             toks, lb = self.prepare(req)
         row = self.free.pop()
-        local = row - self.row0          # the row in this rank's pool
-        mine = 0 <= local < self.rows
+        local = row - self.row0          # the row in this rank's compute
         p = toks.shape[0]
-        if mine:
-            padded = np.zeros((1, lb), np.int32)
-            padded[0, lb - p:] = toks
-            args = row_args(eng.programs, eng.params, self.cache, lb)
-            batch = args[1]
-            batch["tokens"].copy_(torch.from_numpy(padded))
-            batch["pad"].fill_(lb - p)
-            args[3].fill_(local)
-            args[4].fill_(self.T)
-            tc0 = clock.now()
-            prog, cold = self._acquire(("prefill_row", lb), "prefill_row",
-                                       args, lb)
-            logits, _ = prog.fn(*args)
-            self.tok[local].copy_(logits[0, -1].argmax(dim=-1, keepdim=True))
-            if cold:
-                self._charge_cold(tc0)
+        # every rank admits (a sharded cell's collectives need the whole
+        # group; the cell writes the cache row on the rank holding it), so
+        # every rank has the request's logits
+        padded = np.zeros((1, lb), np.int32)
+        padded[0, lb - p:] = toks
+        args = row_args(eng.programs, eng.params, self.cache, lb)
+        batch = args[1]
+        batch["tokens"].copy_(torch.from_numpy(padded))
+        batch["pad"].fill_(lb - p)
+        args[3].fill_(row)
+        args[4].fill_(self.T)
+        tc0 = clock.now()
+        prog, cold = self._acquire(("prefill_row", lb), "prefill_row",
+                                   args, lb)
+        logits, _ = prog.fn(*args)
+        nxt = logits[0, -1].argmax(dim=-1, keepdim=True)
+        if 0 <= local < self.rows:
+            self.tok[local].copy_(nxt)
+        if cold:
+            self._charge_cold(tc0)
         if clock.virtual:
             clock.advance(self.step_cost.prefill_s(lb))
-        first = self._first_token(local, mine)   # the admission's host read
+        first = int(nxt[0])              # the admission's host read
         t_tok = clock.now()
         st = {"tag": tag, "req": req, "row": row, "lb": lb,
               "prompt_len": int(p), "emitted": [first],
@@ -512,17 +520,6 @@ class ContinuousScheduler:
             if self._finished(st):
                 finished.append((st["tag"], self._retire(st)))
         return emitted, finished
-
-    def _first_token(self, local: int, mine: bool) -> int:
-        """An admission's first token: this rank's, or, on a data split,
-        the owning line's (summed over the data group, the others adding
-        zero)."""
-        if self.data is None:
-            return int(self.tok[local, 0])
-        t = (self.tok[local].clone() if mine
-             else torch.zeros((1,), dtype=self.tok.dtype,
-                              device=self.tok.device))
-        return int(comm.all_reduce(t, self.data)[0])
 
     def cancel(self, st):
         """Retire one RUNNING stream early (cooperative cancel / deadline

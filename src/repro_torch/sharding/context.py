@@ -19,6 +19,20 @@ column-parallel group: q/k/v, ``w_gate``/``w_up``, the head.  Under
 the others the plain collectives.  With no context set (unit tests,
 single-device serving) or on a mesh description without process groups
 (the install sweep's), every one of them is a no-op.
+
+Serving under FSDP (``fsdp=True``) or 2D weight-stationary tensor
+parallelism (``fsdp=True, serve_2d_tp=True``) adds the data axis's
+sites, each answering only inside ``serving_ctx`` (training gathers its
+whole tree at step start): :func:`fsdp_split` (the rules put ``data`` on
+an ``embed`` dim), :func:`kblocks_split` (a packed weight's row blocks
+contracted where they lie, the partial outputs summed over
+:func:`dp_group`), :func:`dp_gather_cols` (an output's ``embed``
+columns gathered over ``data`` under 2D), :func:`dp_weight_cols` and
+:func:`dp_full` (an unpacked FSDP piece gathered before use).  A
+serving cell runs in its bucket's :class:`CacheLayout`
+(:func:`cache_layout`): the axis of the cache's rows, whether every
+rank computes the whole bucket over a piece of them, and the axis of
+its slots.
 """
 
 from __future__ import annotations
@@ -44,9 +58,29 @@ _SP_ACT = {"seq"}
 
 
 @dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """Where one bucket's decode cache lies against the rows a rank
+    computes (``Engine.cache_layout``, from ``cache_pspecs``):
+
+    * ``rows``: the axis the cache's rows are split over (each rank of
+      its line holds ``rows / n`` of them), or None;
+    * ``gathered``: every rank computes the whole bucket while its cache
+      holds a piece of the rows (2D tensor parallelism): a decode step
+      attends over its rows and gathers the attention output over
+      ``rows``;
+    * ``seq``: the axis the cache's slots are split over (each rank holds
+      ``slots / n`` of them, and the softmax is combined over its line),
+      or None."""
+    rows: Optional[str] = None
+    gathered: bool = False
+    seq: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardCtx:
     mesh: object
     opts: ShardingOptions
+    layout: Optional[CacheLayout] = None
 
     def spec_for(self, names: tuple, shape: tuple) -> P:
         assign: list = [None] * len(names)
@@ -107,9 +141,10 @@ class ShardCtx:
 
 
 @contextlib.contextmanager
-def sharding_ctx(mesh, opts: Optional[ShardingOptions] = None):
+def sharding_ctx(mesh, opts: Optional[ShardingOptions] = None,
+                 layout: Optional[CacheLayout] = None):
     prev = _CTX.get()
-    tok = _CTX.set(ShardCtx(mesh, opts or ShardingOptions())
+    tok = _CTX.set(ShardCtx(mesh, opts or ShardingOptions(), layout)
                    if mesh is not None else None)
     try:
         yield
@@ -201,12 +236,15 @@ def tp_gather(x, axis: str, dim: int):
     return comm.all_gather(x, tp_group(), dim=-1)
 
 
-def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str) -> dict:
-    """Refuse, for ``what`` (serving or training), a mesh description with
-    no ranks, a backend that cannot run the collectives on the rank's
-    tensors, a family other than the dense one, 2D tensor parallelism or
-    sequence parallelism, and heads the TP axis would split unevenly.
-    Returns which head dims the rules split ({"qheads": bool,
+def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
+                     serving: bool = False) -> dict:
+    """Refuse, for ``what`` (serving, or training where ``serving`` is
+    False), a mesh description with no ranks, a backend that cannot run
+    the collectives on the rank's tensors, a family other than the dense
+    one, sequence parallelism, 2D tensor parallelism outside serving,
+    data or FSDP axes other than one data axis where FSDP or 2D tensor
+    parallelism would use them, and heads the TP axis would split
+    unevenly.  Returns which head dims the rules split ({"qheads": bool,
     "kvheads": bool})."""
     if not hasattr(mesh, "group"):
         raise TypeError(f"{what} runs on a process mesh (launch/mesh.py::"
@@ -217,9 +255,23 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str) -> dict:
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
                                   f"family only, not {cfg.family!r}")
-    if opts.serve_2d_tp or opts.sequence_parallel:
-        raise NotImplementedError(f"{what} with 2D tensor parallelism or "
-                                  f"sequence parallelism is not ported")
+    if opts.sequence_parallel:
+        raise NotImplementedError(
+            f"{what} with sequence parallelism (sequence_parallel="
+            f"{opts.sequence_parallel!r}: the prefill's sequence split over "
+            f"the {'model' if opts.sequence_parallel == 'model' else 'data'}"
+            f" axis) is not ported")
+    if opts.serve_2d_tp and not serving:
+        raise NotImplementedError(f"{what}: 2D tensor parallelism "
+                                  f"(serve_2d_tp) is a serving layout")
+    if serving and (opts.fsdp or opts.serve_2d_tp):
+        live = {a for a in opts.dp_axes + opts.fsdp_axes if a in mesh.shape}
+        if len(live) > 1 or (live and tuple(opts.fsdp_axes) !=
+                             tuple(opts.dp_axes)):
+            raise NotImplementedError(
+                f"{what} with FSDP or 2D tensor parallelism runs over one "
+                f"data axis that is both the data and the FSDP axis, not "
+                f"dp_axes={opts.dp_axes}, fsdp_axes={opts.fsdp_axes}")
     tp = axis_size(mesh, opts.tp_axis) if opts.tp_axis in mesh.shape else 1
     split = {}
     for ax, heads in (("qheads", cfg.num_heads), ("kvheads",
@@ -239,3 +291,137 @@ def tp_rank() -> int:
     if ctx is None or tp_group() is None:
         return 0
     return ctx.mesh.coords[ctx.opts.tp_axis]
+
+
+# ---------------------------------------------------------------------------
+# The data axis under FSDP and 2D tensor parallelism (serving)
+# ---------------------------------------------------------------------------
+
+
+def _data_axis(ctx) -> Optional[str]:
+    """The ambient mesh's data axis (the first of ``dp_axes`` it has)."""
+    for a in ctx.opts.dp_axes:
+        if a in ctx.mesh.shape:
+            return a
+    return None
+
+
+def dp_group():
+    """The calling rank's line along the data axis, or None (no context,
+    a mesh description, or no data axis)."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return None
+    ax = _data_axis(ctx)
+    return None if ax is None else ctx.group(ax)
+
+
+def dp_rank() -> int:
+    """The calling rank's coordinate along the data axis (0 off it)."""
+    ctx = _CTX.get()
+    if ctx is None or dp_group() is None:
+        return 0
+    return ctx.mesh.coords[_data_axis(ctx)]
+
+
+def dp_size() -> int:
+    ctx = _CTX.get()
+    if ctx is None or dp_group() is None:
+        return 1
+    return ctx.mesh.shape[_data_axis(ctx)]
+
+
+def _serving() -> bool:
+    from repro_torch.core.linear import in_serving_ctx
+    return in_serving_ctx()
+
+
+def fsdp_split(dim: int) -> bool:
+    """Whether a serving rank holds a piece of an ``embed`` dim of full
+    size ``dim``: FSDP put the data axis on it (``pspec_for``; at a data
+    size of 1 too).  Training gathers its whole tree at step start
+    (``train/step.py``), so this answers only inside ``serving_ctx``."""
+    ctx = _CTX.get()
+    if ctx is None or not ctx.opts.fsdp or dp_group() is None \
+            or not _serving():
+        return False
+    return pspec_for(("embed",), (dim,), ctx.mesh,
+                     ctx.opts)[0] == _data_axis(ctx)
+
+
+def serve_2d() -> bool:
+    """Whether the ambient options serve 2D tensor-parallel on a process
+    mesh with a data axis: compute rows replicated over data."""
+    ctx = _CTX.get()
+    return (ctx is not None and ctx.opts.serve_2d_tp
+            and dp_group() is not None)
+
+
+def kblocks_split(k: int) -> bool:
+    """Whether the ambient options split a packed weight's row blocks (an
+    ``embed`` contraction dim of full size ``k``) over the data axis and
+    contract them where they lie: 2D tensor parallelism (the reference's
+    ``kblocks`` on the data axes, ``sharding/context.py:57-64`` there),
+    each rank multiplying its K slice of the activation panel, the
+    partial outputs summed over the data group."""
+    return serve_2d() and fsdp_split(k)
+
+
+def data_split_of(spec) -> Optional[str]:
+    """``"rows"`` or ``"cols"``: which dim of a serving weight whose
+    (row, col) spec entries are ``spec`` (a ``PackedTensor``'s ``spec``)
+    the data axis splits, or None."""
+    ctx = _CTX.get()
+    if ctx is None or not spec or dp_group() is None or not _serving():
+        return None
+    ax = _data_axis(ctx)
+    for name, entry in zip(("rows", "cols"), spec):
+        if entry == ax or (isinstance(entry, tuple) and ax in entry):
+            return name
+    return None
+
+
+def dp_gather_cols(x, dim: int):
+    """Under 2D tensor parallelism, an output whose last dim is this
+    rank's piece of an FSDP-split ``embed`` dim of full size ``dim``
+    (``wo``, ``w_down`` and the looked-up embeddings: their columns lie
+    on the data axis) gathered to full width over the data group; ``x``
+    itself otherwise."""
+    if not (serve_2d() and fsdp_split(dim)):
+        return x
+    from repro_torch.sharding import comm
+    return comm.all_gather(x, dp_group(), dim=-1)
+
+
+def dp_weight_cols(w, dim: int):
+    """Under FSDP (not 2D tensor parallelism), an unpacked serving weight
+    whose columns are this rank's piece of an ``embed`` dim of full size
+    ``dim`` (``wo``, ``w_down``), gathered over the data group before
+    use; ``w`` itself otherwise (a packed piece is gathered in
+    ``core/tsmm.py::tsmm_dot``)."""
+    if hasattr(w, "blocks") or serve_2d() or not fsdp_split(dim):
+        return w
+    from repro_torch.sharding import comm
+    return comm.all_gather(w, dp_group(), dim=-1)
+
+
+def dp_full(t, dim: int):
+    """An FSDP-split serving leaf (a norm's scale) whose last dim is this
+    rank's piece of an ``embed`` dim of full size ``dim``, gathered over
+    the data group before use; ``t`` itself where it is whole."""
+    if not fsdp_split(dim):
+        return t
+    from repro_torch.sharding import comm
+    return comm.all_gather(t, dp_group(), dim=-1)
+
+
+def cache_layout() -> Optional[CacheLayout]:
+    """The ambient cell's cache layout (None: the cache is whole)."""
+    ctx = _CTX.get()
+    return None if ctx is None else ctx.layout
+
+
+def axis_group(axis: str):
+    """(group, index, count) of the calling rank's line along ``axis``."""
+    ctx = _CTX.get()
+    return (ctx.group(axis), ctx.mesh.coords[axis], ctx.mesh.shape[axis])
