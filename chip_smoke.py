@@ -125,11 +125,11 @@ printing JSON lines:
                 versions) with the same packed weights; every skinny
                 launch on ``f32`` (decode) or ``tf32x3`` (prefill), and
                 both designs run;
-7. serve      — qwen1.5-4b at full width, 20 of its 40 layers, bf16,
+7. serve      — qwen1.5-4b at full width, 10 of its 40 layers, bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
                 greedy steps;
-8. serve.glm4 — GLM-4-9B at full width, 20 of its 40 layers, bf16,
+8. serve.glm4 — GLM-4-9B at full width, 10 of its 40 layers, bf16,
                 seeded random weights, ``Engine(max_batch=2)``: groups of 1
                 and 2 with 2048-token prompts and 8 greedy steps; its
                 unpacked wk/wv run the tall-A kernel at prefill;
@@ -141,7 +141,7 @@ printing JSON lines:
                 the logits it was chosen from agree with the solo run's
                 within ``F32_TOL`` and the two tokens' logits are within
                 it); every skinny launch on ``f32`` or ``tf32x3``;
-10. queue     — qwen1.5-4b at full width, 20 layers, bf16, on a queue
+10. queue     — qwen1.5-4b at full width, 10 layers, bf16, on a queue
                 engine of its own (4 slots, prompts to 256, ``max_len`` by
                 the ragged rule, its 57 cells captured at load): 16
                 ragged requests (the continuous-batching tool's lengths
@@ -194,7 +194,7 @@ printing JSON lines:
                 launch flash at D 80.  Both SSM paths also print the
                 eager profile of one prefill (the ``ssm_conv``,
                 ``ssm_scan`` and ``ssm_state`` families);
-17. serve.danube — h2o-danube-1.8b at full width, 12 of its 24 layers
+17. serve.danube — h2o-danube-1.8b at full width, 6 of its 24 layers
                 (window 4096), bf16,
                 ``Engine(max_batch=2)`` whose length grid holds exactly
                 its two prompts: groups of 1 and 2 at 4352 tokens (the
@@ -202,7 +202,7 @@ printing JSON lines:
                 decode crosses slot 4095 -> 0 at position 4096, checked
                 on each bucket's cache), 16 steps; windowed attention
                 takes the chunked body: flash must not launch;
-18. serve.llava — the LLaVA-NeXT Mistral-7B backbone at full width, 16
+18. serve.llava — the LLaVA-NeXT Mistral-7B backbone at full width, 8
                 of its 32 layers,
                 groups of 1 and 2 with 2880 seeded image embeddings and
                 192 tokens (3072 positions: flash at D 128 on 32 query /
@@ -294,6 +294,39 @@ printing JSON lines:
                 world size 1: the TP engine's
                 grid captured with its collectives, every cell bit-equal
                 to its eager run, a graphed group equal to an eager one.
+                The same ranks then serve the MoE family (``TP_MOE``,
+                after ``install --mesh model=2`` for both, their per-shard
+                skinny leaves and packs held against the plain versions
+                at decode and prefill rows): OLMoE-1B-7B at its published
+                widths cut to 4 layers (32 experts and 8 heads a rank;
+                groups of 1 and 4 x 256 tokens, 8 steps, a 3-request
+                queue; flash launched) and DeepSeek-V2 at its published
+                widths cut to 2 layers (the dense layer and one MoE layer
+                of 160 experts, 80 a rank, 2 shared, top-6; 64 MLA heads
+                a rank, the latent cache split along its sequence; groups
+                of 1 and 2 x 512 tokens, 4 steps; no flash), each rank
+                drawing every seeded leaf whole and keeping its piece;
+                each decode call's collectives equal to
+                ``tp_moe_contract``, 0 misses, a healthy engine, the
+                rank's pieces only; rank 0 against a one-rank engine on
+                the same weights (``tp_moe_compare``): the tokens whose
+                top-k expert set (or an entry's drop) differs counted by
+                layer with their probability gaps, every row's
+                per-position prefill logits up to its first change and
+                the first decode step of the rows with none and an
+                agreeing input within ``TP_LOGITS_TOL``; then, the
+                one-rank engine taking rank 0's expert choices, every
+                position's prefill logits and every agreeing row's first
+                decode step within it; in the first MoE layer every
+                flip's one-rank gap under ``TP_MOE_GAP`` and at most
+                ``TP_MOE_FLIPS`` of its tokens flipped; the planted
+                controls (``TP_MOE_FAULTS``: every MoE layer's sum
+                skipped, the router's columns gathered in the reverse
+                order, and DeepSeek's MLA combine over the rank's own
+                slots only), each outside the bound by its multiple at
+                every bucket, the reversed router outside both limits
+                of the routing bound too; and OLMoE's grid under NCCL at
+                world size 1, captured and bit-equal to eager.
                 ``python3 chip_smoke.py --phase tp`` runs env, build and
                 this phase alone;
 25. tp2d      — 2D weight-stationary tensor parallelism and FSDP serving
@@ -353,8 +386,8 @@ printing JSON lines:
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m,
 Zamba2-2.7B, h2o-danube-1.8b, GLM-4-9B and the LLaVA-NeXT backbone run
-cut in depth (``HALF_DEPTH``: half, a quarter for OLMoE, Mamba2 and
-Zamba2), so that with the paths of
+cut in depth (``HALF_DEPTH``: a quarter of each), so that with the
+paths of
 whisper-base and llama3-405b, tp, tp2d and train.dist the script stays
 inside its time limit (each model fits the card whole; the cut only
 shortens the run, every width and kernel shape as at full depth).
@@ -405,7 +438,8 @@ serve.zamba2, serve.whisper and serve.llava; the skinny-A row its bias
 + GELU cases with its bias + GELU epilogue launches on serve.whisper;
 the skinny rows and the pack row llama3-405b's head and w_down cases
 with their launches on serve.llama3; every row each tp rank's launches
-on the tp path (``tp.rank0``, ``tp.rank1``), at its load (the pack's)
+on the tp path (``tp.rank0``, ``tp.rank1``) and its MoE paths
+(``tp.moe.olmoe.rank0`` ...), at their load (the pack's)
 and in ``distributed_tsmm`` at N = 4 and 240 (the tall rows'); each tall row the paper's planned rows it ran and the fp32
 rows at N = 4, 32, 128, 240 (``f32`` or ``tf32x3``: ms, device_ms, the
 bound at the design's rate beside the FMA bound, torch.matmul), each
@@ -418,6 +452,7 @@ raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2155,19 +2190,18 @@ def encdec_path(path, eng, cfg, launches):
     return extra, set()
 
 
-# seven models' serve and queue paths cut in depth (qwen1.5-4b, GLM-4-9B,
-# h2o-danube-1.8b and the LLaVA-NeXT backbone to half, OLMoE-1B-7B,
-# Mamba2-780m and Zamba2-2.7B to a quarter since PR 29), so the script
-# ends well inside its time limit with the ZOO paths, tp, tp2d and
-# train.dist (each model fits the card whole; Zamba2 keeps whole groups of
-# 6 Mamba layers)
-HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 20},
-              "glm4_9b": {"num_layers": 20},
+# seven models' serve and queue paths cut in depth to a quarter
+# (qwen1.5-4b, GLM-4-9B, h2o-danube-1.8b and the LLaVA-NeXT backbone, from
+# half, paying for the tp phase's MoE paths), so the script ends well
+# inside its time limit with the ZOO paths, tp, tp2d and train.dist (each
+# model fits the card whole; Zamba2 keeps whole groups of 6 Mamba layers)
+HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 10},
+              "glm4_9b": {"num_layers": 10},
               "olmoe_1b_7b": {"num_layers": 4},
               "mamba2_780m": {"num_layers": 12},
               "zamba2_2_7b": {"num_layers": 12},
-              "h2o_danube_1_8b": {"num_layers": 12},
-              "llava_next_mistral_7b": {"num_layers": 16}}
+              "h2o_danube_1_8b": {"num_layers": 6},
+              "llava_next_mistral_7b": {"num_layers": 8}}
 
 
 # the serve paths: (arch, cut of the published config, max batch, prompt,
@@ -3569,15 +3603,18 @@ def tp_paper(mesh, res: dict):
                    "max_abs_err": err, "tol": tol, "within": ok}
 
 
-def tp_shard_cases() -> list:
-    """The kernels of the tp path at the per-shard shapes the ranks give
-    them.  Each leaf of ``TP_SHARD_LEAVES`` is packed as a rank packs its
-    piece (``prepack_for`` keyed by the shard count: the plans ``install
-    --mesh`` wrote), the pack bit-equal to ``pack_ref``; then ``tsmm_dot``
-    on layer 0's packed piece at ``TP_SHARD_M`` rows (the stamped variant
-    at decode, the registry's at the prefill) against the same call on
-    the ladder's plain rung: the same variant's plain version, the
-    planned rung refused by a failpoint, with no kernel launched."""
+def tp_shard_cases(leaves=None, layers: int = TP_LAYERS,
+                   buckets: tuple = TP_BUCKETS, ms: tuple = TP_SHARD_M,
+                   mode: str = "tp") -> list:
+    """The kernels of the tp path (``mode``; default qwen's) at the
+    per-shard shapes the ranks give them.  Each leaf of ``leaves``
+    (default ``TP_SHARD_LEAVES``) is packed as a rank packs its piece
+    (``prepack_for`` over ``buckets`` keyed by the shard count: the plans
+    ``install --mesh`` wrote), the pack bit-equal to ``pack_ref``; then
+    ``tsmm_dot`` on layer 0's packed piece at ``ms`` rows (the stamped
+    variant at decode, the registry's at the prefill) against the same
+    call on the ladder's plain rung: the same variant's plain version,
+    the planned rung refused by a failpoint, with no kernel launched."""
     import logging
 
     import torch
@@ -3593,23 +3630,23 @@ def tp_shard_cases() -> list:
     bf = torch.bfloat16
     misses = registry.stats()["misses"]
     out = []
-    for leaf, (k, n, has_bias, act) in TP_SHARD_LEAVES.items():
+    for leaf, (k, n, has_bias, act) in (leaves or TP_SHARD_LEAVES).items():
         head = leaf == "head"
-        w = (torch.randn((k, n) if head else (TP_LAYERS, k, n), generator=g,
+        w = (torch.randn((k, n) if head else (layers, k, n), generator=g,
                          device="cuda") / k ** 0.5).to(bf)
         with Designs() as d:
-            pk = prepack_for(TP_BUCKETS, w, pad=head, num_shards=2)
+            pk = prepack_for(buckets, w, pad=head, num_shards=2)
         if pk is None:
-            raise AssertionError(f"tp {leaf} {(k, n)}: stays unpacked")
+            raise AssertionError(f"{mode} {leaf} {(k, n)}: stays unpacked")
         bk, bn = pk.blocks.shape[-2:]
         if not torch.equal(pk.blocks, ref.pack_ref(w, bk, bn)):
-            raise AssertionError(f"pack_blocks tp {leaf} {(k, n)} by "
+            raise AssertionError(f"pack_blocks {mode} {leaf} {(k, n)} by "
                                  f"({bk}, {bn}): not bit-equal to pack_ref")
         pad_cols = pk.blocks.shape[-3] * bn
         bound_ms, bound_by = bound(w.numel() * 2 + pk.blocks.numel() * 2, 0)
-        out.append({"kernel": "pack_blocks", "mode": f"tp_{leaf}",
+        out.append({"kernel": "pack_blocks", "mode": f"{mode}_{leaf}",
                     "tp_leaf": leaf, "design": design_of(d.ran),
-                    "L": 1 if head else TP_LAYERS, "M": k, "K": n,
+                    "L": 1 if head else layers, "M": k, "K": n,
                     "bm": bk, "bk": bn, "padded_cols": pad_cols,
                     "max_abs_err": 0.0, "tol": "bit-equal",
                     "ms": timer(lambda: pack(w, bk, bn), iters=3),
@@ -3623,7 +3660,7 @@ def tp_shard_cases() -> list:
         w0, pk0 = (w, pk) if head else (w[0], pk[0])
         bias = ((0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
                 if has_bias else None)
-        for m in TP_SHARD_M:
+        for m in ms:
             x = torch.randn((m, k), generator=g, device="cuda").to(bf)
 
             def kern():
@@ -3648,23 +3685,25 @@ def tp_shard_cases() -> list:
             want = plain()
             torch.cuda.synchronize()
             if dict(cuda.launches) != before or len(ran) != 1:
-                raise AssertionError(f"tp {leaf} m={m}: the kernel call "
+                raise AssertionError(f"{mode} {leaf} m={m}: the kernel call "
                                      f"launched {ran}, the plain rung "
                                      f"launched a kernel too")
             name = next(iter(ran))
             if design_of(d.ran) not in ("wgmma", "stream"):
-                raise AssertionError(f"tp {leaf} m={m}: {name} ran {d.ran}, "
-                                     f"not the wgmma or stream design")
+                raise AssertionError(f"{mode} {leaf} m={m}: {name} ran "
+                                     f"{d.ran}, not the wgmma or stream "
+                                     f"design")
             ok, err = within(got, want, **BF16_TOL)
             if not ok:
-                raise AssertionError(f"{name} tp {leaf} m={m} K={k} N={n}: "
-                                     f"max |err| {err} outside {BF16_TOL}")
+                raise AssertionError(f"{name} {mode} {leaf} m={m} K={k} "
+                                     f"N={n}: max |err| {err} outside "
+                                     f"{BF16_TOL}")
             moved = (2 * (m * k + k * n + (n if has_bias else 0))
                      + got.numel() * got.element_size())
             bound_ms, bound_by = bound(moved, 2 * m * k * n)
             iters = 2 if m * n > 4 * 151936 else 5
             del got, want
-            out.append({"kernel": name, "mode": "tp", "tp_leaf": leaf,
+            out.append({"kernel": name, "mode": mode, "tp_leaf": leaf,
                         "design": design_of(d.ran), "m": m, "K": k, "N": n,
                         "bk": bk, "bn": bn, "bias": has_bias, "act": act,
                         "max_abs_err": err, "tol": BF16_TOL,
@@ -3679,10 +3718,10 @@ def tp_shard_cases() -> list:
         torch.cuda.empty_cache()
     misses = registry.stats()["misses"] - misses
     for c in out:
-        emit({"phase": "tp.kernels", **c})
+        emit({"phase": f"{mode}.kernels", **c})
     if misses:
-        raise AssertionError(f"tp.kernels: {misses} registry misses after "
-                             f"install --mesh")
+        raise AssertionError(f"{mode}.kernels: {misses} registry misses "
+                             f"after install --mesh")
     return out
 
 
@@ -3694,7 +3733,8 @@ def _sync(dev) -> None:
 
 def tp_worker(out_dir: str, device: str = "cuda") -> None:
     """One rank of the tp phase (``torch.distributed.run``): two ranks on
-    the one card, over gloo."""
+    the one card, over gloo: qwen1.5-4b, the distributed TSMM, then the
+    MoE family (``TP_MOE``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3705,6 +3745,11 @@ def tp_worker(out_dir: str, device: str = "cuda") -> None:
         tp_serve(mesh, res)
         _free(mesh.device.type)
         tp_paper(mesh, res)
+        res["moe"] = {}
+        for name in TP_MOE:
+            _free(mesh.device.type)
+            res["moe"][name] = {}
+            tp_moe_serve(mesh, name, res["moe"][name])
     finally:
         with open(os.path.join(out_dir, f"tp_rank{mesh.rank}.json"),
                   "w") as f:
@@ -3712,34 +3757,46 @@ def tp_worker(out_dir: str, device: str = "cuda") -> None:
         mesh.close()
 
 
-def tp_nccl(out_dir: str) -> dict:
-    """The TP engine at model=1 under NCCL in this process: its grid
-    captured as CUDA graphs with the collectives inside, every cell
-    bit-equal to its eager run, a graphed group equal to an eager one."""
+def tp_nccl(out_dir: str, name: str = "tp") -> dict:
+    """The TP engine at model=1 under NCCL in this process (``name``:
+    ``tp``, qwen1.5-4b, or a ``TP_MOE`` path): its grid captured as CUDA
+    graphs with the collectives inside, every cell bit-equal to its eager
+    run, a graphed group equal to an eager one."""
     import torch
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.param import init_pieces
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.programs import ProgramStore, check_cells
 
+    if name == "tp":
+        cfg, buckets, max_len, prompt = (tp_cfg(), TP_BUCKETS, TP_MAX_LEN,
+                                         TP_PROMPT)
+        contract = tp_contract(cfg, 1, 1, 2)
+        group = tp_group_tokens(cfg, 4, "cuda")
+    else:
+        spec = TP_MOE[name]
+        cfg, buckets, prompt = tp_moe_cfg(name), spec["buckets"], \
+            spec["prompt"]
+        max_len = tp_moe_max_len(spec)
+        contract = tp_moe_contract(cfg, 1, 1)
+        group = tp_moe_tokens(cfg, max(buckets), prompt, "cuda")
     mesh = make_mesh((1,), ("model",), device="cuda", rank=0, world_size=1,
-                     init_file=os.path.join(out_dir, "nccl_store"))
+                     init_file=os.path.join(out_dir, f"nccl_store_{name}"))
     try:
         if mesh.backend != "nccl":
-            raise AssertionError(f"tp.nccl: backend {mesh.backend}")
-        cfg = tp_cfg()
+            raise AssertionError(f"{name}.nccl: backend {mesh.backend}")
         model = build_model(cfg)
-        params, axes = model.init(torch.Generator(device="cuda")
-                                  .manual_seed(0))
-        eng = Engine(model, params, axes, max_len=TP_MAX_LEN,
-                     buckets=TP_BUCKETS, max_prompt=TP_PROMPT, device="cuda",
-                     mesh=mesh)
+        with init_pieces(mesh):
+            params, axes = model.init(torch.Generator(device="cuda")
+                                      .manual_seed(0))
+        eng = Engine(model, params, axes, max_len=max_len, buckets=buckets,
+                     max_prompt=prompt, device="cuda", mesh=mesh)
         del params
         t0 = time.perf_counter()
         eng.precompile()
         capture_s = time.perf_counter() - t0
         checks = check_cells(eng.programs)
-        group = tp_group_tokens(cfg, 4, "cuda")
         graphed = eng.generate(group, 4)
         store = eng.programs
         st = store.stats()
@@ -3761,11 +3818,562 @@ def tp_nccl(out_dir: str) -> dict:
                                                       eager.logits_last)),
                "decode_collectives": store.collectives(dec[0])
                if dec else None,
-               "contract": tp_contract(cfg, 1, 1, 2)}
+               "contract": contract}
         del eng, store
         return out
     finally:
         mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# tp.moe: the MoE family under tensor parallelism, in the tp phase's ranks
+# ---------------------------------------------------------------------------
+
+# OLMoE-1B-7B at its published widths cut to 4 layers (64 experts, 32 a
+# rank; 16 heads, 8 a rank; flash at D 128 on a rank's heads) with a
+# 3-request ragged queue, and DeepSeek-V2 at its published widths cut to 2
+# layers (the dense first layer and one MoE layer: 160 routed experts, 80
+# a rank, 2 shared, top-6; 128 MLA heads, 64 a rank; the latent cache
+# split along its sequence; no flash), bf16, seeded, each rank drawing
+# every leaf whole on the card and keeping its piece as it is drawn
+# (``init_pieces``: DeepSeek's MoE layer alone is 7.55 GB)
+TP_MOE = {
+    "olmoe": dict(arch="olmoe_1b_7b", cut={"num_layers": 4}, buckets=(1, 4),
+                  prompt=256, steps=8, queue=((200, 6), (256, 4), (64, 8)),
+                  flash=True),
+    "deepseek": dict(arch="deepseek_v2_236b", cut={"num_layers": 2},
+                     buckets=(1, 2), prompt=512, steps=4, queue=(),
+                     flash=False),
+}
+# the per-shard skinny-A leaves of each path at model=2, (K, N, bias,
+# epilogue), each at decode rows and its prefill's (bucket x prompt):
+# OLMoE's wq piece; DeepSeek's wq_b and wkv_b (their heads split) and wo
+# (its rows split)
+TP_MOE_LEAVES = {
+    "olmoe": {"wq": (2048, 1024, False, None)},
+    "deepseek": {"wq_b": (1536, 12288, False, None),
+                 "wkv_b": (512, 16384, False, None),
+                 "wo": (8192, 5120, False, None)},
+}
+TP_MOE_M = {"olmoe": (1, 4, 1024), "deepseek": (1, 2, 1024)}
+# The controls of the bounds (``tp_moe_planted``), each planted alone on
+# both ranks, and how many bounds (``TP_LOGITS_TOL``) outside it must land
+# at every bucket (the least reading over the buckets), read where it
+# acts (``TP_MOE_FAULT_AT``: every prefill position, or the first decode
+# step of the rows whose input agrees, against the one-rank engine
+# routed alike):
+# * ``moe_sum``: every MoE layer's all-reduce skipped, each rank keeping
+#   its fp32 partial.  On the card (NVIDIA H100 80GB HBM3, 700.00 W)
+#   OLMoE's landed 8.2 bounds outside at bucket 1 and 11.2 at bucket 4,
+#   so it is held to fail the bound, not to 10;
+# * ``router_order``: the router's gathered columns in the reverse rank
+#   order, so every token goes to other experts.  It must also break
+#   both limits of the routing bound (``TP_MOE_GAP``, ``TP_MOE_FLIPS``)
+#   at every bucket;
+# * ``mla_local``: MLA's decode combining only the rank's own slots of
+#   the sequence-split latent cache.
+TP_MOE_FAULTS = {
+    "olmoe": {"moe_sum": 1.0, "router_order": 10.0},
+    "deepseek": {"moe_sum": 1.0, "router_order": 1.0, "mla_local": 1.0},
+}
+TP_MOE_FAULT_AT = {"moe_sum": "prefill", "router_order": "prefill",
+                   "mla_local": "decode"}
+# The routing bound, in the first MoE layer of the prefill, where only
+# the roundings of the TP sums move a router logit: every token whose
+# top-k set differs from the one-rank engine's has a one-rank gap between
+# its k-th and (k+1)-th expert probability of at most ``TP_MOE_GAP``, and
+# at most ``TP_MOE_FLIPS`` of the layer's tokens differ.  Set from the
+# card's readings (NVIDIA H100 80GB HBM3, 700.00 W): the first layer's
+# flips 2.2-5.7 % of its tokens, their gaps at most 0.00025-0.00051 a
+# bucket (0.0075 in later layers, whose inputs the earlier flips move);
+# with the columns reversed every token flips, its gap up to 0.012-0.014.
+TP_MOE_GAP = 0.002
+TP_MOE_FLIPS = 0.10
+
+
+def tp_moe_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    spec = TP_MOE[name]
+    return dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
+
+
+def tp_moe_max_len(spec: dict) -> int:
+    """The ragged rule's length where a queue runs (2 x the prompt + its
+    decode steps + 8), else the prompt + steps + 8; a multiple of 8, so
+    the latent cache's slots split over the ranks."""
+    need = (2 * spec["prompt"] + sum(m for _, m in spec["queue"]) + 8
+            if spec["queue"] else spec["prompt"] + spec["steps"] + 8)
+    return -(-need // 8) * 8
+
+
+def tp_moe_tokens(cfg, b: int, prompt: int, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(300 + b)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt),
+                                    generator=g, dtype=torch.int32)
+            .to(device)}
+
+
+def tp_moe_queue(cfg, queue: tuple):
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(9)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=m, rid=i)
+            for i, (n, m) in enumerate(queue)]
+
+
+def tp_moe_contract(cfg, rows: int, tp: int) -> dict:
+    """One decode call's collectives on a rank, from the shapes (bf16
+    activations, fp32 router logits and MoE partials): per layer an
+    all-reduce after ``wo``; under MLA with the latent cache split along
+    its sequence (tp > 1) an all-gather of every head's c-space and rope
+    query ((rows, H, kv_lora_rank + rope_head_dim) fp32) and one of every
+    piece's (m, l, weighted c) ((tp, rows, H, 2 + kv_lora_rank) fp32); in
+    the dense layers the ``w_down`` all-reduce; in the MoE layers the
+    all-gather of the router's fp32 logit columns (the experts split)
+    and the one fp32 all-reduce of the routed and shared partials; per
+    call the lookup's all-reduce and the logits' all-gather.  The
+    reference's ring multipliers over a group of ``tp``."""
+    d, bf, f4 = cfg.d_model, 2, 4
+    ar, ag = [rows * d * bf], [rows * cfg.vocab_size * bf]
+    for i in range(cfg.num_layers):
+        if cfg.use_mla and tp > 1:
+            h, kvr = cfg.num_heads, cfg.kv_lora_rank
+            ag.append(rows * h * (kvr + cfg.rope_head_dim) * f4)
+            ag.append(tp * rows * h * (2 + kvr) * f4)
+        ar.append(rows * d * bf)                                 # wo
+        if i < cfg.first_k_dense:
+            ar.append(rows * d * bf)                             # w_down
+        else:
+            ag.append(rows * cfg.num_experts * f4)               # router
+            ar.append(rows * d * f4)                             # the sum
+    f_ar = 2 * (tp - 1) / tp if tp > 1 else 0.0
+    f_ag = (tp - 1) / tp if tp > 1 else 0.0
+    return {"all-reduce": {"count": len(ar), "bytes_moved": sum(ar) * f_ar,
+                           "tensor_bytes": float(sum(ar))},
+            "all-gather": {"count": len(ag), "bytes_moved": sum(ag) * f_ag,
+                           "tensor_bytes": float(sum(ag))}}
+
+
+@contextlib.contextmanager
+def moe_routes(k: int, replay=None):
+    """Record each MoE dispatch's choice while inside: per call each
+    token's k experts in top-k order (t, k), the same sorted with a
+    dropped entry's id moved past the experts (id + E: a token's output
+    changes with its experts or with the drop of one of them), and the
+    top k + 1 probabilities (t, k + 1), on the host.  ``replay``: a
+    record, whose experts each call takes in order in place of its own
+    top-k (the weights from its own probabilities), so a second engine
+    computes with the first one's routing."""
+    import torch
+    from repro_torch.models import moe
+    sound = moe.route
+    rec = []
+    it = iter(replay or ())
+
+    def recording(router, xf, k_, g, cap, gathered):
+        if replay is None:
+            out = sound(router, xf, k_, g, cap, gathered)
+        else:
+            probs = moe.router_probs(router, xf, gathered)
+            top_e = next(it)["experts"].to(probs.device)
+            out = moe.dispatch_order(probs, probs.gather(1, top_e), top_e,
+                                     g, cap)
+        probs, flat_e, order, keep = out[:4]
+        e = probs.shape[-1]
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        code = torch.where(kept, flat_e, flat_e + e).view(-1, k)
+        rec.append({"experts": flat_e.view(-1, k).cpu(),
+                    "chosen": code.sort(-1).values.cpu(),
+                    "probs": torch.topk(probs, k + 1, dim=-1).values.cpu()})
+        return out
+
+    moe.route = recording
+    try:
+        yield rec
+    finally:
+        moe.route = sound
+
+
+def _prefill_logits(eng, cfg, batch, b: int):
+    """Every position's logits of ``batch``'s prefill (``lm_forward`` in
+    the engine's cell context for bucket ``b``), on the host."""
+    import torch
+    from repro_torch.core.linear import serving_ctx
+    from repro_torch.models.lm import lm_forward
+    with torch.inference_mode(), serving_ctx(), eng.programs.context(b):
+        return lm_forward(eng.params, cfg, batch)[0].cpu()
+
+
+def tp_moe_side(eng, cfg, b: int, spec: dict, replay=None) -> dict:
+    """One engine's side of the comparison at bucket ``b``: every
+    position's prefill logits and that forward's expert choices, then the
+    group's first decode step (its input, logits, and the choices of its
+    prefill and of the step).  ``replay``: a side whose choices this
+    engine takes in place of its own (``moe_routes``)."""
+    batch = tp_moe_tokens(cfg, b, spec["prompt"], eng.device)
+    with moe_routes(cfg.experts_per_token,
+                    replay and replay["routes"]) as rec:
+        logits = _prefill_logits(eng, cfg, batch, b)
+    with moe_routes(cfg.experts_per_token,
+                    replay and replay["gen_routes"]) as gen:
+        first = eng.generate(batch, 1)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    return {"logits": logits, "routes": rec, "gen_routes": gen,
+            "dec_routes": gen[n_moe:2 * n_moe],
+            "first_tokens": first.tokens[:, 0].cpu(),
+            "first_logits": first.logits_last.cpu()}
+
+
+def tp_moe_planted(eng, cfg, spec: dict, name: str) -> dict:
+    """The controls of the logits and routing bounds (``TP_MOE_FAULTS``),
+    each planted alone on every rank alike, so the ranks stay in step:
+    {fault: {bucket: its side (``tp_moe_side``)}}.  Raises unless each
+    fault's site ran as often as a side reaches it."""
+    from repro_torch.models import attention, moe
+    from repro_torch.sharding.context import tp_rank
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    calls = [0]
+
+    def moe_sum(sound):
+        def skipped(part):
+            calls[0] += 1
+            return part
+        return skipped
+
+    def router_order(sound):
+        def reversed_order(router, xf, gathered):
+            calls[0] += 1
+            p = sound(router, xf, gathered)
+            n = p.shape[-1] // router.shape[-1]
+            return p.view(p.shape[0], n, -1).flip(1).reshape(p.shape)
+        return reversed_order
+
+    def mla_local(sound):
+        def local(m, l, acc):
+            calls[0] += 1
+            j = tp_rank()
+            return sound(m[j:j + 1], l[j:j + 1], acc[j:j + 1])
+        return local
+
+    # (module, attribute, the fault, its calls a side: the prefill
+    # forward, generate's prefill and its one decode step)
+    sites = {"moe_sum": (moe, "moe_sum", moe_sum, 3 * n_moe),
+             "router_order": (moe, "router_probs", router_order,
+                              3 * n_moe),
+             "mla_local": (attention, "combine_partials", mla_local,
+                           cfg.num_layers)}
+    out = {}
+    for fault in TP_MOE_FAULTS[name]:
+        mod, attr, plant, per_side = sites[fault]
+        sound = getattr(mod, attr)
+        calls[0] = 0
+        setattr(mod, attr, plant(sound))
+        try:
+            out[fault] = {b: tp_moe_side(eng, cfg, b, spec)
+                          for b in spec["buckets"]}
+        finally:
+            setattr(mod, attr, sound)
+        if calls[0] != per_side * len(spec["buckets"]):
+            raise AssertionError(f"tp.moe: the planted {fault} ran "
+                                 f"{calls[0]} times")
+    return out
+
+
+def _route_diff(got: dict, want: dict, k: int) -> tuple:
+    """One MoE call's routing, one side against the other: the tokens
+    whose top-k set differs, those whose set or an entry's drop differs,
+    and the one-rank gap between the k-th and (k+1)-th expert
+    probability of each token of the first kind."""
+    flip = (got["experts"].sort(-1).values
+            != want["experts"].sort(-1).values).any(-1)
+    diff = (got["chosen"] != want["chosen"]).any(-1)
+    top = want["probs"][flip]
+    return flip, diff, top[:, k - 1] - top[:, k]
+
+
+def _routing_bound(got: dict, want: dict, k: int) -> dict:
+    """The routing bound's readings in the first MoE layer of the
+    prefill (``TP_MOE_GAP``, ``TP_MOE_FLIPS``)."""
+    flip, _, gaps = _route_diff(got["routes"][0], want["routes"][0], k)
+    frac = float(flip.float().mean())
+    gap = float(gaps.max()) if len(gaps) else 0.0
+    return {"first_layer_flip_frac": frac, "first_layer_gap_max": gap,
+            "routing_within": frac <= TP_MOE_FLIPS and gap <= TP_MOE_GAP}
+
+
+def tp_moe_compare(cfg, got: dict, want: dict, forced: dict,
+                   planted: dict) -> dict:
+    """Rank 0's side against the one-rank engine's, two ways, under
+    ``TP_LOGITS_TOL``.
+
+    Routed as each engine routes (``want``): the router's columns come
+    from a narrower GEMM on each rank and the hidden states differ by the
+    TP sums' bf16 roundings, so a near-tie can flip a token's top-k set
+    (or the drop of one of its entries, which depends on every earlier
+    token of the batch): the flips are counted by layer, with the
+    one-rank probability gap between the k-th and the (k+1)-th expert of
+    each, and a row is compared only up to its first changed position
+    (its prefill logits before it; its first decode step only where
+    nothing changed and its decode input agrees).
+
+    Routed alike (``forced``: the one-rank engine taking rank 0's expert
+    choices): every position's prefill logits and the first decode step
+    of every row whose decode input agrees.  The routing bound in the
+    first MoE layer (``_routing_bound``).  ``planted``: each control's
+    side (``tp_moe_planted``), against ``forced`` at the prefill and the
+    first decode step, and its routing against ``want``'s."""
+    import torch
+    k = cfg.experts_per_token
+    b, s = got["logits"].shape[:2]
+    first = [s] * b
+    flips, drops, dec_flips, gaps = [], [], [], []
+    for g_r, w_r in zip(got["routes"], want["routes"]):
+        flip, diff, gap = _route_diff(g_r, w_r, k)
+        diff = diff.view(b, s)
+        flips.append(int(flip.sum()))
+        drops.append(int(diff.sum()) - int(flip.sum()))
+        for row in range(b):
+            at = torch.nonzero(diff[row])
+            if len(at):
+                first[row] = min(first[row], int(at[0]))
+        gaps.append(float(gap.max()) if len(gap) else None)
+    dec_same = torch.ones(b, dtype=torch.bool)
+    for g_r, w_r in zip(got["dec_routes"], want["dec_routes"]):
+        diff = (g_r["chosen"] != w_r["chosen"]).any(-1)
+        dec_flips.append(int(diff.sum()))
+        dec_same &= ~diff
+    ok, errs = True, [0.0]
+    for row in range(b):
+        n = first[row]
+        if n:
+            o, e = within(got["logits"][row, :n], want["logits"][row, :n],
+                          **TP_LOGITS_TOL)
+            ok, errs = ok and o, errs + [e]
+    rows = ((got["first_tokens"] == want["first_tokens"]) & dec_same
+            & torch.tensor([f == s for f in first]))
+    ok_d, err_d = (within(got["first_logits"][rows],
+                          want["first_logits"][rows], **TP_LOGITS_TOL)
+                   if bool(rows.any()) else (True, 0.0))
+    # routed alike: everything else held at every position
+    ok_f, err_f = within(got["logits"], forced["logits"], **TP_LOGITS_TOL)
+    same = got["first_tokens"] == forced["first_tokens"]
+    ok_fd, err_fd = (within(got["first_logits"][same],
+                            forced["first_logits"][same], **TP_LOGITS_TOL)
+                     if bool(same.any()) else (True, 0.0))
+    out = {"rows": b, "positions": s, "flips_by_layer": flips,
+           "drop_changes_by_layer": drops,
+           "decode_flips_by_layer": dec_flips,
+           "flip_gap_max_by_layer": gaps,
+           **_routing_bound(got, want, k),
+           "first_change": first,
+           "prefill_positions_compared": sum(first),
+           "prefill_max_abs_err": max(errs),
+           "decode_rows_compared": int(rows.sum()),
+           "decode_max_abs_err": err_d,
+           "forced_prefill_max_abs_err": err_f,
+           "forced_decode_rows": int(same.sum()),
+           "forced_decode_max_abs_err": err_fd,
+           "within": ok and ok_d and ok_f and ok_fd,
+           "ref_absmax": float(want["logits"].float().abs().max())}
+    out["planted"] = {}
+    for fault, side in planted.items():
+        rows_p = side["first_tokens"] == forced["first_tokens"]
+        err = {"prefill": within(side["logits"], forced["logits"],
+                                 **TP_LOGITS_TOL)[1],
+               "decode": (within(side["first_logits"][rows_p],
+                                 forced["first_logits"][rows_p],
+                                 **TP_LOGITS_TOL)[1]
+                          if bool(rows_p.any()) else 0.0)}
+        out["planted"][fault] = {
+            "prefill_max_abs_err": err["prefill"],
+            "decode_max_abs_err": err["decode"],
+            "decode_rows": int(rows_p.sum()),
+            "bounds_outside": (err[TP_MOE_FAULT_AT[fault]]
+                               / TP_LOGITS_TOL["atol"]),
+            **_routing_bound(side, want, k)}
+    return out
+
+
+def tp_moe_serve(mesh, name: str, res: dict) -> None:
+    """One ``TP_MOE`` path on ``mesh``: load from the rank's pieces, the
+    groups (and OLMoE's queue: the main path, counted), the comparison's
+    side on both ranks, the planted controls; then on rank 0 a one-rank
+    engine of the same seeded weights and the comparison.  Fills
+    ``res``."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import init_pieces
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+    from repro_torch.sharding import comm
+
+    spec = TP_MOE[name]
+    cfg = tp_moe_cfg(name)
+    model = build_model(cfg)
+    dev = mesh.device
+    buckets, steps = spec["buckets"], spec["steps"]
+    max_len = tp_moe_max_len(spec)
+    kw = dict(max_len=max_len, buckets=buckets, max_prompt=spec["prompt"],
+              device=dev.type)
+    registry.reset_stats()
+    cuda.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with init_pieces(mesh):
+        params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, axes, mesh=mesh, **kw)
+    del params
+    _sync(dev)
+    lay = eng.params["layers"]
+    res["load"] = {"seconds": time.perf_counter() - t0,
+                   "launches": dict(cuda.launches),
+                   "designs": dict(cuda.design_launches),
+                   "packed": sorted(eng.pack_report),
+                   "head_blocks": eng.pack_report.get("embed/head")}
+    res["pieces"] = {
+        "w_gate": list(lay["mlp"]["w_gate"].shape),
+        "router": list(lay["mlp"]["router"].shape),
+        "heads": list(lay["attn"]["wq_b" if cfg.use_mla else "wq"].shape)}
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in buckets}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    # the main path: counts zeroed just before, read just after
+    cuda.reset_launches()
+    comm.reset()
+    groups = {}
+    for b in buckets:
+        r = eng.generate(tp_moe_tokens(cfg, b, spec["prompt"], dev), steps)
+        groups[b] = {"prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
+                     "buckets": list(r.buckets),
+                     "tokens0": r.tokens[0].tolist(),
+                     "collectives": eng.collectives("decode", b),
+                     "contract": tp_moe_contract(cfg, b, 2)}
+    if spec["queue"]:
+        t0 = time.perf_counter()
+        results, stats = eng.serve_queue(tp_moe_queue(cfg, spec["queue"]))
+        _sync(dev)
+        res["queue"] = {"seconds": time.perf_counter() - t0,
+                        "admitted": stats.admitted, "steps": stats.steps,
+                        "generated": stats.generated_tokens,
+                        "tokens": [q.tokens.tolist() for q in results]}
+    res["launches"] = dict(cuda.launches)
+    res["designs"] = dict(cuda.design_launches)
+    res["comm"] = collective_bytes(comm.records)
+    res["staged"] = sorted(set(staged_ops(comm.records)))
+    res["groups"] = groups
+    res["misses"] = registry.stats()["misses"]
+    hr = eng.health_report()
+    res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    sides = {b: tp_moe_side(eng, cfg, b, spec) for b in buckets}
+    planted = tp_moe_planted(eng, cfg, spec, name)
+    del eng, lay
+    _free(dev.type)
+    cmp = {}
+    if mesh.rank == 0:
+        params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+        one = Engine(model, params, axes, **kw)
+        del params
+        one.programs = ProgramStore(model, device=dev, capture=False)
+        for b in buckets:
+            want = tp_moe_side(one, cfg, b, spec)
+            forced = tp_moe_side(one, cfg, b, spec, replay=sides[b])
+            timed = one.generate(tp_moe_tokens(cfg, b, spec["prompt"], dev),
+                                 steps)
+            agree = sum(x == y for x, y in zip(groups[b]["tokens0"],
+                                              timed.tokens[0].tolist()))
+            cmp[b] = {**tp_moe_compare(cfg, sides[b], want, forced,
+                                       {f: p[b] for f, p in
+                                        planted.items()}),
+                      "one_rank_per_token_s": timed.per_token_s,
+                      "one_rank_prefill_s": timed.prefill_s,
+                      "row0_tokens_agree": agree, "steps": steps}
+        del one
+        _free(dev.type)
+    res["compare"] = cmp
+
+
+def tp_moe_checks(ranks: list) -> list:
+    """What the ranks' results break of the tp.moe paths' contract."""
+    bad = []
+    for name, spec in TP_MOE.items():
+        cfg = tp_moe_cfg(name)
+        e, ff = cfg.num_experts, cfg.d_ff_expert
+        width = (cfg.head_dim + cfg.rope_head_dim if cfg.use_mla
+                 else cfg.head_dim)
+        n_scan = cfg.num_layers - cfg.first_k_dense
+        for rank in ranks:
+            rk, res = rank["rank"], rank["moe"][name]
+            where = f"{name} rank {rk}"
+            if res["misses"] or not res["healthy"]:
+                bad.append(f"{where}: {res['misses']} misses, healthy "
+                           f"{res['healthy']}")
+            pieces = {"w_gate": [n_scan, e // 2, cfg.d_model, ff],
+                      "router": [n_scan, cfg.d_model, e // 2],
+                      "heads": [n_scan, cfg.q_lora_rank if cfg.use_mla
+                                else cfg.d_model,
+                                cfg.num_heads * width // 2]}
+            if res["pieces"] != pieces:
+                bad.append(f"{where}: pieces {res['pieces']} != {pieces}")
+            if cfg.use_mla and not all("seq='model'" in v for v in
+                                       res["layouts"].values()):
+                bad.append(f"{where}: latent cache layouts {res['layouts']}")
+            designs = res["designs"]
+            off = {d for d in designs if d.startswith("skinny_")
+                   and d not in ("skinny_wgmma", "skinny_stream")}
+            if off or not any(designs.get(d) for d in ("skinny_wgmma",
+                                                       "skinny_stream")):
+                bad.append(f"{where}: skinny designs {designs}")
+            if bool(res["launches"].get("flash_attention")) != spec["flash"]:
+                bad.append(f"{where}: flash launches "
+                           f"{res['launches'].get('flash_attention', 0)}, "
+                           f"expected {'some' if spec['flash'] else 'none'}")
+            if not res["load"]["launches"].get("pack_blocks"):
+                bad.append(f"{where}: no pack at load")
+            for b, g in res["groups"].items():
+                if g["collectives"] != g["contract"]:
+                    bad.append(f"{where} b={b}: collectives "
+                               f"{g['collectives']} != contract "
+                               f"{g['contract']}")
+            if spec["queue"] and res["queue"]["admitted"] != len(
+                    spec["queue"]):
+                bad.append(f"{where}: queue {res['queue']}")
+        if spec["queue"] and (ranks[0]["moe"][name]["queue"]["tokens"]
+                              != ranks[1]["moe"][name]["queue"]["tokens"]):
+            bad.append(f"{name}: the ranks' queue tokens differ")
+        cmp = ranks[0]["moe"][name]["compare"]
+        if not sum(c["prefill_positions_compared"] for c in cmp.values()):
+            bad.append(f"{name}: rank 0 compared nothing: {cmp}")
+        for b, c in cmp.items():
+            if not c["within"]:
+                bad.append(f"{name} b={b}: rank 0 vs the one-rank engine {c}")
+            if not c["routing_within"]:
+                bad.append(f"{name} b={b}: the first MoE layer's routing "
+                           f"breaks its bound: flips "
+                           f"{c['first_layer_flip_frac']}, gap "
+                           f"{c['first_layer_gap_max']}")
+        for fault, need in TP_MOE_FAULTS[name].items():
+            least = min((c["planted"][fault]["bounds_outside"]
+                         for c in cmp.values()), default=0.0)
+            if not least > need:
+                bad.append(f"{name}: the planted {fault} lands {least} "
+                           f"bounds outside at its least bucket, not "
+                           f"over {need}")
+            if fault == "router_order" and not all(
+                    c["planted"][fault]["first_layer_flip_frac"]
+                    > TP_MOE_FLIPS and c["planted"][fault][
+                        "first_layer_gap_max"] > TP_MOE_GAP
+                    for c in cmp.values()):
+                bad.append(f"{name}: the planted {fault} passes a limit "
+                           f"of the routing bound")
+    return bad
 
 
 def tp_checks(ranks: list) -> list:
@@ -3830,9 +4438,14 @@ def phase_tp():
     run``) sharing the card over gloo serve qwen1.5-4b (full width, 4
     layers, bf16) lookup-only, with rank 0's logits against a one-rank
     engine and one decode call's collectives against the contract; the
-    distributed TSMM and the conventional k-split at the paper's A; then
-    NCCL at world size 1 in this process with the cells captured.
-    Returns each rank's launches on the main path (and at load)."""
+    distributed TSMM and the conventional k-split at the paper's A; the
+    MoE family (``TP_MOE``: OLMoE-1B-7B and DeepSeek-V2 at their
+    published widths, cut in depth) lookup-only after their own install
+    sweeps, each against a one-rank engine with the flipped expert
+    choices counted and bounded, and the planted controls; then NCCL at world size 1
+    in this process with the cells captured (qwen's grid and OLMoE's).
+    Returns each rank's launches on each path's main path (and at
+    load), the paper's, and the per-shard kernel cases."""
     import signal
 
     import torch
@@ -3846,9 +4459,28 @@ def phase_tp():
                          str(TP_PROMPT), "--mesh", "model=2"])
     emit({"phase": "tp.install", "seconds": time.perf_counter() - t0,
           "plans": inst["plans"]})
+    for name, spec in TP_MOE.items():
+        t0 = time.perf_counter()
+        cut = ",".join(f"{k}={v}" for k, v in spec["cut"].items())
+        inst = install.main(["--archs", spec["arch"], "--override", cut,
+                             "--max-batch", str(max(spec["buckets"])),
+                             "--max-prompt", str(spec["prompt"]),
+                             "--mesh", "model=2"])
+        emit({"phase": f"tp.moe.{name}.install",
+              "seconds": time.perf_counter() - t0, "plans": inst["plans"]})
     t0 = time.perf_counter()
     shard_cases = tp_shard_cases()
     emit({"phase": "tp.kernels.seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    moe_cases = {}
+    for name, spec in TP_MOE.items():
+        cfg = tp_moe_cfg(name)
+        moe_cases[name] = tp_shard_cases(
+            TP_MOE_LEAVES[name], cfg.num_layers - cfg.first_k_dense,
+            spec["buckets"], TP_MOE_M[name], mode=f"tp.moe.{name}")
+        _free("cuda")
+    emit({"phase": "tp.moe.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
     _free("cuda")
     out_dir = tempfile.mkdtemp(prefix="tp-", dir=os.path.join(ROOT, "build"))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3859,7 +4491,7 @@ def phase_tp():
          out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=600)
+        out, err = proc.communicate(timeout=900)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
@@ -3871,7 +4503,7 @@ def phase_tp():
     if proc.returncode != 0:
         raise AssertionError(f"tp: the ranks exited {proc.returncode}:\n"
                              f"{out[-3000:]}\n{err[-6000:]}")
-    bad = tp_checks(ranks)
+    bad = tp_checks(ranks) + tp_moe_checks(ranks)
     held = {c["kernel"] for c in shard_cases}
     for res in ranks:
         unheld = sorted(k for k in SKINNY
@@ -3879,6 +4511,27 @@ def phase_tp():
         if unheld:
             bad.append(f"rank {res['rank']}: {unheld} launched at shapes "
                        f"tp.kernels did not hold against the plain version")
+        for name in TP_MOE:
+            held = {c["kernel"] for c in moe_cases[name]}
+            unheld = sorted(k for k in SKINNY if res["moe"][name][
+                "launches"].get(k) and k not in held)
+            if unheld:
+                bad.append(f"{name} rank {res['rank']}: {unheld} launched "
+                           f"at shapes tp.moe.kernels did not hold")
+    for name in TP_MOE:
+        for res in ranks:
+            m = res["moe"][name]
+            emit({"phase": f"tp.moe.{name}.rank", "rank": res["rank"],
+                  **{k: m[k] for k in (
+                      "load", "pieces", "layouts", "graphed", "launches",
+                      "designs", "comm", "staged", "misses", "healthy",
+                      "peak_bytes", "groups")},
+                  "queue": m.get("queue")})
+        emit({"phase": f"tp.moe.{name}", "logits_tol": TP_LOGITS_TOL,
+              "compare": ranks[0]["moe"][name]["compare"],
+              "decode_collectives": {
+                  b: g["collectives"]
+                  for b, g in ranks[0]["moe"][name]["groups"].items()}})
     for res in ranks:
         emit({"phase": "tp.rank", **{k: res[k] for k in (
             "rank", "backend", "device", "load", "graphed", "launches",
@@ -3905,20 +4558,32 @@ def phase_tp():
           "workers_s": time.perf_counter() - t0})
     if bad:
         raise AssertionError("tp: " + "; ".join(bad))
-    nccl = tp_nccl(out_dir)
-    emit({"phase": "tp.nccl", **nccl})
-    if not (nccl["graphed"] and nccl["cells_bit_equal"] == nccl["cells_checked"]
-            and nccl["cells_checked"] and nccl["group_tokens_equal"]
-            and nccl["group_logits_equal"]
-            and nccl["decode_collectives"] == nccl["contract"]):
-        raise AssertionError(f"tp.nccl: {nccl}")
+    for name in ("tp", "olmoe"):
+        nccl = tp_nccl(out_dir, name)
+        phase = "tp.nccl" if name == "tp" else f"tp.moe.{name}.nccl"
+        emit({"phase": phase, **nccl})
+        if not (nccl["graphed"]
+                and nccl["cells_bit_equal"] == nccl["cells_checked"]
+                and nccl["cells_checked"] and nccl["group_tokens_equal"]
+                and nccl["group_logits_equal"]
+                and nccl["decode_collectives"] == nccl["contract"]):
+            raise AssertionError(f"{phase}: {nccl}")
+        _free("cuda")
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     emit({"phase": "tp", "seconds": time.perf_counter() - t_phase})
-    return {f"tp.rank{r['rank']}": r["launches"] for r in ranks}, \
-        {f"tp.rank{r['rank']}.load": r["load"]["launches"] for r in ranks}, \
+    launches = {f"tp.rank{r['rank']}": r["launches"] for r in ranks}
+    loads = {f"tp.rank{r['rank']}.load": r["load"]["launches"]
+             for r in ranks}
+    for name in TP_MOE:
+        launches.update({f"tp.moe.{name}.rank{r['rank']}":
+                         r["moe"][name]["launches"] for r in ranks})
+        loads.update({f"tp.moe.{name}.rank{r['rank']}.load":
+                      r["moe"][name]["load"]["launches"] for r in ranks})
+    return launches, loads, \
         {f"tp.rank{r['rank']}.paper.n{p['n']}": p["launches"]
-         for r in ranks for p in r["paper"]}, shard_cases
+         for r in ranks for p in r["paper"]}, \
+        shard_cases + [c for cs in moe_cases.values() for c in cs]
 
 
 # ---------------------------------------------------------------------------

@@ -42,8 +42,11 @@ serving process captures its own grid at load (``launch/serve.py
 With ``--mesh`` (``data=2,model=2``) every packable leaf's per-shard
 problems under that mesh are swept too, keyed by their shard count
 (:func:`sharded_serving_shapes`), so a tensor-parallel engine's start is
-lookup-only as well.  The mesh is a description of names and sizes: the
-install host needs no processes and no more than one device.
+lookup-only as well (an MoE model's expert stacks never pack; MLA's
+``wq_b``, ``wkv_b`` and ``wo`` are swept as a rank's whole heads of
+them, its whole ``wq_a`` / ``wkv_a`` at their full shapes).  The mesh is
+a description of names and sizes: the install host needs no processes
+and no more than one device.
 """
 
 from __future__ import annotations

@@ -48,13 +48,17 @@ captures one fails it as well.
 ``--mesh model=2`` (or ``data=2,model=2``) serves tensor-parallel, one
 rank a process, launched by torchrun; each rank takes the card
 ``cuda:{local_rank % device_count}`` (gloo where ranks share a card,
-``launch/mesh.py``), every rank builds the same seeded params and keeps
-its pieces, and rank 0 prints, the collectives of one decode call
+``launch/mesh.py``), every rank draws the same seeded params and keeps
+its pieces of each leaf as it is drawn (``models/param.py::init_pieces``), and rank 0 prints, the collectives of one decode call
 among its lines:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen1_5_4b \
         --reduced --device cpu --mesh model=2 --trace 1,3 --steps 2
+
+The MoE family serves the same way (``--arch olmoe_1b_7b`` or
+``deepseek_v2_236b``): its experts split over ``model`` by whole experts
+or by their columns, MLA's latent cache along its sequence.
 
 ``--find-db`` attaches a fleet find-db artifact (``REPRO_TORCH_FIND_DB``):
 the registry folds its plans in under the local ones, so a fresh host
@@ -84,6 +88,7 @@ import torch
 
 from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.core import registry
+from repro_torch.models.param import init_pieces
 from repro_torch.models.registry import (active_param_count, build_model,
                                          param_count)
 from repro_torch.serve.engine import Engine, resolve_device
@@ -236,7 +241,10 @@ def _serve(args, mesh) -> None:
     cfg = config_for(args.arch, reduced=args.reduced, override=args.override)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
-    params, axes = model.init(gen)
+    # on a mesh each leaf is cut to the rank's piece as it is drawn
+    with (init_pieces(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        params, axes = model.init(gen)
 
     trace = parse_trace(args.trace, args.prompt_len)
     max_batch = args.max_batch or max(b for b, _ in trace)

@@ -25,7 +25,8 @@ from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
 from repro_torch.models.param import ParamTree
 from repro_torch.sharding.context import (axis_group, cache_layout,
                                           dp_gather_cols, dp_weight_cols,
-                                          shard_act, tp_copy, tp_sum)
+                                          get_ctx, shard_act, tp_copy,
+                                          tp_sum)
 
 NEG_INF = -1e30
 
@@ -383,10 +384,16 @@ def init_mla(gen, cfg):
     return pt.build()
 
 
+def _mla_heads(p, cfg) -> int:
+    """The heads this rank holds (read off ``wq_b``: a tensor-parallel
+    rank holds whole heads of ``wq_b``, ``wkv_b`` and ``wo``)."""
+    return p["wq_b"].shape[-1] // (cfg.head_dim + cfg.rope_head_dim)
+
+
 def _mla_qkv_train(p, cfg, x, pos):
     b, s, _ = x.shape
-    h, dn, dr, dv = (cfg.num_heads, cfg.head_dim, cfg.rope_head_dim,
-                     cfg.v_head_dim)
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    h = _mla_heads(p, cfg)
     kvr = cfg.kv_lora_rank
     cq = rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
     q = linear(cq, p["wq_b"]).reshape(b, s, h, dn + dr)
@@ -404,19 +411,81 @@ def _mla_qkv_train(p, cfg, x, pos):
     return q_full, k_full, v, c_kv, k_rope[:, :, 0, :]
 
 
+def _mla_out(p, cfg, o):
+    """``wo``, row-parallel over the heads, summed over the TP group
+    where the heads are split."""
+    return tp_sum(linear(o, p["wo"]), "qheads",
+                  cfg.num_heads * cfg.v_head_dim)
+
+
 def mla_forward(p, cfg, x, *, pos_offset=0, chunk: int = 512,
                 valid_from=None):
     """Prefill MLA.  Returns (out, (c_kv, k_rope)) for the cache.  Q/K are
     head_dim + rope_head_dim wide and V v_head_dim, so the flash kernel's
     gate refuses them and the chunked body runs (the softmax scale uses
-    the full Q width, as in the reference)."""
+    the full Q width, as in the reference).  A tensor-parallel rank
+    attends with its heads over the whole prompt (``wkv_a`` is whole, so
+    every rank computes the compressed cache of every position; the
+    caller writes the slots it holds)."""
     b, s, _ = x.shape
     pos = pos_offset + torch.arange(s, device=x.device)
     q, k, v, c_kv, k_rope = _mla_qkv_train(p, cfg, x, pos)
     out = chunked_attention(q, k, v, causal=True, chunk=chunk,
                             q_offset=pos_offset, valid_from=valid_from)
-    out = out.reshape(b, s, cfg.num_heads * cfg.v_head_dim)
-    return linear(out, p["wo"]), (c_kv, k_rope)
+    out = out.reshape(b, s, q.shape[2] * cfg.v_head_dim)
+    return _mla_out(p, cfg, out), (c_kv, k_rope)
+
+
+def _mla_scores(q_c, q_rope, cache_c, cache_kr, cur_pos, valid_from,
+                scale: float, first=0):
+    """The absorbed decode's scores (B, h, S) of the c-space query ``q_c``
+    (fp32) and ``q_rope`` over a latent cache (``cache_c`` / ``cache_kr``,
+    whose slot 0 holds position ``first``), masked at the finite
+    ``NEG_INF`` past ``cur_pos`` and before ``valid_from``; and the cache's
+    ``c`` in fp32."""
+    cf = cache_c.float()
+    s = (torch.einsum("bhc,bsc->bhs", q_c, cf)
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), cache_kr.float()))
+    s = s * scale
+    pos_s = first + torch.arange(cache_c.shape[1], device=cf.device)
+    keep = (pos_s <= cur_pos)[None, :]
+    if valid_from is not None:
+        keep = keep & (pos_s[None, :] >= valid_from[:, None])
+    return s.masked_fill(~keep[:, None], NEG_INF), cf
+
+
+def _mla_split_attend(cfg, q_c, q_rope, cache_c, cache_kr, cur_pos,
+                      valid_from, seq: str, scale: float):
+    """The absorbed decode's c-space output over a latent cache whose
+    slots are split over ``seq`` (this rank's ``cache_c`` / ``cache_kr``
+    piece; nothing read on the host).  Where the rank holds some of the
+    heads and the slots lie on the same (TP) axis, every head's query
+    (``q_c`` fp32, ``q_rope``) is gathered over the axis first, each rank
+    scores every head over its own slots, and after the combine keeps
+    its heads' rows.  Each piece's (m, l, weighted ``c``) is gathered in
+    one all-gather and combined (:func:`combine_partials`).  The masked
+    scores are the one-rank decode's finite ``NEG_INF``, so a row with no
+    valid slot anywhere (an idle queue row) averages every slot, as its
+    softmax does, and a piece with none weighs exactly zero beside one
+    that has some."""
+    from repro_torch.sharding import comm
+    group, j, _ = axis_group(seq)
+    kvr = cfg.kv_lora_rank
+    h = q_c.shape[1]
+    qq = torch.cat([q_c, q_rope.float()], dim=-1)             # (B,h,kvr+dr)
+    every_head = h < cfg.num_heads and seq == get_ctx().opts.tp_axis
+    if every_head:
+        qq = comm.all_gather(qq, group, dim=1)
+    s, cf = _mla_scores(qq[..., :kvr], qq[..., kvr:], cache_c, cache_kr,
+                        cur_pos, valid_from, scale,
+                        first=j * cache_c.shape[1])
+    m = s.amax(dim=-1)
+    pw = torch.exp(s - m[..., None])
+    mine = torch.cat([m[..., None], pw.sum(dim=-1)[..., None],
+                      torch.einsum("bhs,bsc->bhc", pw, cf)], dim=-1)
+    every = comm.all_gather(mine[None], group, dim=0)
+    o_c = combine_partials(every[..., 0], every[..., 1], every[..., 2:])
+    return o_c[:, j * h:(j + 1) * h] if every_head else o_c
 
 
 def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
@@ -428,10 +497,17 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
     step's position, a 0-d int tensor on the device (RoPE and the mask),
     so nothing reads the host.  ``wkv_b`` is unpacked on every step (the
     absorbed products take it per head, as in the reference), and the
-    q -> c-space and c -> v absorptions run in fp32."""
+    q -> c-space and c -> v absorptions run in fp32.
+
+    On a tensor-parallel mesh the rank holds its heads of ``wq_b``,
+    ``wkv_b`` and ``wo``; where the cell's ``CacheLayout`` splits the
+    latent cache's slots, the step's ``c`` / ``kr`` land on the rank that
+    holds the slot and the softmax is combined over the slots' group
+    (:func:`_mla_split_attend`)."""
     b = x.shape[0]
-    h, dn, dr, dv, kvr = (cfg.num_heads, cfg.head_dim, cfg.rope_head_dim,
-                          cfg.v_head_dim, cfg.kv_lora_rank)
+    dn, dr, dv, kvr = (cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                       cfg.kv_lora_rank)
+    h = _mla_heads(p, cfg)
     cq = rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
     q = linear(cq, p["wq_b"]).reshape(b, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
@@ -441,26 +517,23 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
     ckv = linear(x[:, 0], p["wkv_a"])
     c_new = rmsnorm(ckv[..., :kvr], p["kv_norm"], cfg.norm_eps)
     kr_new = apply_rope(ckv[..., kvr:][:, None, None], cos, sin)[:, 0, 0]
-    cache_c.index_copy_(1, slot, c_new[:, None].to(cache_c.dtype))
-    cache_kr.index_copy_(1, slot, kr_new[:, None].to(cache_kr.dtype))
+    lay = cache_layout()
+    seq = lay.seq if lay is not None else None
+    write_slot(cache_c, slot, c_new[:, None].to(cache_c.dtype), seq)
+    write_slot(cache_kr, slot, kr_new[:, None].to(cache_kr.dtype), seq)
 
     wkv_b = p["wkv_b"]
     w = wkv_b.unpack() if hasattr(wkv_b, "unpack") else wkv_b
     w = w.reshape(kvr, h, dn + dv).float()
     w_uk, w_uv = w[..., :dn], w[..., dn:]
     q_c = torch.einsum("bhd,chd->bhc", q_nope.float(), w_uk)  # c-space
-    cf = cache_c.float()
-    s = (torch.einsum("bhc,bsc->bhs", q_c, cf)
-         + torch.einsum("bhr,bsr->bhs", q_rope.float(), cache_kr.float()))
-    s = s * (dn + dr) ** -0.5
-    pos_s = torch.arange(cache_c.shape[1], device=x.device)
-    valid = pos_s <= cur_pos
-    if valid_from is not None:
-        keep = valid[None, :] & (pos_s[None, :] >= valid_from[:, None])
-        s = s.masked_fill(~keep[:, None], NEG_INF)
+    scale = (dn + dr) ** -0.5
+    if seq is not None:
+        o_c = _mla_split_attend(cfg, q_c, q_rope, cache_c, cache_kr,
+                                cur_pos, valid_from, seq, scale)
     else:
-        s = s.masked_fill(~valid[None, None], NEG_INF)
-    pattn = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhs,bsc->bhc", pattn, cf)
+        s, cf = _mla_scores(q_c, q_rope, cache_c, cache_kr, cur_pos,
+                            valid_from, scale)
+        o_c = torch.einsum("bhs,bsc->bhc", torch.softmax(s, dim=-1), cf)
     o = torch.einsum("bhc,chv->bhv", o_c, w_uv).to(x.dtype)
-    return linear(o.reshape(b, 1, h * dv), p["wo"])
+    return _mla_out(p, cfg, o.reshape(b, 1, h * dv))

@@ -47,7 +47,7 @@ from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 from repro_torch.sharding.context import (axis_group, cache_layout,
                                           dp_gather_cols, shard_act,
-                                          tp_gather, tp_sum)
+                                          tp_gather, tp_sum, whole_rows)
 
 
 def _kind(cfg) -> str:
@@ -113,7 +113,9 @@ def _mlp(p, cfg, x, kind: str):
     dense MLP's ``w_down`` is row-parallel over ``mlp``: its partial sums
     are summed over the TP group where ``mlp`` is split, and under 2D
     tensor parallelism (its columns on the data axis) the rank's columns
-    are then gathered over the data group."""
+    are then gathered over the data group.  An MoE layer sums its own
+    partials (``models/moe.py``: one fp32 all-reduce for the routed and
+    shared experts)."""
     if kind == "moe":
         return MOE.moe_apply(p["mlp"], cfg, x)
     h = tp_sum(swiglu(p["mlp"], x, cfg.d_ff, cfg.d_model), "mlp", cfg.d_ff)
@@ -451,8 +453,11 @@ def lm_prefill_row(params, cfg, batch, cache, row, t_end):
     lb = prompt_len(cfg, batch)
     dev = cache["slot_pos"].device
     t0 = t_end - lb
-    logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
-                                pos_offset=t0, gather=False)
+    # every rank computes the one request, whatever rows of the pool it
+    # holds: the MoE layers dispatch the data axis's groups over it
+    with whole_rows():
+        logits, _, kvs = lm_forward(params, cfg, batch, collect_cache=True,
+                                    pos_offset=t0, gather=False)
     idx = t0 + torch.arange(lb, device=dev)              # int64 slots
     row = torch.as_tensor(row, device=dev).reshape(1).long()
     pad = batch.get("pad")

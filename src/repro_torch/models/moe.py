@@ -7,10 +7,27 @@ per-expert token count C is small, the tall-and-skinny regime.  As in
 the reference they are plain batched products (``torch.bmm``), outside
 the planned TSMM kernels, and the shared experts are plain matmuls.
 
-One dispatch group (``g = 1``): the reference's ``_dp_groups`` splits
-the tokens per data-parallel shard, which is MoE under a mesh (ROADMAP.md
-Queue 1 item 4, after tensor-parallel serving); off a mesh it is 1 there
-too.
+Dispatch runs in ``g`` groups, the reference's ``_dp_groups``: one per
+data-parallel shard of a global batch (``sharding/context.py::
+moe_groups``), each group sorted and given its capacity (computed from
+its ``t / g`` tokens) on its own.  Off a mesh ``g`` is 1.  On a serving
+mesh a rank that computes its data line's rows holds exactly one group;
+one that computes a whole bucket the data axis cannot split dispatches
+the ``g`` groups over its tokens itself.
+
+Under tensor parallelism the rules (``pspec_for``, read leaf by leaf)
+give the routed experts one of two layouts: ``experts`` on the TP axis
+(a rank holds ``E / tp`` experts and computes only their rows of the
+dispatch buffer) or, where fewer than 8 experts a rank would remain,
+``mlp`` (every expert's columns split: ``w_gate`` / ``w_up``
+column-parallel, ``w_down`` row-parallel).  A router split with the
+experts gives each rank its experts' logit columns, all-gathered so that
+every rank routes the same (t, E) fp32 logits: the same order, ranks,
+drops and capacity as one rank.  The shared experts are column- and
+row-parallel over ``mlp``.  Either way a rank's output is a partial sum:
+the routed and shared partials are added in fp32 and summed in one
+all-reduce over the TP group (:func:`moe_sum`), then cast once to
+``x.dtype``.
 
 Every shape depends only on the token count (``cap`` is computed from
 it), and nothing reads a value on the host, so a call is capturable in
@@ -28,8 +45,9 @@ order of the stable sort, which is expert id ascending within a token.
 rounding, changes from run to run.  Here the sort is inverted instead:
 each token's k entries are gathered into a (t, k, d) tensor in their
 sorted positions' order (expert id ascending) and summed one after the
-other in ``x.dtype``.  The order is a function of the routing alone, so
-two runs, eager or a graph replay, give the same bits.
+other in ``x.dtype`` (in fp32 where a TP rank's partial is summed over
+the group).  The order is a function of the routing alone, so two runs,
+eager or a graph replay, give the same bits.
 """
 
 from __future__ import annotations
@@ -39,6 +57,8 @@ from torch.profiler import record_function
 
 from repro_torch.models.layers import silu
 from repro_torch.models.param import ParamTree
+from repro_torch.sharding.context import (moe_groups, tp_group,
+                                          tp_leaf_split, tp_rank)
 
 # profiler ranges (``launch/profile_decode.py`` reads the device time of
 # the kernels each encloses): the routed and shared experts' products,
@@ -66,53 +86,141 @@ def _capacity(tokens: int, e: int, k: int, factor: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def moe_sum(part):
+    """The fp32 partial output of an MoE layer (routed and shared experts
+    together) summed over the TP group: the layer's one collective after
+    its experts."""
+    from repro_torch.sharding import comm
+    return comm.all_reduce(part, tp_group())
+
+
+def router_probs(router, xf, gathered: bool):
+    """The fp32 routing probabilities (t, E) of ``xf`` (t, d).
+    ``gathered``: the router holds this rank's experts' columns,
+    all-gathered over the TP group so that every rank routes the same
+    (t, E) fp32 logits."""
+    logits = xf.float() @ router                                 # (t, E) f32
+    if gathered:
+        from repro_torch.sharding import comm
+        logits = comm.all_gather(logits, tp_group(), dim=-1)
+    return torch.softmax(logits, dim=-1)
+
+
+def dispatch_order(probs, top_p, top_e, g: int, cap: int) -> tuple:
+    """The sort of the dispatch, the reference's step for step, from each
+    token's k chosen experts ``top_e`` (t, k) and their probabilities
+    ``top_p``: (probs, flat_e, order, keep, slot, tok, w_sorted) over the
+    flat (t * k) entries.  The ``g`` groups are consecutive blocks of
+    ``t / g`` tokens, each sorted and given ``cap`` rows an expert on its
+    own; ``slot`` indexes the expert-major (E, g * cap) buffer
+    (``E * g * cap``, the sink, for a dropped entry: ``keep`` False)."""
+    t, k = top_e.shape
+    e = probs.shape[-1]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(-1)                                   # (t*k,)
+    ar = torch.arange(t * k, device=top_e.device)
+    # sorted by (group, expert): a stable sort keeps each group's order
+    key = flat_e if g == 1 else flat_e + (ar // (t // g * k)) * e
+    order = torch.argsort(key, stable=True)
+    k_sorted = key[order]
+    rank = ar - torch.searchsorted(k_sorted, k_sorted, side="left")
+    keep = rank < cap
+    e_sorted, grp = ((k_sorted, 0) if g == 1
+                     else (k_sorted % e, k_sorted // e))
+    slot = torch.where(keep, (e_sorted * g + grp) * cap + rank, e * g * cap)
+    return (probs, flat_e, order, keep, slot, order // k,
+            top_p.reshape(-1)[order])
+
+
+def route(router, xf, k: int, g: int, cap: int, gathered: bool) -> tuple:
+    """The routing of ``xf`` (t, d): the fp32 softmax of the router's
+    logits (:func:`router_probs`), each token's top-k experts, renormalised
+    by ``max(sum, 1e-9)``, and the dispatch's sort
+    (:func:`dispatch_order`, whose tuple it returns)."""
+    probs = router_probs(router, xf, gathered)
+    top_p, top_e = torch.topk(probs, k, dim=-1)                 # (t, k)
+    return dispatch_order(probs, top_p, top_e, g, cap)
+
+
 def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss), dispatched in the ambient mesh's
+    groups (``moe_groups``: 1 off a mesh)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
-    cap = _capacity(t, e, k, capacity_factor or cfg.capacity_factor)
+    g = moe_groups(t)
+    tg = t // g
+    cap = _capacity(tg, e, k, capacity_factor or cfg.capacity_factor)
     dev = x.device
     xf = x.reshape(t, d)
+    # the layouts the rules give this layer's leaves on the ambient mesh
+    # (None: whole on every rank)
+    routed = tp_leaf_split(("experts", "embed", "mlp"),
+                           (e, d, cfg.d_ff_expert))
+    gathered = tp_leaf_split(("embed", "experts"), (d, e)) is not None
+    shared = (tp_leaf_split(("embed", "mlp"),
+                            (d, cfg.d_ff_expert * cfg.num_shared_experts))
+              if cfg.num_shared_experts else None)
+    partial = routed is not None or shared is not None
 
     with record_function(DISPATCH_RANGE):
-        probs = torch.softmax(xf.float() @ p["router"], dim=-1)  # (t, E) f32
-        top_p, top_e = torch.topk(probs, k, dim=-1)             # (t, k)
-        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-        flat_e = top_e.reshape(-1)                               # (t*k,)
-        order = torch.argsort(flat_e, stable=True)
-        e_sorted = flat_e[order]
-        ar = torch.arange(t * k, device=dev)
-        rank = ar - torch.searchsorted(e_sorted, e_sorted, side="left")
-        keep = rank < cap
-        slot = torch.where(keep, e_sorted * cap + rank, e * cap)
-        tok = order // k
+        probs, flat_e, order, keep, slot, tok, w_sorted = route(
+            p["router"], xf, k, g, cap, gathered)
         # slots are unique but for the sink row, which only takes zeros
-        buf = x.new_zeros((e * cap + 1, d)).index_copy_(
+        buf = x.new_zeros((e * g * cap + 1, d)).index_copy_(
             0, slot, torch.where(keep[:, None], xf[tok], 0))
-        buf = buf[:-1].view(e, cap, d)
-        w_sorted = top_p.reshape(-1)[order]
+        buf = buf[:-1].view(e, g * cap, d)
+        lo = 0
+        if routed == "experts":           # this rank's experts' rows only
+            el = p["w_gate"].shape[0]
+            lo = tp_rank() * el
+            buf = buf[lo:lo + el]
+            lo *= g * cap
 
     with record_function(EXPERTS_RANGE):
         h = silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-        y = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
+        y = torch.bmm(h, p["w_down"]).reshape(-1, d)
+        n_y = y.shape[0]
 
     with record_function(DISPATCH_RANGE):
-        gath = torch.where(keep[:, None], y[slot.clamp(0, e * cap - 1)], 0)
-        contrib = gath * w_sorted[:, None].to(x.dtype)
+        at_y = slot - lo
+        mine = keep & (at_y >= 0) & (at_y < n_y)
+        gath = torch.where(mine[:, None], y[at_y.clamp(0, n_y - 1)], 0)
+        # a rank's partial is summed in fp32 (one rounding after the sum)
+        contrib = (gath.float() * w_sorted[:, None] if partial
+                   else gath * w_sorted[:, None].to(x.dtype))
         # each token's k sorted positions, ascending: expert id ascending
-        inv = torch.empty_like(order).scatter_(0, order, ar)
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(t * k, device=dev))
         at = torch.sort(inv.view(t, k), dim=-1).values
         parts = contrib[at]                                      # (t, k, d)
         out = parts[:, 0]
         for i in range(1, k):
             out = out + parts[:, i]
-        out = out.reshape(b, s, d)
 
+    ys = None
     if cfg.num_shared_experts:
         with record_function(EXPERTS_RANGE):
             hs = silu(xf @ p["ws_gate"]) * (xf @ p["ws_up"])
-            out = out + (hs @ p["ws_down"]).reshape(b, s, d)
+            ys = hs @ p["ws_down"]
+    if not partial:
+        out = out.reshape(b, s, d)
+        if ys is not None:
+            out = out + ys.reshape(b, s, d)
+    else:
+        # the split partials summed in one all-reduce; a whole part (the
+        # rules replicate a leaf too narrow to split) joins after it
+        split = [out] if routed is not None else []
+        whole = [] if routed is not None else [out]
+        if ys is not None:
+            (split if shared is not None else whole).append(ys.float())
+        acc = split[0]
+        for y_ in split[1:]:
+            acc = acc + y_
+        acc = moe_sum(acc)
+        for y_ in whole:
+            acc = acc + y_
+        out = acc.to(x.dtype).reshape(b, s, d)
 
     # load-balance aux loss (Switch/GShard form); the counts are exact
     # in fp32 whatever the order of the adds

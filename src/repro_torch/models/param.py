@@ -11,6 +11,8 @@ reference carry its parameters over with :func:`params_from_numpy`.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Callable
 
@@ -39,9 +41,40 @@ def _normal(gen, shape, dtype, scale):
     return x.mul_(scale).to(torch_dtype(dtype))
 
 
+# a leaf's cut as it is added (:func:`init_pieces`), or None
+_CUT: contextvars.ContextVar = contextvars.ContextVar("param_cut",
+                                                     default=None)
+
+
+@contextlib.contextmanager
+def init_pieces(mesh):
+    """Inside, every leaf a :class:`ParamTree` adds is cut at once to the
+    calling rank's piece under the default rules (``sharding/rules.py::
+    pspec_for`` of the leaf's own axes and shape; the layer axis a stack
+    adds never takes a mesh axis), so a seeded ``model.init`` on a rank
+    of ``mesh`` (a ``launch/mesh.py::ProcessMesh``) holds one full leaf
+    at a time and ends with the same values a whole tree cut afterwards
+    would hold: every leaf is still drawn whole, in order, from the one
+    generator."""
+    from repro_torch.sharding.rules import (ShardingOptions, local_shard,
+                                            pspec_for)
+    opts = ShardingOptions()
+
+    def cut(value, axes):
+        return local_shard(value, pspec_for(tuple(axes), tuple(value.shape),
+                                            mesh, opts), mesh, mesh.coords)
+
+    tok = _CUT.set(cut)
+    try:
+        yield
+    finally:
+        _CUT.reset(tok)
+
+
 class ParamTree:
     """Collects ``(value, logical_axes)`` pairs under string names; every
-    random leaf draws from the one generator in creation order."""
+    random leaf draws from the one generator in creation order (inside
+    :func:`init_pieces`, each leaf is then cut to the rank's piece)."""
 
     def __init__(self, gen: torch.Generator, dtype):
         self.gen = gen
@@ -54,6 +87,9 @@ class ParamTree:
             raise ValueError(f"duplicate param {name}")
         if len(axes) != value.ndim:
             raise ValueError(f"{name}: axes {axes} vs shape {tuple(value.shape)}")
+        cut = _CUT.get()
+        if cut is not None:
+            value = cut(value, axes)
         self._params[name] = value
         self._axes[name] = axes
         return value

@@ -69,9 +69,20 @@ columns, gathered after the TP sum, and each rank's cache holds its
 data line's rows.  A cache the rules split along its sequence (a bucket
 the data axis cannot split) holds the rank's slots, and the decode
 softmax is combined over the slots' group.  The cells run inside their
-bucket's :meth:`Engine.cache_layout`.  Only the dense family serves
-tensor-parallel so far; the engine raises for any other and for
-sequence parallelism.
+bucket's :meth:`Engine.cache_layout`.
+
+The MoE family (OLMoE-1B-7B, DeepSeek-V2 with MLA) serves on a ``model``
+axis with or without a plain data axis beside it (not under FSDP or 2D
+tensor parallelism): the experts split over ``model`` by whole experts
+or by their columns, as the rules give each leaf, one fp32 all-reduce
+per MoE layer, the dispatch groups of the data axis
+(``models/moe.py``); MLA's heads split over ``model`` and its latent
+cache along its sequence, the decode's softmax combined over the slots'
+group (``models/attention.py::mla_decode``).  The dense and MoE
+families serve tensor-parallel so far; the engine raises for the SSM,
+hybrid, VLM and encoder-decoder families, for MoE under FSDP or 2D
+tensor parallelism and for sequence parallelism, each with a message
+of its own (``sharding/context.py::check_dense_mesh``).
 
 Every ladder demotion on the engine's paths (a planned kernel served by
 its plain version or by ``torch.matmul``, a deferred registry flush, an
@@ -508,20 +519,24 @@ class Engine:
         (``sharding/context.py::CacheLayout``): the axis of its rows,
         whether every rank computes the whole bucket over a piece of
         them (2D tensor parallelism), and the axis of its slots; None
-        where the cache is whole.  Raises for what the port does not
-        serve: an axis tuple, and slots on the TP axis (the rules put
-        them there only for KV heads the TP axis cannot split, which
-        ``check_dense_mesh`` refuses already)."""
+        where the cache is whole.  The slab read is ``k`` (GQA) or MLA's
+        latent ``c``, which has no head dim: the rules put its slots on
+        the TP axis at every bucket whose slots it divides, and the
+        decode combines the softmax over it.  Raises for what the port
+        does not serve: an axis tuple, and a GQA cache's slots on the TP
+        axis (the rules put them there only for KV heads the TP axis
+        cannot split)."""
         cfg = self.model.cfg
         full, specs = self._cache_specs(bucket, self.max_len)
-        names = cache_axes_for(cfg, "k", full["k"].ndim)
-        spec = dict(zip(names, specs["k"]))
+        key = "c" if cfg.use_mla else "k"
+        names = cache_axes_for(cfg, key, full[key].ndim)
+        spec = dict(zip(names, specs[key]))
         rows, seq = spec["cache_batch"], spec["cache_seq"]
         for e in (rows, seq):
             if isinstance(e, tuple):
                 raise NotImplementedError(f"a cache split over several "
                                           f"axes ({e})")
-        if seq is not None and seq == self.opts.tp_axis:
+        if seq is not None and seq == self.opts.tp_axis and not cfg.use_mla:
             raise NotImplementedError(
                 f"the rules split the cache of bucket {bucket} along its "
                 f"sequence over {seq!r}: a decode over the TP axis's pieces "

@@ -236,14 +236,27 @@ def tp_gather(x, axis: str, dim: int):
     return comm.all_gather(x, tp_group(), dim=-1)
 
 
+# the families that do not serve on a mesh yet, and what each waits for
+# (its refusal's message)
+_MESH_REFUSED = {
+    "ssm": "the Mamba2 block's heads and state split over the TP axis",
+    "hybrid": "the hybrid's Mamba stack and its shared attention block "
+              "under the TP axis",
+    "vlm": "the image embeddings fed ahead of the tokens on every rank",
+    "encdec": "the encoder and the decoder's cross-attention cache under "
+              "the TP axis",
+}
+
+
 def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
                      serving: bool = False) -> dict:
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one, sequence parallelism, 2D tensor parallelism outside serving,
-    data or FSDP axes other than one data axis where FSDP or 2D tensor
-    parallelism would use them, and heads the TP axis would split
+    one (and, serving with neither FSDP nor 2D tensor parallelism, the
+    MoE one), sequence parallelism, 2D tensor parallelism outside
+    serving, data or FSDP axes other than one data axis where FSDP or 2D
+    tensor parallelism would use them, and heads the TP axis would split
     unevenly.  Returns which head dims the rules split ({"qheads": bool,
     "kvheads": bool})."""
     if not hasattr(mesh, "group"):
@@ -252,7 +265,17 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     if mesh.backend == "nccl" and mesh.device.type != "cuda":
         raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
                            f"{mesh.device}")
-    if cfg.family != "dense":
+    if cfg.family in _MESH_REFUSED and serving:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} of the {cfg.family!r} family is not ported "
+            f"({_MESH_REFUSED[cfg.family]}); the dense and MoE families "
+            f"serve on a mesh")
+    if cfg.family == "moe" and serving and (opts.fsdp or opts.serve_2d_tp):
+        raise NotImplementedError(
+            f"{cfg.name}: {what} of the MoE family under FSDP or 2D tensor "
+            f"parallelism (fsdp={opts.fsdp}, serve_2d_tp={opts.serve_2d_tp})"
+            f" is not ported: its experts take the TP axis alone")
+    if cfg.family != "dense" and not (serving and cfg.family == "moe"):
         raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
                                   f"family only, not {cfg.family!r}")
     if opts.sequence_parallel:
@@ -274,14 +297,82 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
                 f"dp_axes={opts.dp_axes}, fsdp_axes={opts.fsdp_axes}")
     tp = axis_size(mesh, opts.tp_axis) if opts.tp_axis in mesh.shape else 1
     split = {}
-    for ax, heads in (("qheads", cfg.num_heads), ("kvheads",
-                                                  cfg.num_kv_heads)):
-        split[ax] = pspec_for((ax,), (heads * cfg.head_dim,), mesh,
-                              opts)[0] == opts.tp_axis
-        if split[ax] and heads % tp:
-            raise ValueError(f"{cfg.name}: {heads} {ax} do not split into "
+    if cfg.use_mla:
+        # wq_b, wkv_b and wo carry the heads: all split, or none
+        widths = (cfg.head_dim + cfg.rope_head_dim,
+                  cfg.head_dim + cfg.v_head_dim, cfg.v_head_dim)
+        cut = {pspec_for(("qheads",), (cfg.num_heads * w,), mesh,
+                         opts)[0] == opts.tp_axis for w in widths}
+        if len(cut) > 1:
+            raise ValueError(f"{cfg.name}: the rules split some of MLA's "
+                             f"head projections over {tp} ranks, not all")
+        heads = {"qheads": (cfg.num_heads, cut.pop())}
+    else:
+        heads = {ax: (n, pspec_for((ax,), (n * cfg.head_dim,), mesh,
+                                   opts)[0] == opts.tp_axis)
+                 for ax, n in (("qheads", cfg.num_heads),
+                               ("kvheads", cfg.num_kv_heads))}
+    for ax, (n, cut) in heads.items():
+        split[ax] = cut
+        if cut and n % tp:
+            raise ValueError(f"{cfg.name}: {n} {ax} do not split into "
                              f"whole heads over {tp} ranks")
     return split
+
+
+def tp_leaf_split(axes: tuple, shape: tuple) -> Optional[str]:
+    """The logical axis of a whole weight leaf (``axes``, full ``shape``)
+    that the rules (``pspec_for``) put the TP axis on, on the ambient
+    process mesh; None where the leaf is whole or there is no process
+    mesh.  Unlike :func:`tp_split`, which asks about one logical axis
+    alone, this reads the leaf's spec, so an MoE expert stack tells its
+    layouts apart: ``experts`` (a rank holds some experts) or ``mlp``
+    (every expert's columns split)."""
+    ctx = _CTX.get()
+    if ctx is None or ctx.group(ctx.opts.tp_axis) is None:
+        return None
+    spec = pspec_for(tuple(axes), tuple(shape), ctx.mesh, ctx.opts)
+    for ax, entry in zip(axes, spec):
+        if entry == ctx.opts.tp_axis:
+            return ax
+    return None
+
+
+_ROWS_WHOLE: contextvars.ContextVar = contextvars.ContextVar(
+    "rows_whole", default=False)
+
+
+@contextlib.contextmanager
+def whole_rows():
+    """Inside: the rows the rank computes are not its data line's piece of
+    a bucket, whatever the cell's cache layout says (a queue admission
+    runs its one request on every rank)."""
+    tok = _ROWS_WHOLE.set(True)
+    try:
+        yield
+    finally:
+        _ROWS_WHOLE.reset(tok)
+
+
+def moe_groups(tokens: int) -> int:
+    """The MoE dispatch-group count of ``tokens`` rank-local tokens (the
+    reference's ``models/moe.py::_dp_groups``, which dispatches per data
+    shard: ``n`` groups of a global batch over ``n`` data ranks where
+    ``n`` divides its tokens).  Where the rank computes its data line's
+    rows of the bucket (the cell's cache rows split over the data axis,
+    outside 2D tensor parallelism), those rows are exactly one group;
+    where every rank computes the whole bucket, it dispatches the ``n``
+    groups over its tokens itself.  1 off a mesh."""
+    ctx = _CTX.get()
+    if ctx is None or not hasattr(ctx.mesh, "group"):
+        return 1
+    dp = tuple(a for a in ctx.opts.dp_axes if a in ctx.mesh.shape)
+    n = axis_size(ctx.mesh, dp) if dp else 1
+    lay = ctx.layout
+    if (n <= 1 or (lay is not None and lay.rows is not None
+                   and not lay.gathered and not _ROWS_WHOLE.get())):
+        return 1
+    return n if tokens % n == 0 and tokens >= n else 1
 
 
 def tp_rank() -> int:

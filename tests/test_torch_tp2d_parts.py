@@ -12,8 +12,9 @@
   per-rank problems: (bucket, K/2, N/2) under 2D tensor parallelism,
   (bucket/2, K, N/2) under FSDP.
 * ``sharding/context.py::check_dense_mesh`` still refuses sequence
-  parallelism, the non-dense families and 2D tensor parallelism outside
-  serving.
+  parallelism, the families that do not serve on a mesh (all but the
+  dense and MoE ones; MoE under FSDP or 2D tensor parallelism, and in
+  training) and 2D tensor parallelism outside serving.
 """
 
 import json
@@ -214,6 +215,14 @@ class _FakeMesh:
     (ShardingOptions(fsdp=True, serve_2d_tp=True), False, "qwen1_5_4b"),
     (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "olmoe_1b_7b"),
     (ShardingOptions(fsdp=True), True, "mamba2_780m"),
+    (ShardingOptions(), True, "mamba2_780m"),
+    (ShardingOptions(), True, "zamba2_2_7b"),
+    (ShardingOptions(), True, "llava_next_mistral_7b"),
+    (ShardingOptions(), True, "whisper_base"),
+    (ShardingOptions(fsdp=True), True, "olmoe_1b_7b"),
+    (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "deepseek_v2_236b"),
+    (ShardingOptions(sequence_parallel="model"), True, "olmoe_1b_7b"),
+    (ShardingOptions(), False, "olmoe_1b_7b"),
 ])
 def test_check_dense_mesh_refusals(opts, serving, arch):
     with pytest.raises(NotImplementedError):
