@@ -125,11 +125,11 @@ printing JSON lines:
                 versions) with the same packed weights; every skinny
                 launch on ``f32`` (decode) or ``tf32x3`` (prefill), and
                 both designs run;
-7. serve      — qwen1.5-4b at full width, 10 of its 40 layers, bf16,
+7. serve      — qwen1.5-4b at full width, 5 of its 40 layers, bf16,
                 seeded random weights, through ``Engine(max_batch=4)``:
                 request groups of 1, 3 and 4 with 256-token prompts and 16
                 greedy steps;
-8. serve.glm4 — GLM-4-9B at full width, 10 of its 40 layers, bf16,
+8. serve.glm4 — GLM-4-9B at full width, 5 of its 40 layers, bf16,
                 seeded random weights, ``Engine(max_batch=2)``: groups of 1
                 and 2 with 2048-token prompts and 8 greedy steps; its
                 unpacked wk/wv run the tall-A kernel at prefill;
@@ -141,7 +141,7 @@ printing JSON lines:
                 the logits it was chosen from agree with the solo run's
                 within ``F32_TOL`` and the two tokens' logits are within
                 it); every skinny launch on ``f32`` or ``tf32x3``;
-10. queue     — qwen1.5-4b at full width, 10 layers, bf16, on a queue
+10. queue     — qwen1.5-4b at full width, 5 layers, bf16, on a queue
                 engine of its own (4 slots, prompts to 256, ``max_len`` by
                 the ragged rule, its 57 cells captured at load): 16
                 ragged requests (the continuous-batching tool's lengths
@@ -180,7 +180,7 @@ printing JSON lines:
                 apart at the 2 x 512 group beside its bound and SDPA, and
                 held to SDPA), its decode the absorbed form over the
                 compressed cache;
-15. serve.mamba2 — Mamba2-780m at full width, 12 of its 48 layers, bf16,
+15. serve.mamba2 — Mamba2-780m at full width, 6 of its 48 layers, bf16,
                 ``Engine(max_batch=4)``: groups of 1, 3 and 4 with
                 256-token prompts and 16 steps; every Mamba leaf, and the
                 tied head as a packed copy of the table's transpose, packed
@@ -202,7 +202,7 @@ printing JSON lines:
                 decode crosses slot 4095 -> 0 at position 4096, checked
                 on each bucket's cache), 16 steps; windowed attention
                 takes the chunked body: flash must not launch;
-18. serve.llava — the LLaVA-NeXT Mistral-7B backbone at full width, 8
+18. serve.llava — the LLaVA-NeXT Mistral-7B backbone at full width, 4
                 of its 32 layers,
                 groups of 1 and 2 with 2880 seeded image embeddings and
                 192 tokens (3072 positions: flash at D 128 on 32 query /
@@ -386,7 +386,7 @@ printing JSON lines:
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m,
 Zamba2-2.7B, h2o-danube-1.8b, GLM-4-9B and the LLaVA-NeXT backbone run
-cut in depth (``HALF_DEPTH``: a quarter of each), so that with the
+cut in depth (``HALF_DEPTH``: a quarter or an eighth of each), so that with the
 paths of
 whisper-base and llama3-405b, tp, tp2d and train.dist the script stays
 inside its time limit (each model fits the card whole; the cut only
@@ -850,13 +850,15 @@ def phase_kernels(timer):
     # (4 x 256 tokens, 16 MHA heads), all at D 128, Zamba2-2.7B's shared
     # block (1 x 2048 tokens, 32 MHA heads of 80), whisper-base's decoder
     # (4 x 256 tokens, 8 MHA heads of 64) and LLaVA-NeXT's backbone (1 x
-    # 3072 positions, 32 query heads on 8 KV heads of 128), and one rank's
-    # 10 heads of qwen1.5-4b at model=2 (the tp path's prefill)
+    # 3072 positions, 32 query heads on 8 KV heads of 128), one rank's
+    # 10 heads of qwen1.5-4b at model=2 (the tp path's prefill), and one
+    # rank's heads on the tp.family paths (``TP_FAMILY_FLASH``)
     for b, s, h, kh, d in ((4, 256, 20, 20, 128), (4, 256, 10, 10, 128),
                            (1, 2048, 32, 2, 128),
                            (2, 2048, 32, 2, 128), (4, 256, 16, 16, 128),
                            (1, 2048, 32, 32, 80), (4, 256, 8, 8, 64),
-                           (1, 3072, 32, 8, 128)):
+                           (1, 3072, 32, 8, 128),
+                           *TP_FAMILY_FLASH.values()):
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         kk, v = (torch.randn((b, s, kh, d), generator=g, device="cuda").to(bf)
                  for _ in range(2))
@@ -2190,18 +2192,19 @@ def encdec_path(path, eng, cfg, launches):
     return extra, set()
 
 
-# seven models' serve and queue paths cut in depth to a quarter
-# (qwen1.5-4b, GLM-4-9B, h2o-danube-1.8b and the LLaVA-NeXT backbone, from
-# half, paying for the tp phase's MoE paths), so the script ends well
-# inside its time limit with the ZOO paths, tp, tp2d and train.dist (each
-# model fits the card whole; Zamba2 keeps whole groups of 6 Mamba layers)
-HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 10},
-              "glm4_9b": {"num_layers": 10},
+# seven models' serve and queue paths cut in depth: OLMoE-1B-7B, Zamba2-2.7B
+# and h2o-danube-1.8b to a quarter, qwen1.5-4b, GLM-4-9B, Mamba2-780m and
+# the LLaVA-NeXT backbone to an eighth (paying for the tp phase's MoE paths
+# and its other families), so the script ends well inside its time limit
+# with the ZOO paths, tp, tp2d and train.dist (each model fits the card
+# whole; Zamba2 keeps two whole groups of 6 Mamba layers)
+HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 5},
+              "glm4_9b": {"num_layers": 5},
               "olmoe_1b_7b": {"num_layers": 4},
-              "mamba2_780m": {"num_layers": 12},
+              "mamba2_780m": {"num_layers": 6},
               "zamba2_2_7b": {"num_layers": 12},
               "h2o_danube_1_8b": {"num_layers": 6},
-              "llava_next_mistral_7b": {"num_layers": 8}}
+              "llava_next_mistral_7b": {"num_layers": 4}}
 
 
 # the serve paths: (arch, cut of the published config, max batch, prompt,
@@ -3625,17 +3628,21 @@ def tp_shard_cases(leaves=None, layers: int = TP_LAYERS,
     from repro_torch.kernels import cuda, ref
     from repro_torch.resilience import degrade, failpoints
 
+    from repro_torch.serve.engine import PAD_COLS
+
     timer = Timer()
     g = torch.Generator(device="cuda").manual_seed(27)
     bf = torch.bfloat16
     misses = registry.stats()["misses"]
     out = []
-    for leaf, (k, n, has_bias, act) in (leaves or TP_SHARD_LEAVES).items():
-        head = leaf == "head"
-        w = (torch.randn((k, n) if head else (layers, k, n), generator=g,
+    for leaf, (k, n, has_bias, act, *stack) in (
+            leaves or TP_SHARD_LEAVES).items():
+        # stacked over the layers, or one copy (a head, a shared block)
+        depth = stack[0] if stack else 0 if leaf == "head" else layers
+        w = (torch.randn((depth, k, n) if depth else (k, n), generator=g,
                          device="cuda") / k ** 0.5).to(bf)
         with Designs() as d:
-            pk = prepack_for(buckets, w, pad=head, num_shards=2)
+            pk = prepack_for(buckets, w, pad=leaf in PAD_COLS, num_shards=2)
         if pk is None:
             raise AssertionError(f"{mode} {leaf} {(k, n)}: stays unpacked")
         bk, bn = pk.blocks.shape[-2:]
@@ -3646,7 +3653,7 @@ def tp_shard_cases(leaves=None, layers: int = TP_LAYERS,
         bound_ms, bound_by = bound(w.numel() * 2 + pk.blocks.numel() * 2, 0)
         out.append({"kernel": "pack_blocks", "mode": f"{mode}_{leaf}",
                     "tp_leaf": leaf, "design": design_of(d.ran),
-                    "L": 1 if head else layers, "M": k, "K": n,
+                    "L": depth or 1, "M": k, "K": n,
                     "bm": bk, "bk": bn, "padded_cols": pad_cols,
                     "max_abs_err": 0.0, "tol": "bit-equal",
                     "ms": timer(lambda: pack(w, bk, bn), iters=3),
@@ -3657,7 +3664,7 @@ def tp_shard_cases(leaves=None, layers: int = TP_LAYERS,
                     # no one PyTorch call pads and re-tiles
                     "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by})
-        w0, pk0 = (w, pk) if head else (w[0], pk[0])
+        w0, pk0 = (w[0], pk[0]) if depth else (w, pk)
         bias = ((0.1 * torch.randn((n,), generator=g, device="cuda")).to(bf)
                 if has_bias else None)
         for m in ms:
@@ -3733,8 +3740,9 @@ def _sync(dev) -> None:
 
 def tp_worker(out_dir: str, device: str = "cuda") -> None:
     """One rank of the tp phase (``torch.distributed.run``): two ranks on
-    the one card, over gloo: qwen1.5-4b, the distributed TSMM, then the
-    MoE family (``TP_MOE``)."""
+    the one card, over gloo: qwen1.5-4b, the distributed TSMM, the MoE
+    family (``TP_MOE``), then the SSM, hybrid, VLM and encoder-decoder
+    families (``TP_FAMILIES``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3750,6 +3758,13 @@ def tp_worker(out_dir: str, device: str = "cuda") -> None:
             _free(mesh.device.type)
             res["moe"][name] = {}
             tp_moe_serve(mesh, name, res["moe"][name])
+        res["family"] = {}
+        for name in TP_FAMILIES:
+            _free(mesh.device.type)
+            res["family"][name] = {}
+            t0 = time.perf_counter()
+            tp_family_serve(mesh, name, res["family"][name])
+            res["family"][name]["seconds"] = time.perf_counter() - t0
     finally:
         with open(os.path.join(out_dir, f"tp_rank{mesh.rank}.json"),
                   "w") as f:
@@ -3759,9 +3774,10 @@ def tp_worker(out_dir: str, device: str = "cuda") -> None:
 
 def tp_nccl(out_dir: str, name: str = "tp") -> dict:
     """The TP engine at model=1 under NCCL in this process (``name``:
-    ``tp``, qwen1.5-4b, or a ``TP_MOE`` path): its grid captured as CUDA
-    graphs with the collectives inside, every cell bit-equal to its eager
-    run, a graphed group equal to an eager one."""
+    ``tp``, qwen1.5-4b, a ``TP_MOE`` path or a ``TP_FAMILIES`` one, whose
+    grid holds its prompt's length bucket alone): its grid captured as
+    CUDA graphs with the collectives inside, every cell bit-equal to its
+    eager run, a graphed group equal to an eager one."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.param import init_pieces
@@ -3769,11 +3785,19 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.programs import ProgramStore, check_cells
 
+    min_prompt = 8
     if name == "tp":
         cfg, buckets, max_len, prompt = (tp_cfg(), TP_BUCKETS, TP_MAX_LEN,
                                          TP_PROMPT)
         contract = tp_contract(cfg, 1, 1, 2)
         group = tp_group_tokens(cfg, 4, "cuda")
+    elif name in TP_FAMILIES:
+        spec = TP_FAMILIES[name]
+        cfg, buckets, prompt = (tp_family_cfg(name), spec["buckets"],
+                                spec["prompt"])
+        max_len, min_prompt = tp_family_max_len(cfg, spec), prompt
+        contract = tp_family_contract(cfg, min(buckets), 1)
+        group = tp_family_batch(cfg, max(buckets), prompt, "cuda")
     else:
         spec = TP_MOE[name]
         cfg, buckets, prompt = tp_moe_cfg(name), spec["buckets"], \
@@ -3787,11 +3811,12 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
         if mesh.backend != "nccl":
             raise AssertionError(f"{name}.nccl: backend {mesh.backend}")
         model = build_model(cfg)
-        with init_pieces(mesh):
+        with init_pieces(mesh, cfg):
             params, axes = model.init(torch.Generator(device="cuda")
                                       .manual_seed(0))
         eng = Engine(model, params, axes, max_len=max_len, buckets=buckets,
-                     max_prompt=prompt, device="cuda", mesh=mesh)
+                     max_prompt=prompt, min_prompt=min_prompt, device="cuda",
+                     mesh=mesh)
         del params
         t0 = time.perf_counter()
         eng.precompile()
@@ -3806,7 +3831,7 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
                                     layout_of=eng.cache_layout)
         eager = eng.generate(group, 4)
         dec = [p for p in store.programs()
-               if p.kind == "decode" and p.bucket == 1]
+               if p.kind == "decode" and p.bucket == min(buckets)]
         out = {"backend": mesh.backend, "graphed": st["graphed"],
                "cells": st["programs"], "captured": st["captured"],
                "capture_s": capture_s,
@@ -4376,6 +4401,452 @@ def tp_moe_checks(ranks: list) -> list:
     return bad
 
 
+# ---------------------------------------------------------------------------
+# tp.family: the SSM, hybrid, VLM and encoder-decoder families under tensor
+# parallelism, in the tp phase's ranks
+# ---------------------------------------------------------------------------
+
+# Each at its published widths, bf16, seeded, cut in depth, each rank
+# drawing every leaf whole on the card and keeping its piece as it is
+# drawn (``init_pieces``; an SSM leaf's concatenated axis by segments), at
+# one bucket (the script's time limit): Mamba2-780m at 4
+# layers (48 SSM heads, 24 a rank; no flash), 4 x 256; Zamba2-2.7B at 6
+# layers (one group: 6 Mamba layers and one application of the shared
+# block, 16 of its 32 heads a rank, flash at D 80), 2 x 512; the LLaVA-NeXT
+# backbone at 2 layers (2880 seeded image embeddings ahead of 192 tokens:
+# flash at D 128 over 3072 positions, 16 of 32 query and 4 of 8 KV heads a
+# rank), 1 x 3072; whisper-base whole (6 + 6 layers, 1500 seeded frames, 4
+# of 8 heads a rank, flash at D 64 over the decoder's 256-token prompt; its
+# odd vocabulary whole on every rank), 4 x 256
+TP_FAMILIES = {
+    "mamba2": dict(arch="mamba2_780m", cut={"num_layers": 4},
+                   buckets=(4,), prompt=256, steps=8, flash=False),
+    "zamba2": dict(arch="zamba2_2_7b", cut={"num_layers": 6},
+                   buckets=(2,), prompt=512, steps=4, flash=True),
+    "llava": dict(arch="llava_next_mistral_7b", cut={"num_layers": 2},
+                  buckets=(1,), prompt=192, steps=4, flash=True),
+    "whisper": dict(arch="whisper_base", cut={}, buckets=(4,), prompt=256,
+                    steps=8, flash=True),
+}
+# each path's per-shard skinny-A leaves at model=2, (K, N, bias, epilogue,
+# stacked layers; 0: one copy): Mamba2's segmented w_in piece (its heads'
+# z / x / dt and the whole B / C: 1536 + 1536 + 128 + 128 + 24 = 3352
+# columns, zero-padded to whole blocks) and its w_out rows; Zamba2's w_in
+# piece (2560 + 2560 + 64 + 64 + 40 = 5288) and the shared block's wq
+# heads (its input [x, x0] 5120 wide, one copy); LLaVA's wq heads;
+# whisper's four piece shapes: the heads of wq / wk / wv (self and cross)
+# and the rows of wo, the MLP's w_in columns with the bias and GELU in
+# the epilogue and its w_out rows with the first rank's bias; each at
+# decode rows and its path's prefill rows (whisper's encoder: bucket x
+# 1500 frames)
+TP_FAMILY_LEAVES = {
+    "mamba2": {"w_in": (1536, 3352, False, None, 4),
+               "w_out": (1536, 1536, False, None, 4)},
+    "zamba2": {"w_in": (2560, 5288, False, None, 6),
+               "wq": (5120, 1280, False, None, 0)},
+    "llava": {"wq": (4096, 2048, False, None, 2)},
+    "whisper": {"wq": (512, 256, False, None, 6),
+                "wo": (256, 512, False, None, 6),
+                "w_in": (512, 1024, True, "gelu", 6),
+                "w_out": (1024, 512, True, None, 6)},
+}
+TP_FAMILY_M = {"mamba2": (4, 1024), "zamba2": (2, 1024),
+               "llava": (1, 3072), "whisper": (4, 1024, 6000)}
+# each path's flash prefill on one rank's heads, (B, S, H, KH, D): Zamba2's
+# shared block (2 x 512, 16 heads of 80), LLaVA's 3072 positions (16 query
+# heads on 4 KV heads of 128), whisper's decoder (4 x 256, 4 heads of 64);
+# held in the kernels phase
+TP_FAMILY_FLASH = {"zamba2": (2, 512, 16, 16, 80),
+                   "llava": (1, 3072, 16, 4, 128),
+                   "whisper": (4, 256, 4, 4, 64)}
+# The planted controls of the logits bound (``TP_LOGITS_TOL``), each alone
+# on both ranks (``tp_family_planted``), read at rank 0 against the
+# one-rank engine as the sound run is: every prefill position's logits,
+# the first decode step's, and whisper's cross cache (rank 0's heads):
+# * ``norm``: layer 0's gated-norm all-reduce skipped (each rank normalizes
+#   by its own channels' sum of squares);
+# * ``shared_wo``: the shared block's wo all-reduce skipped;
+# * ``embeds``: the image embeddings zeroed on rank 1;
+# * ``enc_w_down``: every encoder layer's MLP all-reduce skipped;
+# * ``naive_cut``: w_in cut contiguously (each rank a window of its
+#   segmented width from its contiguous offset, wrapping at the end), not
+#   by segments; the engine built anew from such pieces.
+# Each must land over ``need`` bounds outside, where it acts.
+TP_FAMILY_FAULTS = {
+    "mamba2": {"norm": 1.0, "naive_cut": 1.0},
+    "zamba2": {"norm": 1.0, "shared_wo": 1.0},
+    "llava": {"embeds": 1.0},
+    "whisper": {"enc_w_down": 1.0},
+}
+# the LLaVA path's image embeddings and whisper's frames: seeded normal
+# draws at these scales (the token table's 0.02 and unit-scale frames)
+TP_FAMILY_INPUT_SCALE = {"embeds": 0.02, "enc_frames": 1.0}
+
+
+def tp_family_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    spec = TP_FAMILIES[name]
+    return dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
+
+
+def tp_family_max_len(cfg, spec: dict) -> int:
+    """The image embeddings, the prompt, the decode steps and 8 spare
+    slots, a multiple of 8."""
+    image = cfg.num_image_tokens if cfg.embeds_input else 0
+    return -(-(image + spec["prompt"] + spec["steps"] + 8) // 8) * 8
+
+
+def tp_family_batch(cfg, b: int, prompt: int, device) -> dict:
+    """A group of ``b`` seeded prompts and, for the VLM, its seeded image
+    embeddings, for the encoder-decoder its seeded frames (bf16)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(400 + b)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt),
+                                   generator=g, dtype=torch.int32)}
+    extra = {}
+    if cfg.embeds_input:
+        extra["embeds"] = (b, cfg.num_image_tokens, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        extra["enc_frames"] = (b, cfg.encoder_seq, cfg.d_model)
+    for k, shape in extra.items():
+        out[k] = (torch.randn(shape, generator=g)
+                  * TP_FAMILY_INPUT_SCALE[k]).to(torch.bfloat16)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def tp_family_contract(cfg, rows: int, tp: int) -> dict:
+    """One decode call's collectives on a rank, from the shapes (bf16
+    activations, the gated norm's fp32 sums): where the vocabulary splits
+    (not whisper-base's odd one), the lookup's all-reduce and the logits'
+    all-gather; per Mamba2 layer the gated norm's (rows, 1) fp32 sum of
+    squares and ``w_out``'s all-reduce; per application of the hybrid's
+    shared block, and per layer of the dense backbone, ``wo``'s and
+    ``w_down``'s all-reduce; per decoder layer of the encoder-decoder the
+    self- and cross-attention ``wo`` and the MLP's ``w_out``.  The
+    reference's ring multipliers over a group of ``tp``."""
+    d, bf, f4 = cfg.d_model, 2, 4
+    split_vocab = cfg.vocab_size % tp == 0
+    ar = [rows * d * bf] if split_vocab else []
+    ag = [rows * cfg.vocab_size * bf] if split_vocab else []
+    if cfg.family in ("ssm", "hybrid"):
+        for _ in range(cfg.num_layers):
+            ar += [rows * f4, rows * d * bf]
+    if cfg.family == "hybrid":
+        ar += [rows * d * bf] * 2 * (cfg.num_layers // cfg.attn_every)
+    if cfg.family == "vlm":
+        ar += [rows * d * bf] * 2 * cfg.num_layers
+    if cfg.family == "encdec":
+        ar += [rows * d * bf] * 3 * cfg.num_layers
+    f_ar = 2 * (tp - 1) / tp if tp > 1 else 0.0
+    f_ag = (tp - 1) / tp if tp > 1 else 0.0
+    out = {"all-reduce": {"count": len(ar), "bytes_moved": sum(ar) * f_ar,
+                          "tensor_bytes": float(sum(ar))}}
+    if ag:
+        out["all-gather"] = {"count": len(ag), "bytes_moved": sum(ag) * f_ag,
+                             "tensor_bytes": float(sum(ag))}
+    return out
+
+
+def tp_family_side(eng, cfg, b: int, spec: dict, batch=None) -> dict:
+    """One engine's side of the comparison at bucket ``b``, on the host:
+    every position's prefill logits (the model's forward in the engine's
+    cell context), then the group's first decode step (its input and
+    logits) and, for the encoder-decoder, the cross cache that prefill
+    wrote (the first 4 heads: rank 0's)."""
+    import torch
+    from repro_torch.core.linear import serving_ctx
+    batch = batch or tp_family_batch(cfg, b, spec["prompt"], eng.device)
+    with torch.inference_mode(), serving_ctx(), eng.programs.context(b):
+        logits = eng.model.forward(eng.params, batch)[0].cpu()
+    first = eng.generate(batch, 1)
+    out = {"logits": logits, "first_tokens": first.tokens[:, 0].cpu(),
+           "first_logits": first.logits_last.cpu()}
+    if cfg.is_encoder_decoder:
+        cache = eng.programs.static_cache(b, eng.max_len)
+        heads = cfg.num_kv_heads // 2
+        out["cross"] = torch.cat([cache[k][..., :heads, :].cpu()
+                                  for k in ("cross_k", "cross_v")])
+    return out
+
+
+@contextlib.contextmanager
+def _patched(mod, attr, value):
+    sound = getattr(mod, attr)
+    setattr(mod, attr, value)
+    try:
+        yield sound
+    finally:
+        setattr(mod, attr, sound)
+
+
+def _naive_segments(sound):
+    """``tp_segments`` as a contiguous cut would place ``w_in``'s pieces:
+    each rank a window of its segmented width starting at its contiguous
+    offset, wrapping at the end of the axis (the conv and the rest as the
+    sound cut)."""
+    def naive(cfg, tp, rank, width):
+        segs = sound(cfg, tp, rank, width)
+        if segs is None or width != 2 * cfg.d_inner + 2 * (
+                cfg.ssm_groups * cfg.ssm_state) + cfg.ssm_heads:
+            return segs
+        n = sum(b - a for a, b in segs)
+        lo = rank * width // tp
+        if lo + n <= width:
+            return [(lo, lo + n)]
+        return [(lo, width), (0, lo + n - width)]
+    return naive
+
+
+def tp_family_planted(mesh, eng, cfg, spec: dict, name: str, make) -> dict:
+    """The controls of the logits bound (``TP_FAMILY_FAULTS``), each
+    planted alone on every rank alike (the ranks stay in step): {fault:
+    {bucket: its side}}.  ``make()`` builds the path's engine anew (the
+    naive cut's).  Raises unless each fault's site ran."""
+    import torch
+    from repro_torch.models import attention, layers, mamba2
+    calls = [0]
+    out = {}
+    for fault in TP_FAMILY_FAULTS[name]:
+        calls[0] = 0
+        e, ctx, batch_of = eng, contextlib.nullcontext(), None
+        if fault == "norm":
+            def norm_sum(ss, cfg_, _sound=mamba2.norm_sum):
+                calls[0] += 1
+                if (calls[0] - 1) % cfg.num_layers == 0:
+                    return ss
+                return _sound(ss, cfg_)
+            ctx = _patched(mamba2, "norm_sum", norm_sum)
+        elif fault == "shared_wo":
+            def skip_wo(x, axis, dim, _sound=attention.tp_sum):
+                if axis == "qheads":
+                    calls[0] += 1
+                    return x
+                return _sound(x, axis, dim)
+            ctx = _patched(attention, "tp_sum", skip_wo)
+        elif fault == "enc_w_down":
+            def skip_enc(x, axis, dim, _sound=layers.tp_sum):
+                if axis == "mlp" and x.shape[1] == cfg.encoder_seq:
+                    calls[0] += 1
+                    return x
+                return _sound(x, axis, dim)
+            ctx = _patched(layers, "tp_sum", skip_enc)
+        elif fault == "embeds":
+            def batch_of(b):
+                bt = tp_family_batch(cfg, b, spec["prompt"], eng.device)
+                if mesh.rank == 1:
+                    calls[0] += 1
+                    bt["embeds"] = torch.zeros_like(bt["embeds"])
+                return bt
+        elif fault == "naive_cut":
+            with _patched(mamba2, "tp_segments",
+                          _naive_segments(mamba2.tp_segments)):
+                calls[0] += 1
+                e = make()
+        with ctx:
+            out[fault] = {b: tp_family_side(
+                e, cfg, b, spec, batch_of(b) if batch_of else None)
+                for b in spec["buckets"]}
+        if e is not eng:
+            del e
+            _free(eng.device.type)
+        if not calls[0] and not (fault == "embeds" and mesh.rank != 1):
+            raise AssertionError(f"tp.family.{name}: the planted {fault} "
+                                 f"never ran")
+    return out
+
+
+def tp_family_compare(cfg, got: dict, want: dict, planted: dict) -> dict:
+    """Rank 0's side against the one-rank engine's under
+    ``TP_LOGITS_TOL``: every prefill position's logits, the first decode
+    step's on the rows whose input (the prefill's argmax) agrees, and the
+    encoder-decoder's cross cache; each planted control's readings the
+    same way, its distance in bounds (its largest reading over the
+    bound's ``atol``)."""
+    def readings(side):
+        out = {"prefill": within(side["logits"], want["logits"],
+                                 **TP_LOGITS_TOL)[1]}
+        rows = side["first_tokens"] == want["first_tokens"]
+        out["decode"] = (within(side["first_logits"][rows],
+                                want["first_logits"][rows],
+                                **TP_LOGITS_TOL)[1]
+                         if bool(rows.any()) else 0.0)
+        out["decode_rows"] = int(rows.sum())
+        if "cross" in side:
+            out["cross"] = within(side["cross"], want["cross"],
+                                  **TP_LOGITS_TOL)[1]
+        return out
+
+    mine = readings(got)
+    errs = [v for k, v in mine.items() if k != "decode_rows"]
+    res = {"rows": int(got["first_tokens"].shape[0]),
+           "positions": int(got["logits"].shape[1]),
+           **{f"{k}_max_abs_err" if k != "decode_rows" else k: v
+              for k, v in mine.items()},
+           "within": max(errs) <= TP_LOGITS_TOL["atol"],
+           "ref_absmax": float(want["logits"].float().abs().max()),
+           "planted": {}}
+    for fault, side in planted.items():
+        r = readings(side)
+        worst = max(v for k, v in r.items() if k != "decode_rows")
+        res["planted"][fault] = {
+            **{f"{k}_max_abs_err" if k != "decode_rows" else k: v
+               for k, v in r.items()},
+            "bounds_outside": worst / TP_LOGITS_TOL["atol"]}
+    return res
+
+
+def tp_family_serve(mesh, name: str, res: dict) -> None:
+    """One ``TP_FAMILIES`` path on ``mesh``: load from the rank's pieces,
+    the groups (the main path, counted), the comparison's side on both
+    ranks, the planted controls; then on rank 0 a one-rank engine of the
+    same seeded weights and the comparison.  Fills ``res``."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import init_pieces
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+    from repro_torch.sharding import comm
+
+    spec = TP_FAMILIES[name]
+    cfg = tp_family_cfg(name)
+    model = build_model(cfg)
+    dev = mesh.device
+    buckets, steps = spec["buckets"], spec["steps"]
+    kw = dict(max_len=tp_family_max_len(cfg, spec), buckets=buckets,
+              max_prompt=spec["prompt"], device=dev.type)
+
+    def make():
+        with init_pieces(mesh, cfg):
+            params, axes = model.init(torch.Generator(device=dev)
+                                      .manual_seed(0))
+        return Engine(model, params, axes, mesh=mesh, **kw)
+
+    registry.reset_stats()
+    cuda.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = make()
+    _sync(dev)
+    res["load"] = {"seconds": time.perf_counter() - t0,
+                   "launches": dict(cuda.launches),
+                   "designs": dict(cuda.design_launches),
+                   "packed": sorted(eng.pack_report),
+                   "head_blocks": eng.pack_report.get("embed/head")}
+    res["pieces"] = {}
+    for path in _paths(eng.params):
+        if path[-1] in ("w_in", "wq", "tok") and path[0] != "enc_layers":
+            leaf = eng.params
+            for key in path:
+                leaf = leaf[key]
+            res["pieces"]["/".join(path)] = list(leaf.shape)
+    cache = eng.programs.static_cache(buckets[0], kw["max_len"])
+    res["cache"] = {k: list(v.shape) for k, v in cache.items()}
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in buckets}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    # the main path: counts zeroed just before, read just after
+    cuda.reset_launches()
+    comm.reset()
+    groups = {}
+    for b in buckets:
+        r = eng.generate(tp_family_batch(cfg, b, spec["prompt"], dev), steps)
+        groups[b] = {"prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
+                     "buckets": list(r.buckets),
+                     "tokens0": r.tokens[0].tolist(),
+                     "collectives": eng.collectives("decode", b),
+                     "contract": tp_family_contract(cfg, b, 2)}
+    _sync(dev)
+    res["launches"] = dict(cuda.launches)
+    res["designs"] = dict(cuda.design_launches)
+    res["comm"] = collective_bytes(comm.records)
+    res["staged"] = sorted(set(staged_ops(comm.records)))
+    res["groups"] = groups
+    res["misses"] = registry.stats()["misses"]
+    hr = eng.health_report()
+    res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    res["degradations"] = hr["degradations"]["total"]
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    sides = {b: tp_family_side(eng, cfg, b, spec) for b in buckets}
+    planted = tp_family_planted(mesh, eng, cfg, spec, name, make)
+    del eng
+    _free(dev.type)
+    cmp = {}
+    if mesh.rank == 0:
+        params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+        one = Engine(model, params, axes, **kw)
+        del params
+        one.programs = ProgramStore(model, device=dev, capture=False)
+        for b in buckets:
+            want = tp_family_side(one, cfg, b, spec)
+            timed = one.generate(tp_family_batch(cfg, b, spec["prompt"], dev),
+                                 steps)
+            agree = sum(x == y for x, y in zip(groups[b]["tokens0"],
+                                              timed.tokens[0].tolist()))
+            cmp[b] = {**tp_family_compare(cfg, sides[b], want,
+                                          {f: p[b] for f, p in
+                                           planted.items()}),
+                      "one_rank_per_token_s": timed.per_token_s,
+                      "one_rank_prefill_s": timed.prefill_s,
+                      "row0_tokens_agree": agree, "steps": steps}
+        del one
+        _free(dev.type)
+    res["compare"] = cmp
+
+
+def tp_family_checks(ranks: list) -> list:
+    """What the ranks' results break of the tp.family paths' contract."""
+    bad = []
+    for name, spec in TP_FAMILIES.items():
+        cfg = tp_family_cfg(name)
+        for rank in ranks:
+            rk, res = rank["rank"], rank["family"][name]
+            where = f"{name} rank {rk}"
+            if res["misses"] or not res["healthy"] or res["staged"]:
+                bad.append(f"{where}: {res['misses']} misses, healthy "
+                           f"{res['healthy']}, staged {res['staged']}")
+            designs = res["designs"]
+            off = {d for d in designs if d.startswith("skinny_")
+                   and d not in ("skinny_wgmma", "skinny_stream")}
+            off |= {d for d in designs if d.startswith(("tall_", "flash_"))
+                    and d not in ("tall_wgmma", "flash_wgmma")}
+            if off or not any(designs.get(d) for d in ("skinny_wgmma",
+                                                       "skinny_stream")):
+                bad.append(f"{where}: designs {designs}")
+            if bool(res["launches"].get("flash_attention")) != spec["flash"]:
+                bad.append(f"{where}: flash launches "
+                           f"{res['launches'].get('flash_attention', 0)}, "
+                           f"expected {'some' if spec['flash'] else 'none'}")
+            if not res["load"]["launches"].get("pack_blocks"):
+                bad.append(f"{where}: no pack at load")
+            if cfg.ssm_state:
+                seg = cfg.d_inner // 2 + 2 * cfg.ssm_groups * cfg.ssm_state
+                if res["cache"]["conv"][-1] != seg:
+                    bad.append(f"{where}: conv cache {res['cache']['conv']}")
+            for b, g in res["groups"].items():
+                if g["collectives"] != g["contract"]:
+                    bad.append(f"{where} b={b}: collectives "
+                               f"{g['collectives']} != contract "
+                               f"{g['contract']}")
+        cmp = ranks[0]["family"][name]["compare"]
+        if not sum(c["decode_rows"] for c in cmp.values()):
+            bad.append(f"{name}: rank 0 compared no decode row: {cmp}")
+        for b, c in cmp.items():
+            if not c["within"]:
+                bad.append(f"{name} b={b}: rank 0 vs the one-rank engine {c}")
+        for fault, need in TP_FAMILY_FAULTS[name].items():
+            least = min((c["planted"][fault]["bounds_outside"]
+                         for c in cmp.values()), default=0.0)
+            if not least > need:
+                bad.append(f"{name}: the planted {fault} lands {least} "
+                           f"bounds outside at its least bucket, not over "
+                           f"{need}")
+    return bad
+
+
 def tp_checks(ranks: list) -> list:
     """What the two ranks' results break of the tp phase's contract."""
     bad = []
@@ -4442,8 +4913,12 @@ def phase_tp():
     MoE family (``TP_MOE``: OLMoE-1B-7B and DeepSeek-V2 at their
     published widths, cut in depth) lookup-only after their own install
     sweeps, each against a one-rank engine with the flipped expert
-    choices counted and bounded, and the planted controls; then NCCL at world size 1
-    in this process with the cells captured (qwen's grid and OLMoE's).
+    choices counted and bounded, and the planted controls; the SSM,
+    hybrid, VLM and encoder-decoder families (``TP_FAMILIES``: Mamba2-780m,
+    Zamba2-2.7B, the LLaVA-NeXT backbone, whisper-base) lookup-only after
+    one sweep of the four, each against a one-rank engine with its planted
+    controls; then NCCL at world size 1 in this process with the cells
+    captured (qwen's grid, OLMoE's and Zamba2's).
     Returns each rank's launches on each path's main path (and at
     load), the paper's, and the per-shard kernel cases."""
     import signal
@@ -4468,6 +4943,18 @@ def phase_tp():
                              "--mesh", "model=2"])
         emit({"phase": f"tp.moe.{name}.install",
               "seconds": time.perf_counter() - t0, "plans": inst["plans"]})
+    # the four families' sweeps at model=2 in this one process, each at
+    # its path's buckets and the one length bucket its prompts take,
+    # written in one flush
+    from repro_torch.core import registry
+    t0 = time.perf_counter()
+    plans = {name: install.install_arch(
+        tp_family_cfg(name), spec["buckets"], (spec["prompt"],),
+        mesh=install.parse_mesh("model=2"), device="cuda")
+        for name, spec in TP_FAMILIES.items()}
+    registry.flush()
+    emit({"phase": "tp.family.install", "seconds": time.perf_counter() - t0,
+          "plans": plans})
     t0 = time.perf_counter()
     shard_cases = tp_shard_cases()
     emit({"phase": "tp.kernels.seconds", "seconds": time.perf_counter() - t0})
@@ -4480,6 +4967,15 @@ def phase_tp():
             spec["buckets"], TP_MOE_M[name], mode=f"tp.moe.{name}")
         _free("cuda")
     emit({"phase": "tp.moe.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    family_cases = {}
+    for name, spec in TP_FAMILIES.items():
+        family_cases[name] = tp_shard_cases(
+            TP_FAMILY_LEAVES[name], 0, spec["buckets"], TP_FAMILY_M[name],
+            mode=f"tp.family.{name}")
+        _free("cuda")
+    emit({"phase": "tp.family.kernels.seconds",
           "seconds": time.perf_counter() - t0})
     _free("cuda")
     out_dir = tempfile.mkdtemp(prefix="tp-", dir=os.path.join(ROOT, "build"))
@@ -4503,7 +4999,7 @@ def phase_tp():
     if proc.returncode != 0:
         raise AssertionError(f"tp: the ranks exited {proc.returncode}:\n"
                              f"{out[-3000:]}\n{err[-6000:]}")
-    bad = tp_checks(ranks) + tp_moe_checks(ranks)
+    bad = tp_checks(ranks) + tp_moe_checks(ranks) + tp_family_checks(ranks)
     held = {c["kernel"] for c in shard_cases}
     for res in ranks:
         unheld = sorted(k for k in SKINNY
@@ -4518,6 +5014,28 @@ def phase_tp():
             if unheld:
                 bad.append(f"{name} rank {res['rank']}: {unheld} launched "
                            f"at shapes tp.moe.kernels did not hold")
+        for name in TP_FAMILIES:
+            held = {c["kernel"] for c in family_cases[name]}
+            unheld = sorted(k for k in SKINNY + TALL if res["family"][name][
+                "launches"].get(k) and k not in held)
+            if unheld:
+                bad.append(f"{name} rank {res['rank']}: {unheld} launched "
+                           f"at shapes tp.family.kernels did not hold")
+    for name in TP_FAMILIES:
+        for res in ranks:
+            m = res["family"][name]
+            emit({"phase": f"tp.family.{name}.rank", "rank": res["rank"],
+                  **{k: m[k] for k in (
+                      "seconds", "load", "pieces", "cache", "layouts",
+                      "graphed", "launches", "designs", "comm", "staged",
+                      "misses", "healthy", "degradations", "peak_bytes",
+                      "groups")}})
+        emit({"phase": f"tp.family.{name}", "logits_tol": TP_LOGITS_TOL,
+              "faults_need": TP_FAMILY_FAULTS[name],
+              "compare": ranks[0]["family"][name]["compare"],
+              "decode_collectives": {
+                  b: g["collectives"]
+                  for b, g in ranks[0]["family"][name]["groups"].items()}})
     for name in TP_MOE:
         for res in ranks:
             m = res["moe"][name]
@@ -4558,9 +5076,10 @@ def phase_tp():
           "workers_s": time.perf_counter() - t0})
     if bad:
         raise AssertionError("tp: " + "; ".join(bad))
-    for name in ("tp", "olmoe"):
+    for name in ("tp", "olmoe", "zamba2"):
         nccl = tp_nccl(out_dir, name)
-        phase = "tp.nccl" if name == "tp" else f"tp.moe.{name}.nccl"
+        phase = ("tp.nccl" if name == "tp" else f"tp.moe.{name}.nccl"
+                 if name in TP_MOE else f"tp.family.{name}.nccl")
         emit({"phase": phase, **nccl})
         if not (nccl["graphed"]
                 and nccl["cells_bit_equal"] == nccl["cells_checked"]
@@ -4580,10 +5099,16 @@ def phase_tp():
                          r["moe"][name]["launches"] for r in ranks})
         loads.update({f"tp.moe.{name}.rank{r['rank']}.load":
                       r["moe"][name]["load"]["launches"] for r in ranks})
+    for name in TP_FAMILIES:
+        launches.update({f"tp.family.{name}.rank{r['rank']}":
+                         r["family"][name]["launches"] for r in ranks})
+        loads.update({f"tp.family.{name}.rank{r['rank']}.load":
+                      r["family"][name]["load"]["launches"] for r in ranks})
     return launches, loads, \
         {f"tp.rank{r['rank']}.paper.n{p['n']}": p["launches"]
          for r in ranks for p in r["paper"]}, \
-        shard_cases + [c for cs in moe_cases.values() for c in cs]
+        shard_cases + [c for cs in moe_cases.values() for c in cs] \
+        + [c for cs in family_cases.values() for c in cs]
 
 
 # ---------------------------------------------------------------------------
@@ -6117,21 +6642,40 @@ def run():
     # (64) and the LLaVA-NeXT backbone's 3072 positions at their
     # prefills, each with its launches on its path
     flash = next(r for r in line if r["name"] == "flash_attention")
-    flash_paths = {(80, 2048): "serve.zamba2", (64, 256): "serve.whisper",
-                   (128, 3072): "serve.llava"}
+    flash_paths = {(80, 2048, 32): "serve.zamba2",
+                   (64, 256, 8): "serve.whisper",
+                   (128, 3072, 32): "serve.llava"}
     flash["cases"] = [
-        {**shape_of(c), "launches_path": flash_paths[(c["D"], c["S"])],
-         "launches": by_path[flash_paths[(c["D"], c["S"])]].get(
+        {**shape_of(c),
+         "launches_path": flash_paths[(c["D"], c["S"], c["H"])],
+         "launches": by_path[flash_paths[(c["D"], c["S"], c["H"])]].get(
              "flash_attention", 0),
          **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
                               "plain_ms", "library_ms", "bound_ms",
                               "bound_by")}}
         for c in cases if c["kernel"] == "flash_attention"
-        and (c["D"], c["S"]) in flash_paths]
+        and (c["D"], c["S"], c["H"]) in flash_paths]
     if (len(flash["cases"]) != len(flash_paths)
             or not all(c["launches"] for c in flash["cases"])):
         raise AssertionError(f"flash at D = 80 / 64 / 128 x 3072: "
                              f"{flash['cases']}")
+    # and each tp.family path's flash on one rank's heads, with its
+    # launches on each rank's main path
+    fam_flash = {(s, h, d): name
+                 for name, (_, s, h, _, d) in TP_FAMILY_FLASH.items()}
+    flash["tp_family"] = [
+        {**shape_of(c), "launches_by_path": {
+            p: ls.get("flash_attention", 0) for p, ls in tp_launches.items()
+            if p.startswith(f"tp.family.{fam_flash[(c['S'], c['H'], c['D'])]}.")},
+         **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
+                              "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")}}
+        for c in cases if c["kernel"] == "flash_attention"
+        and (c["S"], c["H"], c["D"]) in fam_flash]
+    if (len(flash["tp_family"]) != len(fam_flash) or not all(
+            any(c["launches_by_path"].values()) for c in flash["tp_family"])):
+        raise AssertionError(f"flash on the tp.family ranks' heads: "
+                             f"{flash['tp_family']}")
     # the skinny-A row also carries its bias + GELU cases (whisper-base's
     # w_in), with its bias + GELU epilogue launches on serve.whisper
     skinny = next(r for r in line if r["name"] == "tsmm_skinny_a")

@@ -108,12 +108,15 @@ def serving_shapes(cfg) -> set:
     return shapes
 
 
-def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None) -> set:
+def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None,
+                           lengths: tuple = ()) -> set:
     """Per-shard (k_shard, n_shard, num_shards) of every packable weight
     leaf of the arch under ``mesh``: the pieces a rank packs (the same
     walk, ``serve/engine.py::iter_packable``, over the model's ``meta``
     shapes: nothing is allocated).  A tied model also packs its head
-    (``serve/engine.py::tied_head``).
+    (``serve/engine.py::tied_head``); an SSM ``w_in`` piece is its
+    segments' width (``models/mamba2.py::tp_segments``: Mamba2-780m's
+    3352 of 6448 columns at ``model=2``, not 3224).
 
     With ``buckets``, the (m, k, n, num_shards) problems a sharded
     engine's pre-pack plans and looks up at them
@@ -122,29 +125,91 @@ def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None) -> set:
     the data axis first, at the rank's compute rows.  Under
     ``ShardingOptions(fsdp=True, serve_2d_tp=True)`` on ``data=2,
     model=2`` a (K, N) leaf with rows on ``data`` gives (bucket, K/2,
-    N/2, 4); under ``fsdp=True`` alone (bucket/2, K, N/2, 2)."""
+    N/2, 4); under ``fsdp=True`` alone (bucket/2, K, N/2, 2).  And the
+    piece of every weight too small to pack (LLaVA's reduced ``wk``) at
+    the rank's compute rows, and with ``lengths`` at the rows its prefill
+    cells run (:func:`rank_prefill_rows`), where TSMM-shaped: one shard,
+    as ``core/linear.py`` looks an unpacked product up, so that lookup
+    does not miss.  (A packed piece's prefill rows past the buckets are a
+    registry peek, never a miss: ``core/tsmm.py::tsmm_dot``.)"""
+    from repro_torch.models.mamba2 import leaf_segments
     from repro_torch.models.param import MetaGenerator
     from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import (iter_packable, shard_problem,
-                                          tied_head)
-    from repro_torch.sharding.rules import ShardingOptions
+    from repro_torch.serve.engine import (compute_rows, iter_packable,
+                                          shard_problem, tied_head)
+    from repro_torch.sharding.rules import ShardingOptions, pspec_for
 
+    opts = opts or ShardingOptions()
     shapes, axes = tied_head(*build_model(cfg).init(MetaGenerator()))
+    prefill = (rank_prefill_rows(cfg, buckets, lengths, mesh, opts)
+               if buckets is not None and lengths else [])
     out = set()
     for path, leaf, (rows, cols, rs, cs) in iter_packable(
             shapes, axes, mesh, opts):
         if rows % rs or cols % cs:
             continue                # prepack_for refuses these outright
-        if buckets is None:
-            out.add((rows // rs, cols // cs, rs * cs))
-            continue
         a = axes
         for key in path:
             a = a[key]
+        if buckets is None:
+            segs = leaf_segments(cfg, a, tuple(leaf.shape), pspec_for(
+                a, tuple(leaf.shape), mesh, opts), mesh)
+            out.add((rows // rs, sum(b - a_ for a_, b in segs) if segs
+                     else cols // cs, rs * cs))
+            continue
         ms, k, n, s, _ = shard_problem(a, tuple(leaf.shape), tuple(buckets),
-                                       mesh, opts or ShardingOptions())
+                                       mesh, opts, cfg)
         out |= {(m, k, n, s) for m in ms}
+    if buckets is not None:
+        # a leaf too small to pack stays unpacked: the rank's products
+        # look its piece up at their rows (one shard)
+        rows = {compute_rows(b, mesh, opts) for b in buckets} | set(prefill)
+        for a, leaf in _unpacked_leaves(shapes, axes, mesh, opts):
+            _, k, n, _, _ = shard_problem(a, tuple(leaf.shape), (1,), mesh,
+                                          opts, cfg)
+            out |= {(m, k, n, 1) for m in rows if is_tsmm(m, k, n)}
     return out
+
+
+def _unpacked_leaves(shapes, axes, mesh, opts):
+    """(axes, leaf) of every weight consumed through ``core/linear.py``
+    (``serve/engine.py::PACKABLE``, two or three dims) that the engine
+    leaves unpacked on ``mesh`` (``packable_divisors``: under
+    ``MIN_ROWS`` x ``MIN_COLS``, as LLaVA's (4096, 1024) ``wk`` is not
+    but a reduced GQA's narrow ``wk`` is)."""
+    from repro_torch.serve.engine import PACKABLE, packable_divisors
+
+    def walk(p, a, path):
+        if isinstance(p, dict):
+            for key in p:
+                yield from walk(p[key], a[key], path + (key,))
+            return
+        if (path[-1] in PACKABLE and 2 <= p.ndim <= 3
+                and (p.ndim == 2 or a[0] in ("layers", "groups"))
+                and packable_divisors(path, a, p, mesh, opts) is None):
+            yield a, p
+
+    yield from walk(shapes, axes, ())
+
+
+def rank_prefill_rows(cfg, buckets: tuple, lengths: tuple, mesh,
+                      opts=None) -> list:
+    """The rows a rank's prefill cells run through the projections on
+    ``mesh``: each grid cell's ``rows * lb`` and the :func:`prefill_rows`
+    of its kind (a VLM's ``rows * (num_image_tokens + lb)``, an
+    encoder-decoder's ``rows * encoder_seq``), ``rows`` the bucket's
+    compute rows on the rank (``serve/engine.py::compute_rows``: its data
+    line's piece where a data axis splits the bucket)."""
+    from repro_torch.serve.engine import compute_rows
+    from repro_torch.sharding.rules import ShardingOptions
+    opts = opts or ShardingOptions()
+    grid = BucketGrid(tuple(buckets), tuple(lengths))
+    out = set()
+    for bb, lb in grid.cells():
+        r = compute_rows(bb, mesh, opts)
+        out.add(r * lb)
+        out |= set(prefill_rows(cfg, (r,), (lb,)))
+    return sorted(out)
 
 
 def parse_mesh(spec: str):
@@ -212,10 +277,15 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
     mm = "wallclock" if measure else None
     shapes = sorted(serving_shapes(cfg))
     shard_rows: dict = {}
+    piece_rows: set = set()
     if mesh is not None:
+        prefill = set(rank_prefill_rows(cfg, buckets, lengths, mesh, opts)
+                      if lengths else ())
         for (m, ks, ns, s) in sharded_serving_shapes(cfg, mesh, opts,
-                                                     buckets):
-            if s > 1 or (ks, ns) not in shapes:
+                                                     buckets, lengths):
+            if s == 1 and m in prefill:
+                piece_rows.add(Problem(m, ks, ns, cfg.dtype))
+            elif s > 1 or (ks, ns) not in shapes:
                 shard_rows.setdefault((ks, ns, s), set()).add(m)
     if limit_shapes:
         shapes = shapes[:limit_shapes]
@@ -238,7 +308,7 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
             # cells sharing a token count share a plan; count distinct
             n_plans += len({p.problem.m for p in pg.plans.values()
                             if p.problem.m not in buckets})
-    for p in extra:
+    for p in extra + sorted(piece_rows, key=Problem.key):
         make_plan(p, hw, measure=mm, persist=False, iters=iters, force=force,
                   device=device)
     for (ks, ns, s), ms in sorted(shard_rows.items()):
@@ -246,7 +316,7 @@ def install_arch(cfg, buckets: tuple = SERVE_BUCKETS, lengths: tuple = (), *,
                              measure=mm, persist=False, iters=iters,
                              force=force, device=device, num_shards=s)
         n_plans += len(pset.plans)
-    return n_plans + len(extra)
+    return n_plans + len(extra) + len(piece_rows)
 
 
 def precompile_arch(cfg, buckets: tuple, lengths: tuple, *, max_len: int,

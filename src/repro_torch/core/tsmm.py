@@ -232,6 +232,8 @@ def tsmm_dot(a, b, *, bias=None, act: Optional[str] = None,
             # buckets, manually packed tensors); uncovered: the baseline
             cached = registry.peek(
                 Problem(m, k, b.orig_cols, dtype_name(a.dtype)).key(), a.device)
+            if cached is not None and cached.orientation != "skinny_a":
+                cached = None      # a tall plan of an unpacked twin shape
             spec = cached.kernel if cached is not None else variants.BASELINE
             sched = cached.schedule if cached is not None else None
         spec = _override_spec(spec, override, "skinny_a")

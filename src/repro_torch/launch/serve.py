@@ -58,7 +58,18 @@ among its lines:
 
 The MoE family serves the same way (``--arch olmoe_1b_7b`` or
 ``deepseek_v2_236b``): its experts split over ``model`` by whole experts
-or by their columns, MLA's latent cache along its sequence.
+or by their columns, MLA's latent cache along its sequence.  So does
+every other family:
+
+* ``--arch mamba2_780m``: each rank its Mamba2 heads, conv channels and
+  state, ``w_in`` cut by segments (its heads' ``z`` / ``x`` / ``dt``, the
+  whole ``B`` / ``C``), the gated norm's sum of squares all-reduced;
+* ``--arch zamba2_2_7b``: the Mamba stack so, the shared block by its
+  heads and its MLP's columns;
+* ``--arch llava_next_mistral_7b``: the LLaVA-NeXT backbone by its heads,
+  each group's image embeddings ahead of its tokens on every rank;
+* ``--arch whisper_base``: the encoder, the decoder and the cross cache
+  by their heads, the odd vocabulary whole on every rank.
 
 ``--find-db`` attaches a fleet find-db artifact (``REPRO_TORCH_FIND_DB``):
 the registry folds its plans in under the local ones, so a fresh host
@@ -242,7 +253,7 @@ def _serve(args, mesh) -> None:
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     # on a mesh each leaf is cut to the rank's piece as it is drawn
-    with (init_pieces(mesh) if mesh is not None
+    with (init_pieces(mesh, cfg) if mesh is not None
           else contextlib.nullcontext()):
         params, axes = model.init(gen)
 

@@ -231,6 +231,17 @@ def write_slot(slab, slot, t, seq=None):
                                         slab.index_select(1, at)))
 
 
+def write_prompt(slab, t, s: int, lay=None):
+    """Write a prompt's K or V ``t`` (B, s, ...) into its slots of
+    ``slab`` (B, S, ...) in place: slots ``[0, s)``, or, where the cell's
+    ``CacheLayout`` ``lay`` splits the slots over an axis, the part of
+    them the rank's piece holds."""
+    n = slab.shape[1]
+    a = axis_group(lay.seq)[1] * n if lay is not None and lay.seq else 0
+    m = max(0, min(s - a, n))
+    slab[:, :m] = t[:, a:a + m]
+
+
 def init_gqa(gen, cfg, d_in: int = 0, d_out: int = 0):
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     d_in = d_in or d
@@ -355,13 +366,16 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
 def cross_decode(p, cfg, x, cross_k, cross_v):
     """The decoder's cross-attention step: q from x (B,1,d) against the
     encoder's K/V (B,T,KH,D), projected once at prefill and read by every
-    step (every key valid)."""
+    step (every key valid).  On a tensor-parallel mesh the rank's heads
+    (read off ``wq``) against its heads of the cross cache, ``wo``'s
+    partial sums summed over the TP group."""
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h = p["wq"].shape[-1] // hd
     q = linear(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
     kpos = torch.arange(cross_k.shape[1], device=x.device)
     out = decode_attention(q, cross_k, cross_v, kpos, cross_k.shape[1] - 1)
-    return linear(out.reshape(b, 1, h * hd), p["wo"])
+    return _out_proj(p, cfg, out.reshape(b, 1, h * hd))
 
 
 # ---------------------------------------------------------------------------

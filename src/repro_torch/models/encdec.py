@@ -24,6 +24,16 @@ written whole by the prefill, ``slot_pos`` (max_len,) and the 0-d device
 ``pos``, which the decode step reads on the device and advances, so one
 captured decode cell serves every step and never re-encodes.
 
+On a tensor-parallel mesh each attention holds its heads (``wo``'s
+partial sums summed over the TP group), each GELU MLP its hidden
+columns (``w_out`` summed, its bias added on the first rank:
+``layers.gelu_mlp``), the cross cache its KV heads; the vocabulary
+(51865 at whisper-base, odd) stays whole on every rank, so neither the
+lookup nor the logits move.  Where the cell's ``CacheLayout`` splits the
+self-attention slabs' slots (a bucket a data axis cannot split), the
+prefill writes the rank's slots and the decode combines the softmax over
+their group.
+
 One divergence, in dtype only: the frames are cast to the model's dtype
 before the position encoding is added (the reference adds in the frames'
 dtype); where the two agree, as on every serving path, nothing differs.
@@ -36,9 +46,10 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (embed_tokens, gelu_mlp, init_embed,
                                        init_gelu_mlp, layernorm, remat,
-                                       sinusoidal_pos, unembed)
-from repro_torch.models.lm import layer_params
+                                       sinusoidal_pos)
+from repro_torch.models.lm import head_logits, layer_params
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
+from repro_torch.sharding.context import cache_layout
 
 
 def _ln(pt, name, d):
@@ -109,7 +120,8 @@ def _enc_layer_fwd(lp, cfg, x):
                          causal=False, use_rope=False,
                          chunk=min(512, x.shape[1]))
     x = x + h
-    return x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln2", x, cfg.norm_eps))
+    return x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln2", x, cfg.norm_eps),
+                        cfg.d_ff)
 
 
 def _dec_layer_fwd(lp, cfg, x, enc_out, *, chunk=512):
@@ -124,7 +136,8 @@ def _dec_layer_fwd(lp, cfg, x, enc_out, *, chunk=512):
                                 causal=False, use_rope=False,
                                 kv_from=enc_out, chunk=chunk)
     x = x + h
-    x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps))
+    x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps),
+                     cfg.d_ff)
     return x, (kv, cross_kv)
 
 
@@ -134,7 +147,7 @@ def encdec_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
     enc_out = encode(params, cfg, batch["enc_frames"])
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size, cfg.d_model)
     pos = torch.arange(s, device=x.device)
     x = x + sinusoidal_pos(pos, cfg.d_model)[None].to(x.dtype)
     kvs = []
@@ -145,7 +158,7 @@ def encdec_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
         if collect_cache:
             kvs.append(kv)
     x = _apply_ln(params, "dec_norm", x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = head_logits(params, cfg, x)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, zero, kvs if collect_cache else None
 
@@ -177,9 +190,10 @@ def encdec_prefill(params, cfg, batch, cache, *, chunk=512):
     s = batch["tokens"].shape[1]
     logits, _, kvs = encdec_forward(params, cfg, batch, collect_cache=True,
                                     chunk=chunk)
+    lay = cache_layout()
     for i, ((k, v), (ck, cv)) in enumerate(kvs):
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        A.write_prompt(cache["k"][i], k, s, lay)
+        A.write_prompt(cache["v"][i], v, s, lay)
         cache["cross_k"][i].copy_(ck)
         cache["cross_v"][i].copy_(cv)
     sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
@@ -196,7 +210,7 @@ def encdec_decode_step(params, cfg, cache, tokens):
     K/V the prefill wrote read as they are, the position advanced."""
     pos = cache["pos"]
     idx = pos.reshape(1).long()            # the cache slot, on the device
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size, cfg.d_model)
     x = x + sinusoidal_pos(pos.reshape(1), cfg.d_model)[None].to(x.dtype)
     cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     stack = params["dec_layers"]
@@ -209,8 +223,9 @@ def encdec_decode_step(params, cfg, cache, tokens):
         x = x + A.cross_decode(lp["cross_attn"], cfg,
                                _apply_ln(lp, "ln2", x, cfg.norm_eps),
                                cache["cross_k"][i], cache["cross_v"][i])
-        x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps))
+        x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps),
+                         cfg.d_ff)
     x = _apply_ln(params, "dec_norm", x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = head_logits(params, cfg, x)
     pos.add_(1)
     return logits, cache

@@ -21,6 +21,16 @@ The cache keeps the reference's layout: ``ssm`` / ``conv`` as (groups,
 per_group, B, ...), one K/V slab per application of the shared block
 (groups, B, max_len, KH, D), ``slot_pos`` and the 0-d device ``pos``;
 no ``valid_from`` (no ragged admission for SSM state).
+
+On a tensor-parallel mesh the Mamba layers hold their heads
+(``models/mamba2.py``), the shared block its heads and its MLP's
+columns (``wo`` and ``w_down`` summed over the TP group; its input
+``[x, x0]`` whole on every rank), each application's K/V slab its KV
+heads, and the vocabulary is split as the LM's (the lookup summed, the
+logits gathered).  Where the cell's ``CacheLayout`` splits the K/V
+slabs' slots (a bucket a data axis cannot split), the prefill writes the
+rank's slots and the decode combines the softmax over their group
+(``models/attention.py::gqa_decode``).
 """
 
 from __future__ import annotations
@@ -30,10 +40,11 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
-                                       remat, rmsnorm, swiglu, unembed)
-from repro_torch.models.lm import (layer_params, mamba_decode_into,
-                                   mamba_fwd, ssm_cache)
+                                       remat, rmsnorm, swiglu)
+from repro_torch.models.lm import (head_logits, layer_params,
+                                   mamba_decode_into, mamba_fwd, ssm_cache)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
+from repro_torch.sharding.context import cache_layout, tp_gather, tp_sum
 
 
 def _n_groups(cfg) -> int:
@@ -76,7 +87,14 @@ def _shared_fwd(p, cfg, x, x0, *, pos_offset=0, chunk=512):
                           chunk=chunk)
     x = x + a
     h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h), kv
+    return x + _shared_mlp(p, cfg, h), kv
+
+
+def _shared_mlp(p, cfg, h):
+    """The shared block's SwiGLU MLP, ``w_down`` row-parallel over
+    ``mlp``: its partial sums summed over the TP group where the hidden
+    width is split."""
+    return tp_sum(swiglu(p["mlp"], h), "mlp", cfg.d_ff)
 
 
 def _shared_decode(p, cfg, x, x0, ck, cv, slot_pos, pos, slot):
@@ -85,7 +103,7 @@ def _shared_decode(p, cfg, x, x0, ck, cv, slot_pos, pos, slot):
     h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln1"], cfg.norm_eps)
     x = x + A.gqa_decode(p["attn"], cfg, h, ck, cv, slot_pos, pos, slot)
     h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h)
+    return x + _shared_mlp(p, cfg, h)
 
 
 def _groups(params, cfg):
@@ -95,11 +113,14 @@ def _groups(params, cfg):
              for j in range(per)] for g in range(_n_groups(cfg))]
 
 
-def hybrid_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
+def hybrid_forward(params, cfg, batch, *, collect_cache=False, chunk=512,
+                   gather: bool = True):
     """Returns (logits, aux 0, (states, kvs) | (None, None)): ``states``
     each Mamba layer's (h_final, conv_tail) in layer order, ``kvs`` each
-    application's (k, v)."""
-    x = embed_tokens(params["embed"], batch["tokens"])
+    application's (k, v).  On a tensor-parallel mesh the logits are this
+    rank's vocab piece unless ``gather`` (the default) gathers them."""
+    x = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size,
+                     cfg.d_model)
     x0 = x
     states, kvs = [], []
     for group in _groups(params, cfg):
@@ -113,7 +134,7 @@ def hybrid_forward(params, cfg, batch, *, collect_cache=False, chunk=512):
         if collect_cache:
             kvs.append(kv)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = head_logits(params, cfg, x, gather)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, zero, ((states, kvs) if collect_cache else (None, None))
 
@@ -147,21 +168,23 @@ def hybrid_prefill(params, cfg, batch, cache, *, chunk=512):
     """Run the full prompt and fill the cache (in place).  Returns
     (last_logits, cache)."""
     s = batch["tokens"].shape[1]
-    logits, _, (states, kvs) = hybrid_forward(params, cfg, batch,
-                                              collect_cache=True, chunk=chunk)
+    logits, _, (states, kvs) = hybrid_forward(
+        params, cfg, batch, collect_cache=True, chunk=chunk, gather=False)
     slabs = cache_slabs(cfg, cache)
     for (ssm, conv), (h, tail) in zip(slabs, states):
         ssm.copy_(h)
         conv.copy_(tail)
+    lay = cache_layout()
     for (ck, cv), (k, v) in zip(slabs[cfg.num_layers:], kvs):
-        ck[:, :s] = k
-        cv[:, :s] = v
+        A.write_prompt(ck, k, s, lay)
+        A.write_prompt(cv, v, s, lay)
     sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
                       device=cache["slot_pos"].device)
     cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
     cache["pos"].fill_(s)
-    # a copy: the (B, S, V) logits are scratch of a captured cell
-    return logits[:, -1:].clone(), cache
+    # a copy: the (B, S, V) logits are scratch of a captured cell; on a
+    # tensor-parallel mesh only the last position is gathered
+    return tp_gather(logits[:, -1:].clone(), "vocab", cfg.vocab_size), cache
 
 
 def hybrid_decode_step(params, cfg, cache, tokens):
@@ -170,7 +193,7 @@ def hybrid_decode_step(params, cfg, cache, tokens):
     written at the device position, which then advances."""
     pos = cache["pos"]
     idx = pos.reshape(1).long()            # the cache slot, on the device
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size, cfg.d_model)
     x0 = x
     cache["slot_pos"].index_copy_(0, idx, pos.reshape(1))
     slabs = cache_slabs(cfg, cache)
@@ -183,6 +206,6 @@ def hybrid_decode_step(params, cfg, cache, tokens):
         x = _shared_decode(params["shared"], cfg, x, x0, ck, cv,
                            cache["slot_pos"], pos, idx)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = head_logits(params, cfg, x)
     pos.add_(1)
     return logits, cache

@@ -127,12 +127,19 @@ def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
     return pt.build()
 
 
-def gelu_mlp(p, x):
+def gelu_mlp(p, x, d_ff: int = 0):
     """w_out(gelu(x @ w_in + b_in)) + b_out: the bias and the tanh GELU
     of the first product run in the kernel's epilogue (``linear`` passes
-    them to ``tsmm_dot``), not as a pass of their own."""
+    them to ``tsmm_dot``), not as a pass of their own.  ``d_ff``: the full
+    hidden width, where ``w_in`` / ``b_in`` may be column- and ``w_out``
+    row-parallel over ``mlp``: then the partial sums are summed over the
+    TP group, ``b_out`` added in the epilogue of the first rank's
+    partial only."""
     h = linear(x, p["w_in"], p["b_in"], act="gelu")
-    return linear(h, p["w_out"], p["b_out"])
+    if not (d_ff and tp_split("mlp", d_ff)):
+        return linear(h, p["w_out"], p["b_out"])
+    bias = p["b_out"] if tp_rank() == 0 else None
+    return tp_sum(linear(h, p["w_out"], bias), "mlp", d_ff)
 
 
 def sinusoidal_pos(positions, dim: int):

@@ -122,7 +122,7 @@ def _mlp(p, cfg, x, kind: str):
     return dp_gather_cols(h, cfg.d_model), None
 
 
-def _logits(params, cfg, x, gather: bool = True):
+def head_logits(params, cfg, x, gather: bool = True):
     """The unembedding; a vocab-sharded head's logits gathered to full
     width over the TP group (unless ``gather`` is False)."""
     logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab_size)
@@ -197,7 +197,7 @@ def lm_forward(params, cfg, batch, *, collect_cache: bool = False,
         if collect_cache:
             kvs.append(kv)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x, gather)
+    logits = head_logits(params, cfg, x, gather)
     return logits, aux_total, kvs if collect_cache else None
 
 
@@ -314,16 +314,15 @@ def _write_prompt(cfg, cache, kvs, pad, s: int, lay):
     for slabs, kv in zip(cache_slabs(cfg, cache), kvs):
         for slab, t in zip(slabs, kv):
             t = t[r0:r0 + rows]
-            n = slab.shape[1]
-            a = axis_group(seq)[1] * n if seq is not None else 0
             if first:
                 # slots a..a+n hold the kept positions p = c (mod slots)
+                n = slab.shape[1]
+                a = axis_group(seq)[1] * n if seq is not None else 0
                 c = a + torch.arange(n, device=dev)
                 slab.copy_(t.index_select(1, first + (c - first) % slots)
                            .to(slab.dtype))
             else:
-                m = max(0, min(s - a, n))
-                slab[:, :m] = t[:, a:a + m]
+                A.write_prompt(slab, t, s, lay)
     sl = torch.arange(slots, dtype=torch.int32, device=dev)
     if first:
         cache["slot_pos"].copy_(first + (sl - first) % slots)
@@ -358,7 +357,7 @@ def lm_decode_step(params, cfg, cache, tokens):
         x = x + h
         x = x + _mlp(p, cfg, rmsnorm(x, p["ln2"], cfg.norm_eps), kind)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x)
+    logits = head_logits(params, cfg, x)
     pos.add_(1)
     return logits, cache
 
@@ -375,12 +374,12 @@ def mamba_decode_into(p, cfg, x, ssm_slab, conv_slab):
 
 
 def _ssm_decode_step(params, cfg, cache, tokens):
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size, cfg.d_model)
     for (p, _), (ssm, conv) in zip(_layers(params, cfg),
                                    cache_slabs(cfg, cache)):
         x = mamba_decode_into(p, cfg, x, ssm, conv)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    logits = head_logits(params, cfg, x)
     cache["pos"].add_(1)
     return logits, cache
 

@@ -17,6 +17,22 @@ Semantics (held to the sequential :func:`mamba2_ref_scan` in the tests):
 The decode step writes nothing: it returns the new state, and the
 caller (``models/lm.py``, ``models/hybrid.py``) copies it into the
 cache's slabs in place, so a captured step replays on fixed addresses.
+
+Under tensor parallelism a rank holds whole heads: its heads' columns of
+``z``, ``x`` and ``dt`` in ``w_in``, the whole ``B`` and ``C`` (every
+group, each rank's heads reading them), the same channels of the conv
+weight, bias and cache, its heads of ``a_log``, ``dt_bias``, ``d_skip``,
+``norm`` and the ``ssm`` state, and its rows of ``w_out``.  The
+reference gives ``w_in`` and the conv one column axis each over the
+concatenations ``[z | x | B | C | dt]`` and ``[x | B | C]`` and lets
+GSPMD cut it; a contiguous cut would put all of ``z`` on the first rank,
+so every cut of those leaves goes through :func:`tp_segments` (a
+deliberate divergence in layout, not in the function).  The scan and the
+state update are per head and need no collective; the gated RMSNorm
+sums its squares over the whole ``d_inner`` (one fp32 all-reduce,
+:func:`norm_sum`) and ``w_out``'s partial sums are summed over the TP
+group.
+
 Profiler ranges (``launch/profile_decode.py`` reads them in an eager
 run): ``ssm_conv`` (the causal conv), ``ssm_scan`` (the chunked scan at
 prefill) and ``ssm_state`` (the state update and readout at decode).
@@ -25,6 +41,7 @@ prefill) and ``ssm_state`` (the state update and readout at decode).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +50,7 @@ from torch.profiler import record_function
 from repro_torch.core.linear import linear
 from repro_torch.models.layers import rmsnorm, silu
 from repro_torch.models.param import ParamTree, torch_dtype
+from repro_torch.sharding.context import tp_split, tp_sum
 
 CONV_RANGE, SCAN_RANGE, STATE_RANGE = "ssm_conv", "ssm_scan", "ssm_state"
 
@@ -41,6 +59,58 @@ def dims(cfg):
     """(d_inner, heads H, head dim P, state N, groups G) of the block."""
     return (cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
             cfg.ssm_groups)
+
+
+def tp_segments(cfg, tp: int, rank: int, width: int) -> Optional[list]:
+    """The ``[start, stop)`` column ranges, in order, of rank ``rank``'s
+    piece (of ``tp``) of an ``ssm_inner`` axis of full ``width``: of
+    ``w_in``'s ``[z | x | B | C | dt]`` (2 d_inner + 2 G N + H) the rank's
+    heads of ``z``, ``x`` and ``dt`` and the whole ``B`` and ``C``; of the
+    conv's ``[x | B | C]`` (d_inner + 2 G N) the same channels; None for
+    an axis of ``d_inner`` alone (``norm``, ``w_out``), which a contiguous
+    cut gives its heads."""
+    di, h, _, n, g = dims(cfg)
+    gn = g * n
+    if width == di:
+        return None
+    parts = {di + 2 * gn: ((di, True), (gn, False), (gn, False)),
+             2 * di + 2 * gn + h: ((di, True), (di, True), (gn, False),
+                                   (gn, False), (h, True))}.get(width)
+    if parts is None:
+        raise ValueError(f"{cfg.name}: no ssm_inner axis is {width} wide")
+    out, at = [], 0
+    for size, split in parts:
+        w = size // tp if split else size
+        lo = at + rank * w if split else at
+        out.append((lo, lo + w))
+        at += size
+    return out
+
+
+def leaf_segments(cfg, axes: tuple, shape: tuple, spec, mesh,
+                  coords: Optional[dict] = None) -> Optional[list]:
+    """:func:`tp_segments` of a leaf (a weight or a cache slab) of logical
+    ``axes`` and full ``shape`` whose last dim its ``spec`` puts on a TP
+    axis of ``mesh``, for the rank at ``coords`` (default: the first
+    rank, for the piece's width); None where that dim is no segmented
+    ``ssm_inner`` axis, or is whole.  Such a leaf cannot be cut without
+    the model's config ``cfg``."""
+    if not axes or axes[-1] != "ssm_inner" or not isinstance(spec[-1], str):
+        return None
+    if cfg is None:
+        raise ValueError(f"an ssm_inner leaf {tuple(shape)} split over "
+                         f"{spec[-1]!r} is cut by segments: pass the "
+                         f"model's config (cfg=)")
+    ax = spec[-1]
+    return tp_segments(cfg, mesh.shape[ax], (coords or {}).get(ax, 0),
+                       shape[-1])
+
+
+def local_dims(p, cfg):
+    """(d_inner, heads H, head dim P, state N, groups G) as the rank holds
+    them: its heads, read off ``a_log``."""
+    h, p_ = p["a_log"].shape[-1], cfg.ssm_head_dim
+    return h * p_, h, p_, cfg.ssm_state, cfg.ssm_groups
 
 
 def _uniform(gen, shape, lo: float, hi: float):
@@ -73,9 +143,9 @@ def init_mamba2(gen, cfg):
     return pt.build()
 
 
-def _split_in(cfg, proj):
-    """The in-projection's (z, xBC, dt)."""
-    di, h, _, n, g = dims(cfg)
+def _split_in(p, cfg, proj):
+    """The in-projection's (z, xBC, dt) on the rank's heads."""
+    di, h, _, n, g = local_dims(p, cfg)
     z, xc, bc, cc, dt = torch.split(proj, [di, di, g * n, g * n, h], dim=-1)
     return z, torch.cat([xc, bc, cc], dim=-1), dt
 
@@ -143,14 +213,41 @@ def _ssd_chunked(x, dt, a_neg, bmat, cmat, h0, chunk: int):
     return y, hprev
 
 
+def norm_sum(ss, cfg):
+    """The gated norm's fp32 sums of squares (..., 1) over the rank's
+    channels, summed over the TP group where ``d_inner`` is split."""
+    return tp_sum(ss, "ssm_inner", cfg.d_inner)
+
+
+def gated_norm(y, z, scale, cfg):
+    """RMSNorm of ``y * silu(z)`` over the whole ``d_inner``, as the
+    reference's: where the rank holds a piece of the channels, the mean
+    square is its fp32 sum of squares summed over the TP group
+    (:func:`norm_sum`) over ``d_inner``."""
+    g = y * silu(z)
+    if not tp_split("ssm_inner", cfg.d_inner):
+        return rmsnorm(g, scale, cfg.norm_eps)
+    dt = g.dtype
+    gf = g.float()
+    ss = norm_sum(torch.sum(gf * gf, dim=-1, keepdim=True), cfg)
+    gf = gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (gf * scale.float()).to(dt)
+
+
+def _out(p, cfg, y):
+    """``w_out``, row-parallel over ``ssm_inner``: its partial sums summed
+    over the TP group where the channels are split."""
+    return tp_sum(linear(y, p["w_out"]), "ssm_inner", cfg.d_inner)
+
+
 def mamba2_forward(p, cfg, x, *, h0=None, conv_init=None):
     """Full-sequence Mamba2 block.  x: (B,S,d).  Returns (out (B,S,d),
     (h_final (B,H,P,N) fp32, conv_tail (B, conv-1, C))) for the cache
     handoff; ``h0`` / ``conv_init`` continue from a cached state."""
     b, s, _ = x.shape
-    di, h, p_, n, g = dims(cfg)
+    di, h, p_, n, g = local_dims(p, cfg)
     proj = linear(x, p["w_in"])
-    z, xbc_raw, dt = _split_in(cfg, proj)
+    z, xbc_raw, dt = _split_in(p, cfg, proj)
     with record_function(CONV_RANGE):
         if conv_init is not None:   # continue from a cached conv tail
             full = torch.cat([conv_init.to(xbc_raw.dtype), xbc_raw], dim=1)
@@ -175,8 +272,7 @@ def mamba2_forward(p, cfg, x, *, h0=None, conv_init=None):
                                cmat.reshape(b, s, g, n), h0, cfg.ssm_chunk)
         y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
         y = y.reshape(b, s, di).to(x.dtype)
-    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    return linear(y, p["w_out"]), (hfin, tail)
+    return _out(p, cfg, gated_norm(y, z, p["norm"], cfg)), (hfin, tail)
 
 
 def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
@@ -184,9 +280,9 @@ def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
     (B, conv-1, C) raw (pre-activation) inputs.  Returns (out (B,1,d),
     the new ssm_state, the new conv_cache); the inputs are not written."""
     b = x.shape[0]
-    di, h, p_, n, g = dims(cfg)
+    di, h, p_, n, g = local_dims(p, cfg)
     proj = linear(x[:, 0], p["w_in"])                       # (B, ...)
-    z, xbc_new, dt = _split_in(cfg, proj)
+    z, xbc_new, dt = _split_in(p, cfg, proj)
     with record_function(CONV_RANGE):
         window = torch.cat([conv_cache, xbc_new[:, None].to(conv_cache.dtype)],
                            dim=1)                            # (B, conv, C)
@@ -207,8 +303,8 @@ def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
         y = torch.einsum("bhpn,bhn->bhp", ssm_state, cvec)
         y = y + p["d_skip"].float()[None, :, None] * xh
         y = y.reshape(b, di).to(x.dtype)
-    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    return linear(y[:, None], p["w_out"]), ssm_state, window[:, 1:]
+    y = gated_norm(y, z, p["norm"], cfg)
+    return _out(p, cfg, y[:, None]), ssm_state, window[:, 1:]
 
 
 def mamba2_ref_scan(p, cfg, x):

@@ -47,22 +47,25 @@ _CUT: contextvars.ContextVar = contextvars.ContextVar("param_cut",
 
 
 @contextlib.contextmanager
-def init_pieces(mesh):
+def init_pieces(mesh, cfg=None):
     """Inside, every leaf a :class:`ParamTree` adds is cut at once to the
     calling rank's piece under the default rules (``sharding/rules.py::
     pspec_for`` of the leaf's own axes and shape; the layer axis a stack
-    adds never takes a mesh axis), so a seeded ``model.init`` on a rank
-    of ``mesh`` (a ``launch/mesh.py::ProcessMesh``) holds one full leaf
-    at a time and ends with the same values a whole tree cut afterwards
-    would hold: every leaf is still drawn whole, in order, from the one
-    generator."""
+    adds never takes a mesh axis; an SSM leaf's concatenated axis by
+    ``models/mamba2.py::leaf_segments``, which needs ``cfg``), so a seeded
+    ``model.init`` on a rank of ``mesh`` (a ``launch/mesh.py::
+    ProcessMesh``) holds one full leaf at a time and ends with the same
+    values a whole tree cut afterwards would hold: every leaf is still
+    drawn whole, in order, from the one generator."""
+    from repro_torch.models.mamba2 import leaf_segments
     from repro_torch.sharding.rules import (ShardingOptions, local_shard,
                                             pspec_for)
     opts = ShardingOptions()
 
     def cut(value, axes):
-        return local_shard(value, pspec_for(tuple(axes), tuple(value.shape),
-                                            mesh, opts), mesh, mesh.coords)
+        spec = pspec_for(tuple(axes), tuple(value.shape), mesh, opts)
+        return local_shard(value, spec, mesh, mesh.coords, leaf_segments(
+            cfg, tuple(axes), tuple(value.shape), spec, mesh, mesh.coords))
 
     tok = _CUT.set(cut)
     try:
@@ -196,7 +199,8 @@ def _to_torch(a: np.ndarray, device):
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, device, *, mesh=None, axes=None, opts=None):
+def params_from_numpy(tree, device, *, mesh=None, axes=None, opts=None,
+                      cfg=None):
     """Carry the reference's parameters (nested dicts of numpy arrays,
     layer-stacked) into the port bit-exact in value, on ``device``.  The
     layout is unchanged but for the hybrid's Mamba stack, whose leaves the
@@ -206,20 +210,25 @@ def params_from_numpy(tree, device, *, mesh=None, axes=None, opts=None):
     The sharded form (``mesh``: a ``launch/mesh.py::ProcessMesh``, with
     the tree's logical ``axes`` and the ``ShardingOptions``) carries only
     the calling rank's pieces (``sharding/rules.py::param_pspecs``, cut by
-    ``local_shard`` before anything is copied)."""
+    ``local_shard`` before anything is copied; an SSM leaf's concatenated
+    axis by ``models/mamba2.py::leaf_segments``, which needs the model's
+    ``cfg``)."""
+    if isinstance(tree, dict) and "mamba_layers" in tree:
+        tree = {**tree, "mamba_layers": tree_map(
+            lambda a: np.asarray(a).reshape(-1, *np.shape(a)[2:]),
+            tree["mamba_layers"])}
     if mesh is not None:
+        from repro_torch.models.mamba2 import leaf_segments
         from repro_torch.sharding.rules import (ShardingOptions, local_shard,
                                                 param_pspecs)
         specs = param_pspecs(axes, tree, mesh, opts or ShardingOptions())
 
-        def cut(t, spec):
+        def cut(t, spec, a):
             if isinstance(t, dict):
-                return {k: cut(t[k], spec[k]) for k in t}
-            return local_shard(np.asarray(t), spec, mesh, mesh.coords)
+                return {k: cut(t[k], spec[k], a[k]) for k in t}
+            t = np.asarray(t)
+            return local_shard(t, spec, mesh, mesh.coords, leaf_segments(
+                cfg, tuple(a), t.shape, spec, mesh, mesh.coords))
 
-        tree = cut(tree, specs)
-    out = tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
-    if isinstance(out, dict) and "mamba_layers" in out:
-        out["mamba_layers"] = tree_map(
-            lambda t: t.reshape(-1, *t.shape[2:]), out["mamba_layers"])
-    return out
+        tree = cut(tree, specs, axes)
+    return tree_map(lambda a: _to_torch(np.asarray(a), device), tree)

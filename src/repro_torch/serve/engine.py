@@ -78,11 +78,18 @@ or by their columns, as the rules give each leaf, one fp32 all-reduce
 per MoE layer, the dispatch groups of the data axis
 (``models/moe.py``); MLA's heads split over ``model`` and its latent
 cache along its sequence, the decode's softmax combined over the slots'
-group (``models/attention.py::mla_decode``).  The dense and MoE
-families serve tensor-parallel so far; the engine raises for the SSM,
-hybrid, VLM and encoder-decoder families, for MoE under FSDP or 2D
-tensor parallelism and for sequence parallelism, each with a message
-of its own (``sharding/context.py::check_dense_mesh``).
+group (``models/attention.py::mla_decode``).  So do the SSM, hybrid,
+VLM and encoder-decoder families: the Mamba2 block's heads, conv
+channels and state over ``model`` (``w_in`` and the conv cut by
+segments, ``models/mamba2.py::tp_segments``: a rank's ``w_in`` piece is
+its heads' ``z`` / ``x`` / ``dt`` and the whole ``B`` / ``C``, packed
+zero-padded to whole blocks), the hybrid's shared block by its heads,
+the VLM's image embeddings ahead of the tokens on every rank of a data
+line, the encoder-decoder's encoder and cross cache by their heads.
+Every family serves tensor-parallel; the engine raises for any family
+but the dense one under FSDP or 2D tensor parallelism and for sequence
+parallelism, each with a message of its own
+(``sharding/context.py::check_dense_mesh``).
 
 Every ladder demotion on the engine's paths (a planned kernel served by
 its plain version or by ``torch.matmul``, a deferred registry flush, an
@@ -110,6 +117,7 @@ from repro_torch.core.packing import PackedTensor
 from repro_torch.core.plan import BucketGrid, Problem, bucket_for, \
     buckets_for, length_buckets_for
 from repro_torch.core.tsmm import prepack_for
+from repro_torch.models.mamba2 import leaf_segments
 from repro_torch.models.param import MetaGenerator, tree_map
 from repro_torch.resilience import degrade
 from repro_torch.sharding import comm
@@ -165,7 +173,7 @@ def compute_rows(bucket: int, mesh, opts: ShardingOptions) -> int:
 
 
 def shard_problem(axes_leaf, shape: tuple, buckets: tuple, mesh,
-                  opts: ShardingOptions) -> tuple:
+                  opts: ShardingOptions, cfg=None) -> tuple:
     """(rows, k, n, num_shards, spec) of a packable leaf of full
     ``shape`` on a rank: the kernel's rows per bucket, the (k, n) it
     multiplies, the shard count that keys its plans, and the (row, col)
@@ -173,14 +181,19 @@ def shard_problem(axes_leaf, shape: tuple, buckets: tuple, mesh,
     by the axes on them) at every bucket, except under FSDP (not 2D
     tensor parallelism), where a piece the data axis splits is gathered
     over it first and the kernel runs the rank's compute rows
-    (:func:`compute_rows`).  Shared by the pre-pack and the install
-    sweep (``core/install.py::sharded_serving_shapes``), so their
-    problem keys match."""
+    (:func:`compute_rows`).  An SSM leaf cut by segments (``cfg``'s
+    ``w_in``: ``models/mamba2.py::tp_segments``) multiplies the
+    segments' width.  Shared by the pre-pack and the install sweep
+    (``core/install.py::sharded_serving_shapes``), so their problem keys
+    match."""
     spec = pspec_for(axes_leaf, tuple(shape), mesh, opts)
     re, ce = spec[-2], spec[-1]
     rs = axis_size(mesh, re) if re else 1
     cs = axis_size(mesh, ce) if ce else 1
     k, n = shape[-2] // rs, shape[-1] // cs
+    segs = leaf_segments(cfg, tuple(axes_leaf), tuple(shape), spec, mesh)
+    if segs is not None:
+        n = sum(b - a for a, b in segs)
     rows, shards = tuple(buckets), rs * cs
     data = next((a for a in opts.dp_axes if a in mesh.shape), None)
     if opts.fsdp and not opts.serve_2d_tp and data in (re, ce):
@@ -258,7 +271,7 @@ def tied_head(params, axes) -> tuple:
 
 def pack_tree_for_serving(params, axes, batch_m, mesh=None,
                           opts: Optional[ShardingOptions] = None, *,
-                          shapes=None):
+                          shapes=None, cfg=None):
     """Replace packable weight leaves with planned PackedTensors (a tied
     head first becomes a leaf of its own: :func:`tied_head`).
 
@@ -266,7 +279,8 @@ def pack_tree_for_serving(params, axes, batch_m, mesh=None,
     chosen blocks conform to every bucket).  On a ``mesh`` ``params`` are
     the rank's pieces and ``shapes`` the full tree (``meta`` tensors):
     each rank packs its own piece, padded per shard where it pads, its
-    problems keyed by the leaf's shard count.  Returns (packed_params,
+    problems keyed by the leaf's shard count (an SSM ``w_in`` piece at
+    its segments' width, for which ``cfg`` is needed).  Returns (packed_params,
     report: {path: blocks_shape}).  A tied head that does not pack is
     dropped again (``unembed`` reads ``tok.T``)."""
     report = {}
@@ -289,7 +303,8 @@ def pack_tree_for_serving(params, axes, batch_m, mesh=None,
         else:
             buckets = (batch_m,) if isinstance(batch_m, int) else batch_m
             rows, k, n, shards, spec = shard_problem(
-                a, tuple(full.shape), buckets, mesh, opts or ShardingOptions())
+                a, tuple(full.shape), buckets, mesh,
+                opts or ShardingOptions(), cfg)
             pk = prepack_for(rows, p, pad=pad, num_shards=shards,
                              plan_shape=(k, n), spec=spec)
         if pk is None:
@@ -490,7 +505,7 @@ class Engine:
             with degrade.use(self.degrade):
                 params, self.pack_report = pack_tree_for_serving(
                     params, axes, self.buckets, mesh, self.opts,
-                    shapes=shapes)
+                    shapes=shapes, cfg=model.cfg)
             log.info("pre-packed %d weight leaves for buckets %s",
                      len(self.pack_report), self.buckets)
         self.params = params
@@ -504,10 +519,18 @@ class Engine:
 
     def _local_params(self, params, axes, shapes):
         """This rank's pieces of ``params`` under ``param_pspecs``
-        (``rules.local_params``)."""
+        (``rules.local_params``; an SSM leaf's concatenated axis by
+        ``models/mamba2.py::tp_segments``)."""
+        def cut(path, spec, shape):
+            a = axes
+            for key in path:
+                a = a[key]
+            return leaf_segments(self.model.cfg, a, shape, spec, self.mesh,
+                                 self.mesh.coords)
+
         return local_params(params, param_pspecs(axes, shapes, self.mesh,
                                                  self.opts), shapes,
-                            self.mesh)
+                            self.mesh, cut=cut)
 
     def _cache_specs(self, bucket: int, max_len: int) -> tuple:
         """(the full ``meta`` cache of ``bucket``, its ``cache_pspecs``)."""
@@ -519,19 +542,20 @@ class Engine:
         (``sharding/context.py::CacheLayout``): the axis of its rows,
         whether every rank computes the whole bucket over a piece of
         them (2D tensor parallelism), and the axis of its slots; None
-        where the cache is whole.  The slab read is ``k`` (GQA) or MLA's
-        latent ``c``, which has no head dim: the rules put its slots on
-        the TP axis at every bucket whose slots it divides, and the
-        decode combines the softmax over it.  Raises for what the port
-        does not serve: an axis tuple, and a GQA cache's slots on the TP
-        axis (the rules put them there only for KV heads the TP axis
-        cannot split)."""
+        where the cache is whole.  The slab read is ``k`` (GQA: the
+        dense, hybrid and encoder-decoder caches), MLA's latent ``c``,
+        which has no head dim (the rules put its slots on the TP axis at
+        every bucket whose slots it divides, and the decode combines the
+        softmax over it), or an SSM model's ``ssm`` state, which has no
+        slots.  Raises for what the port does not serve: an axis tuple,
+        and a GQA cache's slots on the TP axis (the rules put them there
+        only for KV heads the TP axis cannot split)."""
         cfg = self.model.cfg
         full, specs = self._cache_specs(bucket, self.max_len)
-        key = "c" if cfg.use_mla else "k"
+        key = next(k for k in ("c", "k", "ssm") if k in full)
         names = cache_axes_for(cfg, key, full[key].ndim)
         spec = dict(zip(names, specs[key]))
-        rows, seq = spec["cache_batch"], spec["cache_seq"]
+        rows, seq = spec["cache_batch"], spec.get("cache_seq")
         for e in (rows, seq):
             if isinstance(e, tuple):
                 raise NotImplementedError(f"a cache split over several "
@@ -549,16 +573,21 @@ class Engine:
 
     def _local_cache(self, bucket: int, max_len: int, device) -> dict:
         """This rank's piece of the static cache of ``bucket`` under
-        ``cache_pspecs``: its rows, its KV heads and its slots, with
-        ``valid_from`` for its rows and ``slot_pos`` whole (the rules
-        replicate it), zeroed (``slot_pos`` -1)."""
+        ``cache_pspecs``: its rows, its KV heads (or SSM heads) and its
+        slots, an SSM conv cache's channels by segments (``models/
+        mamba2.py::tp_segments``), with ``valid_from`` for its rows and
+        ``slot_pos`` whole (the rules replicate it), zeroed (``slot_pos``
+        -1)."""
+        cfg = self.model.cfg
         full, specs = self._cache_specs(bucket, max_len)
         lay = self.cache_layout(bucket)
         rows = bucket // (axis_size(self.mesh, lay.rows)
                           if lay is not None and lay.rows else 1)
         out = {}
         for key, t in full.items():
-            shape = local_shape(tuple(t.shape), specs[key], self.mesh)
+            segs = leaf_segments(cfg, cache_axes_for(cfg, key, t.ndim),
+                                 tuple(t.shape), specs[key], self.mesh)
+            shape = local_shape(tuple(t.shape), specs[key], self.mesh, segs)
             if key == "valid_from":
                 shape = (rows,)
             out[key] = torch.full(shape, -1 if key == "slot_pos" else 0,

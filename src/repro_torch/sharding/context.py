@@ -236,16 +236,45 @@ def tp_gather(x, axis: str, dim: int):
     return comm.all_gather(x, tp_group(), dim=-1)
 
 
-# the families that do not serve on a mesh yet, and what each waits for
-# (its refusal's message)
-_MESH_REFUSED = {
-    "ssm": "the Mamba2 block's heads and state split over the TP axis",
-    "hybrid": "the hybrid's Mamba stack and its shared attention block "
-              "under the TP axis",
-    "vlm": "the image embeddings fed ahead of the tokens on every rank",
-    "encdec": "the encoder and the decoder's cross-attention cache under "
-              "the TP axis",
+# the families that serve on a mesh over ``model`` (with or without a
+# plain data axis) but not under FSDP or 2D tensor parallelism, and what
+# each would need there (its refusal's message)
+_TP_ONLY = {
+    "moe": "its experts take the TP axis alone",
+    "ssm": "the Mamba2 block's segmented in-projection and its state "
+           "under the data axis's weight pieces",
+    "hybrid": "the Mamba stack's segmented in-projection and the shared "
+              "block's [x, x0] input under the data axis's weight pieces",
+    "vlm": "the image embeddings under the data axis's embedding columns",
+    "encdec": "the encoder, the cross cache and the biases under the data "
+              "axis's weight pieces",
 }
+
+
+def _ssm_split(cfg, mesh, opts: ShardingOptions, tp: int) -> bool:
+    """Whether the rules split the Mamba2 block over the TP axis: its
+    ``ssm_inner`` leaves (``w_in``, the conv, ``norm`` / ``w_out``) and
+    its ``ssm_heads`` all, or none; split, the heads divide into whole
+    heads a rank and the ``B`` / ``C`` groups (kept whole on every rank)
+    are one."""
+    di, h = cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    cut = {pspec_for((ax,), (w,), mesh, opts)[0] == opts.tp_axis
+           for ax, w in (("ssm_inner", 2 * di + 2 * gn + h),
+                         ("ssm_inner", di + 2 * gn), ("ssm_inner", di),
+                         ("ssm_heads", h))}
+    if len(cut) > 1:
+        raise ValueError(f"{cfg.name}: the rules split some of the Mamba2 "
+                         f"block's leaves over {tp} ranks, not all")
+    split = cut.pop()
+    if split and h % tp:
+        raise ValueError(f"{cfg.name}: {h} ssm_heads do not split into "
+                         f"whole heads over {tp} ranks")
+    if split and cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.ssm_groups} B/C groups under a split of the "
+            f"heads (each rank keeps the groups whole; one group is ported)")
+    return split
 
 
 def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
@@ -253,31 +282,31 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one (and, serving with neither FSDP nor 2D tensor parallelism, the
-    MoE one), sequence parallelism, 2D tensor parallelism outside
-    serving, data or FSDP axes other than one data axis where FSDP or 2D
-    tensor parallelism would use them, and heads the TP axis would split
-    unevenly.  Returns which head dims the rules split ({"qheads": bool,
-    "kvheads": bool})."""
+    one in training, a family other than the dense one under FSDP or 2D
+    tensor parallelism (each with its own message), sequence parallelism,
+    2D tensor parallelism outside serving, data or FSDP axes other than
+    one data axis where FSDP or 2D tensor parallelism would use them, and
+    heads the TP axis would split unevenly.  Returns which head dims the
+    rules split ({"qheads": bool, "kvheads": bool}, and for a model with
+    Mamba2 blocks "ssm_heads")."""
     if not hasattr(mesh, "group"):
         raise TypeError(f"{what} runs on a process mesh (launch/mesh.py::"
                         f"make_mesh); a mesh description has no ranks")
     if mesh.backend == "nccl" and mesh.device.type != "cuda":
         raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
                            f"{mesh.device}")
-    if cfg.family in _MESH_REFUSED and serving:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} of the {cfg.family!r} family is not ported "
-            f"({_MESH_REFUSED[cfg.family]}); the dense and MoE families "
-            f"serve on a mesh")
-    if cfg.family == "moe" and serving and (opts.fsdp or opts.serve_2d_tp):
-        raise NotImplementedError(
-            f"{cfg.name}: {what} of the MoE family under FSDP or 2D tensor "
-            f"parallelism (fsdp={opts.fsdp}, serve_2d_tp={opts.serve_2d_tp})"
-            f" is not ported: its experts take the TP axis alone")
-    if cfg.family != "dense" and not (serving and cfg.family == "moe"):
+    if cfg.family != "dense" and not serving:
         raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
                                   f"family only, not {cfg.family!r}")
+    if cfg.family in _TP_ONLY and (opts.fsdp or opts.serve_2d_tp):
+        raise NotImplementedError(
+            f"{cfg.name}: {what} of the "
+            f"{'MoE' if cfg.family == 'moe' else repr(cfg.family)} family "
+            f"under FSDP or 2D tensor parallelism (fsdp={opts.fsdp}, serve_2d_tp="
+            f"{opts.serve_2d_tp}) is not ported: "
+            f"{_TP_ONLY[cfg.family]}")
+    if cfg.family != "dense" and cfg.family not in _TP_ONLY:
+        raise ValueError(f"unknown model family {cfg.family!r}")
     if opts.sequence_parallel:
         raise NotImplementedError(
             f"{what} with sequence parallelism (sequence_parallel="
@@ -317,6 +346,8 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
         if cut and n % tp:
             raise ValueError(f"{cfg.name}: {n} {ax} do not split into "
                              f"whole heads over {tp} ranks")
+    if cfg.ssm_state:
+        split["ssm_heads"] = _ssm_split(cfg, mesh, opts, tp)
     return split
 
 

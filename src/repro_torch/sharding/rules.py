@@ -284,21 +284,28 @@ def shard_index(entry, mesh, coords: dict) -> tuple:
     return idx, count
 
 
-def local_shape(shape: tuple, spec, mesh) -> tuple:
-    """The shape of one rank's piece of a ``shape`` tensor under ``spec``."""
+def local_shape(shape: tuple, spec, mesh, segments=None) -> tuple:
+    """The shape of one rank's piece of a ``shape`` tensor under ``spec``;
+    with ``segments`` (``[start, stop)`` ranges), the last dim is those
+    ranges' total instead (a segmented cut, ``models/mamba2.py::
+    tp_segments``)."""
     out = []
     for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
         n = axis_size(mesh, entry) if entry is not None else 1
         if dim % n:
             raise ValueError(f"dim {dim} does not divide over {entry} ({n})")
         out.append(dim // n)
+    if segments is not None:
+        out[-1] = sum(b - a for a, b in segments)
     return tuple(out)
 
 
-def local_shard(tensor, spec, mesh, coords: dict):
+def local_shard(tensor, spec, mesh, coords: dict, segments=None):
     """One rank's piece of the full ``tensor`` under ``spec`` at mesh
     coordinates ``coords``: a contiguous copy (a view would keep the full
-    tensor alive).  Works on torch tensors and numpy arrays."""
+    tensor alive).  With ``segments`` the last dim takes those ``[start,
+    stop)`` ranges, in order, in place of its contiguous piece.  Works on
+    torch tensors and numpy arrays."""
     index = []
     for dim, entry in zip(tensor.shape, tuple(spec) + (None,) * tensor.ndim):
         i, n = shard_index(entry, mesh, coords)
@@ -307,27 +314,40 @@ def local_shard(tensor, spec, mesh, coords: dict):
                              f"divide over {entry} ({n})")
         w = dim // n
         index.append(slice(i * w, (i + 1) * w))
+    if segments is not None:
+        index[-1] = slice(None)
     piece = tensor[tuple(index)]
+    if segments is not None:
+        parts = [piece[..., a:b] for a, b in segments]
+        if hasattr(piece, "clone"):
+            import torch
+            return torch.cat(parts, dim=-1)
+        import numpy as np
+        return np.concatenate(parts, axis=-1)
     if hasattr(piece, "clone"):
         import torch
         return piece.clone(memory_format=torch.contiguous_format)
     return piece.copy()
 
 
-def local_params(params, specs, full, mesh, path: tuple = ()):
+def local_params(params, specs, full, mesh, path: tuple = (), *,
+                 cut=None):
     """This rank's pieces of a params tree under its spec tree: a leaf of
     its full shape (``full``'s, any device, ``meta`` included) is cut
     (:func:`local_shard`), a leaf already of the piece's shape is kept,
-    anything else raises."""
+    anything else raises.  ``cut(path, spec, full_shape)``: the rank's
+    ``segments`` of a leaf cut by ranges (or None), where the caller has
+    such leaves (``serve/engine.py``: the SSM ones)."""
     if isinstance(params, dict):
         return {k: local_params(params[k], specs[k], full[k], mesh,
-                                path + (k,)) for k in params}
+                                path + (k,), cut=cut) for k in params}
     fs = tuple(full.shape)
-    ls = local_shape(fs, specs, mesh)
+    segs = cut(path, specs, fs) if cut is not None else None
+    ls = local_shape(fs, specs, mesh, segs)
     if tuple(params.shape) == ls:
         return params
     if tuple(params.shape) == fs:
-        return local_shard(params, specs, mesh, mesh.coords)
+        return local_shard(params, specs, mesh, mesh.coords, segs)
     raise ValueError(f"{'/'.join(path)}: shape {tuple(params.shape)} is "
                      f"neither the full {fs} nor this rank's piece {ls} "
                      f"under {specs}")

@@ -215,10 +215,11 @@ class _FakeMesh:
     (ShardingOptions(fsdp=True, serve_2d_tp=True), False, "qwen1_5_4b"),
     (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "olmoe_1b_7b"),
     (ShardingOptions(fsdp=True), True, "mamba2_780m"),
-    (ShardingOptions(), True, "mamba2_780m"),
-    (ShardingOptions(), True, "zamba2_2_7b"),
-    (ShardingOptions(), True, "llava_next_mistral_7b"),
-    (ShardingOptions(), True, "whisper_base"),
+    (ShardingOptions(), False, "mamba2_780m"),
+    (ShardingOptions(), False, "zamba2_2_7b"),
+    (ShardingOptions(fsdp=True, serve_2d_tp=True), True,
+     "llava_next_mistral_7b"),
+    (ShardingOptions(), False, "whisper_base"),
     (ShardingOptions(fsdp=True), True, "olmoe_1b_7b"),
     (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "deepseek_v2_236b"),
     (ShardingOptions(sequence_parallel="model"), True, "olmoe_1b_7b"),

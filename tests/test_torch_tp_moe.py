@@ -509,13 +509,14 @@ class _FakeMesh:
 
 
 @pytest.mark.parametrize("arch,opts,serving,message", [
-    ("mamba2_780m", ShardingOptions(), True, "'ssm' family is not ported"),
-    ("zamba2_2_7b", ShardingOptions(), True,
-     "'hybrid' family is not ported"),
-    ("llava_next_mistral_7b", ShardingOptions(), True,
-     "'vlm' family is not ported"),
-    ("whisper_base", ShardingOptions(), True,
-     "'encdec' family is not ported"),
+    ("mamba2_780m", ShardingOptions(fsdp=True), True,
+     "'ssm' family under FSDP or 2D tensor parallelism"),
+    ("zamba2_2_7b", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
+     "'hybrid' family under FSDP or 2D tensor parallelism"),
+    ("llava_next_mistral_7b", ShardingOptions(fsdp=True), True,
+     "'vlm' family under FSDP or 2D tensor parallelism"),
+    ("whisper_base", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
+     "'encdec' family under FSDP or 2D tensor parallelism"),
     ("olmoe_1b_7b", ShardingOptions(fsdp=True), True,
      "MoE family under FSDP or 2D tensor parallelism"),
     ("deepseek_v2_236b", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
