@@ -623,6 +623,53 @@ class Designs:
                     if v != self.before.get(k, 0)}
 
 
+@contextlib.contextmanager
+def launch_shapes():
+    """The shapes of the skinny and pack kernels launched inside: a set of
+    (kernel, m, K, N) per skinny launch (N the columns the kernel writes,
+    a packed weight's padded ones included) and ("pack_blocks", M, K, bm,
+    bk) per pack.  Held cases and the ranks' main paths record alike, so a
+    launch is held where its key is among the cases' keys."""
+    from repro_torch.kernels import tsmm as kt
+    seen = set()
+    skinny, pack = kt.launch_skinny, kt.launch_pack
+
+    def rec_skinny(name, x, w, bias, act, *, natural, **kw):
+        out = skinny(name, x, w, bias, act, natural=natural, **kw)
+        if not kt.plain(x, kw.get("impl"), name):
+            n = w.shape[1] if natural else w.shape[1] * w.shape[3]
+            seen.add((name, int(x.shape[0]), int(x.shape[1]), int(n)))
+        return out
+
+    def rec_pack(a, out, bm, bk, alpha, plan):
+        seen.add(("pack_blocks", *(int(d) for d in a.shape[-2:]), bm, bk))
+        return pack(a, out, bm, bk, alpha, plan)
+
+    kt.launch_skinny, kt.launch_pack = rec_skinny, rec_pack
+    try:
+        yield seen
+    finally:
+        kt.launch_skinny, kt.launch_pack = skinny, pack
+
+
+def unheld_shapes(launched, cases: list) -> list:
+    """The launch keys of ``launched`` (``launch_shapes``' keys, as lists
+    after JSON) that no case of ``cases`` launched."""
+    held = {tuple(k) for c in cases for k in c.get("launched", ())}
+    return sorted({tuple(k) for k in launched} - held)
+
+
+def path_rows(rows, prompt: int, queue=()) -> tuple:
+    """The rows a sharded path's products run at: its decode ``rows``,
+    each group's prefill (``rows`` x ``prompt``) and the ``queue``'s
+    admissions (under ``whole_rows`` one row, its prompt padded to its
+    length bucket)."""
+    from repro_torch.core.plan import bucket_for, length_buckets_for
+    lbs = length_buckets_for(prompt)
+    return tuple(sorted({*rows, *(r * prompt for r in rows),
+                         *(bucket_for(n, lbs) for n, _ in queue)}))
+
+
 def design_of(ran: dict) -> str:
     """The one design a kernel call ran (``skinny_stream`` -> ``stream``)."""
     if len(ran) != 1:
@@ -1790,7 +1837,8 @@ def phase_serve(path: str) -> tuple:
     eng = Engine(model, params, axes,
                  max_len=image + max(prompts) + steps + 8,
                  max_batch=spec["max_batch"], max_prompt=max(prompts),
-                 min_prompt=spec.get("min_prompt", 8), device="cuda")
+                 min_prompt=spec.get("min_prompt", min(prompts)),
+                 device="cuda")
     del params
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -2209,14 +2257,20 @@ HALF_DEPTH = {"qwen1_5_4b": {"num_layers": 5},
 
 # the serve paths: (arch, cut of the published config, max batch, prompt,
 # decode steps, groups, the profiled batch, whether flash runs, the path's
-# own checks).  OLMoE-1B-7B, Mamba2-780m and Zamba2-2.7B whole;
+# own checks).  Each path's grid holds its prompts' length buckets alone
+# (``min_prompt``, default its shortest prompt): the queue paths capture
+# every length bucket from 8 tokens (the program store's proof over the
+# whole grid; their ragged admissions take them), qwen's on the same
+# config as this path's.  The groups serve every batch bucket, so that
+# each variant the install stamped runs (a group of 3 pads to 4).
+# OLMoE-1B-7B, Mamba2-780m and Zamba2-2.7B whole;
 # DeepSeek-V2 at its published widths cut to 3 layers (the dense first
 # layer and 2 MoE layers: 160 experts x 3 x 5120 x 1536 bf16 = 7.55 GB a
 # layer; 60 do not fit one card)
 SERVE = {
     "serve": dict(arch="qwen1_5_4b", cut=HALF_DEPTH["qwen1_5_4b"],
                   max_batch=4, prompt=256,
-                  steps=16, groups=(1, 3, 4), profile_batch=4, flash=True,
+                  steps=16, groups=(1, 2, 3, 4), profile_batch=4, flash=True,
                   hooks={"load": packed_load}),
     "serve.glm4": dict(arch="glm4_9b", cut=HALF_DEPTH["glm4_9b"],
                        max_batch=2, prompt=2048,
@@ -2225,7 +2279,7 @@ SERVE = {
                               "path": glm_path}),
     "serve.olmoe": dict(arch="olmoe_1b_7b", cut=HALF_DEPTH["olmoe_1b_7b"],
                         max_batch=4, prompt=256,
-                        steps=16, groups=(1, 3, 4), profile_batch=4,
+                        steps=16, groups=(1, 2, 3, 4), profile_batch=4,
                         flash=True, hooks={}),
     "serve.deepseek": dict(arch="deepseek_v2_236b", cut={"num_layers": 3},
                            max_batch=2, prompt=512, steps=8, groups=(1, 2),
@@ -2235,7 +2289,7 @@ SERVE = {
     "serve.mamba2": dict(arch="mamba2_780m",
                          cut=HALF_DEPTH["mamba2_780m"], max_batch=4,
                          prompt=256,
-                         steps=16, groups=(1, 3, 4), profile_batch=4,
+                         steps=16, groups=(1, 2, 3, 4), profile_batch=4,
                          flash=False, hooks={"load": packed_load,
                                              "path": ssm_path,
                                              "after": ssm_after}),
@@ -2267,7 +2321,7 @@ SERVE = {
     # (flash at D 64, causal); the encoder (1500 frames) and the cross
     # attention take the chunked body
     "serve.whisper": dict(arch="whisper_base", cut={}, max_batch=4,
-                          prompt=256, steps=16, groups=(1, 3, 4),
+                          prompt=256, steps=16, groups=(1, 2, 3, 4),
                           profile_batch=4, flash=True,
                           hooks={"load": packed_load, "path": encdec_path}),
     # llama3-405b at its published widths cut to 2 layers: 12.8 GB of
@@ -3774,8 +3828,9 @@ def tp_worker(out_dir: str, device: str = "cuda") -> None:
 
 def tp_nccl(out_dir: str, name: str = "tp") -> dict:
     """The TP engine at model=1 under NCCL in this process (``name``:
-    ``tp``, qwen1.5-4b, a ``TP_MOE`` path or a ``TP_FAMILIES`` one, whose
-    grid holds its prompt's length bucket alone): its grid captured as
+    ``tp``, qwen1.5-4b, a ``TP_MOE`` path or a ``TP_FAMILIES`` one), whose
+    grid holds its prompt's length bucket alone (the serve path of qwen
+    captures every length bucket): its grid captured as
     CUDA graphs with the collectives inside, every cell bit-equal to its
     eager run, a graphed group equal to an eager one."""
     import torch
@@ -3785,7 +3840,6 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.programs import ProgramStore, check_cells
 
-    min_prompt = 8
     if name == "tp":
         cfg, buckets, max_len, prompt = (tp_cfg(), TP_BUCKETS, TP_MAX_LEN,
                                          TP_PROMPT)
@@ -3795,7 +3849,7 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
         spec = TP_FAMILIES[name]
         cfg, buckets, prompt = (tp_family_cfg(name), spec["buckets"],
                                 spec["prompt"])
-        max_len, min_prompt = tp_family_max_len(cfg, spec), prompt
+        max_len = tp_family_max_len(cfg, spec)
         contract = tp_family_contract(cfg, min(buckets), 1)
         group = tp_family_batch(cfg, max(buckets), prompt, "cuda")
     else:
@@ -3815,7 +3869,7 @@ def tp_nccl(out_dir: str, name: str = "tp") -> dict:
             params, axes = model.init(torch.Generator(device="cuda")
                                       .manual_seed(0))
         eng = Engine(model, params, axes, max_len=max_len, buckets=buckets,
-                     max_prompt=prompt, min_prompt=min_prompt, device="cuda",
+                     max_prompt=prompt, min_prompt=prompt, device="cuda",
                      mesh=mesh)
         del params
         t0 = time.perf_counter()
@@ -3902,7 +3956,9 @@ TP_MOE_FAULTS = {
     "deepseek": {"moe_sum": 1.0, "router_order": 1.0, "mla_local": 1.0},
 }
 TP_MOE_FAULT_AT = {"moe_sum": "prefill", "router_order": "prefill",
-                   "mla_local": "decode"}
+                   "mla_local": "decode", "experts_sum": "prefill",
+                   "router_sum": "prefill", "fsdp_reverse": "prefill",
+                   "mla_rows": "decode"}
 # The routing bound, in the first MoE layer of the prefill, where only
 # the roundings of the TP sums move a router logit: every token whose
 # top-k set differs from the one-rank engine's has a one-rank gap between
@@ -5116,9 +5172,9 @@ def phase_tp():
 # ---------------------------------------------------------------------------
 
 TP2D_LAYERS = 2                   # qwen1.5-4b at its published widths
-# bucket 1: the rules put the cache's sequence on ``data``; 2 and 4 its
-# rows
-TP2D_BUCKETS = (1, 2, 4)
+# bucket 1: the rules put the cache's sequence on ``data``; 2 its rows (4
+# would repeat 2's layout)
+TP2D_BUCKETS = (1, 2)
 TP2D_PROMPT = 256
 TP2D_MAX_LEN = 512
 TP2D_STEPS = 4
@@ -5149,11 +5205,13 @@ TP2D_LEAVES = {"wq": (2560, 2560, "rows", True, None),
                "w_gate": (2560, 6912, "rows", False, "silu"),
                "w_down": (6912, 2560, "cols", False, None),
                "head": (2560, 151936, "rows", False, None)}
-# 2D: every rank computes the bucket (decode 1 and 4 rows, the 4 x 256
-# prefill); FSDP: a data line's rows (decode at buckets 1 and 4, its 2 x
-# 256 prefill rows of bucket 4)
-TP2D_SHARD_M = (1, 4, 4 * TP2D_PROMPT)
-TP2D_FSDP_M = (1, 2, 2 * TP2D_PROMPT)
+# 2D: every rank computes the bucket (decode 1 and 2 rows, the 1 x 256 and
+# 2 x 256 prefills); FSDP: a data line's rows (decode 1 row at both
+# buckets, its 1 x 256 prefill rows); both: the queue's admissions, a row
+# at each prompt's length bucket (64, 256)
+TP2D_SHARD_M = (1, 2, 64, TP2D_PROMPT, 2 * TP2D_PROMPT)
+TP2D_FSDP_ROWS = (1,)
+TP2D_FSDP_M = (1, 64, TP2D_PROMPT)
 
 
 def tp2d_cfg():
@@ -5209,7 +5267,7 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
     ``(op, group, tensor bytes)`` summed into the reference's accounting.
 
     Both modes: each norm's scale gathered over ``data`` (2 a layer and
-    the final one), the looked-up embedding's columns gathered over
+    the final one; at ``data=1`` it is whole, and nothing), the looked-up embedding's columns gathered over
     ``data`` after the lookup's sum over ``model``, the logits gathered
     over ``model``; where the data axis cannot split the bucket (and has
     more than one rank) the cache's sequence lies on ``data``, and each
@@ -5239,11 +5297,15 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
     def ag(n, b):
         ops.append(("all-gather", n, b))
 
+    def norm(b):
+        if data > 1:
+            ag(data, b)
+
     if mode == "tp2d":
         ar(model, rows * d // data * e)
         ag(data, rows * d * e)
         for _ in range(L):
-            ag(data, d * e)                                  # ln1
+            norm(d * e)                                      # ln1
             for w in (q, kv, kv):
                 ar(data, rows * w // model * e)              # wq, wk, wv
             if seq:
@@ -5252,12 +5314,12 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
                 ag(data, rows * q // model * e)              # attn output
             ar(model, rows * d // data * e)                  # wo
             ag(data, rows * d * e)
-            ag(data, d * e)                                  # ln2
+            norm(d * e)                                      # ln2
             ar(data, rows * f // model * e)                  # w_gate
             ar(data, rows * f // model * e)                  # w_up
             ar(model, rows * d // data * e)                  # w_down
             ag(data, rows * d * e)
-        ag(data, d * e)                                      # final norm
+        norm(d * e)                                          # final norm
         ar(data, rows * v // model * e)                      # the head
         ag(model, rows * v * e)                              # the logits
     else:
@@ -5270,18 +5332,18 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
         ar(model, data * rows * d // data * e)
         ag(data, data * rows * d * e)
         for _ in range(L):
-            ag(data, d * e)
+            norm(d * e)                                      # ln1
             for w in ("wq", "wk", "wv"):
                 ag(data, blocks("layers/attn/" + w))
             if seq:
                 ag(data, partials)
             ag(data, blocks("layers/attn/wo"))
             ar(model, rows * d * e)
-            ag(data, d * e)
+            norm(d * e)                                      # ln2
             for w in ("w_gate", "w_up", "w_down"):
                 ag(data, blocks("layers/mlp/" + w))
             ar(model, rows * d * e)
-        ag(data, d * e)
+        norm(d * e)                                          # final norm
         ag(data, blocks("embed/head"))
         ag(model, rows * v * e)
     out = {}
@@ -5294,18 +5356,33 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
     return out
 
 
-def tp2d_shard_cases() -> list:
-    """The kernels of the tp2d path at the per-rank shapes its ranks give
-    them.  Each leaf of ``TP2D_LEAVES`` is packed as a rank packs it in
-    each mode (``prepack_for`` with the engine's problems, the plans
-    ``install_arch(mesh=, opts=)`` wrote), each pack bit-equal to
+def tp2d_shard_cases(leaves=None, buckets: tuple = TP2D_BUCKETS,
+                     shard_m: tuple = TP2D_SHARD_M,
+                     fsdp_rows: tuple = TP2D_FSDP_ROWS,
+                     fsdp_m: tuple = TP2D_FSDP_M, phase: str = "tp2d",
+                     unpacked=None, path=None) -> list:
+    """The kernels of the tp2d path (``phase``; default qwen's) at the
+    per-rank shapes its ranks give them.  Each leaf of ``leaves`` (default
+    ``TP2D_LEAVES``; an entry's optional sixth field False where the
+    rules leave the leaf's other dim off ``model``, its third None where
+    they put no dim on ``data``) is packed as a rank
+    packs it in each mode
+    (``prepack_for`` with the engine's problems, the plans
+    ``install_arch(mesh=, opts=)`` wrote: 2D over ``buckets``, FSDP over
+    the data line's compute rows ``fsdp_rows``), each pack bit-equal to
     ``pack_ref``; then ``tsmm_dot`` on layer 0's piece: 2D, the rank's
-    (K/2, N/2) piece at ``TP2D_SHARD_M`` rows with no epilogue (a k-split
-    product's bias and activation run after the data group's sum); FSDP,
-    the two data ranks' pieces gathered as the all-gather concatenates
-    them, at ``TP2D_FSDP_M`` rows with the leaf's epilogue; each against
-    the same call on the ladder's plain rung (the planned rung refused by
-    a failpoint, no kernel launched)."""
+    (K/2, N/2) piece at ``shard_m`` rows with no epilogue (a k-split
+    product's bias and activation run after the data group's sum); FSDP
+    (``fsdp_m`` rows, None: a leaf served under 2D alone), the two data
+    ranks' pieces gathered as the all-gather concatenates them, with the
+    leaf's epilogue; each against the same call on the ladder's plain
+    rung (the planned rung refused by a failpoint, no kernel launched).
+    ``unpacked``: {leaf: (K, N, rows)} of 2D row pieces the engine keeps
+    unpacked (DeepSeek-V2's ``wkv_a``), each held at the rows whose
+    product runs a planned kernel (its per-call pack and the skinny
+    kernel).  ``path``: the phase's path (a ``TP2D_MOE`` one), named in
+    each case's mode and line.  Each case keeps the shapes its kernel call
+    launched (``launch_shapes``), which the ranks' launches are held to."""
     import logging
 
     import torch
@@ -5321,13 +5398,15 @@ def tp2d_shard_cases() -> list:
     bf = torch.bfloat16
     misses = registry.stats()["misses"]
     out = []
+    tag = f"{phase}.{path}" if path else phase
 
     def held(leaf, mode, x, pk, w, bias, act):
         def kern():
             return tsmm_dot(x, pk, bias=bias, act=act)
 
         def plain():
-            failpoints.configure({"kernels.lower.skinny": "raise"})
+            failpoints.configure({"kernels.lower.skinny": "raise",
+                                  "kernels.lower.tall": "raise"})
             logging.disable(logging.WARNING)
             try:
                 with degrade.use(degrade.DegradeStats()):
@@ -5337,34 +5416,43 @@ def tp2d_shard_cases() -> list:
                 failpoints.reset()
 
         m, k = x.shape
-        n = pk.orig_cols
+        n = getattr(pk, "orig_cols", pk.shape[-1])
         before = dict(cuda.launches)
-        with Designs() as d:
+        with Designs() as d, launch_shapes() as shapes:
             got = kern()
         ran = {kk: c - before.get(kk, 0) for kk, c in cuda.launches.items()
                if c != before.get(kk, 0)}
         before = dict(cuda.launches)
         want = plain()
         torch.cuda.synchronize()
-        if dict(cuda.launches) != before or len(ran) != 1:
-            raise AssertionError(f"tp2d {mode} {leaf} m={m}: the kernel "
+        # a packed piece launches its one kernel; an unpacked one its
+        # per-call pack too
+        kinds = set(ran) - ({"pack_blocks"} if not hasattr(pk, "blocks")
+                            else set())
+        if dict(cuda.launches) != before or len(kinds) != 1:
+            raise AssertionError(f"{tag} {mode} {leaf} m={m}: the kernel "
                                  f"call launched {ran}, or the plain rung "
                                  f"launched one")
-        name = next(iter(ran))
-        if design_of(d.ran) not in ("wgmma", "stream"):
-            raise AssertionError(f"tp2d {mode} {leaf} m={m}: {name} ran "
+        name = next(iter(kinds))
+        # the kernel's design (an unpacked piece's per-call pack aside)
+        design = design_of({k_: v for k_, v in d.ran.items()
+                            if not k_.startswith("pack_")})
+        if design not in ("wgmma", "stream"):
+            raise AssertionError(f"{tag} {mode} {leaf} m={m}: {name} ran "
                                  f"{d.ran}")
         ok, err = within(got, want, **BF16_TOL)
         if not ok:
-            raise AssertionError(f"{name} tp2d {mode} {leaf} m={m} K={k} "
+            raise AssertionError(f"{name} {tag} {mode} {leaf} m={m} K={k} "
                                  f"N={n}: max |err| {err} outside {BF16_TOL}")
         moved = (2 * (m * k + k * n + (n if bias is not None else 0))
                  + got.numel() * got.element_size())
         bound_ms, bound_by = bound(moved, 2 * m * k * n)
         del got, want
-        return {"kernel": name, "mode": f"tp2d.{mode}", "tp_leaf": leaf,
-                "design": design_of(d.ran), "m": m, "K": k, "N": n,
-                "bk": pk.blocks.shape[-2], "bn": pk.blocks.shape[-1],
+        return {"kernel": name, "mode": f"{tag}.{mode}", "tp_leaf": leaf,
+                "design": design, "m": m, "K": k, "N": n,
+                "launched": sorted(shapes),
+                **({"bk": pk.blocks.shape[-2], "bn": pk.blocks.shape[-1]}
+                   if hasattr(pk, "blocks") else {"unpacked": True}),
                 "bias": bias is not None, "act": act, "max_abs_err": err,
                 "tol": BF16_TOL, "ms": timer(kern, iters=3),
                 "device_ms": timer(kern, iters=3, device=True),
@@ -5375,11 +5463,11 @@ def tp2d_shard_cases() -> list:
     def packed(leaf, mode, w, pk):
         bk, bn = pk.blocks.shape[-2:]
         if not torch.equal(pk.blocks, ref.pack_ref(w, bk, bn)):
-            raise AssertionError(f"pack_blocks tp2d {mode} {leaf} "
+            raise AssertionError(f"pack_blocks {tag} {mode} {leaf} "
                                  f"{tuple(w.shape)} by ({bk}, {bn}): not "
                                  f"bit-equal to pack_ref")
         bound_ms, bound_by = bound(w.numel() * 2 + pk.blocks.numel() * 2, 0)
-        return {"kernel": "pack_blocks", "mode": f"tp2d.{mode}_{leaf}",
+        return {"kernel": "pack_blocks", "mode": f"{tag}.{mode}_{leaf}",
                 "tp_leaf": leaf, "design": "", "M": w.shape[-2],
                 "K": w.shape[-1], "bm": bk, "bk": bn,
                 "padded_cols": pk.blocks.shape[-3] * bn, "max_abs_err": 0.0,
@@ -5391,33 +5479,42 @@ def tp2d_shard_cases() -> list:
                 "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    for leaf, (rows, cols, on_data, has_bias, act) in TP2D_LEAVES.items():
+    for leaf, (rows, cols, on_data, has_bias, act, *on_model) in (
+            leaves or TP2D_LEAVES).items():
         head = leaf == "head"
-        # the rank's 2D piece: (rows/2, cols/2)
-        w = (torch.randn((rows // 2, cols // 2), generator=g, device="cuda")
+        # the rank's 2D piece: (rows/2, cols/2), or (rows/2, cols) where
+        # the leaf's columns are not on ``model`` (DeepSeek-V2's wq_a), or
+        # (rows, cols/2) where no dim is on ``data`` (its wq_b, wkv_b)
+        tp = 2 if not on_model or on_model[0] else 1
+        kd = 2 if on_data else 1
+        w = (torch.randn((rows // kd, cols // tp), generator=g, device="cuda")
              / rows ** 0.5).to(bf)
         with Designs() as d:
-            pk = prepack_for(TP2D_BUCKETS, w, pad=head, num_shards=4)
+            pk = prepack_for(buckets, w, pad=head, num_shards=kd * tp)
         if pk is None:
-            raise AssertionError(f"tp2d {leaf}: the 2D piece stays unpacked")
+            raise AssertionError(f"{tag} {leaf}: the 2D piece stays "
+                                 f"unpacked")
         out.append({**packed(leaf, "2d", w, pk), "design": design_of(d.ran)})
-        for m in TP2D_SHARD_M:
-            x = torch.randn((m, rows // 2), generator=g, device="cuda").to(bf)
+        for m in shard_m:
+            x = torch.randn((m, rows // kd), generator=g, device="cuda").to(bf)
             # a k-split leaf's product runs without its epilogue
             ep = on_data != "rows"
             out.append(held(leaf, "2d", x, pk, w,
                             None, act if ep else None))
             del x
         del w, pk
+        if fsdp_m is None or on_data is None:
+            torch.cuda.empty_cache()
+            continue
         # FSDP: the gathered (rows, cols/2) or (rows/2, cols), cut in two
         # along the data axis's dim, each half packed as its rank packs it
-        shape = (rows, cols // 2) if on_data == "rows" else (rows // 2, cols)
+        shape = (rows, cols // tp) if on_data == "rows" else (rows // tp, cols)
         dim = 0 if on_data == "rows" else 1
         full = (torch.randn(shape, generator=g, device="cuda")
                 / shape[0] ** 0.5).to(bf)
         halves = [t.contiguous() for t in full.chunk(2, dim=dim)]
         with Designs() as d:
-            pks = [prepack_for(TP2D_FSDP_M[:2], t, pad=head, num_shards=2,
+            pks = [prepack_for(fsdp_rows, t, pad=head, num_shards=tp,
                                plan_shape=shape) for t in halves]
         out.append({**packed(leaf, "fsdp", halves[0], pks[0]),
                     "design": design_of(d.ran)})
@@ -5428,18 +5525,28 @@ def tp2d_shard_cases() -> list:
                                                   else shape[1]))
         bias = ((0.1 * torch.randn((shape[1],), generator=g, device="cuda"))
                 .to(bf) if has_bias else None)
-        for m in TP2D_FSDP_M:
+        for m in fsdp_m:
             x = torch.randn((m, shape[0]), generator=g, device="cuda").to(bf)
             out.append(held(leaf, "fsdp", x, gathered, full, bias, act))
             del x
         del full, halves, pks, gathered, blocks
         torch.cuda.empty_cache()
+    for leaf, (k, n, ms) in (unpacked or {}).items():
+        # the rank's 2D row piece, unpacked: its K slice's product
+        w = (torch.randn((k // 2, n), generator=g, device="cuda")
+             / k ** 0.5).to(bf)
+        for m in ms:
+            x = torch.randn((m, k // 2), generator=g, device="cuda").to(bf)
+            out.append(held(leaf, "2d", x, w, w, None, None))
+            del x
+        del w
     misses = registry.stats()["misses"] - misses
     for c in out:
-        emit({"phase": "tp2d.kernels", **c})
+        emit({"phase": f"{phase}.kernels", **({"path": path} if path else {}),
+              **c})
     if misses:
-        raise AssertionError(f"tp2d.kernels: {misses} registry misses after "
-                             f"install_arch(mesh=, opts=)")
+        raise AssertionError(f"{tag}.kernels: {misses} registry misses "
+                             f"after install_arch(mesh=, opts=)")
     return out
 
 
@@ -5472,9 +5579,9 @@ def tp2d_planted(eng, cfg, device) -> dict:
 
 def tp2d_serve(mesh, mode: str, model, cfg, params, axes) -> tuple:
     """One mode's engine on ``mesh``: load, the groups and the queue (the
-    main path, counted), each group's first decode step, and (2D) the
-    planted fault.  Returns (the rank's results, the first steps, the
-    planted steps)."""
+    main path, counted, its launches' shapes recorded), each group's first
+    decode step, and (2D) the planted fault.  Returns (the rank's results,
+    the first steps, the planted steps)."""
     import torch
     from repro_torch.analysis.collectives import collective_bytes, staged_ops
     from repro_torch.core import registry
@@ -5512,21 +5619,24 @@ def tp2d_serve(mesh, mode: str, model, cfg, params, axes) -> tuple:
     comm.reset()
     itemsize = torch_dtype(cfg.dtype).itemsize
     groups = {}
-    for b in TP2D_BUCKETS:
-        r = eng.generate(tp2d_tokens(cfg, b, dev), TP2D_STEPS)
-        groups[b] = {"prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
-                     "buckets": list(r.buckets),
-                     "tokens0": r.tokens[0].tolist(),
-                     "collectives": eng.collectives("decode", b),
-                     "contract": tp2d_contract(cfg, mode, b, eng.pack_report,
-                                               2, 2, itemsize)}
-    t0 = time.perf_counter()
-    results, stats = eng.serve_queue(tp2d_queue(cfg))
-    _sync(dev)
+    with launch_shapes() as shapes:
+        for b in TP2D_BUCKETS:
+            r = eng.generate(tp2d_tokens(cfg, b, dev), TP2D_STEPS)
+            groups[b] = {"prefill_s": r.prefill_s,
+                         "per_token_s": r.per_token_s,
+                         "buckets": list(r.buckets),
+                         "tokens0": r.tokens[0].tolist(),
+                         "collectives": eng.collectives("decode", b),
+                         "contract": tp2d_contract(
+                             cfg, mode, b, eng.pack_report, 2, 2, itemsize)}
+        t0 = time.perf_counter()
+        results, stats = eng.serve_queue(tp2d_queue(cfg))
+        _sync(dev)
     res["queue"] = {"seconds": time.perf_counter() - t0,
                     "admitted": stats.admitted, "steps": stats.steps,
                     "generated": stats.generated_tokens,
                     "tokens": [q.tokens.tolist() for q in results]}
+    res["shapes"] = sorted(shapes)
     res["launches"] = dict(cuda.launches)
     res["designs"] = dict(cuda.design_launches)
     res["comm"] = collective_bytes(comm.records)
@@ -5549,7 +5659,8 @@ def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
     """One rank of the tp2d phase (``torch.distributed.run``): four ranks
     on the one card as ``data=2,model=2``, over gloo.  Rank 0 then holds
     each mode's first decode steps against a one-rank engine on the same
-    weights."""
+    weights.  Then the MoE family's paths (``TP2D_MOE``,
+    ``tp2d_moe_worker``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import build_model
@@ -5598,6 +5709,9 @@ def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
             del one
         res["compare"] = cmp
         del params
+        _free(mesh.device.type)
+        res["moe"] = {}
+        tp2d_moe_worker(mesh, res["moe"])
     finally:
         with open(os.path.join(out_dir, f"tp2d_rank{mesh.rank}.json"),
                   "w") as f:
@@ -5625,37 +5739,58 @@ def tp2d_logits_vs(pre, want, got_pre, got, *, every_row=False) -> dict:
             "worst": max(err_pre, err)}
 
 
-def tp2d_nccl(out_dir: str) -> dict:
-    """The 2D engine at ``data=1,model=1`` under NCCL in this process:
-    its grid captured as CUDA graphs with the k-split sums, the gathers
-    and the TP sums inside (group size 1), every cell bit-equal to its
-    eager run, a graphed group equal to an eager one."""
+def tp2d_nccl(out_dir: str, name=None) -> dict:
+    """The 2D engine at ``data=1,model=1`` under NCCL in this process
+    (``name``: None, qwen1.5-4b; or a ``TP2D_MOE`` path), whose grid holds
+    its prompt's length bucket alone (the serve path of qwen captures
+    every length bucket): its grid captured as CUDA graphs
+    with the k-split sums, the gathers and the TP sums inside (group size
+    1), every cell bit-equal to its eager run, a graphed group equal to
+    an eager one."""
     import torch
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.param import init_pieces
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.programs import ProgramStore, check_cells
     from repro_torch.sharding.rules import ShardingOptions
 
+    opts = ShardingOptions(**TP2D_MODES["tp2d"])
     mesh = make_mesh((1, 1), ("data", "model"), device="cuda", rank=0,
                      world_size=1,
-                     init_file=os.path.join(out_dir, "nccl_store"))
+                     init_file=os.path.join(out_dir, f"nccl_store_{name}"))
     try:
         if mesh.backend != "nccl":
             raise AssertionError(f"tp2d.nccl: backend {mesh.backend}")
-        cfg = tp2d_cfg()
-        model = build_model(cfg)
-        params, axes = tp2d_params(model, "cuda")
-        eng = Engine(model, params, axes, max_len=TP2D_MAX_LEN,
-                     buckets=TP2D_BUCKETS, max_prompt=TP2D_PROMPT,
-                     device="cuda", mesh=mesh,
-                     opts=ShardingOptions(**TP2D_MODES["tp2d"]))
+        if name is None:
+            cfg = tp2d_cfg()
+            model = build_model(cfg)
+            params, axes = tp2d_params(model, "cuda")
+            buckets, prompt, min_prompt, max_len = (
+                TP2D_BUCKETS, TP2D_PROMPT, TP2D_PROMPT, TP2D_MAX_LEN)
+            tokens = tp2d_tokens
+        else:
+            spec = TP2D_MOE[name]
+            cfg = tp2d_moe_cfg(name)
+            model = build_model(cfg)
+            with init_pieces(mesh, cfg, opts):
+                params, axes = model.init(torch.Generator(device="cuda")
+                                          .manual_seed(0))
+            buckets, prompt = spec["modes"]["tp2d"]["buckets"], spec["prompt"]
+            min_prompt, max_len = prompt, tp2d_moe_max_len(spec)
+
+            def tokens(cfg, b, device):
+                return tp_moe_tokens(cfg, b, prompt, device)
+        eng = Engine(model, params, axes, max_len=max_len, buckets=buckets,
+                     max_prompt=prompt, min_prompt=min_prompt, device="cuda",
+                     mesh=mesh, opts=opts)
         del params
         t0 = time.perf_counter()
         eng.precompile()
         capture_s = time.perf_counter() - t0
         checks = check_cells(eng.programs)
-        group = tp2d_tokens(cfg, 4, "cuda")
+        bucket = max(buckets)
+        group = tokens(cfg, bucket, "cuda")
         graphed = eng.generate(group, 4)
         store = eng.programs
         st = store.stats()
@@ -5665,7 +5800,9 @@ def tp2d_nccl(out_dir: str) -> dict:
                                     layout_of=eng.cache_layout)
         eager = eng.generate(group, 4)
         dec = [p for p in store.programs()
-               if p.kind == "decode" and p.bucket == 4]
+               if p.kind == "decode" and p.bucket == bucket]
+        contract = (tp2d_contract if name is None else tp2d_moe_contract)(
+            cfg, "tp2d", bucket, eng.pack_report, 1, 1, 2)
         out = {"backend": mesh.backend, "graphed": st["graphed"],
                "cells": st["programs"], "captured": st["captured"],
                "capture_s": capture_s,
@@ -5677,8 +5814,7 @@ def tp2d_nccl(out_dir: str) -> dict:
                                                       eager.logits_last)),
                "decode_collectives": store.collectives(dec[0])
                if dec else None,
-               "contract": tp2d_contract(cfg, "tp2d", 4, eng.pack_report,
-                                         1, 1, 2)}
+               "contract": contract}
         del eng, store
         return out
     finally:
@@ -5749,6 +5885,613 @@ def tp2d_checks(ranks: list) -> list:
     return bad
 
 
+# ---------------------------------------------------------------------------
+# tp2d.moe: the MoE family under 2D tensor parallelism and FSDP, in the
+# tp2d phase's ranks
+# ---------------------------------------------------------------------------
+
+# Each at its published widths cut to 2 layers, bf16, seeded, each rank
+# drawing every leaf whole on the card and keeping its piece under the
+# mode's rules as it is drawn (``init_pieces(mesh, cfg, opts)``; the
+# experts' embed dim, the router's rows and the shared experts' on
+# ``data``): OLMoE-1B-7B (64 experts, 32 a rank; 16 heads, 8 a rank, flash
+# at D 128) under 2D at buckets 1 and 4 with a 3-request ragged queue, and
+# under FSDP at bucket 4 for 2 decode steps (each rank gathers ~0.8 GB of
+# expert stacks a decode call, through the host over gloo); DeepSeek-V2
+# (its dense first layer and one MoE layer of 160 experts, 80 a rank, 2
+# shared; 128 MLA heads, 64 a rank; the latent cache's rows on ``data`` at
+# bucket 2 and its slots on ``model``; no flash) under 2D at buckets 1 and
+# 2.  DeepSeek-V2 under FSDP would run the tp phase's per-shard kernel shapes
+# after ~3.8 GB of gathers a decode call a rank through the host: it is
+# held against the reference on the CPU (tests/test_torch_tp2d_moe.py).
+# ``faults``: the planted controls of each mode (``tp2d_moe_planted``).
+TP2D_MOE = {
+    "olmoe": dict(arch="olmoe_1b_7b", prompt=256, flash=True, modes={
+        "tp2d": dict(buckets=(1, 4), steps=4,
+                     queue=((200, 4), (256, 3), (64, 5)),
+                     faults=("experts_sum", "router_sum")),
+        "fsdp": dict(buckets=(4,), steps=2, queue=(),
+                     faults=("fsdp_reverse",))}),
+    "deepseek": dict(arch="deepseek_v2_236b", prompt=512, flash=False,
+                     modes={
+        "tp2d": dict(buckets=(1, 2), steps=4, queue=(),
+                     faults=("experts_sum", "router_sum", "mla_rows"))}),
+}
+TP2D_MOE_LAYERS = 2
+# the per-rank pieces of each path, (rows, cols, the dim FSDP puts on
+# ``data``, bias, epilogue) as ``TP2D_LEAVES``: OLMoE's attention pieces
+# (wk and wv are wq's shape) and head under both modes; DeepSeek-V2's
+# wq_a, wo, the dense layer's MLP (w_up is w_gate's shape), the head, and
+# wq_b and wkv_b (no dim on ``data``: the tp phase's per-shard pieces, at
+# the rows 2D computes) under 2D
+TP2D_MOE_LEAVES = {
+    "olmoe": {"wq": (2048, 2048, "rows", False, None),
+              "wo": (2048, 2048, "cols", False, None),
+              "head": (2048, 50304, "rows", False, None)},
+    "deepseek": {"wq_a": (5120, 1536, "rows", False, None, False),
+                 "wq_b": (1536, 24576, None, False, None),
+                 "wkv_b": (512, 32768, None, False, None),
+                 "wo": (16384, 5120, "cols", False, None),
+                 "w_gate": (5120, 12288, "rows", False, "silu"),
+                 "w_down": (12288, 5120, "cols", False, None),
+                 "head": (5120, 102400, "rows", False, None)},
+}
+# 2D row pieces kept unpacked, (K, N, the rows whose product runs a planned
+# kernel: decode; a prefill's K slice runs torch.matmul, not TSMM-shaped)
+TP2D_MOE_UNPACKED = {"deepseek": {"wkv_a": (5120, 576, (1, 2))}}
+# where a control acts, where not every bucket of its mode: the latent
+# cache's rows lie on ``data`` at bucket 2 only
+TP2D_MOE_FAULT_BUCKETS = {"mla_rows": (2,)}
+
+
+def tp2d_moe_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(TP2D_MOE[name]["arch"]),
+                               num_layers=TP2D_MOE_LAYERS)
+
+
+def tp2d_moe_max_len(spec: dict) -> int:
+    """One length for every mode of a path: the largest of
+    ``tp_moe_max_len`` over them (the ragged rule where a queue runs)."""
+    return max(tp_moe_max_len({"prompt": spec["prompt"], **m})
+               for m in spec["modes"].values())
+
+
+def tp2d_moe_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
+                      model: int, e: int = 2) -> dict:
+    """One decode call's collectives on a rank, from the shapes and the
+    rank's packed block shapes (``packed``: the engine's pack report),
+    bf16 activations (``e`` bytes), the router's logits and the MoE
+    partials in fp32, as ``tp2d_contract`` does for the dense family.
+
+    Both modes: each norm's ``embed`` scale gathered over ``data`` (at
+    ``data=1`` it is whole, and nothing); the
+    lookup summed over ``model`` and its columns gathered over ``data``;
+    ``wo`` summed over ``model``; GQA over a cache whose slots lie on
+    ``data`` gathers its partials over it, MLA (slots on ``model``) every
+    head's query and the partials over ``model``; the MoE layer's router
+    logits gathered over ``model`` and its partials summed over it once;
+    the logits gathered over ``model``.
+
+    2D: every rank computes the bucket; each k-split product (the packed
+    pieces with rows on ``data``, MLA's unpacked ``wkv_a``, the router's
+    fp32 logits, the routed and shared experts' ``w_gate`` / ``w_up`` in
+    one sum) summed over ``data``; ``wo``'s, ``w_down``'s and the MoE
+    layer's output columns gathered over ``data``; with the cache's rows
+    on ``data`` the attention output gathered over it.
+
+    FSDP: a data line computes its rows of a bucket it splits; the ids
+    gathered over ``data`` before the lookup; every packed piece,
+    ``wkv_a``, the router and the expert stacks gathered over ``data``
+    before use."""
+    from repro_torch.models.moe import _capacity
+    d, v, H = cfg.d_model, cfg.vocab_size, cfg.num_heads
+    two_d = mode == "tp2d"
+    split = data > 1 and bucket % data == 0
+    rows = bucket if two_d or not split else bucket // data
+    cols = data if two_d else 1                # the output's column pieces
+    ops = []                                   # (op, group size, bytes)
+
+    def ar(n, b):
+        ops.append(("all-reduce", n, b))
+
+    def ag(n, b):
+        ops.append(("all-gather", n, b))
+
+    def norm(b):
+        if data > 1:
+            ag(data, b)
+
+    def packed_product(leaf, n_out, cols_on_data=False):
+        """A packed piece's product (``n_out`` the piece's columns): 2D a
+        k-split's sum over data (rows on data), FSDP its gather."""
+        if not two_d:
+            n = 1
+            for s in packed[leaf][-4:]:
+                n *= s
+            ag(data, n * data * e)
+        elif not cols_on_data:
+            ar(data, rows * n_out * e)
+
+    def row_parallel(leaf):
+        """wo or a dense w_down: columns on data, rows on model."""
+        packed_product(leaf, d // data, cols_on_data=True)
+        ar(model, rows * d // cols * e)
+        if two_d:
+            ag(data, rows * d * e)
+
+    if two_d:
+        ar(model, rows * d // data * e)
+        ag(data, rows * d * e)
+    else:
+        ag(data, data * rows * 4)                            # the ids
+        ar(model, rows * d * e)
+        ag(data, data * rows * d * e)
+    for i in range(cfg.num_layers):
+        pre = f"dense{i}" if i < cfg.first_k_dense else "layers"
+        norm(d * e)                                          # ln1
+        if cfg.use_mla:
+            kvr, dr, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+            packed_product(f"{pre}/attn/wq_a", cfg.q_lora_rank)
+            if two_d and data > 1:
+                ar(data, rows * (kvr + dr) * e)              # wkv_a summed
+            elif data > 1:
+                ag(data, d * (kvr + dr) * e)                 # wkv_a gathered
+            local = rows // data if two_d and split else rows
+            if model > 1:
+                ag(model, local * H * (kvr + dr) * 4)        # every head's q
+                ag(model, model * local * H * (2 + kvr) * 4)  # the partials
+            if two_d and split:
+                ag(data, rows * H // model * dv * e)         # heads' output
+        else:
+            q = H * cfg.head_dim // model
+            for w in ("wq", "wk", "wv"):
+                packed_product(f"{pre}/attn/{w}", q)
+            if data > 1 and not split:
+                ag(data, data * rows * H // model * (cfg.head_dim + 2) * 4)
+            elif two_d and split:
+                ag(data, rows * q * e)                       # attn output
+        row_parallel(f"{pre}/attn/wo")
+        norm(d * e)                                          # ln2
+        if i < cfg.first_k_dense:
+            for w in ("w_gate", "w_up"):
+                packed_product(f"{pre}/mlp/{w}", cfg.d_ff // model)
+            row_parallel(f"{pre}/mlp/w_down")
+            continue
+        E, ff = cfg.num_experts, cfg.d_ff_expert
+        sff = ff * cfg.num_shared_experts
+        whole = two_d or not split              # the rank dispatches groups
+        g = (data if whole and data > 1 and rows % data == 0
+             and rows >= data else 1)
+        cap = _capacity(rows // g, E, cfg.experts_per_token,
+                        cfg.capacity_factor)
+        if two_d:
+            ar(data, rows * E // model * 4)                  # router
+            ar(data, (2 * E // model * g * cap * ff          # experts
+                      + 2 * rows * sff // model) * e)        # and shared
+        else:
+            ag(data, d * E // model * 4)                     # the router
+            for _ in ("w_gate", "w_up", "w_down"):
+                ag(data, E // model * d * ff * e)            # the stacks
+                if sff:
+                    ag(data, d * sff // model * e)           # the shared
+        ag(model, rows * E * 4)                              # router cols
+        ar(model, rows * d // cols * 4)                      # moe_sum
+        if two_d:
+            ag(data, rows * d * e)
+    norm(d * e)                                              # final norm
+    packed_product("embed/head", v // model)
+    ag(model, rows * v * e)                                  # the logits
+    out = {}
+    for op, n, b in ops:
+        acc = out.setdefault(op, {"count": 0, "bytes_moved": 0.0,
+                                  "tensor_bytes": 0.0})
+        acc["count"] += 1
+        acc["bytes_moved"] += b * _ring(op, n)
+        acc["tensor_bytes"] += b
+    return out
+
+
+def piece_gather_bytes(params, data: int) -> set:
+    """The tensor bytes of a weight piece of ``params`` (two dims or more
+    a layer: packed blocks or unpacked) gathered over a data group of
+    ``data``: what an all-gather of that piece records."""
+    out = set()
+
+    def walk(t, stacked):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, stacked or k == "layers")
+            return
+        t = getattr(t, "blocks", t)
+        if t.ndim - stacked >= 2:
+            n = t.numel() // (t.shape[0] if stacked else 1)
+            out.add(data * n * t.element_size())
+
+    walk(params, False)
+    return out
+
+
+def tp2d_moe_side(eng, cfg, batch, b: int, *, group=None,
+                  replay=None) -> dict:
+    """``tp_moe_side`` on ``batch``'s rows in the cell context of bucket
+    ``b``: every position's prefill logits and that forward's expert
+    choices, then the first decode step.  ``group``: (the whole group,
+    its first row) where ``batch`` is a data line's rows of a bucket the
+    data axis splits (FSDP): ``generate`` serves the whole group, and its
+    first step is read at the line's rows.  ``replay``: a side whose
+    choices this engine takes in place of its own (``moe_routes``)."""
+    k = cfg.experts_per_token
+    with moe_routes(k, replay and replay["routes"]) as rec:
+        logits = _prefill_logits(eng, cfg, batch, b)
+    with moe_routes(k, replay and replay["gen_routes"]) as gen:
+        first = eng.generate(batch if group is None else group[0], 1)
+    r0 = 0 if group is None else group[1]
+    n = batch["tokens"].shape[0]
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    return {"logits": logits, "routes": rec, "gen_routes": gen,
+            "dec_routes": gen[n_moe:2 * n_moe],
+            "first_tokens": first.tokens[r0:r0 + n, 0].cpu(),
+            "first_logits": first.logits_last[r0:r0 + n].cpu()}
+
+
+def tp2d_moe_rows(eng, cfg, b: int, prompt: int) -> tuple:
+    """(the rows a rank's side reads, the ``group`` argument of
+    ``tp2d_moe_side``) of bucket ``b``'s group on ``eng``: the data
+    line's rows under FSDP where the bucket splits, else the group."""
+    batch = tp_moe_tokens(cfg, b, prompt, eng.device)
+    n, r0, data = eng.rows_of(b)
+    if data is None:
+        return batch, None
+    return {k: v[r0:r0 + n] for k, v in batch.items()}, (batch, r0)
+
+
+def tp2d_moe_planted(eng, cfg, spec: dict, mode: str) -> dict:
+    """The controls of the logits and routing bounds of one mode
+    (``faults``), each planted alone on every rank alike, so the ranks
+    stay in step: {fault: {bucket: its side}} at each bucket where it acts
+    (``TP2D_MOE_FAULT_BUCKETS``, else every bucket of the mode).  Raises
+    unless each fault's site ran as often as a side reaches it.
+
+    * ``experts_sum``: the routed and shared experts' ``w_gate`` / ``w_up``
+      partials left unsummed over ``data`` (2D);
+    * ``router_sum``: the router's partial logits left unsummed over
+      ``data`` (2D); it must also break the routing bound;
+    * ``fsdp_reverse``: each expert stack's data halves gathered in the
+      reverse order (FSDP);
+    * ``mla_rows``: MLA's decode reading the latent cache's data-split rows
+      as if whole (every rank's piece taken for the bucket's first rows;
+      2D, where the rows lie on ``data``)."""
+    import torch
+    from repro_torch.models import attention, moe
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    calls = [0]
+
+    def skipped(sound):
+        def skip(part):
+            calls[0] += 1
+            return part
+        return skip
+
+    def reversed_halves(sound):
+        def gather(w, full, dim):
+            out = sound(w, full, dim)
+            if dim in (1, 2) and out is not w:
+                calls[0] += 1
+                halves = out.chunk(2, dim=dim)
+                out = torch.cat(halves[::-1], dim=dim)
+            return out
+        return gather
+
+    def whole_rows(sound):
+        def first(lay, rows):
+            calls[0] += 1
+            return 0
+        return first
+
+    # (module, attribute, the fault, its calls a side: the prefill
+    # forward, generate's prefill and its one decode step)
+    sites = {"experts_sum": (moe, "experts_sum", skipped, 3 * n_moe),
+             "router_sum": (moe, "router_sum", skipped, 3 * n_moe),
+             "fsdp_reverse": (moe, "dp_weight", reversed_halves, 9 * n_moe),
+             "mla_rows": (attention, "row_start", whole_rows,
+                          cfg.num_layers)}
+    m = spec["modes"][mode]
+    out = {}
+    for fault in m["faults"]:
+        mod, attr, plant, per_side = sites[fault]
+        buckets = TP2D_MOE_FAULT_BUCKETS.get(fault, m["buckets"])
+        sound = getattr(mod, attr)
+        calls[0] = 0
+        setattr(mod, attr, plant(sound))
+        try:
+            out[fault] = {}
+            for b in buckets:
+                batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"])
+                out[fault][b] = tp2d_moe_side(eng, cfg, batch, b,
+                                              group=group)
+        finally:
+            setattr(mod, attr, sound)
+        if calls[0] != per_side * len(buckets):
+            raise AssertionError(f"tp2d.moe {mode}: the planted {fault} ran "
+                                 f"{calls[0]} times, not "
+                                 f"{per_side * len(buckets)}")
+    return out
+
+
+def tp2d_moe_serve(mesh, name: str, mode: str, res: dict) -> dict:
+    """One ``TP2D_MOE`` path in one mode on ``mesh``: load from the rank's
+    pieces, the groups (and the queue: the main path, counted), each
+    group's comparison side, the planted controls.  Fills ``res``;
+    returns {"sides": {bucket: side}, "planted": ...} (rank 0 compares
+    them with a one-rank engine after every path has run)."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import init_pieces, torch_dtype
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import ShardingOptions
+
+    spec = TP2D_MOE[name]
+    m = spec["modes"][mode]
+    cfg = tp2d_moe_cfg(name)
+    model = build_model(cfg)
+    dev = mesh.device
+    opts = ShardingOptions(**TP2D_MODES[mode])
+    registry.reset_stats()
+    cuda.reset_launches()
+    _free(dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with init_pieces(mesh, cfg, opts):
+        params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, axes, mesh=mesh, opts=opts,
+                 max_len=tp2d_moe_max_len(spec), buckets=m["buckets"],
+                 max_prompt=spec["prompt"], device=dev.type)
+    del params
+    _sync(dev)
+    lay = eng.params["layers"]
+    res["load"] = {"seconds": time.perf_counter() - t0,
+                   "launches": dict(cuda.launches),
+                   "designs": dict(cuda.design_launches),
+                   "packed": {k: list(v) for k, v in eng.pack_report.items()}}
+    res["pieces"] = {
+        **{k: list(lay["mlp"][k].shape) for k in ("router", "w_gate",
+                                                   "w_down")},
+        "heads": list(lay["attn"]["wq_b" if cfg.use_mla else "wq"].shape)}
+    if cfg.use_mla:
+        res["pieces"]["wkv_a"] = list(lay["attn"]["wkv_a"].shape)
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in m["buckets"]}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    weights = piece_gather_bytes(eng.params, mesh.shape["data"])
+    # the main path: counts zeroed just before, read just after
+    cuda.reset_launches()
+    comm.reset()
+    groups = {}
+    res["queue"] = None
+    with launch_shapes() as shapes:
+        for b in m["buckets"]:
+            r = eng.generate(tp_moe_tokens(cfg, b, spec["prompt"], dev),
+                             m["steps"])
+            prog = next(p for p in eng.programs.programs()
+                        if p.kind == "decode" and p.bucket == b)
+            groups[b] = {
+                "prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
+                "buckets": list(r.buckets), "tokens0": r.tokens[0].tolist(),
+                "collectives": eng.collectives("decode", b),
+                "contract": tp2d_moe_contract(
+                    cfg, mode, b, eng.pack_report, mesh.shape["data"],
+                    mesh.shape["model"], torch_dtype(cfg.dtype).itemsize),
+                "weight_gathers": sum(
+                    x["op"] == "all-gather" and x["bytes"] in weights
+                    for x in prog.comm)}
+        if m["queue"]:
+            t0 = time.perf_counter()
+            results, stats = eng.serve_queue(tp_moe_queue(cfg, m["queue"]))
+            _sync(dev)
+            res["queue"] = {"seconds": time.perf_counter() - t0,
+                            "admitted": stats.admitted, "steps": stats.steps,
+                            "generated": stats.generated_tokens,
+                            "tokens": [q.tokens.tolist() for q in results]}
+    res["shapes"] = sorted(shapes)
+    res["launches"] = dict(cuda.launches)
+    res["designs"] = dict(cuda.design_launches)
+    res["comm"] = collective_bytes(comm.records)
+    res["staged"] = sorted(set(staged_ops(comm.records)))
+    res["groups"] = groups
+    res["misses"] = registry.stats()["misses"]
+    hr = eng.health_report()
+    res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    sides = {}
+    for b in m["buckets"]:
+        batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"])
+        sides[b] = tp2d_moe_side(eng, cfg, batch, b, group=group)
+    planted = tp2d_moe_planted(eng, cfg, spec, mode)
+    del eng, lay
+    _free(dev.type)
+    return {"sides": sides, "planted": planted}
+
+
+def tp2d_moe_compare(mesh, name: str, kept: dict) -> dict:
+    """Rank 0's sides of every mode of one path (``kept``: {mode:
+    ``tp2d_moe_serve``'s return}) against a one-rank engine on the same
+    seeded weights: routed as it routes, and routed alike
+    (``tp_moe_compare``), on the rows rank 0's side reads (the data line's
+    under FSDP), dispatched in the mesh's groups (``moe_groups`` patched:
+    the reference's ``_dp_groups``, off a mesh 1)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+
+    spec = TP2D_MOE[name]
+    cfg = tp2d_moe_cfg(name)
+    model = build_model(cfg)
+    dev = mesh.device
+    params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    buckets = sorted({s["logits"].shape[0] for k in kept.values()
+                      for s in k["sides"].values()}
+                     | {b for m in spec["modes"].values()
+                        for b in m["buckets"]})
+    one = Engine(model, params, axes, max_len=tp2d_moe_max_len(spec),
+                 buckets=tuple(buckets), max_prompt=spec["prompt"],
+                 device=dev.type)
+    del params
+    one.programs = ProgramStore(model, device=dev, capture=False)
+    sound = moe.moe_groups
+    out, wants = {}, {}
+    try:
+        for mode, k in kept.items():
+            out[mode] = {}
+            for b, got in k["sides"].items():
+                n = got["logits"].shape[0]
+                batch = {key: v[:n] for key, v in tp_moe_tokens(
+                    cfg, b, spec["prompt"], dev).items()}
+                # the mesh's dispatch groups: the data axis's where a rank
+                # computed the whole bucket, one where its data line's rows
+                g = mesh.shape["data"] if n == b else 1
+                moe.moe_groups = (lambda t, g=g: g if t % g == 0 and t >= g
+                                  else 1)
+                if (b, n) not in wants:
+                    wants[b, n] = tp2d_moe_side(one, cfg, batch, n)
+                forced = tp2d_moe_side(one, cfg, batch, n, replay=got)
+                out[mode][b] = {
+                    **tp_moe_compare(cfg, got, wants[b, n], forced,
+                                     {f: p[b] for f, p in
+                                      k["planted"].items() if b in p}),
+                    "rows_compared": n, "dispatch_groups": g}
+    finally:
+        moe.moe_groups = sound
+    del one
+    _free(dev.type)
+    return out
+
+
+def tp2d_moe_worker(mesh, res: dict) -> None:
+    """Every ``TP2D_MOE`` path in every mode on this rank, then on rank 0
+    the one-rank comparisons (the other ranks are done by then)."""
+    kept = {}
+    for name, spec in TP2D_MOE.items():
+        res[name], kept[name] = {}, {}
+        for mode in spec["modes"]:
+            res[name][mode] = {}
+            t0 = time.perf_counter()
+            out = tp2d_moe_serve(mesh, name, mode, res[name][mode])
+            res[name][mode]["seconds"] = time.perf_counter() - t0
+            if mesh.rank == 0:
+                kept[name][mode] = out
+    for name in TP2D_MOE:
+        if mesh.rank == 0:
+            t0 = time.perf_counter()
+            res[name]["compare"] = tp2d_moe_compare(mesh, name, kept[name])
+            res[name]["compare_seconds"] = time.perf_counter() - t0
+        kept[name] = None
+
+
+def tp2d_moe_checks(ranks: list) -> list:
+    """What the four ranks' results break of the tp2d.moe paths'
+    contract."""
+    from repro_torch.analysis.collectives import bytes_moved
+    bad = []
+    for name, spec in TP2D_MOE.items():
+        cfg = tp2d_moe_cfg(name)
+        d, e, ff = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
+        n_scan = cfg.num_layers - cfg.first_k_dense
+        width = (cfg.head_dim + cfg.rope_head_dim if cfg.use_mla
+                 else cfg.head_dim)
+        for mode, m in spec["modes"].items():
+            for rank in ranks:
+                rk, res = rank["rank"], rank["moe"][name][mode]
+                where = f"{name} {mode} rank {rk}"
+                if res["misses"] or not res["healthy"]:
+                    bad.append(f"{where}: {res['misses']} misses, healthy "
+                               f"{res['healthy']}")
+                pieces = {"router": [n_scan, d // 2, e // 2],
+                          "w_gate": [n_scan, e // 2, d // 2, ff],
+                          "w_down": [n_scan, e // 2, ff, d // 2],
+                          "heads": [n_scan, cfg.q_lora_rank if cfg.use_mla
+                                    else d // 2,
+                                    cfg.num_heads * width // 2]}
+                if cfg.use_mla:
+                    pieces["wkv_a"] = [n_scan, d // 2,
+                                       cfg.kv_lora_rank + cfg.rope_head_dim]
+                if res["pieces"] != pieces:
+                    bad.append(f"{where}: pieces {res['pieces']} != {pieces}")
+                if res["graphed"] is not False or res["staged"]:
+                    bad.append(f"{where}: graphed {res['graphed']}, staged "
+                               f"{res['staged']}")
+                designs = res["designs"]
+                off = {x for x in designs if x.startswith("skinny_")
+                       and x not in ("skinny_wgmma", "skinny_stream")}
+                off |= {x for x in designs if x.startswith("pack_")
+                        and x not in ("pack_tma", "pack_vec")}
+                if off or not any(designs.get(x) for x in ("skinny_wgmma",
+                                                           "skinny_stream")):
+                    bad.append(f"{where}: designs {designs}")
+                if bool(res["launches"].get("flash_attention")) != \
+                        spec["flash"]:
+                    bad.append(f"{where}: flash launches "
+                               f"{res['launches'].get('flash_attention', 0)}")
+                if not res["load"]["launches"].get("pack_blocks"):
+                    bad.append(f"{where}: no pack at load")
+                for b, g in res["groups"].items():
+                    if g["collectives"] != g["contract"]:
+                        bad.append(f"{where} b={b}: collectives "
+                                   f"{g['collectives']} != contract "
+                                   f"{g['contract']}")
+                    if (g["weight_gathers"] > 0) != (mode == "fsdp"):
+                        bad.append(f"{where} b={b}: {g['weight_gathers']} "
+                                   f"weight pieces gathered in a decode call")
+                if m["queue"] and res["queue"]["admitted"] != len(m["queue"]):
+                    bad.append(f"{where}: queue {res['queue']}")
+            if m["queue"] and any(
+                    r["moe"][name][mode]["queue"]["tokens"]
+                    != ranks[0]["moe"][name][mode]["queue"]["tokens"]
+                    for r in ranks):
+                bad.append(f"{name} {mode}: the ranks' queue tokens differ")
+            cmp = ranks[0]["moe"][name]["compare"][mode]
+            for b, c in cmp.items():
+                if not c["within"]:
+                    bad.append(f"{name} {mode} b={b}: rank 0 vs the one-rank "
+                               f"engine {c}")
+                if not c["routing_within"]:
+                    bad.append(f"{name} {mode} b={b}: the first MoE layer's "
+                               f"routing breaks its bound: flips "
+                               f"{c['first_layer_flip_frac']}, gap "
+                               f"{c['first_layer_gap_max']}")
+            for fault in m["faults"]:
+                read = [c["planted"][fault] for c in cmp.values()
+                        if fault in c["planted"]]
+                least = min((p["bounds_outside"] for p in read), default=0.0)
+                if not least > 1.0:
+                    bad.append(f"{name} {mode}: the planted {fault} lands "
+                               f"{least} bounds outside at its least bucket")
+                if fault == "router_sum" and not all(
+                        p["first_layer_flip_frac"] > TP_MOE_FLIPS
+                        and p["first_layer_gap_max"] > TP_MOE_GAP
+                        for p in read):
+                    bad.append(f"{name} {mode}: the planted {fault} passes a "
+                               f"limit of the routing bound")
+        if len(spec["modes"]) > 1:
+            for rank in ranks:
+                two = rank["moe"][name]["tp2d"]["groups"]
+                fsdp = rank["moe"][name]["fsdp"]["groups"]
+                for b in set(two) & set(fsdp):
+                    a, f = (bytes_moved(two[b]["collectives"]),
+                            bytes_moved(fsdp[b]["collectives"]))
+                    if not 0 < a < f:
+                        bad.append(f"{name} rank {rank['rank']} b={b}: 2D "
+                                   f"moves {a} bytes, FSDP {f}")
+    return bad
+
+
 def phase_tp2d():
     """2D weight-stationary tensor parallelism and FSDP serving on the
     card: ``install_arch(mesh=, opts=)`` for both modes; the per-rank
@@ -5758,14 +6501,21 @@ def phase_tp2d():
     biases and norms) under ``fsdp=True, serve_2d_tp=True`` and under
     ``fsdp=True``, lookup-only, with rank 0's logits against a one-rank
     engine, a planted fault, each decode call's collectives against the
-    contract and the 2D decode moving fewer bytes than FSDP's; then NCCL
-    at world size 1 with the 2D cells captured.  Returns each rank's
-    launches on the main path and at load, and the kernel cases."""
+    contract and the 2D decode moving fewer bytes than FSDP's; then the
+    MoE family in the same ranks (``TP2D_MOE``: OLMoE-1B-7B under both
+    modes, DeepSeek-V2 under 2D, at their published widths cut to 2
+    layers) lookup-only after their own sweeps, each against a one-rank
+    engine routed alike with the first MoE layer's flips bounded, the
+    planted controls, the contracts, no weight gathered in a 2D decode
+    call; then NCCL at world size 1 with the 2D cells captured (qwen's
+    and OLMoE's).  Returns each rank's launches on the main path and at
+    load, and the kernel cases."""
     import signal
 
     import torch
     from repro_torch.analysis.collectives import bytes_moved
     from repro_torch.core import install, registry
+    from repro_torch.serve.engine import compute_rows
     from repro_torch.sharding.rules import ShardingOptions
     t_phase = time.perf_counter()
     _free("cuda")
@@ -5778,9 +6528,39 @@ def phase_tp2d():
     registry.flush()
     emit({"phase": "tp2d.install", "seconds": time.perf_counter() - t0,
           "plans": plans})
+    # the MoE paths' sweeps, each mode at its buckets and the one length
+    # bucket its prompts take, written in one flush
+    t0 = time.perf_counter()
+    plans = {f"{name}.{mode}": install.install_arch(
+        tp2d_moe_cfg(name), m["buckets"], (spec["prompt"],), mesh=desc,
+        opts=ShardingOptions(**TP2D_MODES[mode]), device="cuda")
+        for name, spec in TP2D_MOE.items()
+        for mode, m in spec["modes"].items()}
+    registry.flush()
+    emit({"phase": "tp2d.moe.install", "seconds": time.perf_counter() - t0,
+          "plans": plans})
     t0 = time.perf_counter()
     shard_cases = tp2d_shard_cases()
     emit({"phase": "tp2d.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    moe_cases = {}
+    for name, spec in TP2D_MOE.items():
+        two, fsdp = (spec["modes"][x] if x in spec["modes"] else None
+                     for x in TP2D_MODES)
+        fsdp_rows = (sorted({compute_rows(b, desc, ShardingOptions(
+            **TP2D_MODES["fsdp"])) for b in fsdp["buckets"]})
+                     if fsdp else ())
+        moe_cases[name] = tp2d_shard_cases(
+            TP2D_MOE_LEAVES[name], two["buckets"],
+            path_rows(two["buckets"], spec["prompt"], two["queue"]),
+            tuple(fsdp_rows),
+            (path_rows(fsdp_rows, spec["prompt"], fsdp["queue"]) if fsdp
+             else None),
+            phase="tp2d.moe", unpacked=TP2D_MOE_UNPACKED.get(name),
+            path=name)
+        _free("cuda")
+    emit({"phase": "tp2d.moe.kernels.seconds",
           "seconds": time.perf_counter() - t0})
     _free("cuda")
     out_dir = tempfile.mkdtemp(prefix="tp2d-", dir=os.path.join(ROOT, "build"))
@@ -5804,16 +6584,23 @@ def phase_tp2d():
     if proc.returncode != 0:
         raise AssertionError(f"tp2d: the ranks exited {proc.returncode}:\n"
                              f"{out[-3000:]}\n{err[-6000:]}")
-    bad = tp2d_checks(ranks)
-    held = {c["kernel"] for c in shard_cases}
+    bad = tp2d_checks(ranks) + tp2d_moe_checks(ranks)
+    # every skinny and pack launch of a main path at a (kernel, m, K, N)
+    # (a pack's (M, K, bm, bk)) that a case held against its plain version
     for res in ranks:
         for mode in TP2D_MODES:
-            unheld = sorted(k for k in SKINNY
-                            if res[mode]["launches"].get(k)
-                            and k not in held)
+            unheld = unheld_shapes(res[mode]["shapes"], shard_cases)
             if unheld:
-                bad.append(f"rank {res['rank']} {mode}: {unheld} launched "
-                           f"at shapes tp2d.kernels did not hold")
+                bad.append(f"rank {res['rank']} {mode}: launched at shapes "
+                           f"tp2d.kernels did not hold: {unheld}")
+        for name, spec in TP2D_MOE.items():
+            for mode in spec["modes"]:
+                unheld = unheld_shapes(res["moe"][name][mode]["shapes"],
+                                       moe_cases[name])
+                if unheld:
+                    bad.append(f"{name} {mode} rank {res['rank']}: launched "
+                               f"at shapes tp2d.moe.kernels did not hold: "
+                               f"{unheld}")
     for res in ranks:
         for mode in TP2D_MODES:
             r = res[mode]
@@ -5821,12 +6608,40 @@ def phase_tp2d():
                   **{k: r[k] for k in ("load", "graphed", "launches",
                                        "designs", "comm", "staged", "misses",
                                        "healthy", "queue", "peak_bytes",
-                                       "layouts", "pieces")},
+                                       "layouts", "pieces", "shapes")},
                   "groups": r["groups"]})
     r0 = ranks[0]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    for name, spec in TP2D_MOE.items():
+        for mode in spec["modes"]:
+            for res in ranks:
+                m = res["moe"][name][mode]
+                emit({"phase": "tp2d.moe.rank", "path": name, "mode": mode,
+                      "rank": res["rank"], **{k: m[k] for k in (
+                          "seconds", "load", "pieces", "layouts", "graphed",
+                          "launches", "designs", "comm", "staged", "misses",
+                          "healthy", "peak_bytes", "queue", "groups",
+                          "shapes")}})
+            emit({"phase": f"tp2d.moe.{name}.{mode}", "nvidia_smi": smi,
+                  "logits_tol": TP_LOGITS_TOL,
+                  "routing_bound": {"gap": TP_MOE_GAP,
+                                    "flips": TP_MOE_FLIPS},
+                  "faults": spec["modes"][mode]["faults"],
+                  "compare": r0["moe"][name]["compare"][mode],
+                  "compare_seconds": r0["moe"][name]["compare_seconds"],
+                  "decode_collectives": {
+                      b: g["collectives"] for b, g in
+                      r0["moe"][name][mode]["groups"].items()},
+                  "decode_bytes_moved": {
+                      b: bytes_moved(g["collectives"]) for b, g in
+                      r0["moe"][name][mode]["groups"].items()},
+                  "weights_gathered_a_decode_call": {
+                      b: g["weight_gathers"] for b, g in
+                      r0["moe"][name][mode]["groups"].items()},
+                  "peak_bytes": [r["moe"][name][mode]["peak_bytes"]
+                                 for r in ranks]})
     emit({"phase": "tp2d", "nvidia_smi": smi, "ranks": 4,
           "mesh": "data=2,model=2", "backend": r0.get("backend"),
           "note": "four ranks share one card over gloo (every collective "
@@ -5846,13 +6661,16 @@ def phase_tp2d():
           "workers_s": time.perf_counter() - t0})
     if bad:
         raise AssertionError("tp2d: " + "; ".join(bad))
-    nccl = tp2d_nccl(out_dir)
-    emit({"phase": "tp2d.nccl", **nccl})
-    if not (nccl["graphed"] and nccl["cells_bit_equal"] == nccl["cells_checked"]
-            and nccl["cells_checked"] and nccl["group_tokens_equal"]
-            and nccl["group_logits_equal"]
-            and nccl["decode_collectives"] == nccl["contract"]):
-        raise AssertionError(f"tp2d.nccl: {nccl}")
+    for name, phase in ((None, "tp2d.nccl"), ("olmoe", "tp2d.moe.nccl")):
+        nccl = tp2d_nccl(out_dir, name)
+        emit({"phase": phase, **nccl})
+        if not (nccl["graphed"]
+                and nccl["cells_bit_equal"] == nccl["cells_checked"]
+                and nccl["cells_checked"] and nccl["group_tokens_equal"]
+                and nccl["group_logits_equal"]
+                and nccl["decode_collectives"] == nccl["contract"]):
+            raise AssertionError(f"{phase}: {nccl}")
+        _free("cuda")
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     emit({"phase": "tp2d", "seconds": time.perf_counter() - t_phase})
@@ -5860,7 +6678,15 @@ def phase_tp2d():
                 for r in ranks for mode in TP2D_MODES}
     load = {f"tp2d.rank{r['rank']}.{mode}.load": r[mode]["load"]["launches"]
             for r in ranks for mode in TP2D_MODES}
-    return launches, load, shard_cases
+    for name, spec in TP2D_MOE.items():
+        for mode in spec["modes"]:
+            for r in ranks:
+                m = r["moe"][name][mode]
+                path = f"tp2d.moe.{name}.{mode}.rank{r['rank']}"
+                launches[path] = m["launches"]
+                load[f"{path}.load"] = m["load"]["launches"]
+    return launches, load, shard_cases + [c for cs in moe_cases.values()
+                                          for c in cs]
 
 
 # ---------------------------------------------------------------------------

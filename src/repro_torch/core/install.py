@@ -174,19 +174,27 @@ def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None,
 def _unpacked_leaves(shapes, axes, mesh, opts):
     """(axes, leaf) of every weight consumed through ``core/linear.py``
     (``serve/engine.py::PACKABLE``, two or three dims) that the engine
-    leaves unpacked on ``mesh`` (``packable_divisors``: under
-    ``MIN_ROWS`` x ``MIN_COLS``, as LLaVA's (4096, 1024) ``wk`` is not
-    but a reduced GQA's narrow ``wk`` is)."""
-    from repro_torch.serve.engine import PACKABLE, packable_divisors
+    leaves unpacked on ``mesh``: under ``MIN_ROWS`` x ``MIN_COLS``
+    (``packable_divisors``: as LLaVA's (4096, 1024) ``wk`` is not but a
+    reduced GQA's narrow ``wk`` is), or a piece no block tiles
+    (``core/tsmm.py::blocks_tile``, the rule ``prepack_for`` refuses by:
+    DeepSeek-V2's (5120, 576) ``wkv_a``, whose rank's row piece under
+    FSDP or 2D tensor parallelism is gathered, or contracted where it
+    lies, at every call)."""
+    from repro_torch.core.tsmm import blocks_tile
+    from repro_torch.serve.engine import PACKABLE, PAD_COLS, packable_divisors
 
     def walk(p, a, path):
         if isinstance(p, dict):
             for key in p:
                 yield from walk(p[key], a[key], path + (key,))
             return
-        if (path[-1] in PACKABLE and 2 <= p.ndim <= 3
-                and (p.ndim == 2 or a[0] in ("layers", "groups"))
-                and packable_divisors(path, a, p, mesh, opts) is None):
+        if not (path[-1] in PACKABLE and 2 <= p.ndim <= 3
+                and (p.ndim == 2 or a[0] in ("layers", "groups"))):
+            return
+        div = packable_divisors(path, a, p, mesh, opts)
+        if div is None or not blocks_tile(div[0] // div[2], div[1] // div[3],
+                                          path[-1] in PAD_COLS):
             yield a, p
 
     yield from walk(shapes, axes, ())

@@ -119,18 +119,26 @@ def _data_sum(part, group):
     return comm.all_reduce(part, group)
 
 
+def ksplit_sum(part, bias, act, dtype):
+    """A k-split product's partial (m, n) output (this rank's K slice of
+    the activation times its row piece of the weight, no bias, no
+    activation) summed over the data group in the compute dtype, then the
+    epilogue once on the sum: a bias added, or SiLU applied, per partial
+    sum would be wrong."""
+    return _epilogue(_data_sum(part, dp_group()), bias, act, dtype)
+
+
 def _ksplit_dot(a2, b: PackedTensor, bias, act, plan):
     """2D tensor parallelism's packed product: ``b`` is this rank's row
     piece (its K slice) of a weight whose rows lie on the data axis.  The
     rank multiplies its K slice of the activation panel by it (the
-    planned kernel, no bias, no activation), the partial (m, n) outputs
-    are summed over the data group, and the epilogue runs once on the
-    sum: a bias added, or SiLU applied, per partial sum would be wrong."""
+    planned kernel), and :func:`ksplit_sum` sums the partial outputs over
+    the data group and runs the epilogue once."""
     kp = b.orig_rows
     r = dp_rank()
     part = tsmm_dot(a2[:, r * kp:(r + 1) * kp].contiguous(),
                     dataclasses.replace(b, spec=()), plan=plan)
-    return _epilogue(_data_sum(part, dp_group()), bias, act, a2.dtype)
+    return ksplit_sum(part, bias, act, a2.dtype)
 
 
 def _gathered(b: PackedTensor, split: str) -> tuple:
@@ -382,6 +390,15 @@ def _stamp_spec_for_blocks(plan: Plan, bk: int, bn: int, *,
     return spec, sched
 
 
+def blocks_tile(k: int, n: int, pad: bool = False) -> bool:
+    """Whether some (bk, bn) of multiples of 128 tiles a (k, n) weight: bk
+    must divide k, and bn n unless ``pad`` (N zero-padded).  Where none
+    does (DeepSeek-V2's 576-wide ``wkv_a``), :func:`prepack_for` leaves
+    the weight unpacked; the install sweep asks the same question
+    (``core/install.py::_unpacked_leaves``)."""
+    return k % 128 == 0 and (n % 128 == 0 or pad)
+
+
 def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
                        caps: tuple = (None, None), pad: bool = False,
                        piece: Optional[tuple] = None) -> Optional[tuple]:
@@ -392,6 +409,8 @@ def _conforming_blocks(problems, ks: int, ns: int, hw: HwSpec,
     zero-padded), feasible for all buckets, minimal predicted time summed
     across buckets."""
     ks, ns = piece or (ks, ns)
+    if not blocks_tile(ks, ns, pad):
+        return None
     cap_bk = min(ks, caps[0]) if caps[0] else ks
     cap_bn = min(ns, caps[1]) if caps[1] else ns
     bks = [d for d in range(128, max(cap_bk, 128) + 1, 128) if ks % d == 0]

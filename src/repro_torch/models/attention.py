@@ -342,9 +342,9 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
     seq = lay.seq if lay is not None else None
     gathered = lay is not None and lay.gathered
     if gathered:                         # this rank's rows of the bucket
-        _, i, _ = axis_group(lay.rows)
         rows = cache_k.shape[0]
-        q, k, v = (t[i * rows:(i + 1) * rows] for t in (q, k, v))
+        r0 = row_start(lay, rows)
+        q, k, v = (t[r0:r0 + rows] for t in (q, k, v))
     write_slot(cache_k, slot, k, seq)
     write_slot(cache_v, slot, v, seq)
     if seq is not None:
@@ -361,6 +361,14 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
         from repro_torch.sharding import comm
         out = comm.all_gather(out, axis_group(lay.rows)[0], dim=0)
     return _out_proj(p, cfg, out.reshape(b, 1, q.shape[2] * cfg.head_dim))
+
+
+def row_start(lay, rows: int) -> int:
+    """The first row of the bucket whose cache this rank holds, where
+    every rank computes the whole bucket over a piece of the cache's rows
+    (``lay``, the cell's ``CacheLayout``, ``gathered``; ``rows`` the
+    piece's): its coordinate on the rows' axis times the piece."""
+    return axis_group(lay.rows)[1] * rows
 
 
 def cross_decode(p, cfg, x, cross_k, cross_v):
@@ -427,9 +435,12 @@ def _mla_qkv_train(p, cfg, x, pos):
 
 def _mla_out(p, cfg, o):
     """``wo``, row-parallel over the heads, summed over the TP group
-    where the heads are split."""
-    return tp_sum(linear(o, p["wo"]), "qheads",
-                  cfg.num_heads * cfg.v_head_dim)
+    where the heads are split; its columns on the data axis as
+    :func:`_out_proj`'s (gathered before use under FSDP where unpacked,
+    the output's gathered after the sum under 2D)."""
+    y = linear(o, dp_weight_cols(p["wo"], cfg.d_model))
+    y = tp_sum(y, "qheads", cfg.num_heads * cfg.v_head_dim)
+    return dp_gather_cols(y, cfg.d_model)
 
 
 def mla_forward(p, cfg, x, *, pos_offset=0, chunk: int = 512,
@@ -438,9 +449,11 @@ def mla_forward(p, cfg, x, *, pos_offset=0, chunk: int = 512,
     head_dim + rope_head_dim wide and V v_head_dim, so the flash kernel's
     gate refuses them and the chunked body runs (the softmax scale uses
     the full Q width, as in the reference).  A tensor-parallel rank
-    attends with its heads over the whole prompt (``wkv_a`` is whole, so
-    every rank computes the compressed cache of every position; the
-    caller writes the slots it holds)."""
+    attends with its heads over the whole prompt (``wkv_a`` has no head
+    dim, so every rank computes the compressed cache of every position of
+    the rows it computes: whole, gathered over ``data`` under FSDP, or
+    contracted where it lies and summed under 2D; the caller writes the
+    rows and slots it holds)."""
     b, s, _ = x.shape
     pos = pos_offset + torch.arange(s, device=x.device)
     q, k, v, c_kv, k_rope = _mla_qkv_train(p, cfg, x, pos)
@@ -517,7 +530,11 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
     ``wkv_b`` and ``wo``; where the cell's ``CacheLayout`` splits the
     latent cache's slots, the step's ``c`` / ``kr`` land on the rank that
     holds the slot and the softmax is combined over the slots' group
-    (:func:`_mla_split_attend`)."""
+    (:func:`_mla_split_attend`).  Where every rank computes the whole
+    bucket over a piece of the cache's rows (2D tensor parallelism: rows
+    on ``data``, slots on ``model``), the rank writes and attends over
+    its rows, and the heads' output is gathered over the rows' group
+    before ``wo``."""
     b = x.shape[0]
     dn, dr, dv, kvr = (cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim,
                        cfg.kv_lora_rank)
@@ -533,6 +550,12 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
     kr_new = apply_rope(ckv[..., kvr:][:, None, None], cos, sin)[:, 0, 0]
     lay = cache_layout()
     seq = lay.seq if lay is not None else None
+    gathered = lay is not None and lay.gathered
+    if gathered:                         # this rank's rows of the bucket
+        rows = cache_c.shape[0]
+        r0 = row_start(lay, rows)
+        q_nope, q_rope, c_new, kr_new = (
+            t[r0:r0 + rows] for t in (q_nope, q_rope, c_new, kr_new))
     write_slot(cache_c, slot, c_new[:, None].to(cache_c.dtype), seq)
     write_slot(cache_kr, slot, kr_new[:, None].to(cache_kr.dtype), seq)
 
@@ -550,4 +573,7 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
                             valid_from, scale)
         o_c = torch.einsum("bhs,bsc->bhc", torch.softmax(s, dim=-1), cf)
     o = torch.einsum("bhc,chv->bhv", o_c, w_uv).to(x.dtype)
+    if gathered:
+        from repro_torch.sharding import comm
+        o = comm.all_gather(o, axis_group(lay.rows)[0], dim=0)
     return _mla_out(p, cfg, o.reshape(b, 1, h * dv))

@@ -29,6 +29,22 @@ the routed and shared partials are added in fp32 and summed in one
 all-reduce over the TP group (:func:`moe_sum`), then cast once to
 ``x.dtype``.
 
+Under FSDP serving (``fsdp=True``) each leaf's ``embed`` dim lies on the
+data axis too (the router's and shared experts' rows, an expert stack's
+dim 1, ``w_down``'s and ``ws_down``'s columns): each piece is gathered
+over the data group before use (``dp_weight``), and the layer runs as
+above on the data line's rows.  Under 2D weight-stationary tensor
+parallelism (``fsdp=True, serve_2d_tp=True``) nothing is gathered: every
+rank computes the whole bucket, and contracts its data line's ``d / n``
+columns of each token (``dp_slice``) with its pieces where they lie.
+The router's fp32 partial logits are summed over the data group
+(:func:`router_sum`) before the gather over the TP group; the routed and
+shared experts' ``w_gate`` / ``w_up`` partials are summed over the data
+group in one all-reduce (:func:`experts_sum`) before SiLU, which a late
+sum would get wrong; ``w_down`` / ``ws_down`` then give the rank's
+``d / n`` output columns, which pass the combine and :func:`moe_sum`
+before the cast, and are gathered over the data group after it.
+
 Every shape depends only on the token count (``cap`` is computed from
 it), and nothing reads a value on the host, so a call is capturable in
 a CUDA graph.  The dispatch is the reference's, step for step: the fp32
@@ -57,8 +73,10 @@ from torch.profiler import record_function
 
 from repro_torch.models.layers import silu
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import (moe_groups, tp_group,
-                                          tp_leaf_split, tp_rank)
+from repro_torch.sharding.context import (dp_gather_cols, dp_group,
+                                          dp_slice, dp_weight, kblocks_split,
+                                          moe_groups, tp_group, tp_leaf_split,
+                                          tp_rank)
 
 # profiler ranges (``launch/profile_decode.py`` reads the device time of
 # the kernels each encloses): the routed and shared experts' products,
@@ -94,12 +112,42 @@ def moe_sum(part):
     return comm.all_reduce(part, tp_group())
 
 
+def router_sum(part):
+    """Under 2D tensor parallelism, the fp32 partial router logits of the
+    data line's ``embed`` rows summed over the data group (in fp32, as the
+    reference's logits are computed)."""
+    from repro_torch.sharding import comm
+    return comm.all_reduce(part, dp_group())
+
+
+def experts_sum(parts: list) -> list:
+    """Under 2D tensor parallelism, the data line's partial products of
+    the routed and shared experts' ``w_gate`` / ``w_up`` summed over the
+    data group in one all-reduce, before SiLU.  The sum runs in the
+    compute dtype, as ``core/tsmm.py::ksplit_sum``'s: each partial leaves
+    ``torch.bmm`` already rounded to it, and at a data size of 2 the
+    rounded sum of two values equals their fp32 sum rounded once, at half
+    the bytes."""
+    from repro_torch.sharding import comm
+    flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in parts]),
+                           dp_group())
+    return [t.view_as(p) for t, p in
+            zip(flat.split([p.numel() for p in parts]), parts)]
+
+
 def router_probs(router, xf, gathered: bool):
     """The fp32 routing probabilities (t, E) of ``xf`` (t, d).
     ``gathered``: the router holds this rank's experts' columns,
     all-gathered over the TP group so that every rank routes the same
-    (t, E) fp32 logits."""
-    logits = xf.float() @ router                                 # (t, E) f32
+    (t, E) fp32 logits.  Under FSDP the router's rows are gathered over
+    the data group first; under 2D tensor parallelism the rank's rows
+    contract its data line's columns of ``xf`` and the partial logits are
+    summed over the data group (:func:`router_sum`) before the gather."""
+    d = xf.shape[-1]
+    if kblocks_split(d):
+        logits = router_sum(dp_slice(xf, d).float() @ router)
+    else:
+        logits = xf.float() @ dp_weight(router, d, 0)            # (t, E) f32
     if gathered:
         from repro_torch.sharding import comm
         logits = comm.all_gather(logits, tp_group(), dim=-1)
@@ -163,23 +211,38 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
               if cfg.num_shared_experts else None)
     partial = routed is not None or shared is not None
 
+    # the data line's columns of each token under 2D (its K slice of the
+    # pieces' rows); under FSDP the pieces gathered over data
+    xk = dp_slice(xf, d)
+    w_gate, w_up, w_down = (dp_weight(p["w_gate"], d, 1),
+                            dp_weight(p["w_up"], d, 1),
+                            dp_weight(p["w_down"], d, 2))
+
     with record_function(DISPATCH_RANGE):
         probs, flat_e, order, keep, slot, tok, w_sorted = route(
             p["router"], xf, k, g, cap, gathered)
         # slots are unique but for the sink row, which only takes zeros
-        buf = x.new_zeros((e * g * cap + 1, d)).index_copy_(
-            0, slot, torch.where(keep[:, None], xf[tok], 0))
-        buf = buf[:-1].view(e, g * cap, d)
+        dk = xk.shape[-1]
+        buf = x.new_zeros((e * g * cap + 1, dk)).index_copy_(
+            0, slot, torch.where(keep[:, None], xk[tok], 0))
+        buf = buf[:-1].view(e, g * cap, dk)
         lo = 0
         if routed == "experts":           # this rank's experts' rows only
-            el = p["w_gate"].shape[0]
+            el = w_gate.shape[0]
             lo = tp_rank() * el
             buf = buf[lo:lo + el]
             lo *= g * cap
 
     with record_function(EXPERTS_RANGE):
-        h = silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-        y = torch.bmm(h, p["w_down"]).reshape(-1, d)
+        # w_gate and w_up of the routed experts, then of the shared ones
+        pre = [torch.bmm(buf, w_gate), torch.bmm(buf, w_up)]
+        if cfg.num_shared_experts:
+            pre += [xk @ dp_weight(p["ws_gate"], d, 0),
+                    xk @ dp_weight(p["ws_up"], d, 0)]
+        if kblocks_split(d):            # 2D: summed over data before SiLU
+            pre = experts_sum(pre)
+        y = torch.bmm(silu(pre[0]) * pre[1], w_down)
+        y = y.reshape(-1, y.shape[-1])
         n_y = y.shape[0]
 
     with record_function(DISPATCH_RANGE):
@@ -193,7 +256,7 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
         inv = torch.empty_like(order).scatter_(
             0, order, torch.arange(t * k, device=dev))
         at = torch.sort(inv.view(t, k), dim=-1).values
-        parts = contrib[at]                                      # (t, k, d)
+        parts = contrib[at]                       # (t, k, d), d / n under 2D
         out = parts[:, 0]
         for i in range(1, k):
             out = out + parts[:, i]
@@ -201,12 +264,12 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
     ys = None
     if cfg.num_shared_experts:
         with record_function(EXPERTS_RANGE):
-            hs = silu(xf @ p["ws_gate"]) * (xf @ p["ws_up"])
-            ys = hs @ p["ws_down"]
+            ys = (silu(pre[2]) * pre[3]) @ dp_weight(p["ws_down"], d, -1)
+    do = out.shape[-1]
     if not partial:
-        out = out.reshape(b, s, d)
+        out = out.reshape(b, s, do)
         if ys is not None:
-            out = out + ys.reshape(b, s, d)
+            out = out + ys.reshape(b, s, do)
     else:
         # the split partials summed in one all-reduce; a whole part (the
         # rules replicate a leaf too narrow to split) joins after it
@@ -220,7 +283,9 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
         acc = moe_sum(acc)
         for y_ in whole:
             acc = acc + y_
-        out = acc.to(x.dtype).reshape(b, s, d)
+        out = acc.to(x.dtype).reshape(b, s, do)
+    # 2D: the rank's columns of the output gathered over the data group
+    out = dp_gather_cols(out, d)
 
     # load-balance aux loss (Switch/GShard form); the counts are exact
     # in fp32 whatever the order of the adds

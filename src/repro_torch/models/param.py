@@ -47,11 +47,13 @@ _CUT: contextvars.ContextVar = contextvars.ContextVar("param_cut",
 
 
 @contextlib.contextmanager
-def init_pieces(mesh, cfg=None):
+def init_pieces(mesh, cfg=None, opts=None):
     """Inside, every leaf a :class:`ParamTree` adds is cut at once to the
-    calling rank's piece under the default rules (``sharding/rules.py::
-    pspec_for`` of the leaf's own axes and shape; the layer axis a stack
-    adds never takes a mesh axis; an SSM leaf's concatenated axis by
+    calling rank's piece under the rules (``sharding/rules.py::
+    pspec_for`` of the leaf's own axes and shape under ``opts``, default
+    ``ShardingOptions()``: a serving engine's FSDP or 2D options put the
+    data axis on the ``embed`` dims too; the layer axis a stack adds
+    never takes a mesh axis; an SSM leaf's concatenated axis by
     ``models/mamba2.py::leaf_segments``, which needs ``cfg``), so a seeded
     ``model.init`` on a rank of ``mesh`` (a ``launch/mesh.py::
     ProcessMesh``) holds one full leaf at a time and ends with the same
@@ -60,7 +62,7 @@ def init_pieces(mesh, cfg=None):
     from repro_torch.models.mamba2 import leaf_segments
     from repro_torch.sharding.rules import (ShardingOptions, local_shard,
                                             pspec_for)
-    opts = ShardingOptions()
+    opts = opts or ShardingOptions()
 
     def cut(value, axes):
         spec = pspec_for(tuple(axes), tuple(value.shape), mesh, opts)

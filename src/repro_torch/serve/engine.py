@@ -71,24 +71,29 @@ the data axis cannot split) holds the rank's slots, and the decode
 softmax is combined over the slots' group.  The cells run inside their
 bucket's :meth:`Engine.cache_layout`.
 
-The MoE family (OLMoE-1B-7B, DeepSeek-V2 with MLA) serves on a ``model``
-axis with or without a plain data axis beside it (not under FSDP or 2D
-tensor parallelism): the experts split over ``model`` by whole experts
-or by their columns, as the rules give each leaf, one fp32 all-reduce
-per MoE layer, the dispatch groups of the data axis
-(``models/moe.py``); MLA's heads split over ``model`` and its latent
-cache along its sequence, the decode's softmax combined over the slots'
-group (``models/attention.py::mla_decode``).  So do the SSM, hybrid,
-VLM and encoder-decoder families: the Mamba2 block's heads, conv
+The MoE family (OLMoE-1B-7B, DeepSeek-V2 with MLA) serves on every
+layout: the experts split over ``model`` by whole experts or by their
+columns, as the rules give each leaf, one fp32 all-reduce per MoE layer,
+the dispatch groups of the data axis (``models/moe.py``); MLA's heads
+split over ``model`` and its latent cache along its sequence, the
+decode's softmax combined over the slots' group
+(``models/attention.py::mla_decode``).  Under FSDP each leaf's
+``embed`` piece is gathered over ``data`` before use; under 2D tensor
+parallelism the router's and the experts' partials over ``data`` are
+summed where they lie (the router's fp32 logits; ``w_gate`` / ``w_up``
+before SiLU), MLA's unpacked ``wkv_a`` piece is contracted where it
+lies, and the latent cache's rows lie on ``data`` while its slots lie on
+``model``.  The SSM, hybrid, VLM and encoder-decoder families serve on
+``model`` with or without a plain data axis: the Mamba2 block's heads, conv
 channels and state over ``model`` (``w_in`` and the conv cut by
 segments, ``models/mamba2.py::tp_segments``: a rank's ``w_in`` piece is
 its heads' ``z`` / ``x`` / ``dt`` and the whole ``B`` / ``C``, packed
 zero-padded to whole blocks), the hybrid's shared block by its heads,
 the VLM's image embeddings ahead of the tokens on every rank of a data
 line, the encoder-decoder's encoder and cross cache by their heads.
-Every family serves tensor-parallel; the engine raises for any family
-but the dense one under FSDP or 2D tensor parallelism and for sequence
-parallelism, each with a message of its own
+Every family serves tensor-parallel; the engine raises for the SSM,
+hybrid, VLM and encoder-decoder families under FSDP or 2D tensor
+parallelism and for sequence parallelism, each with a message of its own
 (``sharding/context.py::check_dense_mesh``).
 
 Every ladder demotion on the engine's paths (a planned kernel served by

@@ -26,9 +26,11 @@ sites, each answering only inside ``serving_ctx`` (training gathers its
 whole tree at step start): :func:`fsdp_split` (the rules put ``data`` on
 an ``embed`` dim), :func:`kblocks_split` (a packed weight's row blocks
 contracted where they lie, the partial outputs summed over
-:func:`dp_group`), :func:`dp_gather_cols` (an output's ``embed``
-columns gathered over ``data`` under 2D), :func:`dp_weight_cols` and
-:func:`dp_full` (an unpacked FSDP piece gathered before use).  A
+:func:`dp_group`), :func:`dp_slice` (an activation's K slice for an
+unpacked row piece contracted where it lies), :func:`dp_gather_cols`
+(an output's ``embed`` columns gathered over ``data`` under 2D),
+:func:`dp_weight`, :func:`dp_weight_cols` and :func:`dp_full` (an
+unpacked FSDP piece gathered before use).  A
 serving cell runs in its bucket's :class:`CacheLayout`
 (:func:`cache_layout`): the axis of the cache's rows, whether every
 rank computes the whole bucket over a piece of them, and the axis of
@@ -240,7 +242,6 @@ def tp_gather(x, axis: str, dim: int):
 # plain data axis) but not under FSDP or 2D tensor parallelism, and what
 # each would need there (its refusal's message)
 _TP_ONLY = {
-    "moe": "its experts take the TP axis alone",
     "ssm": "the Mamba2 block's segmented in-projection and its state "
            "under the data axis's weight pieces",
     "hybrid": "the Mamba stack's segmented in-projection and the shared "
@@ -249,6 +250,8 @@ _TP_ONLY = {
     "encdec": "the encoder, the cross cache and the biases under the data "
               "axis's weight pieces",
 }
+# the families that serve under every layout
+_EVERY_LAYOUT = {"dense", "moe"}
 
 
 def _ssm_split(cfg, mesh, opts: ShardingOptions, tp: int) -> bool:
@@ -282,8 +285,9 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one in training, a family other than the dense one under FSDP or 2D
-    tensor parallelism (each with its own message), sequence parallelism,
+    one in training, a family other than the dense and MoE ones under
+    FSDP or 2D tensor parallelism (each with its own message), sequence
+    parallelism,
     2D tensor parallelism outside serving, data or FSDP axes other than
     one data axis where FSDP or 2D tensor parallelism would use them, and
     heads the TP axis would split unevenly.  Returns which head dims the
@@ -300,12 +304,10 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
                                   f"family only, not {cfg.family!r}")
     if cfg.family in _TP_ONLY and (opts.fsdp or opts.serve_2d_tp):
         raise NotImplementedError(
-            f"{cfg.name}: {what} of the "
-            f"{'MoE' if cfg.family == 'moe' else repr(cfg.family)} family "
-            f"under FSDP or 2D tensor parallelism (fsdp={opts.fsdp}, serve_2d_tp="
-            f"{opts.serve_2d_tp}) is not ported: "
-            f"{_TP_ONLY[cfg.family]}")
-    if cfg.family != "dense" and cfg.family not in _TP_ONLY:
+            f"{cfg.name}: {what} of the {cfg.family!r} family under FSDP "
+            f"or 2D tensor parallelism (fsdp={opts.fsdp}, serve_2d_tp="
+            f"{opts.serve_2d_tp}) is not ported: {_TP_ONLY[cfg.family]}")
+    if cfg.family not in _EVERY_LAYOUT and cfg.family not in _TP_ONLY:
         raise ValueError(f"unknown model family {cfg.family!r}")
     if opts.sequence_parallel:
         raise NotImplementedError(
@@ -515,23 +517,45 @@ def dp_gather_cols(x, dim: int):
     return comm.all_gather(x, dp_group(), dim=-1)
 
 
+def dp_weight(w, full: int, dim: int):
+    """Under FSDP (not 2D tensor parallelism), an unpacked serving weight
+    whose dim ``dim`` is this rank's piece of an ``embed`` dim of full
+    size ``full`` (the MoE router's and shared experts' rows, an expert
+    stack's ``embed`` dim), gathered over the data group before use;
+    ``w`` itself otherwise."""
+    if serve_2d() or not fsdp_split(full):
+        return w
+    from repro_torch.sharding import comm
+    return comm.all_gather(w, dp_group(), dim=dim)
+
+
 def dp_weight_cols(w, dim: int):
     """Under FSDP (not 2D tensor parallelism), an unpacked serving weight
     whose columns are this rank's piece of an ``embed`` dim of full size
     ``dim`` (``wo``, ``w_down``), gathered over the data group before
     use; ``w`` itself otherwise (a packed piece is gathered in
     ``core/tsmm.py::tsmm_dot``)."""
-    if hasattr(w, "blocks") or serve_2d() or not fsdp_split(dim):
-        return w
-    from repro_torch.sharding import comm
-    return comm.all_gather(w, dp_group(), dim=-1)
+    return w if hasattr(w, "blocks") else dp_weight(w, dim, -1)
+
+
+def dp_slice(x, full: int):
+    """Under 2D tensor parallelism, this rank's K slice of an activation
+    whose last dim (an ``embed`` dim of full size ``full``) meets weight
+    pieces whose rows lie on the data axis: the rank contracts its slice
+    with its piece where the piece lies, and the partial products are
+    summed over the data group.  ``x`` itself otherwise."""
+    if not kblocks_split(full):
+        return x
+    w = full // dp_size()
+    return x[..., dp_rank() * w:(dp_rank() + 1) * w]
 
 
 def dp_full(t, dim: int):
     """An FSDP-split serving leaf (a norm's scale) whose last dim is this
     rank's piece of an ``embed`` dim of full size ``dim``, gathered over
-    the data group before use; ``t`` itself where it is whole."""
-    if not fsdp_split(dim):
+    the data group before use; ``t`` itself where it is whole (a piece
+    is always narrower than ``dim``: MLA's low-rank norms are whole)."""
+    if t.shape[-1] == dim or not fsdp_split(dim):
         return t
     from repro_torch.sharding import comm
     return comm.all_gather(t, dp_group(), dim=-1)

@@ -12,9 +12,10 @@
   per-rank problems: (bucket, K/2, N/2) under 2D tensor parallelism,
   (bucket/2, K, N/2) under FSDP.
 * ``sharding/context.py::check_dense_mesh`` still refuses sequence
-  parallelism, the families that do not serve on a mesh (all but the
-  dense and MoE ones; MoE under FSDP or 2D tensor parallelism, and in
-  training) and 2D tensor parallelism outside serving.
+  parallelism, the families that do not serve under FSDP or 2D tensor
+  parallelism (all but the dense and MoE ones), every family but the
+  dense one in training, and 2D tensor parallelism outside serving; it
+  serves the MoE family under FSDP and 2D tensor parallelism.
 """
 
 import json
@@ -226,9 +227,19 @@ class _FakeMesh:
     (ShardingOptions(), False, "olmoe_1b_7b"),
 ])
 def test_check_dense_mesh_refusals(opts, serving, arch):
+    """Each case refused, but the MoE family's serving under FSDP or 2D
+    tensor parallelism without sequence parallelism: served since it runs
+    there (tests/test_torch_tp2d_moe.py), returning the head split."""
+    cfg = get_reduced_config(arch)
+    if cfg.family == "moe" and serving and not opts.sequence_parallel:
+        wide = cfg.reduced(d_model=512, num_heads=4, num_kv_heads=4,
+                           head_dim=128)
+        split = check_dense_mesh(wide, _FakeMesh(), opts, "serving",
+                                 serving=True)
+        assert split["qheads"]
+        return
     with pytest.raises(NotImplementedError):
-        check_dense_mesh(get_reduced_config(arch), _FakeMesh(), opts,
-                         "serving", serving=serving)
+        check_dense_mesh(cfg, _FakeMesh(), opts, "serving", serving=serving)
 
 
 def test_check_dense_mesh_serves_2d_and_fsdp():

@@ -517,19 +517,28 @@ class _FakeMesh:
      "'vlm' family under FSDP or 2D tensor parallelism"),
     ("whisper_base", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
      "'encdec' family under FSDP or 2D tensor parallelism"),
-    ("olmoe_1b_7b", ShardingOptions(fsdp=True), True,
-     "MoE family under FSDP or 2D tensor parallelism"),
+    # served since the MoE family runs under FSDP and 2D tensor
+    # parallelism (tests/test_torch_tp2d_moe.py): no message
+    ("olmoe_1b_7b", ShardingOptions(fsdp=True), True, None),
     ("deepseek_v2_236b", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
-     "MoE family under FSDP or 2D tensor parallelism"),
+     None),
     ("olmoe_1b_7b", ShardingOptions(sequence_parallel="model"), True,
      "with sequence parallelism"),
     ("olmoe_1b_7b", ShardingOptions(), False, "dense family only"),
     ("deepseek_v2_236b", ShardingOptions(), False, "dense family only"),
 ])
 def test_the_refusals_kept(arch, opts, serving, message):
+    """Each refusal by its message; a case with no message is served, and
+    returns the head split (MLA's three head projections together)."""
+    cfg = get_reduced_config(arch)
+    if message is None:
+        split = check_dense_mesh(cfg.reduced(**WIDE[arch]), _FakeMesh(),
+                                 opts, "serving", serving=serving)
+        assert split["qheads"]
+        assert ("kvheads" in split) != cfg.use_mla
+        return
     with pytest.raises(NotImplementedError, match=message):
-        check_dense_mesh(get_reduced_config(arch), _FakeMesh(), opts,
-                         "serving", serving=serving)
+        check_dense_mesh(cfg, _FakeMesh(), opts, "serving", serving=serving)
 
 
 def test_the_moe_family_passes_the_serving_check():
