@@ -356,8 +356,39 @@ printing JSON lines:
                 captured with the k-split sums, the gathers and the TP
                 sums inside, every cell bit-equal to its eager run, a
                 graphed group equal to an eager one, the decode call's
-                collectives the contract.  ``python3 chip_smoke.py
-                --phase tp2d`` runs env, build and this phase alone;
+                collectives the contract.  In the same ranks, after the
+                MoE family's paths (``TP2D_MOE``), the SSM family and the
+                hybrid (``TP2D_SSM``, each after its own sweeps, at
+                published widths, bf16, seeded, each rank drawing every
+                leaf whole and keeping its piece): Mamba2-780m cut to 2
+                layers under 2D at buckets 1 and 4 x 256 (4 steps; at
+                bucket 4 the recurrent state's and the conv window's rows
+                on ``data``, each rank's conv, scan and state update on
+                its rows, the per-row output gathered) and under FSDP at
+                bucket 4 (2 steps), and Zamba2-2.7B cut to 6 layers (one
+                application of the shared block, flash at D 80 on 16
+                heads a rank) under 2D at buckets 1 and 2 x 512 (4 steps;
+                bucket 1's K/V slots on ``data`` and its state whole,
+                bucket 2's both with their rows on ``data``) and under
+                FSDP at bucket 2 (2 steps); each per-rank skinny piece
+                (``TP2D_SSM_LEAVES``: ``w_in`` by segments, zero-padded
+                to whole blocks, ``w_out``, the head, Zamba2's shared
+                projections over their [x, x0] rows) at the paths' decode
+                and prefill rows and each pack held against its plain
+                version, every skinny launch of the paths at a held key;
+                each decode call's collectives equal to
+                ``tp2d_ssm_contract``, no weight piece gathered in a 2D
+                decode call and 2D moving fewer bytes than FSDP, 0 misses,
+                a healthy engine, the rank's pieces only; rank 0 within
+                ``TP_LOGITS_TOL`` of a one-rank engine on the same weights
+                at every prefill position and the first decode step, and
+                the planted controls (``tp2d_ssm_planted``: the per-row
+                output gathered in the reverse data order, the shared
+                block fed ``[x, x]``, ``w_in``'s halves gathered in the
+                reverse order) outside it; Zamba2's grid under NCCL at
+                world size 1 (``tp2d.ssm.nccl``).  ``python3
+                chip_smoke.py --phase tp2d`` runs env, build and this
+                phase alone;
 26. train.dist — sharded training (``train/`` on a process mesh,
                 ``sharding/comm.py``'s collectives with gradients,
                 ``launch/specs.py``), which runs no hand-written kernel:
@@ -4603,20 +4634,27 @@ def tp_family_contract(cfg, rows: int, tp: int) -> dict:
     return out
 
 
-def tp_family_side(eng, cfg, b: int, spec: dict, batch=None) -> dict:
+def tp_family_side(eng, cfg, b: int, spec: dict, batch=None,
+                   group=None) -> dict:
     """One engine's side of the comparison at bucket ``b``, on the host:
     every position's prefill logits (the model's forward in the engine's
     cell context), then the group's first decode step (its input and
     logits) and, for the encoder-decoder, the cross cache that prefill
-    wrote (the first 4 heads: rank 0's)."""
+    wrote (the first 4 heads: rank 0's).  ``group``: (the whole group,
+    its first row) where ``batch`` is a data line's rows of a bucket the
+    data axis splits (FSDP): ``generate`` serves the whole group, and its
+    first step is read at the line's rows."""
     import torch
     from repro_torch.core.linear import serving_ctx
     batch = batch or tp_family_batch(cfg, b, spec["prompt"], eng.device)
     with torch.inference_mode(), serving_ctx(), eng.programs.context(b):
         logits = eng.model.forward(eng.params, batch)[0].cpu()
-    first = eng.generate(batch, 1)
-    out = {"logits": logits, "first_tokens": first.tokens[:, 0].cpu(),
-           "first_logits": first.logits_last.cpu()}
+    first = eng.generate(batch if group is None else group[0], 1)
+    r0 = 0 if group is None else group[1]
+    n = batch["tokens"].shape[0]
+    out = {"logits": logits,
+           "first_tokens": first.tokens[r0:r0 + n, 0].cpu(),
+           "first_logits": first.logits_last[r0:r0 + n].cpu()}
     if cfg.is_encoder_decoder:
         cache = eng.programs.static_cache(b, eng.max_len)
         heads = cfg.num_kv_heads // 2
@@ -5392,6 +5430,7 @@ def tp2d_shard_cases(leaves=None, buckets: tuple = TP2D_BUCKETS,
     from repro_torch.core.tsmm import prepack_for, tsmm_dot
     from repro_torch.kernels import cuda, ref
     from repro_torch.resilience import degrade, failpoints
+    from repro_torch.serve.engine import PAD_COLS
 
     timer = Timer()
     g = torch.Generator(device="cuda").manual_seed(29)
@@ -5481,7 +5520,7 @@ def tp2d_shard_cases(leaves=None, buckets: tuple = TP2D_BUCKETS,
 
     for leaf, (rows, cols, on_data, has_bias, act, *on_model) in (
             leaves or TP2D_LEAVES).items():
-        head = leaf == "head"
+        pad = leaf in PAD_COLS         # the head and an SSM w_in piece
         # the rank's 2D piece: (rows/2, cols/2), or (rows/2, cols) where
         # the leaf's columns are not on ``model`` (DeepSeek-V2's wq_a), or
         # (rows, cols/2) where no dim is on ``data`` (its wq_b, wkv_b)
@@ -5490,7 +5529,7 @@ def tp2d_shard_cases(leaves=None, buckets: tuple = TP2D_BUCKETS,
         w = (torch.randn((rows // kd, cols // tp), generator=g, device="cuda")
              / rows ** 0.5).to(bf)
         with Designs() as d:
-            pk = prepack_for(buckets, w, pad=head, num_shards=kd * tp)
+            pk = prepack_for(buckets, w, pad=pad, num_shards=kd * tp)
         if pk is None:
             raise AssertionError(f"{tag} {leaf}: the 2D piece stays "
                                  f"unpacked")
@@ -5514,7 +5553,7 @@ def tp2d_shard_cases(leaves=None, buckets: tuple = TP2D_BUCKETS,
                 / shape[0] ** 0.5).to(bf)
         halves = [t.contiguous() for t in full.chunk(2, dim=dim)]
         with Designs() as d:
-            pks = [prepack_for(fsdp_rows, t, pad=head, num_shards=tp,
+            pks = [prepack_for(fsdp_rows, t, pad=pad, num_shards=tp,
                                plan_shape=shape) for t in halves]
         out.append({**packed(leaf, "fsdp", halves[0], pks[0]),
                     "design": design_of(d.ran)})
@@ -5712,6 +5751,8 @@ def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
         _free(mesh.device.type)
         res["moe"] = {}
         tp2d_moe_worker(mesh, res["moe"])
+        res["ssm"] = {}
+        tp2d_ssm_worker(mesh, res["ssm"])
     finally:
         with open(os.path.join(out_dir, f"tp2d_rank{mesh.rank}.json"),
                   "w") as f:
@@ -5741,7 +5782,8 @@ def tp2d_logits_vs(pre, want, got_pre, got, *, every_row=False) -> dict:
 
 def tp2d_nccl(out_dir: str, name=None) -> dict:
     """The 2D engine at ``data=1,model=1`` under NCCL in this process
-    (``name``: None, qwen1.5-4b; or a ``TP2D_MOE`` path), whose grid holds
+    (``name``: None, qwen1.5-4b; or a ``TP2D_MOE`` or ``TP2D_SSM`` path),
+    whose grid holds
     its prompt's length bucket alone (the serve path of qwen captures
     every length bucket): its grid captured as CUDA graphs
     with the k-split sums, the gathers and the TP sums inside (group size
@@ -5770,14 +5812,16 @@ def tp2d_nccl(out_dir: str, name=None) -> dict:
                 TP2D_BUCKETS, TP2D_PROMPT, TP2D_PROMPT, TP2D_MAX_LEN)
             tokens = tp2d_tokens
         else:
-            spec = TP2D_MOE[name]
-            cfg = tp2d_moe_cfg(name)
+            moe = name in TP2D_MOE
+            spec = (TP2D_MOE if moe else TP2D_SSM)[name]
+            cfg = (tp2d_moe_cfg if moe else tp2d_ssm_cfg)(name)
             model = build_model(cfg)
             with init_pieces(mesh, cfg, opts):
                 params, axes = model.init(torch.Generator(device="cuda")
                                           .manual_seed(0))
             buckets, prompt = spec["modes"]["tp2d"]["buckets"], spec["prompt"]
-            min_prompt, max_len = prompt, tp2d_moe_max_len(spec)
+            min_prompt = prompt
+            max_len = (tp2d_moe_max_len if moe else tp2d_ssm_max_len)(spec)
 
             def tokens(cfg, b, device):
                 return tp_moe_tokens(cfg, b, prompt, device)
@@ -5801,7 +5845,8 @@ def tp2d_nccl(out_dir: str, name=None) -> dict:
         eager = eng.generate(group, 4)
         dec = [p for p in store.programs()
                if p.kind == "decode" and p.bucket == bucket]
-        contract = (tp2d_contract if name is None else tp2d_moe_contract)(
+        contract = (tp2d_contract if name is None else tp2d_moe_contract
+                    if name in TP2D_MOE else tp2d_ssm_contract)(
             cfg, "tp2d", bucket, eng.pack_report, 1, 1, 2)
         out = {"backend": mesh.backend, "graphed": st["graphed"],
                "cells": st["programs"], "captured": st["captured"],
@@ -6094,14 +6139,16 @@ def tp2d_moe_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
 
 def piece_gather_bytes(params, data: int) -> set:
     """The tensor bytes of a weight piece of ``params`` (two dims or more
-    a layer: packed blocks or unpacked) gathered over a data group of
-    ``data``: what an all-gather of that piece records."""
+    a layer: packed blocks or unpacked; a layer stack's leaf, the LM's
+    ``layers`` or the hybrid's ``mamba_layers``, read a layer at a time)
+    gathered over a data group of ``data``: what an all-gather of that
+    piece records."""
     out = set()
 
     def walk(t, stacked):
         if isinstance(t, dict):
             for k, v in t.items():
-                walk(v, stacked or k == "layers")
+                walk(v, stacked or k in ("layers", "mamba_layers"))
             return
         t = getattr(t, "blocks", t)
         if t.ndim - stacked >= 2:
@@ -6219,25 +6266,22 @@ def tp2d_moe_planted(eng, cfg, spec: dict, mode: str) -> dict:
     return out
 
 
-def tp2d_moe_serve(mesh, name: str, mode: str, res: dict) -> dict:
-    """One ``TP2D_MOE`` path in one mode on ``mesh``: load from the rank's
-    pieces, the groups (and the queue: the main path, counted), each
-    group's comparison side, the planted controls.  Fills ``res``;
-    returns {"sides": {bucket: side}, "planted": ...} (rank 0 compares
-    them with a one-rank engine after every path has run)."""
+def tp2d_load(mesh, cfg, mode: str, m: dict, prompt: int, max_len: int,
+              res: dict):
+    """A ``TP2D_MOE`` or ``TP2D_SSM`` path's engine in one mode on
+    ``mesh``, loaded from the rank's pieces of the seeded weights (each
+    leaf drawn whole and cut as it is drawn), with the registry's and the
+    launches' counts and the peak memory reset before; ``res["load"]``
+    its seconds, launches, designs and pack report.  Returns the
+    engine."""
     import torch
-    from repro_torch.analysis.collectives import collective_bytes, staged_ops
     from repro_torch.core import registry
     from repro_torch.kernels import cuda
-    from repro_torch.models.param import init_pieces, torch_dtype
+    from repro_torch.models.param import init_pieces
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine
-    from repro_torch.sharding import comm
     from repro_torch.sharding.rules import ShardingOptions
 
-    spec = TP2D_MOE[name]
-    m = spec["modes"][mode]
-    cfg = tp2d_moe_cfg(name)
     model = build_model(cfg)
     dev = mesh.device
     opts = ShardingOptions(**TP2D_MODES[mode])
@@ -6249,54 +6293,64 @@ def tp2d_moe_serve(mesh, name: str, mode: str, res: dict) -> dict:
     t0 = time.perf_counter()
     with init_pieces(mesh, cfg, opts):
         params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
-    eng = Engine(model, params, axes, mesh=mesh, opts=opts,
-                 max_len=tp2d_moe_max_len(spec), buckets=m["buckets"],
-                 max_prompt=spec["prompt"], device=dev.type)
+    eng = Engine(model, params, axes, mesh=mesh, opts=opts, max_len=max_len,
+                 buckets=m["buckets"], max_prompt=prompt, device=dev.type)
     del params
     _sync(dev)
-    lay = eng.params["layers"]
     res["load"] = {"seconds": time.perf_counter() - t0,
                    "launches": dict(cuda.launches),
                    "designs": dict(cuda.design_launches),
                    "packed": {k: list(v) for k, v in eng.pack_report.items()}}
-    res["pieces"] = {
-        **{k: list(lay["mlp"][k].shape) for k in ("router", "w_gate",
-                                                   "w_down")},
-        "heads": list(lay["attn"]["wq_b" if cfg.use_mla else "wq"].shape)}
-    if cfg.use_mla:
-        res["pieces"]["wkv_a"] = list(lay["attn"]["wkv_a"].shape)
-    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in m["buckets"]}
-    res["graphed"] = eng.programs.stats()["graphed"]
+    return eng
+
+
+def tp2d_main_path(eng, cfg, mode: str, m: dict, prompt: int, contract,
+                   res: dict, queue=None) -> None:
+    """A ``TP2D_MOE`` or ``TP2D_SSM`` path's main path on its loaded
+    engine, counts zeroed just before and read just after: each bucket's
+    group of ``prompt`` seeded tokens for the mode's steps (its decode
+    call's collectives beside ``contract``'s, the weight pieces it
+    gathered) and the ``queue``'s requests where given.  Fills ``res``
+    with the groups, the queue, the launches, their keys
+    (``launch_shapes``), designs, collectives, misses, health and peak
+    bytes."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.core import registry
+    from repro_torch.kernels import cuda
+    from repro_torch.models.param import torch_dtype
+    from repro_torch.sharding import comm
+
+    mesh, dev = eng.mesh, eng.device
     weights = piece_gather_bytes(eng.params, mesh.shape["data"])
-    # the main path: counts zeroed just before, read just after
     cuda.reset_launches()
     comm.reset()
     groups = {}
     res["queue"] = None
     with launch_shapes() as shapes:
         for b in m["buckets"]:
-            r = eng.generate(tp_moe_tokens(cfg, b, spec["prompt"], dev),
-                             m["steps"])
+            r = eng.generate(tp_moe_tokens(cfg, b, prompt, dev), m["steps"])
             prog = next(p for p in eng.programs.programs()
                         if p.kind == "decode" and p.bucket == b)
             groups[b] = {
                 "prefill_s": r.prefill_s, "per_token_s": r.per_token_s,
                 "buckets": list(r.buckets), "tokens0": r.tokens[0].tolist(),
                 "collectives": eng.collectives("decode", b),
-                "contract": tp2d_moe_contract(
+                "contract": contract(
                     cfg, mode, b, eng.pack_report, mesh.shape["data"],
                     mesh.shape["model"], torch_dtype(cfg.dtype).itemsize),
                 "weight_gathers": sum(
                     x["op"] == "all-gather" and x["bytes"] in weights
                     for x in prog.comm)}
-        if m["queue"]:
+        if queue:
             t0 = time.perf_counter()
-            results, stats = eng.serve_queue(tp_moe_queue(cfg, m["queue"]))
+            results, stats = eng.serve_queue(queue)
             _sync(dev)
             res["queue"] = {"seconds": time.perf_counter() - t0,
                             "admitted": stats.admitted, "steps": stats.steps,
                             "generated": stats.generated_tokens,
                             "tokens": [q.tokens.tolist() for q in results]}
+        _sync(dev)
     res["shapes"] = sorted(shapes)
     res["launches"] = dict(cuda.launches)
     res["designs"] = dict(cuda.design_launches)
@@ -6306,8 +6360,34 @@ def tp2d_moe_serve(mesh, name: str, mode: str, res: dict) -> dict:
     res["misses"] = registry.stats()["misses"]
     hr = eng.health_report()
     res["healthy"] = hr["healthy"] and not hr["failpoints"]
+    res["degradations"] = hr["degradations"]["total"]
     res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                          if dev.type == "cuda" else None)
+
+
+def tp2d_moe_serve(mesh, name: str, mode: str, res: dict) -> dict:
+    """One ``TP2D_MOE`` path in one mode on ``mesh``: load from the rank's
+    pieces, the groups (and the queue: the main path, counted), each
+    group's comparison side, the planted controls.  Fills ``res``;
+    returns {"sides": {bucket: side}, "planted": ...} (rank 0 compares
+    them with a one-rank engine after every path has run)."""
+    spec = TP2D_MOE[name]
+    m = spec["modes"][mode]
+    cfg = tp2d_moe_cfg(name)
+    dev = mesh.device
+    eng = tp2d_load(mesh, cfg, mode, m, spec["prompt"],
+                    tp2d_moe_max_len(spec), res)
+    lay = eng.params["layers"]
+    res["pieces"] = {
+        **{k: list(lay["mlp"][k].shape) for k in ("router", "w_gate",
+                                                   "w_down")},
+        "heads": list(lay["attn"]["wq_b" if cfg.use_mla else "wq"].shape)}
+    if cfg.use_mla:
+        res["pieces"]["wkv_a"] = list(lay["attn"]["wkv_a"].shape)
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in m["buckets"]}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    tp2d_main_path(eng, cfg, mode, m, spec["prompt"], tp2d_moe_contract,
+                   res, queue=m["queue"] and tp_moe_queue(cfg, m["queue"]))
     sides = {}
     for b in m["buckets"]:
         batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"])
@@ -6395,10 +6475,67 @@ def tp2d_moe_worker(mesh, res: dict) -> None:
         kept[name] = None
 
 
+def tp2d_path_checks(where: str, res: dict, mode: str, flash: bool) -> list:
+    """What one rank's results of a ``TP2D_MOE`` or ``TP2D_SSM`` path in
+    one mode (``where`` names them) break: misses, health, graphs or
+    staged ops on gloo, a skinny, pack, tall or flash launch off its
+    Hopper designs or no skinny launch, flash where the path runs none
+    (or none where it runs some), no pack at load, a decode call's
+    collectives off the contract, a weight piece gathered in a 2D decode
+    call or none in an FSDP one."""
+    bad = []
+    if res["misses"] or not res["healthy"]:
+        bad.append(f"{where}: {res['misses']} misses, healthy "
+                   f"{res['healthy']}")
+    if res["graphed"] is not False or res["staged"]:
+        bad.append(f"{where}: graphed {res['graphed']}, staged "
+                   f"{res['staged']}")
+    designs = res["designs"]
+    off = {x for x in designs if x.startswith("skinny_")
+           and x not in ("skinny_wgmma", "skinny_stream")}
+    off |= {x for x in designs if x.startswith("pack_")
+            and x not in ("pack_tma", "pack_vec")}
+    off |= {x for x in designs if x.startswith(("tall_", "flash_"))
+            and x not in ("tall_wgmma", "flash_wgmma")}
+    if off or not any(designs.get(x) for x in ("skinny_wgmma",
+                                               "skinny_stream")):
+        bad.append(f"{where}: designs {designs}")
+    if bool(res["launches"].get("flash_attention")) != flash:
+        bad.append(f"{where}: flash launches "
+                   f"{res['launches'].get('flash_attention', 0)}")
+    if not res["load"]["launches"].get("pack_blocks"):
+        bad.append(f"{where}: no pack at load")
+    for b, g in res["groups"].items():
+        if g["collectives"] != g["contract"]:
+            bad.append(f"{where} b={b}: collectives {g['collectives']} != "
+                       f"contract {g['contract']}")
+        if (g["weight_gathers"] > 0) != (mode == "fsdp"):
+            bad.append(f"{where} b={b}: {g['weight_gathers']} weight pieces "
+                       f"gathered in a decode call")
+    return bad
+
+
+def tp2d_bytes_checks(name: str, ranks: list, key: str) -> list:
+    """Each rank's 2D decode call moving fewer bytes than its FSDP one at
+    every bucket both modes of path ``name`` (under ``key`` of the
+    ranks' results) serve."""
+    from repro_torch.analysis.collectives import bytes_moved
+    bad = []
+    for rank in ranks:
+        two = rank[key][name]["tp2d"]["groups"]
+        fsdp = rank[key][name]["fsdp"]["groups"]
+        for b in set(two) & set(fsdp):
+            a, f = (bytes_moved(two[b]["collectives"]),
+                    bytes_moved(fsdp[b]["collectives"]))
+            if not 0 < a < f:
+                bad.append(f"{name} rank {rank['rank']} b={b}: 2D moves {a} "
+                           f"bytes, FSDP {f}")
+    return bad
+
+
 def tp2d_moe_checks(ranks: list) -> list:
     """What the four ranks' results break of the tp2d.moe paths'
     contract."""
-    from repro_torch.analysis.collectives import bytes_moved
     bad = []
     for name, spec in TP2D_MOE.items():
         cfg = tp2d_moe_cfg(name)
@@ -6410,9 +6547,7 @@ def tp2d_moe_checks(ranks: list) -> list:
             for rank in ranks:
                 rk, res = rank["rank"], rank["moe"][name][mode]
                 where = f"{name} {mode} rank {rk}"
-                if res["misses"] or not res["healthy"]:
-                    bad.append(f"{where}: {res['misses']} misses, healthy "
-                               f"{res['healthy']}")
+                bad += tp2d_path_checks(where, res, mode, spec["flash"])
                 pieces = {"router": [n_scan, d // 2, e // 2],
                           "w_gate": [n_scan, e // 2, d // 2, ff],
                           "w_down": [n_scan, e // 2, ff, d // 2],
@@ -6424,31 +6559,6 @@ def tp2d_moe_checks(ranks: list) -> list:
                                        cfg.kv_lora_rank + cfg.rope_head_dim]
                 if res["pieces"] != pieces:
                     bad.append(f"{where}: pieces {res['pieces']} != {pieces}")
-                if res["graphed"] is not False or res["staged"]:
-                    bad.append(f"{where}: graphed {res['graphed']}, staged "
-                               f"{res['staged']}")
-                designs = res["designs"]
-                off = {x for x in designs if x.startswith("skinny_")
-                       and x not in ("skinny_wgmma", "skinny_stream")}
-                off |= {x for x in designs if x.startswith("pack_")
-                        and x not in ("pack_tma", "pack_vec")}
-                if off or not any(designs.get(x) for x in ("skinny_wgmma",
-                                                           "skinny_stream")):
-                    bad.append(f"{where}: designs {designs}")
-                if bool(res["launches"].get("flash_attention")) != \
-                        spec["flash"]:
-                    bad.append(f"{where}: flash launches "
-                               f"{res['launches'].get('flash_attention', 0)}")
-                if not res["load"]["launches"].get("pack_blocks"):
-                    bad.append(f"{where}: no pack at load")
-                for b, g in res["groups"].items():
-                    if g["collectives"] != g["contract"]:
-                        bad.append(f"{where} b={b}: collectives "
-                                   f"{g['collectives']} != contract "
-                                   f"{g['contract']}")
-                    if (g["weight_gathers"] > 0) != (mode == "fsdp"):
-                        bad.append(f"{where} b={b}: {g['weight_gathers']} "
-                                   f"weight pieces gathered in a decode call")
                 if m["queue"] and res["queue"]["admitted"] != len(m["queue"]):
                     bad.append(f"{where}: queue {res['queue']}")
             if m["queue"] and any(
@@ -6480,15 +6590,415 @@ def tp2d_moe_checks(ranks: list) -> list:
                     bad.append(f"{name} {mode}: the planted {fault} passes a "
                                f"limit of the routing bound")
         if len(spec["modes"]) > 1:
+            bad += tp2d_bytes_checks(name, ranks, "moe")
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# tp2d.ssm: the SSM family and the hybrid under 2D tensor parallelism and
+# FSDP, in the tp2d phase's ranks
+# ---------------------------------------------------------------------------
+
+# Each at its published widths cut in depth, bf16, seeded, each rank
+# drawing every leaf whole on the card and keeping its piece under the
+# mode's rules (``init_pieces(mesh, cfg, opts)``: ``w_in``'s rows on
+# ``data`` and its columns on ``model`` by segments, ``w_out``'s and the
+# head's ``embed`` dims on ``data``): Mamba2-780m at 2 layers (48 SSM
+# heads, 24 a rank; its tied head) under 2D at buckets 1 (the state whole
+# on every rank) and 4 (the state's and the conv window's rows on
+# ``data``: each rank's conv, scan and state update on its rows, the
+# per-row output gathered), 4 decode steps, and under FSDP at bucket 4, 2
+# steps; Zamba2-2.7B at 6 layers (one application of the shared block: 16
+# heads of 80 a rank, flash; its [x, x0] input's rows on ``data``) under
+# 2D at buckets 1 (the K/V slots on ``data``, the state whole) and 2 (both
+# kinds of slab with their rows on ``data``), 4 steps, and under FSDP at
+# bucket 2, 2 steps.  ``faults``: the planted controls of each mode
+# (``tp2d_ssm_planted``).
+TP2D_SSM = {
+    "mamba2": dict(arch="mamba2_780m", cut={"num_layers": 2}, prompt=256,
+                   flash=False, modes={
+        "tp2d": dict(buckets=(1, 4), steps=4, faults=("state_rows",)),
+        "fsdp": dict(buckets=(4,), steps=2, faults=("fsdp_reverse",))}),
+    "zamba2": dict(arch="zamba2_2_7b", cut={"num_layers": 6}, prompt=512,
+                   flash=True, modes={
+        "tp2d": dict(buckets=(1, 2), steps=4,
+                     faults=("state_rows", "shared_x0")),
+        "fsdp": dict(buckets=(2,), steps=2, faults=("fsdp_reverse",))}),
+}
+# each path's per-rank pieces, (rows, cols, the dim FSDP puts on ``data``,
+# bias, epilogue) as ``TP2D_LEAVES``, a rank's 2D piece (rows/2, cols/2):
+# ``w_in``'s cols are twice its segmented piece's width (Mamba2 2 x 3352,
+# Zamba2 2 x 5288: the rank's heads' z / x / dt and the whole B / C),
+# packed zero-padded to whole blocks as the head is; ``w_out``'s rows on
+# ``model`` and its columns on ``data``; Zamba2's shared block over its
+# [x, x0] rows (wk and wv are wq's shape, w_up w_gate's)
+TP2D_SSM_LEAVES = {
+    "mamba2": {"w_in": (1536, 6704, "rows", False, None),
+               "w_out": (3072, 1536, "cols", False, None),
+               "head": (1536, 50280, "rows", False, None)},
+    "zamba2": {"w_in": (2560, 10576, "rows", False, None),
+               "w_out": (5120, 2560, "cols", False, None),
+               "wq": (5120, 2560, "rows", False, None),
+               "wo": (2560, 2560, "cols", False, None),
+               "w_gate": (5120, 10240, "rows", False, "silu"),
+               "w_down": (10240, 2560, "cols", False, None),
+               "head": (2560, 32000, "rows", False, None)},
+}
+
+
+def tp2d_ssm_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    spec = TP2D_SSM[name]
+    return dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
+
+
+def tp2d_ssm_max_len(spec: dict) -> int:
+    """The prompt, the most decode steps of a mode and 8 spare slots."""
+    steps = max(m["steps"] for m in spec["modes"].values())
+    return -(-(spec["prompt"] + steps + 8) // 8) * 8
+
+
+def _ssm_segment(cfg, model: int) -> int:
+    """The width of a rank's segmented ``w_in`` piece over ``model``."""
+    return (2 * cfg.d_inner // model + 2 * cfg.ssm_groups * cfg.ssm_state
+            + cfg.ssm_heads // model)
+
+
+def tp2d_ssm_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
+                      model: int, e: int = 2) -> dict:
+    """One decode call's collectives on a rank, from the shapes and the
+    rank's packed block shapes (``packed``: the engine's pack report),
+    bf16 activations (``e`` bytes), the gated norm's sums of squares in
+    fp32, as ``tp2d_moe_contract`` does for the MoE family.
+
+    Both modes: each norm's ``embed`` scale gathered over ``data`` (the
+    shared block's 2 d_model wide; at ``data=1`` nothing); the lookup
+    summed over ``model`` and its columns gathered over ``data``; per
+    Mamba2 layer the gated norm's (rows, 1) sums and ``w_out``'s partials
+    summed over ``model``; per application of the shared block ``wo``'s
+    and ``w_down``'s partials summed over ``model``, and where its K/V
+    slots lie on ``data`` its softmax partials gathered over it; the
+    logits gathered over ``model``.
+
+    2D: every rank computes the bucket; each k-split product (``w_in``,
+    the shared ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up``, the head)
+    summed over ``data``; ``w_out``'s, ``wo``'s and ``w_down``'s columns
+    gathered over ``data``; with the state's rows on ``data`` each Mamba2
+    layer's per-row ``y`` gathered over it, and the shared block's
+    attention output too.
+
+    FSDP: a data line computes its rows of a bucket it splits; the ids
+    gathered over ``data`` before the lookup; every packed piece gathered
+    over ``data`` before use."""
+    d, v, H = cfg.d_model, cfg.vocab_size, cfg.num_heads
+    two_d = mode == "tp2d"
+    split = data > 1 and bucket % data == 0
+    rows = bucket if two_d or not split else bucket // data
+    cols = data if two_d else 1                # the output's column pieces
+    ops = []                                   # (op, group size, bytes)
+
+    def ar(n, b):
+        ops.append(("all-reduce", n, b))
+
+    def ag(n, b):
+        ops.append(("all-gather", n, b))
+
+    def norm(b):
+        if data > 1:
+            ag(data, b)
+
+    def blocks(leaf):
+        n = 1
+        for s in packed[leaf][-4:]:
+            n *= s
+        return n * data * e
+
+    def packed_product(leaf, n_out):
+        """A packed piece whose rows lie on data (``n_out`` its columns):
+        2D a k-split's sum over data, FSDP its gather."""
+        if two_d:
+            ar(data, rows * n_out * e)
+        else:
+            ag(data, blocks(leaf))
+
+    def row_parallel(leaf):
+        """w_out, wo, w_down: rows on model, columns on data."""
+        if not two_d:
+            ag(data, blocks(leaf))
+        ar(model, rows * d // cols * e)
+        if two_d:
+            ag(data, rows * d * e)
+
+    if two_d:
+        ar(model, rows * d // data * e)
+        ag(data, rows * d * e)
+    else:
+        ag(data, data * rows * 4)                            # the ids
+        ar(model, rows * d * e)
+        ag(data, data * rows * d * e)
+    stack = "layers" if cfg.family == "ssm" else "mamba_layers"
+    for i in range(cfg.num_layers):
+        norm(d * e)                                          # ln1
+        packed_product(f"{stack}/mamba/w_in", _ssm_segment(cfg, model))
+        if two_d and split:
+            ag(data, rows * cfg.d_inner // model * e)        # the rows' y
+        ar(model, rows * 4)                                  # gated norm
+        row_parallel(f"{stack}/mamba/w_out")
+        if cfg.family != "hybrid" or (i + 1) % cfg.attn_every:
+            continue
+        q, kv = H * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        norm(2 * d * e)                                      # shared ln1
+        for w, n_out in (("wq", q), ("wk", kv), ("wv", kv)):
+            packed_product(f"shared/attn/{w}", n_out // model)
+        if data > 1 and not split:
+            ag(data, data * rows * H // model * (cfg.head_dim + 2) * 4)
+        elif two_d and split:
+            ag(data, rows * q // model * e)                  # attn output
+        row_parallel("shared/attn/wo")
+        norm(2 * d * e)                                      # shared ln2
+        for w in ("w_gate", "w_up"):
+            packed_product(f"shared/mlp/{w}", cfg.d_ff // model)
+        row_parallel("shared/mlp/w_down")
+    norm(d * e)                                              # final norm
+    packed_product("embed/head", v // model)
+    ag(model, rows * v * e)                                  # the logits
+    out = {}
+    for op, n, b in ops:
+        acc = out.setdefault(op, {"count": 0, "bytes_moved": 0.0,
+                                  "tensor_bytes": 0.0})
+        acc["count"] += 1
+        acc["bytes_moved"] += b * _ring(op, n)
+        acc["tensor_bytes"] += b
+    return out
+
+
+def tp2d_ssm_fault_buckets(fault: str, buckets: tuple, data: int) -> tuple:
+    """Where a control acts: ``state_rows`` at the buckets whose state
+    rows lie on ``data``, the others at every bucket of the mode."""
+    if fault == "state_rows":
+        return tuple(b for b in buckets if b % data == 0)
+    return buckets
+
+
+def tp2d_ssm_planted(eng, cfg, spec: dict, mode: str, data: int,
+                     model: int) -> dict:
+    """The controls of the logits bound of one mode (``faults``), each
+    planted alone on every rank alike, so the ranks stay in step: {fault:
+    {bucket: its side}} at each bucket where it acts
+    (``tp2d_ssm_fault_buckets``).  Raises unless each fault's site ran as
+    often as a side reaches it (the prefill forward, generate's prefill
+    and its one decode step).
+
+    * ``state_rows``: each Mamba2 layer's per-row ``y`` gathered in the
+      reverse data order (2D, where the state's rows lie on ``data``);
+    * ``shared_x0``: the shared block's input ``[x, x]`` in place of
+      ``[x, x0]``, so the data rank that contracts the ``x0`` half takes
+      ``x`` (2D);
+    * ``fsdp_reverse``: each ``w_in`` piece's data halves gathered in the
+      reverse order (FSDP)."""
+    import torch
+    from repro_torch.core import tsmm
+    from repro_torch.models import hybrid, mamba2
+    calls = [0]
+    seg = _ssm_segment(cfg, model)
+    apps = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+            else 0)
+
+    def reversed_rows(sound):
+        def gather(lay, t):
+            calls[0] += 1
+            return torch.cat(sound(lay, t).chunk(data, dim=0)[::-1])
+        return gather
+
+    def x_for_x0(sound):
+        def cat(x, x0):
+            calls[0] += 1
+            return sound(x, x)
+        return cat
+
+    def reversed_w_in(sound):
+        def gathered(b, split):
+            out, keep = sound(b, split)
+            if split == "rows" and b.orig_cols == seg:
+                calls[0] += 1
+                out = dataclasses.replace(out, blocks=torch.cat(
+                    out.blocks.chunk(data, dim=-4)[::-1], dim=-4))
+            return out, keep
+        return gathered
+
+    # (module, attribute, the fault, its calls a side)
+    sites = {"state_rows": (mamba2, "gather_rows", reversed_rows,
+                            3 * cfg.num_layers),
+             "shared_x0": (hybrid, "shared_in", x_for_x0, 3 * 2 * apps),
+             "fsdp_reverse": (tsmm, "_gathered", reversed_w_in,
+                              3 * cfg.num_layers)}
+    m = spec["modes"][mode]
+    out = {}
+    for fault in m["faults"]:
+        mod, attr, plant, per_side = sites[fault]
+        buckets = tp2d_ssm_fault_buckets(fault, m["buckets"], data)
+        sound = getattr(mod, attr)
+        calls[0] = 0
+        setattr(mod, attr, plant(sound))
+        try:
+            out[fault] = {}
+            for b in buckets:
+                batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"])
+                out[fault][b] = tp_family_side(eng, cfg, b, spec, batch,
+                                               group)
+        finally:
+            setattr(mod, attr, sound)
+        if not buckets or calls[0] != per_side * len(buckets):
+            raise AssertionError(f"tp2d.ssm {mode}: the planted {fault} ran "
+                                 f"{calls[0]} times, not "
+                                 f"{per_side * len(buckets)}")
+    return out
+
+
+def tp2d_ssm_serve(mesh, name: str, mode: str, res: dict) -> dict:
+    """One ``TP2D_SSM`` path in one mode on ``mesh``: load from the rank's
+    pieces, the groups (the main path, counted), each group's comparison
+    side, the planted controls.  Fills ``res``; returns {"sides": {bucket:
+    side}, "planted": ...} (rank 0 compares them with a one-rank engine
+    after every path has run)."""
+    spec = TP2D_SSM[name]
+    m = spec["modes"][mode]
+    cfg = tp2d_ssm_cfg(name)
+    dev = mesh.device
+    eng = tp2d_load(mesh, cfg, mode, m, spec["prompt"],
+                    tp2d_ssm_max_len(spec), res)
+    stack = "layers" if cfg.family == "ssm" else "mamba_layers"
+    p = eng.params
+    res["pieces"] = {"w_in": list(p[stack]["mamba"]["w_in"].shape),
+                     "w_out": list(p[stack]["mamba"]["w_out"].shape),
+                     "ln1": list(p[stack]["ln1"].shape),
+                     "tok": list(p["embed"]["tok"].shape)}
+    if cfg.family == "hybrid":
+        res["pieces"]["shared_wq"] = list(p["shared"]["attn"]["wq"].shape)
+        res["pieces"]["shared_ln1"] = list(p["shared"]["ln1"].shape)
+    res["cache"] = {b: {k: list(v.shape) for k, v in eng.programs.static_cache(
+        b, eng.max_len).items() if k in ("ssm", "conv", "k")}
+        for b in m["buckets"]}
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in m["buckets"]}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    tp2d_main_path(eng, cfg, mode, m, spec["prompt"], tp2d_ssm_contract,
+                   res)
+    sides = {}
+    for b in m["buckets"]:
+        batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"])
+        sides[b] = tp_family_side(eng, cfg, b, spec, batch, group)
+    planted = tp2d_ssm_planted(eng, cfg, spec, mode, mesh.shape["data"],
+                               mesh.shape["model"])
+    del eng, p
+    _free(dev.type)
+    return {"sides": sides, "planted": planted}
+
+
+def tp2d_ssm_compare(mesh, name: str, kept: dict) -> dict:
+    """Rank 0's sides of every mode of one path (``kept``: {mode:
+    ``tp2d_ssm_serve``'s return}) against a one-rank engine on the same
+    seeded weights, on the rows rank 0's side reads (the data line's under
+    FSDP), as ``tp_family_compare`` holds them: every prefill position's
+    logits, the first decode step's on the rows whose input agrees, and
+    each planted control's distance in bounds."""
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.programs import ProgramStore
+
+    spec = TP2D_SSM[name]
+    cfg = tp2d_ssm_cfg(name)
+    model = build_model(cfg)
+    dev = mesh.device
+    params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    rows = sorted({s["logits"].shape[0] for k in kept.values()
+                   for s in k["sides"].values()})
+    one = Engine(model, params, axes, max_len=tp2d_ssm_max_len(spec),
+                 buckets=tuple(rows), max_prompt=spec["prompt"],
+                 device=dev.type)
+    del params
+    one.programs = ProgramStore(model, device=dev, capture=False)
+    out, wants = {}, {}
+    for mode, k in kept.items():
+        out[mode] = {}
+        for b, got in k["sides"].items():
+            n = got["logits"].shape[0]
+            if (b, n) not in wants:
+                batch = {key: v[:n] for key, v in tp_moe_tokens(
+                    cfg, b, spec["prompt"], dev).items()}
+                wants[b, n] = tp_family_side(one, cfg, n, spec, batch)
+            out[mode][b] = {
+                **tp_family_compare(cfg, got, wants[b, n],
+                                    {f: p[b] for f, p in
+                                     k["planted"].items() if b in p}),
+                "rows_compared": n}
+    del one
+    _free(dev.type)
+    return out
+
+
+def tp2d_ssm_worker(mesh, res: dict) -> None:
+    """Every ``TP2D_SSM`` path in every mode on this rank, then on rank 0
+    the one-rank comparisons."""
+    for name, spec in TP2D_SSM.items():
+        res[name], kept = {}, {}
+        for mode in spec["modes"]:
+            res[name][mode] = {}
+            t0 = time.perf_counter()
+            out = tp2d_ssm_serve(mesh, name, mode, res[name][mode])
+            res[name][mode]["seconds"] = time.perf_counter() - t0
+            if mesh.rank == 0:
+                kept[mode] = out
+        if mesh.rank == 0:
+            t0 = time.perf_counter()
+            res[name]["compare"] = tp2d_ssm_compare(mesh, name, kept)
+            res[name]["compare_seconds"] = time.perf_counter() - t0
+        del kept
+
+
+def tp2d_ssm_checks(ranks: list) -> list:
+    """What the four ranks' results break of the tp2d.ssm paths'
+    contract."""
+    bad = []
+    for name, spec in TP2D_SSM.items():
+        cfg = tp2d_ssm_cfg(name)
+        d, di, n = cfg.d_model, cfg.d_inner, cfg.num_layers
+        gn = cfg.ssm_groups * cfg.ssm_state
+        for mode, m in spec["modes"].items():
             for rank in ranks:
-                two = rank["moe"][name]["tp2d"]["groups"]
-                fsdp = rank["moe"][name]["fsdp"]["groups"]
-                for b in set(two) & set(fsdp):
-                    a, f = (bytes_moved(two[b]["collectives"]),
-                            bytes_moved(fsdp[b]["collectives"]))
-                    if not 0 < a < f:
-                        bad.append(f"{name} rank {rank['rank']} b={b}: 2D "
-                                   f"moves {a} bytes, FSDP {f}")
+                rk, res = rank["rank"], rank["ssm"][name][mode]
+                where = f"{name} {mode} rank {rk}"
+                bad += tp2d_path_checks(where, res, mode, spec["flash"])
+                pieces = {"w_in": [n, d // 2, _ssm_segment(cfg, 2)],
+                          "w_out": [n, di // 2, d // 2],
+                          "ln1": [n, d // 2],
+                          "tok": [cfg.vocab_size // 2, d // 2]}
+                if cfg.family == "hybrid":
+                    pieces["shared_wq"] = [d, cfg.num_heads
+                                           * cfg.head_dim // 2]
+                    pieces["shared_ln1"] = [d]
+                if res["pieces"] != pieces:
+                    bad.append(f"{where}: pieces {res['pieces']} != {pieces}")
+                for b, c in res["cache"].items():
+                    rows = int(b) // 2 if int(b) % 2 == 0 else int(b)
+                    if c["conv"][-3:] != [rows, cfg.ssm_conv - 1,
+                                          di // 2 + 2 * gn]:
+                        bad.append(f"{where} b={b}: conv cache {c['conv']}")
+            cmp = ranks[0]["ssm"][name]["compare"][mode]
+            if not sum(c["decode_rows"] for c in cmp.values()):
+                bad.append(f"{name} {mode}: rank 0 compared no decode row")
+            for b, c in cmp.items():
+                if not c["within"]:
+                    bad.append(f"{name} {mode} b={b}: rank 0 vs the one-rank "
+                               f"engine {c}")
+            for fault in m["faults"]:
+                read = [c["planted"][fault] for c in cmp.values()
+                        if fault in c["planted"]]
+                least = min((p["bounds_outside"] for p in read), default=0.0)
+                if not least > 1.0:
+                    bad.append(f"{name} {mode}: the planted {fault} lands "
+                               f"{least} bounds outside at its least bucket")
+        bad += tp2d_bytes_checks(name, ranks, "ssm")
     return bad
 
 
@@ -6507,9 +7017,12 @@ def phase_tp2d():
     layers) lookup-only after their own sweeps, each against a one-rank
     engine routed alike with the first MoE layer's flips bounded, the
     planted controls, the contracts, no weight gathered in a 2D decode
-    call; then NCCL at world size 1 with the 2D cells captured (qwen's
-    and OLMoE's).  Returns each rank's launches on the main path and at
-    load, and the kernel cases."""
+    call; then the SSM family and the hybrid in the same ranks
+    (``TP2D_SSM``: Mamba2-780m and Zamba2-2.7B under both modes) against a
+    one-rank engine with their planted controls, the contracts, no weight
+    gathered in a 2D decode call; then NCCL at world size 1 with the 2D
+    cells captured (qwen's, OLMoE's and Zamba2's).  Returns each rank's
+    launches on the main path and at load, and the kernel cases."""
     import signal
 
     import torch
@@ -6539,6 +7052,16 @@ def phase_tp2d():
     registry.flush()
     emit({"phase": "tp2d.moe.install", "seconds": time.perf_counter() - t0,
           "plans": plans})
+    # the SSM paths' sweeps, as the MoE paths'
+    t0 = time.perf_counter()
+    plans = {f"{name}.{mode}": install.install_arch(
+        tp2d_ssm_cfg(name), m["buckets"], (spec["prompt"],), mesh=desc,
+        opts=ShardingOptions(**TP2D_MODES[mode]), device="cuda")
+        for name, spec in TP2D_SSM.items()
+        for mode, m in spec["modes"].items()}
+    registry.flush()
+    emit({"phase": "tp2d.ssm.install", "seconds": time.perf_counter() - t0,
+          "plans": plans})
     t0 = time.perf_counter()
     shard_cases = tp2d_shard_cases()
     emit({"phase": "tp2d.kernels.seconds",
@@ -6562,6 +7085,21 @@ def phase_tp2d():
         _free("cuda")
     emit({"phase": "tp2d.moe.kernels.seconds",
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ssm_cases = {}
+    fsdp_opts = ShardingOptions(**TP2D_MODES["fsdp"])
+    for name, spec in TP2D_SSM.items():
+        two, fsdp = spec["modes"]["tp2d"], spec["modes"]["fsdp"]
+        fsdp_rows = tuple(sorted({compute_rows(b, desc, fsdp_opts)
+                                  for b in fsdp["buckets"]}))
+        ssm_cases[name] = tp2d_shard_cases(
+            TP2D_SSM_LEAVES[name], two["buckets"],
+            path_rows(two["buckets"], spec["prompt"]), fsdp_rows,
+            path_rows(fsdp_rows, spec["prompt"]), phase="tp2d.ssm",
+            path=name)
+        _free("cuda")
+    emit({"phase": "tp2d.ssm.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
     _free("cuda")
     out_dir = tempfile.mkdtemp(prefix="tp2d-", dir=os.path.join(ROOT, "build"))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -6584,7 +7122,7 @@ def phase_tp2d():
     if proc.returncode != 0:
         raise AssertionError(f"tp2d: the ranks exited {proc.returncode}:\n"
                              f"{out[-3000:]}\n{err[-6000:]}")
-    bad = tp2d_checks(ranks) + tp2d_moe_checks(ranks)
+    bad = tp2d_checks(ranks) + tp2d_moe_checks(ranks) + tp2d_ssm_checks(ranks)
     # every skinny and pack launch of a main path at a (kernel, m, K, N)
     # (a pack's (M, K, bm, bk)) that a case held against its plain version
     for res in ranks:
@@ -6600,6 +7138,14 @@ def phase_tp2d():
                 if unheld:
                     bad.append(f"{name} {mode} rank {res['rank']}: launched "
                                f"at shapes tp2d.moe.kernels did not hold: "
+                               f"{unheld}")
+        for name, spec in TP2D_SSM.items():
+            for mode in spec["modes"]:
+                unheld = unheld_shapes(res["ssm"][name][mode]["shapes"],
+                                       ssm_cases[name])
+                if unheld:
+                    bad.append(f"{name} {mode} rank {res['rank']}: launched "
+                               f"at shapes tp2d.ssm.kernels did not hold: "
                                f"{unheld}")
     for res in ranks:
         for mode in TP2D_MODES:
@@ -6642,6 +7188,32 @@ def phase_tp2d():
                       r0["moe"][name][mode]["groups"].items()},
                   "peak_bytes": [r["moe"][name][mode]["peak_bytes"]
                                  for r in ranks]})
+    for name, spec in TP2D_SSM.items():
+        for mode in spec["modes"]:
+            for res in ranks:
+                m = res["ssm"][name][mode]
+                emit({"phase": "tp2d.ssm.rank", "path": name, "mode": mode,
+                      "rank": res["rank"], **{k: m[k] for k in (
+                          "seconds", "load", "pieces", "cache", "layouts",
+                          "graphed", "launches", "designs", "comm", "staged",
+                          "misses", "healthy", "degradations", "peak_bytes",
+                          "groups", "shapes")}})
+            emit({"phase": f"tp2d.ssm.{name}.{mode}", "nvidia_smi": smi,
+                  "logits_tol": TP_LOGITS_TOL,
+                  "faults": spec["modes"][mode]["faults"],
+                  "compare": r0["ssm"][name]["compare"][mode],
+                  "compare_seconds": r0["ssm"][name]["compare_seconds"],
+                  "decode_collectives": {
+                      b: g["collectives"] for b, g in
+                      r0["ssm"][name][mode]["groups"].items()},
+                  "decode_bytes_moved": {
+                      b: bytes_moved(g["collectives"]) for b, g in
+                      r0["ssm"][name][mode]["groups"].items()},
+                  "weights_gathered_a_decode_call": {
+                      b: g["weight_gathers"] for b, g in
+                      r0["ssm"][name][mode]["groups"].items()},
+                  "peak_bytes": [r["ssm"][name][mode]["peak_bytes"]
+                                 for r in ranks]})
     emit({"phase": "tp2d", "nvidia_smi": smi, "ranks": 4,
           "mesh": "data=2,model=2", "backend": r0.get("backend"),
           "note": "four ranks share one card over gloo (every collective "
@@ -6661,7 +7233,8 @@ def phase_tp2d():
           "workers_s": time.perf_counter() - t0})
     if bad:
         raise AssertionError("tp2d: " + "; ".join(bad))
-    for name, phase in ((None, "tp2d.nccl"), ("olmoe", "tp2d.moe.nccl")):
+    for name, phase in ((None, "tp2d.nccl"), ("olmoe", "tp2d.moe.nccl"),
+                        ("zamba2", "tp2d.ssm.nccl")):
         nccl = tp2d_nccl(out_dir, name)
         emit({"phase": phase, **nccl})
         if not (nccl["graphed"]
@@ -6685,8 +7258,16 @@ def phase_tp2d():
                 path = f"tp2d.moe.{name}.{mode}.rank{r['rank']}"
                 launches[path] = m["launches"]
                 load[f"{path}.load"] = m["load"]["launches"]
-    return launches, load, shard_cases + [c for cs in moe_cases.values()
-                                          for c in cs]
+    for name, spec in TP2D_SSM.items():
+        for mode in spec["modes"]:
+            for r in ranks:
+                m = r["ssm"][name][mode]
+                path = f"tp2d.ssm.{name}.{mode}.rank{r['rank']}"
+                launches[path] = m["launches"]
+                load[f"{path}.load"] = m["load"]["launches"]
+    return launches, load, shard_cases + [
+        c for cases in (*moe_cases.values(), *ssm_cases.values())
+        for c in cases]
 
 
 # ---------------------------------------------------------------------------

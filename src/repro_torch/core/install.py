@@ -125,7 +125,9 @@ def sharded_serving_shapes(cfg, mesh, opts=None, buckets=None,
     the data axis first, at the rank's compute rows.  Under
     ``ShardingOptions(fsdp=True, serve_2d_tp=True)`` on ``data=2,
     model=2`` a (K, N) leaf with rows on ``data`` gives (bucket, K/2,
-    N/2, 4); under ``fsdp=True`` alone (bucket/2, K, N/2, 2).  And the
+    N/2, 4); under ``fsdp=True`` alone (bucket/2, K, N/2, 2); an SSM
+    ``w_in`` the same with its segments' width for N/2 (Mamba2-780m's
+    (bucket, 768, 3352, 4) and (bucket/2, 1536, 3352, 2)).  And the
     piece of every weight too small to pack (LLaVA's reduced ``wk``) at
     the rank's compute rows, and with ``lengths`` at the rows its prefill
     cells run (:func:`rank_prefill_rows`), where TSMM-shaped: one shard,

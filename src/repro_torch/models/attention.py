@@ -25,8 +25,8 @@ from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
 from repro_torch.models.param import ParamTree
 from repro_torch.sharding.context import (axis_group, cache_layout,
                                           dp_gather_cols, dp_weight_cols,
-                                          get_ctx, shard_act, tp_copy,
-                                          tp_sum)
+                                          gather_rows, get_ctx, row_start,
+                                          shard_act, tp_copy, tp_sum)
 
 NEG_INF = -1e30
 
@@ -358,17 +358,8 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, slot_pos, cur_pos, slot, *,
                                window=cfg.sliding_window,
                                valid_from=valid_from)
     if gathered:
-        from repro_torch.sharding import comm
-        out = comm.all_gather(out, axis_group(lay.rows)[0], dim=0)
+        out = gather_rows(lay, out)
     return _out_proj(p, cfg, out.reshape(b, 1, q.shape[2] * cfg.head_dim))
-
-
-def row_start(lay, rows: int) -> int:
-    """The first row of the bucket whose cache this rank holds, where
-    every rank computes the whole bucket over a piece of the cache's rows
-    (``lay``, the cell's ``CacheLayout``, ``gathered``; ``rows`` the
-    piece's): its coordinate on the rows' axis times the piece."""
-    return axis_group(lay.rows)[1] * rows
 
 
 def cross_decode(p, cfg, x, cross_k, cross_v):
@@ -574,6 +565,5 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, cur_pos, slot, *,
         o_c = torch.einsum("bhs,bsc->bhc", torch.softmax(s, dim=-1), cf)
     o = torch.einsum("bhc,chv->bhv", o_c, w_uv).to(x.dtype)
     if gathered:
-        from repro_torch.sharding import comm
-        o = comm.all_gather(o, axis_group(lay.rows)[0], dim=0)
+        o = gather_rows(lay, o)
     return _mla_out(p, cfg, o.reshape(b, 1, h * dv))

@@ -30,7 +30,17 @@ heads, and the vocabulary is split as the LM's (the lookup summed, the
 logits gathered).  Where the cell's ``CacheLayout`` splits the K/V
 slabs' slots (a bucket a data axis cannot split), the prefill writes the
 rank's slots and the decode combines the softmax over their group
-(``models/attention.py::gqa_decode``).
+(``models/attention.py::gqa_decode``).  Under FSDP and 2D tensor
+parallelism the shared block's 2 d_model rows (``[x, x0]``, ``ln1`` /
+``ln2``) lie on the data axis as an ``embed`` dim: FSDP gathers each
+piece before use, 2D contracts each rank's half of ``[x, x0]`` where
+its piece lies (``core/tsmm.py::tsmm_dot``), and ``wo`` / ``w_down``
+give the rank its columns, gathered after the TP sum.  One cell layout
+serves both kinds of slab: the rules split the K/V and the Mamba state
+by the same batch dim, so at a bucket the data axis splits both have
+their rows on it (2D: every rank computes the bucket and writes its
+rows), and at one it cannot, the state is whole and only the K/V slots
+are split.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
 from repro_torch.models.lm import (head_logits, layer_params,
                                    mamba_decode_into, mamba_fwd, ssm_cache)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
-from repro_torch.sharding.context import cache_layout, tp_gather, tp_sum
+from repro_torch.sharding.context import (cache_layout, dp_gather_cols,
+                                          row_start, tp_gather, tp_sum)
 
 
 def _n_groups(cfg) -> int:
@@ -81,28 +92,38 @@ def init_hybrid(cfg, gen):
     return pt.build()
 
 
+def shared_in(x, x0):
+    """The shared block's input ``[x, x0]`` (2 d_model wide): under 2D
+    tensor parallelism the first data rank contracts its ``x`` half and
+    the second its ``x0`` half."""
+    return torch.cat([x, x0], dim=-1)
+
+
 def _shared_fwd(p, cfg, x, x0, *, pos_offset=0, chunk=512):
-    h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln1"], cfg.norm_eps)
+    h = rmsnorm(shared_in(x, x0), p["ln1"], cfg.norm_eps)
     a, kv = A.gqa_forward(p["attn"], cfg, h, pos_offset=pos_offset,
                           chunk=chunk)
     x = x + a
-    h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln2"], cfg.norm_eps)
+    h = rmsnorm(shared_in(x, x0), p["ln2"], cfg.norm_eps)
     return x + _shared_mlp(p, cfg, h), kv
 
 
 def _shared_mlp(p, cfg, h):
     """The shared block's SwiGLU MLP, ``w_down`` row-parallel over
     ``mlp``: its partial sums summed over the TP group where the hidden
-    width is split."""
-    return tp_sum(swiglu(p["mlp"], h), "mlp", cfg.d_ff)
+    width is split; its columns on the data axis as the LM's MLP (an
+    unpacked FSDP piece gathered before use, the rank's columns of the
+    output gathered after the sum under 2D)."""
+    h = tp_sum(swiglu(p["mlp"], h, d_model=cfg.d_model), "mlp", cfg.d_ff)
+    return dp_gather_cols(h, cfg.d_model)
 
 
 def _shared_decode(p, cfg, x, x0, ck, cv, slot_pos, pos, slot):
     """The shared block's one-token step; ``ck`` / ``cv`` (B, max_len, KH,
     D), this application's cache, are written in place at ``slot``."""
-    h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln1"], cfg.norm_eps)
+    h = rmsnorm(shared_in(x, x0), p["ln1"], cfg.norm_eps)
     x = x + A.gqa_decode(p["attn"], cfg, h, ck, cv, slot_pos, pos, slot)
-    h = rmsnorm(torch.cat([x, x0], dim=-1), p["ln2"], cfg.norm_eps)
+    h = rmsnorm(shared_in(x, x0), p["ln2"], cfg.norm_eps)
     return x + _shared_mlp(p, cfg, h)
 
 
@@ -171,13 +192,18 @@ def hybrid_prefill(params, cfg, batch, cache, *, chunk=512):
     logits, _, (states, kvs) = hybrid_forward(
         params, cfg, batch, collect_cache=True, chunk=chunk, gather=False)
     slabs = cache_slabs(cfg, cache)
+    # each Mamba layer's final state is of the rows the rank holds (the
+    # block's own, under a gathered layout: models/mamba2.py::state_rows);
+    # the shared block's K/V are of every row it computed
     for (ssm, conv), (h, tail) in zip(slabs, states):
         ssm.copy_(h)
         conv.copy_(tail)
     lay = cache_layout()
+    rows = cache["k"].shape[1]
+    r0 = row_start(lay, rows) if lay is not None and lay.gathered else 0
     for (ck, cv), (k, v) in zip(slabs[cfg.num_layers:], kvs):
-        A.write_prompt(ck, k, s, lay)
-        A.write_prompt(cv, v, s, lay)
+        A.write_prompt(ck, k[r0:r0 + rows], s, lay)
+        A.write_prompt(cv, v[r0:r0 + rows], s, lay)
     sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
                       device=cache["slot_pos"].device)
     cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))

@@ -46,8 +46,9 @@ from repro_torch.models.layers import (embed_tokens, init_embed, init_swiglu,
                                        remat, rmsnorm, swiglu, unembed)
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
 from repro_torch.sharding.context import (axis_group, cache_layout,
-                                          dp_gather_cols, shard_act,
-                                          tp_gather, tp_sum, whole_rows)
+                                          dp_gather_cols, row_start,
+                                          shard_act, tp_gather, tp_sum,
+                                          whole_rows)
 
 
 def _kind(cfg) -> str:
@@ -281,7 +282,9 @@ def lm_prefill(params, cfg, batch, cache, *, chunk: int = 512):
     # tensor-parallel mesh only the last position is gathered
     last = tp_gather(logits[:, -1:].clone(), "vocab", cfg.vocab_size)
     if _kind(cfg) == "ssm":
-        # the final state of each layer replaces the slab's
+        # the final state of each layer replaces the slab's: the state of
+        # the rows the rank holds (its own rows under a gathered layout,
+        # models/mamba2.py::state_rows)
         for slabs, state in zip(cache_slabs(cfg, cache), kvs):
             for slab, t in zip(slabs, state):
                 slab.copy_(t)
@@ -304,8 +307,7 @@ def _write_prompt(cfg, cache, kvs, pad, s: int, lay):
     dev = cache["slot_pos"].device
     rows = cache["valid_from"].shape[0]
     seq = lay.seq if lay is not None else None
-    r0 = (axis_group(lay.rows)[1] * rows
-          if lay is not None and lay.gathered else 0)
+    r0 = row_start(lay, rows) if lay is not None and lay.gathered else 0
     if pad is not None:
         cache["valid_from"].copy_(pad[r0:r0 + rows].to(torch.int32))
     else:

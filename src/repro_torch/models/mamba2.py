@@ -50,7 +50,10 @@ from torch.profiler import record_function
 from repro_torch.core.linear import linear
 from repro_torch.models.layers import rmsnorm, silu
 from repro_torch.models.param import ParamTree, torch_dtype
-from repro_torch.sharding.context import tp_split, tp_sum
+from repro_torch.sharding.context import (axis_group, cache_layout,
+                                          dp_gather_cols, dp_weight_cols,
+                                          gather_rows, row_start, tp_split,
+                                          tp_sum)
 
 CONV_RANGE, SCAN_RANGE, STATE_RANGE = "ssm_conv", "ssm_scan", "ssm_state"
 
@@ -236,18 +239,46 @@ def gated_norm(y, z, scale, cfg):
 
 def _out(p, cfg, y):
     """``w_out``, row-parallel over ``ssm_inner``: its partial sums summed
-    over the TP group where the channels are split."""
-    return tp_sum(linear(y, p["w_out"]), "ssm_inner", cfg.d_inner)
+    over the TP group where the channels are split.  Its columns lie on
+    the data axis under FSDP and 2D tensor parallelism: an unpacked FSDP
+    piece is gathered before use (a packed one in ``tsmm_dot``), and
+    under 2D the rank's columns of the output are gathered after the
+    sum."""
+    y = linear(y, dp_weight_cols(p["w_out"], cfg.d_model))
+    y = tp_sum(y, "ssm_inner", cfg.d_inner)
+    return dp_gather_cols(y, cfg.d_model)
+
+
+def state_rows(b: int) -> tuple:
+    """(the cell's layout, the first row, the row count) of the rows of a
+    computed bucket of ``b`` rows whose state this rank holds: under 2D
+    tensor parallelism every rank computes the whole bucket's
+    projections while the cache's rows lie on the data axis
+    (``CacheLayout.gathered``), so the conv, the scan and the state
+    update run on the rank's rows (``sharding/context.py::row_start``)
+    and their per-row output is gathered back (``gather_rows``);
+    otherwise (None, 0, ``b``)."""
+    lay = cache_layout()
+    if lay is None or not lay.gathered:
+        return None, 0, b
+    rows = b // axis_group(lay.rows)[2]
+    return lay, row_start(lay, rows), rows
 
 
 def mamba2_forward(p, cfg, x, *, h0=None, conv_init=None):
     """Full-sequence Mamba2 block.  x: (B,S,d).  Returns (out (B,S,d),
     (h_final (B,H,P,N) fp32, conv_tail (B, conv-1, C))) for the cache
-    handoff; ``h0`` / ``conv_init`` continue from a cached state."""
-    b, s, _ = x.shape
+    handoff; ``h0`` / ``conv_init`` continue from a cached state.  Under
+    a gathered cell layout (:func:`state_rows`) the conv and the scan run
+    on the rank's rows, the states returned are those rows', and ``y`` is
+    gathered over the rows' group before the gated norm."""
     di, h, p_, n, g = local_dims(p, cfg)
     proj = linear(x, p["w_in"])
     z, xbc_raw, dt = _split_in(p, cfg, proj)
+    lay, r0, b = state_rows(x.shape[0])
+    s = x.shape[1]
+    if lay is not None:
+        xbc_raw, dt = xbc_raw[r0:r0 + b], dt[r0:r0 + b]
     with record_function(CONV_RANGE):
         if conv_init is not None:   # continue from a cached conv tail
             full = torch.cat([conv_init.to(xbc_raw.dtype), xbc_raw], dim=1)
@@ -272,17 +303,25 @@ def mamba2_forward(p, cfg, x, *, h0=None, conv_init=None):
                                cmat.reshape(b, s, g, n), h0, cfg.ssm_chunk)
         y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
         y = y.reshape(b, s, di).to(x.dtype)
+    if lay is not None:
+        y = gather_rows(lay, y)
     return _out(p, cfg, gated_norm(y, z, p["norm"], cfg)), (hfin, tail)
 
 
 def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
     """One-token step.  x: (B,1,d); ssm_state (B,H,P,N) fp32; conv_cache
     (B, conv-1, C) raw (pre-activation) inputs.  Returns (out (B,1,d),
-    the new ssm_state, the new conv_cache); the inputs are not written."""
-    b = x.shape[0]
+    the new ssm_state, the new conv_cache); the inputs are not written.
+    Under a gathered cell layout (:func:`state_rows`) the state and the
+    conv window are the rank's rows of the bucket: the conv, the state
+    update and the readout run on those rows, and ``y`` is gathered over
+    the rows' group before the gated norm."""
     di, h, p_, n, g = local_dims(p, cfg)
     proj = linear(x[:, 0], p["w_in"])                       # (B, ...)
     z, xbc_new, dt = _split_in(p, cfg, proj)
+    lay, r0, b = state_rows(x.shape[0])
+    if lay is not None:
+        xbc_new, dt = xbc_new[r0:r0 + b], dt[r0:r0 + b]
     with record_function(CONV_RANGE):
         window = torch.cat([conv_cache, xbc_new[:, None].to(conv_cache.dtype)],
                            dim=1)                            # (B, conv, C)
@@ -303,6 +342,8 @@ def mamba2_decode(p, cfg, x, ssm_state, conv_cache):
         y = torch.einsum("bhpn,bhn->bhp", ssm_state, cvec)
         y = y + p["d_skip"].float()[None, :, None] * xh
         y = y.reshape(b, di).to(x.dtype)
+    if lay is not None:
+        y = gather_rows(lay, y)
     y = gated_norm(y, z, p["norm"], cfg)
     return _out(p, cfg, y[:, None]), ssm_state, window[:, 1:]
 

@@ -91,9 +91,18 @@ its heads' ``z`` / ``x`` / ``dt`` and the whole ``B`` / ``C``, packed
 zero-padded to whole blocks), the hybrid's shared block by its heads,
 the VLM's image embeddings ahead of the tokens on every rank of a data
 line, the encoder-decoder's encoder and cross cache by their heads.
-Every family serves tensor-parallel; the engine raises for the SSM,
-hybrid, VLM and encoder-decoder families under FSDP or 2D tensor
-parallelism and for sequence parallelism, each with a message of its own
+The SSM family and the hybrid serve on every layout: under FSDP and 2D
+tensor parallelism ``w_in``'s rows lie on ``data`` (contiguously) and
+its columns on ``model`` (by segments), ``w_out``'s and the tied head's
+``embed`` dims on ``data`` too, and the shared block's 2 ``d_model``
+rows; under 2D every rank computes the whole bucket's projections while
+the recurrent state's and the conv window's rows lie on ``data`` at a
+bucket the data axis splits, so the conv, the state update and the scan
+run on the rank's rows and their per-row output is gathered over
+``data`` before the gated norm (``models/mamba2.py::state_rows``).
+Every family serves tensor-parallel; the engine raises for the VLM and
+encoder-decoder families under FSDP or 2D tensor parallelism and for
+sequence parallelism, each with a message of its own
 (``sharding/context.py::check_dense_mesh``).
 
 Every ladder demotion on the engine's paths (a planned kernel served by
@@ -188,7 +197,8 @@ def shard_problem(axes_leaf, shape: tuple, buckets: tuple, mesh,
     over it first and the kernel runs the rank's compute rows
     (:func:`compute_rows`).  An SSM leaf cut by segments (``cfg``'s
     ``w_in``: ``models/mamba2.py::tp_segments``) multiplies the
-    segments' width.  Shared by the pre-pack and the install sweep
+    segments' width, over K / 2 rows under 2D tensor parallelism and the
+    gathered K under FSDP.  Shared by the pre-pack and the install sweep
     (``core/install.py::sharded_serving_shapes``), so their problem keys
     match."""
     spec = pspec_for(axes_leaf, tuple(shape), mesh, opts)
@@ -264,7 +274,10 @@ def tied_head(params, axes) -> tuple:
     """A tied model's head, the transpose of its token table, as a leaf
     ``embed/head`` (d_model, vocab) with its axes: ``unembed`` reads a
     ``head`` in place of ``tok.T``, so the packed copy the engine makes
-    of it serves every step; an untied tree is returned as it is."""
+    of it serves every step; an untied tree is returned as it is.  On a
+    rank the token table's piece (vocabulary on ``model``, ``embed`` on
+    ``data`` under FSDP) transposes into the head's piece under the
+    head's own spec (rows on ``data``, columns on ``model``)."""
     emb = params.get("embed", {})
     if "head" in emb or "tok" not in emb:
         return params, axes

@@ -242,16 +242,12 @@ def tp_gather(x, axis: str, dim: int):
 # plain data axis) but not under FSDP or 2D tensor parallelism, and what
 # each would need there (its refusal's message)
 _TP_ONLY = {
-    "ssm": "the Mamba2 block's segmented in-projection and its state "
-           "under the data axis's weight pieces",
-    "hybrid": "the Mamba stack's segmented in-projection and the shared "
-              "block's [x, x0] input under the data axis's weight pieces",
     "vlm": "the image embeddings under the data axis's embedding columns",
     "encdec": "the encoder, the cross cache and the biases under the data "
               "axis's weight pieces",
 }
 # the families that serve under every layout
-_EVERY_LAYOUT = {"dense", "moe"}
+_EVERY_LAYOUT = {"dense", "moe", "ssm", "hybrid"}
 
 
 def _ssm_split(cfg, mesh, opts: ShardingOptions, tp: int) -> bool:
@@ -285,8 +281,8 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one in training, a family other than the dense and MoE ones under
-    FSDP or 2D tensor parallelism (each with its own message), sequence
+    one in training, the VLM and encoder-decoder families under FSDP or
+    2D tensor parallelism (each with its own message), sequence
     parallelism,
     2D tensor parallelism outside serving, data or FSDP axes other than
     one data axis where FSDP or 2D tensor parallelism would use them, and
@@ -565,6 +561,24 @@ def cache_layout() -> Optional[CacheLayout]:
     """The ambient cell's cache layout (None: the cache is whole)."""
     ctx = _CTX.get()
     return None if ctx is None else ctx.layout
+
+
+def row_start(lay: CacheLayout, rows: int) -> int:
+    """The first row of the bucket whose cache this rank holds, where
+    every rank computes the whole bucket over a piece of the cache's rows
+    (``lay``, the cell's ``CacheLayout``, ``gathered``; ``rows`` the
+    piece's): its coordinate on the rows' axis times the piece.  With
+    :func:`gather_rows`, the one way a cell combines a row-split cache
+    with whole-bucket compute (the attention caches and the SSM state)."""
+    return axis_group(lay.rows)[1] * rows
+
+
+def gather_rows(lay: CacheLayout, t):
+    """A per-row result ``t`` (its leading dim the rank's rows of the
+    bucket, from :func:`row_start`) gathered over the rows' group into
+    the whole bucket, the pieces in the axis's coordinate order."""
+    from repro_torch.sharding import comm
+    return comm.all_gather(t, axis_group(lay.rows)[0], dim=0)
 
 
 def axis_group(axis: str):

@@ -13,9 +13,10 @@
   (bucket/2, K, N/2) under FSDP.
 * ``sharding/context.py::check_dense_mesh`` still refuses sequence
   parallelism, the families that do not serve under FSDP or 2D tensor
-  parallelism (all but the dense and MoE ones), every family but the
+  parallelism (the VLM and encoder-decoder ones), every family but the
   dense one in training, and 2D tensor parallelism outside serving; it
-  serves the MoE family under FSDP and 2D tensor parallelism.
+  serves the MoE, SSM and hybrid families under FSDP and 2D tensor
+  parallelism.
 """
 
 import json
@@ -199,6 +200,43 @@ def test_sharded_serving_shapes_follow_the_mode():
         cfg, mesh, ShardingOptions(fsdp=True))
 
 
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_2_7b"])
+def test_sharded_serving_shapes_of_the_ssm_family(arch):
+    """Mamba2-780m's and Zamba2-2.7B's per-rank problems at their published
+    widths on ``data=2,model=2``: the segmented ``w_in`` piece (its heads'
+    ``z`` / ``x`` / ``dt`` and the whole ``B`` / ``C``) over K / 2 rows
+    under 2D and the gathered K under FSDP; ``w_out``'s rows on ``model``
+    and columns on ``data``; the head (Mamba2's tied one), and the
+    hybrid's shared block over its 2 d_model rows."""
+    cfg = get_config(arch)
+    mesh = Mesh.of((2, 2), ("data", "model"))
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    seg = di + 2 * cfg.ssm_groups * cfg.ssm_state + h // 2
+    v = cfg.vocab_size
+    buckets = (1, 2, 4)
+    tp2d = sharded_serving_shapes(cfg, mesh, ShardingOptions(
+        fsdp=True, serve_2d_tp=True), buckets=buckets)
+    fsdp = sharded_serving_shapes(cfg, mesh, ShardingOptions(fsdp=True),
+                                  buckets=buckets)
+    for b in buckets:
+        assert (b, d // 2, seg, 4) in tp2d               # w_in
+        assert (b, di // 2, d // 2, 4) in tp2d           # w_out
+        assert (b, d // 2, v // 2, 4) in tp2d            # the head
+    for m in (1, 2):
+        assert (m, d, seg, 2) in fsdp                    # w_in gathered
+        assert (m, di // 2, d, 2) in fsdp                # w_out gathered
+        assert (m, d, v // 2, 2) in fsdp
+    if cfg.family == "hybrid":
+        q, ff = cfg.num_heads * cfg.head_dim, cfg.d_ff
+        for b in buckets:
+            assert (b, d, q // 2, 4) in tp2d             # [x, x0] rows
+            assert (b, d, ff // 2, 4) in tp2d
+            assert (b, ff // 2, d // 2, 4) in tp2d
+        assert (2, 2 * d, q // 2, 2) in fsdp
+    assert all(s == 4 for (_, _, _, s) in tp2d)
+    assert all(s == 2 for (_, _, _, s) in fsdp)
+
+
 class _FakeMesh:
     """A process mesh's surface for ``check_dense_mesh``."""
     shape = {"data": 2, "model": 2}
@@ -225,18 +263,34 @@ class _FakeMesh:
     (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "deepseek_v2_236b"),
     (ShardingOptions(sequence_parallel="model"), True, "olmoe_1b_7b"),
     (ShardingOptions(), False, "olmoe_1b_7b"),
+    (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "zamba2_2_7b"),
+    (ShardingOptions(fsdp=True), True, "llava_next_mistral_7b"),
+    (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "whisper_base"),
+    (ShardingOptions(fsdp=True), True, "whisper_base"),
 ])
 def test_check_dense_mesh_refusals(opts, serving, arch):
-    """Each case refused, but the MoE family's serving under FSDP or 2D
-    tensor parallelism without sequence parallelism: served since it runs
-    there (tests/test_torch_tp2d_moe.py), returning the head split."""
+    """Each case refused, but the MoE, SSM and hybrid families' serving
+    under FSDP or 2D tensor parallelism without sequence parallelism:
+    served since they run there (tests/test_torch_tp2d_moe.py,
+    tests/test_torch_tp2d_ssm.py), returning the head split (the Mamba2
+    heads' among it)."""
     cfg = get_reduced_config(arch)
-    if cfg.family == "moe" and serving and not opts.sequence_parallel:
-        wide = cfg.reduced(d_model=512, num_heads=4, num_kv_heads=4,
+    if (cfg.family in ("moe", "ssm", "hybrid") and serving
+            and not opts.sequence_parallel):
+        wide = cfg.reduced(d_model=512, num_heads=4 if cfg.num_heads else 0,
+                           num_kv_heads=4 if cfg.num_heads else 0,
                            head_dim=128)
         split = check_dense_mesh(wide, _FakeMesh(), opts, "serving",
                                  serving=True)
-        assert split["qheads"]
+        assert split["qheads"] == bool(cfg.num_heads)
+        assert split.get("ssm_heads", False) == bool(cfg.ssm_state)
+        return
+    if cfg.family in ("vlm", "encdec") and serving:
+        with pytest.raises(NotImplementedError, match={
+                "vlm": "image embeddings",
+                "encdec": "cross cache"}[cfg.family]):
+            check_dense_mesh(cfg, _FakeMesh(), opts, "serving",
+                             serving=serving)
         return
     with pytest.raises(NotImplementedError):
         check_dense_mesh(cfg, _FakeMesh(), opts, "serving", serving=serving)

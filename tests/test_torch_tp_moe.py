@@ -498,6 +498,14 @@ def test_moe_tp_engine_matches_the_reference(ref_env, tmp_path, spec):
                         assert got_keep.all()
 
 
+# the SSM family and the hybrid widened as tests/test_torch_tp_ssm.py
+# widens them
+SSM_WIDE = {"mamba2_780m": dict(d_model=512, num_heads=0, num_kv_heads=0,
+                                d_ff=0),
+            "zamba2_2_7b": dict(d_model=512, num_heads=4, num_kv_heads=4,
+                                head_dim=128, d_ff=1024)}
+
+
 class _FakeMesh:
     """A process mesh's surface for ``check_dense_mesh``."""
     shape = {"data": 2, "model": 2}
@@ -509,10 +517,11 @@ class _FakeMesh:
 
 
 @pytest.mark.parametrize("arch,opts,serving,message", [
-    ("mamba2_780m", ShardingOptions(fsdp=True), True,
-     "'ssm' family under FSDP or 2D tensor parallelism"),
+    # served since the SSM and hybrid families run under FSDP and 2D
+    # tensor parallelism (tests/test_torch_tp2d_ssm.py): no message
+    ("mamba2_780m", ShardingOptions(fsdp=True), True, None),
     ("zamba2_2_7b", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
-     "'hybrid' family under FSDP or 2D tensor parallelism"),
+     None),
     ("llava_next_mistral_7b", ShardingOptions(fsdp=True), True,
      "'vlm' family under FSDP or 2D tensor parallelism"),
     ("whisper_base", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
@@ -529,13 +538,16 @@ class _FakeMesh:
 ])
 def test_the_refusals_kept(arch, opts, serving, message):
     """Each refusal by its message; a case with no message is served, and
-    returns the head split (MLA's three head projections together)."""
+    returns the head split (MLA's three head projections together; the
+    Mamba2 heads where the model has them)."""
     cfg = get_reduced_config(arch)
     if message is None:
-        split = check_dense_mesh(cfg.reduced(**WIDE[arch]), _FakeMesh(),
-                                 opts, "serving", serving=serving)
-        assert split["qheads"]
+        split = check_dense_mesh(cfg.reduced(**{**SSM_WIDE, **WIDE}[arch]),
+                                 _FakeMesh(), opts, "serving",
+                                 serving=serving)
+        assert split["qheads"] == bool(cfg.num_heads)
         assert ("kvheads" in split) != cfg.use_mla
+        assert split.get("ssm_heads", False) == bool(cfg.ssm_state)
         return
     with pytest.raises(NotImplementedError, match=message):
         check_dense_mesh(cfg, _FakeMesh(), opts, "serving", serving=serving)
