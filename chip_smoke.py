@@ -386,7 +386,34 @@ printing JSON lines:
                 output gathered in the reverse data order, the shared
                 block fed ``[x, x]``, ``w_in``'s halves gathered in the
                 reverse order) outside it; Zamba2's grid under NCCL at
-                world size 1 (``tp2d.ssm.nccl``).  ``python3
+                world size 1 (``tp2d.ssm.nccl``).  Then the VLM and
+                encoder-decoder families in the same ranks
+                (``TP2D_FAMILIES``, after their own sweeps, at published
+                widths, bf16, the norms and GELU biases seeded away from
+                their init): the LLaVA-NeXT backbone cut to 2 layers
+                (2880 seeded image embeddings ahead of 192 tokens, flash
+                at D 128) and whisper-base whole (1500 seeded frames,
+                flash at D 64 on the decoder's 256 tokens), each under 2D
+                at buckets 1 and 2 (4 steps; whisper's cross cache whole
+                at bucket 1, its rows on ``data`` at bucket 2) and under
+                FSDP at bucket 2 (2 steps); each per-rank skinny piece
+                (``TP2D_FAMILY_LEAVES``) at the paths' decode and prefill
+                rows (LLaVA's bucket x 3072 positions, whisper's bucket x
+                1500 frames and x 256 tokens) and each pack held against
+                its plain version, every skinny launch of the paths at a
+                held key; each decode call's collectives equal to
+                ``tp2d_contract``, no weight piece gathered in a 2D
+                decode call and 2D moving fewer bytes than FSDP, 0
+                misses, a healthy engine, the rank's pieces only; rank 0
+                within ``TP_LOGITS_TOL`` of a one-rank engine on the same
+                weights at every prefill position, the first decode step
+                and whisper's cross cache, and the planted controls
+                (``tp2d_family_planted``: the image embeddings zeroed on
+                rank 1, the cross cache's first rows read by every data
+                rank, ``w_in``'s bias and GELU applied before the data
+                sum, the MLP in-projections' halves gathered in the
+                reverse order) outside it; whisper's grid under NCCL at
+                world size 1 (``tp2d.family.nccl``).  ``python3
                 chip_smoke.py --phase tp2d`` runs env, build and this
                 phase alone;
 26. train.dist — sharded training (``train/`` on a process mesh,
@@ -492,7 +519,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4500,20 +4529,23 @@ def tp_moe_checks(ranks: list) -> list:
 # layers (48 SSM heads, 24 a rank; no flash), 4 x 256; Zamba2-2.7B at 6
 # layers (one group: 6 Mamba layers and one application of the shared
 # block, 16 of its 32 heads a rank, flash at D 80), 2 x 512; the LLaVA-NeXT
-# backbone at 2 layers (2880 seeded image embeddings ahead of 192 tokens:
+# backbone at 1 layer (2880 seeded image embeddings ahead of 192 tokens:
 # flash at D 128 over 3072 positions, 16 of 32 query and 4 of 8 KV heads a
-# rank), 1 x 3072; whisper-base whole (6 + 6 layers, 1500 seeded frames, 4
-# of 8 heads a rank, flash at D 64 over the decoder's 256-token prompt; its
-# odd vocabulary whole on every rank), 4 x 256
+# rank), 1 x 3072; whisper-base at 3 + 3 layers (1500 seeded frames, 4 of 8
+# heads a rank, flash at D 64 over the decoder's 256-token prompt; its odd
+# vocabulary whole on every rank), 4 x 256.  (The LLaVA and whisper paths
+# were cut from 2 layers and from 6 + 6 to pay for the ``tp2d`` phase's
+# ``TP2D_FAMILIES``, which serve both models deeper on a superset mesh.)
 TP_FAMILIES = {
     "mamba2": dict(arch="mamba2_780m", cut={"num_layers": 4},
                    buckets=(4,), prompt=256, steps=8, flash=False),
     "zamba2": dict(arch="zamba2_2_7b", cut={"num_layers": 6},
                    buckets=(2,), prompt=512, steps=4, flash=True),
-    "llava": dict(arch="llava_next_mistral_7b", cut={"num_layers": 2},
+    "llava": dict(arch="llava_next_mistral_7b", cut={"num_layers": 1},
                   buckets=(1,), prompt=192, steps=4, flash=True),
-    "whisper": dict(arch="whisper_base", cut={}, buckets=(4,), prompt=256,
-                    steps=8, flash=True),
+    "whisper": dict(arch="whisper_base",
+                    cut={"num_layers": 3, "encoder_layers": 3}, buckets=(4,),
+                    prompt=256, steps=8, flash=True),
 }
 # each path's per-shard skinny-A leaves at model=2, (K, N, bias, epilogue,
 # stacked layers; 0: one copy): Mamba2's segmented w_in piece (its heads'
@@ -4531,11 +4563,11 @@ TP_FAMILY_LEAVES = {
                "w_out": (1536, 1536, False, None, 4)},
     "zamba2": {"w_in": (2560, 5288, False, None, 6),
                "wq": (5120, 1280, False, None, 0)},
-    "llava": {"wq": (4096, 2048, False, None, 2)},
-    "whisper": {"wq": (512, 256, False, None, 6),
-                "wo": (256, 512, False, None, 6),
-                "w_in": (512, 1024, True, "gelu", 6),
-                "w_out": (1024, 512, True, None, 6)},
+    "llava": {"wq": (4096, 2048, False, None, 1)},
+    "whisper": {"wq": (512, 256, False, None, 3),
+                "wo": (256, 512, False, None, 3),
+                "w_in": (512, 1024, True, "gelu", 3),
+                "w_out": (1024, 512, True, None, 3)},
 }
 TP_FAMILY_M = {"mamba2": (4, 1024), "zamba2": (2, 1024),
                "llava": (1, 3072), "whisper": (4, 1024, 6000)}
@@ -5299,34 +5331,42 @@ def _ring(op: str, n: int) -> float:
 
 
 def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
-                  model: int, itemsize: int) -> dict:
-    """One decode call's collectives on a rank, from the shapes and the
-    rank's packed block shapes (``packed``: the engine's pack report), as
-    ``(op, group, tensor bytes)`` summed into the reference's accounting.
+                  model: int, e: int = 2) -> dict:
+    """One decode call's collectives on a rank of the dense LM, the VLM's
+    or the encoder-decoder's decoder, from the shapes and the rank's
+    packed block shapes (``packed``: the engine's pack report),
+    activations of ``e`` bytes, as ``(op, group, tensor bytes)`` summed
+    into the reference's accounting.
 
-    Both modes: each norm's scale gathered over ``data`` (2 a layer and
-    the final one; at ``data=1`` it is whole, and nothing), the looked-up embedding's columns gathered over
-    ``data`` after the lookup's sum over ``model``, the logits gathered
-    over ``model``; where the data axis cannot split the bucket (and has
-    more than one rank) the cache's sequence lies on ``data``, and each
-    layer's attention gathers its fp32 (max, sum, weighted V) over it.
-    2D: every rank computes the bucket; a sum over ``data`` of each
-    k-split product (wq, wk, wv, w_gate, w_up, the head); wo and w_down
-    summed over ``model``, their columns gathered over ``data``; with the
-    cache's rows on ``data`` the attention output gathered over it.
-    FSDP: a data line computes its rows (all of a bucket it cannot
-    split); the ids gathered over ``data`` before the lookup; every packed
-    weight gathered over ``data`` before its product; wo and w_down summed
-    over ``model``."""
-    d, q = cfg.d_model, cfg.num_heads * cfg.head_dim
-    kv, f, v, L = (cfg.num_kv_heads * cfg.head_dim, cfg.d_ff,
-                   cfg.vocab_size, cfg.num_layers)
-    e = itemsize
+    Both modes: each norm's ``embed`` scale gathered over ``data``, and a
+    LayerNorm's bias beside it (at ``data=1`` both whole, and nothing);
+    where the rules split the vocabulary over ``model`` (LLaVA's, not
+    whisper-base's odd one at ``model=2``) the lookup summed over
+    ``model`` and the logits gathered over it; the lookup's columns
+    gathered over ``data``; per attention ``wo``'s partials and per MLP
+    ``w_down``'s or ``w_out``'s summed over ``model``; where the
+    self-attention slots lie on ``data`` (a bucket it cannot split) the
+    softmax partials gathered over it.
+
+    2D: every rank computes the bucket; each k-split product (``wq`` /
+    ``wk`` / ``wv``, the cross-attention's ``wq``, ``w_gate`` / ``w_up``,
+    whisper's ``w_in``, the head) summed over ``data``; ``wo``'s,
+    ``w_down``'s and ``w_out``'s columns gathered over ``data``; with the
+    caches' rows on ``data`` the self- and the cross-attention outputs
+    gathered over it.
+
+    FSDP: a data line computes its rows of a bucket it splits; the ids
+    gathered over ``data`` before the lookup; every packed piece gathered
+    over ``data`` before use, and whisper's ``b_out`` piece."""
+    d, v, H, hd = cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.head_dim
+    q, kv, ff = H * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    two_d = mode == "tp2d"
     split = data > 1 and bucket % data == 0
     seq = data > 1 and not split
-    rows = bucket // data if mode == "fsdp" and split else bucket
-    partials = (data * rows * (cfg.num_heads // model)
-                * (cfg.head_dim + 2) * 4)
+    rows = bucket if two_d or not split else bucket // data
+    cols = data if two_d else 1                # the output's column pieces
+    vocab = v % model == 0
+    encdec = cfg.is_encoder_decoder
     ops = []                                   # (op, group size, bytes)
 
     def ar(n, b):
@@ -5335,55 +5375,76 @@ def tp2d_contract(cfg, mode: str, bucket: int, packed: dict, data: int,
     def ag(n, b):
         ops.append(("all-gather", n, b))
 
-    def norm(b):
+    def norm():
         if data > 1:
-            ag(data, b)
+            ag(data, d * e)
+            if encdec:
+                ag(data, d * e)                              # the bias
 
-    if mode == "tp2d":
-        ar(model, rows * d // data * e)
+    def blocks(leaf):
+        n = 1
+        for s in packed[leaf][-4:]:
+            n *= s
+        return n * data * e
+
+    def product(leaf, n_out):
+        """A piece whose rows lie on data (``n_out`` its columns): 2D a
+        k-split's sum over data, FSDP its gather (of the packed blocks,
+        or of an unpacked (d / data, n_out) piece: a reduced width's)."""
+        if two_d:
+            ar(data, rows * n_out * e)
+        else:
+            ag(data, blocks(leaf) if leaf in packed else d * n_out * e)
+
+    def row_parallel(leaf, bias=False):
+        """wo, w_down, w_out: rows on model, columns on data."""
+        if not two_d:
+            ag(data, blocks(leaf))
+            if bias and data > 1:
+                ag(data, d * e)                              # b_out
+        ar(model, rows * d // cols * e)
+        if two_d:
+            ag(data, rows * d * e)
+
+    def attention(prefix):
+        for w, n in (("wq", q), ("wk", kv), ("wv", kv)):
+            product(f"{prefix}/{w}", n // model)
+        if seq:
+            ag(data, data * rows * H // model * (hd + 2) * 4)
+        elif two_d and split:
+            ag(data, rows * q // model * e)                  # attn output
+        row_parallel(f"{prefix}/wo")
+
+    if two_d:
+        if vocab:
+            ar(model, rows * d // data * e)
         ag(data, rows * d * e)
-        for _ in range(L):
-            norm(d * e)                                      # ln1
-            for w in (q, kv, kv):
-                ar(data, rows * w // model * e)              # wq, wk, wv
-            if seq:
-                ag(data, partials)
-            elif split:
-                ag(data, rows * q // model * e)              # attn output
-            ar(model, rows * d // data * e)                  # wo
-            ag(data, rows * d * e)
-            norm(d * e)                                      # ln2
-            ar(data, rows * f // model * e)                  # w_gate
-            ar(data, rows * f // model * e)                  # w_up
-            ar(model, rows * d // data * e)                  # w_down
-            ag(data, rows * d * e)
-        norm(d * e)                                          # final norm
-        ar(data, rows * v // model * e)                      # the head
-        ag(model, rows * v * e)                              # the logits
     else:
-        def blocks(leaf):
-            n = 1
-            for s in packed[leaf][-4:]:
-                n *= s
-            return n * data * e
         ag(data, data * rows * 4)                            # the ids
-        ar(model, data * rows * d // data * e)
+        if vocab:
+            ar(model, rows * d * e)
         ag(data, data * rows * d * e)
-        for _ in range(L):
-            norm(d * e)                                      # ln1
-            for w in ("wq", "wk", "wv"):
-                ag(data, blocks("layers/attn/" + w))
-            if seq:
-                ag(data, partials)
-            ag(data, blocks("layers/attn/wo"))
-            ar(model, rows * d * e)
-            norm(d * e)                                      # ln2
-            for w in ("w_gate", "w_up", "w_down"):
-                ag(data, blocks("layers/mlp/" + w))
-            ar(model, rows * d * e)
-        norm(d * e)                                          # final norm
-        ag(data, blocks("embed/head"))
-        ag(model, rows * v * e)
+    stack = "dec_layers" if encdec else "layers"
+    for _ in range(cfg.num_layers):
+        norm()
+        attention(f"{stack}/self_attn" if encdec else f"{stack}/attn")
+        norm()
+        if encdec:
+            product(f"{stack}/cross_attn/wq", q // model)
+            if two_d and split:
+                ag(data, rows * q // model * e)              # the rows' out
+            row_parallel(f"{stack}/cross_attn/wo")
+            norm()
+            product(f"{stack}/mlp/w_in", ff // model)
+            row_parallel(f"{stack}/mlp/w_out", bias=True)
+        else:
+            for w in ("w_gate", "w_up"):
+                product(f"{stack}/mlp/{w}", ff // model)
+            row_parallel(f"{stack}/mlp/w_down")
+    norm()                                                   # final norm
+    product("embed/head", v // model if vocab else v)
+    if vocab:
+        ag(model, rows * v * e)                              # the logits
     out = {}
     for op, n, b in ops:
         acc = out.setdefault(op, {"count": 0, "bytes_moved": 0.0,
@@ -5698,8 +5759,10 @@ def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
     """One rank of the tp2d phase (``torch.distributed.run``): four ranks
     on the one card as ``data=2,model=2``, over gloo.  Rank 0 then holds
     each mode's first decode steps against a one-rank engine on the same
-    weights.  Then the MoE family's paths (``TP2D_MOE``,
-    ``tp2d_moe_worker``)."""
+    weights.  Then the MoE family's paths (``TP2D_MOE``), the SSM
+    family's and the hybrid's (``TP2D_SSM``), and the VLM's and the
+    encoder-decoder's (``TP2D_FAMILIES``), rank 0 keeping each path's
+    sides for the phase's process to compare (``tp2d_paths_worker``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import build_model
@@ -5749,10 +5812,12 @@ def tp2d_worker(out_dir: str, device: str = "cuda") -> None:
         res["compare"] = cmp
         del params
         _free(mesh.device.type)
-        res["moe"] = {}
-        tp2d_moe_worker(mesh, res["moe"])
-        res["ssm"] = {}
-        tp2d_ssm_worker(mesh, res["ssm"])
+        for key, paths, serve in (("moe", TP2D_MOE, tp2d_moe_serve),
+                                  ("ssm", TP2D_SSM, tp2d_ssm_serve),
+                                  ("family", TP2D_FAMILIES,
+                                   tp2d_family_serve)):
+            res[key] = {}
+            tp2d_paths_worker(mesh, res[key], paths, serve, key, out_dir)
     finally:
         with open(os.path.join(out_dir, f"tp2d_rank{mesh.rank}.json"),
                   "w") as f:
@@ -5782,7 +5847,8 @@ def tp2d_logits_vs(pre, want, got_pre, got, *, every_row=False) -> dict:
 
 def tp2d_nccl(out_dir: str, name=None) -> dict:
     """The 2D engine at ``data=1,model=1`` under NCCL in this process
-    (``name``: None, qwen1.5-4b; or a ``TP2D_MOE`` or ``TP2D_SSM`` path),
+    (``name``: None, qwen1.5-4b; or a ``TP2D_MOE``, ``TP2D_SSM`` or
+    ``TP2D_FAMILIES`` path),
     whose grid holds
     its prompt's length bucket alone (the serve path of qwen captures
     every length bucket): its grid captured as CUDA graphs
@@ -5811,6 +5877,20 @@ def tp2d_nccl(out_dir: str, name=None) -> dict:
             buckets, prompt, min_prompt, max_len = (
                 TP2D_BUCKETS, TP2D_PROMPT, TP2D_PROMPT, TP2D_MAX_LEN)
             tokens = tp2d_tokens
+        elif name in TP2D_FAMILIES:
+            spec = TP2D_FAMILIES[name]
+            cfg = tp2d_family_cfg(name)
+            model = build_model(cfg)
+            with init_pieces(mesh, cfg, opts):
+                params, axes = model.init(torch.Generator(device="cuda")
+                                          .manual_seed(0))
+            params = tp2d_family_seeded(cfg)(params, axes, mesh, opts)
+            buckets, prompt = spec["modes"]["tp2d"]["buckets"], spec["prompt"]
+            min_prompt = prompt
+            max_len = tp2d_family_max_len(cfg, spec)
+
+            def tokens(cfg, b, device):
+                return tp2d_family_batch(cfg, b, prompt, device)
         else:
             moe = name in TP2D_MOE
             spec = (TP2D_MOE if moe else TP2D_SSM)[name]
@@ -5845,8 +5925,9 @@ def tp2d_nccl(out_dir: str, name=None) -> dict:
         eager = eng.generate(group, 4)
         dec = [p for p in store.programs()
                if p.kind == "decode" and p.bucket == bucket]
-        contract = (tp2d_contract if name is None else tp2d_moe_contract
-                    if name in TP2D_MOE else tp2d_ssm_contract)(
+        contract = (tp2d_contract if name is None or name in TP2D_FAMILIES
+                    else tp2d_moe_contract if name in TP2D_MOE
+                    else tp2d_ssm_contract)(
             cfg, "tp2d", bucket, eng.pack_report, 1, 1, 2)
         out = {"backend": mesh.backend, "graphed": st["graphed"],
                "cells": st["programs"], "captured": st["captured"],
@@ -6142,13 +6223,15 @@ def piece_gather_bytes(params, data: int) -> set:
     a layer: packed blocks or unpacked; a layer stack's leaf, the LM's
     ``layers`` or the hybrid's ``mamba_layers``, read a layer at a time)
     gathered over a data group of ``data``: what an all-gather of that
-    piece records."""
+    piece records.  The encoder-decoder's ``enc_layers`` / ``dec_layers``
+    are stacks too."""
     out = set()
 
     def walk(t, stacked):
         if isinstance(t, dict):
             for k, v in t.items():
-                walk(v, stacked or k in ("layers", "mamba_layers"))
+                walk(v, stacked or k in ("layers", "mamba_layers",
+                                         "enc_layers", "dec_layers"))
             return
         t = getattr(t, "blocks", t)
         if t.ndim - stacked >= 2:
@@ -6182,11 +6265,13 @@ def tp2d_moe_side(eng, cfg, batch, b: int, *, group=None,
             "first_logits": first.logits_last[r0:r0 + n].cpu()}
 
 
-def tp2d_moe_rows(eng, cfg, b: int, prompt: int) -> tuple:
+def tp2d_moe_rows(eng, cfg, b: int, prompt: int,
+                  batch_of=None) -> tuple:
     """(the rows a rank's side reads, the ``group`` argument of
-    ``tp2d_moe_side``) of bucket ``b``'s group on ``eng``: the data
-    line's rows under FSDP where the bucket splits, else the group."""
-    batch = tp_moe_tokens(cfg, b, prompt, eng.device)
+    ``tp2d_moe_side``) of bucket ``b``'s group on ``eng`` (``batch_of(cfg,
+    b, prompt, device)``, default ``tp_moe_tokens``): the data line's rows
+    under FSDP where the bucket splits, else the group."""
+    batch = (batch_of or tp_moe_tokens)(cfg, b, prompt, eng.device)
     n, r0, data = eng.rows_of(b)
     if data is None:
         return batch, None
@@ -6267,13 +6352,14 @@ def tp2d_moe_planted(eng, cfg, spec: dict, mode: str) -> dict:
 
 
 def tp2d_load(mesh, cfg, mode: str, m: dict, prompt: int, max_len: int,
-              res: dict):
-    """A ``TP2D_MOE`` or ``TP2D_SSM`` path's engine in one mode on
-    ``mesh``, loaded from the rank's pieces of the seeded weights (each
-    leaf drawn whole and cut as it is drawn), with the registry's and the
-    launches' counts and the peak memory reset before; ``res["load"]``
-    its seconds, launches, designs and pack report.  Returns the
-    engine."""
+              res: dict, seeded=None):
+    """A ``TP2D_MOE``, ``TP2D_SSM`` or ``TP2D_FAMILIES`` path's engine in
+    one mode on ``mesh``, loaded from the rank's pieces of the seeded
+    weights (each leaf drawn whole and cut as it is drawn; ``seeded(params,
+    axes, mesh, opts)`` then redraws some of them, ``tp2d_family_seeded``),
+    with the registry's and the launches' counts and the peak memory reset
+    before; ``res["load"]`` its seconds, launches, designs and pack report.
+    Returns the engine."""
     import torch
     from repro_torch.core import registry
     from repro_torch.kernels import cuda
@@ -6293,6 +6379,8 @@ def tp2d_load(mesh, cfg, mode: str, m: dict, prompt: int, max_len: int,
     t0 = time.perf_counter()
     with init_pieces(mesh, cfg, opts):
         params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    if seeded is not None:
+        params = seeded(params, axes, mesh, opts)
     eng = Engine(model, params, axes, mesh=mesh, opts=opts, max_len=max_len,
                  buckets=m["buckets"], max_prompt=prompt, device=dev.type)
     del params
@@ -6305,10 +6393,13 @@ def tp2d_load(mesh, cfg, mode: str, m: dict, prompt: int, max_len: int,
 
 
 def tp2d_main_path(eng, cfg, mode: str, m: dict, prompt: int, contract,
-                   res: dict, queue=None) -> None:
-    """A ``TP2D_MOE`` or ``TP2D_SSM`` path's main path on its loaded
-    engine, counts zeroed just before and read just after: each bucket's
-    group of ``prompt`` seeded tokens for the mode's steps (its decode
+                   res: dict, queue=None, batch_of=None) -> None:
+    """A ``TP2D_MOE``, ``TP2D_SSM`` or ``TP2D_FAMILIES`` path's main path
+    on its loaded engine, counts zeroed just before and read just after:
+    each bucket's group of ``prompt`` seeded tokens (``batch_of(cfg, b,
+    prompt, device)``, default ``tp_moe_tokens``: with a VLM's image
+    embeddings or an encoder-decoder's frames: ``tp2d_family_batch``) for
+    the mode's steps (its decode
     call's collectives beside ``contract``'s, the weight pieces it
     gathered) and the ``queue``'s requests where given.  Fills ``res``
     with the groups, the queue, the launches, their keys
@@ -6329,7 +6420,8 @@ def tp2d_main_path(eng, cfg, mode: str, m: dict, prompt: int, contract,
     res["queue"] = None
     with launch_shapes() as shapes:
         for b in m["buckets"]:
-            r = eng.generate(tp_moe_tokens(cfg, b, prompt, dev), m["steps"])
+            r = eng.generate((batch_of or tp_moe_tokens)(cfg, b, prompt, dev),
+                             m["steps"])
             prog = next(p for p in eng.programs.programs()
                         if p.kind == "decode" and p.bucket == b)
             groups[b] = {
@@ -6454,25 +6546,70 @@ def tp2d_moe_compare(mesh, name: str, kept: dict) -> dict:
     return out
 
 
-def tp2d_moe_worker(mesh, res: dict) -> None:
-    """Every ``TP2D_MOE`` path in every mode on this rank, then on rank 0
-    the one-rank comparisons (the other ranks are done by then)."""
-    kept = {}
-    for name, spec in TP2D_MOE.items():
-        res[name], kept[name] = {}, {}
+def tp2d_keep(out_dir: str, key: str, name: str, kept: dict) -> None:
+    """Rank 0's sides of every mode of one path (``kept``: {mode: its
+    serve's return}) written for the phase's process, which compares them
+    with a one-rank engine while the ranks serve the next paths
+    (``tp2d_compares``): to a temporary file, then renamed."""
+    import torch
+    path = os.path.join(out_dir, f"kept.{key}.{name}.pt")
+    torch.save(kept, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def tp2d_paths_worker(mesh, res: dict, paths: dict, serve, key: str,
+                      out_dir: str) -> None:
+    """Every path of ``paths`` (``TP2D_MOE``, ``TP2D_SSM`` or
+    ``TP2D_FAMILIES``, under ``key`` of the ranks' results) in every mode
+    on this rank (``serve(mesh, name, mode, res)``); rank 0 keeps each
+    path's sides for the phase's one-rank comparisons (``tp2d_keep``)."""
+    for name, spec in paths.items():
+        res[name], kept = {}, {}
         for mode in spec["modes"]:
             res[name][mode] = {}
             t0 = time.perf_counter()
-            out = tp2d_moe_serve(mesh, name, mode, res[name][mode])
+            out = serve(mesh, name, mode, res[name][mode])
             res[name][mode]["seconds"] = time.perf_counter() - t0
             if mesh.rank == 0:
-                kept[name][mode] = out
-    for name in TP2D_MOE:
+                kept[mode] = out
         if mesh.rank == 0:
-            t0 = time.perf_counter()
-            res[name]["compare"] = tp2d_moe_compare(mesh, name, kept[name])
-            res[name]["compare_seconds"] = time.perf_counter() - t0
-        kept[name] = None
+            tp2d_keep(out_dir, key, name, kept)
+        del kept
+
+
+# the paths whose rank-0 sides the phase's process compares, in the order
+# the ranks serve them: (key of the ranks' results, paths, comparison)
+TP2D_COMPARED = (("moe", "TP2D_MOE", "tp2d_moe_compare"),
+                 ("ssm", "TP2D_SSM", "tp2d_ssm_compare"),
+                 ("family", "TP2D_FAMILIES", "tp2d_family_compare"))
+
+
+def tp2d_compares(out_dir: str, proc, host, done: dict) -> None:
+    """In the tp2d phase's process, while the ranks (``proc``) serve: each
+    ``TP2D_COMPARED`` path's rank-0 sides, as ``tp2d_keep`` writes them,
+    against a one-rank engine on ``host`` (its ``device`` and the mesh's
+    ``shape``); ``done[(key, name)]`` = (the comparison, its seconds), or
+    ``done["error"]`` the failure.  Stops when the ranks end without a
+    path's sides (their exit code tells why)."""
+    import traceback
+
+    import torch
+    try:
+        for key, paths, fn in TP2D_COMPARED:
+            for name in globals()[paths]:
+                path = os.path.join(out_dir, f"kept.{key}.{name}.pt")
+                while not os.path.exists(path):
+                    if proc.poll() is not None and not os.path.exists(path):
+                        return
+                    time.sleep(0.5)
+                kept = torch.load(path, weights_only=False)
+                os.remove(path)
+                t0 = time.perf_counter()
+                out = globals()[fn](host, name, kept)
+                done[key, name] = (out, time.perf_counter() - t0)
+                del kept
+    except BaseException:
+        done["error"] = traceback.format_exc()
 
 
 def tp2d_path_checks(where: str, res: dict, mode: str, flash: bool) -> list:
@@ -6894,41 +7031,52 @@ def tp2d_ssm_serve(mesh, name: str, mode: str, res: dict) -> dict:
     return {"sides": sides, "planted": planted}
 
 
-def tp2d_ssm_compare(mesh, name: str, kept: dict) -> dict:
-    """Rank 0's sides of every mode of one path (``kept``: {mode:
-    ``tp2d_ssm_serve``'s return}) against a one-rank engine on the same
-    seeded weights, on the rows rank 0's side reads (the data line's under
-    FSDP), as ``tp_family_compare`` holds them: every prefill position's
-    logits, the first decode step's on the rows whose input agrees, and
-    each planted control's distance in bounds."""
+def tp2d_side_compare(mesh, cfg, spec: dict, max_len: int, kept: dict,
+                      batch_of, seeded=None) -> dict:
+    """Rank 0's sides of every mode of one ``TP2D_SSM`` or
+    ``TP2D_FAMILIES`` path (``kept``: {mode: its serve's return}) against
+    a one-rank engine on the same seeded weights (``seeded``: the
+    redrawing ``tp2d_load`` applied), on the rows rank 0's side reads (the
+    data line's under FSDP) of ``batch_of``'s groups, as
+    ``tp_family_compare`` holds them: every prefill position's logits,
+    the first decode step's on the rows whose input agrees, an
+    encoder-decoder's cross cache on rank 0's rows and heads, and each
+    planted control's distance in bounds."""
     import torch
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.programs import ProgramStore
 
-    spec = TP2D_SSM[name]
-    cfg = tp2d_ssm_cfg(name)
     model = build_model(cfg)
     dev = mesh.device
     params, axes = model.init(torch.Generator(device=dev).manual_seed(0))
+    if seeded is not None:
+        params = seeded(params, axes)
     rows = sorted({s["logits"].shape[0] for k in kept.values()
                    for s in k["sides"].values()})
-    one = Engine(model, params, axes, max_len=tp2d_ssm_max_len(spec),
-                 buckets=tuple(rows), max_prompt=spec["prompt"],
-                 device=dev.type)
+    one = Engine(model, params, axes, max_len=max_len, buckets=tuple(rows),
+                 max_prompt=spec["prompt"], device=dev.type)
     del params
     one.programs = ProgramStore(model, device=dev, capture=False)
+
+    def mine(side, want):
+        """The one-rank side cut to rank 0's rows of the cross cache
+        (under 2D the bucket's first rows where they lie on ``data``)."""
+        if "cross" not in side:
+            return want
+        return {**want, "cross": want["cross"][:, :side["cross"].shape[1]]}
+
     out, wants = {}, {}
     for mode, k in kept.items():
         out[mode] = {}
         for b, got in k["sides"].items():
             n = got["logits"].shape[0]
             if (b, n) not in wants:
-                batch = {key: v[:n] for key, v in tp_moe_tokens(
+                batch = {key: v[:n] for key, v in batch_of(
                     cfg, b, spec["prompt"], dev).items()}
                 wants[b, n] = tp_family_side(one, cfg, n, spec, batch)
             out[mode][b] = {
-                **tp_family_compare(cfg, got, wants[b, n],
+                **tp_family_compare(cfg, got, mine(got, wants[b, n]),
                                     {f: p[b] for f, p in
                                      k["planted"].items() if b in p}),
                 "rows_compared": n}
@@ -6937,23 +7085,34 @@ def tp2d_ssm_compare(mesh, name: str, kept: dict) -> dict:
     return out
 
 
-def tp2d_ssm_worker(mesh, res: dict) -> None:
-    """Every ``TP2D_SSM`` path in every mode on this rank, then on rank 0
-    the one-rank comparisons."""
-    for name, spec in TP2D_SSM.items():
-        res[name], kept = {}, {}
-        for mode in spec["modes"]:
-            res[name][mode] = {}
-            t0 = time.perf_counter()
-            out = tp2d_ssm_serve(mesh, name, mode, res[name][mode])
-            res[name][mode]["seconds"] = time.perf_counter() - t0
-            if mesh.rank == 0:
-                kept[mode] = out
-        if mesh.rank == 0:
-            t0 = time.perf_counter()
-            res[name]["compare"] = tp2d_ssm_compare(mesh, name, kept)
-            res[name]["compare_seconds"] = time.perf_counter() - t0
-        del kept
+def tp2d_ssm_compare(mesh, name: str, kept: dict) -> dict:
+    """``tp2d_side_compare`` of a ``TP2D_SSM`` path."""
+    spec = TP2D_SSM[name]
+    return tp2d_side_compare(mesh, tp2d_ssm_cfg(name), spec,
+                             tp2d_ssm_max_len(spec), kept, tp_moe_tokens)
+
+
+def tp2d_compare_checks(name: str, mode: str, cmp: dict,
+                        faults: tuple) -> list:
+    """What rank 0's comparisons of one path in one mode (``cmp``: {bucket:
+    ``tp_family_compare``'s row}) break: no decode row compared, a bucket
+    outside ``TP_LOGITS_TOL``, a planted control of ``faults`` not over
+    one bound outside at its least bucket."""
+    bad = []
+    if not sum(c["decode_rows"] for c in cmp.values()):
+        bad.append(f"{name} {mode}: rank 0 compared no decode row")
+    for b, c in cmp.items():
+        if not c["within"]:
+            bad.append(f"{name} {mode} b={b}: rank 0 vs the one-rank "
+                       f"engine {c}")
+    for fault in faults:
+        read = [c["planted"][fault] for c in cmp.values()
+                if fault in c["planted"]]
+        least = min((p["bounds_outside"] for p in read), default=0.0)
+        if not least > 1.0:
+            bad.append(f"{name} {mode}: the planted {fault} lands "
+                       f"{least} bounds outside at its least bucket")
+    return bad
 
 
 def tp2d_ssm_checks(ranks: list) -> list:
@@ -6984,21 +7143,371 @@ def tp2d_ssm_checks(ranks: list) -> list:
                     if c["conv"][-3:] != [rows, cfg.ssm_conv - 1,
                                           di // 2 + 2 * gn]:
                         bad.append(f"{where} b={b}: conv cache {c['conv']}")
-            cmp = ranks[0]["ssm"][name]["compare"][mode]
-            if not sum(c["decode_rows"] for c in cmp.values()):
-                bad.append(f"{name} {mode}: rank 0 compared no decode row")
-            for b, c in cmp.items():
-                if not c["within"]:
-                    bad.append(f"{name} {mode} b={b}: rank 0 vs the one-rank "
-                               f"engine {c}")
-            for fault in m["faults"]:
-                read = [c["planted"][fault] for c in cmp.values()
-                        if fault in c["planted"]]
-                least = min((p["bounds_outside"] for p in read), default=0.0)
-                if not least > 1.0:
-                    bad.append(f"{name} {mode}: the planted {fault} lands "
-                               f"{least} bounds outside at its least bucket")
+            bad += tp2d_compare_checks(
+                name, mode, ranks[0]["ssm"][name]["compare"][mode],
+                m["faults"])
         bad += tp2d_bytes_checks(name, ranks, "ssm")
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# tp2d.family: the VLM and encoder-decoder families under 2D tensor
+# parallelism and FSDP, in the tp2d phase's ranks
+# ---------------------------------------------------------------------------
+
+# Each at its published widths, bf16, seeded, each rank drawing every leaf
+# whole on the card and keeping its piece under the mode's rules
+# (``init_pieces(mesh, cfg, opts)``: every ``embed`` dim on ``data``, the
+# LayerNorms' scales and biases and whisper's ``b_out`` among them; heads
+# and MLP columns on ``model``), the norms and the GELU MLPs' biases then
+# redrawn away from their init (``tp2d_family_seeded``): the LLaVA-NeXT
+# backbone at 2 layers (2880 seeded image embeddings ahead of 192 tokens,
+# 3072 positions; flash at D 128 on 16 query and 4 KV heads a rank) under
+# 2D at buckets 1 (the cache's slots on ``data``) and 2 (its rows on
+# ``data``), 4 decode steps, and under FSDP at bucket 2, 2 steps;
+# whisper-base whole (6 + 6 layers, 1500 seeded frames, 4 of 8 heads a
+# rank, flash at D 64 on the decoder's 256-token prompt, its odd
+# vocabulary whole on every rank) under 2D at buckets 1 (the
+# self-attention slots on ``data``, the cross cache whole) and 2 (both
+# caches' rows on ``data``), 4 steps, and under FSDP at bucket 2, 2
+# steps.  ``faults``: the planted controls of each mode
+# (``tp2d_family_planted``).
+TP2D_FAMILIES = {
+    "llava": dict(arch="llava_next_mistral_7b", cut={"num_layers": 2},
+                  prompt=192, flash=True, modes={
+        "tp2d": dict(buckets=(1, 2), steps=4, faults=("embeds",)),
+        "fsdp": dict(buckets=(2,), steps=2, faults=("fsdp_reverse",))}),
+    "whisper": dict(arch="whisper_base", cut={}, prompt=256, flash=True,
+                    modes={
+        "tp2d": dict(buckets=(1, 2), steps=4,
+                     faults=("cross_rows", "gelu_partial")),
+        "fsdp": dict(buckets=(2,), steps=2, faults=("fsdp_reverse",))}),
+}
+# each path's per-rank pieces, (rows, cols, the dim FSDP puts on ``data``,
+# bias, epilogue[, whether ``model`` takes the other dim]) as
+# ``TP2D_LEAVES``, a rank's 2D piece (rows/2, cols/2): LLaVA's ``wq`` /
+# ``wk`` (``wv`` is ``wk``'s shape, ``w_up`` ``w_gate``'s), ``wo``,
+# ``w_gate`` / ``w_down`` and its head; whisper's ``wq`` (every attention
+# projection of its self- and cross-attention is this shape), ``wo``, the
+# GELU MLP's ``w_in`` (its bias and GELU in the epilogue under FSDP, after
+# the data sum under 2D: its 2D partial runs with no epilogue) and
+# ``w_out`` (``b_out``'s piece in the first ``model`` rank's epilogue),
+# and its tied head, whose odd vocabulary stays off ``model``
+TP2D_FAMILY_LEAVES = {
+    "llava": {"wq": (4096, 4096, "rows", False, None),
+              "wk": (4096, 1024, "rows", False, None),
+              "wo": (4096, 4096, "cols", False, None),
+              "w_gate": (4096, 14336, "rows", False, "silu"),
+              "w_down": (14336, 4096, "cols", False, None),
+              "head": (4096, 32000, "rows", False, None)},
+    "whisper": {"wq": (512, 512, "rows", False, None),
+                "wo": (512, 512, "cols", False, None),
+                "w_in": (512, 2048, "rows", True, "gelu"),
+                "w_out": (2048, 512, "cols", True, None),
+                "head": (512, 51865, "rows", False, None, False)},
+}
+
+
+def tp2d_family_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    spec = TP2D_FAMILIES[name]
+    return dataclasses.replace(get_config(spec["arch"]), **spec["cut"])
+
+
+def tp2d_family_max_len(cfg, spec: dict) -> int:
+    """The image embeddings, the prompt, the most decode steps of a mode
+    and 8 spare slots, a multiple of 8."""
+    image = cfg.num_image_tokens if cfg.embeds_input else 0
+    steps = max(m["steps"] for m in spec["modes"].values())
+    return -(-(image + spec["prompt"] + steps + 8) // 8) * 8
+
+
+def tp2d_family_rows(cfg, rows: tuple, prompt: int) -> tuple:
+    """The rows the path's products run at from its decode ``rows``: each
+    decode row count, and each group's prefill, ``rows`` x (the image
+    embeddings and the prompt), or whisper's decoder prompt and its
+    encoder's 1500 frames."""
+    per = [prompt]
+    if cfg.embeds_input:
+        per = [cfg.num_image_tokens + prompt]
+    if cfg.is_encoder_decoder:
+        per.append(cfg.encoder_seq)
+    return tuple(sorted({*rows, *(r * n for r in rows for n in per)}))
+
+
+def tp2d_family_batch(cfg, b: int, prompt: int, device) -> dict:
+    """``tp_family_batch``'s group, each utterance's frames given a
+    direction of its own (a seeded N(0, 1) d_model vector added to every
+    frame of the row): seeded frames alone average out over 1500 frames,
+    so every row's cross-attention would read about the same mean, and a
+    mix-up of the cross cache's rows would hide."""
+    import torch
+    out = tp_family_batch(cfg, b, prompt, device)
+    if cfg.is_encoder_decoder:
+        g = torch.Generator(device="cpu").manual_seed(500 + b)
+        u = torch.randn((b, 1, cfg.d_model), generator=g).to(device)
+        out["enc_frames"] = (out["enc_frames"].float() + u).to(
+            out["enc_frames"].dtype)
+    return out
+
+
+def tp2d_family_seeded(cfg):
+    """A ``seeded(params, axes, mesh=None, opts=None)`` for ``tp2d_load``
+    and the one-rank engine: ``params`` with every norm's scale (1 + 0.1
+    N(0, 1)), every LayerNorm's bias and the GELU MLPs' ``b_in`` /
+    ``b_out`` (0.1 N(0, 1)) redrawn from a generator seeded by the leaf's
+    path, away from their init (ones, zeros), so that a bias added once
+    per data rank, or a piece gathered out of order, would show.  Each
+    such leaf is drawn whole (on the CPU, at ``cfg``'s full shape) and, on
+    a ``mesh``, cut to the rank's piece under ``opts`` as ``init_pieces``
+    cuts it."""
+    import zlib
+
+    import torch
+    from repro_torch.models.param import MetaGenerator
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import (ShardingOptions, local_shard,
+                                            pspec_for)
+
+    def walk(p, a, full, path, mesh, opts):
+        out = {}
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, a[k], full[k], path + (k,), mesh, opts)
+                continue
+            scale = k.endswith("_s") or k in ("ln1", "ln2", "final_norm")
+            if not (scale or k.endswith("_b") or k in ("b_in", "b_out")):
+                out[k] = v
+                continue
+            g = torch.Generator(device="cpu").manual_seed(
+                zlib.crc32("/".join(path + (k,)).encode()))
+            t = 0.1 * torch.randn(tuple(full[k].shape), generator=g)
+            if scale:
+                t = t + 1
+            if mesh is not None:
+                t = local_shard(t, pspec_for(tuple(a[k]), tuple(t.shape),
+                                             mesh, opts), mesh, mesh.coords)
+            out[k] = t.to(device=v.device, dtype=v.dtype)
+        return out
+
+    def seeded(params, axes, mesh=None, opts=None):
+        full = build_model(cfg).init(MetaGenerator())[0]
+        return walk(params, axes, full, (), mesh,
+                    opts or ShardingOptions())
+
+    return seeded
+
+
+def tp2d_family_fault_buckets(fault: str, buckets: tuple, data: int) -> tuple:
+    """Where a control is read: the least bucket where it acts
+    (``cross_rows`` where the cross cache's rows lie on ``data``)."""
+    acts = [b for b in buckets if fault != "cross_rows" or b % data == 0]
+    return tuple(acts[:1])
+
+
+def tp2d_family_planted(mesh, eng, cfg, spec: dict, mode: str) -> dict:
+    """The controls of the logits bound of one mode (``faults``), each
+    planted alone on every rank alike (the ranks stay in step), read at
+    the least bucket where it acts (``tp2d_family_fault_buckets``):
+    {fault: {bucket: its side}}.  Raises unless each fault's site ran as
+    often as a side reaches it (the prefill forward, generate's prefill
+    and its one decode step).
+
+    * ``embeds``: the image embeddings zeroed on rank 1 (2D);
+    * ``cross_rows``: ``cross_decode`` reading the cross cache's first
+      rows instead of the rank's rows (2D, where they lie on ``data``):
+      after the prefill every data rank's cross cache holds the first data
+      rank's rows (a query mismatch alone would hide: at random weights
+      the cross-attention's softmax over 1500 frames is near uniform);
+    * ``gelu_partial``: ``w_in``'s bias and GELU applied to each data
+      partial before the sum (2D);
+    * ``fsdp_reverse``: each MLP in-projection piece's data halves
+      (LLaVA's ``w_gate`` / ``w_up``, whisper's ``w_in``) gathered in the
+      reverse order (FSDP)."""
+    import torch
+    from repro_torch.core import linear, tsmm
+    from repro_torch.models import encdec
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.context import (axis_group, cache_layout,
+                                              dp_group)
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    calls = [0]
+    # MLP in-projections a forward runs, and a decode step
+    enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    per_fwd = (enc + cfg.num_layers if cfg.is_encoder_decoder
+               else 2 * cfg.num_layers)
+    per_step = (cfg.num_layers if cfg.is_encoder_decoder
+                else 2 * cfg.num_layers)
+
+    def first_rows(sound):
+        def prefill(params, cfg_, batch, cache, **kw):
+            out = sound(params, cfg_, batch, cache, **kw)
+            calls[0] += 1
+            group = axis_group(cache_layout().rows)[0]
+            rows = cache["cross_k"].shape[1]
+            for key in ("cross_k", "cross_v"):
+                every = comm.all_gather(cache[key], group, dim=1)
+                cache[key].copy_(every[:, :rows])
+            return out
+        return prefill
+
+    def epilogue_first(sound):
+        def ksplit_sum(part, bias, act, dtype):
+            if act != "gelu":
+                return sound(part, bias, act, dtype)
+            calls[0] += 1
+            return tsmm._data_sum(tsmm._epilogue(part, bias, act, dtype),
+                                  dp_group())
+        return ksplit_sum
+
+    def reversed_in(sound):
+        def gathered(b, split):
+            out, keep = sound(b, split)
+            if split == "rows" and b.orig_cols == cfg.d_ff // model:
+                calls[0] += 1
+                out = dataclasses.replace(out, blocks=torch.cat(
+                    out.blocks.chunk(data, dim=-4)[::-1], dim=-4))
+            return out, keep
+        return gathered
+
+    # (the sites patched, the fault, its calls a side)
+    sites = {"cross_rows": (((encdec, "encdec_prefill"),), first_rows, 1),
+             "gelu_partial": (((tsmm, "ksplit_sum"), (linear, "ksplit_sum")),
+                              epilogue_first, 2 * per_fwd + per_step),
+             "fsdp_reverse": (((tsmm, "_gathered"),), reversed_in,
+                              2 * per_fwd + per_step),
+             "embeds": ((), None, 1 if mesh.rank == 1 else 0)}
+    m = spec["modes"][mode]
+    out = {}
+    for fault in m["faults"]:
+        where, plant, per_side = sites[fault]
+        buckets = tp2d_family_fault_buckets(fault, m["buckets"], data)
+        sound = [getattr(mod, attr) for mod, attr in where]
+        calls[0] = 0
+        for (mod, attr), f in zip(where, sound):
+            setattr(mod, attr, plant(f))
+        try:
+            out[fault] = {}
+            for b in buckets:
+                batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"],
+                                             tp2d_family_batch)
+                if fault == "embeds" and mesh.rank == 1:
+                    calls[0] += 1
+                    batch = {**batch,
+                             "embeds": torch.zeros_like(batch["embeds"])}
+                out[fault][b] = tp_family_side(eng, cfg, b, spec, batch,
+                                               group)
+        finally:
+            for (mod, attr), f in zip(where, sound):
+                setattr(mod, attr, f)
+        if not buckets or calls[0] != per_side * len(buckets):
+            raise AssertionError(f"tp2d.family {mode}: the planted {fault} "
+                                 f"ran {calls[0]} times, not "
+                                 f"{per_side * len(buckets)}")
+    return out
+
+
+def tp2d_family_serve(mesh, name: str, mode: str, res: dict) -> dict:
+    """One ``TP2D_FAMILIES`` path in one mode on ``mesh``: load from the
+    rank's pieces, the groups (the main path, counted), each group's
+    comparison side, the planted controls.  Fills ``res``; returns
+    {"sides": {bucket: side}, "planted": ...} (rank 0 compares them with
+    a one-rank engine after every mode has run)."""
+    spec = TP2D_FAMILIES[name]
+    m = spec["modes"][mode]
+    cfg = tp2d_family_cfg(name)
+    dev = mesh.device
+    eng = tp2d_load(mesh, cfg, mode, m, spec["prompt"],
+                    tp2d_family_max_len(cfg, spec), res,
+                    seeded=tp2d_family_seeded(cfg))
+    p = eng.params
+    if cfg.is_encoder_decoder:
+        lp = p["dec_layers"]
+        res["pieces"] = {"wq": list(lp["self_attn"]["wq"].shape),
+                         "w_in": list(lp["mlp"]["w_in"].shape),
+                         "w_out": list(lp["mlp"]["w_out"].shape),
+                         "b_out": list(lp["mlp"]["b_out"].shape),
+                         "ln1_s": list(lp["ln1_s"].shape),
+                         "ln1_b": list(lp["ln1_b"].shape),
+                         "enc_norm_b": list(p["enc_norm_b"].shape)}
+    else:
+        lp = p["layers"]
+        res["pieces"] = {"wq": list(lp["attn"]["wq"].shape),
+                         "w_gate": list(lp["mlp"]["w_gate"].shape),
+                         "w_down": list(lp["mlp"]["w_down"].shape),
+                         "ln1": list(lp["ln1"].shape)}
+    res["pieces"]["tok"] = list(p["embed"]["tok"].shape)
+    res["cache"] = {b: {k: list(v.shape) for k, v in eng.programs.static_cache(
+        b, eng.max_len).items() if k in ("k", "cross_k")}
+        for b in m["buckets"]}
+    res["layouts"] = {b: repr(eng.cache_layout(b)) for b in m["buckets"]}
+    res["graphed"] = eng.programs.stats()["graphed"]
+    tp2d_main_path(eng, cfg, mode, m, spec["prompt"], tp2d_contract,
+                   res, batch_of=tp2d_family_batch)
+    sides = {}
+    for b in m["buckets"]:
+        batch, group = tp2d_moe_rows(eng, cfg, b, spec["prompt"],
+                                     tp2d_family_batch)
+        sides[b] = tp_family_side(eng, cfg, b, spec, batch, group)
+    planted = tp2d_family_planted(mesh, eng, cfg, spec, mode)
+    del eng, p, lp
+    _free(dev.type)
+    return {"sides": sides, "planted": planted}
+
+
+def tp2d_family_compare(mesh, name: str, kept: dict) -> dict:
+    """``tp2d_side_compare`` of a ``TP2D_FAMILIES`` path, its norms and
+    GELU biases redrawn as the ranks' (``tp2d_family_seeded``)."""
+    spec = TP2D_FAMILIES[name]
+    cfg = tp2d_family_cfg(name)
+    return tp2d_side_compare(mesh, cfg, spec, tp2d_family_max_len(cfg, spec),
+                             kept, tp2d_family_batch,
+                             tp2d_family_seeded(cfg))
+
+
+def tp2d_family_checks(ranks: list) -> list:
+    """What the four ranks' results break of the tp2d.family paths'
+    contract."""
+    bad = []
+    for name, spec in TP2D_FAMILIES.items():
+        cfg = tp2d_family_cfg(name)
+        d, n, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
+        q, v = cfg.num_heads * cfg.head_dim, cfg.vocab_size
+        kh, hd = cfg.num_kv_heads // 2, cfg.head_dim
+        max_len = tp2d_family_max_len(cfg, spec)
+        for mode, m in spec["modes"].items():
+            for rank in ranks:
+                rk, res = rank["rank"], rank["family"][name][mode]
+                where = f"{name} {mode} rank {rk}"
+                bad += tp2d_path_checks(where, res, mode, spec["flash"])
+                if cfg.is_encoder_decoder:
+                    pieces = {"wq": [n, d // 2, q // 2],
+                              "w_in": [n, d // 2, ff // 2],
+                              "w_out": [n, ff // 2, d // 2],
+                              "b_out": [n, d // 2], "ln1_s": [n, d // 2],
+                              "ln1_b": [n, d // 2], "enc_norm_b": [d // 2],
+                              "tok": [v, d // 2]}
+                else:
+                    pieces = {"wq": [n, d // 2, q // 2],
+                              "w_gate": [n, d // 2, ff // 2],
+                              "w_down": [n, ff // 2, d // 2],
+                              "ln1": [n, d // 2], "tok": [v // 2, d // 2]}
+                if res["pieces"] != pieces:
+                    bad.append(f"{where}: pieces {res['pieces']} != {pieces}")
+                for b, c in res["cache"].items():
+                    b = int(b)
+                    rows = b // 2 if b % 2 == 0 else b
+                    slots = max_len // 2 if b % 2 else max_len
+                    want = {"k": [n, rows, slots, kh, hd]}
+                    if cfg.is_encoder_decoder:
+                        # at bucket 1 the cross cache stays whole
+                        want["cross_k"] = [n, rows, cfg.encoder_seq, kh, hd]
+                    if c != want:
+                        bad.append(f"{where} b={b}: cache {c} != {want}")
+            bad += tp2d_compare_checks(
+                name, mode, ranks[0]["family"][name]["compare"][mode],
+                m["faults"])
+        bad += tp2d_bytes_checks(name, ranks, "family")
     return bad
 
 
@@ -7020,9 +7529,14 @@ def phase_tp2d():
     call; then the SSM family and the hybrid in the same ranks
     (``TP2D_SSM``: Mamba2-780m and Zamba2-2.7B under both modes) against a
     one-rank engine with their planted controls, the contracts, no weight
-    gathered in a 2D decode call; then NCCL at world size 1 with the 2D
-    cells captured (qwen's, OLMoE's and Zamba2's).  Returns each rank's
-    launches on the main path and at load, and the kernel cases."""
+    gathered in a 2D decode call; then the VLM and encoder-decoder
+    families in the same ranks (``TP2D_FAMILIES``: the LLaVA-NeXT backbone
+    cut to 2 layers and whisper-base whole under both modes), as the SSM
+    paths; the MoE, SSM and VLM / encoder-decoder paths' rank-0 sides
+    compared with one-rank engines in this process while the ranks serve
+    on (``tp2d_compares``); then NCCL at world size 1 with the 2D cells
+    captured (qwen's, OLMoE's, Zamba2's and whisper-base's).  Returns each
+    rank's launches on the main path and at load, and the kernel cases."""
     import signal
 
     import torch
@@ -7062,6 +7576,16 @@ def phase_tp2d():
     registry.flush()
     emit({"phase": "tp2d.ssm.install", "seconds": time.perf_counter() - t0,
           "plans": plans})
+    # the VLM and encoder-decoder paths' sweeps, as the MoE paths'
+    t0 = time.perf_counter()
+    plans = {f"{name}.{mode}": install.install_arch(
+        tp2d_family_cfg(name), m["buckets"], (spec["prompt"],), mesh=desc,
+        opts=ShardingOptions(**TP2D_MODES[mode]), device="cuda")
+        for name, spec in TP2D_FAMILIES.items()
+        for mode, m in spec["modes"].items()}
+    registry.flush()
+    emit({"phase": "tp2d.family.install",
+          "seconds": time.perf_counter() - t0, "plans": plans})
     t0 = time.perf_counter()
     shard_cases = tp2d_shard_cases()
     emit({"phase": "tp2d.kernels.seconds",
@@ -7100,6 +7624,21 @@ def phase_tp2d():
         _free("cuda")
     emit({"phase": "tp2d.ssm.kernels.seconds",
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    family_cases = {}
+    for name, spec in TP2D_FAMILIES.items():
+        cfg_f = tp2d_family_cfg(name)
+        two, fsdp = spec["modes"]["tp2d"], spec["modes"]["fsdp"]
+        fsdp_rows = tuple(sorted({compute_rows(b, desc, fsdp_opts)
+                                  for b in fsdp["buckets"]}))
+        family_cases[name] = tp2d_shard_cases(
+            TP2D_FAMILY_LEAVES[name], two["buckets"],
+            tp2d_family_rows(cfg_f, two["buckets"], spec["prompt"]),
+            fsdp_rows, tp2d_family_rows(cfg_f, fsdp_rows, spec["prompt"]),
+            phase="tp2d.family", path=name)
+        _free("cuda")
+    emit({"phase": "tp2d.family.kernels.seconds",
+          "seconds": time.perf_counter() - t0})
     _free("cuda")
     out_dir = tempfile.mkdtemp(prefix="tp2d-", dir=os.path.join(ROOT, "build"))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -7109,12 +7648,23 @@ def phase_tp2d():
          "--nproc-per-node", "4", os.path.abspath(__file__),
          "--tp2d-worker", out_dir], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True)
+    # rank 0's sides are compared with one-rank engines here, while the
+    # ranks serve the next paths (a few CPU threads: the ranks' own)
+    compared, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    host = types.SimpleNamespace(device=torch.device("cuda"),
+                                 shape={"data": 2, "model": 2})
+    comparer = threading.Thread(target=tp2d_compares,
+                                args=(out_dir, proc, host, compared))
+    comparer.start()
     try:
         out, err = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
+        comparer.join()
+        torch.set_num_threads(threads)
     ranks = []
     for r in range(4):
         path = os.path.join(out_dir, f"tp2d_rank{r}.json")
@@ -7122,7 +7672,21 @@ def phase_tp2d():
     if proc.returncode != 0:
         raise AssertionError(f"tp2d: the ranks exited {proc.returncode}:\n"
                              f"{out[-3000:]}\n{err[-6000:]}")
-    bad = tp2d_checks(ranks) + tp2d_moe_checks(ranks) + tp2d_ssm_checks(ranks)
+    if "error" in compared:
+        raise AssertionError(f"tp2d: a one-rank comparison failed:\n"
+                             f"{compared['error']}")
+    for key, paths, _ in TP2D_COMPARED:
+        for name in globals()[paths]:
+            if (key, name) not in compared:
+                raise AssertionError(f"tp2d: no sides of {key} {name} "
+                                     f"compared")
+            # JSON's keys, as the ranks' own results read
+            cmp, secs = compared[key, name]
+            ranks[0][key][name]["compare"] = json.loads(json.dumps(
+                cmp, default=str))
+            ranks[0][key][name]["compare_seconds"] = secs
+    bad = (tp2d_checks(ranks) + tp2d_moe_checks(ranks)
+           + tp2d_ssm_checks(ranks) + tp2d_family_checks(ranks))
     # every skinny and pack launch of a main path at a (kernel, m, K, N)
     # (a pack's (M, K, bm, bk)) that a case held against its plain version
     for res in ranks:
@@ -7146,6 +7710,14 @@ def phase_tp2d():
                 if unheld:
                     bad.append(f"{name} {mode} rank {res['rank']}: launched "
                                f"at shapes tp2d.ssm.kernels did not hold: "
+                               f"{unheld}")
+        for name, spec in TP2D_FAMILIES.items():
+            for mode in spec["modes"]:
+                unheld = unheld_shapes(res["family"][name][mode]["shapes"],
+                                       family_cases[name])
+                if unheld:
+                    bad.append(f"{name} {mode} rank {res['rank']}: launched "
+                               f"at shapes tp2d.family.kernels did not hold: "
                                f"{unheld}")
     for res in ranks:
         for mode in TP2D_MODES:
@@ -7214,6 +7786,30 @@ def phase_tp2d():
                       r0["ssm"][name][mode]["groups"].items()},
                   "peak_bytes": [r["ssm"][name][mode]["peak_bytes"]
                                  for r in ranks]})
+    for name, spec in TP2D_FAMILIES.items():
+        for mode in spec["modes"]:
+            for res in ranks:
+                m = res["family"][name][mode]
+                emit({"phase": "tp2d.family.rank", "path": name,
+                      "mode": mode, "rank": res["rank"], **{k: m[k] for k in (
+                          "seconds", "load", "pieces", "cache", "layouts",
+                          "graphed", "launches", "designs", "comm", "staged",
+                          "misses", "healthy", "degradations", "peak_bytes",
+                          "groups", "shapes")}})
+            g0 = r0["family"][name][mode]["groups"]
+            emit({"phase": f"tp2d.family.{name}.{mode}", "nvidia_smi": smi,
+                  "logits_tol": TP_LOGITS_TOL,
+                  "faults": spec["modes"][mode]["faults"],
+                  "compare": r0["family"][name]["compare"][mode],
+                  "compare_seconds": r0["family"][name]["compare_seconds"],
+                  "decode_collectives": {
+                      b: g["collectives"] for b, g in g0.items()},
+                  "decode_bytes_moved": {
+                      b: bytes_moved(g["collectives"]) for b, g in g0.items()},
+                  "weights_gathered_a_decode_call": {
+                      b: g["weight_gathers"] for b, g in g0.items()},
+                  "peak_bytes": [r["family"][name][mode]["peak_bytes"]
+                                 for r in ranks]})
     emit({"phase": "tp2d", "nvidia_smi": smi, "ranks": 4,
           "mesh": "data=2,model=2", "backend": r0.get("backend"),
           "note": "four ranks share one card over gloo (every collective "
@@ -7234,7 +7830,8 @@ def phase_tp2d():
     if bad:
         raise AssertionError("tp2d: " + "; ".join(bad))
     for name, phase in ((None, "tp2d.nccl"), ("olmoe", "tp2d.moe.nccl"),
-                        ("zamba2", "tp2d.ssm.nccl")):
+                        ("zamba2", "tp2d.ssm.nccl"),
+                        ("whisper", "tp2d.family.nccl")):
         nccl = tp2d_nccl(out_dir, name)
         emit({"phase": phase, **nccl})
         if not (nccl["graphed"]
@@ -7258,15 +7855,17 @@ def phase_tp2d():
                 path = f"tp2d.moe.{name}.{mode}.rank{r['rank']}"
                 launches[path] = m["launches"]
                 load[f"{path}.load"] = m["load"]["launches"]
-    for name, spec in TP2D_SSM.items():
-        for mode in spec["modes"]:
-            for r in ranks:
-                m = r["ssm"][name][mode]
-                path = f"tp2d.ssm.{name}.{mode}.rank{r['rank']}"
-                launches[path] = m["launches"]
-                load[f"{path}.load"] = m["load"]["launches"]
+    for key, paths in (("ssm", TP2D_SSM), ("family", TP2D_FAMILIES)):
+        for name, spec in paths.items():
+            for mode in spec["modes"]:
+                for r in ranks:
+                    m = r[key][name][mode]
+                    path = f"tp2d.{key}.{name}.{mode}.rank{r['rank']}"
+                    launches[path] = m["launches"]
+                    load[f"{path}.load"] = m["load"]["launches"]
     return launches, load, shard_cases + [
-        c for cases in (*moe_cases.values(), *ssm_cases.values())
+        c for cases in (*moe_cases.values(), *ssm_cases.values(),
+                        *family_cases.values())
         for c in cases]
 
 
@@ -8072,8 +8671,9 @@ def run():
                  for name, (_, s, h, _, d) in TP_FAMILY_FLASH.items()}
     flash["tp_family"] = [
         {**shape_of(c), "launches_by_path": {
-            p: ls.get("flash_attention", 0) for p, ls in tp_launches.items()
-            if p.startswith(f"tp.family.{fam_flash[(c['S'], c['H'], c['D'])]}.")},
+            p: ls.get("flash_attention", 0) for p, ls in by_path.items()
+            if p.startswith((f"tp.family.{fam_flash[(c['S'], c['H'], c['D'])]}.",
+                             f"tp2d.family.{fam_flash[(c['S'], c['H'], c['D'])]}."))},
          **{k: c[k] for k in ("design", "max_abs_err", "ms", "device_ms",
                               "plain_ms", "library_ms", "bound_ms",
                               "bound_by")}}

@@ -209,7 +209,10 @@ def rank_prefill_rows(cfg, buckets: tuple, lengths: tuple, mesh,
     of its kind (a VLM's ``rows * (num_image_tokens + lb)``, an
     encoder-decoder's ``rows * encoder_seq``), ``rows`` the bucket's
     compute rows on the rank (``serve/engine.py::compute_rows``: its data
-    line's piece where a data axis splits the bucket)."""
+    line's piece where a data axis splits the bucket, under FSDP too;
+    the whole bucket under 2D tensor parallelism, where every rank
+    encodes all of whisper-base's bucket x 1500 frames and runs all of
+    LLaVA's bucket x (2880 + prompt) positions)."""
     from repro_torch.serve.engine import compute_rows
     from repro_torch.sharding.rules import ShardingOptions
     opts = opts or ShardingOptions()

@@ -367,13 +367,25 @@ def cross_decode(p, cfg, x, cross_k, cross_v):
     encoder's K/V (B,T,KH,D), projected once at prefill and read by every
     step (every key valid).  On a tensor-parallel mesh the rank's heads
     (read off ``wq``) against its heads of the cross cache, ``wo``'s
-    partial sums summed over the TP group."""
+    partial sums summed over the TP group.  Under a gathered cell layout
+    (2D tensor parallelism: every rank computes the whole bucket while
+    the cross cache holds its rows), as :func:`gqa_decode`: the rank's
+    rows of ``q`` attend over its rows of the cache and the output is
+    gathered over the rows' group before ``wo``."""
     b = x.shape[0]
     hd = cfg.head_dim
     h = p["wq"].shape[-1] // hd
     q = linear(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
+    lay = cache_layout()
+    gathered = lay is not None and lay.gathered
+    if gathered:                         # this rank's rows of the bucket
+        rows = cross_k.shape[0]
+        r0 = row_start(lay, rows)
+        q = q[r0:r0 + rows]
     kpos = torch.arange(cross_k.shape[1], device=x.device)
     out = decode_attention(q, cross_k, cross_v, kpos, cross_k.shape[1] - 1)
+    if gathered:
+        out = gather_rows(lay, out)
     return _out_proj(p, cfg, out.reshape(b, 1, h * hd))
 
 

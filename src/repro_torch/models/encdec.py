@@ -29,10 +29,27 @@ partial sums summed over the TP group), each GELU MLP its hidden
 columns (``w_out`` summed, its bias added on the first rank:
 ``layers.gelu_mlp``), the cross cache its KV heads; the vocabulary
 (51865 at whisper-base, odd) stays whole on every rank, so neither the
-lookup nor the logits move.  Where the cell's ``CacheLayout`` splits the
-self-attention slabs' slots (a bucket a data axis cannot split), the
-prefill writes the rank's slots and the decode combines the softmax over
-their group.
+lookup nor the logits move over ``model``.  Where the cell's
+``CacheLayout`` splits the self-attention slabs' slots (a bucket a data
+axis cannot split), the prefill writes the rank's slots and the decode
+combines the softmax over their group; the cross cache (its axis
+``seq``, not ``cache_seq``) then stays whole.
+
+Under FSDP and 2D tensor parallelism every ``embed`` dim lies on the
+data axis too: the LayerNorms' scales and biases (gathered before use,
+``layers.layernorm``), the rows of ``wq`` / ``wk`` / ``wv``, ``w_in`` and
+the tied head, the columns of ``wo``, ``w_out`` and ``b_out``, and the
+token table's.  FSDP gathers each piece before use, and each data line
+encodes and decodes its rows of the bucket.  Under 2D every rank encodes
+and decodes the whole bucket over pieces that never move: a projection
+whose rows lie on ``data`` contracts the rank's K slice and sums the
+partials over it (the cross K/V over the encoder output among them,
+``w_in``'s bias and GELU once after the sum), and ``wo`` / ``w_out``
+give the rank its columns (``b_out``'s piece among them), gathered
+after the TP sum.  Where the bucket's cache rows lie on ``data``, the
+prefill writes the rank's rows of the self-attention and the cross
+cache, and the decode attends over them, gathering the output over
+``data`` before ``wo`` (``attention.cross_decode``).
 
 One divergence, in dtype only: the frames are cast to the model's dtype
 before the position encoding is added (the reference adds in the frames'
@@ -49,7 +66,7 @@ from repro_torch.models.layers import (embed_tokens, gelu_mlp, init_embed,
                                        sinusoidal_pos)
 from repro_torch.models.lm import head_logits, layer_params
 from repro_torch.models.param import ParamTree, stack_inits, torch_dtype
-from repro_torch.sharding.context import cache_layout
+from repro_torch.sharding.context import cache_layout, row_start
 
 
 def _ln(pt, name, d):
@@ -121,7 +138,7 @@ def _enc_layer_fwd(lp, cfg, x):
                          chunk=min(512, x.shape[1]))
     x = x + h
     return x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln2", x, cfg.norm_eps),
-                        cfg.d_ff)
+                        cfg.d_ff, cfg.d_model)
 
 
 def _dec_layer_fwd(lp, cfg, x, enc_out, *, chunk=512):
@@ -137,7 +154,7 @@ def _dec_layer_fwd(lp, cfg, x, enc_out, *, chunk=512):
                                 kv_from=enc_out, chunk=chunk)
     x = x + h
     x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps),
-                     cfg.d_ff)
+                     cfg.d_ff, cfg.d_model)
     return x, (kv, cross_kv)
 
 
@@ -185,17 +202,24 @@ def encdec_init_cache(cfg, batch_size: int, max_len: int, device):
 
 def encdec_prefill(params, cfg, batch, cache, *, chunk=512):
     """Encode the frames, run the decoder prompt and fill the cache in
-    place: the prompt's self-attention K/V, every layer's cross K/V whole,
-    ``slot_pos`` and ``pos``.  Returns (last_logits, cache)."""
+    place: the prompt's self-attention K/V, every layer's cross K/V,
+    ``slot_pos`` and ``pos``.  Under a gathered cell layout (2D tensor
+    parallelism at a bucket the data axis splits) every rank computes
+    the whole bucket and writes the rows its cache holds
+    (``sharding/context.py::row_start``), of both kinds of slab.
+    Returns (last_logits, cache)."""
     s = batch["tokens"].shape[1]
     logits, _, kvs = encdec_forward(params, cfg, batch, collect_cache=True,
                                     chunk=chunk)
     lay = cache_layout()
+    rows = cache["k"].shape[1]
+    r0 = row_start(lay, rows) if lay is not None and lay.gathered else 0
+    mine = slice(r0, r0 + rows)
     for i, ((k, v), (ck, cv)) in enumerate(kvs):
-        A.write_prompt(cache["k"][i], k, s, lay)
-        A.write_prompt(cache["v"][i], v, s, lay)
-        cache["cross_k"][i].copy_(ck)
-        cache["cross_v"][i].copy_(cv)
+        A.write_prompt(cache["k"][i], k[mine], s, lay)
+        A.write_prompt(cache["v"][i], v[mine], s, lay)
+        cache["cross_k"][i].copy_(ck[mine])
+        cache["cross_v"][i].copy_(cv[mine])
     sl = torch.arange(cache["slot_pos"].shape[0], dtype=torch.int32,
                       device=cache["slot_pos"].device)
     cache["slot_pos"].copy_(torch.where(sl < s, sl, -1))
@@ -224,7 +248,7 @@ def encdec_decode_step(params, cfg, cache, tokens):
                                _apply_ln(lp, "ln2", x, cfg.norm_eps),
                                cache["cross_k"][i], cache["cross_v"][i])
         x = x + gelu_mlp(lp["mlp"], _apply_ln(lp, "ln3", x, cfg.norm_eps),
-                         cfg.d_ff)
+                         cfg.d_ff, cfg.d_model)
     x = _apply_ln(params, "dec_norm", x, cfg.norm_eps)
     logits = head_logits(params, cfg, x)
     pos.add_(1)

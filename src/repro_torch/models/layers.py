@@ -12,10 +12,10 @@ import torch.utils.checkpoint
 
 from repro_torch.core.linear import linear
 from repro_torch.models.param import ParamTree
-from repro_torch.sharding.context import (dp_full, dp_group, dp_rank,
-                                          dp_weight_cols, fsdp_split,
-                                          serve_2d, shard_act, tp_copy,
-                                          tp_rank, tp_split, tp_sum)
+from repro_torch.sharding.context import (dp_full, dp_gather_cols,
+                                          dp_group, dp_rank, dp_weight_cols,
+                                          fsdp_split, serve_2d, shard_act,
+                                          tp_copy, tp_rank, tp_split, tp_sum)
 
 
 def _requires_grad(obj) -> bool:
@@ -64,7 +64,11 @@ def rmsnorm(x, scale, eps: float):
 
 def layernorm(x, scale, bias, eps: float):
     """LayerNorm in fp32 (mean, variance, scale and shift), cast once to
-    x's dtype, as the reference's ``layers.layernorm``."""
+    x's dtype, as the reference's ``layers.layernorm``.  A serving rank's
+    FSDP pieces of the scale and the bias are gathered over the data
+    group first (``dp_full``), as :func:`rmsnorm`'s scale."""
+    scale = dp_full(scale, x.shape[-1])
+    bias = dp_full(bias, x.shape[-1])
     dt = x.dtype
     x = x.float()
     mu = torch.mean(x, dim=-1, keepdim=True)
@@ -127,19 +131,33 @@ def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, d_out: int = 0):
     return pt.build()
 
 
-def gelu_mlp(p, x, d_ff: int = 0):
+def gelu_mlp(p, x, d_ff: int = 0, d_model: int = 0):
     """w_out(gelu(x @ w_in + b_in)) + b_out: the bias and the tanh GELU
     of the first product run in the kernel's epilogue (``linear`` passes
     them to ``tsmm_dot``), not as a pass of their own.  ``d_ff``: the full
     hidden width, where ``w_in`` / ``b_in`` may be column- and ``w_out``
     row-parallel over ``mlp``: then the partial sums are summed over the
     TP group, ``b_out`` added in the epilogue of the first rank's
-    partial only."""
+    partial only.  ``d_model``: the full output width, where a serving
+    rank holds FSDP pieces of ``w_out``'s columns and ``b_out``: under
+    FSDP both are gathered before use (``dp_weight_cols``, ``dp_full``);
+    under 2D tensor parallelism the rank computes its columns with its
+    ``b_out`` piece and they are gathered after the TP sum
+    (``dp_gather_cols``).  Under 2D ``w_in``'s rows lie on the data axis
+    too: a k-split whose partials are summed before ``b_in`` and the
+    GELU run once on the sum (``core/tsmm.py::ksplit_sum``)."""
     h = linear(x, p["w_in"], p["b_in"], act="gelu")
-    if not (d_ff and tp_split("mlp", d_ff)):
-        return linear(h, p["w_out"], p["b_out"])
-    bias = p["b_out"] if tp_rank() == 0 else None
-    return tp_sum(linear(h, p["w_out"], bias), "mlp", d_ff)
+    w_out, b_out = p["w_out"], p["b_out"]
+    if d_model:
+        w_out = dp_weight_cols(w_out, d_model)
+        if not serve_2d():
+            b_out = dp_full(b_out, d_model)
+    if d_ff and tp_split("mlp", d_ff):
+        bias = b_out if tp_rank() == 0 else None
+        y = tp_sum(linear(h, w_out, bias), "mlp", d_ff)
+    else:
+        y = linear(h, w_out, b_out)
+    return dp_gather_cols(y, d_model) if d_model else y
 
 
 def sinusoidal_pos(positions, dim: int):

@@ -154,7 +154,11 @@ def _layer_fwd(p, cfg, x, kind: str, *, pos_offset=0, chunk=512,
 
 def _inputs_to_h(params, cfg, batch):
     """tokens (and a VLM's image embeddings, placed first) -> the first
-    hidden states."""
+    hidden states.  On a mesh the looked-up rows are full width
+    (``layers.embed_tokens`` gathers an FSDP piece's columns over the
+    data axis), so the engine's ``embeds`` arrive as they do: the whole
+    bucket under 2D tensor parallelism, the data line's rows under
+    FSDP."""
     tok = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size,
                        cfg.d_model)
     if cfg.embeds_input:

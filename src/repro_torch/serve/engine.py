@@ -100,9 +100,20 @@ the recurrent state's and the conv window's rows lie on ``data`` at a
 bucket the data axis splits, so the conv, the state update and the scan
 run on the rank's rows and their per-row output is gathered over
 ``data`` before the gated norm (``models/mamba2.py::state_rows``).
-Every family serves tensor-parallel; the engine raises for the VLM and
-encoder-decoder families under FSDP or 2D tensor parallelism and for
-sequence parallelism, each with a message of its own
+The VLM and encoder-decoder families serve on every layout too: the
+image embeddings (and whisper's frames) are padded and split with the
+tokens, so they arrive as the looked-up embeddings do, the whole bucket
+at full width under 2D tensor parallelism and the data line's rows under
+FSDP; whisper's LayerNorm scales and biases, its MLP's ``b_out`` and
+``w_out``'s columns lie on ``data`` (FSDP gathers them before use, 2D
+adds the rank's ``b_out`` piece to its columns), ``w_in``'s rows too
+(2D: a k-split whose bias and GELU run once after the data sum), and
+under 2D at a bucket the data axis splits the cross cache's rows lie on
+``data`` beside the self-attention cache's: each rank's prefill writes
+its rows of both and its cross-attention step attends over its rows,
+gathering the output over ``data`` (``models/attention.py::
+cross_decode``).  Every family serves on every layout; the engine raises
+for sequence parallelism with a message of its own
 (``sharding/context.py::check_dense_mesh``).
 
 Every ladder demotion on the engine's paths (a planned kernel served by

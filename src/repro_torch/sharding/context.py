@@ -238,16 +238,9 @@ def tp_gather(x, axis: str, dim: int):
     return comm.all_gather(x, tp_group(), dim=-1)
 
 
-# the families that serve on a mesh over ``model`` (with or without a
-# plain data axis) but not under FSDP or 2D tensor parallelism, and what
-# each would need there (its refusal's message)
-_TP_ONLY = {
-    "vlm": "the image embeddings under the data axis's embedding columns",
-    "encdec": "the encoder, the cross cache and the biases under the data "
-              "axis's weight pieces",
-}
-# the families that serve under every layout
-_EVERY_LAYOUT = {"dense", "moe", "ssm", "hybrid"}
+# the families that serve on every layout: over ``model``, with or
+# without a plain data axis, and under FSDP and 2D tensor parallelism
+_EVERY_LAYOUT = {"dense", "moe", "ssm", "hybrid", "vlm", "encdec"}
 
 
 def _ssm_split(cfg, mesh, opts: ShardingOptions, tp: int) -> bool:
@@ -281,12 +274,11 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one in training, the VLM and encoder-decoder families under FSDP or
-    2D tensor parallelism (each with its own message), sequence
-    parallelism,
-    2D tensor parallelism outside serving, data or FSDP axes other than
-    one data axis where FSDP or 2D tensor parallelism would use them, and
-    heads the TP axis would split unevenly.  Returns which head dims the
+    one in training, an unknown family, sequence parallelism, 2D tensor
+    parallelism outside serving, data or FSDP axes other than one data
+    axis where FSDP or 2D tensor parallelism would use them, and heads
+    the TP axis would split unevenly, each with a message of its own.
+    Serving takes every family on every layout.  Returns which head dims the
     rules split ({"qheads": bool, "kvheads": bool}, and for a model with
     Mamba2 blocks "ssm_heads")."""
     if not hasattr(mesh, "group"):
@@ -298,12 +290,7 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     if cfg.family != "dense" and not serving:
         raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
                                   f"family only, not {cfg.family!r}")
-    if cfg.family in _TP_ONLY and (opts.fsdp or opts.serve_2d_tp):
-        raise NotImplementedError(
-            f"{cfg.name}: {what} of the {cfg.family!r} family under FSDP "
-            f"or 2D tensor parallelism (fsdp={opts.fsdp}, serve_2d_tp="
-            f"{opts.serve_2d_tp}) is not ported: {_TP_ONLY[cfg.family]}")
-    if cfg.family not in _EVERY_LAYOUT and cfg.family not in _TP_ONLY:
+    if cfg.family not in _EVERY_LAYOUT:
         raise ValueError(f"unknown model family {cfg.family!r}")
     if opts.sequence_parallel:
         raise NotImplementedError(

@@ -12,11 +12,10 @@
   per-rank problems: (bucket, K/2, N/2) under 2D tensor parallelism,
   (bucket/2, K, N/2) under FSDP.
 * ``sharding/context.py::check_dense_mesh`` still refuses sequence
-  parallelism, the families that do not serve under FSDP or 2D tensor
-  parallelism (the VLM and encoder-decoder ones), every family but the
-  dense one in training, and 2D tensor parallelism outside serving; it
-  serves the MoE, SSM and hybrid families under FSDP and 2D tensor
-  parallelism.
+  parallelism, every family but the dense one in training, and 2D
+  tensor parallelism outside serving; it serves every family (the MoE,
+  SSM, hybrid, VLM and encoder-decoder ones among them) under FSDP and
+  2D tensor parallelism.
 """
 
 import json
@@ -267,30 +266,27 @@ class _FakeMesh:
     (ShardingOptions(fsdp=True), True, "llava_next_mistral_7b"),
     (ShardingOptions(fsdp=True, serve_2d_tp=True), True, "whisper_base"),
     (ShardingOptions(fsdp=True), True, "whisper_base"),
+    (ShardingOptions(fsdp=True), False, "llava_next_mistral_7b"),
+    (ShardingOptions(fsdp=True, sequence_parallel=True), True,
+     "whisper_base"),
 ])
 def test_check_dense_mesh_refusals(opts, serving, arch):
-    """Each case refused, but the MoE, SSM and hybrid families' serving
-    under FSDP or 2D tensor parallelism without sequence parallelism:
-    served since they run there (tests/test_torch_tp2d_moe.py,
-    tests/test_torch_tp2d_ssm.py), returning the head split (the Mamba2
-    heads' among it)."""
+    """Each case refused, but a non-dense family's serving under FSDP or
+    2D tensor parallelism without sequence parallelism: served since it
+    runs there (tests/test_torch_tp2d_moe.py, tests/test_torch_tp2d_ssm.py,
+    tests/test_torch_tp2d_vlm_encdec.py), returning the head split (the
+    Mamba2 heads' among it)."""
     cfg = get_reduced_config(arch)
-    if (cfg.family in ("moe", "ssm", "hybrid") and serving
-            and not opts.sequence_parallel):
+    if cfg.family != "dense" and serving and not opts.sequence_parallel:
         wide = cfg.reduced(d_model=512, num_heads=4 if cfg.num_heads else 0,
                            num_kv_heads=4 if cfg.num_heads else 0,
                            head_dim=128)
         split = check_dense_mesh(wide, _FakeMesh(), opts, "serving",
                                  serving=True)
         assert split["qheads"] == bool(cfg.num_heads)
+        assert split.get("kvheads", False) == bool(
+            cfg.num_heads and not cfg.use_mla)
         assert split.get("ssm_heads", False) == bool(cfg.ssm_state)
-        return
-    if cfg.family in ("vlm", "encdec") and serving:
-        with pytest.raises(NotImplementedError, match={
-                "vlm": "image embeddings",
-                "encdec": "cross cache"}[cfg.family]):
-            check_dense_mesh(cfg, _FakeMesh(), opts, "serving",
-                             serving=serving)
         return
     with pytest.raises(NotImplementedError):
         check_dense_mesh(cfg, _FakeMesh(), opts, "serving", serving=serving)

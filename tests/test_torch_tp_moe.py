@@ -504,6 +504,13 @@ SSM_WIDE = {"mamba2_780m": dict(d_model=512, num_heads=0, num_kv_heads=0,
                                 d_ff=0),
             "zamba2_2_7b": dict(d_model=512, num_heads=4, num_kv_heads=4,
                                 head_dim=128, d_ff=1024)}
+# the VLM and encoder-decoder families widened as
+# tests/test_torch_tp_vlm_encdec.py widens them
+VLM_WIDE = {"llava_next_mistral_7b": dict(d_model=512, num_heads=4,
+                                          num_kv_heads=2, head_dim=128,
+                                          d_ff=1024),
+            "whisper_base": dict(d_model=512, num_heads=4, num_kv_heads=4,
+                                 head_dim=128, d_ff=1024, vocab_size=517)}
 
 
 class _FakeMesh:
@@ -522,10 +529,17 @@ class _FakeMesh:
     ("mamba2_780m", ShardingOptions(fsdp=True), True, None),
     ("zamba2_2_7b", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
      None),
-    ("llava_next_mistral_7b", ShardingOptions(fsdp=True), True,
-     "'vlm' family under FSDP or 2D tensor parallelism"),
+    # served since the VLM and encoder-decoder families run under FSDP
+    # and 2D tensor parallelism (tests/test_torch_tp2d_vlm_encdec.py): no
+    # message
+    ("llava_next_mistral_7b", ShardingOptions(fsdp=True), True, None),
     ("whisper_base", ShardingOptions(fsdp=True, serve_2d_tp=True), True,
-     "'encdec' family under FSDP or 2D tensor parallelism"),
+     None),
+    # their training on a mesh and their sequence parallelism still refused
+    ("llava_next_mistral_7b", ShardingOptions(fsdp=True), False,
+     "dense family only"),
+    ("whisper_base", ShardingOptions(fsdp=True, sequence_parallel="model"),
+     True, "with sequence parallelism"),
     # served since the MoE family runs under FSDP and 2D tensor
     # parallelism (tests/test_torch_tp2d_moe.py): no message
     ("olmoe_1b_7b", ShardingOptions(fsdp=True), True, None),
@@ -539,10 +553,12 @@ class _FakeMesh:
 def test_the_refusals_kept(arch, opts, serving, message):
     """Each refusal by its message; a case with no message is served, and
     returns the head split (MLA's three head projections together; the
-    Mamba2 heads where the model has them)."""
+    Mamba2 heads where the model has them; the VLM's and the
+    encoder-decoder's query and KV heads)."""
     cfg = get_reduced_config(arch)
     if message is None:
-        split = check_dense_mesh(cfg.reduced(**{**SSM_WIDE, **WIDE}[arch]),
+        split = check_dense_mesh(cfg.reduced(**{**SSM_WIDE, **VLM_WIDE,
+                                                **WIDE}[arch]),
                                  _FakeMesh(), opts, "serving",
                                  serving=serving)
         assert split["qheads"] == bool(cfg.num_heads)
