@@ -437,10 +437,26 @@ printing JSON lines:
                 loss bound of an uninterrupted one-rank run; then in this
                 process NCCL at world size 1: one train step on a
                 ``model=1`` process mesh against the one-rank step, its
-                collectives the contract.  Prints per rank each mesh's
-                peak memory, ``step_s`` and collective bytes (two ranks
-                on one card: no speed).  ``python3 chip_smoke.py --phase
-                train.dist`` runs this phase alone.
+                collectives the contract.  After qwen's meshes the same
+                ranks train OLMoE-1B-7B (``train.dist.moe``: published
+                widths, 2 layers, bf16, remat, 4 x 256 tokens, 2 steps
+                on each of the three meshes, ``model=2`` splitting the
+                experts); each mesh records step 0's routing by layer
+                (``moe_layer_routes``), the one-rank step on the card
+                then takes it (every data rank's rows in global order,
+                dispatched in the mesh's groups) and each rank's first
+                update must hold within ``TRAIN_DIST_TOL`` (the aux loss
+                within ``TRAIN_DIST_AUX_TOL``), the flips of the one-rank
+                step's own top-k reported by layer; each step's
+                collectives the contract (the router gather, the
+                expert counts' all-reduce, the MoE sum, the *f*s), 0
+                hand-written launches; two planted controls (the aux
+                over the rank's tokens on ``data=2``, the routed
+                experts' *f* skipped on ``model=2``) must land outside
+                the bound.  Prints per rank each mesh's peak memory,
+                ``step_s`` and collective bytes (two ranks on one card:
+                no speed).  ``python3 chip_smoke.py --phase train.dist``
+                runs this phase alone.
 
 The serve and queue paths of qwen1.5-4b, OLMoE-1B-7B, Mamba2-780m,
 Zamba2-2.7B, h2o-danube-1.8b, GLM-4-9B and the LLaVA-NeXT backbone run
@@ -4097,6 +4113,15 @@ def tp_moe_contract(cfg, rows: int, tp: int) -> dict:
                            "tensor_bytes": float(sum(ag))}}
 
 
+def _routed_as(top_e, router, xf, g: int, cap: int, gathered: bool):
+    """``moe.route``'s tuple with each token's experts ``top_e`` (t, k)
+    in place of its own top-k, the weights from its own probabilities."""
+    from repro_torch.models import moe
+    probs = moe.router_probs(router, xf, gathered)
+    top_e = top_e.to(probs.device)
+    return moe.dispatch_order(probs, probs.gather(1, top_e), top_e, g, cap)
+
+
 @contextlib.contextmanager
 def moe_routes(k: int, replay=None):
     """Record each MoE dispatch's choice while inside: per call each
@@ -4114,13 +4139,9 @@ def moe_routes(k: int, replay=None):
     it = iter(replay or ())
 
     def recording(router, xf, k_, g, cap, gathered):
-        if replay is None:
-            out = sound(router, xf, k_, g, cap, gathered)
-        else:
-            probs = moe.router_probs(router, xf, gathered)
-            top_e = next(it)["experts"].to(probs.device)
-            out = moe.dispatch_order(probs, probs.gather(1, top_e), top_e,
-                                     g, cap)
+        out = (sound(router, xf, k_, g, cap, gathered) if replay is None
+               else _routed_as(next(it)["experts"], router, xf, g, cap,
+                               gathered))
         probs, flat_e, order, keep = out[:4]
         e = probs.shape[-1]
         kept = torch.empty_like(keep)
@@ -7898,6 +7919,22 @@ TRAIN_DIST_TOL = {"loss": 1e-2, "grad_norm": 5e-2, "params": 1.0,
 # the checkpoint across meshes, on the reduced qwen at d 1024
 # (``TRAIN_RESUME``; bf16): global batch, tokens, steps, the failure
 TRAIN_DIST_RESUME_SHAPE = (4, 256, 4, 2)
+# train.dist.moe: OLMoE-1B-7B at its published widths (d 2048, 16 heads,
+# 64 experts top-8 of d_ff 1024, vocab 50304) cut to 2 layers, bf16 on
+# fp32 masters, remat, a global batch of 4 x 256 tokens, 2 steps on each
+# of qwen's meshes (``TRAIN_DIST_MESHES``; model=2 splits the experts: 32
+# a rank); each mesh's first update against the one-rank step routed as
+# the mesh routed (``moe_layer_routes``)
+TRAIN_DIST_MOE_CUT = {"num_layers": 2}
+TRAIN_DIST_MOE_SHAPE = (4, 256, 2)      # global batch, tokens, steps
+# the step-0 aux loss (the global batch's) against the one-rank step's,
+# relative, set before the first card run with the other bounds
+TRAIN_DIST_AUX_TOL = 1e-2
+# the planted controls, each one step on its mesh from fresh params
+# against the same one-rank step: the aux taken over the rank's tokens
+# (the rule before the global aux) on data=2, the *f* before the routed
+# experts skipped on model=2
+TRAIN_DIST_MOE_FAULTS = {"dp": "local_aux", "tp": "routed_f"}
 
 
 def train_dist_cfg():
@@ -7909,29 +7946,55 @@ def train_dist_contract(cfg, data: int, model: int, fsdp: bool,
                         rows: int, seq: int) -> dict:
     """One step's collectives on a rank (one micro-slice), from the shapes:
     TP over ``model`` (a group of one included): all-reduces of the (rows,
-    seq, d_model) activations after the lookup, ``wo`` and ``w_down`` (1 +
-    2 a layer), remat's recompute of ``wo``'s (1 a layer: the recompute
-    stops at a layer's last saved tensor), *f*'s backward at q/k/v,
-    w_gate/w_up (2 a layer) and the head (1), and one all-gather of the
-    (rows, seq, vocab) logits; where ``data`` > 1, an all-reduce of the
-    loss's sum and count (8 B), each FSDP leaf's shard all-gathered and its
-    gradient reduce-scattered, every other leaf's gradient all-reduced (in
-    the compute dtype: bf16, fp32 for 1-D leaves); the global norm's 4 B
-    over the world."""
+    seq, d_model) activations after the lookup and ``wo`` (1 + 1 a layer),
+    remat's recompute of ``wo``'s (1 a layer after the leading dense
+    ones: the recompute stops at a layer's last saved tensor), *f*'s
+    backward at the attention's input (GQA: q/k/v, 1 a layer; MLA: at
+    ``cq``, ``c_kv`` and ``k_rope``, their low-rank widths) and at the head
+    (1), and one all-gather of the (rows, seq, vocab) logits; a dense
+    MLP's ``w_down`` all-reduce and *f* at w_gate/w_up; an MoE layer's
+    all-gather of the (tokens, E) fp32 router logits where the router
+    splits and, where ``data`` > 1, the data group's all-reduce of its E
+    fp32 expert counts (both run again by the recompute), the one fp32
+    all-reduce of its partial output where its routed or shared experts
+    split, and *f*'s backward before each split consumer (the router,
+    the routed experts, the shared experts: activations; the combine's
+    (tokens, k) fp32 weights where the routed experts split); where
+    ``data`` > 1, an all-reduce of the loss's sum and count (8 B; 12 B
+    with an MoE model's aux share), each FSDP leaf's shard all-gathered
+    and its gradient reduce-scattered, every other leaf's gradient
+    all-reduced (in the compute dtype: bf16, fp32 for 1-D leaves); the
+    global norm's 4 B over the world."""
     from repro_torch.analysis.collectives import collective_bytes
     from repro_torch.models.param import (MetaGenerator, torch_dtype,
                                           tree_leaves)
     from repro_torch.models.registry import build_model
     from repro_torch.sharding.rules import (Mesh, ShardingOptions,
                                             local_shape, param_pspecs,
-                                            spec_leaves)
+                                            pspec_for, spec_leaves)
     mesh = Mesh.of((data, model), ("data", "model"))
+    opts = ShardingOptions(fsdp=fsdp)
     params, axes = build_model(cfg).init(MetaGenerator())
-    specs = spec_leaves(param_pspecs(axes, params, mesh,
-                                     ShardingOptions(fsdp=fsdp)))
+    specs = spec_leaves(param_pspecs(axes, params, mesh, opts))
     item = torch_dtype(cfg.dtype).itemsize
-    act = rows * seq * cfg.d_model * item
-    L = cfg.num_layers
+    tok = rows * seq
+    d, e = cfg.d_model, cfg.num_experts
+    act = tok * d * item
+
+    def split(names, shape):
+        return "model" in pspec_for(names, shape, mesh, opts)
+
+    moe = {}
+    if e:
+        moe = {"router": split(("embed", "experts"), (d, e)),
+               "routed": split(("experts", "embed", "mlp"),
+                               (e, d, cfg.d_ff_expert)),
+               "shared": bool(cfg.num_shared_experts) and split(
+                   ("embed", "mlp"),
+                   (d, cfg.d_ff_expert * cfg.num_shared_experts))}
+    attn_f = ([tok * w * item for w in (cfg.q_lora_rank, cfg.kv_lora_rank,
+                                        cfg.rope_head_dim)]
+              if cfg.use_mla else [act])
     rec = []
     leaves = []
     for t, sp in zip(tree_leaves(params), specs):
@@ -7939,10 +8002,27 @@ def train_dist_contract(cfg, data: int, model: int, fsdp: bool,
         leaves.append((size * (item if t.ndim >= 2 else 4),
                        fsdp and data > 1 and "data" in sp))
     rec += [("all-gather", b * data, data) for b, f in leaves if f]
-    rec += [("all-reduce", act, model)] * (1 + 2 * L + L + 2 * L + 1)
-    rec.append(("all-gather", rows * seq * cfg.vocab_size * item, model))
+    rec += [("all-reduce", act, model)] * 2                # lookup, head f
+    rec.append(("all-gather", tok * cfg.vocab_size * item, model))
+    for i in range(cfg.num_layers):
+        runs = 1 if i < cfg.first_k_dense else 2           # remat
+        rec += [("all-reduce", act, model)] * runs         # wo
+        rec += [("all-reduce", b, model) for b in attn_f]
+        if not e or i < cfg.first_k_dense:
+            rec += [("all-reduce", act, model)] * 2        # w_down, f
+            continue
+        if moe["router"]:
+            rec += [("all-gather", tok * e * 4, model)] * runs
+        if data > 1:
+            rec += [("all-reduce", e * 4, data)] * runs
+        if moe["routed"] or moe["shared"]:
+            rec.append(("all-reduce", tok * d * 4, model))
+        rec += [("all-reduce", act, model)] * sum(moe.values())
+        if moe["routed"]:
+            rec.append(("all-reduce", tok * cfg.experts_per_token * 4,
+                        model))
     if data > 1:
-        rec.append(("all-reduce", 8, data))
+        rec.append(("all-reduce", 12 if e else 8, data))
         rec += [("reduce-scatter" if f else "all-reduce", b, data)
                 for b, f in leaves]
     rec.append(("all-reduce", 4, data * model))
@@ -7957,21 +8037,22 @@ def _train_dist_trees(state) -> dict:
             "v": tree_leaves(state["opt"]["v"])}
 
 
-def _train_dist_compare(state, want: dict, specs: list, mesh,
+def _train_dist_compare(got: dict, want: dict, specs: list, mesh,
                         keys=("params", "m", "v")) -> dict:
-    """This rank's pieces of ``state`` against its pieces of the one-rank
-    snapshot ``want`` (pinned on the host; a leaf at a time on the card):
-    per tree, the worst |err| / bound and whether every element is within
-    ``TRAIN_DIST_TOL``."""
+    """This rank's pieces ``got`` (``_train_dist_trees`` of a mesh
+    state) against its pieces of the one-rank state's whole leaves
+    ``want`` (either side pinned on the host: a leaf at a time on the
+    card): per tree, the worst |err| / bound and whether every element is
+    within ``TRAIN_DIST_TOL``."""
     import torch
     from repro_torch.sharding.rules import local_shard
     t0 = time.perf_counter()
-    got = _train_dist_trees(state)
     out = {}
     for key in keys:
         tol, worst, ok = TRAIN_DIST_TOL[key], 0.0, True
         for a, w, sp in zip(got[key], want[key], specs):
-            w = local_shard(w.to(a.device), sp, mesh, mesh.coords)
+            a = a.to(mesh.device)
+            w = local_shard(w.to(mesh.device), sp, mesh, mesh.coords)
             err = (a.float() - w).abs()
             if key == "params":
                 bound = torch.full_like(w, tol * TRAIN_DIST_OPT["lr"])
@@ -8058,8 +8139,8 @@ def _train_dist_mesh(name, mesh, cfg, model, ocfg, shape, ref, res) -> None:
                              shape.seq_len)})
             if i == 0:
                 compare = _train_dist_compare(
-                    state, ref["snapshot"], spec_leaves(specs["params"]),
-                    mesh)
+                    _train_dist_trees(state), ref["snapshot"],
+                    spec_leaves(specs["params"]), mesh)
     launches = sum(cuda.launches.values())
     res["meshes"][name] = {
         "mesh": dict(mesh.shape), "fsdp": fsdp, "steps": rows,
@@ -8101,7 +8182,7 @@ def _train_dist_planted(mesh, cfg, model, ocfg, shape, ref) -> dict:
             state, met = make_train_step(model, ocfg)(state, data.batch(0))
     finally:
         comm._Copy.backward = staticmethod(sound)
-    out = _train_dist_compare(state, ref["snapshot"],
+    out = _train_dist_compare(_train_dist_trees(state), ref["snapshot"],
                               spec_leaves(specs["params"]), mesh, keys=("m",))
     return {"f_backward_calls": calls[0], "loss": float(met["loss"]),
             "grad_norm": float(met["grad_norm"]), **out["m"]}
@@ -8162,6 +8243,257 @@ def _train_dist_resume(out_dir, device, res) -> None:
     res["resume"] = out
 
 
+def train_dist_moe_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("olmoe_1b_7b"), **TRAIN_DIST_MOE_CUT)
+
+
+@contextlib.contextmanager
+def moe_layer_routes(k: int, replay=None):
+    """Each MoE layer's routing while inside, keyed by layer: a train
+    step's forward runs the layers in order and remat's recompute calls
+    ``moe.route`` again in the backward, in reverse, so a layer is the
+    order in which its router (a view of the layer stack, the same object
+    in the recompute) is first seen.  Yields ``{"experts": {layer: each
+    token's k experts (t, k) on the host, from its first call},
+    "flips": {...}}``.  ``replay``: such an ``experts`` record, whose
+    experts every call of a layer takes in place of its own top-k (the
+    weights from its own probabilities); the layer's own top-k is then
+    compared, and ``flips`` counts by layer the tokens whose top-k set
+    differs from the replayed one."""
+    import torch
+    from repro_torch.models import moe
+    sound = moe.route
+    seen, rec = {}, {"experts": {}, "flips": {}}
+
+    def keyed(router, xf, k_, g, cap, gathered):
+        layer = seen.setdefault(router.data_ptr(), len(seen))
+        if replay is None:
+            out = sound(router, xf, k_, g, cap, gathered)
+            top_e = out[1].view(-1, k_)
+        else:
+            out = _routed_as(replay[layer], router, xf, g, cap, gathered)
+            top_e = out[1].view(-1, k_)
+            own = torch.topk(out[0].detach(), k_, dim=-1)[1]
+            rec["flips"].setdefault(layer, int(
+                (own.sort(-1).values != top_e.sort(-1).values)
+                .any(-1).sum()))
+        if layer not in rec["experts"]:
+            rec["experts"][layer] = top_e.detach().cpu()
+        return out
+
+    moe.route = keyed
+    try:
+        yield rec
+    finally:
+        moe.route = sound
+
+
+def _train_dist_moe_fault(fault: str):
+    """(module attribute, its planted form, the calls counted) of one
+    ``TRAIN_DIST_MOE_FAULTS`` control."""
+    import torch
+    from repro_torch.models import moe
+    calls = [0]
+
+    def local_aux(probs, flat_e, k, coef):
+        calls[0] += 1
+        t, e = probs.shape
+        ce = torch.zeros((e,), dtype=torch.float32,
+                         device=probs.device).index_add_(
+            0, flat_e, torch.ones((t * k,), dtype=torch.float32,
+                                  device=probs.device)) / (t * k)
+        return e * torch.sum(probs.mean(0) * ce) * coef
+
+    def routed_f(xk, routed):
+        calls[0] += 1
+        return xk
+
+    plant = {"local_aux": ("load_balance_aux", local_aux),
+             "routed_f": ("routed_input", routed_f)}[fault]
+    return moe, plant[0], plant[1], calls
+
+
+def _host_trees(state, keys=("params", "m", "v")) -> dict:
+    """This rank's pieces of ``state``'s trees, pinned on the host."""
+    import torch
+    pin = torch.cuda.is_available()
+    return {k: [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(t)
+                for t in v]
+            for k, v in _train_dist_trees(state).items() if k in keys}
+
+
+def _train_dist_moe_mesh(name, mesh, cfg, model, ocfg, shape) -> dict:
+    """One mesh of ``train.dist.moe``: its steps timed with their
+    collectives and step 0's routing recorded; the planted control of the
+    mesh, if any, one step from fresh params; then the one-rank step on
+    the card routed as the mesh routed (every data rank's records in
+    global row order, dispatched in the mesh's groups), against which
+    each rank compares its pieces after the first update."""
+    import torch
+    from repro_torch.analysis.collectives import collective_bytes, staged_ops
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.specs import train_state_specs
+    from repro_torch.models import moe
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.context import sharding_ctx
+    from repro_torch.sharding.rules import (ShardingOptions, local_params,
+                                            spec_leaves)
+    from repro_torch.train import loop
+    from repro_torch.train.step import init_train_state, make_train_step
+    t_mesh = time.perf_counter()
+    d, m, fsdp = TRAIN_DIST_MESHES[name]
+    opts = ShardingOptions(fsdp=fsdp)
+    dev = mesh.device
+    full, specs, _ = train_state_specs(model, ocfg, mesh, opts)
+    p_specs = spec_leaves(specs["params"])
+    k = cfg.experts_per_token
+
+    def fresh():
+        return init_train_state(model, ocfg, params=local_params(
+            _train_dist_params(model, dev), specs["params"], full["params"],
+            mesh))
+
+    data = SyntheticData(cfg, shape, seed=0, device=dev, mesh=mesh,
+                         batch_spec=loop._batch_spec(mesh, opts))
+    state, step = fresh(), make_train_step(model, ocfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launches()
+    rows, routes, snap = [], None, None
+    with sharding_ctx(mesh, opts):
+        for i in range(TRAIN_DIST_MOE_SHAPE[2]):
+            batch = data.batch(i)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with comm.recording() as rec, (
+                    moe_layer_routes(k) if i == 0
+                    else contextlib.nullcontext()) as got:
+                state, met = step(state, batch)
+                loss = float(met["loss"])
+            dt = time.perf_counter() - t0
+            if i == 0:
+                routes, snap = got["experts"], _host_trees(state)
+            rows.append({"step": i, "loss": loss, "aux": float(met["aux"]),
+                         "grad_norm": float(met["grad_norm"]), "step_s": dt,
+                         "collectives": collective_bytes(rec),
+                         "staged": staged_ops(rec),
+                         "contract": train_dist_contract(
+                             cfg, d, m, fsdp, int(batch["tokens"].shape[0]),
+                             shape.seq_len)})
+    launches = sum(cuda.launches.values())
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    del state
+    _free(dev.type)
+    planted = None
+    fault = TRAIN_DIST_MOE_FAULTS.get(name)
+    if fault:
+        mod, attr, plant, calls = _train_dist_moe_fault(fault)
+        sound = getattr(mod, attr)
+        state = fresh()
+        setattr(mod, attr, plant)
+        try:
+            with sharding_ctx(mesh, opts):
+                state, met = step(state, data.batch(0))
+        finally:
+            setattr(mod, attr, sound)
+        planted = {"fault": fault, "calls": calls[0],
+                   "loss": float(met["loss"]), "aux": float(met["aux"]),
+                   "grad_norm": float(met["grad_norm"]),
+                   "snapshot": _host_trees(state, ("m",))}
+        del state
+        _free(dev.type)
+    # every data rank's routing, in global row order
+    if d > 1:
+        routes = {layer: comm.all_gather(e, mesh.group("data"), dim=0)
+                  for layer, e in sorted(routes.items())}
+    t_one = time.perf_counter()
+    sound_groups = moe.moe_groups
+    moe.moe_groups = (lambda t: d if d > 1 and t % d == 0 and t >= d
+                      else 1)
+    try:
+        one = init_train_state(model, ocfg,
+                               params=_train_dist_params(model, dev))
+        batch = SyntheticData(cfg, shape, seed=0, device=dev).batch(0)
+        with moe_layer_routes(k, replay=routes) as own:
+            one, met1 = make_train_step(model, ocfg)(one, batch)
+    finally:
+        moe.moe_groups = sound_groups
+    ref = {"loss": float(met1["loss"]), "aux": float(met1["aux"]),
+           "grad_norm": float(met1["grad_norm"]),
+           "seconds": time.perf_counter() - t_one}
+    want = _train_dist_trees(one)
+    compare = _train_dist_compare(snap, want, p_specs, mesh)
+    del snap
+    if planted is not None:
+        planted.update(_train_dist_compare(
+            planted.pop("snapshot"), want, p_specs, mesh, keys=("m",))["m"])
+        planted["aux_err_over_bound"] = abs(planted["aux"] - ref["aux"]) / (
+            TRAIN_DIST_AUX_TOL * abs(ref["aux"]))
+    del one, want
+    _free(dev.type)
+    t = routes[0].shape[0]
+    return {"mesh": dict(mesh.shape), "fsdp": fsdp, "steps": rows,
+            "one_rank": ref, "compare": compare, "planted": planted,
+            "flips_by_layer": [own["flips"][i] for i in sorted(own["flips"])],
+            "flip_frac_by_layer": [own["flips"][i] / t
+                                   for i in sorted(own["flips"])],
+            "hand_written_launches": launches, "peak_bytes": peak,
+            "seconds": time.perf_counter() - t_mesh}
+
+
+def train_dist_moe(device: str) -> dict:
+    """train.dist.moe on this rank: OLMoE-1B-7B on each mesh of
+    ``TRAIN_DIST_MESHES``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import OptConfig
+    cfg = train_dist_moe_cfg()
+    model = build_model(cfg)
+    ocfg = OptConfig(**TRAIN_DIST_OPT)
+    b, s, _ = TRAIN_DIST_MOE_SHAPE
+    shape = ShapeSpec("train.dist.moe", s, b, "train")
+    out = {}
+    for name, (d, m, _) in TRAIN_DIST_MESHES.items():
+        out[name] = _train_dist_moe_mesh(
+            name, make_mesh((d, m), ("data", "model"), device=device,
+                            verbose=False), cfg, model, ocfg, shape)
+    return out
+
+
+def train_dist_moe_checks(rk, moe: dict) -> list:
+    """What one rank's ``train.dist.moe`` results break of the contract."""
+    bad = []
+    for name, r in moe.items():
+        s0, ref = r["steps"][0], r["one_rank"]
+        for key, tol in (("loss", TRAIN_DIST_TOL["loss"]),
+                         ("grad_norm", TRAIN_DIST_TOL["grad_norm"]),
+                         ("aux", TRAIN_DIST_AUX_TOL)):
+            if not abs(s0[key] - ref[key]) <= tol * abs(ref[key]):
+                bad.append(f"rank {rk} moe {name}: step-0 {key} {s0[key]} "
+                           f"vs {ref[key]}")
+        if not all(c["within"] for k, c in r["compare"].items()
+                   if k != "seconds"):
+            bad.append(f"rank {rk} moe {name}: leaves {r['compare']}")
+        for st in r["steps"]:
+            if st["collectives"] != st["contract"] or st["staged"]:
+                bad.append(f"rank {rk} moe {name} step {st['step']}: "
+                           f"collectives {st['collectives']} != "
+                           f"{st['contract']}, staged {st['staged']}")
+        if r["hand_written_launches"]:
+            bad.append(f"rank {rk} moe {name}: {r['hand_written_launches']} "
+                       f"hand-written kernel launches")
+        pl = r["planted"]
+        if name in TRAIN_DIST_MOE_FAULTS and (
+                pl is None or not pl["calls"]
+                or (pl["within"] and pl["aux_err_over_bound"] <= 1.0)):
+            bad.append(f"rank {rk} moe {name}: the planted fault {pl}")
+    return bad
+
+
 def train_dist_worker(out_dir: str) -> None:
     """One rank of the train.dist phase (``torch.distributed.run``): two
     ranks on the one card over gloo."""
@@ -8200,6 +8532,9 @@ def train_dist_worker(out_dir: str) -> None:
                       verbose=False), cfg, model, ocfg, shape, ref)
         del ref
         _free(mesh.device.type)
+        t0 = time.perf_counter()
+        res["moe"] = train_dist_moe(device)
+        res["moe_seconds"] = time.perf_counter() - t0
         _train_dist_resume(out_dir, device, res)
     finally:
         with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
@@ -8282,6 +8617,7 @@ def train_dist_checks(ranks: list) -> list:
         pl = res["planted"]
         if not pl["f_backward_calls"] or pl["within"]:
             bad.append(f"rank {rk}: the planted fault {pl}")
+        bad += train_dist_moe_checks(rk, res["moe"])
         rs = res["resume"]
         want = ranks[0]["resume"]["whole"][rs["fail_at"]:]
         runs = [rs["model2"]] + ([rs["one_rank"]] if "one_rank" in rs
@@ -8347,10 +8683,36 @@ def phase_train_dist(device="cuda"):
                                  r["hand_written_launches"]}
                          for n, r in res["meshes"].items()},
               "planted": res["planted"], "resume": res["resume"]})
+        for n, r in res["moe"].items():
+            emit({"phase": "train.dist.moe", "rank": res["rank"], "path": n,
+                  "mesh": r["mesh"], "fsdp": r["fsdp"],
+                  "peak_bytes": r["peak_bytes"],
+                  "step_s": [s["step_s"] for s in r["steps"]],
+                  "losses": [s["loss"] for s in r["steps"]],
+                  "aux": [s["aux"] for s in r["steps"]],
+                  "grad_norm_step0": r["steps"][0]["grad_norm"],
+                  "one_rank": r["one_rank"],
+                  "flips_by_layer": r["flips_by_layer"],
+                  "flip_frac_by_layer": r["flip_frac_by_layer"],
+                  "collectives": r["steps"][-1]["collectives"],
+                  "contract_held": all(s["collectives"] == s["contract"]
+                                       for s in r["steps"]),
+                  "compare": r["compare"], "planted": r["planted"],
+                  "seconds": r["seconds"],
+                  "hand_written_launches": r["hand_written_launches"]})
     smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
            if device == "cuda" else None)
+    mcfg = train_dist_moe_cfg()
+    emit({"phase": "train.dist.moe", "nvidia_smi": smi, "ranks": 2,
+          "config": mcfg.name, "d_model": mcfg.d_model,
+          "experts": mcfg.num_experts, "top_k": mcfg.experts_per_token,
+          "d_ff_expert": mcfg.d_ff_expert, "vocab": mcfg.vocab_size,
+          "cut": TRAIN_DIST_MOE_CUT, "dtype": mcfg.dtype,
+          "remat": mcfg.remat, "shape": TRAIN_DIST_MOE_SHAPE,
+          "aux_tol": TRAIN_DIST_AUX_TOL,
+          "seconds": [r.get("moe_seconds") for r in ranks]})
     cfg = train_dist_cfg()
     emit({"phase": "train.dist", "nvidia_smi": smi, "ranks": 2,
           "backend": ranks[0]["backend"], "config": cfg.name,

@@ -416,16 +416,27 @@ def _mla_heads(p, cfg) -> int:
 
 
 def _mla_qkv_train(p, cfg, x, pos):
+    """q, k, v (the rank's heads) and the latent cache's ``c_kv`` /
+    ``k_rope`` of a sequence.  ``wq_a``, ``wkv_a`` and both norms are whole
+    on every rank, the heads' ``wq_b`` / ``wkv_b`` split: where autograd
+    records, Megatron's *f* stands on ``cq`` (after ``q_norm``), on
+    ``c_kv`` (after ``kv_norm``) and on ``k_rope`` (which meets the rank's
+    heads in the scores), so the whole leaves' gradients are full on
+    every rank with no other collective (an *f* on ``ckv`` before the norm
+    would leave ``kv_norm``'s gradient the rank's heads' partial)."""
     b, s, _ = x.shape
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     h = _mla_heads(p, cfg)
     kvr = cfg.kv_lora_rank
-    cq = rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    heads = cfg.num_heads * (dn + dr)
+    cq = tp_copy(rmsnorm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps),
+                 "qheads", heads)
     q = linear(cq, p["wq_b"]).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv = linear(x, p["wkv_a"])
-    c_kv = rmsnorm(ckv[..., :kvr], p["kv_norm"], cfg.norm_eps)
-    k_rope = ckv[..., kvr:][:, :, None, :]                    # (B,S,1,dr)
+    c_kv = tp_copy(rmsnorm(ckv[..., :kvr], p["kv_norm"], cfg.norm_eps),
+                   "qheads", heads)
+    k_rope = tp_copy(ckv[..., kvr:], "qheads", heads)[:, :, None, :]
     kv = linear(c_kv, p["wkv_b"]).reshape(b, s, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     cos, sin = rope_tables(pos, dr, cfg.rope_theta)

@@ -45,6 +45,14 @@ sum would get wrong; ``w_down`` / ``ws_down`` then give the rank's
 ``d / n`` output columns, which pass the combine and :func:`moe_sum`
 before the cast, and are gathered over the data group after it.
 
+In a train step on a process mesh (where autograd records) the TP
+sites carry gradients: :func:`moe_sum` is Megatron's *g*, the router's
+gather passes the gradient of the rank's columns back, and *f* stands
+before each consumer of the layer's input whose weight is split, and at
+the combine's routing weights where the routed experts split.  A rank's
+rows of the global batch are one dispatch group, and its aux loss is its
+share of the global batch's (:func:`load_balance_aux`).
+
 Every shape depends only on the token count (``cap`` is computed from
 it), and nothing reads a value on the host, so a call is capturable in
 a CUDA graph.  The dispatch is the reference's, step for step: the fp32
@@ -74,9 +82,11 @@ from torch.profiler import record_function
 from repro_torch.models.layers import silu
 from repro_torch.models.param import ParamTree
 from repro_torch.sharding.context import (dp_gather_cols, dp_group,
-                                          dp_slice, dp_weight, kblocks_split,
-                                          moe_groups, tp_group, tp_leaf_split,
-                                          tp_rank)
+                                          dp_size, dp_slice, dp_weight,
+                                          kblocks_split, moe_groups,
+                                          tp_copy_where, tp_gather_where,
+                                          tp_leaf_split, tp_rank,
+                                          tp_sum_where)
 
 # profiler ranges (``launch/profile_decode.py`` reads the device time of
 # the kernels each encloses): the routed and shared experts' products,
@@ -107,9 +117,18 @@ def _capacity(tokens: int, e: int, k: int, factor: float) -> int:
 def moe_sum(part):
     """The fp32 partial output of an MoE layer (routed and shared experts
     together) summed over the TP group: the layer's one collective after
-    its experts."""
-    from repro_torch.sharding import comm
-    return comm.all_reduce(part, tp_group())
+    its experts (where autograd records, Megatron's *g*: the gradient
+    passed through)."""
+    return tp_sum_where(part, True)
+
+
+def routed_input(xk, routed):
+    """The routed experts' copy of the layer's input: where autograd
+    records and the rules split them (``routed``: ``"experts"`` or
+    ``"mlp"``), Megatron's *f*, whose backward sums the ranks' partial
+    gradients of the dispatched rows (a function of its own, so a control
+    can skip it)."""
+    return tp_copy_where(xk, routed is not None)
 
 
 def router_sum(part):
@@ -142,15 +161,16 @@ def router_probs(router, xf, gathered: bool):
     (t, E) fp32 logits.  Under FSDP the router's rows are gathered over
     the data group first; under 2D tensor parallelism the rank's rows
     contract its data line's columns of ``xf`` and the partial logits are
-    summed over the data group (:func:`router_sum`) before the gather."""
+    summed over the data group (:func:`router_sum`) before the gather.
+    A bf16 train step's compute copy holds the router in bf16 (as the
+    reference's: every matrix cast): its values take part in fp32."""
     d = xf.shape[-1]
+    router = router.float()
     if kblocks_split(d):
         logits = router_sum(dp_slice(xf, d).float() @ router)
     else:
         logits = xf.float() @ dp_weight(router, d, 0)            # (t, E) f32
-    if gathered:
-        from repro_torch.sharding import comm
-        logits = comm.all_gather(logits, tp_group(), dim=-1)
+    logits = tp_gather_where(logits, gathered)
     return torch.softmax(logits, dim=-1)
 
 
@@ -180,6 +200,34 @@ def dispatch_order(probs, top_p, top_e, g: int, cap: int) -> tuple:
             top_p.reshape(-1)[order])
 
 
+def load_balance_aux(probs, flat_e, k: int, coef: float):
+    """The load-balance aux loss (Switch/GShard form) of the routing
+    ``probs`` (t, E) and the t * k chosen experts ``flat_e``: ``E * coef
+    * sum_e me[e] * ce[e]``, ``me`` the mean probability of expert e over
+    the batch's tokens, ``ce`` the share of the choices that went to e (no
+    gradient; the counts are exact in fp32 whatever the order of the
+    adds).  Where autograd records on a live data axis of n ranks (a
+    train step: each rank holds t of the global batch's n * t tokens),
+    the ranks' counts are all-reduced over the data group (E fp32 values)
+    and the rank returns its share ``E * coef * sum_e (me_r[e] / n) *
+    ce[e]``: summed over the group, the shares are the global batch's aux
+    and their gradients its gradient.  Under TP every rank routes the
+    same gathered logits, so every TP rank returns the same share."""
+    t, e = probs.shape
+    counts = torch.zeros((e,), dtype=torch.float32,
+                         device=probs.device).index_add_(
+        0, flat_e, torch.ones((t * k,), dtype=torch.float32,
+                              device=probs.device))
+    me = probs.mean(0)
+    n = dp_size() if torch.is_grad_enabled() and probs.requires_grad else 1
+    if n > 1:
+        from repro_torch.sharding import comm
+        counts = comm.all_reduce(counts, dp_group())
+        me = me / n
+    ce = counts / (t * k * n)
+    return e * torch.sum(me * ce) * coef
+
+
 def route(router, xf, k: int, g: int, cap: int, gathered: bool) -> tuple:
     """The routing of ``xf`` (t, d): the fp32 softmax of the router's
     logits (:func:`router_probs`), each token's top-k experts, renormalised
@@ -192,7 +240,17 @@ def route(router, xf, k: int, g: int, cap: int, gathered: bool) -> tuple:
 
 def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
     """x: (B, S, d) -> (out, aux_loss), dispatched in the ambient mesh's
-    groups (``moe_groups``: 1 off a mesh)."""
+    groups (``moe_groups``: 1 off a mesh).  Where autograd records on a
+    tensor-parallel mesh, Megatron's *f* stands before each consumer of
+    ``x`` whose weight is split (the router split with the experts, the
+    routed experts, the shared experts), each consumer reading its own
+    copy: a whole consumer computes the full gradient of ``x`` on every
+    rank, which one *f* on the layer's input would sum ``tp`` times.  The
+    combine's routing weights meet the rank's partial expert outputs, so
+    where the routed experts split they pass an *f* too.  The
+    aux loss is taken right after the routing (:func:`load_balance_aux`),
+    so remat's recompute, which stops at the layer's last saved tensor
+    (before :func:`moe_sum`), runs its data-group all-reduce again."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -220,11 +278,16 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
 
     with record_function(DISPATCH_RANGE):
         probs, flat_e, order, keep, slot, tok, w_sorted = route(
-            p["router"], xf, k, g, cap, gathered)
+            p["router"], tp_copy_where(xf, gathered), k, g, cap, gathered)
+        aux = load_balance_aux(probs, flat_e, k, cfg.router_aux_coef)
+        # the combine's weights meet each rank's partial expert outputs:
+        # their gradient (and through it the router's) is summed by *f*
+        w_sorted = tp_copy_where(w_sorted, routed is not None)
         # slots are unique but for the sink row, which only takes zeros
+        xe = routed_input(xk, routed)
         dk = xk.shape[-1]
         buf = x.new_zeros((e * g * cap + 1, dk)).index_copy_(
-            0, slot, torch.where(keep[:, None], xk[tok], 0))
+            0, slot, torch.where(keep[:, None], xe[tok], 0))
         buf = buf[:-1].view(e, g * cap, dk)
         lo = 0
         if routed == "experts":           # this rank's experts' rows only
@@ -237,8 +300,9 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
         # w_gate and w_up of the routed experts, then of the shared ones
         pre = [torch.bmm(buf, w_gate), torch.bmm(buf, w_up)]
         if cfg.num_shared_experts:
-            pre += [xk @ dp_weight(p["ws_gate"], d, 0),
-                    xk @ dp_weight(p["ws_up"], d, 0)]
+            xs = tp_copy_where(xk, shared is not None)
+            pre += [xs @ dp_weight(p["ws_gate"], d, 0),
+                    xs @ dp_weight(p["ws_up"], d, 0)]
         if kblocks_split(d):            # 2D: summed over data before SiLU
             pre = experts_sum(pre)
         y = torch.bmm(silu(pre[0]) * pre[1], w_down)
@@ -285,14 +349,4 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
             acc = acc + y_
         out = acc.to(x.dtype).reshape(b, s, do)
     # 2D: the rank's columns of the output gathered over the data group
-    out = dp_gather_cols(out, d)
-
-    # load-balance aux loss (Switch/GShard form); the counts are exact
-    # in fp32 whatever the order of the adds
-    with record_function(DISPATCH_RANGE):
-        me = probs.mean(0)
-        ce = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
-            0, flat_e, torch.ones((t * k,), dtype=torch.float32,
-                                  device=dev)) / (t * k)
-        aux = e * torch.sum(me * ce) * cfg.router_aux_coef
-    return out, aux
+    return dp_gather_cols(out, d), aux

@@ -203,7 +203,14 @@ def tp_copy(x, axis: str, dim: int):
     ``axis``, full size ``dim``) is split over the TP group: ``x`` itself
     forward, and where autograd records, its gradient (each rank's
     partial, from its columns) all-reduced backward (Megatron's *f*)."""
-    if not (tp_split(axis, dim) and _records(x)):
+    return tp_copy_where(x, tp_split(axis, dim))
+
+
+def tp_copy_where(x, split: bool):
+    """:func:`tp_copy` where the caller knows whether its consumer's
+    weight is split over the TP group (``split``; an MoE leaf's layout,
+    :func:`tp_leaf_split`)."""
+    if not (split and _records(x)):
         return x
     from repro_torch.sharding import comm
     return comm.tp_copy(x, tp_group())
@@ -216,7 +223,13 @@ def tp_sum(x, axis: str, dim: int):
     vocab-sharded token lookup): in place under serving, with the
     gradient passed through where autograd records (*g*); ``x`` itself
     where the dim is whole."""
-    if not tp_split(axis, dim):
+    return tp_sum_where(x, tp_split(axis, dim))
+
+
+def tp_sum_where(x, split: bool):
+    """:func:`tp_sum` where the caller knows whether the contraction is
+    split over the TP group (``split``)."""
+    if not split:
         return x
     from repro_torch.sharding import comm
     if _records(x):
@@ -230,7 +243,13 @@ def tp_gather(x, axis: str, dim: int):
     gathered to full width over the TP group (where autograd records, the
     gradient of the rank's piece flows back); ``x`` itself where the dim
     is whole."""
-    if not tp_split(axis, dim):
+    return tp_gather_where(x, tp_split(axis, dim))
+
+
+def tp_gather_where(x, split: bool):
+    """:func:`tp_gather` where the caller knows whether the last dim is
+    split over the TP group (``split``)."""
+    if not split:
         return x
     from repro_torch.sharding import comm
     if _records(x):
@@ -241,6 +260,8 @@ def tp_gather(x, axis: str, dim: int):
 # the families that serve on every layout: over ``model``, with or
 # without a plain data axis, and under FSDP and 2D tensor parallelism
 _EVERY_LAYOUT = {"dense", "moe", "ssm", "hybrid", "vlm", "encdec"}
+# the families a train step runs on a process mesh
+_TRAINED = {"dense", "moe"}
 
 
 def _ssm_split(cfg, mesh, opts: ShardingOptions, tp: int) -> bool:
@@ -274,10 +295,11 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     """Refuse, for ``what`` (serving, or training where ``serving`` is
     False), a mesh description with no ranks, a backend that cannot run
     the collectives on the rank's tensors, a family other than the dense
-    one in training, an unknown family, sequence parallelism, 2D tensor
-    parallelism outside serving, data or FSDP axes other than one data
-    axis where FSDP or 2D tensor parallelism would use them, and heads
-    the TP axis would split unevenly, each with a message of its own.
+    and MoE ones in training, an unknown family, sequence parallelism,
+    2D tensor parallelism outside serving, data or FSDP axes other than
+    one data axis where FSDP or 2D tensor parallelism would use them,
+    and heads the TP axis would split unevenly, each with a message of
+    its own.
     Serving takes every family on every layout.  Returns which head dims the
     rules split ({"qheads": bool, "kvheads": bool}, and for a model with
     Mamba2 blocks "ssm_heads")."""
@@ -287,9 +309,9 @@ def check_dense_mesh(cfg, mesh, opts: ShardingOptions, what: str, *,
     if mesh.backend == "nccl" and mesh.device.type != "cuda":
         raise RuntimeError(f"NCCL runs collectives on CUDA tensors, not on "
                            f"{mesh.device}")
-    if cfg.family != "dense" and not serving:
-        raise NotImplementedError(f"{cfg.name}: {what} runs the dense "
-                                  f"family only, not {cfg.family!r}")
+    if cfg.family not in _TRAINED and not serving:
+        raise NotImplementedError(f"{cfg.name}: {what} runs the dense and "
+                                  f"MoE families only, not {cfg.family!r}")
     if cfg.family not in _EVERY_LAYOUT:
         raise ValueError(f"unknown model family {cfg.family!r}")
     if opts.sequence_parallel:
@@ -375,18 +397,20 @@ def moe_groups(tokens: int) -> int:
     reference's ``models/moe.py::_dp_groups``, which dispatches per data
     shard: ``n`` groups of a global batch over ``n`` data ranks where
     ``n`` divides its tokens).  Where the rank computes its data line's
-    rows of the bucket (the cell's cache rows split over the data axis,
-    outside 2D tensor parallelism), those rows are exactly one group;
-    where every rank computes the whole bucket, it dispatches the ``n``
-    groups over its tokens itself.  1 off a mesh."""
+    rows (a train step, where autograd records: each rank holds its rows
+    of the global batch; or a serving cell whose cache rows are split
+    over the data axis, outside 2D tensor parallelism), those rows are
+    exactly one group; where every rank computes the whole bucket, it
+    dispatches the ``n`` groups over its tokens itself.  1 off a mesh."""
     ctx = _CTX.get()
     if ctx is None or not hasattr(ctx.mesh, "group"):
         return 1
     dp = tuple(a for a in ctx.opts.dp_axes if a in ctx.mesh.shape)
     n = axis_size(ctx.mesh, dp) if dp else 1
     lay = ctx.layout
-    if (n <= 1 or (lay is not None and lay.rows is not None
-                   and not lay.gathered and not _ROWS_WHOLE.get())):
+    if (n <= 1 or torch.is_grad_enabled()
+            or (lay is not None and lay.rows is not None
+                and not lay.gathered and not _ROWS_WHOLE.get())):
         return 1
     return n if tokens % n == 0 and tokens >= n else 1
 

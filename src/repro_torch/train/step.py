@@ -33,17 +33,29 @@ the collectives to GSPMD, they run explicitly, each through
   fp32;
 * **the loss is the global batch's**: the cross-entropy's sum and its
   label count are summed over the data group (one all-reduce of two
-  numbers a micro-slice), and each rank differentiates its sum over the
-  global count, so the summed gradients are the global loss's;
+  numbers a micro-slice, three with an MoE model's aux share beside
+  them), and each rank differentiates its sum over the global count, so
+  the summed gradients are the global loss's;
+* **so is the MoE aux loss**: each MoE layer all-reduces its expert
+  counts over the data group and each rank adds its share of the global
+  batch's aux (``models/moe.py::load_balance_aux``), so the summed
+  shares and their gradients are the reference's; the ``aux`` metric is
+  the shares' sum.  The dispatch groups are the reference's: a rank's
+  rows are one group of the global batch (``sharding/context.py::
+  moe_groups``);
 * ``optim/adamw.py::global_norm`` sums each leaf's squares once over the
   ranks that split it.
 
 Microbatch accumulation takes ``kk`` from the global batch, as the
 reference does; each rank's rows are cut into ``kk`` slices in order
-(the reference's slice i is the global rows i; the two agree where every
-row carries the same number of labels, as every synthetic batch does).
-A mesh step refuses what it does not run: a mesh description without
-processes, any family but the dense one (MoE, MLA, SSM and the
+(the reference's slice i is the global rows i).  For the dense family
+the two agree where every row carries the same number of labels, as
+every synthetic batch does; for the MoE family the rows that share a
+micro-slice set its capacity drops and its aux loss, so slice i of a
+mesh step is the reference's slice i of the global batch with its rows
+in the order (rank 0's slice i, rank 1's slice i, ...).  A mesh step
+refuses what it does not run: a mesh description without processes,
+any family but the dense and MoE ones (SSM, the hybrid, the VLM and the
 encoder-decoder train on one rank; ``sharding/context.py::
 check_dense_mesh``), sequence parallelism, 2-D TP, a batch split over
 several data axes.
@@ -141,10 +153,10 @@ def param_specs(model, mesh, opts: ShardingOptions):
 
 
 def check_mesh(cfg, mesh, opts: ShardingOptions) -> None:
-    """Refuse what a sharded train step does not run (besides
-    ``check_dense_mesh``'s refusals): a batch over several data axes,
-    FSDP beyond the data axis, the query heads split and not the KV
-    heads."""
+    """Refuse what a sharded train step does not run: a family other
+    than the dense and MoE ones, and ``check_dense_mesh``'s other
+    refusals; a batch over several data axes, FSDP beyond the data axis,
+    the query heads split and not the KV heads."""
     split = check_dense_mesh(cfg, mesh, opts, "a sharded train step")
     dp = [a for a in opts.dp_axes if a in mesh.shape]
     if len(dp) > 1:
@@ -154,7 +166,7 @@ def check_mesh(cfg, mesh, opts: ShardingOptions) -> None:
                          for a in opts.fsdp_axes):
         raise NotImplementedError(f"FSDP over {opts.fsdp_axes} beyond the "
                                   f"data axes {dp}")
-    if split["qheads"] != split["kvheads"]:
+    if split.get("kvheads", split["qheads"]) != split["qheads"]:   # GQA
         raise NotImplementedError(f"{cfg.name}: the rules split the query "
                                   f"heads and not the KV heads, or the "
                                   f"reverse")
@@ -231,20 +243,27 @@ def make_train_step(model, ocfg: OptConfig, microbatch: int = 0):
             plans[key] = mesh_plan(model, ctx.mesh, ctx.opts)
         return plans[key]
 
+    moe = bool(model.cfg.num_experts)
+
     def grads_of(compute, leaves, batch, plan, retain):
         """The gradients of ``leaves`` (the autograd leaves under
-        ``compute``) for ``batch``, data-parallel reduced; the metrics."""
+        ``compute``) for ``batch``, data-parallel reduced; the metrics.
+        ``aux`` is the rank's share of the global aux loss (its MoE
+        layers' ``load_balance_aux``), its metric the data group's sum."""
         from repro_torch.sharding import comm
         with torch.enable_grad():
             logits, aux = model.forward(compute, batch)
             num, cnt = ce_sums(logits, batch["labels"])
             del logits
+            aux_m = aux.detach()
             if plan is not None and plan.dp is not None:
-                tot = comm.all_reduce(torch.stack([num.detach(),
-                                                   cnt.to(num.dtype)]),
-                                      plan.dp)
+                tot = comm.all_reduce(torch.stack(
+                    [num.detach(), cnt.to(num.dtype)]
+                    + ([aux_m] if moe else [])), plan.dp)
                 denom = torch.clamp(tot[1], min=1)
                 loss, obj = tot[0] / denom, num / denom
+                if moe:
+                    aux_m = tot[2]
             else:
                 loss = obj = num / torch.clamp(cnt, min=1)
             grads = torch.autograd.grad(obj + aux, leaves, allow_unused=True,
@@ -254,7 +273,7 @@ def make_train_step(model, ocfg: OptConfig, microbatch: int = 0):
         if plan is not None and plan.dp is not None:
             grads = [g if fs is not None else comm.all_reduce(g, plan.dp)
                      for g, fs in zip(grads, plan.fsdp)]
-        return grads, {"loss": loss.detach(), "aux": aux.detach()}
+        return grads, {"loss": loss.detach(), "aux": aux_m}
 
     def train_step(state, batch):
         plan = plan_of()

@@ -26,8 +26,8 @@ by one bf16 ulp (2^-8 of it): there m and v are held within
 bound plus 2^-7 lr a step.  And each step's collectives equal to the
 contract derived from the shapes (:func:`contract`).  Besides: the
 autograd collectives' gradients against one-rank autograd (Megatron's
-*f* and *g*, the logits gather, FSDP's gather), MoE refused on a mesh,
-and the launcher under torchrun.
+*f* and *g*, the logits gather, FSDP's gather), the SSM family refused
+on a mesh, and the launcher under torchrun.
 """
 
 import json
@@ -205,15 +205,16 @@ WORKER = textwrap.dedent("""
     th.join(timeout=60)
     res["thread_ops"] = [r["op"] for r in rec]
 
-    # a MoE model on a mesh is refused
-    moe = build_model(get_reduced_config("olmoe_1b_7b"))
+    # an SSM model on a mesh is refused (the MoE family trains there:
+    # tests/test_torch_dist_train_moe.py)
+    ssm = build_model(get_reduced_config("mamba2_780m"))
     try:
-        loop.run(moe, shape, loop.LoopConfig(
-            total_steps=1, ckpt_dir=os.path.join(out, f"moe{rank}")),
+        loop.run(ssm, shape, loop.LoopConfig(
+            total_steps=1, ckpt_dir=os.path.join(out, f"ssm{rank}")),
             OptConfig(), device="cpu", mesh=mesh)
-        res["moe"] = "ran"
+        res["ssm"] = "ran"
     except NotImplementedError as e:
-        res["moe"] = str(e)
+        res["ssm"] = str(e)
     np.savez(os.path.join(out, f"out_{rank}.npz"), **arrays)
     json.dump(res, open(os.path.join(out, f"res_{rank}.json"), "w"))
     mesh.close()
@@ -455,9 +456,12 @@ def test_remat_recomputes_in_the_callers_context():
     torch.testing.assert_close(x.grad, 2 * torch.cos(2 * x.detach()))
 
 
-def test_moe_is_refused_on_a_mesh(worlds):
+def test_ssm_is_refused_on_a_mesh(worlds):
+    """The SSM family stays refused in training on a mesh, by a message
+    that names the families a mesh step trains."""
     for _, res in worlds[2]:
-        assert "dense family only" in res["moe"] and "'moe'" in res["moe"]
+        assert "dense and MoE families only" in res["ssm"] \
+            and "'ssm'" in res["ssm"], res["ssm"]
 
 
 def test_launcher_trains_sharded_under_torchrun(tmp_path):

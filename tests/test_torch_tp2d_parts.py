@@ -274,15 +274,19 @@ def test_check_dense_mesh_refusals(opts, serving, arch):
     """Each case refused, but a non-dense family's serving under FSDP or
     2D tensor parallelism without sequence parallelism: served since it
     runs there (tests/test_torch_tp2d_moe.py, tests/test_torch_tp2d_ssm.py,
-    tests/test_torch_tp2d_vlm_encdec.py), returning the head split (the
-    Mamba2 heads' among it)."""
+    tests/test_torch_tp2d_vlm_encdec.py), and the MoE family's training
+    without 2D or sequence parallelism (tests/test_torch_dist_train_moe.py),
+    each returning the head split (the Mamba2 heads' among it)."""
     cfg = get_reduced_config(arch)
-    if cfg.family != "dense" and serving and not opts.sequence_parallel:
+    trained = (cfg.family == "moe" and not serving
+               and not opts.serve_2d_tp and not opts.sequence_parallel)
+    if (cfg.family != "dense" and serving and not opts.sequence_parallel
+            or trained):
         wide = cfg.reduced(d_model=512, num_heads=4 if cfg.num_heads else 0,
                            num_kv_heads=4 if cfg.num_heads else 0,
                            head_dim=128)
         split = check_dense_mesh(wide, _FakeMesh(), opts, "serving",
-                                 serving=True)
+                                 serving=serving)
         assert split["qheads"] == bool(cfg.num_heads)
         assert split.get("kvheads", False) == bool(
             cfg.num_heads and not cfg.use_mla)

@@ -537,7 +537,7 @@ class _FakeMesh:
      None),
     # their training on a mesh and their sequence parallelism still refused
     ("llava_next_mistral_7b", ShardingOptions(fsdp=True), False,
-     "dense family only"),
+     "dense and MoE families only"),
     ("whisper_base", ShardingOptions(fsdp=True, sequence_parallel="model"),
      True, "with sequence parallelism"),
     # served since the MoE family runs under FSDP and 2D tensor
@@ -547,14 +547,17 @@ class _FakeMesh:
      None),
     ("olmoe_1b_7b", ShardingOptions(sequence_parallel="model"), True,
      "with sequence parallelism"),
-    ("olmoe_1b_7b", ShardingOptions(), False, "dense family only"),
-    ("deepseek_v2_236b", ShardingOptions(), False, "dense family only"),
+    # trained on a mesh since the MoE family trains there
+    # (tests/test_torch_dist_train_moe.py): no message
+    ("olmoe_1b_7b", ShardingOptions(), False, None),
+    ("deepseek_v2_236b", ShardingOptions(), False, None),
 ])
 def test_the_refusals_kept(arch, opts, serving, message):
-    """Each refusal by its message; a case with no message is served, and
-    returns the head split (MLA's three head projections together; the
-    Mamba2 heads where the model has them; the VLM's and the
-    encoder-decoder's query and KV heads)."""
+    """Each refusal by its message; a case with no message is served (or
+    trained, where ``serving`` is False), and returns the head split
+    (MLA's three head projections together; the Mamba2 heads where the
+    model has them; the VLM's and the encoder-decoder's query and KV
+    heads)."""
     cfg = get_reduced_config(arch)
     if message is None:
         split = check_dense_mesh(cfg.reduced(**{**SSM_WIDE, **VLM_WIDE,
